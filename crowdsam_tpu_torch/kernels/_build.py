@@ -1,0 +1,111 @@
+"""Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
+into `build/kernels/lib<name>_<hash>.so` under the repository root (listed in
+.gitignore), the first time a kernel of it is launched.  `build_all` starts
+one nvcc per source at once, so the build costs the slowest file, not the
+sum.  Nothing is compiled when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+# ptxas reports (registers, shared memory, spills) of the last build.
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def sources() -> Dict[str, Path]:
+    return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None,
+              ptxas_verbose: bool = False) -> Dict[str, ctypes.CDLL]:
+    """Compile (in parallel) and load the named sources; all by default."""
+    srcs = sources()
+    names = list(srcs) if names is None else list(names)
+    with _LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            out = _target(srcs[n])
+            if out.exists() and not ptxas_verbose:
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
+            if ptxas_verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        failed = []
+        for n, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOGS[n] = log
+            if proc.returncode != 0:
+                failed.append(f"{n}.cu:\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        for n in todo:
+            _LIBS[n] = ctypes.CDLL(str(_target(srcs[n])))
+        return {n: _LIBS[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = build_all([name])[name]
+    return lib
+
+
+def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """A C entry point of `csrc/<lib_name>.cu` with its argtypes declared
+    (pointers and the stream as c_void_p, so none is cut to 32 bits)."""
+    fn = _FUNCS.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(library(lib_name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[(lib_name, fn_name)] = fn
+    return fn
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

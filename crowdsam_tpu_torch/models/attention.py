@@ -1,0 +1,262 @@
+"""Attention for the two ViT backbones: the CUDA kernels K2, K3 and K4
+(`csrc/attention.cu`, one templated flash kernel) and their plain PyTorch
+versions.
+
+Counterparts of the JAX package's `models/attention.py`:
+
+- `window_attention` replaces `window_attention_pallas` (K2): the SAM
+  window blocks, 14x14 windows with the decomposed rel-pos bias;
+- `flash_mha_decomposed_relpos` replaces the function of the same name (K3):
+  SAM's global blocks, 64x64 tokens with the rel-pos bias;
+- `flash_mha` replaces the function of the same name (K4): DINOv2's
+  1 + 73^2 tokens, keys at or beyond `valid_len` masked.
+
+The TPU kernels fold the rel-pos bias into QK^T by widening the head; the
+CUDA kernel adds it to the logits instead: bias[q, k] = fh[q, row(k)] +
+fw[q, col(k)] with fh = q.Rh[row(q)] and fw = q.Rw[col(q)] computed here, as
+the JAX code computes them.  The kernel reads q/k/v straight out of the qkv
+projection through strides, so no head transpose is materialized.
+
+On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
+launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from crowdsam_tpu_torch.kernels import _build
+
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
+)
+HEAD_DIM = 64
+MAX_REL = 64
+
+
+# ---------------------------------------------------------------------------
+# plain versions (f32 math, output in the input dtype)
+# ---------------------------------------------------------------------------
+
+def _softmax_av(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    probs = torch.softmax(logits.float(), dim=-1)
+    return probs @ v.float()
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, Hp, Wp, C) with Hp, Wp multiples of ws -> (B*nW, ws*ws, C)."""
+    b, hp, wp, c = x.shape
+    x = x.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def window_unpartition(x: torch.Tensor, ws: int, hp: int,
+                       wp: int) -> torch.Tensor:
+    """(B*nW, ws*ws, C) -> (B, Hp, Wp, C)."""
+    c = x.shape[-1]
+    b = x.shape[0] // ((hp // ws) * (wp // ws))
+    x = x.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hp, wp, c)
+
+
+def _rel_bias_terms(q: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                    hw: Tuple[int, int]):
+    """fh[.., n, j] = q[n] . Rh[row(n), j];  fw[.., n, j] = q[n] . Rw[col(n), j].
+
+    q: (..., h*w, D); rel_h (h, h, D), rel_w (w, w, D)."""
+    h, w = hw
+    qr = q.reshape(*q.shape[:-2], h, w, q.shape[-1])
+    fh = torch.einsum("...rwc,rjc->...rwj", qr, rel_h.to(q.dtype))
+    fw = torch.einsum("...rwc,wjc->...rwj", qr, rel_w.to(q.dtype))
+    return (fh.reshape(*q.shape[:-1], h), fw.reshape(*q.shape[:-1], w))
+
+
+def relpos_attention_plain(q, k, v, sm_scale: float, rel_h, rel_w,
+                           hw) -> torch.Tensor:
+    """(..., S, D) attention with the decomposed rel-pos bias, S = h*w:
+    softmax(scale q.k + q.Rh[row(q), row(k)] + q.Rw[col(q), col(k)]) v."""
+    h, w = hw
+    qf, kf = q.float(), k.float()
+    fh, fw = _rel_bias_terms(qf, rel_h.float(), rel_w.float(), hw)
+    logits = (qf * sm_scale) @ kf.transpose(-1, -2)
+    lead = logits.shape[:-2]
+    logits = (logits.reshape(*lead, h, w, h, w)
+              + fh.reshape(*lead, h, w, h, 1)
+              + fw.reshape(*lead, h, w, 1, w))
+    out = _softmax_av(logits.reshape(*lead, h * w, h * w), v)
+    return out.to(q.dtype)
+
+
+def window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads: int,
+                           scale: float, window: int) -> torch.Tensor:
+    """Plain version of `window_attention` (same contract)."""
+    b, hp, wp, c3 = qkv.shape
+    dim = c3 // 3
+    hd = dim // num_heads
+    win = window_partition(qkv, window)                      # (nw, n, 3*dim)
+    nw, n = win.shape[:2]
+    win = win.reshape(nw, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    out = relpos_attention_plain(win[0], win[1], win[2], scale, rel_h_tab,
+                                 rel_w_tab, (window, window))  # (nw, nh, n, hd)
+    out = out.permute(0, 2, 1, 3).reshape(nw, n, dim)
+    return window_unpartition(out, window, hp, wp)
+
+
+def flash_mha_plain(q, k, v, sm_scale: float,
+                    valid_len: Optional[int] = None) -> torch.Tensor:
+    """Plain version of `flash_mha`: (B, H, S, D) softmax((q.k) scale) v with
+    keys at or beyond valid_len masked."""
+    s = q.shape[-2]
+    vlen = s if valid_len is None else valid_len
+    logits = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    if vlen < s:
+        logits[..., vlen:] = float("-inf")
+    return _softmax_av(logits, v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch
+# ---------------------------------------------------------------------------
+
+def _check_operand(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"attention: {name} must be bfloat16, got {t.dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"attention: {name} head dim must be contiguous")
+    # 16-byte rows: the kernel stages K/V with 16-byte loads.
+    if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+        raise ValueError(f"attention: {name} rows must be 16-byte aligned")
+
+
+def _launch(q, k, v, out, fh, fw, strides, *, batch: int, heads: int,
+            seq: int, kv_len: int, scale: float, win: int = 0, nwh: int = 0,
+            nww: int = 0, grid_w: int = 0, rel_h: int = 0,
+            rel_w: int = 0) -> None:
+    st = (ctypes.c_longlong * 12)(*strides)
+    fn = _build.function("attention", "attn_forward", _ARGTYPES)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                fh.data_ptr() if fh is not None else None,
+                fw.data_ptr() if fw is not None else None,
+                ctypes.cast(st, ctypes.c_void_p), batch, heads, seq, kv_len,
+                float(scale), win, nwh, nww, grid_w, rel_h, rel_w,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "attention")
+
+
+def _bhsd_strides(*ts):
+    out = []
+    for t in ts:
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return out
+
+
+def _device_check(t: torch.Tensor, fn_name: str) -> bool:
+    """True for CUDA (launch the kernel), False for CPU (plain version)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn_name}: unsupported device {t.device}")
+    return True
+
+
+def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
+                     rel_w_tab: torch.Tensor, num_heads: int, scale: float,
+                     window: int) -> torch.Tensor:
+    """Windowed attention with the decomposed rel-pos bias (K2).
+
+    qkv: (B, Hp, Wp, 3*dim), the qkv projection of the zero-padded input
+    (Hp, Wp multiples of `window`; pad tokens carry the qkv bias and take part
+    as keys, as in the reference).  rel_*_tab: (window, window, hd) gathered
+    tables.  Returns (B, Hp, Wp, dim).  One launch covers every window and
+    head: a window is a batch of window^2 tokens."""
+    if not _device_check(qkv, "window_attention"):
+        return window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads,
+                                      scale, window)
+    b, hp, wp, c3 = qkv.shape
+    dim = c3 // 3
+    hd = dim // num_heads
+    if hd != HEAD_DIM or hp % window or wp % window or window > MAX_REL:
+        raise ValueError(f"window_attention: unsupported shape {qkv.shape}, "
+                         f"heads {num_heads}, window {window}")
+    if not qkv.is_contiguous():
+        raise ValueError("window_attention: qkv must be contiguous")
+    _check_operand(qkv, "qkv")
+    n = window * window
+    nwh, nww = hp // window, wp // window
+    nw = b * nwh * nww
+    # fh/fw per (window, head, token): q of each window token against its
+    # row's / column's table, as the TPU kernel's head augmentation.
+    q = window_partition(qkv[..., :dim], window).reshape(nw, n, num_heads, hd)
+    q = q.permute(0, 2, 1, 3)
+    fh, fw = _rel_bias_terms(q, rel_h_tab, rel_w_tab, (window, window))
+    fh, fw = fh.contiguous(), fw.contiguous()
+    out = torch.empty((b, hp, wp, dim), dtype=qkv.dtype, device=qkv.device)
+    tok = (hp * wp * c3, hd, c3)
+    strides = list(tok) * 3 + [hp * wp * dim, hd, dim]
+    _launch(qkv, qkv[..., dim:], qkv[..., 2 * dim:], out, fh, fw, strides,
+            batch=nw, heads=num_heads, seq=n, kv_len=n, scale=scale,
+            win=window, nwh=nwh, nww=nww, grid_w=wp, rel_h=window,
+            rel_w=window)
+    window_attention.launches += 1
+    return out
+
+
+def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
+                                hw) -> torch.Tensor:
+    """Global attention with the decomposed rel-pos bias (K3).
+
+    q, k, v: (B, H, S, D) with S = h*w (views with a contiguous head dim are
+    read in place); rel_h/rel_w: (h, h, D)/(w, w, D) gathered tables.
+    Returns (B, H, S, D)."""
+    if not _device_check(q, "flash_mha_decomposed_relpos"):
+        return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw)
+    hh, ww = hw
+    b, nh, s, d = q.shape
+    if d != HEAD_DIM or s != hh * ww or max(hh, ww) > MAX_REL:
+        raise ValueError(f"flash_mha_decomposed_relpos: unsupported shape "
+                         f"{tuple(q.shape)} grid {hw}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_operand(t, name)
+    fh, fw = _rel_bias_terms(q, rel_h, rel_w, hw)
+    fh, fw = fh.contiguous(), fw.contiguous()
+    out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
+    out = out.permute(0, 2, 1, 3)
+    _launch(q, k, v, out, fh, fw, _bhsd_strides(q, k, v, out), batch=b,
+            heads=nh, seq=s, kv_len=s, scale=sm_scale, rel_h=hh, rel_w=ww)
+    flash_mha_decomposed_relpos.launches += 1
+    return out
+
+
+def flash_mha(q, k, v, sm_scale: float,
+              valid_len: Optional[int] = None) -> torch.Tensor:
+    """Non-causal attention (K4): (B, H, S, D) -> (B, H, S, D), keys at or
+    beyond `valid_len` masked.  Views with a contiguous head dim are read in
+    place; the output is a (B, S, H, D) buffer seen as (B, H, S, D)."""
+    if not _device_check(q, "flash_mha"):
+        return flash_mha_plain(q, k, v, sm_scale, valid_len)
+    b, nh, s, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"flash_mha: head dim {d} (only {HEAD_DIM})")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_operand(t, name)
+    vlen = s if valid_len is None else int(valid_len)
+    if not 0 < vlen <= s:
+        raise ValueError(f"flash_mha: valid_len {vlen} outside (0, {s}]")
+    out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
+    out = out.permute(0, 2, 1, 3)
+    _launch(q, k, v, out, None, None, _bhsd_strides(q, k, v, out), batch=b,
+            heads=nh, seq=s, kv_len=vlen, scale=sm_scale)
+    flash_mha.launches += 1
+    return out
+
+
+window_attention.launches = 0
+flash_mha_decomposed_relpos.launches = 0
+flash_mha.launches = 0

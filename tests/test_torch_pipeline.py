@@ -1,0 +1,227 @@
+"""The port's whole slice against the JAX package on the CPU: the tiny
+CrowdSAM config (vit_tiny + dinov2_vits14, float32) with
+`tpu.fused_decode false` and `test.output_rles false`, the same weights
+through the weight bridge, and the engine noise JAX draws from its key.
+
+Tolerances: the FG map and the engine's per-row floats agree to 1e-4 (two
+float32 implementations of the same graph, summed in other orders);
+detections must match in count and category, boxes within 0.5 px and
+scores within 1e-4."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import crowdsam_tpu.pipeline.engine as jax_engine
+from crowdsam_tpu.config import load_config as jax_load_config
+from crowdsam_tpu.config import modify_config as jax_modify_config
+from crowdsam_tpu.pipeline.crowdsam import CrowdSAM as JaxCrowdSAM
+from crowdsam_tpu.utils.checkpoint import jax_tree_to_numpy
+
+from crowdsam_tpu_torch.config import load_config, modify_config
+from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+from crowdsam_tpu_torch.utils.weights import (
+    dino_state_dict_from_jax,
+    sam_state_dict_from_jax,
+)
+
+TINY = [
+    "model.sam_model", "vit_tiny",
+    "model.dino_model", "dinov2_vits14",
+    "model.sam_checkpoint", "",
+    "model.dino_checkpoint", "",
+    "model.sam_adapter_checkpoint", "",
+    "test.max_size", "256",
+    "test.grid_size", "48",
+    "test.max_prompts", "64",
+    "test.points_per_batch", "8",
+    "test.pred_iou_thresh", "0.0",
+    "test.stability_score_thresh", "0.0",
+    "test.pos_sim_thresh", "0.3",
+    "tpu.compute_dtype", "float32",
+    "tpu.fused_decode", "false",
+    "test.output_rles", "false",
+]
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jm = JaxCrowdSAM(jax_modify_config(jax_load_config(None), list(TINY)))
+    pm = CrowdSAM(modify_config(load_config(None), list(TINY)), device="cpu")
+    # flax creates no parameters for the decoder's unused 5th hypernetwork
+    # MLP, so a JAX-initialized tree lacks exactly those keys.
+    missing, unexpected = pm.sam.load_state_dict(
+        sam_state_dict_from_jax(jax_tree_to_numpy(jm.sam.params)),
+        strict=False)
+    assert not unexpected
+    assert {k.split(".layers.")[0] for k in missing} == {
+        "mask_decoder.output_hypernetworks_mlps.4"}
+    pm.dino.load_state_dict(
+        dino_state_dict_from_jax(jax_tree_to_numpy(jm.predictor.dino_params)),
+        strict=True)
+    return jm, pm
+
+
+def _image(seed, shape):
+    return np.random.default_rng(seed).integers(0, 255, shape, dtype=np.uint8)
+
+
+def _next_noise(jm):
+    """The vector the JAX model's next crop draws (crowdsam.py:660 split,
+    engine.py:267 uniform), without advancing its key."""
+    _, sub = jax.random.split(jm._key)
+    n = jm.engine_cfg.grid_size ** 2
+    return np.asarray(jax.random.uniform(sub, (n,)))
+
+
+@pytest.mark.parametrize("seed,shape", [(1, (200, 256, 3)),
+                                        (2, (256, 192, 3))])
+def test_generate_matches_jax(pair, seed, shape):
+    jm, pm = pair
+    image = _image(seed, shape)
+    noise = _next_noise(jm)
+    want = jm.generate(image)
+    got = pm.generate(image, noise=[noise])
+    assert len(got["boxes"]) == len(want["boxes"]) > 0
+    np.testing.assert_allclose(got["boxes"], want["boxes"], atol=0.5)
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-4)
+    np.testing.assert_array_equal(got["categories"], want["categories"])
+    np.testing.assert_allclose(got["points"], want["points"], atol=1e-3)
+    assert got["rles"] == [None] * len(got["boxes"])
+
+
+def test_fg_map_and_pre_nms_slab_match_jax(pair, monkeypatch):
+    jm, pm = pair
+    image = _image(3, (200, 256, 3))
+    crop_box = [0, 0, 256, 200]
+    noise = _next_noise(jm)
+    _, sub = jax.random.split(jm._key)
+
+    jm.crop_image(image, crop_box)
+    jm.predictor.set_image_presized(jm.image)
+    fg_j = np.asarray(jm.predictor.predict_fg_map())
+    sim = jm._sim_prep(jm.predictor.predict_fg_map())
+    calls = []
+    real_nms = jax_engine.nms_mask
+
+    def spy(boxes, scores, thresh, valid=None):
+        if not calls:  # the slab NMS; later calls run under tracing
+            calls.append((np.asarray(boxes), np.asarray(scores),
+                          np.asarray(valid)))
+        return real_nms(boxes, scores, thresh, valid)
+
+    monkeypatch.setattr(jax_engine, "nms_mask", spy)
+    cfg = jm.engine_cfg
+    r = cfg.grid_size / 256
+    jm.engine.raw_fn(
+        jm.sam.params, jm.predictor.get_image_embedding(),
+        jm.predictor.dense_pe, jm.predictor.dino_proj_256, sim,
+        jax.numpy.asarray((int(200 * r), int(256 * r)), jax.numpy.float32),
+        jax.numpy.asarray((200, 256), jax.numpy.float32),
+        jax.numpy.asarray(crop_box, jax.numpy.float32),
+        jax.numpy.asarray((200, 256), jax.numpy.float32),
+        jax.numpy.float32(1.0), sub)
+    boxes_j, iou_j, valid_j = calls[0]
+
+    pm.generate(image, noise=[noise])
+    fg_p = pm.predictor.predict_fg_map().numpy()
+    np.testing.assert_allclose(fg_p, fg_j, atol=1e-4, rtol=1e-4)
+    slab = pm.last_engine["pre_nms"]
+    np.testing.assert_array_equal(slab["valid"].numpy(), valid_j)
+    assert valid_j.any()
+    np.testing.assert_allclose(slab["iou"].numpy(), iou_j, atol=1e-4)
+    np.testing.assert_array_equal(slab["boxes"].numpy(), boxes_j)
+
+
+def test_config_defaults_equal_jax():
+    """The port keeps its own copy of the config tree; one YAML file and
+    one override list must mean the same to both packages."""
+    opts = list(TINY) + ["test.crop_n_layers", "1"]
+    assert load_config(None) == jax_load_config(None)
+    assert (modify_config(load_config(None), list(opts))
+            == jax_modify_config(jax_load_config(None), list(opts)))
+
+
+def test_entry_point_raises_for_later_slices():
+    cfg = modify_config(load_config(None), list(TINY) + [
+        "test.output_rles", "true"])
+    with pytest.raises(NotImplementedError, match="output_rles"):
+        CrowdSAM(cfg, device="cpu")
+    cfg = modify_config(load_config(None), list(TINY) + [
+        "tpu.fused_decode", "true"])
+    with pytest.raises(NotImplementedError, match="fused_decode"):
+        CrowdSAM(cfg, device="cpu")
+
+
+def test_generate_draws_seeded_noise():
+    """Without given noise the order comes from the model's seeded
+    generator: two models built alike give the same detections."""
+    cfg = modify_config(load_config(None), list(TINY))
+    image = _image(4, (256, 200, 3))
+    a = CrowdSAM(cfg, device="cpu").generate(image)
+    b = CrowdSAM(cfg, device="cpu").generate(image)
+    np.testing.assert_array_equal(a["boxes"], b["boxes"])
+    np.testing.assert_array_equal(a["scores"], b["scores"])
+    assert torch.get_default_dtype() == torch.float32
+
+
+def test_crop_loop_and_inter_crop_nms_match_jax(monkeypatch):
+    """crop_n_layers 1: five crops, each through the engine with its own
+    noise, then the inter-crop NMS.  Both sides resize the crops with cv2
+    here, so the comparison isolates the crop loop (the port's own resize
+    is held to cv2 in test_torch_ops)."""
+    import crowdsam_tpu_torch.pipeline.crowdsam as port_pipeline
+    from crowdsam_tpu.ops.transforms import resize_image as cv2_resize
+
+    opts = list(TINY) + ["test.crop_n_layers", "1"]
+    jm = JaxCrowdSAM(jax_modify_config(jax_load_config(None), list(opts)))
+    pm = CrowdSAM(modify_config(load_config(None), list(opts)), device="cpu")
+    pm.sam.load_state_dict(
+        sam_state_dict_from_jax(jax_tree_to_numpy(jm.sam.params)),
+        strict=False)
+    pm.dino.load_state_dict(
+        dino_state_dict_from_jax(jax_tree_to_numpy(jm.predictor.dino_params)))
+    monkeypatch.setattr(port_pipeline, "resize_image", cv2_resize)
+    image = _image(5, (200, 256, 3))
+    key, noise = jm._key, []
+    for _ in range(5):
+        key, sub = jax.random.split(key)
+        noise.append(np.asarray(jax.random.uniform(
+            sub, (jm.engine_cfg.grid_size ** 2,))))
+    want = jm.generate(image)
+    got = pm.generate(image, noise=noise)
+    assert len(got["boxes"]) == len(want["boxes"]) > 0
+    np.testing.assert_allclose(got["boxes"], want["boxes"], atol=0.5)
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-4)
+
+
+def test_torch_checkpoints_load_by_reference_keys(tmp_path):
+    """A torch state dict with the reference's keys loads through the
+    config's checkpoint paths (non-strictly, as the reference loads)."""
+    src = CrowdSAM(modify_config(load_config(None), list(TINY)), device="cpu")
+    torch.save(src.sam.state_dict(), tmp_path / "sam.pth")
+    torch.save(src.dino.state_dict(), tmp_path / "dino.pth")
+    opts = list(TINY) + ["environ.seed", "7",
+                         "model.sam_checkpoint", str(tmp_path / "sam.pth"),
+                         "model.dino_checkpoint", str(tmp_path / "dino.pth")]
+    dst = CrowdSAM(modify_config(load_config(None), opts), device="cpu")
+    for a, b in ((src.sam, dst.sam), (src.dino, dst.dino)):
+        for k, v in a.state_dict().items():
+            torch.testing.assert_close(b.state_dict()[k], v, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed,hw", [(3, (683, 1024)), (11, (240, 320))])
+def test_crowd_scene_matches_jax_fixture(seed, hw):
+    """The port's copy of the bench fixture's crowd scene: the same drawn
+    persons and a frame within one grey level of the JAX package's (its
+    background upsample is PIL's BILINEAR written out in numpy)."""
+    from crowdsam_tpu.utils.bench_fixture import crowd_scene as jax_scene
+
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    want_img, want_boxes = jax_scene(seed, *hw)
+    got_img, got_boxes = crowd_scene(seed, *hw)
+    assert got_boxes == want_boxes and got_img.shape == want_img.shape
+    diff = np.abs(got_img.astype(np.int16) - want_img.astype(np.int16))
+    assert diff.max() <= 1

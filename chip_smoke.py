@@ -8,17 +8,22 @@ the gitignored `build/kernels/`), then:
 1. holds every kernel against its plain PyTorch version at the main path's
    shapes in bf16, with a tolerance of its own, and shows that the same
    tolerance rejects the plain version with a known fault (a dropped key
-   tile, swapped rel-pos tables); times kernel, plain version and the
-   nearest single PyTorch library call (one JSON line per phase);
+   tile, swapped rel-pos tables, a skipped image update, swapped sub-pixel
+   levels, ...); times kernel, plain version and the nearest single PyTorch
+   library call, or for the two decode kernels the PyTorch path they
+   replace (one JSON line per phase).  The decode kernels (two-way
+   transformer, mask head) get their inputs from the full-width model on a
+   seeded frame;
 2. runs `CrowdSAM.generate` at full width -- SAM ViT-L + DINOv2 ViT-L/14 +
-   PWD-Net, bf16, seeded random weights, `tpu.fused_decode false`,
+   PWD-Net, bf16, seeded random weights, the default fused decode,
    `test.output_rles false` -- on seeded synthetic frames, with every
    kernel's launch count set to 0 just before and read just after; every
    kernel must have launched.  The same model then gives the encode's share
    of the time, the device's idle share of one frame (busy and wall time
-   from the same profiled window), and a loaded pass on seeded crowd scenes
+   from the same profiled window), a loaded pass on seeded crowd scenes
    with the pred-IoU and stability filters off, so that the survivor pass
-   (cleanup, re-NMS, boxes) runs at full width on real detections;
+   (cleanup, re-NMS, boxes) runs at full width on real detections, and the
+   fused decode against the unfused one (same weights, frame and noise);
 3. checks the outputs: finite boxes and scores of the expected shapes inside
    the image, and, on a small configuration with head dim 64, the card's
    bf16 kernel path against the plain float32 path on the CPU, detections
@@ -31,6 +36,7 @@ result, when CUDA is absent or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -73,31 +79,65 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, got, want, atol, faults=()):
-    """|got - want| <= atol + BF16_ULP |want| everywhere, and every plain
-    version with a known fault (label, tensor) breaks that bound somewhere.
+def compare(name, got, want, atol, faults=(), require_faults=True,
+            mean_atol=None):
+    """|got - want| <= atol + BF16_ULP |want| everywhere (and, with
+    `mean_atol`, a mean |got - want| of at most that), and every plain
+    version with a known fault (label, tensor) breaks the bound
+    (a phase with several outputs passes require_faults=False and asks that
+    of the outputs together, `require_faults_seen`).
     Returns the figures of the comparison; raises when either fails."""
     got, want = got.float(), want.float()
     tol = atol + BF16_ULP * want.abs()
+
+    def over_tol(x):
+        err = (x.float() - want).abs()
+        ratio = float((err / tol).max())
+        if mean_atol is not None:
+            ratio = max(ratio, float(err.mean()) / mean_atol)
+        return ratio
+
     err = (got - want).abs()
     out = {
         "max_abs_err": float(err.max()),
+        "mean_abs_err": float(err.mean()),
         "out_rms": float(want.square().mean().sqrt()),
         "out_max_abs": float(want.abs().max()),
-        "tol": f"{atol:g}+2^-7*|y|",
-        "err_over_tol": float((err / tol).max()),
-        "fault_err_over_tol": {
-            label: float(((f.float() - want).abs() / tol).max())
-            for label, f in faults},
+        "tol": f"{atol:g}+2^-7*|y|" + (
+            f", mean {mean_atol:g}" if mean_atol is not None else ""),
+        "err_over_tol": over_tol(got),
+        "fault_err_over_tol": {label: over_tol(f) for label, f in faults},
     }
     bad = [k for k, r in out["fault_err_over_tol"].items() if r <= 1.0]
     if not bool(torch.isfinite(got).all()) or out["err_over_tol"] > 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: {out}")
-    if bad:
+    if bad and require_faults:
         raise AssertionError(f"{name}: the tolerance does not see the "
                              f"faults {bad}: {out}")
     return out
+
+
+def require_faults_seen(name, outputs):
+    """Every fault breaks the bound of at least one of the outputs."""
+    labels = {k for o in outputs.values() for k in o["fault_err_over_tol"]}
+    unseen = [k for k in sorted(labels) if max(
+        o["fault_err_over_tol"].get(k, 0.0) for o in outputs.values()) <= 1.0]
+    if unseen:
+        raise AssertionError(f"{name}: the tolerance does not see the "
+                             f"faults {unseen}: {outputs}")
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """`module.name` replaced by `fn` inside the block (fault injection into
+    a plain version)."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
 
 
 def _attention_plain(q, k, v, scale, bias=None, drop=None):
@@ -292,14 +332,267 @@ def phase_dino(gen):
 
 
 # --------------------------------------------------------------------------
+# decode kernel phases: inputs from a model on a seeded frame
+# --------------------------------------------------------------------------
+
+def _decoder_inputs(model, img, n_prompts=32, seed=5):
+    """The operands of one decode batch from `model` on `img`: the per-image
+    shared tensors, the (P, 7, 256) tokens of seeded point prompts (a point
+    and its padding token) and the packed-flat DINO map."""
+    from crowdsam_tpu_torch.models.fused_decode import (
+        precompute_decode_shared,
+    )
+    from crowdsam_tpu_torch.ops.packed import pack_spatial
+
+    h, w = img.shape[:2]
+    model.crop_image(img, [0, 0, w, h])
+    model.predictor.set_image_presized(model.image)
+    sam, dec = model.sam, model.sam.mask_decoder
+    with torch.no_grad():
+        shared = precompute_decode_shared(
+            dec, sam.prompt_encoder.no_mask_embed.weight,
+            model.predictor.get_image_embedding(), model.predictor.dense_pe)
+        ih, iw = model.image.shape[:2]
+        gen = torch.Generator().manual_seed(seed)
+        coords = (torch.rand((n_prompts, 1, 2), generator=gen)
+                  * torch.tensor([iw, ih], dtype=torch.float32)).cuda()
+        labels = torch.ones((n_prompts, 1), dtype=torch.int64, device="cuda")
+        sparse, _ = sam.prompt_encoder(points=(coords, labels))
+        out_tokens = torch.cat([dec.iou_token.weight,
+                                dec.mask_tokens.weight], dim=0)
+        tokens = torch.cat([out_tokens[None].expand(n_prompts, -1, -1),
+                            sparse.to(out_tokens.dtype)], dim=1)
+        tokens = tokens.to(torch.bfloat16).contiguous()
+        dino = model.predictor.dino_proj_256
+        dino_packed = pack_spatial(dino.movedim(-1, 0)).reshape(
+            dino.shape[-1], -1).T.contiguous()
+    return shared, tokens, dino_packed
+
+
+def _tail_args(shared, tokens):
+    return (shared["keys0"], shared["q1i_flat"], shared["k1_flat"],
+            shared["v1_flat"], tokens, shared["tail"])
+
+
+def _nth_call(fn, n, faulty):
+    """`fn`, except that its n-th call (from 1) goes to `faulty`."""
+    count = [0]
+
+    def wrapped(*a, **kw):
+        count[0] += 1
+        return (faulty if count[0] == n else fn)(*a, **kw)
+    return wrapped
+
+
+def phase_twoway_tail(model, img, label):
+    """K5 against its plain version on one decode batch of `model`."""
+    from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
+
+    shared, tokens, _ = _decoder_inputs(model, img)
+    args = _tail_args(shared, tokens)
+    p, t, c = tokens.shape
+    m = shared["keys0"].shape[0]
+    with torch.no_grad():
+        want = dtk.twoway_tail_plain(*args)
+        got = dtk.twoway_tail(*args)
+        torch.cuda.synchronize()
+        again = dtk.twoway_tail(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("twoway_tail: two runs differ bit-wise")
+
+        # Plain versions with a known fault.
+        real_attend, real_pe = dtk._t2i_attend, dtk._with_pe
+        with patched(dtk, "_t2i_attend", _nth_call(
+                real_attend, 2, lambda st, q, k, v, h: real_attend(
+                    st, q, k[..., :-64, :], v[..., :-64, :], h))):
+            f_tile = dtk.twoway_tail_plain(*args)
+        with patched(dtk, "_image_update", _nth_call(
+                dtk._image_update, 2,
+                lambda st, prev, *a: prev.expand(p, m, c))):
+            f_update = dtk.twoway_tail_plain(*args)
+        with patched(dtk, "_with_pe", _nth_call(real_pe, 4,
+                                                 lambda x, pe: x)):
+            f_pe = dtk.twoway_tail_plain(*args)
+    faults = (("last row tile (64 rows) left out of block 2's token->image "
+               "softmax", f_tile),
+              ("block 2's image update skipped (keys2 = keys1)", f_update),
+              ("query PE not added before block 2's token->image q "
+               "projection", f_pe))
+    # Both outputs are LayerNorm outputs of rms ~1: atol 2% of the rms
+    # covers a value that the two sides round one bf16 step apart before
+    # the last LayerNorm.  Kernel and plain version round at the same
+    # points, so most elements agree bit for bit: the mean error is held to
+    # 2^-11 of the rms, an eighth of the mean bf16 step.  With random
+    # weights the attention is nearly uniform, and a dropped row tile or a
+    # missing PE shifts every element a little: that shows in the mean
+    # before it shows in the maximum.
+    outs = {}
+    for i, name in enumerate(("keys2", "tokens")):
+        outs[name] = compare(
+            f"twoway_tail {label} {name}", got[i], want[i], 2e-2,
+            faults=[(lb, f[i]) for lb, f in faults], require_faults=False,
+            mean_atol=2.0 ** -11)
+    require_faults_seen(f"twoway_tail {label}", outs)
+
+    sam = model.sam
+    src = shared["keys0"][None].expand(p, m, c)
+    pos = model.predictor.dense_pe.reshape(1, m, c).to(src.dtype).expand(
+        p, m, c)
+    with torch.no_grad():
+        t_k = time_ms(lambda: dtk.twoway_tail(*args), 20)
+        t_p = time_ms(lambda: dtk.twoway_tail_plain(*args), 3)
+        # What the fused path replaced: the unfused two-way transformer of
+        # `MaskDecoder.forward` on the same prompts (no library call
+        # computes K5).
+        t_r = time_ms(lambda: sam.mask_decoder.transformer(src, pos, tokens),
+                      3)
+    mlp = shared["tail"]["mlp1_w"].shape[0]
+    cd, h, ht = 128, 8, 8 * t
+    flops = p * m * 2 * c * (3 * cd + 2 * cd)            # wide2, widef
+    flops += 3 * p * m * ht * (cd // h) * 2 * 2          # token->image, QK+PV
+    flops += 2 * p * m * (ht * (cd // h) * 2 + ht * c * 2)   # image updates
+    flops += p * t * 2 * (8 * c * c + 12 * c * cd + 4 * c * mlp)  # token side
+    nbytes = sum(x.numel() * x.element_size() for x in args[:5])
+    nbytes += sum(x.numel() * x.element_size() for x in args[5].values())
+    nbytes += sum(x.numel() * x.element_size() for x in got)
+    b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    row = dict(shape=f"{p}x{t}x{c} tokens, {m}x{c} image rows",
+               max_abs_err=max(o["max_abs_err"] for o in outs.values()),
+               outputs=outs, ms=t_k, plain_ms=t_p, replaced_ms=t_r,
+               replaced="TwoWayTransformer.forward (unfused)",
+               library_ms=None, bound_ms=b_ms, bound_by=by,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    print(json.dumps({"phase": f"K5 twoway_tail {label}", **row}), flush=True)
+    return row, got
+
+
+def phase_mask_head(model, img, label, tail_out):
+    """K6 (`emit_exp` off and on) against its plain version, on the keys2
+    and hypernetwork vectors of one decode batch of `model`."""
+    from crowdsam_tpu_torch.models import fused_decode as fd
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+
+    shared, _, dino = _decoder_inputs(model, img)
+    dec = model.sam.mask_decoder
+    keys2, tok = tail_out
+    p, m, c = keys2.shape
+    k = dec.num_mask_tokens
+    weights = shared["mask_head"]
+    with torch.no_grad():
+        # With random weights the hypernetwork vectors give mask logits of
+        # rms ~0.005, and exp(mask - max) is 1 everywhere.  Scaled by 2^10
+        # (exact in bf16) the logits have the spread of a trained decoder's
+        # (rms ~5), so that e and the tile maxes carry information.
+        hyper = (fd._hyper_in(dec, tok[:, 1:1 + k, :]) * 1024.0).contiguous()
+        want = mhk.mask_head_plain(keys2, hyper, weights, emit_exp=True)
+        got_off = mhk.mask_head(keys2, hyper, weights)
+        got = mhk.mask_head(keys2, hyper, weights, emit_exp=True)
+        torch.cuda.synchronize()
+
+        def ln_all_lanes(x, w, b):          # over (4, c1), not per group
+            u = x.mean((-1, -2), keepdim=True)
+            s = (x - u).square().mean((-1, -2), keepdim=True)
+            return (x - u) * torch.rsqrt(s + mhk.LN_EPS) * w + b
+        with patched(mhk, "_group_ln", ln_all_lanes):
+            f_ln = mhk.mask_head_plain(keys2, hyper, weights)
+        f_swap = want[0].reshape(p, k, m, 4, 4).transpose(-1, -2).reshape(
+            p, k, m, 16)
+    rms = float(want[0].float().square().mean().sqrt())
+    # Masks are a 32-term dot of GELU outputs with the hypernetwork vector:
+    # atol 3% of the masks' rms covers an operand rounded one bf16 step
+    # apart on the two sides.
+    atol = 0.03 * rms
+    faults = (("LayerNorm over all 256 lanes, not per group of 64", f_ln),
+              ("sub-pixel levels swapped (q1 <-> q2)", f_swap))
+    outs = {
+        "masks": compare(f"mask_head {label} masks", got_off, want[0], atol,
+                         faults=faults),
+        "masks (emit_exp)": compare(f"mask_head {label} masks (emit_exp)",
+                                    got[0], want[0], atol, faults=faults),
+        # e in (0, 1]: a mask off by d moves e by d e, and an operand one
+        # bf16 step apart moves a mask of this scale by up to ~0.03.
+        "e": compare(f"mask_head {label} e", got[1], want[1], 2e-2),
+        "mx": compare(f"mask_head {label} mx", got[2], want[2], atol),
+    }
+    with torch.no_grad():
+        # The pooled result: the kernel's e and mx against the plain ones,
+        # against the plain ones with the maxes of two tiles exchanged (per
+        # prompt the tiles with the largest and the smallest max), and
+        # against the explicit softmax pooling of the kernel's masks.
+        pooled = fd._pooled_from_exp(got[1], got[2], dino, torch.bfloat16)
+        pooled_want = fd._pooled_from_exp(want[1], want[2], dino,
+                                          torch.bfloat16)
+        mx_f = want[2].clone()
+        hi = want[2].argmax(1, keepdim=True)
+        lo = want[2].argmin(1, keepdim=True)
+        mx_f.scatter_(1, hi, want[2].gather(1, lo))
+        mx_f.scatter_(1, lo, want[2].gather(1, hi))
+        pooled_fault = fd._pooled_from_exp(want[1], mx_f, dino,
+                                           torch.bfloat16)
+        soft = torch.softmax(got[0].float().reshape(p, k, -1), dim=-1)
+        pooled_soft = soft @ dino.float()
+    p_rms = float(pooled_want.float().square().mean().sqrt())
+    p_max = float(pooled_want.float().abs().max())
+    # Pooled DINO features, a softmax average over 65536 pixels: 5% of
+    # their rms (e carries the masks' differences, see above).
+    outs["pooled"] = compare(
+        f"mask_head {label} pooled", pooled, pooled_want, 0.05 * p_rms,
+        faults=(("maxes of two tiles exchanged", pooled_fault),))
+    # Against the softmax of the kernel's bf16 masks: e comes from the
+    # unrounded f32 masks.  One bf16 step of the largest logits (2^-8 * 32)
+    # moves a single weight by up to 13%, and where few pixels dominate the
+    # pooled vector moves by that share of a feature: 5% of the largest
+    # pooled value.
+    outs["pooled vs softmax of masks"] = compare(
+        f"mask_head {label} pooled vs softmax", pooled, pooled_soft,
+        0.05 * p_max)
+
+    no_kernel = {k_: v for k_, v in shared.items() if k_ != "mask_head"}
+    with torch.no_grad():
+        t_k = time_ms(lambda: mhk.mask_head(keys2, hyper, weights,
+                                            emit_exp=True), 20)
+        t_k0 = time_ms(lambda: mhk.mask_head(keys2, hyper, weights), 20)
+        t_p = time_ms(lambda: mhk.mask_head_plain(keys2, hyper, weights,
+                                                  emit_exp=True), 3)
+        # What K6 replaced: the module-level packed head and softmax
+        # pooling; beside it the same heads through K6 and its exp terms.
+        t_r = time_ms(lambda: fd._decode_heads(dec, no_kernel, tok, keys2,
+                                               dino, True, True), 3)
+        t_h = time_ms(lambda: fd._decode_heads(dec, shared, tok, keys2, dino,
+                                               True, True), 10)
+    c1, c2 = weights["ln_w"].shape[0], hyper.shape[-1]
+    flops = p * m * 2 * (c * 4 * c1 + 4 * c1 * 4 * c2 + 16 * c2 * k)
+    nbytes = (keys2.numel() + hyper.numel()) * 2
+    nbytes += sum(x.numel() * x.element_size() for x in weights.values())
+    nbytes += sum(x.numel() * x.element_size() for x in got)
+    b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    row = dict(shape=f"{p}x{m}x{c} keys2, {p}x{k}x{c2} hyper_in, emit_exp",
+               max_abs_err=outs["masks (emit_exp)"]["max_abs_err"],
+               outputs=outs, ms=t_k, ms_no_exp=t_k0, plain_ms=t_p,
+               replaced_ms=t_r, heads_with_kernel_ms=t_h,
+               replaced="module-level packed head + softmax pooling "
+                        "(_decode_heads)",
+               library_ms=None, bound_ms=b_ms, bound_by=by,
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    print(json.dumps({"phase": f"K6 mask_head {label}", **row}), flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
 # end to end
 # --------------------------------------------------------------------------
 
 def _counters():
-    from crowdsam_tpu_torch.models import attention
+    from crowdsam_tpu_torch.models import (
+        attention,
+        decode_tail_kernel,
+        mask_head_kernel,
+    )
     from crowdsam_tpu_torch.ops import layernorm
 
     return {
+        "twoway_tail": decode_tail_kernel.twoway_tail,
+        "mask_head": mask_head_kernel.mask_head,
         "layer_norm": layernorm.layer_norm,
         "window_attention": attention.window_attention,
         "flash_mha_decomposed_relpos": attention.flash_mha_decomposed_relpos,
@@ -307,11 +600,12 @@ def _counters():
     }
 
 
-def _timed_generate(model, img):
-    """Detections of one frame, checked, and the host-clock ms of the call."""
+def _timed_generate(model, img, noise=None):
+    """Detections of one frame, checked, and the host-clock ms of the call
+    (`noise`: the candidate order, drawn by the model when absent)."""
     torch.cuda.synchronize()
     t = time.perf_counter()
-    data = model.generate(img)
+    data = model.generate(img, noise=None if noise is None else [noise])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3
     n = len(data["boxes"])
@@ -373,19 +667,14 @@ def _device_busy(model, img):
                               for k, v in top}
 
 
-def phase_end_to_end():
-    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+def phase_end_to_end(model):
     from crowdsam_tpu_torch.utils.synthetic import (
         FRAME_SIZES,
         crowd_scene,
-        full_width_config,
         synthetic_images,
     )
 
-    t0 = time.time()
-    model = CrowdSAM(full_width_config(), device="cuda")
-    torch.cuda.synchronize()
-    log(f"model built in {time.time() - t0:.1f} s")
+    assert model.engine_cfg.fused_decode
     images = synthetic_images(0, N_IMAGES + 1)
     model.generate(images[-1])          # warm-up (cuBLAS / allocator)
     torch.cuda.synchronize()
@@ -402,7 +691,7 @@ def phase_end_to_end():
     print(json.dumps({
         "phase": "end_to_end",
         "config": "vit_l + dinov2_vitl14 + PWD-Net, bf16, random weights, "
-                  "fused_decode false, output_rles false",
+                  "fused_decode true, output_rles false",
         "image_hw": [list(i.shape[:2]) for i in images[:N_IMAGES]],
         "ms_per_image": times,
         "ms_per_image_mean": float(np.mean(times)),
@@ -410,6 +699,7 @@ def phase_end_to_end():
         "detections_per_image": [len(d["boxes"]) for d, _ in runs],
         "peak_memory_gib": peak,
         "launches": launches,
+        "launches_per_image": {k: v / N_IMAGES for k, v in launches.items()},
     }), flush=True)
     print(json.dumps({
         "phase": "device_profile", "image_hw": list(images[0].shape[:2]),
@@ -448,36 +738,107 @@ def phase_end_to_end():
     if min(dets) == 0:
         raise AssertionError(f"loaded pass: a frame without detections "
                              f"{dets}")
+    phase_fused_vs_unfused(model, scenes[0])
     return launches
 
 
-def phase_small_reference():
-    """A small configuration with head dim 64 (SAM ViT-B at 256^2, DINOv2
-    ViT-S/14): the card's bf16 kernel path against the plain float32 path
-    on the CPU, same weights."""
-    from crowdsam_tpu_torch.config import modify_config
-    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
-    from crowdsam_tpu_torch.utils.synthetic import (
-        full_width_config,
-        synthetic_images,
-    )
+def phase_fused_vs_unfused(model, img):
+    """The fused decode (K5, K6, packed masks) against the unfused one (the
+    plain `MaskDecoder`, spatial masks) at full width: same weights, frame
+    and candidate order, the pred-IoU and stability filters off so that the
+    slab holds valid rows.
 
-    # The IoU and stability filters off, so that random weights leave
-    # detections for the survivor pass.
-    cfg = modify_config(full_width_config(), [
+    Tolerance: two bf16 paths that round at different places (the JAX
+    package's CPU test of its tail kernel against its XLA path allows a
+    median relative error of 0.02).  Required: equal consumed counts; the
+    `valid` flags of the pre-NMS slab agree on >= 98% of the rows; over the
+    rows valid in both, the fused IoU within 0.02 in the median and 0.12 at
+    most, and the low-res boxes (256^2 frame) equal in the median and within
+    one cell of the decoder's 64^2 grid (4 px) on >= 95% of the rows (a
+    logit near 0 at a mask's edge flips with the rounding and moves that
+    edge); equal detection counts."""
+    noise = torch.rand(model.engine_cfg.grid_size ** 2,
+                       generator=torch.Generator().manual_seed(7))
+    out = {}
+    for name, fused in (("fused", True), ("unfused", False)):
+        model.engine_cfg = dataclasses.replace(model.engine_cfg,
+                                               fused_decode=fused)
+        _timed_generate(model, img, noise)           # warm-up
+        data, ms = _timed_generate(model, img, noise)
+        res = model.last_engine
+        out[name] = dict(data=data, ms=ms, consumed=int(res["num_consumed"]),
+                         **{k: v.float().cpu() for k, v in
+                            res["pre_nms"].items()})
+    model.engine_cfg = dataclasses.replace(model.engine_cfg,
+                                           fused_decode=True)
+    f, u = out["fused"], out["unfused"]
+    both = (f["valid"] > 0.5) & (u["valid"] > 0.5)
+    agree = float(((f["valid"] > 0.5) == (u["valid"] > 0.5)).float().mean())
+    d_iou = (f["iou"] - u["iou"]).abs()[both]
+    d_box = (f["boxes"] - u["boxes"]).abs().amax(dim=1)[both]
+    n_f, n_u = len(f["data"]["boxes"]), len(u["data"]["boxes"])
+    det_box = (float(np.abs(np.asarray(f["data"]["boxes"])
+                            - np.asarray(u["data"]["boxes"])).max())
+               if n_f == n_u and n_f else None)
+    row = {
+        "phase": "fused_vs_unfused", "image_hw": list(img.shape[:2]),
+        "consumed": [f["consumed"], u["consumed"]],
+        "slab_rows_valid_in_both": int(both.sum()),
+        "valid_agreement": agree,
+        "iou_abs_diff_median": float(d_iou.median()),
+        "iou_abs_diff_max": float(d_iou.max()),
+        "box_abs_diff_px_median": float(d_box.median()),
+        "box_abs_diff_px_max": float(d_box.max()),
+        "box_within_4px_share": float((d_box <= 4.0).float().mean()),
+        "detections": [n_f, n_u], "detection_box_max_abs_diff_px": det_box,
+        "ms_per_image": [f["ms"], u["ms"]],
+    }
+    print(json.dumps(row), flush=True)
+    ok = (f["consumed"] == u["consumed"] and int(both.sum()) > 0
+          and agree >= 0.98 and row["iou_abs_diff_median"] <= 0.02
+          and row["iou_abs_diff_max"] <= 0.12
+          and row["box_abs_diff_px_median"] == 0.0
+          and row["box_within_4px_share"] >= 0.95 and n_f == n_u)
+    if not ok:
+        raise AssertionError(f"fused and unfused decode disagree: {row}")
+
+
+def _small_config():
+    """A small configuration with head dim 64 (SAM ViT-B at 256^2, DINOv2
+    ViT-S/14; 256 image rows in the decoder), the IoU and stability filters
+    off, so that random weights leave detections for the survivor pass."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.utils.synthetic import full_width_config
+
+    return modify_config(full_width_config(), [
         "model.sam_model", "vit_b", "model.image_size", "256",
         "model.dino_model", "dinov2_vits14", "test.max_size", "256",
         "test.grid_size", "48", "test.max_prompts", "64",
         "test.pred_iou_thresh", "0.0", "test.stability_score_thresh", "0.0",
     ])
-    gpu = CrowdSAM(cfg, device="cuda")
+
+
+def _small_image():
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    return synthetic_images(1, 1)[0][:171, :256]
+
+
+def phase_small_reference(gpu):
+    """The small configuration: the card's bf16 kernel path (`gpu`, fused
+    decode through K5 and K6) against the plain float32 path on the CPU,
+    same weights."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+
+    cfg = _small_config()
     cpu_cfg = modify_config(cfg, ["tpu.compute_dtype", "float32"])
     cpu = CrowdSAM(cpu_cfg, device="cpu")
     cpu.sam.load_state_dict({k: v.float().cpu() for k, v in
                              gpu.sam.state_dict().items()})
     cpu.dino.load_state_dict({k: v.float().cpu() for k, v in
                               gpu.dino.state_dict().items()})
-    img = synthetic_images(1, 1)[0][:171, :256]
+    img = _small_image()
     out = {}
     for name, m in (("gpu", gpu), ("cpu", cpu)):
         m.predictor.set_image_presized(img)
@@ -527,8 +888,27 @@ def main() -> int:
     k3 = phase_global(gen)
     k4 = phase_dino(gen)
     torch.cuda.empty_cache()
-    launches = phase_end_to_end()
-    phase_small_reference()
+
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import (
+        full_width_config,
+        synthetic_images,
+    )
+
+    t0 = time.time()
+    model = CrowdSAM(full_width_config(), device="cuda")
+    small = CrowdSAM(_small_config(), device="cuda")
+    torch.cuda.synchronize()
+    log(f"models built in {time.time() - t0:.1f} s")
+    frame = synthetic_images(3, 1)[0]
+    k5, tail_out = phase_twoway_tail(model, frame, "main path, M=4096")
+    k6 = phase_mask_head(model, frame, "main path, M=4096", tail_out)
+    _, tail_small = phase_twoway_tail(small, _small_image(), "small, M=256")
+    phase_mask_head(small, _small_image(), "small, M=256", tail_small)
+    del tail_out, tail_small
+    torch.cuda.empty_cache()
+    launches = phase_end_to_end(model)
+    phase_small_reference(small)
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")
     src_attn = "crowdsam_tpu_torch/csrc/attention.cu"
@@ -550,6 +930,16 @@ def main() -> int:
                           replaces=rep, launches=launches[name],
                           max_abs_err=row["max_abs_err"],
                           **{k: row[k] for k in keys}))
+    for name, src, rep, row in (
+            ("twoway_tail", "crowdsam_tpu_torch/csrc/decode_tail.cu",
+             "crowdsam_tpu/models/decode_tail_kernel.py:359", k5),
+            ("mask_head", "crowdsam_tpu_torch/csrc/mask_head.cu",
+             "crowdsam_tpu/models/mask_head_kernel.py:165", k6)):
+        table.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                          launches=launches[name],
+                          max_abs_err=row["max_abs_err"],
+                          **{k: row[k] for k in keys},
+                          replaced_ms=row["replaced_ms"]))
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

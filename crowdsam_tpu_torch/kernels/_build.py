@@ -105,6 +105,21 @@ def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def require_operand(fn_name: str, t, name: str, shape, dtype,
+                    device) -> None:
+    """Raise unless tensor `t` is what a kernel's C entry point takes: on
+    `device`, of `dtype`, of `shape`, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{fn_name}: {name} on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn_name}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn_name}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn_name}: {name} must be contiguous")
+
+
 def check(status: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if status != 0:

@@ -3,9 +3,10 @@
 Counterpart of the JAX package's `models/transformer.py` (2 blocks of token
 self-attention, token->image attention, MLP 2048 and image->token attention,
 then a final token->image attention and LayerNorm; the attention's internal
-width halved).  Plain PyTorch, batched over the prompt axis; its fused TPU
-kernel (`twoway_tail_pallas`) belongs to the fused-decode path, which this
-package does not run yet.  LayerNorms go through K1 on CUDA.
+width halved).  Plain PyTorch, batched over the prompt axis: the unfused
+decode (`tpu.fused_decode false`) and the predictor's prompts run it; the
+fused decode runs the same weights through kernel K5
+(`models/decode_tail_kernel.py`).  LayerNorms go through K1 on CUDA.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """CrowdSAM: whole image -> person detections.
 
 Counterpart of the JAX package's `pipeline/crowdsam.py` for the `crowdsam`
-arch (SAM + DINOv2 + PWD-Net) with `tpu.fused_decode: false` and
-`test.output_rles: false`: per crop, the host resize, the dual-backbone
+arch (SAM + DINOv2 + PWD-Net) with `test.output_rles: false`: per crop, the host resize, the dual-backbone
 encode, the foreground map, the EPS engine and the box survivor pass; then
 the inter-crop NMS.  `generate(image)` returns a MaskData with boxes,
 scores, categories, points and stability scores; `rles` holds None per
@@ -52,9 +51,6 @@ def _unsupported(config: Dict[str, Any]) -> Optional[str]:
     if t.get("output_rles", True):
         return ("test.output_rles true (survivor RLE kernel K7: later "
                 "slice); set test.output_rles false")
-    if tpu.get("fused_decode", True):
-        return ("tpu.fused_decode true (fused decode kernels K5/K6: later "
-                "slice); set tpu.fused_decode false")
     if tpu.get("rect_encode", False):
         return "tpu.rect_encode (later slice)"
     if tpu.get("fullres_cleanup", False):
@@ -136,6 +132,7 @@ class CrowdSAM:
             crop_nms_thresh=tcfg["crop_nms_thresh"],
             min_mask_region_area=tcfg["min_mask_region_area"],
             cc_max_iters=tpucfg.get("cc_max_iters", 192),
+            fused_decode=bool(tpucfg.get("fused_decode", True)),
         )
         # Candidate-order noise, drawn on the CPU so that every device
         # sees the same order for a seed.

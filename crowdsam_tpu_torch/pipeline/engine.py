@@ -1,8 +1,13 @@
 """Efficient Prompt Sampler (EPS) decode engine and the survivor pass.
 
-Counterpart of the JAX package's `pipeline/engine.py` on its unfused branch
-(`tpu.fused_decode: false`: the plain MaskDecoder decodes each batch) with
-the box-only survivor pass (`test.output_rles: false`).
+Counterpart of the JAX package's `pipeline/engine.py` with the box-only
+survivor pass (`test.output_rles: false`).  With `fused_decode` (the
+default) each batch goes through `models/fused_decode.py` and the whole loop
+works on packed masks (`ops/packed.py`): shared decoder tensors and the
+packed-flat DINO map once per image, the occupancy bitmap in packed-flat
+order, packed slab logits, and `unpack_spatial` only for the rows kept
+after NMS.  Without it the plain `MaskDecoder` decodes each batch into
+spatial masks.
 
 - Candidates are the foreground-map cells above `pos_sim_thresh` inside the
   valid region, in the order of a STABLE argsort of a noise vector (every
@@ -35,6 +40,10 @@ from typing import Dict, Sequence
 
 import torch
 
+from crowdsam_tpu_torch.models.fused_decode import (
+    fused_decode,
+    precompute_decode_shared,
+)
 from crowdsam_tpu_torch.ops.amg import (
     batched_mask_to_box,
     calculate_stability_score,
@@ -42,6 +51,13 @@ from crowdsam_tpu_torch.ops.amg import (
 from crowdsam_tpu_torch.ops.boxes import is_box_near_crop_edge
 from crowdsam_tpu_torch.ops.connected import remove_small_regions
 from crowdsam_tpu_torch.ops.nms import nms_mask
+from crowdsam_tpu_torch.ops.packed import (
+    pack_spatial,
+    packed_coord_maps,
+    packed_flat_index,
+    packed_mask_to_box,
+    unpack_spatial,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +79,7 @@ class EngineConfig:
     min_mask_region_area: float = 100.0
     max_keep: int = 320           # post-NMS survivor slab
     cc_max_iters: int = 192
+    fused_decode: bool = True     # hoisted/low-rank decoder, packed masks
 
     @property
     def max_iters(self) -> int:
@@ -94,6 +111,16 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     dev = features.device
     G, K, R = cfg.grid_size, cfg.points_per_batch, cfg.low_res
     N, SLAB = G * G, cfg.slab
+    fused = cfg.fused_decode
+    BH = R // 4                   # packed base grid (the feature grid)
+    pe, dec = sam.prompt_encoder, sam.mask_decoder
+    if fused:
+        dec_shared = precompute_decode_shared(
+            dec, pe.no_mask_embed.weight, features, dense_pe)
+        # (R*R, C) packed-flat DINO map
+        dino_packed = pack_spatial(dino_feats_proj.movedim(-1, 0)).reshape(
+            dino_feats_proj.shape[-1], -1).T.contiguous()
+        xmap, ymap = packed_coord_maps(BH, BH, device=dev)
 
     def f32(v):
         return torch.as_tensor(v, dtype=torch.float32, device=dev)
@@ -119,14 +146,18 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     lr_scale = R / cfg.img_size
     occ_py = (py.float() * lr_scale).to(torch.int64).clamp(0, R - 1)
     occ_px = (px.float() * lr_scale).to(torch.int64).clamp(0, R - 1)
-    occ_idx = occ_py * R + occ_px
+    if fused:                     # the occupancy bitmap is packed-flat
+        occ_idx = packed_flat_index(occ_py, occ_px, BH)
+    else:
+        occ_idx = occ_py * R + occ_px
     # ResizeLongestSide.apply_coords into the prompt frame.
     scale = f32(cfg.img_size) / torch.maximum(in_h, in_w)
     coord_factor = torch.stack([torch.floor(in_w * scale + 0.5) / in_w,
                                 torch.floor(in_h * scale + 0.5) / in_h])
 
     # ---- slab
-    slab_logits = torch.zeros((SLAB, R, R), dtype=torch.bfloat16, device=dev)
+    slab_logits = torch.zeros((SLAB, BH * BH, 16) if fused else (SLAB, R, R),
+                              dtype=torch.bfloat16, device=dev)
     slab_iou = torch.full((SLAB,), float("-inf"), device=dev)
     slab_cat = torch.zeros((SLAB,), dtype=torch.int64, device=dev)
     slab_stab = torch.zeros((SLAB,), device=dev)
@@ -135,7 +166,6 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     slab_valid = torch.zeros((SLAB,), dtype=torch.bool, device=dev)
     ar = torch.arange(K, device=dev)
     labels = torch.ones((K, 1), dtype=torch.int64, device=dev)
-    pe, dec = sam.prompt_encoder, sam.mask_decoder
 
     it = consumed = 0
     while it < cfg.max_iters and consumed < cfg.max_prompts and bool(
@@ -150,8 +180,14 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
 
         sparse, dense = pe(points=((coords * coord_factor)[:, None, :],
                                    labels))
-        masks, iou_pred, cls_scores = dec(features, dense_pe, sparse, dense,
-                                          True, dino_feats_proj=dino_feats_proj)
+        if fused:                 # masks (K, 4, BH*BH, 16) packed
+            masks, iou_pred, cls_scores = fused_decode(
+                dec, dec_shared, sparse, True, dino_feats_proj=dino_packed,
+                packed_masks=True)
+        else:                     # masks (K, 4, R, R)
+            masks, iou_pred, cls_scores = dec(
+                features, dense_pe, sparse, dense, True,
+                dino_feats_proj=dino_feats_proj)
         iou_fused = (iou_pred.clamp(min=0.0)
                      * torch.sigmoid(cls_scores.max(dim=-1).values))
         categories = cls_scores.argmax(dim=-1)
@@ -167,7 +203,10 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
         if cfg.stability_score_thresh > 0.0:
             keep &= stab >= cfg.stability_score_thresh
         binm = m_sel > cfg.mask_threshold
-        boxes_lr = batched_mask_to_box(binm).float()
+        if fused:
+            boxes_lr = packed_mask_to_box(binm, xmap, ymap, BH, BH).float()
+        else:
+            boxes_lr = batched_mask_to_box(binm).float()
         keep &= ~is_box_near_crop_edge(boxes_lr * (cfg.img_size / R), crop,
                                        orig_box, down)
 
@@ -190,6 +229,8 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     score_key = torch.where(keep_nms, slab_iou, f32(float("-inf")))
     top = torch.argsort(-score_key, stable=True)[: cfg.max_keep]
     logits = slab_logits[top]
+    if fused:
+        logits = unpack_spatial(logits, BH, BH)
     iou, valid = slab_iou[top], keep_nms[top]
     m = top.shape[0]
     summary = torch.cat([                   # score == iou (fuse_simmap off)

@@ -39,12 +39,34 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, crowdsam_tpu_torch, crowdsam_tpu_torch.pipeline.crowdsam,"
-        " crowdsam_tpu_torch.utils.weights\n"
+        " crowdsam_tpu_torch.utils.weights, crowdsam_tpu_torch.ops.packed,"
+        " crowdsam_tpu_torch.models.fused_decode,"
+        " crowdsam_tpu_torch.models.decode_tail_kernel,"
+        " crowdsam_tpu_torch.models.mask_head_kernel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_port_files_include_the_fused_decode_slice():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"crowdsam_tpu_torch/ops/packed.py",
+            "crowdsam_tpu_torch/models/fused_decode.py",
+            "crowdsam_tpu_torch/models/decode_tail_kernel.py",
+            "crowdsam_tpu_torch/models/mask_head_kernel.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["decode_tail.cu", "mask_head.cu"])
+def test_decode_kernels_are_cuda_sources_without_library_calls(name):
+    """K5 and K6 are CUDA C++ built by `kernels/_build.py`: their sources
+    hold the products themselves (mma) and call no library."""
+    text = (ROOT / "crowdsam_tpu_torch" / "csrc" / name).read_text()
+    assert "mma.sync" in text and "__global__" in text
+    for lib in ("cublas", "cutlass", "cudnn", "torch/"):
+        assert lib not in text.lower()
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -8,12 +8,21 @@ atol + 2^-7 |y|: the last term is one bf16 ulp of the output (both sides
 round to bf16), atol is each kernel's own (as in `chip_smoke.py`): 1e-2
 for LayerNorm outputs of rms ~1, and for attention ~10% of the output's
 rms (bf16 probabilities into PV, bf16 rel-pos terms).  float32 LayerNorm:
-1e-5."""
+1e-5.  The two decode kernels (two-way transformer, mask head) round at the
+same points as their plain versions: 2e-2 on LayerNorm outputs of rms ~1,
+3% of the masks' rms on the masks."""
 
 import pytest
 import torch
 
-from crowdsam_tpu_torch.models import attention
+from crowdsam_tpu_torch.models import (
+    attention,
+    decode_tail_kernel,
+    mask_head_kernel,
+)
+from crowdsam_tpu_torch.models.build import init_random_, sam_model_registry
+from crowdsam_tpu_torch.models.common import cast_compute_params
+from crowdsam_tpu_torch.models.fused_decode import precompute_decode_shared
 from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 from crowdsam_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 
@@ -92,3 +101,98 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     w = torch.ones(1536, device="cuda")
     with pytest.raises(ValueError, match="width"):
         layer_norm(torch.randn((5, 1536), device="cuda"), w, w, 1e-5)
+
+
+def _decoder_operands(gen, image_size, p, t):
+    """A vit_tiny SAM (the full-width decoder) at `image_size`, bf16, seeded:
+    the shared tensors of its decode, (P, T, 256) tokens and hypernetwork
+    vectors."""
+    sam = sam_model_registry["vit_tiny"](image_size=image_size).cuda()
+    init_random_(sam, torch.Generator(device="cuda").manual_seed(0))
+    cast_compute_params(sam, torch.bfloat16)
+    g = image_size // 16
+    feats = torch.randn((1, g, g, 256), generator=gen,
+                        device="cuda").bfloat16()
+    with torch.no_grad():
+        shared = precompute_decode_shared(
+            sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight, feats,
+            sam.prompt_encoder.get_dense_pe())
+    tokens = torch.randn((p, t, 256), generator=gen, device="cuda").bfloat16()
+    hyper = torch.randn((p, 4, 32), generator=gen, device="cuda").bfloat16()
+    return shared, tokens, hyper
+
+
+def _tail_args(shared, tokens):
+    return (shared["keys0"], shared["q1i_flat"], shared["k1_flat"],
+            shared["v1_flat"], tokens, shared["tail"])
+
+
+@pytest.mark.parametrize("image_size,p,t", [(256, 3, 7), (256, 5, 6),
+                                            (1024, 8, 7), (1024, 4, 6)])
+def test_twoway_tail_kernel(gen, image_size, p, t):
+    """K5 at M = 256 and 4096 image rows, T = 6 and 7 tokens."""
+    shared, tokens, _ = _decoder_operands(gen, image_size, p, t)
+    args = _tail_args(shared, tokens)
+    before = decode_tail_kernel.twoway_tail.launches
+    keys2, tok = decode_tail_kernel.twoway_tail(*args)
+    assert decode_tail_kernel.twoway_tail.launches == before + 1
+    want_keys2, want_tok = decode_tail_kernel.twoway_tail_plain(*args)
+    assert keys2.shape == (p, (image_size // 16) ** 2, 256)
+    assert tok.shape == (p, t, 256)
+    _close(keys2, want_keys2, 2e-2)
+    _close(tok, want_tok, 2e-2)
+    again = decode_tail_kernel.twoway_tail(*args)
+    assert torch.equal(again[0], keys2) and torch.equal(again[1], tok)
+
+
+@pytest.mark.parametrize("image_size,p", [(256, 3), (1024, 8)])
+@pytest.mark.parametrize("emit_exp", [False, True])
+def test_mask_head_kernel(gen, image_size, p, emit_exp):
+    """K6 at M = 256 and 4096 image rows, with and without the exp terms."""
+    shared, tokens, hyper = _decoder_operands(gen, image_size, p, 7)
+    keys2, _ = decode_tail_kernel.twoway_tail_plain(*_tail_args(shared,
+                                                                tokens))
+    w = shared["mask_head"]
+    before = mask_head_kernel.mask_head.launches
+    got = mask_head_kernel.mask_head(keys2, hyper, w, emit_exp=emit_exp)
+    assert mask_head_kernel.mask_head.launches == before + 1
+    want = mask_head_kernel.mask_head_plain(keys2, hyper, w,
+                                            emit_exp=emit_exp)
+    masks, want_masks = (got[0], want[0]) if emit_exp else (got, want)
+    m = (image_size // 16) ** 2
+    assert masks.shape == (p, 4, m, 16) and masks.dtype == torch.bfloat16
+    atol = 0.03 * float(want_masks.float().square().mean().sqrt())
+    _close(masks, want_masks, atol)
+    if emit_exp:
+        assert got[2].shape == (p, m // mask_head_kernel.ROW_TILE)
+        _close(got[1], want[1], 2e-2)
+        _close(got[2], want[2], atol)
+
+
+def test_decode_kernels_refuse_what_they_do_not_take(gen):
+    shared, tokens, hyper = _decoder_operands(gen, 256, 3, 7)
+    args = _tail_args(shared, tokens)
+    keys2, _ = decode_tail_kernel.twoway_tail_plain(*args)
+    w = shared["mask_head"]
+    with pytest.raises(TypeError):                      # float32 input
+        decode_tail_kernel.twoway_tail(args[0].float(), *args[1:])
+    with pytest.raises(TypeError):
+        mask_head_kernel.mask_head(keys2.float(), hyper, w)
+    with pytest.raises(ValueError, match="contiguous"):  # strided input
+        decode_tail_kernel.twoway_tail(
+            *args[:4], tokens.transpose(0, 1).contiguous().transpose(0, 1),
+            args[5])
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_head_kernel.mask_head(
+            keys2.transpose(1, 2).contiguous().transpose(1, 2), hyper, w)
+    with pytest.raises(ValueError, match="multiple"):   # M % 64 != 0
+        short = dict(shared["tail"])
+        for name in ("kpe2", "qpe2i", "kpef"):
+            short[name] = short[name][:200].contiguous()
+        decode_tail_kernel.twoway_tail(
+            *(x[:200].contiguous() for x in args[:4]), tokens, short)
+    with pytest.raises(ValueError, match="multiple"):
+        mask_head_kernel.mask_head(keys2[:, :200].contiguous(), hyper, w)
+    with pytest.raises(ValueError, match="tokens"):     # T > 8
+        decode_tail_kernel.twoway_tail(
+            *args[:4], torch.cat([tokens, tokens], dim=1), args[5])

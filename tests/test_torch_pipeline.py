@@ -1,7 +1,8 @@
 """The port's whole slice against the JAX package on the CPU: the tiny
 CrowdSAM config (vit_tiny + dinov2_vits14, float32) with
-`tpu.fused_decode false` and `test.output_rles false`, the same weights
-through the weight bridge, and the engine noise JAX draws from its key.
+`test.output_rles false` and `tpu.fused_decode` both ways (the fused branch
+is the default), the same weights through the weight bridge, and the engine
+noise JAX draws from its key.
 
 Tolerances: the FG map and the engine's per-row floats agree to 1e-4 (two
 float32 implementations of the same graph, summed in other orders);
@@ -40,15 +41,21 @@ TINY = [
     "test.stability_score_thresh", "0.0",
     "test.pos_sim_thresh", "0.3",
     "tpu.compute_dtype", "float32",
-    "tpu.fused_decode", "false",
     "test.output_rles", "false",
 ]
+FUSED = pytest.mark.parametrize("pair", ["false", "true"], indirect=True,
+                                ids=["unfused", "fused"])
 
 
 @pytest.fixture(scope="module")
-def pair():
-    jm = JaxCrowdSAM(jax_modify_config(jax_load_config(None), list(TINY)))
-    pm = CrowdSAM(modify_config(load_config(None), list(TINY)), device="cpu")
+def pair(request):
+    """The JAX model and the port's with the same weights, for one setting
+    of `tpu.fused_decode` (unfused where a test does not say)."""
+    opts = list(TINY) + ["tpu.fused_decode", getattr(request, "param",
+                                                     "false")]
+    jm = JaxCrowdSAM(jax_modify_config(jax_load_config(None), list(opts)))
+    pm = CrowdSAM(modify_config(load_config(None), list(opts)), device="cpu")
+    assert pm.engine_cfg.fused_decode == jm.engine_cfg.fused_decode
     # flax creates no parameters for the decoder's unused 5th hypernetwork
     # MLP, so a JAX-initialized tree lacks exactly those keys.
     missing, unexpected = pm.sam.load_state_dict(
@@ -75,6 +82,7 @@ def _next_noise(jm):
     return np.asarray(jax.random.uniform(sub, (n,)))
 
 
+@FUSED
 @pytest.mark.parametrize("seed,shape", [(1, (200, 256, 3)),
                                         (2, (256, 192, 3))])
 def test_generate_matches_jax(pair, seed, shape):
@@ -91,6 +99,7 @@ def test_generate_matches_jax(pair, seed, shape):
     assert got["rles"] == [None] * len(got["boxes"])
 
 
+@FUSED
 def test_fg_map_and_pre_nms_slab_match_jax(pair, monkeypatch):
     jm, pm = pair
     image = _image(3, (200, 256, 3))
@@ -149,9 +158,29 @@ def test_entry_point_raises_for_later_slices():
     with pytest.raises(NotImplementedError, match="output_rles"):
         CrowdSAM(cfg, device="cpu")
     cfg = modify_config(load_config(None), list(TINY) + [
-        "tpu.fused_decode", "true"])
-    with pytest.raises(NotImplementedError, match="fused_decode"):
+        "tpu.rect_encode", "true"])
+    with pytest.raises(NotImplementedError, match="rect_encode"):
         CrowdSAM(cfg, device="cpu")
+
+
+def test_fused_decode_is_the_default_and_matches_unfused():
+    """`tpu.fused_decode` defaults to true, as in `configs/crowdhuman.yaml`,
+    and the port's two branches give the same detections (float32: scores
+    within 1e-4, boxes equal)."""
+    image = _image(6, (200, 256, 3))
+    noise = np.random.default_rng(6).uniform(size=48 * 48).astype(np.float32)
+    out = {}
+    for fused in ("true", "false"):
+        pm = CrowdSAM(modify_config(load_config(None), list(TINY) + [
+            "tpu.fused_decode", fused]), device="cpu")
+        assert pm.engine_cfg.fused_decode == (fused == "true")
+        out[fused] = pm.generate(image, noise=[noise])
+    assert CrowdSAM(modify_config(load_config(None), list(TINY)),
+                    device="cpu").engine_cfg.fused_decode
+    assert len(out["true"]["boxes"]) == len(out["false"]["boxes"]) > 0
+    np.testing.assert_array_equal(out["true"]["boxes"], out["false"]["boxes"])
+    np.testing.assert_allclose(out["true"]["scores"], out["false"]["scores"],
+                               atol=1e-4)
 
 
 def test_generate_draws_seeded_noise():

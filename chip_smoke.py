@@ -9,25 +9,33 @@ the gitignored `build/kernels/`), then:
    shapes in bf16, with a tolerance of its own, and shows that the same
    tolerance rejects the plain version with a known fault (a dropped key
    tile, swapped rel-pos tables, a skipped image update, swapped sub-pixel
-   levels, ...); times kernel, plain version and the nearest single PyTorch
-   library call, or for the two decode kernels the PyTorch path they
-   replace (one JSON line per phase).  The decode kernels (two-way
-   transformer, mask head) get their inputs from the full-width model on a
-   seeded frame;
+   levels, a missing column link, ...); times kernel, plain version and the
+   nearest single PyTorch library call, or for the decode kernels the
+   PyTorch path they replace (one JSON line per phase).  The decode kernels
+   (two-way transformer, mask head) get their inputs from the full-width
+   model on a seeded frame, the survivor kernel person-shaped masks from
+   the crowd scenes' boxes, and its change rows must give the COCO RLE
+   strings of the plain masks;
 2. runs `CrowdSAM.generate` at full width -- SAM ViT-L + DINOv2 ViT-L/14 +
-   PWD-Net, bf16, seeded random weights, the default fused decode,
-   `test.output_rles false` -- on seeded synthetic frames, with every
-   kernel's launch count set to 0 just before and read just after; every
-   kernel must have launched.  The same model then gives the encode's share
-   of the time, the device's idle share of one frame (busy and wall time
-   from the same profiled window), a loaded pass on seeded crowd scenes
-   with the pred-IoU and stability filters off, so that the survivor pass
-   (cleanup, re-NMS, boxes) runs at full width on real detections, and the
-   fused decode against the unfused one (same weights, frame and noise);
+   PWD-Net, bf16, seeded random weights, the defaults of
+   `configs/crowdhuman.yaml` (fused decode, `test.output_rles true`) -- on
+   seeded synthetic frames, with every kernel's launch count set to 0 just
+   before and read just after; every kernel must have launched, but the
+   survivor kernel, which random weights give no detection to reach there.
+   The same model then gives the encode's share of the time, the device's
+   idle share of one frame (busy and wall time from the same profiled
+   window), a loaded pass on seeded crowd scenes with the pred-IoU and
+   stability filters off, so that the survivor pass (cleanup, re-NMS, K7,
+   RLE strings, full-res boxes) runs at full width on real detections, with
+   the counts set to 0 again and every kernel required, the fused decode
+   against the unfused one (same weights, frame and noise), the box-only
+   `test.output_rles false` against the default on one loaded frame (K7
+   must not launch there), and `generate_many` against `generate` on the
+   same frames and noise;
 3. checks the outputs: finite boxes and scores of the expected shapes inside
-   the image, and, on a small configuration with head dim 64, the card's
-   bf16 kernel path against the plain float32 path on the CPU, detections
-   included.
+   the image, every RLE string's mask inside its detection's box, and, on a
+   small configuration with head dim 64, the card's bf16 kernel path
+   against the plain float32 path on the CPU, detections included.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  Exits non-zero, printing no
@@ -579,6 +587,160 @@ def phase_mask_head(model, img, label, tail_out):
 
 
 # --------------------------------------------------------------------------
+# survivor kernel phase: person-shaped masks from the crowd scenes
+# --------------------------------------------------------------------------
+
+def _survivor_inputs(k, seed, r=256):
+    """k survivor masks as the engine hands them to K7: bf16 logits (k, r,
+    r) of person-shaped masks (a head disc over a body ellipse, the port's
+    crowd-scene boxes on the low-res grid) with ragged boundaries from
+    seeded noise, the cleanup edits of the engine's small-region pass, and
+    per-mask in_hw of the frame sizes.  Every 16th mask is noise, whose
+    columns overflow the 24 change slots."""
+    from crowdsam_tpu_torch.ops.connected import remove_small_regions
+    from crowdsam_tpu_torch.utils.synthetic import FRAME_SIZES, crowd_scene
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:r, 0:r] + 0.5
+    logits, hws, i = [], [], 0
+    while len(logits) < k:
+        h, w = FRAME_SIZES[i % len(FRAME_SIZES)]
+        _, boxes = crowd_scene(seed + i, h, w)
+        i += 1
+        c = r / max(h, w)                        # image px -> low-res cells
+        for bx, by, bw, bh in boxes:
+            if len(logits) == k:
+                break
+            if len(logits) % 16 == 0:
+                lg = rng.normal(0.0, 4.0, (r, r))
+            else:
+                hr = max(2, bw // 4) * c
+                hx, hy = (bx + bw / 2) * c, by * c + hr
+                a, b = max(2, bw // 2) * c, (bh * c - 2 * hr) / 2
+                head = np.hypot(xx - hx, yy - hy) / hr
+                body = np.hypot((xx - hx) / a, (yy - hy - hr - b) / max(b, 1))
+                d = np.minimum(head, body)
+                lg = 8.0 * (1.0 - d) + rng.normal(0.0, 1.5, (r, r))
+            logits.append(lg)
+            hws.append((h, w))
+    logits = torch.tensor(np.stack(logits), dtype=torch.float32,
+                          device="cuda").bfloat16()
+    binm = logits.float() > 0.0
+    area = 100.0 * (r / 1024) ** 2            # min_mask_region_area at 256^2
+    m1, _ = remove_small_regions(binm, area, "holes", 192)
+    m2, _ = remove_small_regions(m1, area, "islands", 192)
+    edit = (~binm & m2).to(torch.int8) - (binm & ~m2).to(torch.int8)
+    hw = torch.tensor(hws, dtype=torch.int32, device="cuda")
+    return logits, edit, hw
+
+
+def _rle_strings(out, hw):
+    """COCO strings of K7's outputs as the pipeline builds them: from the
+    change rows, or from the packed bitmap for a mask with a column of more
+    changes than the rows keep."""
+    from crowdsam_tpu_torch.ops.rle import (
+        encode_changes_coco,
+        encode_masks_coco,
+        svals_from_cand,
+        unpack_cand10,
+    )
+
+    summary = out["summary"].cpu().numpy()
+    cand = unpack_cand10(out["cand"].cpu().numpy())
+    ncol = out["n_col"].cpu().numpy()
+    packed = out["packed"].cpu().numpy()
+    strings = []
+    for i, (h, w) in enumerate(hw.tolist()):
+        if summary[i, 6]:
+            full = np.unpackbits(packed[i], axis=-1)[:h, :w]
+            strings.append(encode_masks_coco(full)[0])
+        else:
+            strings.append(encode_changes_coco(
+                svals_from_cand(cand[i], ncol[i], h), h * w, (h, w)))
+    return strings
+
+
+def phase_survivor(k, seed):
+    """K7 against its plain version on k person-shaped masks; the RLE
+    strings built from its change rows against `encode_masks_coco` of the
+    plain masks; plain versions with a known fault must disagree."""
+    from crowdsam_tpu_torch.ops import survivor_kernel as sk
+    from crowdsam_tpu_torch.ops.rle import encode_masks_coco
+
+    logits, edit, hw = _survivor_inputs(k, seed)
+    r = logits.shape[-1]
+    s = 4 * r
+    keys = ("packed", "cand", "n_col", "summary")
+    with torch.no_grad():
+        want = sk.survivor_rle_plain(logits, edit, hw)
+        got = sk.survivor_rle(logits, edit, hw)
+        torch.cuda.synchronize()
+        again = sk.survivor_rle(logits, edit, hw)
+        if not all(torch.equal(got[x], again[x]) for x in keys):
+            raise AssertionError("survivor_rle: two runs differ bit-wise")
+        # A pixel may flip only where the plain float32 value lies within
+        # 1e-5 of the threshold (none is expected: both round the same
+        # float32 operations).
+        bits_k = torch.tensor(np.unpackbits(got["packed"].cpu().numpy(), -1))
+        bits_p = torch.tensor(np.unpackbits(want["packed"].cpu().numpy(), -1))
+        flipped = bits_k != bits_p
+        flips = int(flipped.sum())
+        if flips:
+            up = sk.upsample_plain(logits).cpu()
+            if not bool((up[flipped].abs() <= 1e-5).all()):
+                raise AssertionError("survivor_rle: pixels flipped away from "
+                                     "the threshold")
+        mismatch = {x: int((got[x] != want[x]).sum()) for x in keys}
+        max_err = max(float((got[x].long() - want[x].long()).abs().max())
+                      for x in keys)
+        with patched(sk, "_column_link",
+                     lambda full, hw_: torch.zeros_like(full[:, 0])):
+            f_link = sk.survivor_rle_plain(logits, edit, hw)
+        f_sign = sk.survivor_rle_plain(logits, -edit, hw)
+    faults = {label: sum(int((f[x] != got[x]).sum()) for x in keys)
+              for label, f in (("column link dropped", f_link),
+                               ("edit signs swapped", f_sign))}
+    h_w = hw.tolist()
+    strings = _rle_strings(got, hw)
+    bits_p = bits_p.numpy()
+    dense = [encode_masks_coco(bits_p[i, :h, :w])[0]
+             for i, (h, w) in enumerate(h_w)]
+    rle_mismatch = sum(a != b for a, b in zip(strings, dense))
+    overflow = int(want["summary"][:, 6].sum())
+    n_edits = int((edit != 0).sum())
+    with torch.no_grad():
+        t_k = time_ms(lambda: sk.survivor_rle(logits, edit, hw), 20)
+        t_p = time_ms(lambda: sk.survivor_rle_plain(logits, edit, hw), 3)
+        # Only the upsample and the threshold: no edits, crop, packing,
+        # box or change rows.
+        t_i = time_ms(lambda: torch.nn.functional.interpolate(
+            logits[:, None], scale_factor=4, mode="bilinear",
+            align_corners=False) > 0.0, 10)
+    nbytes = k * (r * r * 3 + 8) + k * (s * s // 8 + 9 * s * 4 + 32)
+    flops = sum(4.75 * h * w for h, w in h_w)
+    b_ms, by = bound(nbytes, flops, F32_FLOP_PER_S)
+    row = dict(shape=f"{k}x{r}x{r} bf16 + int8 edits -> {k}x{s}x{s // 8} "
+                     f"uint8 + {k}x9x{s} + {k}x8 int32",
+               mismatch=mismatch, pixel_flips=flips, max_abs_err=max_err,
+               fault_mismatch=faults, rle_strings=len(strings),
+               rle_mismatch=rle_mismatch, overflow_masks=overflow,
+               edited_cells=n_edits, ms=t_k, plain_ms=t_p,
+               replaced_ms=t_p, replaced="the plain version",
+               interpolate_threshold_ms=t_i,
+               interpolate_covers="F.interpolate bilinear + threshold only",
+               library_ms=None, bound_ms=b_ms, bound_by=by,
+               mbytes=nbytes / 1e6, mflop=flops / 1e6)
+    print(json.dumps({"phase": f"K7 survivor_rle k={k}", **row}), flush=True)
+    if any(mismatch.values()) or rle_mismatch:
+        raise AssertionError(f"survivor_rle disagrees with its plain "
+                             f"version: {row}")
+    if min(faults.values()) == 0 or overflow == 0 or n_edits == 0:
+        raise AssertionError(f"survivor_rle phase does not see its faults, "
+                             f"or has no overflow or edits: {row}")
+    return row
+
+
+# --------------------------------------------------------------------------
 # end to end
 # --------------------------------------------------------------------------
 
@@ -588,7 +750,7 @@ def _counters():
         decode_tail_kernel,
         mask_head_kernel,
     )
-    from crowdsam_tpu_torch.ops import layernorm
+    from crowdsam_tpu_torch.ops import layernorm, survivor_kernel
 
     return {
         "twoway_tail": decode_tail_kernel.twoway_tail,
@@ -597,7 +759,15 @@ def _counters():
         "window_attention": attention.window_attention,
         "flash_mha_decomposed_relpos": attention.flash_mha_decomposed_relpos,
         "flash_mha": attention.flash_mha,
+        "survivor_rle": survivor_kernel.survivor_rle,
     }
+
+
+def _reset_counts():
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
 
 
 def _timed_generate(model, img, noise=None):
@@ -618,7 +788,29 @@ def _timed_generate(model, img, noise=None):
     # package: they stay inside the square frame the model saw (long side
     # by long side), which may reach past the image's short side.
     assert (boxes >= 0).all() and (boxes <= max(img.shape[:2]) + 1e-3).all()
+    assert len(data["rles"]) == n
     return data, ms
+
+
+def _check_rles(data, img):
+    """Every detection carries a COCO RLE string of the image's size; a
+    nonempty mask spans exactly its detection's full-res box (one crop,
+    frames whose long side is the model's 1024, so no rescale).  Returns
+    the number of nonempty masks."""
+    from crowdsam_tpu_torch.ops.rle import coco_decode_rle
+
+    nonempty = 0
+    for rle, box in zip(data["rles"], np.asarray(data["boxes"])):
+        assert isinstance(rle["counts"], str)
+        assert rle["size"] == list(img.shape[:2]), rle["size"]
+        m = coco_decode_rle(rle)
+        if not m.any():
+            continue
+        ys, xs = np.nonzero(m)
+        assert np.array_equal([xs.min(), ys.min(), xs.max(), ys.max()], box), \
+            (box, [xs.min(), ys.min(), xs.max(), ys.max()])
+        nonempty += 1
+    return nonempty
 
 
 def _encode_ms(model, img) -> float:
@@ -674,13 +866,12 @@ def phase_end_to_end(model):
         synthetic_images,
     )
 
-    assert model.engine_cfg.fused_decode
+    assert model.engine_cfg.fused_decode and model.output_rles
+    reference_cfg = model.engine_cfg
     images = synthetic_images(0, N_IMAGES + 1)
     model.generate(images[-1])          # warm-up (cuBLAS / allocator)
     torch.cuda.synchronize()
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     runs = [_timed_generate(model, img) for img in images[:N_IMAGES]]
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -691,7 +882,8 @@ def phase_end_to_end(model):
     print(json.dumps({
         "phase": "end_to_end",
         "config": "vit_l + dinov2_vitl14 + PWD-Net, bf16, random weights, "
-                  "fused_decode true, output_rles false",
+                  "configs/crowdhuman.yaml defaults (fused_decode true, "
+                  "output_rles true)",
         "image_hw": [list(i.shape[:2]) for i in images[:N_IMAGES]],
         "ms_per_image": times,
         "ms_per_image_mean": float(np.mean(times)),
@@ -706,24 +898,64 @@ def phase_end_to_end(model):
         "wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / wall, "kernels_ms": top,
     }), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
+    # Random weights leave no detection at the reference thresholds, so no
+    # survivor reaches K7 here: the loaded pass below requires it.
+    exempt = {"survivor_rle": "0 detections at the reference thresholds "
+                              "with random weights; required in "
+                              "end_to_end_loaded"}
+    print(json.dumps({"phase": "end_to_end launch check",
+                      "exempt": exempt}), flush=True)
+    missing = [k for k, v in launches.items() if v == 0 and k not in exempt]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
 
-    # Random weights leave no detection at the reference thresholds; with
-    # the pred-IoU and stability filters off the same model keeps some, and
-    # the survivor pass runs at full width on them.
+    # With the pred-IoU and stability filters off the same model keeps
+    # detections, and the survivor pass (cleanup, re-NMS, K7, RLE strings,
+    # full-res boxes) runs at full width on them.
     model.engine_cfg = dataclasses.replace(
-        model.engine_cfg, pred_iou_thresh=0.0, stability_score_thresh=0.0)
+        reference_cfg, pred_iou_thresh=0.0, stability_score_thresh=0.0)
+    loaded_cfg = model.engine_cfg
     scenes = [crowd_scene(20 + i, *hw)[0]
               for i, hw in enumerate(FRAME_SIZES[:N_IMAGES])]
-    loaded, survivors = [], []
-    for img in scenes:
-        loaded.append(_timed_generate(model, img))
-        # Rows of the post-NMS slab that enter the survivor pass.
-        survivors.append(int((model.last_engine["summary"][:, 0] > 0.5)
-                             .sum()))
+    import crowdsam_tpu_torch.pipeline.crowdsam as pipeline
+
+    _timed_generate(model, scenes[-1])     # warm-up of the survivor path
+    rle_ms, survivor_ms = [], []
+
+    def timed(fn, acc, sync):
+        def wrapped(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            acc[-1] += (time.perf_counter() - t) * 1e3
+            return out
+        return wrapped
+
+    # The product path, with only a host clock around the RLE strings
+    # (which end in device-to-host copies, so they add no sync).
+    counters = _reset_counts()
+    loaded, survivors, nonempty = [], [], []
+    with patched(model, "_rles", timed(model._rles, rle_ms, False)):
+        for img in scenes:
+            rle_ms.append(0.0)
+            loaded.append(_timed_generate(model, img))
+            # Rows of the post-NMS slab that enter the survivor pass.
+            survivors.append(int((model.last_engine["summary"][:, 0] > 0.5)
+                                 .sum()))
+    loaded_launches = {k: fn.launches for k, fn in counters.items()}
+    # The survivor pass's device time, from a second run of the same frames
+    # synchronized around it.
+    with patched(pipeline, "survivor_core",
+                 timed(pipeline.survivor_core, survivor_ms, True)):
+        for img in scenes:
+            survivor_ms.append(0.0)
+            _timed_generate(model, img)
+    for (data, _), img in zip(loaded, scenes):
+        nonempty.append(_check_rles(data, img))
     dets = [len(d["boxes"]) for d, _ in loaded]
     print(json.dumps({
         "phase": "end_to_end_loaded",
@@ -732,14 +964,131 @@ def phase_end_to_end(model):
         "image_hw": [list(i.shape[:2]) for i in scenes],
         "ms_per_image": [ms for _, ms in loaded],
         "ms_per_image_mean": float(np.mean([ms for _, ms in loaded])),
+        "host_rle_ms_per_image": rle_ms,
+        "survivor_pass_ms_per_image": survivor_ms,
+        "survivor_pass_covers": "cleanup, re-NMS, edits, K7; a second run, "
+                                "synchronized around the pass",
         "detections_per_image": dets,
+        "nonempty_masks_per_image": nonempty,
         "survivors_per_image": survivors,
+        "launches": loaded_launches,
     }), flush=True)
     if min(dets) == 0:
         raise AssertionError(f"loaded pass: a frame without detections "
                              f"{dets}")
+    missing = [k for k, v in loaded_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the loaded pass: "
+                             f"{missing}")
+    phase_box_only(model, scenes[0])
     phase_fused_vs_unfused(model, scenes[0])
-    return launches
+    phase_generate_many(model, reference_cfg, loaded_cfg)
+    model.engine_cfg = reference_cfg
+    return launches, loaded_launches
+
+
+def phase_box_only(model, img):
+    """`test.output_rles false` on one loaded frame against the default on
+    the same frame and noise, the counts set to 0 just before the box-only
+    run: K1-K6 must launch and K7 not; the detection count and scores must
+    be equal.  The boxes differ: box-only ones are the low-res boxes times
+    4, the default's come from the full-resolution masks."""
+    noise = torch.rand(model.engine_cfg.grid_size ** 2,
+                       generator=torch.Generator().manual_seed(9))
+    rle, ms_rle = _timed_generate(model, img, noise)
+    model.output_rles = False
+    try:
+        _timed_generate(model, img, noise)          # warm-up
+        counters = _reset_counts()
+        box, ms_box = _timed_generate(model, img, noise)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        model.output_rles = True
+    n_r, n_b = len(rle["boxes"]), len(box["boxes"])
+    same = n_r == n_b and np.array_equal(np.asarray(rle["scores"]),
+                                         np.asarray(box["scores"]))
+    row = {
+        "phase": "box_only", "config": "as end_to_end_loaded, "
+                                       "output_rles false",
+        "image_hw": list(img.shape[:2]), "detections": [n_r, n_b],
+        "scores_equal": same,
+        "box_abs_diff_px_max": (float(np.abs(
+            np.asarray(rle["boxes"]) - np.asarray(box["boxes"])).max())
+            if same and n_b else None),
+        "ms": [ms_rle, ms_box], "ms_covers": ["output_rles true", "false"],
+        "launches": launches,
+    }
+    print(json.dumps(row), flush=True)
+    if n_b == 0 or not same or any(r is not None for r in box["rles"]):
+        raise AssertionError(f"box-only path differs from the default: {row}")
+    wrong = [k for k, v in launches.items()
+             if (v == 0) != (k == "survivor_rle")]
+    if wrong:
+        raise AssertionError(f"box-only launches: K7 must not launch, the "
+                             f"others must: {wrong}")
+
+
+def phase_generate_many(model, reference_cfg, loaded_cfg, n=8):
+    """`generate_many` against `generate` on n seeded crowd scenes, the
+    generator reset to one seed before each run so that both draw the same
+    noise: equal boxes, scores and RLE strings, at the reference
+    thresholds and with the filters off.  ms per image of `generate` from
+    the host clock (synchronized), of `generate_many` from its
+    `times_out`, and of both the wall time over n; beside them the host ms
+    per image of the dispatch (encode, EPS loop) and of the tail (survivor
+    pass, RLE) inside `generate`."""
+    from crowdsam_tpu_torch.utils.synthetic import FRAME_SIZES, crowd_scene
+
+    scenes = [crowd_scene(40 + i, *FRAME_SIZES[i % len(FRAME_SIZES)])[0]
+              for i in range(n)]
+    row = {"phase": "generate_many", "images": n}
+    spans = {"dispatch": [], "tail": []}
+
+    def timed(fn, acc):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            acc.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapped
+
+    for name, cfg in (("reference", reference_cfg), ("loaded", loaded_cfg)):
+        model.engine_cfg = cfg
+        with patched(model, "_dispatch_crop",
+                     timed(model._dispatch_crop, spans["dispatch"])), \
+                patched(model, "_finalize_crop",
+                        timed(model._finalize_crop, spans["tail"])):
+            model.generator.manual_seed(123)
+            one = [_timed_generate(model, img) for img in scenes]
+        host = {k: float(np.mean(v)) for k, v in spans.items()}
+        for v in spans.values():
+            v.clear()
+        model.generator.manual_seed(123)
+        times = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        many = model.generate_many(scenes, times_out=times)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        equal = len(many) == n and all(
+            np.array_equal(a["boxes"], b["boxes"])
+            and np.array_equal(a["scores"], b["scores"])
+            and a["rles"] == b["rles"] for a, (b, _) in zip(many, one))
+        row[name] = {
+            "detections_per_image": [len(b["boxes"]) for b, _ in one],
+            "generate_ms_per_image": [ms for _, ms in one],
+            "generate_ms_per_image_mean": float(np.mean(
+                [ms for _, ms in one])),
+            "generate_many_ms_per_image": [x * 1e3 for x in times],
+            "generate_many_wall_ms_per_image": wall / n,
+            "generate_host_ms_per_image": host,
+            "equal": equal,
+        }
+        if not equal:
+            print(json.dumps(row), flush=True)
+            raise AssertionError(f"generate_many differs from generate "
+                                 f"({name})")
+    print(json.dumps(row), flush=True)
 
 
 def phase_fused_vs_unfused(model, img):
@@ -907,7 +1256,10 @@ def main() -> int:
     phase_mask_head(small, _small_image(), "small, M=256", tail_small)
     del tail_out, tail_small
     torch.cuda.empty_cache()
-    launches = phase_end_to_end(model)
+    k7 = phase_survivor(32, 50)
+    phase_survivor(model.engine_cfg.max_keep, 60)
+    torch.cuda.empty_cache()
+    launches, loaded_launches = phase_end_to_end(model)
     phase_small_reference(small)
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")
@@ -940,6 +1292,16 @@ def main() -> int:
                           max_abs_err=row["max_abs_err"],
                           **{k: row[k] for k in keys},
                           replaced_ms=row["replaced_ms"]))
+    table.append(dict(name="survivor_rle", route="cuda",
+                      source="crowdsam_tpu_torch/csrc/survivor.cu",
+                      replaces="crowdsam_tpu/ops/survivor_kernel.py:231",
+                      launches=loaded_launches["survivor_rle"],
+                      launches_in="end_to_end_loaded",
+                      max_abs_err=k7["max_abs_err"],
+                      **{k: k7[k] for k in keys},
+                      replaced_ms=k7["replaced_ms"],
+                      interpolate_threshold_ms=k7[
+                          "interpolate_threshold_ms"]))
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

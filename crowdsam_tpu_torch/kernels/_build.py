@@ -1,10 +1,13 @@
-"""Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
+"""Build the sources in `csrc/` and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
-into `build/kernels/lib<name>_<hash>.so` under the repository root (listed in
-.gitignore), the first time a kernel of it is launched.  `build_all` starts
-one nvcc per source at once, so the build costs the slowest file, not the
-sum.  Nothing is compiled when a module is imported.
+Each `csrc/<name>.cu` (a CUDA kernel, compiled by nvcc for `sm_90a`) or
+`csrc/<name>.cpp` (host code, compiled by g++) exposes a plain C interface
+and is compiled on its own into `build/kernels/lib<name>_<hash>.so` under
+the repository root (listed in .gitignore), the first time a function of it
+is called.  `build_all` starts one compiler per source at once, so the build
+costs the slowest file, not the sum.  Nothing is compiled when a module is
+imported, and a host source never calls nvcc: the CPU tests build the host
+codec with g++ alone.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -35,7 +39,8 @@ BUILD_LOGS: Dict[str, str] = {}
 
 
 def sources() -> Dict[str, Path]:
-    return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
+    return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))
+            + sorted(CSRC_DIR.glob("*.cpp"))}
 
 
 def _nvcc() -> str:
@@ -46,6 +51,15 @@ def _nvcc() -> str:
     return path
 
 
+def _command(src: Path, out: Path, ptxas_verbose: bool) -> list:
+    if src.suffix == ".cpp":
+        return ["g++", *GXX_FLAGS, "-o", str(out), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    if ptxas_verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    return cmd
+
+
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
@@ -53,7 +67,8 @@ def _target(src: Path) -> Path:
 
 def build_all(names: Optional[Iterable[str]] = None,
               ptxas_verbose: bool = False) -> Dict[str, ctypes.CDLL]:
-    """Compile (in parallel) and load the named sources; all by default."""
+    """Compile (in parallel) and load the named sources; all by default.
+    Raises when a compiler fails: no caller goes on without its library."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     with _LOCK:
@@ -65,9 +80,7 @@ def build_all(names: Optional[Iterable[str]] = None,
             if out.exists() and not ptxas_verbose:
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
-            if ptxas_verbose:
-                cmd[1:1] = ["-Xptxas", "-v"]
+            cmd = _command(srcs[n], tmp, ptxas_verbose)
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
                         tmp, out)
@@ -76,11 +89,11 @@ def build_all(names: Optional[Iterable[str]] = None,
             log, _ = proc.communicate()
             BUILD_LOGS[n] = log
             if proc.returncode != 0:
-                failed.append(f"{n}.cu:\n{log}")
+                failed.append(f"{srcs[n].name}:\n{log}")
                 continue
             os.replace(tmp, out)
         if failed:
-            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+            raise RuntimeError("build failed\n" + "\n".join(failed))
         for n in todo:
             _LIBS[n] = ctypes.CDLL(str(_target(srcs[n])))
         return {n: _LIBS[n] for n in names}
@@ -93,14 +106,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
-    """A C entry point of `csrc/<lib_name>.cu` with its argtypes declared
+def function(lib_name: str, fn_name: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """A C entry point of `csrc/<lib_name>.*` with its argtypes declared
     (pointers and the stream as c_void_p, so none is cut to 32 bits)."""
     fn = _FUNCS.get((lib_name, fn_name))
     if fn is None:
         fn = getattr(library(lib_name), fn_name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FUNCS[(lib_name, fn_name)] = fn
     return fn
 

@@ -1,11 +1,16 @@
 """CrowdSAM: whole image -> person detections.
 
 Counterpart of the JAX package's `pipeline/crowdsam.py` for the `crowdsam`
-arch (SAM + DINOv2 + PWD-Net) with `test.output_rles: false`: per crop, the host resize, the dual-backbone
-encode, the foreground map, the EPS engine and the box survivor pass; then
-the inter-crop NMS.  `generate(image)` returns a MaskData with boxes,
-scores, categories, points and stability scores; `rles` holds None per
-detection, as the JAX package's box-only output does.
+arch (SAM + DINOv2 + PWD-Net): per crop, the host resize, the dual-backbone
+encode, the foreground map and the EPS engine (`_dispatch_crop`), then the
+survivor pass and the host tail (`_finalize_crop`); then the inter-crop
+NMS.  `generate(image)` returns a MaskData with boxes, scores, categories,
+points and stability scores; with `test.output_rles` (the default) `rles`
+holds one COCO RLE dict per detection and nonempty masks give their boxes
+at full resolution (the survivor kernel K7 and the host codec), without it
+None per detection and the low-res boxes, as the JAX package does.
+`generate_many(images)` runs `generate` over a list of images and records
+the time of each.
 
 Runs on CUDA unless `device` names another device; with no device given
 and no CUDA present it raises.  Without checkpoints the weights are random,
@@ -17,7 +22,8 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Optional, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +35,12 @@ from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.nms import nms_indices
 from crowdsam_tpu_torch.ops.resize import resize_linear
+from crowdsam_tpu_torch.ops.rle import (
+    encode_changes_coco,
+    encode_masks_coco,
+    svals_from_cand,
+    unpack_cand10,
+)
 from crowdsam_tpu_torch.ops.transforms import resize_image
 from crowdsam_tpu_torch.pipeline.engine import (
     EngineConfig,
@@ -48,9 +60,6 @@ def _unsupported(config: Dict[str, Any]) -> Optional[str]:
         return f"model.sam_arch {m['sam_arch']!r} (other archs: later slice)"
     if m.get("trainfree", False):
         return "model.trainfree (train-free branch: later slice)"
-    if t.get("output_rles", True):
-        return ("test.output_rles true (survivor RLE kernel K7: later "
-                "slice); set test.output_rles false")
     if tpu.get("rect_encode", False):
         return "tpu.rect_encode (later slice)"
     if tpu.get("fullres_cleanup", False):
@@ -112,6 +121,7 @@ class CrowdSAM:
         self.crop_n_layers = tcfg["crop_n_layers"]
         self.crop_nms_thresh = tcfg["crop_nms_thresh"]
         self.crop_overlap_ratio = tcfg["crop_overlap_ratio"]
+        self.output_rles = bool(tcfg.get("output_rles", True))
         if tcfg.get("apply_box_offsets"):
             self.logger.warning("test.apply_box_offsets: True is ignored "
                                 "(the branch is dead in the reference too)")
@@ -184,9 +194,10 @@ class CrowdSAM:
             image.shape[:2], self.crop_n_layers, self.crop_overlap_ratio)
         data = MaskData()
         for i, crop_box in enumerate(crop_boxes):
-            nz = self.draw_noise() if noise is None else torch.tensor(
+            nz = None if noise is None else torch.tensor(
                 np.asarray(noise[i]), dtype=torch.float32)
-            crop_data = self._process_crop(image, crop_box, nz)
+            crop_data = self._finalize_crop(
+                *self._dispatch_crop(image, crop_box, nz))
             if crop_data is not None:
                 data.cat(crop_data)
         if len(crop_boxes) > 1 and "crop_boxes" in data and len(
@@ -201,18 +212,32 @@ class CrowdSAM:
                 self.crop_nms_thresh)
             data.filter(keep)
             del data["crop_boxes"]
-        if len(list(data.keys())) > 0:
-            del data["iou_preds"]
-        else:
-            data["boxes"] = np.zeros((0, 4))
-            data["scores"] = np.zeros((0, 4))
-        if "rles" not in data:
-            data["rles"] = []
-        data.to_numpy()
-        return data
+        return _wrap_up(data)
 
-    def _process_crop(self, image: np.ndarray, crop_box,
-                      noise: torch.Tensor) -> Optional[MaskData]:
+    def generate_many(self, images: Sequence[np.ndarray],
+                      times_out: Optional[list] = None) -> List[MaskData]:
+        """`generate` over a list of images, in order, drawing the noise
+        from the model's generator as `generate` does.
+
+        `times_out`: optional list; the wall-clock seconds of each image
+        are appended (they sum to the loop's total).  Image k's host tail
+        is not overlapped with image k+1's dispatch: on the H100 that made
+        both slower, since each is thousands of small ops from Python."""
+        results = []
+        for image in images:
+            t = time.perf_counter()
+            results.append(self.generate(image))
+            if times_out is not None:
+                times_out.append(time.perf_counter() - t)
+        return results
+
+    def _dispatch_crop(self, image: np.ndarray, crop_box,
+                       noise: Optional[torch.Tensor]):
+        """Device work of one crop: resize, encode, FG map, EPS engine.
+        Returns the engine's result and the crop's bookkeeping for
+        `_finalize_crop`; `noise` is drawn from the generator when None."""
+        if noise is None:
+            noise = self.draw_noise()
         self.crop_image(image, crop_box)
         self.predictor.set_image_presized(self.image)
         orig_h, orig_w = self.orig_image.shape[:2]
@@ -227,23 +252,35 @@ class CrowdSAM:
             self.fg_sim, feat_hw, (in_h, in_w), crop_box, (orig_h, orig_w),
             self.downscale, noise)
         self.last_engine = res
-        return self._finalize_crop(res, crop_box, (orig_h, orig_w),
-                                   self.downscale)
+        meta = dict(crop_box=crop_box, orig_hw=(orig_h, orig_w),
+                    in_hw=(in_h, in_w), downscale=self.downscale)
+        return res, meta
 
-    def _finalize_crop(self, res, crop_box, orig_hw,
-                       downscale) -> Optional[MaskData]:
+    def _finalize_crop(self, res, meta) -> Optional[MaskData]:
+        """Host tail of one crop: the survivor pass over the kept slab rows,
+        then boxes (full-res for nonempty masks with `output_rles`) and the
+        RLE strings, from the engine's result `res` and the crop's `meta`."""
         cfg = self.engine_cfg
+        crop_box, downscale = meta["crop_box"], meta["downscale"]
+        in_h, in_w = meta["in_hw"]
         summary = res["summary"].cpu().numpy()
         idx = np.nonzero(summary[:, 0] > 0.5)[0]
         if len(idx) == 0:
             return None
-        sp = survivor_core(cfg, res["logits"][torch.as_tensor(
-            idx, device=res["logits"].device)]).cpu().numpy()
-        sel = np.nonzero(sp[:, 0] > 0.5)[0]
+        dev = res["logits"].device
+        logits = res["logits"][torch.as_tensor(idx, device=dev)]
+        if self.output_rles:
+            sp = survivor_core(cfg, logits, torch.tensor(
+                [in_h, in_w], dtype=torch.int32, device=dev), with_masks=True)
+            sp_summary = sp["summary"].cpu().numpy()
+        else:
+            sp_summary = survivor_core(cfg, logits).cpu().numpy()
+        sel = np.nonzero(sp_summary[:, 0] > 0.5)[0]
         if len(sel) == 0:
             return None
         idx_final = idx[sel]
-        boxes_lr = np.where(sp[sel, 1:2] > 0.5, sp[sel, 2:6],
+        # Changed masks take the boxes of the cleaned masks.
+        boxes_lr = np.where(sp_summary[sel, 1:2] > 0.5, sp_summary[sel, 2:6],
                             summary[idx_final, 6:10])
         boxes_in = boxes_lr * (cfg.img_size / cfg.low_res)
         data = MaskData(
@@ -254,9 +291,52 @@ class CrowdSAM:
             points=_uncrop_points_np(summary[idx_final, 10:12], crop_box,
                                      downscale),
         )
-        data["rles"] = [None] * len(sel)
+        if self.output_rles:
+            data["rles"] = self._rles(sp, sel, in_h, in_w)
+            nonempty = sp_summary[sel, 11] > 0.5
+            boxes_in = np.where(nonempty[:, None],
+                                sp_summary[sel, 6:10].astype(np.float64),
+                                boxes_in)
+        else:
+            data["rles"] = [None] * len(sel)
         data["boxes"] = _uncrop_boxes_np(boxes_in, crop_box, downscale)
-        data["rles_info"] = [crop_box, list(orig_hw)]
+        data["rles_info"] = [crop_box, list(meta["orig_hw"])]
         data["crop_boxes"] = np.asarray([crop_box] * len(sel))
         data["fboxes"] = data["boxes"]
         return data
+
+    @staticmethod
+    def _rles(sp, sel, in_h: int, in_w: int) -> list:
+        """COCO RLE dicts of the survivors `sel`: from K7's change rows, or
+        for a mask with a column of more changes than its slots from its
+        packed bitmap (only those rows leave the device)."""
+        dev = sp["cand"].device
+        sel_t = torch.as_tensor(sel, device=dev)
+        cand = unpack_cand10(sp["cand"][sel_t].cpu().numpy())
+        ncol = sp["n_col"][sel_t].cpu().numpy()
+        overflow = np.nonzero(sp["overflow"][sel_t].cpu().numpy())[0]
+        ov_rles = {}
+        if len(overflow):
+            packed = sp["packed"][torch.as_tensor(sel[overflow], device=dev)]
+            full = np.unpackbits(packed.cpu().numpy(), axis=-1)[
+                :, :in_h, :in_w].astype(bool)
+            ov_rles = dict(zip(overflow.tolist(), encode_masks_coco(full)))
+        return [ov_rles[i] if i in ov_rles else encode_changes_coco(
+                    svals_from_cand(cand[i], ncol[i], in_h), in_h * in_w,
+                    (in_h, in_w))
+                for i in range(len(sel))]
+
+
+def _wrap_up(data: MaskData) -> MaskData:
+    """The fields of an image's result as the JAX package leaves them: no
+    `iou_preds`, the (0, 4) empty arrays when nothing was detected, an
+    `rles` list, numpy arrays."""
+    if len(list(data.keys())) > 0:
+        del data["iou_preds"]
+    else:
+        data["boxes"] = np.zeros((0, 4))
+        data["scores"] = np.zeros((0, 4))
+    if "rles" not in data:
+        data["rles"] = []
+    data.to_numpy()
+    return data

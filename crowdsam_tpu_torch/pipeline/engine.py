@@ -1,13 +1,12 @@
 """Efficient Prompt Sampler (EPS) decode engine and the survivor pass.
 
-Counterpart of the JAX package's `pipeline/engine.py` with the box-only
-survivor pass (`test.output_rles: false`).  With `fused_decode` (the
-default) each batch goes through `models/fused_decode.py` and the whole loop
-works on packed masks (`ops/packed.py`): shared decoder tensors and the
-packed-flat DINO map once per image, the occupancy bitmap in packed-flat
-order, packed slab logits, and `unpack_spatial` only for the rows kept
-after NMS.  Without it the plain `MaskDecoder` decodes each batch into
-spatial masks.
+Counterpart of the JAX package's `pipeline/engine.py`.  With
+`fused_decode` (the default) each batch goes through
+`models/fused_decode.py` and the whole loop works on packed masks
+(`ops/packed.py`): shared decoder tensors and the packed-flat DINO map once
+per image, the occupancy bitmap in packed-flat order, packed slab logits,
+and `unpack_spatial` only for the rows kept after NMS.  Without it the
+plain `MaskDecoder` decodes each batch into spatial masks.
 
 - Candidates are the foreground-map cells above `pos_sim_thresh` inside the
   valid region, in the order of a STABLE argsort of a noise vector (every
@@ -28,9 +27,14 @@ spatial masks.
   (stable sort), and a per-detection summary.
 - `survivor_core`: small-region cleanup (holes, then islands) at the
   decoder resolution with the area threshold scaled by (low_res/img_size)^2,
-  boxes of the cleaned masks, and NMS that prefers unchanged masks.  The JAX
-  engine runs it speculatively in tiers inside its program; the results for
-  the survivors are the same when it runs once over them, as here.
+  boxes of the cleaned masks, and NMS that prefers unchanged masks; with
+  `with_masks` (`test.output_rles: true`) also the full-resolution mask
+  tail through `ops/survivor_kernel.survivor_rle` (K7): the cleanup as
+  low-res edits, the packed bitmap, the full-res box and the per-column
+  RLE change rows.  The JAX engine runs the pass speculatively in tiers
+  inside its program, and off the TPU extracts the change rows with an
+  8-slot XLA path; the results for the survivors are the same when it runs
+  once over them through K7 (24 slots), as here.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from crowdsam_tpu_torch.ops.packed import (
     packed_mask_to_box,
     unpack_spatial,
 )
+from crowdsam_tpu_torch.ops.survivor_kernel import survivor_rle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,11 +254,17 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
 
 
 @torch.no_grad()
-def survivor_core(cfg: EngineConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Box-only survivor pass over (k, R, R) survivor logits.
+def survivor_core(cfg: EngineConfig, logits: torch.Tensor, in_hw=None,
+                  with_masks: bool = False):
+    """Survivor pass over (k, R, R) survivor logits.
 
-    Returns (k, 6) [keep, changed, low-res box(4)], the first columns of the
-    JAX survivor summary (the rest describe the mask outputs)."""
+    Box only (`with_masks` false): (k, 6) [keep, changed, low-res box(4)],
+    the first columns of the JAX survivor summary.  With `with_masks` and
+    in_hw (2,) int32, the resized image inside the S = img_size frame: a
+    dict of the JAX survivor pass's (k, 12) summary [keep, changed, low-res
+    box(4), full-res box(4), n_changes, nonempty], K7's packed (k, S, S/8),
+    cand (k, 8, S) and n_col (k, S), and overflow (k,) bool: a column holds
+    more change rows than `cand` keeps, so the RLE needs `packed`."""
     k = logits.shape[0]
     dev = logits.device
     thresh = max(cfg.box_nms_thresh, cfg.crop_nms_thresh)
@@ -268,8 +279,21 @@ def survivor_core(cfg: EngineConfig, logits: torch.Tensor) -> torch.Tensor:
         keep = nms_mask(new_boxes, unchanged.float(), thresh, valid)
         changed = ~unchanged
     else:
+        m2 = binm
         new_boxes = batched_mask_to_box(binm).float()
         keep = valid
         changed = torch.zeros((k,), dtype=torch.bool, device=dev)
-    return torch.cat([keep[:, None].float(), changed[:, None].float(),
+    head = torch.cat([keep[:, None].float(), changed[:, None].float(),
                       new_boxes], dim=1)
+    if not with_masks:
+        return head
+    # The cleanup as low-res edits: +1 where it filled a hole, -1 where it
+    # removed an island.
+    edit = (~binm & m2).to(torch.int8) - (binm & ~m2).to(torch.int8)
+    out = survivor_rle(logits, edit, in_hw, thresh=cfg.mask_threshold)
+    ksum = out.pop("summary")
+    out["summary"] = torch.cat([
+        head, ksum[:, :4].float(), ksum[:, 5:6].float(),
+        ksum[:, 4:5].float()], dim=1)
+    out["overflow"] = ksum[:, 6] > 0
+    return out

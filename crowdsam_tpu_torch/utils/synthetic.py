@@ -2,9 +2,9 @@
 `chip_smoke.py` runs.
 
 The configuration is the JAX package's `configs/crowdhuman.yaml` (SAM ViT-L,
-DINOv2 ViT-L/14, PWD-Net, bf16; its knobs equal the DEFAULTS) with seeded
-random weights (no checkpoints ship with the repository) and the one
-option this package still needs: `test.output_rles false`.
+DINOv2 ViT-L/14, PWD-Net, bf16; its knobs equal the DEFAULTS, among them
+`test.output_rles true` and `tpu.fused_decode true`) with seeded random
+weights: no checkpoints ship with the repository.
 
 `crowd_scene` is this package's copy of the JAX bench fixture's crowd scene
 (`crowdsam_tpu/utils/bench_fixture.py`): smooth background noise with drawn
@@ -30,7 +30,6 @@ def full_width_config() -> Dict:
     return modify_config(load_config(None), [
         "model.sam_checkpoint", "", "model.dino_checkpoint", "",
         "model.sam_adapter_checkpoint", "",
-        "test.output_rles", "false",
     ])
 
 

@@ -42,7 +42,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         " crowdsam_tpu_torch.utils.weights, crowdsam_tpu_torch.ops.packed,"
         " crowdsam_tpu_torch.models.fused_decode,"
         " crowdsam_tpu_torch.models.decode_tail_kernel,"
-        " crowdsam_tpu_torch.models.mask_head_kernel\n"
+        " crowdsam_tpu_torch.models.mask_head_kernel,"
+        " crowdsam_tpu_torch.ops.rle, crowdsam_tpu_torch.ops.survivor_kernel"
+        "\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
@@ -59,6 +61,15 @@ def test_port_files_include_the_fused_decode_slice():
             "chip_smoke.py"} <= names
 
 
+def test_port_files_include_the_survivor_rle_slice():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"crowdsam_tpu_torch/ops/rle.py",
+            "crowdsam_tpu_torch/ops/survivor_kernel.py"} <= names
+    csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
+    assert (csrc / "survivor.cu").is_file()
+    assert (csrc / "rle_codec.cpp").is_file()
+
+
 @pytest.mark.parametrize("name", ["decode_tail.cu", "mask_head.cu"])
 def test_decode_kernels_are_cuda_sources_without_library_calls(name):
     """K5 and K6 are CUDA C++ built by `kernels/_build.py`: their sources
@@ -67,6 +78,46 @@ def test_decode_kernels_are_cuda_sources_without_library_calls(name):
     assert "mma.sync" in text and "__global__" in text
     for lib in ("cublas", "cutlass", "cudnn", "torch/"):
         assert lib not in text.lower()
+
+
+def test_survivor_kernel_is_a_cuda_source_without_library_calls():
+    """K7 is CUDA C++ built for sm_90a: its own scan, ballots and
+    reductions, no library; the host codec is plain C++ (no CUDA)."""
+    csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
+    text = (csrc / "survivor.cu").read_text()
+    assert "__global__" in text and "__ballot_sync" in text
+    includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+    assert includes == ["#include <cuda_bf16.h>", "#include <cuda_runtime.h>",
+                        "#include <stdint.h>"]
+    codec = (csrc / "rle_codec.cpp").read_text()
+    assert "__global__" not in codec and "cuda_" not in codec
+
+
+def test_host_sources_build_with_gxx_and_never_nvcc(monkeypatch):
+    """A `.cpp` source is built by g++; asking for it never looks for
+    nvcc, so the CPU-only tests build the codec."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    def no_nvcc():
+        raise AssertionError("nvcc asked for a host source")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    src = _build.sources()["rle_codec"]
+    cmd = _build._command(src, Path("out.so"), ptxas_verbose=True)
+    assert cmd[0] == "g++" and "-fPIC" in cmd and "-std=c++17" in cmd
+    assert _build.library("rle_codec") is not None
+
+
+def test_codec_build_failure_raises(monkeypatch, tmp_path):
+    """The codec has no fallback: a failed g++ build raises."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="broken.cpp"):
+        _build.library("broken")
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -10,7 +10,9 @@ for LayerNorm outputs of rms ~1, and for attention ~10% of the output's
 rms (bf16 probabilities into PV, bf16 rel-pos terms).  float32 LayerNorm:
 1e-5.  The two decode kernels (two-way transformer, mask head) round at the
 same points as their plain versions: 2e-2 on LayerNorm outputs of rms ~1,
-3% of the masks' rms on the masks."""
+3% of the masks' rms on the masks.  The survivor kernel (K7) and its plain
+version round the same float32 operations: its outputs are bit for bit
+equal."""
 
 import pytest
 import torch
@@ -24,6 +26,7 @@ from crowdsam_tpu_torch.models.build import init_random_, sam_model_registry
 from crowdsam_tpu_torch.models.common import cast_compute_params
 from crowdsam_tpu_torch.models.fused_decode import precompute_decode_shared
 from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
+from crowdsam_tpu_torch.ops import survivor_kernel
 from crowdsam_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 
 pytestmark = pytest.mark.cuda
@@ -196,3 +199,61 @@ def test_decode_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="tokens"):     # T > 8
         decode_tail_kernel.twoway_tail(
             *args[:4], torch.cat([tokens, tokens], dim=1), args[5])
+
+
+def _survivor_operands(gen, k, r, dtype=torch.bfloat16):
+    """Seeded logits (k, r, r), sparse edits and per-mask in_hw."""
+    s = 4 * r
+    x = (torch.randn((k, r, r), generator=gen, device="cuda") * 4).to(dtype)
+    e = torch.randint(-1, 2, (k, r, r), generator=gen, device="cuda")
+    keep = torch.rand((k, r, r), generator=gen, device="cuda") < 0.05
+    edit = torch.where(keep, e, torch.zeros_like(e)).to(torch.int8)
+    hw = torch.randint(s // 2, s + 1, (k, 2), generator=gen,
+                       device="cuda").int()
+    return x, edit, hw
+
+
+@pytest.mark.parametrize("r", [64, 256])
+@pytest.mark.parametrize("k", [1, 7, 32])
+def test_survivor_kernel(gen, r, k):
+    """K7 at R = 64 and 256, bf16 logits, per-mask in_hw: every output
+    equal to the plain version's."""
+    x, edit, hw = _survivor_operands(gen, k, r)
+    before = survivor_kernel.survivor_rle.launches
+    got = survivor_kernel.survivor_rle(x, edit, hw)
+    assert survivor_kernel.survivor_rle.launches == before + 1
+    want = survivor_kernel.survivor_rle_plain(x, edit, hw)
+    for key in ("packed", "cand", "n_col", "summary"):
+        assert got[key].dtype == want[key].dtype
+        assert torch.equal(got[key], want[key]), key
+    again = survivor_kernel.survivor_rle(x, edit, hw)
+    assert all(torch.equal(again[key], got[key]) for key in got)
+
+
+def test_survivor_kernel_refuses_what_it_does_not_take(gen):
+    x, edit, hw = _survivor_operands(gen, 2, 64)
+    with pytest.raises(TypeError):                      # float16 logits
+        survivor_kernel.survivor_rle(x.half(), edit, hw)
+    with pytest.raises(TypeError):                      # int32 edits
+        survivor_kernel.survivor_rle(x, edit.int(), hw)
+    with pytest.raises(TypeError):                      # int64 in_hw
+        survivor_kernel.survivor_rle(x, edit, hw.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        survivor_kernel.survivor_rle(x.transpose(1, 2), edit, hw)
+    with pytest.raises(ValueError, match="shape"):      # R not a multiple
+        survivor_kernel.survivor_rle(x[:, :48, :48].contiguous(),
+                                     edit[:, :48, :48].contiguous(), hw)
+    with pytest.raises(ValueError, match="on cpu"):     # in_hw on the host
+        survivor_kernel.survivor_rle(x, edit, hw.cpu())
+
+
+def test_survivor_kernel_clamps_in_hw_as_the_plain_version(gen):
+    """in_hw outside [1, S] (0, negative, above S) is clamped in the kernel
+    as in the plain version: equal outputs, no read past the staged strip."""
+    x, edit, _ = _survivor_operands(gen, 3, 64)
+    hw = torch.tensor([[0, 300], [-4, 0], [257, 1]], dtype=torch.int32,
+                      device="cuda")
+    got = survivor_kernel.survivor_rle(x, edit, hw)
+    want = survivor_kernel.survivor_rle_plain(x, edit, hw)
+    for key in ("packed", "cand", "n_col", "summary"):
+        assert torch.equal(got[key], want[key]), key

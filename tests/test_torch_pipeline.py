@@ -1,18 +1,23 @@
 """The port's whole slice against the JAX package on the CPU: the tiny
-CrowdSAM config (vit_tiny + dinov2_vits14, float32) with
-`test.output_rles false` and `tpu.fused_decode` both ways (the fused branch
-is the default), the same weights through the weight bridge, and the engine
-noise JAX draws from its key.
+CrowdSAM config (vit_tiny + dinov2_vits14, float32) with `test.output_rles`
+and `tpu.fused_decode` both ways (true is the default of both), the same
+weights through the weight bridge, and the engine noise JAX draws from its
+key.
 
 Tolerances: the FG map and the engine's per-row floats agree to 1e-4 (two
 float32 implementations of the same graph, summed in other orders);
 detections must match in count and category, boxes within 0.5 px and
-scores within 1e-4."""
+scores within 1e-4; RLE strings are equal, or their masks differ only at
+pixels whose float32 upsampled logit lies within 1e-5 of the threshold
+(the two packages upsample in another order of operations); the survivor
+pass's summary is equal."""
 
 import jax
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 import crowdsam_tpu.pipeline.engine as jax_engine
 from crowdsam_tpu.config import load_config as jax_load_config
@@ -21,7 +26,9 @@ from crowdsam_tpu.pipeline.crowdsam import CrowdSAM as JaxCrowdSAM
 from crowdsam_tpu.utils.checkpoint import jax_tree_to_numpy
 
 from crowdsam_tpu_torch.config import load_config, modify_config
+from crowdsam_tpu_torch.ops.rle import coco_decode_rle
 from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+from crowdsam_tpu_torch.pipeline.engine import EngineConfig, survivor_core
 from crowdsam_tpu_torch.utils.weights import (
     dino_state_dict_from_jax,
     sam_state_dict_from_jax,
@@ -43,6 +50,7 @@ TINY = [
     "tpu.compute_dtype", "float32",
     "test.output_rles", "false",
 ]
+TINY_RLES = TINY[:-2]           # test.output_rles left at its default, true
 FUSED = pytest.mark.parametrize("pair", ["false", "true"], indirect=True,
                                 ids=["unfused", "fused"])
 
@@ -50,9 +58,12 @@ FUSED = pytest.mark.parametrize("pair", ["false", "true"], indirect=True,
 @pytest.fixture(scope="module")
 def pair(request):
     """The JAX model and the port's with the same weights, for one setting
-    of `tpu.fused_decode` (unfused where a test does not say)."""
-    opts = list(TINY) + ["tpu.fused_decode", getattr(request, "param",
-                                                     "false")]
+    of `tpu.fused_decode` (unfused where a test does not say), or of
+    (`tpu.fused_decode`, `test.output_rles`)."""
+    param = getattr(request, "param", "false")
+    fused, rles = param if isinstance(param, tuple) else (param, "false")
+    opts = list(TINY_RLES if rles == "true" else TINY) + [
+        "tpu.fused_decode", fused]
     jm = JaxCrowdSAM(jax_modify_config(jax_load_config(None), list(opts)))
     pm = CrowdSAM(modify_config(load_config(None), list(opts)), device="cpu")
     assert pm.engine_cfg.fused_decode == jm.engine_cfg.fused_decode
@@ -82,10 +93,48 @@ def _next_noise(jm):
     return np.asarray(jax.random.uniform(sub, (n,)))
 
 
-@FUSED
+def _survivor_logits(pm):
+    """The slab logits of the port's last detections, in output order (a
+    single crop): the engine's valid rows kept by the survivor pass."""
+    res = pm.last_engine
+    idx = torch.nonzero(res["summary"][:, 0] > 0.5).flatten()
+    in_hw = torch.tensor(pm.image.shape[:2], dtype=torch.int32)
+    sp = survivor_core(pm.engine_cfg, res["logits"][idx], in_hw, True)
+    return res["logits"][idx[sp["summary"][:, 0] > 0.5]]
+
+
+def _rle_flips_near_threshold(pm, got, want):
+    """Pixels where the masks of unequal RLE strings differ; each must have
+    a float32 upsampled logit (jax.image.resize of the survivor's slab
+    logits) within 1e-5 of the threshold.  Returns their count."""
+    logits = None
+    flips = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        if logits is None:
+            logits = _survivor_logits(pm)
+        s = pm.engine_cfg.img_size
+        up = np.asarray(jax.image.resize(
+            jnp.asarray(logits[i].float().numpy()), (s, s), "linear",
+            antialias=False))[:a["size"][0], :a["size"][1]]
+        diff = coco_decode_rle(a) != coco_decode_rle(b)
+        near = np.abs(up - pm.engine_cfg.mask_threshold) <= 1e-5
+        assert near[diff].all(), f"detection {i}: flips away from the " \
+                                 "threshold"
+        flips += int(diff.sum())
+    return flips
+
+
+@pytest.mark.parametrize("pair", [("false", "false"), ("true", "false"),
+                                  ("false", "true"), ("true", "true")],
+                         indirect=True, ids=["unfused", "fused",
+                                             "unfused-rles", "fused-rles"])
 @pytest.mark.parametrize("seed,shape", [(1, (200, 256, 3)),
                                         (2, (256, 192, 3))])
 def test_generate_matches_jax(pair, seed, shape):
+    """With `test.output_rles` true the boxes of nonempty masks are the
+    full-resolution ones (K7's plain version against the JAX XLA tail)."""
     jm, pm = pair
     image = _image(seed, shape)
     noise = _next_noise(jm)
@@ -96,7 +145,92 @@ def test_generate_matches_jax(pair, seed, shape):
     np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-4)
     np.testing.assert_array_equal(got["categories"], want["categories"])
     np.testing.assert_allclose(got["points"], want["points"], atol=1e-3)
-    assert got["rles"] == [None] * len(got["boxes"])
+    if not pm.output_rles:
+        assert got["rles"] == [None] * len(got["boxes"])
+        return
+    assert all(isinstance(r["counts"], str) for r in got["rles"])
+    assert [r["size"] for r in got["rles"]] == [list(image.shape[:2])] * len(
+        got["rles"])
+    flips = _rle_flips_near_threshold(pm, got["rles"], want["rles"])
+    print(f"RLE pixels flipped at the threshold: {flips}")
+
+
+@pytest.mark.parametrize("cleanup,in_hw", [(100.0, (200, 256)),
+                                           (0.0, (256, 192)),
+                                           (400.0, (256, 256))])
+def test_survivor_core_with_masks_matches_jax(cleanup, in_hw):
+    """The engine's survivor pass with masks against the JAX package's
+    `make_survivor_pass(cfg, True)` on the same bf16 slab: summary columns
+    0-5 (keep, changed, low-res boxes), 6-9 (full-res boxes) and 11
+    (nonempty) equal; n_changes equal where neither side overflowed (JAX
+    on the CPU keeps 8 change rows a column, K7 24)."""
+    from scipy.ndimage import gaussian_filter
+
+    r, s, k = 64, 256, 6
+    kw = dict(img_size=s, low_res=r, min_mask_region_area=cleanup)
+    x = gaussian_filter(np.random.default_rng(k).normal(size=(k, r, r)),
+                        sigma=(0, 5, 5))
+    x = (x - np.median(x, axis=(1, 2), keepdims=True)) * 40
+    x[-1] = -5.0                                # one empty mask
+    logits = torch.tensor(x, dtype=torch.float32).bfloat16()
+    want = jax_engine.make_survivor_pass(jax_engine.EngineConfig(**kw), True)(
+        jnp.asarray(logits.float().numpy(), jnp.bfloat16), jnp.int32(k),
+        jnp.asarray(in_hw, jnp.int32))
+    got = survivor_core(EngineConfig(**kw), logits,
+                        torch.tensor(in_hw, dtype=torch.int32), True)
+    ws, gs = np.asarray(want["summary"]), got["summary"].numpy()
+    np.testing.assert_array_equal(gs[:, :10], ws[:, :10])
+    np.testing.assert_array_equal(gs[:, 11], ws[:, 11])
+    maxc = jax_engine.EngineConfig().max_rle_changes
+    both = ~got["overflow"].numpy() & (ws[:, 10] <= maxc)
+    assert both.sum() >= 2
+    np.testing.assert_array_equal(gs[both, 10], ws[both, 10])
+    assert gs[-1, 11] == 0 and (gs[-1, 6:10] == 0).all()
+    np.testing.assert_array_equal(got["packed"].numpy(),
+                                  np.asarray(want["packed"]))
+
+
+def test_overflowing_masks_take_the_packed_bitmap():
+    """A mask with a column of more changes than K7 keeps: `overflow` is
+    set, n_changes is the true total, and its RLE string comes from the
+    packed bitmap; every string equals the dense encoding."""
+    from crowdsam_tpu_torch.ops.rle import encode_masks_coco
+
+    r, in_hw = 64, (200, 256)
+    logits = torch.full((3, r, r), -1.0)
+    logits[0, ::2, 8:16] = 1.0                  # stripes: 25+ changes a column
+    logits[1, 10:40, 20:30] = 1.0
+    cfg = EngineConfig(img_size=4 * r, low_res=r, min_mask_region_area=0.0)
+    sp = survivor_core(cfg, logits.bfloat16(),
+                       torch.tensor(in_hw, dtype=torch.int32), True)
+    assert sp["overflow"].tolist() == [True, False, False]
+    np.testing.assert_array_equal(sp["summary"][:, 10].numpy(),
+                                  sp["n_col"].sum(1).numpy())
+    sel = np.arange(3)
+    full = np.unpackbits(sp["packed"].numpy(), axis=-1)[
+        :, :in_hw[0], :in_hw[1]].astype(bool)
+    assert CrowdSAM._rles(sp, sel, *in_hw) == encode_masks_coco(full)
+
+
+def test_generate_many_equals_generate():
+    """Three images through `generate_many` and through `generate`, on two
+    models built alike: the same noise from the same seed, the same
+    detections and RLE strings item by item, and one time per image."""
+    cfg = modify_config(load_config(None), list(TINY_RLES))
+    images = [_image(10 + i, shape) for i, shape in enumerate(
+        [(200, 256, 3), (256, 192, 3), (256, 256, 3)])]
+    one = CrowdSAM(cfg, device="cpu")
+    assert one.output_rles
+    want = [one.generate(im) for im in images]
+    times = []
+    got = CrowdSAM(cfg, device="cpu").generate_many(images, times_out=times)
+    assert len(got) == len(want) == len(times) == 3
+    assert sum(len(w["boxes"]) for w in want) > 0
+    for g, w in zip(got, want):
+        assert set(g.keys()) == set(w.keys())
+        np.testing.assert_array_equal(g["boxes"], w["boxes"])
+        np.testing.assert_array_equal(g["scores"], w["scores"])
+        assert g["rles"] == w["rles"]
 
 
 @FUSED
@@ -154,8 +288,8 @@ def test_config_defaults_equal_jax():
 
 def test_entry_point_raises_for_later_slices():
     cfg = modify_config(load_config(None), list(TINY) + [
-        "test.output_rles", "true"])
-    with pytest.raises(NotImplementedError, match="output_rles"):
+        "tpu.fullres_cleanup", "true"])
+    with pytest.raises(NotImplementedError, match="fullres_cleanup"):
         CrowdSAM(cfg, device="cpu")
     cfg = modify_config(load_config(None), list(TINY) + [
         "tpu.rect_encode", "true"])

@@ -8,10 +8,13 @@ the gitignored `build/kernels/`), then:
 1. holds every kernel against its plain PyTorch version at the main path's
    shapes in bf16, with a tolerance of its own, and shows that the same
    tolerance rejects the plain version with a known fault (a dropped key
-   tile, swapped rel-pos tables, a skipped image update, swapped sub-pixel
-   levels, a missing column link, ...); times kernel, plain version and the
-   nearest single PyTorch library call, or for the decode kernels the
-   PyTorch path they replace (one JSON line per phase).  The decode kernels
+   tile, a key tile's V read from the next tile, a tile's K dims permuted
+   inside 16-byte chunks, swapped rel-pos tables, a skipped image update,
+   swapped sub-pixel levels, a missing column link, ...); times kernel,
+   plain version and the nearest single PyTorch library call, or for the
+   decode kernels the PyTorch path they replace, and for K1-K4 the
+   kernel's own device time from torch.profiler beside the event time that
+   includes its wrapper (one JSON line per phase).  The decode kernels
    (two-way transformer, mask head) get their inputs from the full-width
    model on a seeded frame, the survivor kernel person-shaped masks from
    the crowd scenes' boxes, and its change rows must give the COCO RLE
@@ -79,6 +82,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, match=None) -> float:
+    """Device ms per call of `fn` from torch.profiler (CUDA activity only)
+    over `iters` calls after one warm-up: for each kernel whose name
+    contains `match` (every kernel when None), its median duration times
+    its launches per call.  The profiler can drop records, and a sum over
+    the records it kept would then read low."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA" and (match is None
+                                              or match in ev.name):
+            by_name.setdefault(ev.name, []).append(ev.device_time_total)
+    if not by_name:
+        raise AssertionError(f"device_ms: no device activity {match!r}")
+    return sum(float(np.median(t)) * max(1, round(len(t) / iters))
+               for t in by_name.values()) / 1e3
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
@@ -160,10 +188,13 @@ def _attention_plain(q, k, v, scale, bias=None, drop=None):
 
 
 def _relpos_bias(q, rh, rw, hw):
+    """The rel-pos bias (..., S, S) built from q and the gathered tables, in
+    q's dtype: the faults' bias (from float32 q) and the work a library
+    call needs beside SDPA (from bf16 q)."""
     from crowdsam_tpu_torch.models.attention import _rel_bias_terms
 
     h, w = hw
-    fh, fw = _rel_bias_terms(q.float(), rh.float(), rw.float(), hw)
+    fh, fw = _rel_bias_terms(q, rh, rw, hw)
     lead = q.shape[:-2]
     return (fh.reshape(*lead, h, w, h, 1)
             + fw.reshape(*lead, h, w, 1, w)).reshape(*lead, h * w, h * w)
@@ -196,10 +227,15 @@ def phase_layernorm(gen):
         t_p = time_ms(lambda: layer_norm_plain(x, w, b, eps), 10)
         t_l = time_ms(lambda: torch.nn.functional.layer_norm(
             x, (d,), wb, bb, eps), 50)
+        d_k = device_ms(lambda: layer_norm(x, w, b, eps), 50, "ln_rows")
+        d_l = device_ms(lambda: torch.nn.functional.layer_norm(
+            x, (d,), wb, bb, eps), 50)
         b_ms, by = bound(2 * n * d * 2 + 2 * d * 4, 8.0 * n * d,
                          F32_FLOP_PER_S)
-        rows.append(dict(shape=f"{n}x{d}", **cmp, ms=t_k, plain_ms=t_p,
-                         library_ms=t_l, bound_ms=b_ms, bound_by=by))
+        rows.append(dict(shape=f"{n}x{d}", **cmp, ms=t_k, device_ms=d_k,
+                         plain_ms=t_p, library_ms=t_l,
+                         library_device_ms=d_l, bound_ms=b_ms,
+                         bound_by=by))
         print(json.dumps({"phase": "K1 layer_norm", **rows[-1]}), flush=True)
     return rows
 
@@ -226,7 +262,7 @@ def phase_window(gen):
 
     win = window_partition(qkv, ws).reshape(-1, n, 3, heads, hd)
     q, k, v = win.permute(2, 0, 3, 1, 4)
-    bias = _relpos_bias(q, rh, rw, (ws, ws))
+    bias = _relpos_bias(q.float(), rh, rw, (ws, ws))
 
     def as_grid(o):                     # (nw, heads, n, hd) -> (1, Hp, Wp, C)
         return window_unpartition(o.permute(0, 2, 1, 3).reshape(-1, n, dim),
@@ -242,19 +278,38 @@ def phase_window(gen):
          window_attention_plain(qkv, rw, rh, heads, scale, ws)),
     ))
     t_k = time_ms(lambda: window_attention(qkv, rh, rw, heads, scale, ws), 20)
+    d_k = device_ms(lambda: window_attention(qkv, rh, rw, heads, scale, ws),
+                    20, "flash_attn_relpos")
     t_p = time_ms(lambda: window_attention_plain(qkv, rh, rw, heads, scale,
                                                  ws), 5)
     # Library yardstick: SDPA over the same windows with the rel-pos bias
-    # materialized beforehand.
+    # materialized beforehand (not the same work: the kernel's time covers
+    # the partition and the fh/fw terms) ...
     bias16 = bias.to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_l = time_ms(lambda: sdpa(q, k, v, attn_mask=bias16, scale=scale), 20)
+
+    # ... and the whole function in several PyTorch calls: window
+    # partition, bias from q and the tables, SDPA, unpartition.
+    def whole():
+        w_ = window_partition(qkv, ws).reshape(-1, n, 3, heads, hd)
+        q_, k_, v_ = w_.permute(2, 0, 3, 1, 4)
+        return as_grid(sdpa(q_, k_, v_, scale=scale, attn_mask=_relpos_bias(
+            q_, rh, rw, (ws, ws))))
+    whole_err = float((whole().float() - want.float()).abs().max())
+    t_w = time_ms(whole, 20)
     nw = (grid // ws) ** 2
     flops = nw * heads * (4 * n * n * hd + 2 * 2 * n * ws * hd)
     nbytes = qkv.numel() * 2 + grid * grid * dim * 2 + 2 * rh.numel() * 4
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    row = dict(shape=f"{nw}x{heads}x{n}x{hd}", **cmp, ms=t_k, plain_ms=t_p,
-               library_ms=t_l, bound_ms=b_ms, bound_by=by)
+    row = dict(shape=f"{nw}x{heads}x{n}x{hd}", **cmp, ms=t_k, device_ms=d_k,
+               plain_ms=t_p, library_ms=t_l,
+               library_covers="SDPA on the partitioned windows with the bias "
+                              "built beforehand",
+               whole_fn_ms=t_w,
+               whole_fn_covers="partition + bias from q and tables + SDPA + "
+                               "unpartition (several PyTorch calls)",
+               whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
     print(json.dumps({"phase": "K2 window_attention", **row}), flush=True)
     return row
 
@@ -278,7 +333,7 @@ def phase_global(gen):
     scale = hd ** -0.5
     want = relpos_attention_plain(q, k, v, scale, rh, rw, (g, g))
     got = flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, (g, g))
-    bias = _relpos_bias(q, rh, rw, (g, g))
+    bias = _relpos_bias(q.float(), rh, rw, (g, g))
     # Outputs of rms ~0.05, up to ~1 where the bias makes a row peaky: the
     # ulp term covers the large ones, atol (~12% of the rms) the rest.  The
     # kernel's error reaches ~0.6 of this bound, the faults ~50x it.
@@ -291,52 +346,109 @@ def phase_global(gen):
     del bias
     t_k = time_ms(lambda: flash_mha_decomposed_relpos(q, k, v, scale, rh, rw,
                                                       (g, g)), 10)
+    d_k = device_ms(lambda: flash_mha_decomposed_relpos(
+        q, k, v, scale, rh, rw, (g, g)), 10, "flash_attn_relpos")
     t_p = time_ms(lambda: relpos_attention_plain(q, k, v, scale, rh, rw,
                                                  (g, g)), 3)
-    bias16 = _relpos_bias(q, rh, rw, (g, g)).to(torch.bfloat16)
+    bias16 = _relpos_bias(q.float(), rh, rw, (g, g)).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_l = time_ms(lambda: sdpa(q, k, v, attn_mask=bias16, scale=scale), 10)
+    del bias16
+
+    def whole():    # bias from q and the tables, then SDPA
+        return sdpa(q, k, v, scale=scale,
+                    attn_mask=_relpos_bias(q, rh, rw, (g, g)))
+    whole_err = float((whole().float() - want.float()).abs().max())
+    t_w = time_ms(whole, 10)
     flops = heads * (4 * s * s * hd + 2 * 2 * s * g * hd)
     nbytes = qkv.numel() * 2 + s * dim * 2 + 2 * rh.numel() * 4
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    row = dict(shape=f"{heads}x{s}x{hd}", **cmp, ms=t_k, plain_ms=t_p,
-               library_ms=t_l, bound_ms=b_ms, bound_by=by)
+    row = dict(shape=f"{heads}x{s}x{hd}", **cmp, ms=t_k, device_ms=d_k,
+               plain_ms=t_p, library_ms=t_l,
+               library_covers="SDPA with the bias built beforehand",
+               whole_fn_ms=t_w,
+               whole_fn_covers="bias from q and tables + SDPA (several "
+                               "PyTorch calls)",
+               whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
     print(json.dumps({"phase": "K3 flash_mha_decomposed_relpos", **row}),
           flush=True)
     return row
 
 
-def phase_dino(gen):
-    from crowdsam_tpu_torch.models.attention import flash_mha, flash_mha_plain
+def _k4_case(gen, s, heads=16, hd=64):
+    """K4 at (heads, s, hd) on strided views of one qkv buffer, as DINOv2
+    hands them over: against the plain version, and the tolerance against
+    four faults of the kernel's own design (128-key tiles)."""
+    from crowdsam_tpu_torch.models.attention import (
+        TMA_KV_ROWS,
+        flash_mha,
+        flash_mha_plain,
+    )
 
-    s, heads, hd = 1 + 73 * 73, 16, 64
-    dim = heads * hd
+    bk, dim = TMA_KV_ROWS, heads * hd
     qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
         torch.bfloat16)
     q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
     scale = hd ** -0.5
     want = flash_mha_plain(q, k, v, scale, s)
     got = flash_mha(q, k, v, scale, valid_len=s)
-    tail = 64 * ((s - 1) // 64)
-    # Softmax over ~5330/e effective keys: outputs of rms ~0.023, atol ~9%
-    # of it.  The kernel's error reaches ~0.3 of this bound, a dropped key
-    # tile ~20x it.
-    cmp = compare("flash_mha", got, want, 2e-3, faults=(
+    n_tiles = -(-s // bk)
+    tail, j = bk * (n_tiles - 1), (n_tiles - 1) // 2
+    tile, nxt = slice(j * bk, (j + 1) * bk), slice((j + 1) * bk, (j + 2) * bk)
+    # A stage released too early: tile j's V already overwritten by tile
+    # j+1's.  A swizzle mismatch: tile j's K dims permuted inside each
+    # 16-byte chunk (8 dims rolled by one).
+    v_f = v.clone()
+    v_f[..., tile, :] = v[..., nxt, :]
+    k_f = k.clone()
+    k_f[..., tile, :] = k[..., tile, :].reshape(1, heads, bk, hd // 8, 8).roll(
+        1, -1).reshape(1, heads, bk, hd)
+    rms = float(want.float().square().mean().sqrt())
+    # Softmax over ~s/e effective keys: atol 9% of the output's rms, the
+    # mean error 1% of it.  The kernel rounds P to bf16 for the PV product
+    # and otherwise accumulates in f32: its error is a fraction of either.
+    # One faulty tile among dozens moves every output a little: the mean
+    # sees it.
+    cmp = compare(f"flash_mha s={s}", got, want, 0.09 * rms, faults=(
         (f"last key tile (keys {tail}-{s - 1}) dropped",
          _attention_plain(q, k, v, scale, drop=slice(tail, s))),
-        ("first key tile (keys 0-63) dropped",
-         _attention_plain(q, k, v, scale, drop=slice(0, 64))),
-    ))
-    t_k = time_ms(lambda: flash_mha(q, k, v, scale, valid_len=s), 10)
-    t_p = time_ms(lambda: flash_mha_plain(q, k, v, scale, s), 3)
+        (f"first key tile (keys 0-{bk - 1}) dropped",
+         _attention_plain(q, k, v, scale, drop=slice(0, bk))),
+        (f"key tile {j}'s V read from tile {j + 1} (stage released early)",
+         _attention_plain(q, k, v_f, scale)),
+        (f"key tile {j}'s K dims permuted inside 16-byte chunks (swizzle "
+         f"mismatch)", _attention_plain(q, k_f, v, scale)),
+    ), mean_atol=0.01 * rms)
+    del v_f, k_f
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_l = time_ms(lambda: sdpa(q, k, v, scale=scale), 10)
-    b_ms, by = bound(qkv.numel() * 2 + s * dim * 2, heads * 4 * s * s * hd,
-                     BF16_FLOP_PER_S)
-    row = dict(shape=f"{heads}x{s}x{hd}", **cmp, ms=t_k, plain_ms=t_p,
-               library_ms=t_l, bound_ms=b_ms, bound_by=by)
-    print(json.dumps({"phase": "K4 flash_mha", **row}), flush=True)
-    return row
+    # Kernel and SDPA in turns, twice; the faster run of each is kept.
+    runs_k, runs_l = [], []
+    for _ in range(2):
+        runs_k.append(time_ms(lambda: flash_mha(q, k, v, scale, valid_len=s),
+                              20))
+        runs_l.append(time_ms(lambda: sdpa(q, k, v, scale=scale), 20))
+    d_k = device_ms(lambda: flash_mha(q, k, v, scale, valid_len=s), 20,
+                    "flash_attn_sm90")
+    d_l = device_ms(lambda: sdpa(q, k, v, scale=scale), 20)
+    t_p = time_ms(lambda: flash_mha_plain(q, k, v, scale, s), 3)
+    flops = heads * 4 * s * s * hd
+    b_ms, by = bound(qkv.numel() * 2 + s * dim * 2, flops, BF16_FLOP_PER_S)
+    t_k, t_l = min(runs_k), min(runs_l)
+    return dict(shape=f"{heads}x{s}x{hd}", **cmp, ms=t_k, ms_runs=runs_k,
+                device_ms=d_k, plain_ms=t_p, library_ms=t_l,
+                library_ms_runs=runs_l, library_device_ms=d_l,
+                library_covers="SDPA on the same strided views",
+                kernel_over_library=t_k / t_l, bound_ms=b_ms, bound_by=by,
+                bound_share=b_ms / t_k, tflops=flops / t_k / 1e9)
+
+
+def phase_dino(gen):
+    """K4 at the main path's 1 + 73^2 tokens, then at 4096 and 1000."""
+    rows = []
+    for s in (1 + 73 * 73, 4096, 1000):
+        rows.append(_k4_case(gen, s))
+        print(json.dumps({"phase": "K4 flash_mha", **rows[-1]}), flush=True)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -1235,7 +1347,7 @@ def main() -> int:
     ln_rows = phase_layernorm(gen)
     k2 = phase_window(gen)
     k3 = phase_global(gen)
-    k4 = phase_dino(gen)
+    k4 = phase_dino(gen)[0]
     torch.cuda.empty_cache()
 
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
@@ -1271,17 +1383,23 @@ def main() -> int:
              replaces="crowdsam_tpu/ops/layernorm.py:34",
              launches=launches["layer_norm"],
              max_abs_err=max(r["max_abs_err"] for r in ln_rows),
-             **{k: ln[k] for k in keys}),
+             **{k: ln[k] for k in keys}, device_ms=ln["device_ms"],
+             library_device_ms=ln["library_device_ms"]),
     ]
-    for name, rep, row in (
-            ("window_attention", "crowdsam_tpu/models/attention.py:163", k2),
-            ("flash_mha_decomposed_relpos",
-             "crowdsam_tpu/models/attention.py:126", k3),
-            ("flash_mha", "crowdsam_tpu/models/attention.py:86", k4)):
-        table.append(dict(name=name, route="cuda", source=src_attn,
+    for name, src, rep, row, extra in (
+            ("window_attention", src_attn,
+             "crowdsam_tpu/models/attention.py:163", k2, ("whole_fn_ms",)),
+            ("flash_mha_decomposed_relpos", src_attn,
+             "crowdsam_tpu/models/attention.py:126", k3, ("whole_fn_ms",)),
+            ("flash_mha", "crowdsam_tpu_torch/csrc/flash_sm90.cu",
+             "crowdsam_tpu/models/attention.py:86", k4,
+             ("library_device_ms", "kernel_over_library"))):
+        table.append(dict(name=name, route="cuda", source=src,
                           replaces=rep, launches=launches[name],
                           max_abs_err=row["max_abs_err"],
-                          **{k: row[k] for k in keys}))
+                          **{k: row[k] for k in keys},
+                          device_ms=row["device_ms"],
+                          **{k: row[k] for k in extra}))
     for name, src, rep, row in (
             ("twoway_tail", "crowdsam_tpu_torch/csrc/decode_tail.cu",
              "crowdsam_tpu/models/decode_tail_kernel.py:359", k5),

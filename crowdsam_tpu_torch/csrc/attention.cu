@@ -1,15 +1,15 @@
-// Flash attention (head dim 64, bf16) for Hopper (sm_90a), with an optional
+// Flash attention (head dim 64, bf16) for Hopper (sm_90a) with the
 // decomposed relative-position bias added in the kernel.
 //
-// Replaces three TPU kernels of crowdsam_tpu/models/attention.py:
+// Replaces two TPU kernels of crowdsam_tpu/models/attention.py:
 //   - `window_attention_pallas`      (SAM window blocks: 14x14 windows),
 //   - `flash_mha_decomposed_relpos`  (SAM global blocks: 64x64 grid),
-//   - `flash_mha`                    (DINOv2 blocks: 1 + 73^2 tokens),
-// the last two through the library Pallas `flash_attention`.
+// the second through the library Pallas `flash_attention`.  DINOv2's
+// `flash_mha` (no bias) runs on its own kernel, csrc/flash_sm90.cu.
 //
-// Bound: tensor-core operations for the global and DINOv2 shapes (4*S^2*64
-// FLOP per head against 4*S*64*2 bytes of q/k/v/o: ~1000 FLOP/byte), memory
-// for the 196-token windows (~100 FLOP/byte, below the card's ~295).
+// Bound: tensor-core operations for the global shape (4*S^2*64 FLOP per
+// head against 4*S*64*2 bytes of q/k/v/o: ~1000 FLOP/byte), memory for the
+// 196-token windows (~100 FLOP/byte, below the card's ~295).
 //
 // Design: one block of four warps per (batch or window, head, 64-query
 // tile); each warp owns 16 query rows.  K and V tiles of 64 keys are staged
@@ -35,7 +35,8 @@
 // a window of a padded (Hp, Wp) grid and token t = (t / ws, t % ws) inside
 // it.  Heads sit at h*hstride.  The head dimension must be contiguous.
 // K/V tiles are double-buffered with cp.async: the next tile loads while
-// this one is computed.  No TMA, no wgmma yet.
+// this one is computed.  No TMA, no wgmma yet: csrc/flash_sm90.cu shows
+// the pipeline this kernel can take, with the bias in its softmax.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -133,16 +134,13 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int FPAD = MAXREL + 2;  // fh/fw row stride: rows on distinct banks
 
-// Dynamic shared memory: K and V, two buffers each, then (BIAS) the query
-// tile's fh/fw rows and each buffer's key row/column tables.
+// Dynamic shared memory: K and V, two buffers each, then the query tile's
+// fh/fw rows and each buffer's key row/column tables.
 constexpr int KV_BYTES = 2 * BK * KPAD * 2;
-__host__ __device__ constexpr int smem_bytes(bool bias) {
-  return 2 * KV_BYTES + (bias ? 2 * BQ * FPAD * 2 + 4 * BK : 0);
-}
+constexpr int SMEM_BYTES = 2 * KV_BYTES + 2 * BQ * FPAD * 2 + 4 * BK;
 
-template <bool BIAS>
 __global__ void __launch_bounds__(128)
-flash_attn(const Params p) {
+flash_attn_relpos(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   typedef __nv_bfloat16 Tile[BK][KPAD];
   Tile* ks = reinterpret_cast<Tile*>(smem);
@@ -161,7 +159,7 @@ flash_attn(const Params p) {
   const int q_tile = blockIdx.x * BQ;
 
   // Stage one 64-key tile of K and V (16 bytes a thread a step, keys past
-  // kv_len zero-filled) and, with the bias, its keys' rows and columns.
+  // kv_len zero-filled) and its keys' rows and columns.
   auto load_tile = [&](int kt, int buf) {
 #pragma unroll
     for (int it = 0; it < 4; ++it) {
@@ -178,7 +176,7 @@ flash_attn(const Params p) {
       cp_async16(&ks[buf][key][chunk], kp, ok ? 16 : 0);
       cp_async16(&vs[buf][key][chunk], vp, ok ? 16 : 0);
     }
-    if (BIAS && tid < BK) {
+    if (tid < BK) {
       const int kg = kt + tid;
       krs[buf * BK + tid] = (unsigned char)(kg / p.rel_w);
       kcs[buf * BK + tid] = (unsigned char)(kg % p.rel_w);
@@ -187,7 +185,7 @@ flash_attn(const Params p) {
   };
   load_tile(0, 0);
 
-  if (BIAS) {
+  {
     const long long base = ((long long)b * p.heads + h) * p.seq;
     for (int e = tid; e < BQ * p.rel_h; e += 128) {
       const int r = e / p.rel_h, j = e % p.rel_h;
@@ -265,15 +263,13 @@ flash_attn(const Params p) {
         const int kl = n * 8 + 2 * t4 + j, kg = kt + kl;
         float x0 = s[n][j] * p.scale_log2;
         float x1 = s[n][2 + j] * p.scale_log2;
-        if (BIAS) {
-          const int kr = krs[buf * BK + kl], kc = kcs[buf * BK + kl];
-          const float kb = 1.4426950408889634f;
-          if (kg < p.kv_len) {
-            x0 += kb * (__bfloat162float(fhs[lr0][kr]) +
-                        __bfloat162float(fws[lr0][kc]));
-            x1 += kb * (__bfloat162float(fhs[lr1][kr]) +
-                        __bfloat162float(fws[lr1][kc]));
-          }
+        const int kr = krs[buf * BK + kl], kc = kcs[buf * BK + kl];
+        const float kb = 1.4426950408889634f;
+        if (kg < p.kv_len) {
+          x0 += kb * (__bfloat162float(fhs[lr0][kr]) +
+                      __bfloat162float(fws[lr0][kc]));
+          x1 += kb * (__bfloat162float(fhs[lr1][kr]) +
+                      __bfloat162float(fws[lr1][kc]));
         }
         if (kg >= p.kv_len) x0 = x1 = -INFINITY;
         s[n][j] = x0;
@@ -358,8 +354,8 @@ flash_attn(const Params p) {
 }  // namespace
 
 // strides: host array of 12 int64, (batch, head, token) strides in elements
-// for q, k, v, o in that order.  fh/fw may be null (no bias); otherwise
-// contiguous (batch, heads, seq, rel_h) / (..., rel_w) bf16.
+// for q, k, v, o in that order.  fh/fw: contiguous (batch, heads, seq,
+// rel_h) / (..., rel_w) bf16.
 // win == 0: global layout; win > 0: windows of a (nwh*win, nww*win) grid of
 // row width grid_w tokens.  Returns cudaGetLastError().
 extern "C" int attn_forward(const void* q, const void* k, const void* v,
@@ -391,22 +387,16 @@ extern "C" int attn_forward(const void* q, const void* k, const void* v,
   p.grid_w = grid_w;
   p.rel_h = rel_h;
   p.rel_w = rel_w;
-  if (fh != nullptr && (rel_h > MAXREL || rel_w > MAXREL || rel_w < 1))
+  if (fh == nullptr || fw == nullptr || rel_h > MAXREL || rel_w > MAXREL ||
+      rel_w < 1)
     return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attn_relpos, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (seq > 0 && batch > 0) {
-    const bool bias = fh != nullptr;
-    const int bytes = smem_bytes(bias);
-    const void* fn = bias ? (const void*)flash_attn<true>
-                          : (const void*)flash_attn<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    if (bias)
-      flash_attn<true><<<grid, 128, bytes, st>>>(p);
-    else
-      flash_attn<false><<<grid, 128, bytes, st>>>(p);
-  }
+  if (seq > 0 && batch > 0)
+    flash_attn_relpos<<<grid, 128, SMEM_BYTES, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-"""Attention for the two ViT backbones: the CUDA kernels K2, K3 and K4
-(`csrc/attention.cu`, one templated flash kernel) and their plain PyTorch
-versions.
+"""Attention for the two ViT backbones: the CUDA kernels K2 and K3
+(`csrc/attention.cu`, a flash kernel with the rel-pos bias) and K4
+(`csrc/flash_sm90.cu`, TMA + wgmma), and their plain PyTorch versions.
 
 Counterparts of the JAX package's `models/attention.py`:
 
@@ -14,8 +14,10 @@ Counterparts of the JAX package's `models/attention.py`:
 The TPU kernels fold the rel-pos bias into QK^T by widening the head; the
 CUDA kernel adds it to the logits instead: bias[q, k] = fh[q, row(k)] +
 fw[q, col(k)] with fh = q.Rh[row(q)] and fw = q.Rw[col(q)] computed here, as
-the JAX code computes them.  The kernel reads q/k/v straight out of the qkv
-projection through strides, so no head transpose is materialized.
+the JAX code computes them.  The kernels read q/k/v straight out of the qkv
+projection through strides, so no head transpose is materialized: K4
+through one TMA tensor map per operand, whose host-side layout
+`tma_layout` builds and checks.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
 launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
@@ -24,6 +26,8 @@ launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -37,8 +41,17 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p,
 )
+_SM90_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+)
 HEAD_DIM = 64
 MAX_REL = 64
+# Tokens a TMA box of K4 brings: a block's query rows and a stage's keys
+# (csrc/flash_sm90.cu BQ and BK; the kernel refuses other boxes).
+TMA_Q_ROWS = 64
+TMA_KV_ROWS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -136,18 +149,74 @@ def _check_operand(t: torch.Tensor, name: str) -> None:
 
 
 def _launch(q, k, v, out, fh, fw, strides, *, batch: int, heads: int,
-            seq: int, kv_len: int, scale: float, win: int = 0, nwh: int = 0,
-            nww: int = 0, grid_w: int = 0, rel_h: int = 0,
-            rel_w: int = 0) -> None:
+            seq: int, kv_len: int, scale: float, rel_h: int, rel_w: int,
+            win: int = 0, nwh: int = 0, nww: int = 0,
+            grid_w: int = 0) -> None:
     st = (ctypes.c_longlong * 12)(*strides)
     fn = _build.function("attention", "attn_forward", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                fh.data_ptr() if fh is not None else None,
-                fw.data_ptr() if fw is not None else None,
+                fh.data_ptr(), fw.data_ptr(),
                 ctypes.cast(st, ctypes.c_void_p), batch, heads, seq, kv_len,
                 float(scale), win, nwh, nww, grid_w, rel_h, rel_w,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "attention")
+
+
+@dataclass(frozen=True)
+class TmaLayout:
+    """Host-side layout of the TMA tensor map of one K4 operand: `dims` in
+    elements, innermost (the head dim) first; `strides` in bytes, of dims
+    1-3; `box` the tile one load brings (64 dims x `rows` tokens);
+    `pos` the map dim (1-3) of the head, the token and the batch axis."""
+
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    pos: Tuple[int, int, int]
+
+    def row(self) -> list:
+        """The 14 int64 that `flash_sm90_forward` reads per operand."""
+        return [*self.dims, *self.strides, *self.box, *self.pos]
+
+
+def tma_layout(t: torch.Tensor, name: str = "operand",
+               rows: int = TMA_KV_ROWS) -> TmaLayout:
+    """The tensor map of a (B, H, S, 64) bf16 view, read in place, whose
+    box brings `rows` tokens: the head, token and batch axes become map
+    dims 1-3 in order of stride (the CUDA driver's maps grow outwards), an
+    axis of extent 1 taking the stride past the others.  Raises on what TMA
+    does not take: a head dim other than 64 or not contiguous, a base or
+    stride not a multiple of 16 bytes."""
+    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
+        raise ValueError(f"flash_mha: {name} of shape {tuple(t.shape)}: "
+                         f"head dim must be {HEAD_DIM}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"flash_mha: {name} must be bfloat16, got {t.dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_mha: {name} head dim must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_mha: {name} base must be 16-byte aligned")
+    lay = _layout_of(tuple(t.shape), t.stride(), t.element_size(), rows)
+    if any(st <= 0 or st % 16 for st in lay.strides):
+        raise ValueError(f"flash_mha: {name} strides {lay.strides} bytes: "
+                         f"TMA needs positive multiples of 16")
+    return lay
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_of(shape, stride, esz: int, rows: int) -> TmaLayout:
+    """`tma_layout` of a shape and strides (cached: 24 calls a frame)."""
+    b, h, s, _ = shape
+    axes = [(h, stride[1]), (s, stride[2]), (b, stride[0])]
+    span = max([HEAD_DIM] + [n * st for n, st in axes if n > 1])
+    axes = [(n, st if n > 1 else span) for n, st in axes]
+    order = sorted(range(3), key=lambda i: axes[i][1])
+    pos = tuple(order.index(i) + 1 for i in range(3))
+    box = [HEAD_DIM, 1, 1, 1]
+    box[pos[1]] = rows
+    return TmaLayout(dims=(HEAD_DIM,) + tuple(axes[i][0] for i in order),
+                     strides=tuple(axes[i][1] * esz for i in order),
+                     box=tuple(box), pos=pos)
 
 
 def _bhsd_strides(*ts):
@@ -234,25 +303,53 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _int64_array(values: tuple):
+    """`values` as a ctypes int64 array, cached: the C side reads it only
+    during the call, and the same layouts come back 24 times a frame."""
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+_SM90_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
+                -2: "tensor map of q refused", -3: "tensor map of k refused",
+                -4: "tensor map of v refused"}
+
+
 def flash_mha(q, k, v, sm_scale: float,
               valid_len: Optional[int] = None) -> torch.Tensor:
     """Non-causal attention (K4): (B, H, S, D) -> (B, H, S, D), keys at or
-    beyond `valid_len` masked.  Views with a contiguous head dim are read in
-    place; the output is a (B, S, H, D) buffer seen as (B, H, S, D)."""
+    beyond `valid_len` masked.  Views with a contiguous head dim and 16-byte
+    aligned strides are read in place (`tma_layout`); the output is a (B, S,
+    H, D) buffer seen as (B, H, S, D)."""
     if not _device_check(q, "flash_mha"):
         return flash_mha_plain(q, k, v, sm_scale, valid_len)
     b, nh, s, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash_mha: head dim {d} (only {HEAD_DIM})")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_operand(t, name)
+    for t, name in ((k, "k"), (v, "v")):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"flash_mha: {name} {tuple(t.shape)} on "
+                             f"{t.device}, q {tuple(q.shape)} on {q.device}")
+    layouts = (tma_layout(q, "q", TMA_Q_ROWS), tma_layout(k, "k"),
+               tma_layout(v, "v"))
     vlen = s if valid_len is None else int(valid_len)
     if not 0 < vlen <= s:
         raise ValueError(f"flash_mha: valid_len {vlen} outside (0, {s}]")
+    if max(b, nh) > 65535:
+        raise ValueError(f"flash_mha: batch {b} or heads {nh} above 65535")
     out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
-    _launch(q, k, v, out, None, None, _bhsd_strides(q, k, v, out), batch=b,
-            heads=nh, seq=s, kv_len=vlen, scale=sm_scale)
+    lay = _int64_array(tuple(x for lt in layouts for x in lt.row()))
+    ost = _int64_array(out.stride()[:3])
+    fn = _build.function("flash_sm90", "flash_sm90_forward", _SM90_ARGTYPES)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ctypes.cast(lay, ctypes.c_void_p),
+                ctypes.cast(ost, ctypes.c_void_p), b, nh, s, vlen,
+                float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if status in _SM90_ERRORS:
+        raise RuntimeError(f"flash_mha: {_SM90_ERRORS[status]}")
+    _build.check(status, "flash_mha")
     flash_mha.launches += 1
     return out
 

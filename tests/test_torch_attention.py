@@ -119,3 +119,74 @@ def test_wrappers_reject_unsupported_devices():
     x = torch.zeros(1, 2, 4, 64, device="meta")
     with pytest.raises(ValueError, match="device"):
         attention.flash_mha(x, x, x, 0.125)
+
+
+def test_flash_mha_strided_qkv_matches_pallas():
+    """K4's operands as the DINOv2 block hands them over: strided q/k/v
+    views of one (B, S, 3, H, D) qkv buffer, at a ragged length (1 + 9^2
+    tokens: the Pallas path pads to 128, the port's kernel masks its last
+    key tile)."""
+    rng = np.random.default_rng(5)
+    b, s, heads, hd = 2, 1 + 9 * 9, 2, 64
+    qkv = _normal(rng, (b, s, 3 * heads * hd))
+    t = torch.from_numpy(qkv).reshape(b, s, 3, heads, hd).permute(2, 0, 3, 1,
+                                                                   4)
+    assert t[0].stride() == (s * 3 * heads * hd, hd, 3 * heads * hd, 1)
+    jt = jnp.asarray(qkv).reshape(b, s, 3, heads, hd).transpose(2, 0, 3, 1, 4)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.flash_mha(jt[0], jt[1], jt[2], sm_scale=hd ** -0.5,
+                               valid_len=s)
+    got = attention.flash_mha(t[0], t[1], t[2], hd ** -0.5, valid_len=s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_tma_layout_of_dinov2_views():
+    """The tensor maps of the main path's q/k/v: dims {64, H, S, B}, byte
+    strides {hs, ld, bs} x 2, a box of 64 dims x 128 tokens (64 for q);
+    k and v start 2048 and 4096 bytes into the qkv buffer, 16-byte
+    aligned."""
+    s, heads, hd = 1 + 73 * 73, 16, 64
+    qkv = torch.empty((1, s, 3 * heads * hd), dtype=torch.bfloat16)
+    views = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    for i, t in enumerate(views):
+        rows = attention.TMA_Q_ROWS if i == 0 else attention.TMA_KV_ROWS
+        lay = attention.tma_layout(t, rows=rows)
+        assert lay.dims == (64, heads, s, 1)
+        assert lay.strides == (128, 3 * heads * hd * 2, s * 3 * heads * hd * 2)
+        assert lay.box == (64, 1, rows, 1)
+        assert lay.pos == (1, 2, 3)
+        assert t.data_ptr() - qkv.data_ptr() == 2048 * i
+        assert len(lay.row()) == 14
+
+
+def test_tma_layout_orders_dims_by_stride():
+    """A contiguous (B, H, S, 64) operand: the token axis is the map's dim 1,
+    the head dim 2, the batch dim 3; the box spans the token dim."""
+    b, heads, s = 2, 3, 130
+    lay = attention.tma_layout(torch.empty((b, heads, s, 64),
+                                           dtype=torch.bfloat16))
+    assert lay.dims == (64, s, heads, b)
+    assert lay.strides == (128, s * 128, heads * s * 128)
+    assert lay.pos == (2, 1, 3)
+    assert lay.box == (64, attention.TMA_KV_ROWS, 1, 1)
+
+
+def _odd_views():
+    buf = torch.empty(16 * 64 * 1028 + 64, dtype=torch.bfloat16)
+    return {
+        # token stride 1028 elements = 2056 bytes, not a multiple of 16
+        "stride": (ValueError, "multiples of 16",
+                   buf.as_strided((1, 16, 64, 64), (64 * 1028, 64, 1028, 1))),
+        "head dim": (ValueError, "head dim",
+                     torch.empty((1, 2, 64, 32), dtype=torch.bfloat16)),
+        "base": (ValueError, "16-byte aligned",
+                 buf[1:1 + 2 * 64 * 64].reshape(1, 2, 64, 64)),
+        "dtype": (TypeError, "bfloat16", torch.empty((1, 2, 64, 64))),
+    }
+
+
+@pytest.mark.parametrize("case", ["stride", "head dim", "base", "dtype"])
+def test_tma_layout_refuses_what_tma_does_not_take(case):
+    err, match, t = _odd_views()[case]
+    with pytest.raises(err, match=match):
+        attention.tma_layout(t)

@@ -93,6 +93,29 @@ def test_survivor_kernel_is_a_cuda_source_without_library_calls():
     assert "__global__" not in codec and "cuda_" not in codec
 
 
+def test_flash_sm90_is_a_tma_wgmma_kernel_without_libcuda():
+    """K4 is CUDA C++ for sm_90a: TMA tensor loads behind mbarriers and
+    wgmma for both products, no mma.sync and no library; the tensor maps
+    are encoded through the runtime's driver entry point, so no source is
+    linked against libcuda; `attention.cu` keeps only the rel-pos kernel."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
+    text = (csrc / "flash_sm90.cu").read_text()
+    for needle in ("cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                   "setmaxnreg", "cudaGetDriverEntryPoint"):
+        assert needle in text, needle
+    assert "mma.sync" not in text and "ldmatrix" not in text
+    for lib in ("cublas", "cutlass", "cute/", "cudnn", "torch/"):
+        assert lib not in text.lower()
+    assert not any("cuda" in f and f.startswith("-l")
+                   for f in _build.NVCC_FLAGS)
+    attn = (csrc / "attention.cu").read_text()
+    assert "flash_attn_relpos" in attn and "template <bool" not in attn
+
+
 def test_host_sources_build_with_gxx_and_never_nvcc(monkeypatch):
     """A `.cpp` source is built by g++; asking for it never looks for
     nvcc, so the CPU-only tests build the codec."""

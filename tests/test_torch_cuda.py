@@ -7,8 +7,8 @@ holds the same kernels at the main path's shapes.  Tolerances in bf16 are
 atol + 2^-7 |y|: the last term is one bf16 ulp of the output (both sides
 round to bf16), atol is each kernel's own (as in `chip_smoke.py`): 1e-2
 for LayerNorm outputs of rms ~1, and for attention ~10% of the output's
-rms (bf16 probabilities into PV, bf16 rel-pos terms).  float32 LayerNorm:
-1e-5.  The two decode kernels (two-way transformer, mask head) round at the
+rms or less (bf16 probabilities into PV, bf16 rel-pos terms).  float32
+LayerNorm: 1e-5.  The two decode kernels (two-way transformer, mask head) round at the
 same points as their plain versions: 2e-2 on LayerNorm outputs of rms ~1,
 3% of the masks' rms on the masks.  The survivor kernel (K7) and its plain
 version round the same float32 operations: its outputs are bit for bit
@@ -94,6 +94,39 @@ def test_flash_kernels(gen, valid):
     _close(got, want, 1e-2)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("s", [64, 130, 1000])
+def test_flash_mha_sm90_kernel(gen, s, short, layout):
+    """K4 (TMA + wgmma) at batch 2: one key tile, a ragged second tile, and
+    eight tiles; keys from valid_len on masked; contiguous (B, H, S, 64)
+    operands and strided views of one qkv buffer (the latter bit for bit
+    equal to the kernel on contiguous copies).  atol 7% of the output's
+    rms (bf16 probabilities into PV)."""
+    b, heads, hd = 2, 3, 64
+    if layout == "strided":
+        qkv = torch.randn((b, s, 3 * heads * hd), generator=gen,
+                          device="cuda").bfloat16()
+        q, k, v = qkv.reshape(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    else:
+        q, k, v = (torch.randn((b, heads, s, hd), generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+    valid = s - 37 if short else None
+    before = attention.flash_mha.launches
+    got = attention.flash_mha(q, k, v, 0.125, valid_len=valid)
+    assert attention.flash_mha.launches == before + 1
+    assert got.shape == (b, heads, s, hd) and got.stride(2) == heads * hd
+    want = attention.flash_mha_plain(q, k, v, 0.125, valid)
+    rms = float(want.float().square().mean().sqrt())
+    _close(got, want, 0.07 * rms)
+    again = attention.flash_mha(q, k, v, 0.125, valid_len=valid)
+    assert torch.equal(again, got)
+    if layout == "strided":
+        dense = attention.flash_mha(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), 0.125, valid_len=valid)
+        assert torch.equal(dense, got)
+
+
 def test_kernels_refuse_what_they_do_not_take(gen):
     x = torch.randn((1, 2, 16, 32), device="cuda").bfloat16()
     with pytest.raises(ValueError, match="head dim"):
@@ -101,6 +134,10 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(TypeError):
         attention.flash_mha(*(torch.randn((1, 2, 16, 64), device="cuda"),) * 3,
                             0.125)
+    odd = torch.randn((1, 16, 2 * 1028), device="cuda").bfloat16()
+    odd = odd.as_strided((1, 2, 16, 64), (16 * 2 * 1028, 64, 2 * 1028 - 4, 1))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        attention.flash_mha(odd, odd, odd, 0.125)
     w = torch.ones(1536, device="cuda")
     with pytest.raises(ValueError, match="width"):
         layer_norm(torch.randn((5, 1536), device="cuda"), w, w, 1e-5)

@@ -12,9 +12,10 @@ the gitignored `build/kernels/`), then:
    inside 16-byte chunks, swapped rel-pos tables, a skipped image update,
    swapped sub-pixel levels, a missing column link, ...); times kernel,
    plain version and the nearest single PyTorch library call, or for the
-   decode kernels the PyTorch path they replace, and for K1-K4 the
-   kernel's own device time from torch.profiler beside the event time that
-   includes its wrapper (one JSON line per phase).  The decode kernels
+   decode kernels the PyTorch path they replace, and every kernel's own
+   device time from torch.profiler beside the event time that includes its
+   wrapper (K5: the span of its ten overlapping launches, and each launch
+   kind's duration; one JSON line per phase).  The decode kernels
    (two-way transformer, mask head) get their inputs from the full-width
    model on a seeded frame, the survivor kernel person-shaped masks from
    the crowd scenes' boxes, and its change rows must give the COCO RLE
@@ -50,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,29 +86,78 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, match=None) -> float:
-    """Device ms per call of `fn` from torch.profiler (CUDA activity only)
-    over `iters` calls after one warm-up: for each kernel whose name
-    contains `match` (every kernel when None), its median duration times
-    its launches per call.  The profiler can drop records, and a sum over
-    the records it kept would then read low."""
+def _kernel_name(name: str) -> str:
+    """A profiler kernel name without `void`, the anonymous namespace and
+    the argument list: `row_phase<1>`, `flash_attn_sm90`."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = re.sub(r"^void ", "", name)
+    return re.sub(r"\(.*$", "", name)
+
+
+def _cuda_events(fn, iters: int, match=None, tries: int = 3):
+    """The device events of `iters` calls of `fn` under torch.profiler (CUDA
+    activity only, after one warm-up) whose kernel name contains `match`
+    (all when None).  The profiler now and then keeps no record of a whole
+    window: the window is profiled again, up to `tries` times, before the
+    measurement fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events() if ev.device_type.name == "CUDA"
+                  and (match is None or match in ev.name)]
+        if events:
+            return events
+    raise AssertionError(f"no device activity {match!r} in {tries} "
+                         f"profiles")
+
+
+def device_split(fn, iters: int, match=None) -> dict:
+    """Device ms per call of `fn` by kernel, from torch.profiler over
+    `iters` calls (`_cuda_events`): for each kernel whose name contains
+    `match` (every kernel when None), its median duration times its
+    launches per call.  The profiler can drop records, and a sum over the
+    records it kept would then read low."""
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type.name == "CUDA" and (match is None
-                                              or match in ev.name):
-            by_name.setdefault(ev.name, []).append(ev.device_time_total)
-    if not by_name:
-        raise AssertionError(f"device_ms: no device activity {match!r}")
-    return sum(float(np.median(t)) * max(1, round(len(t) / iters))
-               for t in by_name.values()) / 1e3
+    for ev in _cuda_events(fn, iters, match):
+        by_name.setdefault(ev.name, []).append(ev.device_time_total)
+    out = {}
+    for name, t in by_name.items():
+        short = _kernel_name(name)
+        out[short] = out.get(short, 0.0) + float(np.median(t)) * max(
+            1, round(len(t) / iters)) / 1e3
+    return out
+
+
+def device_ms(fn, iters: int, match=None) -> float:
+    """Device ms per call of `fn`: the sum of `device_split`."""
+    return sum(device_split(fn, iters, match).values())
+
+
+def device_span_ms(fn, iters: int) -> float:
+    """Device ms per call of `fn`: the union of its kernels' intervals over
+    `iters` calls (`_cuda_events`).  For a call whose kernels overlap
+    (programmatic dependent launch: a kernel starts before the one before
+    it ends and waits inside) the sum of kernel durations counts the
+    overlap twice; the union does not."""
+    spans = [(ev.time_range.start, ev.time_range.start + ev.device_time_total)
+             for ev in _cuda_events(fn, iters)]
+    return _union_us(spans) / iters / 1e3
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
@@ -533,11 +584,41 @@ def phase_twoway_tail(model, img, label):
         with patched(dtk, "_with_pe", _nth_call(real_pe, 4,
                                                  lambda x, pe: x)):
             f_pe = dtk.twoway_tail_plain(*args)
+        # Faults the batched token side and the weight ring could commit.
+        real_dense = dtk._Stages.dense
+
+        def dense_fault(pfx, fault):
+            def dense(self, x, name):
+                return real_dense(self, fault(x) if name == pfx else x, name)
+            return dense
+
+        with patched(dtk._Stages, "dense", dense_fault(
+                "mlp1", lambda x: torch.roll(x, -1, dims=0))):
+            f_rows = dtk.twoway_tail_plain(*args)
+
+        def drop_partial(x):              # block 3's 256 hidden inputs
+            x = x.clone()
+            x[..., 768:1024] = 0
+            return x
+        with patched(dtk._Stages, "dense", dense_fault("mlp2",
+                                                       drop_partial)):
+            f_split = dtk.twoway_tail_plain(*args)
+        stale = dict(args[5])
+        widef = stale["widef"].clone()
+        widef[128:256, 64:128] = widef[128:256, 0:64]
+        stale["widef"] = widef
+        f_stale = dtk.twoway_tail_plain(*args[:5], stale)
     faults = (("last row tile (64 rows) left out of block 2's token->image "
                "softmax", f_tile),
               ("block 2's image update skipped (keys2 = keys1)", f_update),
               ("query PE not added before block 2's token->image q "
-               "projection", f_pe))
+               "projection", f_pe),
+              ("block 2's MLP reads prompt p + 1's token rows for prompt p",
+               f_rows),
+              ("one K-split partial of block 2's MLP (hidden 768-1023) left "
+               "out", f_split),
+              ("row phase 2's weight chunk (widef v rows, inputs 64-127) "
+               "replaced by the previous chunk (inputs 0-63)", f_stale))
     # Both outputs are LayerNorm outputs of rms ~1: atol 2% of the rms
     # covers a value that the two sides round one bf16 step apart before
     # the last LayerNorm.  Kernel and plain version round at the same
@@ -560,6 +641,11 @@ def phase_twoway_tail(model, img, label):
         p, m, c)
     with torch.no_grad():
         t_k = time_ms(lambda: dtk.twoway_tail(*args), 20)
+        # The kernel's own device time: the span of its launches per call
+        # (they overlap: each starts before the one before it ends), and
+        # each launch kind's median duration, waiting included.
+        d_k = device_span_ms(lambda: dtk.twoway_tail(*args), 20)
+        split = device_split(lambda: dtk.twoway_tail(*args), 20)
         t_p = time_ms(lambda: dtk.twoway_tail_plain(*args), 3)
         # What the fused path replaced: the unfused two-way transformer of
         # `MaskDecoder.forward` on the same prompts (no library call
@@ -578,7 +664,11 @@ def phase_twoway_tail(model, img, label):
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
     row = dict(shape=f"{p}x{t}x{c} tokens, {m}x{c} image rows",
                max_abs_err=max(o["max_abs_err"] for o in outs.values()),
-               outputs=outs, ms=t_k, plain_ms=t_p, replaced_ms=t_r,
+               outputs=outs, ms=t_k, device_ms=d_k,
+               device_by_launch=split,
+               device_by_launch_covers="each launch's duration, the wait "
+                                       "for the launch before it included",
+               plain_ms=t_p, replaced_ms=t_r,
                replaced="TwoWayTransformer.forward (unfused)",
                library_ms=None, bound_ms=b_ms, bound_by=by,
                gflop=flops / 1e9, mbytes=nbytes / 1e6)
@@ -672,6 +762,8 @@ def phase_mask_head(model, img, label, tail_out):
         t_k = time_ms(lambda: mhk.mask_head(keys2, hyper, weights,
                                             emit_exp=True), 20)
         t_k0 = time_ms(lambda: mhk.mask_head(keys2, hyper, weights), 20)
+        d_k = device_ms(lambda: mhk.mask_head(keys2, hyper, weights,
+                                              emit_exp=True), 20)
         t_p = time_ms(lambda: mhk.mask_head_plain(keys2, hyper, weights,
                                                   emit_exp=True), 3)
         # What K6 replaced: the module-level packed head and softmax
@@ -688,7 +780,8 @@ def phase_mask_head(model, img, label, tail_out):
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
     row = dict(shape=f"{p}x{m}x{c} keys2, {p}x{k}x{c2} hyper_in, emit_exp",
                max_abs_err=outs["masks (emit_exp)"]["max_abs_err"],
-               outputs=outs, ms=t_k, ms_no_exp=t_k0, plain_ms=t_p,
+               outputs=outs, ms=t_k, device_ms=d_k, ms_no_exp=t_k0,
+               plain_ms=t_p,
                replaced_ms=t_r, heads_with_kernel_ms=t_h,
                replaced="module-level packed head + softmax pooling "
                         "(_decode_heads)",
@@ -822,6 +915,7 @@ def phase_survivor(k, seed):
     n_edits = int((edit != 0).sum())
     with torch.no_grad():
         t_k = time_ms(lambda: sk.survivor_rle(logits, edit, hw), 20)
+        d_k = device_ms(lambda: sk.survivor_rle(logits, edit, hw), 20)
         t_p = time_ms(lambda: sk.survivor_rle_plain(logits, edit, hw), 3)
         # Only the upsample and the threshold: no edits, crop, packing,
         # box or change rows.
@@ -836,7 +930,7 @@ def phase_survivor(k, seed):
                mismatch=mismatch, pixel_flips=flips, max_abs_err=max_err,
                fault_mismatch=faults, rle_strings=len(strings),
                rle_mismatch=rle_mismatch, overflow_masks=overflow,
-               edited_cells=n_edits, ms=t_k, plain_ms=t_p,
+               edited_cells=n_edits, ms=t_k, device_ms=d_k, plain_ms=t_p,
                replaced_ms=t_p, replaced="the plain version",
                interpolate_threshold_ms=t_i,
                interpolate_covers="F.interpolate bilinear + threshold only",
@@ -961,13 +1055,10 @@ def _device_busy(model, img):
         intervals.append((start, start + ev.device_time_total))
         ms, calls = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (ms + ev.device_time_total / 1e3, calls + 1)
-    busy, end = 0.0, -np.inf
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    busy = _union_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return wall, busy / 1e3, {k[:80]: {"ms": v[0], "calls": v[1]}
+    return wall, busy / 1e3, {_kernel_name(k)[:80]: {"ms": v[0],
+                                                     "calls": v[1]}
                               for k, v in top}
 
 
@@ -1409,7 +1500,9 @@ def main() -> int:
                           launches=launches[name],
                           max_abs_err=row["max_abs_err"],
                           **{k: row[k] for k in keys},
+                          device_ms=row["device_ms"],
                           replaced_ms=row["replaced_ms"]))
+    table[-2]["device_by_launch"] = k5["device_by_launch"]
     table.append(dict(name="survivor_rle", route="cuda",
                       source="crowdsam_tpu_torch/csrc/survivor.cu",
                       replaces="crowdsam_tpu/ops/survivor_kernel.py:231",
@@ -1417,6 +1510,7 @@ def main() -> int:
                       launches_in="end_to_end_loaded",
                       max_abs_err=k7["max_abs_err"],
                       **{k: k7[k] for k in keys},
+                      device_ms=k7["device_ms"],
                       replaced_ms=k7["replaced_ms"],
                       interpolate_threshold_ms=k7[
                           "interpolate_threshold_ms"]))

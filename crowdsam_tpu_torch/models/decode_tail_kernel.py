@@ -20,7 +20,8 @@ by tile (the softmax over all image rows is split over tiles of ROW_TILE
 rows and merged in f32); the token self-attention's stay f32.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel (ten launches on the caller's stream, see the source's
+note) or raises.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ INTERNAL_DIM = 128      # cross-attention width (C / 2)
 NUM_HEADS = 8
 ROW_TILE = 64           # image rows per block of the row phases
 MAX_TOKENS = 8          # 5 output tokens + up to 3 sparse tokens
+MLP_DIM = 2048          # the two-way blocks' MLP width (SAM's)
 LN_EPS = 1e-5
 
 
@@ -266,7 +268,7 @@ def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
 # CUDA launch
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = ((ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 4
+_ARGTYPES = ((ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 4
              + (ctypes.c_void_p,))
 
 
@@ -287,7 +289,7 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     (P, M, 256), tokens (P, T, 256)) in the working dtype.
 
     CPU: the plain version.  CUDA: the kernel (bf16, M a multiple of 64,
-    2 <= T <= 8, 8 heads), or an error."""
+    2 <= T <= 8, 8 heads, MLP width 2048), or an error."""
     if keys0.device.type == "cpu":
         return twoway_tail_plain(keys0, q1i, k1, v1, tokens, params,
                                  num_heads)
@@ -311,8 +313,9 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
         _check(x, name, (m, cd), bf, dev)
     _check(tokens, "tokens", (p, t, c), bf, dev)
     mlp = params["mlp1_w"].shape[0]
-    if mlp % 64 or params["mlp1l0_w"].shape[0] != mlp:
-        raise ValueError(f"twoway_tail: MLP width {mlp}")
+    if mlp != MLP_DIM or params["mlp1l0_w"].shape[0] != mlp:
+        raise ValueError(f"twoway_tail: MLP width {mlp} (the kernel takes "
+                         f"{MLP_DIM}, SAM's)")
     shapes = {"kpe2": (m, cd), "qpe2i": (m, cd), "kpef": (m, cd),
               "wide2": (3 * cd, c), "widef": (2 * cd, c)}
     for name in PARAM_NAMES:
@@ -330,22 +333,26 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     tp, ht = MAX_TOKENS, NUM_HEADS * MAX_TOKENS
     keys2 = torch.empty((p, m, c), dtype=bf, device=dev)
     tok_out = torch.empty((p, t, c), dtype=bf, device=dev)
-    # Scratch: token state, query heads, the two updates' token keys and
-    # folded values, and the split-softmax partials of one attention.
+    # Scratch: keys1 (row phase 1 to row phase 2), token state, query heads,
+    # the two updates' token keys and folded values, the split-softmax
+    # partials of one attention and their merge.
+    keys1 = torch.empty((p, m, c), dtype=bf, device=dev)
     tok_state = torch.empty((p, tp, c), dtype=torch.float32, device=dev)
     qh = torch.empty((p, tp, cd), dtype=torch.float32, device=dev)
     ktok = torch.empty((2, p, tp, cd), dtype=bf, device=dev)
     ut = torch.empty((2, p, c, ht), dtype=bf, device=dev)
-    # per (prompt, tile, head, token): running max, sum, 16 values of P.V
-    part = torch.empty((p, nt, ht, 2 + 16), dtype=torch.float32, device=dev)
+    # per (prompt, head, token, tile): max, sum, 16 values of P.V, 2 pad
+    part = torch.empty((p, ht, nt, 20), dtype=torch.float32, device=dev)
+    att = torch.empty((p, tp, cd), dtype=torch.float32, device=dev)
     fn = _build.function("decode_tail", "twoway_tail_forward", _ARGTYPES)
     status = fn(keys0.data_ptr(), q1i.data_ptr(), k1.data_ptr(),
                 v1.data_ptr(), tokens.data_ptr(),
                 ctypes.cast(ptrs, ctypes.c_void_p), keys2.data_ptr(),
-                tok_out.data_ptr(), tok_state.data_ptr(), qh.data_ptr(),
-                ktok[0].data_ptr(), ut[0].data_ptr(), ktok[1].data_ptr(),
-                ut[1].data_ptr(), part.data_ptr(),
-                p, t, m, mlp, torch.cuda.current_stream(dev).cuda_stream)
+                keys1.data_ptr(), tok_out.data_ptr(), tok_state.data_ptr(),
+                qh.data_ptr(), ktok[0].data_ptr(), ut[0].data_ptr(),
+                ktok[1].data_ptr(), ut[1].data_ptr(), part.data_ptr(),
+                att.data_ptr(), p, t, m, mlp,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "twoway_tail")
     twoway_tail.launches += 1
     return keys2, tok_out

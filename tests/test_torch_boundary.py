@@ -3,6 +3,7 @@
 points refuse to fall back to the CPU silently."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,10 +74,36 @@ def test_port_files_include_the_survivor_rle_slice():
 @pytest.mark.parametrize("name", ["decode_tail.cu", "mask_head.cu"])
 def test_decode_kernels_are_cuda_sources_without_library_calls(name):
     """K5 and K6 are CUDA C++ built by `kernels/_build.py`: their sources
-    hold the products themselves (mma) and call no library."""
+    hold the products themselves (mma.sync in K6, wgmma in K5) and call no
+    library."""
     text = (ROOT / "crowdsam_tpu_torch" / "csrc" / name).read_text()
-    assert "mma.sync" in text and "__global__" in text
+    assert "__global__" in text
+    assert "mma.sync" in text or "wgmma.mma_async" in text
     for lib in ("cublas", "cutlass", "cudnn", "torch/"):
+        assert lib not in text.lower()
+
+
+def test_twoway_tail_is_a_wgmma_cluster_kernel_without_libcuda():
+    """K5 is CUDA C++ for sm_90a: its products are wgmma (operands in
+    swizzled shared memory or registers), the row phases' weight chunks come
+    by TMA behind mbarriers, the token stages run as clusters that exchange
+    rows through distributed shared memory, and the kernels follow each
+    other as programmatic dependent launches; no mma.sync, no library, the
+    tensor maps encoded through the runtime's driver entry point."""
+    text = (ROOT / "crowdsam_tpu_torch" / "csrc" / "decode_tail.cu"
+            ).read_text()
+    for needle in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16",
+                   "__cluster_dims__", "st.shared::cluster",
+                   "ld.shared::cluster", "barrier.cluster.arrive",
+                   "griddepcontrol.wait", "cudaGetDriverEntryPoint"):
+        assert needle in text, needle
+    assert "mma.sync.aligned.m16n8k16" not in text and "ldmatrix" not in text
+    # No atomics: the split softmaxes and the MLP's K-split sum in a fixed
+    # order, so that two runs agree bit for bit.
+    assert not re.search(r"\batomic[A-Z]|\batom\.(global|shared)", text)
+    for lib in ("cublas", "cutlass", "cute/", "cudnn", "torch/"):
         assert lib not in text.lower()
 
 

@@ -143,10 +143,12 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         layer_norm(torch.randn((5, 1536), device="cuda"), w, w, 1e-5)
 
 
-def _decoder_operands(gen, image_size, p, t):
+def _decoder_operands(gen, image_size, p, t, point_tokens=False):
     """A vit_tiny SAM (the full-width decoder) at `image_size`, bf16, seeded:
     the shared tensors of its decode, (P, T, 256) tokens and hypernetwork
-    vectors."""
+    vectors.  The tokens are normal draws, or with `point_tokens` what the
+    main path feeds K5: the output tokens and a seeded point prompt's two
+    sparse embeddings (T = 7), as `chip_smoke.py` builds them."""
     sam = sam_model_registry["vit_tiny"](image_size=image_size).cuda()
     init_random_(sam, torch.Generator(device="cuda").manual_seed(0))
     cast_compute_params(sam, torch.bfloat16)
@@ -157,7 +159,22 @@ def _decoder_operands(gen, image_size, p, t):
         shared = precompute_decode_shared(
             sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight, feats,
             sam.prompt_encoder.get_dense_pe())
-    tokens = torch.randn((p, t, 256), generator=gen, device="cuda").bfloat16()
+    if point_tokens:
+        coords = torch.rand((p, 1, 2), generator=gen,
+                            device="cuda") * image_size
+        labels = torch.ones((p, 1), dtype=torch.int64, device="cuda")
+        dec = sam.mask_decoder
+        with torch.no_grad():
+            sparse, _ = sam.prompt_encoder(points=(coords, labels))
+            out_tok = torch.cat([dec.iou_token.weight,
+                                 dec.mask_tokens.weight], dim=0)
+            tokens = torch.cat([out_tok[None].expand(p, -1, -1),
+                                sparse.to(out_tok.dtype)], dim=1)
+        tokens = tokens.bfloat16().contiguous()
+        assert tokens.shape == (p, t, 256)
+    else:
+        tokens = torch.randn((p, t, 256), generator=gen,
+                             device="cuda").bfloat16()
     hyper = torch.randn((p, 4, 32), generator=gen, device="cuda").bfloat16()
     return shared, tokens, hyper
 
@@ -167,11 +184,21 @@ def _tail_args(shared, tokens):
             shared["v1_flat"], tokens, shared["tail"])
 
 
-@pytest.mark.parametrize("image_size,p,t", [(256, 3, 7), (256, 5, 6),
-                                            (1024, 8, 7), (1024, 4, 6)])
-def test_twoway_tail_kernel(gen, image_size, p, t):
-    """K5 at M = 256 and 4096 image rows, T = 6 and 7 tokens."""
-    shared, tokens, _ = _decoder_operands(gen, image_size, p, t)
+@pytest.mark.parametrize("image_size,p,t,point_tokens", [
+    (256, 3, 7, False), (256, 5, 6, False), (1024, 8, 7, False),
+    (1024, 4, 6, False),
+    # The batched token side: one prompt, 33 prompts (P * 8 rows not a
+    # multiple of the 64-row tile), 5 and 8 tokens, the small config's
+    # 32 x 7 at M = 256, and the main path's 32 x 7 at M = 4096 on the
+    # main path's tokens.
+    (256, 1, 7, False), (256, 33, 7, False), (256, 4, 5, False),
+    (256, 4, 8, False), (256, 32, 7, False), (1024, 32, 7, True)])
+def test_twoway_tail_kernel(gen, image_size, p, t, point_tokens):
+    """K5 at M = 256 and 4096 image rows, 1 to 33 prompts, 5 to 8 tokens
+    (the decoder's MLP width, 2048, is the small config's and the main
+    path's)."""
+    shared, tokens, _ = _decoder_operands(gen, image_size, p, t,
+                                          point_tokens)
     args = _tail_args(shared, tokens)
     before = decode_tail_kernel.twoway_tail.launches
     keys2, tok = decode_tail_kernel.twoway_tail(*args)
@@ -236,6 +263,15 @@ def test_decode_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="tokens"):     # T > 8
         decode_tail_kernel.twoway_tail(
             *args[:4], torch.cat([tokens, tokens], dim=1), args[5])
+    with pytest.raises(ValueError, match="MLP width"):  # not 2048
+        narrow = dict(shared["tail"])
+        for name in ("mlp1_w", "mlp1l0_w"):
+            narrow[name] = narrow[name][:1024].contiguous()
+        for name in ("mlp1_b", "mlp1l0_b"):
+            narrow[name] = narrow[name][:1024].contiguous()
+        for name in ("mlp2_w", "mlp2l0_w"):
+            narrow[name] = narrow[name][:, :1024].contiguous()
+        decode_tail_kernel.twoway_tail(*args[:5], narrow)
 
 
 def _survivor_operands(gen, k, r, dtype=torch.bfloat16):

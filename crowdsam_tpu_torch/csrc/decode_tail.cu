@@ -47,9 +47,12 @@
 // of the MLP's 2048 (128 a warpgroup).  So each weight is read once per
 // tile, not once per prompt.  A slice's results go to every block of the
 // cluster through distributed shared memory (all-gather), and each block
-// then holds the whole rows for the LayerNorms, which every block computes
-// for itself (four threads a row).  An out-projection's slice is written
-// locally and then sent as 16-byte chunks (4-byte stores from the
+// then holds the whole rows for the LayerNorms, which every block computes for
+// itself (four threads a row).  The tokens' residual stream stays f32: the
+// state lives in device memory in two buffers that alternate (a LayerNorm
+// reads one, and block j writes its prompt's rows of the other), and only the
+// operands of the products are rounded to bf16.  An out-projection's slice is
+// written locally and then sent as 16-byte chunks (4-byte stores from the
 // accumulators cost four times the remote transactions).  Self-attention
 // head j needs only block j's own q/k/v columns; q and k are computed by
 // the two warpgroups at once.  The MLP's second product is split over its
@@ -164,7 +167,7 @@ struct Args {
   bf16* keys1;          // (P, M, C) scratch: keys1, from row 1 to row 2
   bf16* keys2;          // (P, M, C)
   bf16* tok_out;        // (P, T, C)
-  float* tok_state;     // (P, TP, C)
+  float* tok_state;     // (2, P, TP, C): the f32 token state, two buffers
   float* qh;            // (P, TP, CD)
   bf16* ktok[2];        // (P, TP, CD) token keys of update 1 / 2
   bf16* ut[2];          // (P, C, HT) folded token values, transposed
@@ -705,92 +708,97 @@ struct TokCtx {
   }
 };
 
-// dst = rnd(LN(rnd(x + res)) * w + b) on the 64 rows of the tile (res may
-// be negative: none).  Four threads a row, 64 columns each (16-byte chunks
-// 8 quarter ..); dst may be x or res.
-__device__ __forceinline__ void ln_rows(const TokCtx& cx, int x, int res,
-                                        int dst, const float* w,
-                                        const float* b) {
-  const int quarter = threadIdx.x & 3;
-  {
-    const int row = threadIdx.x >> 2;
-    uint32_t y[32];               // rnd(x + res), bf16 pairs
-    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+// The token residual stream, in f32: y = LN(x + res) * w + b over the 64
+// rows of the tile, x the bf16 tile at `x` (a dense output) and res the f32
+// token state in buffer `in_buf` of a.tok_state (-1: none); the sum, its
+// statistics and y stay f32.  y becomes the state in buffer `out_buf` (-1:
+// none; block j writes its prompt's 8 rows), rnd(y) the product operand
+// at `dst` and, with `xpe` >= 0, rnd(y + pe) at `xpe`.  Four threads a row,
+// 64 columns each (16-byte chunks 8 quarter ..).  A bf16 state would round
+// the stream after every LayerNorm: two computations whose f32 sums differ
+// in the last bits then part by a bf16 step now and then, and the chain of
+// LayerNorms carries such steps to the output.
+__device__ __forceinline__ void ln_state(const TokCtx& cx, const Args& a,
+                                         int x, int in_buf, int out_buf,
+                                         int dst, int xpe, const float* w,
+                                         const float* b) {
+  const int quarter = threadIdx.x & 3, row = threadIdx.x >> 2;
+  const int p = cx.tile * 8 + (row >> 3);
+  const bool live = p < cx.P;
+  const size_t buf = (size_t)cx.P * TP * C;
+  const size_t srow = ((size_t)p * TP + (row & 7)) * C;
+  float y[64];
+  float s4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t o = sw_off(row, (quarter * 8 + i) * 8, TM);
-      const uint4 xv = *reinterpret_cast<const uint4*>(cx.sm + x + o);
-      uint4 rv = make_uint4(0u, 0u, 0u, 0u);
-      if (res >= 0) rv = *reinterpret_cast<const uint4*>(cx.sm + res + o);
-      const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w};
-      const uint32_t rs[4] = {rv.x, rv.y, rv.z, rv.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 u = unpack_bf16(xs[q]), r = unpack_bf16(rs[q]);
-        y[4 * i + q] = pack_bf16(u.x + r.x, u.y + r.y);
-        const float2 v = unpack_bf16(y[4 * i + q]);
-        s4[q] += v.x + v.y;
-      }
+  for (int i = 0; i < 8; ++i) {
+    const int c0 = (quarter * 8 + i) * 8;
+    const uint4 xv =
+        *reinterpret_cast<const uint4*>(cx.sm + x + sw_off(row, c0, TM));
+    const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w};
+    float4 r0 = make_float4(0.f, 0.f, 0.f, 0.f), r1 = r0;
+    if (in_buf >= 0 && live) {
+      const float4* src = reinterpret_cast<const float4*>(
+          a.tok_state + in_buf * buf + srow + c0);
+      r0 = src[0];
+      r1 = src[1];
     }
-    float sum = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float mean = sum * (1.f / C);
-    float v4[4] = {0.f, 0.f, 0.f, 0.f};
+    const float rs[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float2 v = unpack_bf16(y[i]);
-      v4[i & 3] += (v.x - mean) * (v.x - mean) + (v.y - mean) * (v.y - mean);
+    for (int q = 0; q < 4; ++q) {
+      const float2 u = unpack_bf16(xs[q]);
+      y[8 * i + 2 * q] = u.x + rs[2 * q];
+      y[8 * i + 2 * q + 1] = u.y + rs[2 * q + 1];
+      s4[q] += y[8 * i + 2 * q] + y[8 * i + 2 * q + 1];
     }
-    float var = (v4[0] + v4[1]) + (v4[2] + v4[3]);
-    var += __shfl_xor_sync(0xffffffffu, var, 1);
-    var += __shfl_xor_sync(0xffffffffu, var, 2);
-    const float rstd = rsqrtf(var * (1.f / C) + EPS);
+  }
+  float sum = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  const float mean = sum * (1.f / C);
+  float v4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c0 = (quarter * 8 + i) * 8;
-      const uint32_t o = sw_off(row, c0, TM);
-      const float4 w0 = *reinterpret_cast<const float4*>(w + c0);
-      const float4 w1 = *reinterpret_cast<const float4*>(w + c0 + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(b + c0);
-      const float4 b1 = *reinterpret_cast<const float4*>(b + c0 + 4);
-      const float gw[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      const float gb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int i = 0; i < 64; ++i)
+    v4[i & 3] += (y[i] - mean) * (y[i] - mean);
+  float var = (v4[0] + v4[1]) + (v4[2] + v4[3]);
+  var += __shfl_xor_sync(0xffffffffu, var, 1);
+  var += __shfl_xor_sync(0xffffffffu, var, 2);
+  const float rstd = rsqrtf(var * (1.f / C) + EPS);
+  const bool store = out_buf >= 0 && live && (row >> 3) == cx.j;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c0 = (quarter * 8 + i) * 8;
+    const uint32_t o = sw_off(row, c0, TM);
+    const float4 w0 = *reinterpret_cast<const float4*>(w + c0);
+    const float4 w1 = *reinterpret_cast<const float4*>(w + c0 + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + c0);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + c0 + 4);
+    const float gw[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float gb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float z[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      z[k] = (y[8 * i + k] - mean) * rstd * gw[k] + gb[k];
+    *reinterpret_cast<uint4*>(cx.sm + dst + o) =
+        make_uint4(pack_bf16(z[0], z[1]), pack_bf16(z[2], z[3]),
+                   pack_bf16(z[4], z[5]), pack_bf16(z[6], z[7]));
+    if (xpe >= 0) {
+      const uint4 pv = *reinterpret_cast<const uint4*>(cx.sm + O_PE + o);
+      const uint32_t ps[4] = {pv.x, pv.y, pv.z, pv.w};
       uint32_t out[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float2 v = unpack_bf16(y[4 * i + q]);
-        out[q] = pack_bf16(
-            (v.x - mean) * rstd * gw[2 * q] + gb[2 * q],
-            (v.y - mean) * rstd * gw[2 * q + 1] + gb[2 * q + 1]);
+        const float2 e = unpack_bf16(ps[q]);
+        out[q] = pack_bf16(z[2 * q] + e.x, z[2 * q + 1] + e.y);
       }
-      *reinterpret_cast<uint4*>(cx.sm + dst + o) =
+      *reinterpret_cast<uint4*>(cx.sm + xpe + o) =
           make_uint4(out[0], out[1], out[2], out[3]);
     }
-  }
-}
-
-// xpe = rnd(y + pe) over the tile, the 16-byte chunks that ln_rows gave
-// this thread (so no barrier is needed after it).
-__device__ __forceinline__ void add_pe(const TokCtx& cx, int y, int pe,
-                                       int xpe) {
-  const int quarter = threadIdx.x & 3, row = threadIdx.x >> 2;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int c0 = (quarter * 8 + k) * 8;
-    const uint32_t o = sw_off(row, c0, TM);
-    const uint4 yv = *reinterpret_cast<const uint4*>(cx.sm + y + o);
-    const uint4 pv = *reinterpret_cast<const uint4*>(cx.sm + pe + o);
-    const uint32_t ys[4] = {yv.x, yv.y, yv.z, yv.w};
-    const uint32_t ps[4] = {pv.x, pv.y, pv.z, pv.w};
-    uint32_t out[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 u = unpack_bf16(ys[q]), v = unpack_bf16(ps[q]);
-      out[q] = pack_bf16(u.x + v.x, u.y + v.y);
+    if (store) {
+      float4* d4 =
+          reinterpret_cast<float4*>(a.tok_state + out_buf * buf + srow + c0);
+      d4[0] = make_float4(z[0], z[1], z[2], z[3]);
+      d4[1] = make_float4(z[4], z[5], z[6], z[7]);
     }
-    *reinterpret_cast<uint4*>(cx.sm + xpe + o) =
-        make_uint4(out[0], out[1], out[2], out[3]);
   }
 }
 
@@ -966,17 +974,6 @@ __device__ __forceinline__ void q_heads(const TokCtx& cx, Ring& rg,
 }
 
 // The token state (the tile's S) of prompt j of the tile, f32.
-__device__ void store_state(const TokCtx& cx, const Args& a) {
-  const int p = cx.tile * 8 + cx.j;
-  if (p >= cx.P) return;
-  for (int e = threadIdx.x; e < TP * C; e += TOK_THREADS) {
-    const int row = cx.j * 8 + e / C, c = e % C;
-    const bf16 v =
-        *reinterpret_cast<const bf16*>(cx.sm + O_S + sw_off(row, c, TM));
-    a.tok_state[(size_t)p * TP * C + e] = __bfloat162float(v);
-  }
-}
-
 // The whole token stage `STAGE` for one tile of 8 prompts (see the note at
 // the top for what each stage computes).  Remote traffic, by buffer: X
 // receives the merge (and in stage 0 the self-attention) before the first
@@ -1003,32 +1000,17 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TOK_THREADS, 1)
   Ring rg{cx.base + O_RING, 0, 0};
   for (int i = 0; i < TSLOTS; ++i) ring_issue(rg, a, STAGE, j);
 
-  // The tokens (the query PE) and the token state, both exact in bf16.
-  for (int e = tid; e < TM * (C / 8); e += TOK_THREADS) {
-    const int row = e / (C / 8), c = (e % (C / 8)) * 8;
-    const int p = cx.tile * 8 + (row >> 3), t = row & 7;
-    const uint32_t o = sw_off(row, c, TM);
-    if (STAGE < 3) {
+  // The tokens (the query PE), exact in bf16.  The token state (f32)
+  // stays in a.tok_state: each stage's first LayerNorm reads it there.
+  if (STAGE < 3) {
+    for (int e = tid; e < TM * (C / 8); e += TOK_THREADS) {
+      const int row = e / (C / 8), c = (e % (C / 8)) * 8;
+      const int p = cx.tile * 8 + (row >> 3), t = row & 7;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (p < a.P && t < a.T)
         v = *reinterpret_cast<const uint4*>(a.tokens +
                                             ((size_t)p * a.T + t) * C + c);
-      *reinterpret_cast<uint4*>(cx.sm + O_PE + o) = v;
-    }
-    if (STAGE > 0) {
-      float s[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s[i] = 0.f;
-      if (p < a.P) {
-        const float4* src = reinterpret_cast<const float4*>(
-            a.tok_state + ((size_t)p * TP + t) * C + c);
-        const float4 x0 = src[0], x1 = src[1];
-        s[0] = x0.x; s[1] = x0.y; s[2] = x0.z; s[3] = x0.w;
-        s[4] = x1.x; s[5] = x1.y; s[6] = x1.z; s[7] = x1.w;
-      }
-      *reinterpret_cast<uint4*>(cx.sm + O_S + o) =
-          make_uint4(pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]),
-                     pack_bf16(s[4], s[5]), pack_bf16(s[6], s[7]));
+      *reinterpret_cast<uint4*>(cx.sm + O_PE + sw_off(row, c, TM)) = v;
     }
   }
   fence_async();
@@ -1047,12 +1029,10 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TOK_THREADS, 1)
     cluster_sync();
     out_proj(cx, rg, a, 0, O_X, 4, wf(a, l0sa_o_b), O_G);
     cluster_sync();
-    ln_rows(cx, O_G, -1, O_S, wf(a, n1l0_w), wf(a, n1l0_b));
-    add_pe(cx, O_S, O_PE, O_X);
+    ln_state(cx, a, O_G, -1, 0, O_S, O_X, wf(a, n1l0_w), wf(a, n1l0_b));
     fence_async();
     __syncthreads();
     q_heads(cx, rg, a, 0, wf(a, t2i1_q_b));
-    store_state(cx, a);
   } else {
   const bool b1 = STAGE == 1;
   // token->image attention (merged by `merge_stage`), out-projection,
@@ -1064,7 +1044,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TOK_THREADS, 1)
   out_proj(cx, rg, a, STAGE, O_X, 2, wf(a, o_b), O_G);
   cluster_sync();
   if constexpr (STAGE == 3) {
-    ln_rows(cx, O_S, O_G, O_S, wf(a, nf_w), wf(a, nf_b));
+    ln_state(cx, a, O_G, 1, -1, O_S, -1, wf(a, nf_w), wf(a, nf_b));
     __syncthreads();
     const int p = cx.tile * 8 + j;
     if (p < a.P) {
@@ -1076,8 +1056,10 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TOK_THREADS, 1)
     }
     return;
   } else {
-    ln_rows(cx, O_S, O_G, O_S, wf(a, b1 ? n2l0_w : n2_w),
-            wf(a, b1 ? n2l0_b : n2_b));
+    // The state's buffers alternate: stage 0 leaves it in 0, stages 1
+    // and 2 in 1 (a LayerNorm reads one and writes the other).
+    ln_state(cx, a, O_G, b1 ? 0 : 1, b1 ? 1 : 0, O_S, -1,
+             wf(a, b1 ? n2l0_w : n2_w), wf(a, b1 ? n2l0_b : n2_b));
     fence_async();
     __syncthreads();
 
@@ -1145,9 +1127,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TOK_THREADS, 1)
       cx.gather8(O_HD, row, c0, make_uint4(out[0], out[1], out[2], out[3]));
     }
     cluster_sync();
-    ln_rows(cx, O_S, O_HD, O_S, wf(a, b1 ? n3l0_w : n3_w),
-            wf(a, b1 ? n3l0_b : n3_b));
-    add_pe(cx, O_S, O_PE, O_X);
+    ln_state(cx, a, O_HD, b1 ? 1 : 0, b1 ? 0 : 1, O_S, O_X,
+             wf(a, b1 ? n3l0_w : n3_w), wf(a, b1 ? n3l0_b : n3_b));
     fence_async();
     __syncthreads();
 
@@ -1218,13 +1199,11 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TOK_THREADS, 1)
       cluster_sync();
       out_proj(cx, rg, a, 1, O_G, 4, wf(a, l1sa_o_b), O_HD);
       cluster_sync();
-      ln_rows(cx, O_S, O_HD, O_S, wf(a, n1l1_w), wf(a, n1l1_b));
-      add_pe(cx, O_S, O_PE, O_X);
+      ln_state(cx, a, O_HD, 0, 1, O_S, O_X, wf(a, n1l1_w), wf(a, n1l1_b));
       fence_async();
       __syncthreads();
     }
     q_heads(cx, rg, a, STAGE, wf(a, b1 ? t2i_q_b : fin_q_b));
-    store_state(cx, a);
   }
   }
 }
@@ -1934,7 +1913,7 @@ cudaError_t set_smem_attributes() {
 
 // params: host array of N_PARAMS device pointers in the order of enum Param.
 // All tensors contiguous; bf16 unless noted.  Scratch (allocated by the
-// caller): keys1 (P, M, 256), tok_state (P, 8, 256) f32, qh (P, 8, 128) f32,
+// caller): keys1 (P, M, 256), tok_state (2, P, 8, 256) f32, qh (P, 8, 128) f32,
 // ktok1/ktok2 (P, 8, 128), ut1/ut2 (P, 256, 64), part (P, 64, M/64, 20) f32,
 // att (P, 8, 128) f32.
 // Requires M % 64 == 0, 1 <= T <= 8, mlp == 2048.  Launches on `stream` and

@@ -25,10 +25,16 @@
 // padded rows, so the ldmatrix reads of the B fragments meet no bank
 // conflicts.  The group LayerNorm takes its f32 mean and variance directly
 // from the four lanes that hold a row.  The hypernetwork contraction is an
-// m16n8k16 product with the K masks as columns.  The tile's masks are
-// staged in shared memory in f32, so that the tile max is known before e
-// is formed and the (P, K, M, 16) output is written in 16-byte pieces,
-// whole rows at a time.  What bounds the kernel in practice is neither
+// m16n8k16 product with the K masks as columns.  Between the products every
+// value stays f32, and the two GELU outputs enter the next product as two
+// bf16 terms, hi + lo (~16 bits): with bf16 stages, one rounding step
+// anywhere, times hypernetwork weights of tens, moved a mask by ~0.06 and e
+// by twice its bound (the same step lands on two sides of a rounding
+// boundary in two computations whose f32 sums differ in the last bits; two
+// more mma.sync a k-step of the second product and of the last).  The tile's
+// masks are staged in shared memory in f32, so that the tile max is known
+// before e is formed and the (P, K, M, 16) output is written in 16-byte
+// pieces, whole rows at a time.  What bounds the kernel in practice is neither
 // bytes nor the tensor cores but erff on the CUDA cores: 768 GELUs a row.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -217,7 +223,7 @@ __global__ void __launch_bounds__(128) mask_head(const Args a) {
     if (q1 + 1 < 4) prefetch(q1 + 1);
     const bf16* wc = wbuf + (q1 & 1) * C1 * WLD;
 
-    // up1 = rnd(x @ w0[:, group q1] + b0): 16 rows x 64 channels.
+    // up1 = x @ w0[:, group q1] + b0 (f32): 16 rows x 64 channels.
     float acc[C1 / 8][4];
 #pragma unroll
     for (int j = 0; j < C1 / 8; ++j)
@@ -237,10 +243,10 @@ __global__ void __launch_bounds__(128) mask_head(const Args a) {
     for (int j = 0; j < C1 / 8; ++j) {
       const float2 b =
           *reinterpret_cast<const float2*>(sb0 + q1 * C1 + j * 8 + 2 * t4);
-      acc[j][0] = rnd(acc[j][0] + b.x);
-      acc[j][1] = rnd(acc[j][1] + b.y);
-      acc[j][2] = rnd(acc[j][2] + b.x);
-      acc[j][3] = rnd(acc[j][3] + b.y);
+      acc[j][0] += b.x;
+      acc[j][1] += b.y;
+      acc[j][2] += b.x;
+      acc[j][3] += b.y;
       s0 += acc[j][0] + acc[j][1];
       s1 += acc[j][2] + acc[j][3];
     }
@@ -266,17 +272,21 @@ __global__ void __launch_bounds__(128) mask_head(const Args a) {
     }
     const float r0 = rsqrtf(v0 * (1.f / C1) + EPS);
     const float r1 = rsqrtf(v1 * (1.f / C1) + EPS);
-    uint32_t ga[C1 / 16][4];
+    // The GELU output y as the A operand of the next product in two bf16
+    // terms, hi = rnd(y) (ga) and lo = rnd(y - hi) (gl).
+    uint32_t ga[C1 / 16][4], gl[C1 / 16][4];
 #pragma unroll
     for (int j = 0; j < C1 / 8; ++j) {
       const float2 w = *reinterpret_cast<const float2*>(slnw + j * 8 + 2 * t4);
       const float2 b = *reinterpret_cast<const float2*>(slnb + j * 8 + 2 * t4);
-      const float y00 = gelu(rnd((acc[j][0] - mean0) * r0 * w.x + b.x));
-      const float y01 = gelu(rnd((acc[j][1] - mean0) * r0 * w.y + b.y));
-      const float y10 = gelu(rnd((acc[j][2] - mean1) * r1 * w.x + b.x));
-      const float y11 = gelu(rnd((acc[j][3] - mean1) * r1 * w.y + b.y));
+      const float y00 = gelu((acc[j][0] - mean0) * r0 * w.x + b.x);
+      const float y01 = gelu((acc[j][1] - mean0) * r0 * w.y + b.y);
+      const float y10 = gelu((acc[j][2] - mean1) * r1 * w.x + b.x);
+      const float y11 = gelu((acc[j][3] - mean1) * r1 * w.y + b.y);
       ga[j >> 1][(j & 1) * 2] = pack_bf16(y00, y01);
       ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(y10, y11);
+      gl[j >> 1][(j & 1) * 2] = pack_bf16(y00 - rnd(y00), y01 - rnd(y01));
+      gl[j >> 1][(j & 1) * 2 + 1] = pack_bf16(y10 - rnd(y10), y11 - rnd(y11));
     }
 
     // Second upscale, one sub-pixel q2 (32 channels) at a time, then the
@@ -296,24 +306,32 @@ __global__ void __launch_bounds__(128) mask_head(const Args a) {
                          lm_i * 8);
           mma_bf16(acc2[j], ga[2 * k2], b[0], b[1]);
           mma_bf16(acc2[j], ga[2 * k2 + 1], b[2], b[3]);
+          mma_bf16(acc2[j], gl[2 * k2], b[0], b[1]);
+          mma_bf16(acc2[j], gl[2 * k2 + 1], b[2], b[3]);
         }
       }
-      uint32_t ua[C2 / 16][4];
+      // u, like y, as two bf16 terms for the hypernetwork contraction.
+      uint32_t ua[C2 / 16][4], ul[C2 / 16][4];
 #pragma unroll
       for (int j = 0; j < C2 / 8; ++j) {
         const float2 b =
             *reinterpret_cast<const float2*>(sb2 + q2 * C2 + j * 8 + 2 * t4);
-        const float u00 = gelu(rnd(acc2[j][0] + b.x));
-        const float u01 = gelu(rnd(acc2[j][1] + b.y));
-        const float u10 = gelu(rnd(acc2[j][2] + b.x));
-        const float u11 = gelu(rnd(acc2[j][3] + b.y));
+        const float u00 = gelu(acc2[j][0] + b.x);
+        const float u01 = gelu(acc2[j][1] + b.y);
+        const float u10 = gelu(acc2[j][2] + b.x);
+        const float u11 = gelu(acc2[j][3] + b.y);
         ua[j >> 1][(j & 1) * 2] = pack_bf16(u00, u01);
         ua[j >> 1][(j & 1) * 2 + 1] = pack_bf16(u10, u11);
+        ul[j >> 1][(j & 1) * 2] = pack_bf16(u00 - rnd(u00), u01 - rnd(u01));
+        ul[j >> 1][(j & 1) * 2 + 1] =
+            pack_bf16(u10 - rnd(u10), u11 - rnd(u11));
       }
       float mk[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < C2 / 16; ++kk)
+      for (int kk = 0; kk < C2 / 16; ++kk) {
         mma_bf16(mk, ua[kk], hb[kk][0], hb[kk][1]);
+        mma_bf16(mk, ul[kk], hb[kk][0], hb[kk][1]);
+      }
       // Columns 2*t4, 2*t4+1 of the product are masks only for t4 < K/2.
       if (2 * t4 < K) {
         const int sub = q1 * 4 + q2;

@@ -1,8 +1,9 @@
 """Build the sources in `csrc/` and load them with ctypes.
 
-Each `csrc/<name>.cu` (a CUDA kernel, compiled by nvcc for `sm_90a`) or
-`csrc/<name>.cpp` (host code, compiled by g++) exposes a plain C interface
-and is compiled on its own into `build/kernels/lib<name>_<hash>.so` under
+Each `csrc/<name>.cu` (a CUDA kernel, compiled by nvcc for `sm_90a`, which
+may include the shared headers `csrc/*.cuh`) or `csrc/<name>.cpp` (host
+code, compiled by g++) exposes a plain C interface and is compiled on its
+own into `build/kernels/lib<name>_<hash>.so` under
 the repository root (listed in .gitignore), the first time a function of it
 is called.  `build_all` starts one compiler per source at once, so the build
 costs the slowest file, not the sum.  Nothing is compiled when a module is
@@ -61,8 +62,13 @@ def _command(src: Path, out: Path, ptxas_verbose: bool) -> list:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    """The library of `src`, named by a hash of the source and of the
+    shared headers (`csrc/*.cuh`) a CUDA source may include."""
+    h = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(src.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None,

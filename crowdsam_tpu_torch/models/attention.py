@@ -1,5 +1,5 @@
 """Attention for the two ViT backbones: the CUDA kernels K2 and K3
-(`csrc/attention.cu`, a flash kernel with the rel-pos bias) and K4
+(`csrc/attention.cu`, TMA + wgmma with the rel-pos bias) and K4
 (`csrc/flash_sm90.cu`, TMA + wgmma), and their plain PyTorch versions.
 
 Counterparts of the JAX package's `models/attention.py`:
@@ -11,13 +11,16 @@ Counterparts of the JAX package's `models/attention.py`:
 - `flash_mha` replaces the function of the same name (K4): DINOv2's
   1 + 73^2 tokens, keys at or beyond `valid_len` masked.
 
-The TPU kernels fold the rel-pos bias into QK^T by widening the head; the
-CUDA kernel adds it to the logits instead: bias[q, k] = fh[q, row(k)] +
-fw[q, col(k)] with fh = q.Rh[row(q)] and fw = q.Rw[col(q)] computed here, as
-the JAX code computes them.  The kernels read q/k/v straight out of the qkv
-projection through strides, so no head transpose is materialized: K4
-through one TMA tensor map per operand, whose host-side layout
-`tma_layout` builds and checks.
+The rel-pos bias is bias[q, k] = fh[q, row(k)] + fw[q, col(k)] with fh =
+q.Rh[row(q)] and fw = q.Rw[col(q)].  K2 computes fh and fw inside the kernel
+from the tables; K3 on SAM's 64-wide grid computes fh inside and takes fw from
+one batched product here (a block's queries share their grid row, not their
+column), and on other grids takes both from here (two einsums, as the JAX code
+computes them).  The kernels read q/k/v straight out of the qkv projection
+through TMA tensor maps, so no head transpose or window partition is
+materialized: K3 and K4 through one map per (B, H, S, 64) operand, whose
+host-side layout `tma_layout` builds and checks; K2 through 5-d maps of the
+projection built in the kernel's entry point.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
 launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
@@ -34,12 +37,17 @@ import torch
 
 from crowdsam_tpu_torch.kernels import _build
 
-_ARGTYPES = (
+_GLOBAL_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_void_p,
+)
+_WINDOW_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_void_p,
 )
 _SM90_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -47,7 +55,8 @@ _SM90_ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 HEAD_DIM = 64
-MAX_REL = 64
+MAX_REL = 64            # K3: grids up to 64x64
+MAX_WINDOW = 16         # K2's kernel: a window's keys fit two key tiles
 # Tokens a TMA box of K4 brings: a block's query rows and a stage's keys
 # (csrc/flash_sm90.cu BQ and BK; the kernel refuses other boxes).
 TMA_Q_ROWS = 64
@@ -138,30 +147,6 @@ def flash_mha_plain(q, k, v, sm_scale: float,
 # CUDA launch
 # ---------------------------------------------------------------------------
 
-def _check_operand(t: torch.Tensor, name: str) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"attention: {name} must be bfloat16, got {t.dtype}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"attention: {name} head dim must be contiguous")
-    # 16-byte rows: the kernel stages K/V with 16-byte loads.
-    if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
-        raise ValueError(f"attention: {name} rows must be 16-byte aligned")
-
-
-def _launch(q, k, v, out, fh, fw, strides, *, batch: int, heads: int,
-            seq: int, kv_len: int, scale: float, rel_h: int, rel_w: int,
-            win: int = 0, nwh: int = 0, nww: int = 0,
-            grid_w: int = 0) -> None:
-    st = (ctypes.c_longlong * 12)(*strides)
-    fn = _build.function("attention", "attn_forward", _ARGTYPES)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                fh.data_ptr(), fw.data_ptr(),
-                ctypes.cast(st, ctypes.c_void_p), batch, heads, seq, kv_len,
-                float(scale), win, nwh, nww, grid_w, rel_h, rel_w,
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "attention")
-
-
 @dataclass(frozen=True)
 class TmaLayout:
     """Host-side layout of the TMA tensor map of one K4 operand: `dims` in
@@ -180,25 +165,25 @@ class TmaLayout:
 
 
 def tma_layout(t: torch.Tensor, name: str = "operand",
-               rows: int = TMA_KV_ROWS) -> TmaLayout:
+               rows: int = TMA_KV_ROWS, fn: str = "flash_mha") -> TmaLayout:
     """The tensor map of a (B, H, S, 64) bf16 view, read in place, whose
     box brings `rows` tokens: the head, token and batch axes become map
     dims 1-3 in order of stride (the CUDA driver's maps grow outwards), an
     axis of extent 1 taking the stride past the others.  Raises on what TMA
     does not take: a head dim other than 64 or not contiguous, a base or
-    stride not a multiple of 16 bytes."""
+    stride not a multiple of 16 bytes (messages name the wrapper `fn`)."""
     if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash_mha: {name} of shape {tuple(t.shape)}: "
+        raise ValueError(f"{fn}: {name} of shape {tuple(t.shape)}: "
                          f"head dim must be {HEAD_DIM}")
     if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash_mha: {name} must be bfloat16, got {t.dtype}")
+        raise TypeError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
     if t.stride(-1) != 1:
-        raise ValueError(f"flash_mha: {name} head dim must be contiguous")
+        raise ValueError(f"{fn}: {name} head dim must be contiguous")
     if t.data_ptr() % 16:
-        raise ValueError(f"flash_mha: {name} base must be 16-byte aligned")
+        raise ValueError(f"{fn}: {name} base must be 16-byte aligned")
     lay = _layout_of(tuple(t.shape), t.stride(), t.element_size(), rows)
     if any(st <= 0 or st % 16 for st in lay.strides):
-        raise ValueError(f"flash_mha: {name} strides {lay.strides} bytes: "
+        raise ValueError(f"{fn}: {name} strides {lay.strides} bytes: "
                          f"TMA needs positive multiples of 16")
     return lay
 
@@ -219,13 +204,6 @@ def _layout_of(shape, stride, esz: int, rows: int) -> TmaLayout:
                      box=tuple(box), pos=pos)
 
 
-def _bhsd_strides(*ts):
-    out = []
-    for t in ts:
-        out += [t.stride(0), t.stride(1), t.stride(2)]
-    return out
-
-
 def _device_check(t: torch.Tensor, fn_name: str) -> bool:
     """True for CUDA (launch the kernel), False for CPU (plain version)."""
     if t.device.type == "cpu":
@@ -233,6 +211,18 @@ def _device_check(t: torch.Tensor, fn_name: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {t.device}")
     return True
+
+
+def _kernel_status(status: int, fn: str, maps) -> None:
+    """Raise on a C entry point's status: the negative codes of
+    `csrc/attention.cu` and `csrc/flash_sm90.cu`, or a CUDA error."""
+    if status == -1:
+        raise RuntimeError(f"{fn}: the CUDA driver has no "
+                           f"cuTensorMapEncodeTiled")
+    if -2 - len(maps) < status <= -2:
+        raise RuntimeError(f"{fn}: tensor map of {maps[-2 - status]} "
+                           f"refused")
+    _build.check(status, fn)
 
 
 def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
@@ -244,35 +234,50 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
     (Hp, Wp multiples of `window`; pad tokens carry the qkv bias and take part
     as keys, as in the reference).  rel_*_tab: (window, window, hd) gathered
     tables.  Returns (B, Hp, Wp, dim).  One launch covers every window and
-    head: a window is a batch of window^2 tokens."""
+    head, read in place from `qkv`; fh and fw are formed in the kernel.
+    Windows of more than MAX_WINDOW^2 tokens (up to 64x64) go to K3's
+    kernel as batches of partitioned windows."""
     if not _device_check(qkv, "window_attention"):
         return window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads,
                                       scale, window)
     b, hp, wp, c3 = qkv.shape
     dim = c3 // 3
     hd = dim // num_heads
-    if hd != HEAD_DIM or hp % window or wp % window or window > MAX_REL:
+    if (hd != HEAD_DIM or c3 != 3 * num_heads * HEAD_DIM or hp % window
+            or wp % window or not 0 < window <= MAX_REL):
         raise ValueError(f"window_attention: unsupported shape {qkv.shape}, "
-                         f"heads {num_heads}, window {window}")
-    if not qkv.is_contiguous():
-        raise ValueError("window_attention: qkv must be contiguous")
-    _check_operand(qkv, "qkv")
-    n = window * window
-    nwh, nww = hp // window, wp // window
-    nw = b * nwh * nww
-    # fh/fw per (window, head, token): q of each window token against its
-    # row's / column's table, as the TPU kernel's head augmentation.
-    q = window_partition(qkv[..., :dim], window).reshape(nw, n, num_heads, hd)
-    q = q.permute(0, 2, 1, 3)
-    fh, fw = _rel_bias_terms(q, rel_h_tab, rel_w_tab, (window, window))
-    fh, fw = fh.contiguous(), fw.contiguous()
+                         f"heads {num_heads}, window {window} (head dim "
+                         f"{HEAD_DIM}, windows up to {MAX_REL})")
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"window_attention: qkv must be bfloat16, got "
+                        f"{qkv.dtype}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("window_attention: qkv must be contiguous and "
+                         "16-byte aligned")
+    if window > MAX_WINDOW:
+        n = window * window
+        win = window_partition(qkv, window).reshape(-1, n, 3, num_heads, hd)
+        q, k, v = win.permute(2, 0, 3, 1, 4)
+        o = relpos_global_launch(q, k, v, scale, rel_h_tab, rel_w_tab,
+                                 (window, window), fold=window != MAX_REL)
+        window_attention.launches += 1
+        return window_unpartition(o.transpose(1, 2).reshape(-1, n, dim),
+                                  window, hp, wp)
+    tabs = [t.to(device=qkv.device, dtype=torch.bfloat16).contiguous()
+            for t in (rel_h_tab, rel_w_tab)]
+    for t, name in zip(tabs, ("rel_h_tab", "rel_w_tab")):
+        if t.shape != (window, window, HEAD_DIM):
+            raise ValueError(f"window_attention: {name} of shape "
+                             f"{tuple(t.shape)}")
     out = torch.empty((b, hp, wp, dim), dtype=qkv.dtype, device=qkv.device)
-    tok = (hp * wp * c3, hd, c3)
-    strides = list(tok) * 3 + [hp * wp * dim, hd, dim]
-    _launch(qkv, qkv[..., dim:], qkv[..., 2 * dim:], out, fh, fw, strides,
-            batch=nw, heads=num_heads, seq=n, kv_len=n, scale=scale,
-            win=window, nwh=nwh, nww=nww, grid_w=wp, rel_h=window,
-            rel_w=window)
+    fn = _build.function("attention", "relpos_window_forward",
+                         _WINDOW_ARGTYPES)
+    status = fn(qkv.data_ptr(), out.data_ptr(), tabs[0].data_ptr(),
+                tabs[1].data_ptr(), b, hp, wp, num_heads, window,
+                float(scale),
+                torch.cuda.current_stream(qkv.device).cuda_stream)
+    _kernel_status(status, "window_attention",
+                   ("k", "v", "rel_h_tab", "rel_w_tab"))
     window_attention.launches += 1
     return out
 
@@ -281,25 +286,69 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
                                 hw) -> torch.Tensor:
     """Global attention with the decomposed rel-pos bias (K3).
 
-    q, k, v: (B, H, S, D) with S = h*w (views with a contiguous head dim are
-    read in place); rel_h/rel_w: (h, h, D)/(w, w, D) gathered tables.
-    Returns (B, H, S, D)."""
+    q, k, v: (B, H, S, D) with S = h*w (views with a contiguous head dim and
+    16-byte aligned strides are read in place, `tma_layout`); rel_h/rel_w:
+    (h, h, D)/(w, w, D) gathered tables.  Returns (B, H, S, D), a (B, S, H,
+    D) buffer seen as (B, H, S, D).  A grid 64 wide (SAM's) takes the
+    kernel's bias-in-registers form, any other the folded form."""
     if not _device_check(q, "flash_mha_decomposed_relpos"):
         return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw)
+    out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw,
+                               fold=hw[1] != MAX_REL)
+    flash_mha_decomposed_relpos.launches += 1
+    return out
+
+
+def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
+                         fold: bool) -> torch.Tensor:
+    """One launch of K3 on CUDA tensors: `fold` picks the folded form
+    (QA KA^T in the product), else the bias in registers (grids 64 wide).
+    `flash_mha_decomposed_relpos` picks by the grid; `chip_smoke.py` times
+    both forms on SAM's grid."""
+    fn_name = "flash_mha_decomposed_relpos"
     hh, ww = hw
     b, nh, s, d = q.shape
-    if d != HEAD_DIM or s != hh * ww or max(hh, ww) > MAX_REL:
-        raise ValueError(f"flash_mha_decomposed_relpos: unsupported shape "
-                         f"{tuple(q.shape)} grid {hw}")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_operand(t, name)
-    fh, fw = _rel_bias_terms(q, rel_h, rel_w, hw)
-    fh, fw = fh.contiguous(), fw.contiguous()
+    if (d != HEAD_DIM or s != hh * ww or not 0 < max(hh, ww) <= MAX_REL
+            or min(hh, ww) < 1 or not (fold or ww == MAX_REL)):
+        raise ValueError(f"{fn_name}: unsupported shape {tuple(q.shape)} "
+                         f"grid {hw}")
+    for t, name in ((k, "k"), (v, "v")):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{fn_name}: {name} {tuple(t.shape)} on "
+                             f"{t.device}, q {tuple(q.shape)} on {q.device}")
+    if max(b, nh) > 65535:
+        raise ValueError(f"{fn_name}: batch {b} or heads {nh} above 65535")
+    layouts = (tma_layout(q, "q", TMA_Q_ROWS, fn_name),
+               tma_layout(k, "k", TMA_KV_ROWS, fn_name),
+               tma_layout(v, "v", TMA_KV_ROWS, fn_name))
+    rh = rel_h.to(device=q.device, dtype=q.dtype).contiguous()
+    rw = rel_w.to(device=q.device, dtype=q.dtype).contiguous()
+    if fold:
+        fh, fw = (t.contiguous() for t in _rel_bias_terms(q, rh, rw, hw))
+        fw_strides = (0, 0, 0)
+    else:
+        # fh is formed in the kernel (a block is one grid row); fw by one
+        # batched product over the grid's columns, read in its own layout
+        # (column c, then batch and head, then grid row).
+        fh = None
+        qc = q.reshape(b, nh, hh, ww, d).permute(3, 0, 1, 2, 4)
+        fw = torch.bmm(qc.reshape(ww, b * nh * hh, d), rw.transpose(1, 2))
+        fw_strides = (b * nh * hh * ww, hh * ww, ww)
     out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
-    _launch(q, k, v, out, fh, fw, _bhsd_strides(q, k, v, out), batch=b,
-            heads=nh, seq=s, kv_len=s, scale=sm_scale, rel_h=hh, rel_w=ww)
-    flash_mha_decomposed_relpos.launches += 1
+    lay = _int64_array(tuple(x for lt in layouts for x in lt.row()))
+    ost = _int64_array(out.stride()[:3])
+    fst = _int64_array(fw_strides)
+    fn = _build.function("attention", "relpos_global_forward",
+                         _GLOBAL_ARGTYPES)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if fh is None else fh.data_ptr(), fw.data_ptr(),
+                ctypes.cast(fst, ctypes.c_void_p), rh.data_ptr(),
+                ctypes.cast(lay, ctypes.c_void_p),
+                ctypes.cast(ost, ctypes.c_void_p), b, nh, hh, ww, int(fold),
+                float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _kernel_status(status, fn_name, ("q", "k", "v", "rel_h"))
     return out
 
 
@@ -308,11 +357,6 @@ def _int64_array(values: tuple):
     """`values` as a ctypes int64 array, cached: the C side reads it only
     during the call, and the same layouts come back 24 times a frame."""
     return (ctypes.c_longlong * len(values))(*values)
-
-
-_SM90_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
-                -2: "tensor map of q refused", -3: "tensor map of k refused",
-                -4: "tensor map of v refused"}
 
 
 def flash_mha(q, k, v, sm_scale: float,
@@ -347,9 +391,7 @@ def flash_mha(q, k, v, sm_scale: float,
                 ctypes.cast(ost, ctypes.c_void_p), b, nh, s, vlen,
                 float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    if status in _SM90_ERRORS:
-        raise RuntimeError(f"flash_mha: {_SM90_ERRORS[status]}")
-    _build.check(status, "flash_mha")
+    _kernel_status(status, "flash_mha", ("q", "k", "v"))
     flash_mha.launches += 1
     return out
 

@@ -10,14 +10,20 @@ LayerNorm, from the per-image shared tensors of
 `fused_decode.precompute_decode_shared`.  Outputs the per-prompt image
 tensor keys2 (P, M, C) and the final tokens (P, T, C).
 
-Numerics, the same in the kernel and the plain version: operands rounded to
-the working dtype (bf16 on the card), f32 accumulation, a rounding after
-each dense stage, f32 softmax and LayerNorm statistics (eps 1e-5), ReLU MLP;
-the softmax of every head is taken on its own.  Probabilities that feed a
-tensor-core product are rounded to the working dtype first: the image->token
-ones before the rank-(8 T) update, and the token->image exponentials tile
-by tile (the softmax over all image rows is split over tiles of ROW_TILE
-rows and merged in f32); the token self-attention's stay f32.
+Numerics, the same in the kernel and the plain version: operands rounded to the
+working dtype (bf16 on the card), f32 accumulation, a rounding after each dense
+stage, f32 softmax and LayerNorm statistics (eps 1e-5), ReLU MLP; the softmax
+of every head is taken on its own.  The tokens' residual stream stays f32:
+their LayerNorms take the f32 sum of the state and a dense output and give an
+f32 state, rounded only where it feeds a product (a state rounded after every
+LayerNorm let two computations whose f32 sums differ in the last bits part by a
+bf16 step, and the chain of seven LayerNorms carried such steps to the output).
+The image side's LayerNorms round their input and output, as the image tensors
+are bf16.  Probabilities that feed a tensor-core product are rounded to the
+working dtype first: the image->token ones before the rank-(8 T) update, and
+the token->image exponentials tile by tile (the softmax over all image rows is
+split over tiles of ROW_TILE rows and merged in f32); the token
+self-attention's stay f32.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel (ten launches on the caller's stream, see the source's
@@ -157,12 +163,16 @@ class _Stages:
         return self.rnd(self.rnd(x) @ self.par(f"{pfx}_w").T
                         + self.par(f"{pfx}_b"))
 
+    def ln32(self, x, pfx):
+        """LayerNorm of x in f32, the output f32 (the token side)."""
+        u = x.mean(-1, keepdim=True)
+        s = (x - u).square().mean(-1, keepdim=True)
+        y = (x - u) * torch.rsqrt(s + LN_EPS)
+        return y * self.par(f"{pfx}_w") + self.par(f"{pfx}_b")
+
     def ln(self, x, pfx):
-        xb = self.rnd(x)
-        u = xb.mean(-1, keepdim=True)
-        s = (xb - u).square().mean(-1, keepdim=True)
-        y = (xb - u) * torch.rsqrt(s + LN_EPS)
-        return self.rnd(y * self.par(f"{pfx}_w") + self.par(f"{pfx}_b"))
+        """LayerNorm of rnd(x), the output rounded (the image side)."""
+        return self.rnd(self.ln32(self.rnd(x), pfx))
 
 
 def _t2i_attend(st: _Stages, qh: torch.Tensor, k_img: torch.Tensor,
@@ -217,7 +227,7 @@ def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
     dt = keys0.dtype
     H = num_heads
     st = _Stages(params, dt)
-    rnd, par, dense, ln = st.rnd, st.par, st.dense, st.ln
+    rnd, par, dense, ln = st.rnd, st.par, st.dense, st.ln32
 
     def self_attn(x_qk, x_v, pfx):
         q = _heads(dense(x_qk, f"{pfx}_q"), H)
@@ -333,11 +343,12 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     tp, ht = MAX_TOKENS, NUM_HEADS * MAX_TOKENS
     keys2 = torch.empty((p, m, c), dtype=bf, device=dev)
     tok_out = torch.empty((p, t, c), dtype=bf, device=dev)
-    # Scratch: keys1 (row phase 1 to row phase 2), token state, query heads,
+    # Scratch: keys1 (row phase 1 to row phase 2), the f32 token state (two
+    # buffers that alternate), query heads,
     # the two updates' token keys and folded values, the split-softmax
     # partials of one attention and their merge.
     keys1 = torch.empty((p, m, c), dtype=bf, device=dev)
-    tok_state = torch.empty((p, tp, c), dtype=torch.float32, device=dev)
+    tok_state = torch.empty((2, p, tp, c), dtype=torch.float32, device=dev)
     qh = torch.empty((p, tp, cd), dtype=torch.float32, device=dev)
     ktok = torch.empty((2, p, tp, cd), dtype=bf, device=dev)
     ut = torch.empty((2, p, c, ht), dtype=bf, device=dev)

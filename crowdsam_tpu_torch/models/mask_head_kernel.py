@@ -17,10 +17,15 @@ The TPU kernel's block-diagonal second weight and its (512, 16 K)
 hypernetwork matrix only serve its matrix unit; here the second weight is
 used as it is, (c1, 4 c2) seen as [out][in], and `hyper_in` as (P, K, c2).
 
-Numerics, the same in the kernel and the plain version: operands in the
-working dtype (bf16 on the card), f32 accumulation, a rounding after each
-stage, f32 LayerNorm statistics, exact GELU in f32, masks rounded from the
-f32 products, e from the unrounded f32 masks.
+Numerics, the same in the kernel and the plain version: keys2, the weights
+and the hypernetwork vectors in the working dtype (bf16 on the card), f32
+accumulation, f32 values between the products (LayerNorm, exact GELU), the
+two GELU outputs entering the next product as two working-dtype terms, hi =
+rnd(y) and lo = rnd(y - hi); masks rounded from the f32 products, e from the
+unrounded f32 masks.  With a rounding after each stage instead, a step that
+two computations take on two sides of a rounding boundary, times
+hypernetwork weights of tens, moved a mask by ~0.06 and e by twice its
+bound.
 """
 
 from __future__ import annotations
@@ -91,12 +96,18 @@ def mask_head_plain(keys2: torch.Tensor, hyper_in: torch.Tensor,
 
     w0t, w2t = weights["w0t"].float(), weights["w2t"].float()
     c1 = weights["ln_w"].shape[0]
-    up = rnd(keys2.float() @ w0t.T + weights["b0"])
+    def split(y):                 # y as two working-dtype terms, hi + lo
+        hi = rnd(y)
+        return hi, rnd(y - hi)
+
+    up = keys2.float() @ w0t.T + weights["b0"]
     up = up.reshape(p, m, 4, c1)                          # (P, M, q1, c1)
-    up = rnd(F.gelu(rnd(_group_ln(up, weights["ln_w"], weights["ln_b"]))))
-    up = rnd(F.gelu(rnd(up @ w2t.T + weights["b2"])))     # (P, M, q1, 4 c2)
-    up = up.reshape(p, m, 16, -1)                         # (P, M, q1 q2, c2)
-    masks32 = torch.einsum("pkc,pmqc->pkmq", rnd(hyper_in.float()), up)
+    hi, lo = split(F.gelu(_group_ln(up, weights["ln_w"], weights["ln_b"])))
+    up = F.gelu(hi @ w2t.T + lo @ w2t.T + weights["b2"])  # (P, M, q1, 4 c2)
+    hi, lo = split(up.reshape(p, m, 16, -1))              # (P, M, q1 q2, c2)
+    hyper = rnd(hyper_in.float())
+    masks32 = (torch.einsum("pkc,pmqc->pkmq", hyper, hi)
+               + torch.einsum("pkc,pmqc->pkmq", hyper, lo))
     masks = masks32.to(dt)
     if not emit_exp:
         return masks

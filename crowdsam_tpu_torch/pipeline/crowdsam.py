@@ -15,7 +15,10 @@ the time of each.
 Runs on CUDA unless `device` names another device; with no device given
 and no CUDA present it raises.  Without checkpoints the weights are random,
 drawn from a `torch.Generator` seeded with `environ.seed`; a torch
-checkpoint of the reference (same state-dict keys) loads as it is.
+checkpoint of the reference (same state-dict keys) loads as it is, and a
+flax msgpack adapter (the JAX package's mask-decoder tree, as the trained
+adapters under `adapter_weights/` are saved) goes through
+`utils/weights.mask_decoder_state_dict` first.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from crowdsam_tpu_torch.config import dtype_from_str, resolve_device
 from crowdsam_tpu_torch.models.build import init_random_, sam_model_registry
 from crowdsam_tpu_torch.models.common import cast_compute_params
 from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
+from crowdsam_tpu_torch.models.mask_decoder import MaskDecoder
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.nms import nms_indices
 from crowdsam_tpu_torch.ops.resize import resize_linear
@@ -48,8 +52,11 @@ from crowdsam_tpu_torch.pipeline.engine import (
     survivor_core,
 )
 from crowdsam_tpu_torch.pipeline.predictor import SamPredictor
+from crowdsam_tpu_torch.utils import msgpack_io
+from crowdsam_tpu_torch.utils.weights import mask_decoder_state_dict
 
 _DINO_DIMS = {"dinov2_vitl14": 1024, "dinov2_vits14": 384}
+_OTHER_ARCHS = "other archs, ROADMAP section 1 item 5: later slice"
 
 
 def _unsupported(config: Dict[str, Any]) -> Optional[str]:
@@ -58,6 +65,12 @@ def _unsupported(config: Dict[str, Any]) -> Optional[str]:
     m, t, tpu = config["model"], config["test"], config.get("tpu", {})
     if m.get("sam_arch", "crowdsam") != "crowdsam":
         return f"model.sam_arch {m['sam_arch']!r} (other archs: later slice)"
+    sam_model = m.get("sam_model", "vit_l")
+    if sam_model not in sam_model_registry:
+        return f"model.sam_model {sam_model!r} ({_OTHER_ARCHS})"
+    dino_model = m.get("dino_model", "dinov2_vitl14")
+    if dino_model not in dino_model_registry:
+        return f"model.dino_model {dino_model!r} ({_OTHER_ARCHS})"
     if m.get("trainfree", False):
         return "model.trainfree (train-free branch: later slice)"
     if tpu.get("rect_encode", False):
@@ -72,6 +85,16 @@ def _unsupported(config: Dict[str, Any]) -> Optional[str]:
     if int(tpu.get("mesh_data", 1)) > 1 or int(tpu.get("mesh_model", 1)) > 1:
         return "tpu.mesh_data / tpu.mesh_model > 1 (multi-device: later slice)"
     return None
+
+
+def _float_leaves(tree):
+    """A msgpack tree with its floating tensors in float32 (a bf16 leaf
+    widens exactly), as the weight bridge reads them through numpy."""
+    if isinstance(tree, dict):
+        return {k: _float_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.float()
+    return tree
 
 
 def _uncrop_boxes_np(boxes, crop_box, downscale):
@@ -150,18 +173,30 @@ class CrowdSAM:
 
     def _load(self, module: torch.nn.Module, path: Optional[str],
               what: str) -> None:
-        """Overlay a torch checkpoint non-strictly (as the reference loads
-        its checkpoints); a missing file leaves the random weights."""
+        """Overlay a checkpoint non-strictly (as the reference loads its
+        checkpoints); a missing file leaves the random weights.  A torch
+        checkpoint loads as it is; a flax msgpack tree (`.msgpack`,
+        `.flax`) only as the adapter, the JAX package's mask-decoder tree
+        mapped to this package's keys."""
         if not path:
             return
         if not os.path.exists(path):
             self.logger.warning("%s %s not found; using random init", what,
                                 path)
             return
+        if path.endswith((".msgpack", ".flax")):
+            if not isinstance(module, MaskDecoder):
+                raise NotImplementedError(
+                    f"{what} {path}: msgpack trees load only as the adapter "
+                    "(the mask decoder) here")
+            tree = _float_leaves(msgpack_io.load(path))
+            module.load_state_dict(mask_decoder_state_dict(tree),
+                                   strict=False)
+            return
         if not path.endswith((".pth", ".pt")):
             raise NotImplementedError(
-                f"{what} {path}: only torch checkpoints load here "
-                "(msgpack adapters: later slice)")
+                f"{what} {path}: only torch checkpoints and msgpack adapters "
+                "load here")
         sd = torch.load(path, map_location=self.device, weights_only=True)
         module.load_state_dict(sd.get("state_dict", sd), strict=False)
 

@@ -26,10 +26,12 @@ def _normal(rng, shape, scale=1.0):
     return rng.normal(0, scale, shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("grid,ws,heads,hd", [(16, 7, 2, 8), (12, 4, 3, 8)])
+@pytest.mark.parametrize("grid,ws,heads,hd", [(16, 7, 2, 8), (12, 4, 3, 8),
+                                              (70, 14, 2, 64)])
 def test_window_attention_matches_pallas(grid, ws, heads, hd):
     """A grid that is not a multiple of the window: the block pads the
-    normalized input before qkv, so pad tokens carry the qkv bias."""
+    normalized input before qkv, so pad tokens carry the qkv bias; and the
+    main path's 70x70 grid of 14x14 windows at head dim 64."""
     rng = np.random.default_rng(0)
     dim = heads * hd
     x = _normal(rng, (1, grid, grid, dim))

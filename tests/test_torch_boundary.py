@@ -1,5 +1,6 @@
 """Import boundary of the PyTorch port: `crowdsam_tpu_torch` and
-`chip_smoke.py` import neither JAX, flax nor the JAX package, and the entry
+`chip_smoke.py` import neither JAX, flax, msgpack nor the JAX package
+(flax msgpack checkpoints go through the port's own reader), and the entry
 points refuse to fall back to the CPU silently."""
 
 import ast
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "crowdsam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "crowdsam_tpu")
 
 
 def _port_files():
@@ -44,7 +45,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         " crowdsam_tpu_torch.models.fused_decode,"
         " crowdsam_tpu_torch.models.decode_tail_kernel,"
         " crowdsam_tpu_torch.models.mask_head_kernel,"
-        " crowdsam_tpu_torch.ops.rle, crowdsam_tpu_torch.ops.survivor_kernel"
+        " crowdsam_tpu_torch.ops.rle, crowdsam_tpu_torch.ops.survivor_kernel,"
+        " crowdsam_tpu_torch.utils.msgpack_io"
         "\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
@@ -60,6 +62,11 @@ def test_port_files_include_the_fused_decode_slice():
             "crowdsam_tpu_torch/models/decode_tail_kernel.py",
             "crowdsam_tpu_torch/models/mask_head_kernel.py",
             "chip_smoke.py"} <= names
+
+
+def test_port_files_include_the_msgpack_reader():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert "crowdsam_tpu_torch/utils/msgpack_io.py" in names
 
 
 def test_port_files_include_the_survivor_rle_slice():
@@ -120,6 +127,15 @@ def test_survivor_kernel_is_a_cuda_source_without_library_calls():
     assert "__global__" not in codec and "cuda_" not in codec
 
 
+def _with_headers(name):
+    """A CUDA source's text with the shared headers it includes."""
+    csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
+    text = (csrc / name).read_text()
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        text += (csrc / inc).read_text()
+    return text
+
+
 def test_flash_sm90_is_a_tma_wgmma_kernel_without_libcuda():
     """K4 is CUDA C++ for sm_90a: TMA tensor loads behind mbarriers and
     wgmma for both products, no mma.sync and no library; the tensor maps
@@ -128,7 +144,7 @@ def test_flash_sm90_is_a_tma_wgmma_kernel_without_libcuda():
     from crowdsam_tpu_torch.kernels import _build
 
     csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
-    text = (csrc / "flash_sm90.cu").read_text()
+    text = _with_headers("flash_sm90.cu")
     for needle in ("cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
                    "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
                    "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
@@ -141,6 +157,42 @@ def test_flash_sm90_is_a_tma_wgmma_kernel_without_libcuda():
                    for f in _build.NVCC_FLAGS)
     attn = (csrc / "attention.cu").read_text()
     assert "flash_attn_relpos" in attn and "template <bool" not in attn
+
+
+def test_relpos_attention_is_a_tma_wgmma_kernel_without_libcuda():
+    """K2 and K3 are CUDA C++ for sm_90a on the pipeline of K4: TMA tensor
+    loads (the windows through 5-d maps of the qkv projection, the rel-pos
+    tables through 3-d maps) behind mbarriers, wgmma for every product (the
+    folded bias and the fh/fw products included), no mma.sync, no ldmatrix
+    and no library."""
+    text = _with_headers("attention.cu")
+    for needle in ("cp.async.bulk.tensor.4d", "cp.async.bulk.tensor.5d",
+                   "cp.async.bulk.tensor.3d", "cp.async.bulk.tensor.2d",
+                   "mbarrier.try_wait.parity", "setmaxnreg",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16",
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                   "cudaGetDriverEntryPoint", "fence.proxy.async"):
+        assert needle in text, needle
+    assert "mma.sync" not in text and "ldmatrix" not in text
+    for lib in ("cublas", "cutlass", "cute/", "cudnn", "torch/"):
+        assert lib not in text.lower()
+
+
+def test_shared_headers_are_part_of_a_cuda_build_key(monkeypatch, tmp_path):
+    """A change to a shared header (`csrc/*.cuh`) names a new library for
+    every CUDA source, so no stale build is loaded; host sources do not
+    depend on the headers."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    for name in ("a.cu", "b.cpp", "h.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    cu, cpp = _build._target(tmp_path / "a.cu"), _build._target(
+        tmp_path / "b.cpp")
+    (tmp_path / "h.cuh").write_text("// changed\n")
+    assert _build._target(tmp_path / "a.cu") != cu
+    assert _build._target(tmp_path / "b.cpp") == cpp
 
 
 def test_host_sources_build_with_gxx_and_never_nvcc(monkeypatch):

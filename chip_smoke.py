@@ -11,7 +11,10 @@ the gitignored `build/kernels/`), then:
    tile, a key tile's V read from the next tile, a tile's K dims permuted
    inside 16-byte chunks, swapped rel-pos tables, fw one column off, a
    tile half given the wrong grid row, shifted one-hot columns, a skipped
-   image update, swapped sub-pixel levels, a missing column link, ...);
+   image update, swapped sub-pixel levels, a tile's keys from the other
+   ring stage, a tile max from the other warpgroup's tile, a missing
+   column link, a band-boundary change dropped, bands merged out of
+   order, ...);
    times kernel, plain version and the nearest single PyTorch library
    call, or for the decode kernels the PyTorch path they replace, and every
    kernel's own device time from torch.profiler beside the event time that
@@ -22,8 +25,10 @@ the gitignored `build/kernels/`), then:
    (two-way transformer, mask head) get their inputs from the full-width
    model on a seeded frame (K5 also on normal-draw tokens, held against
    float32 too), the survivor kernel person-shaped masks from the crowd
-   scenes' boxes, and its change rows must give the COCO RLE strings of
-   the plain masks;
+   scenes' boxes at k = 1, 32 and 320, and its change rows must give the
+   COCO RLE strings of the plain masks.  The mask head is also built with
+   the exact-erf GELU and timed beside the shipped kernel, and the SASS of
+   one GELU of each kind gives their CUDA-core issue floor;
 2. runs `CrowdSAM.generate` at full width -- SAM ViT-L + DINOv2 ViT-L/14 +
    PWD-Net, bf16, seeded random weights, the defaults of
    `configs/crowdhuman.yaml` (fused decode, `test.output_rles true`) -- on
@@ -58,6 +63,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -837,9 +843,12 @@ def phase_msgpack_adapter(img):
     return row
 
 
-def phase_mask_head(model, img, label, tail_out):
+def phase_mask_head(model, img, label, tail_out, variants):
     """K6 (`emit_exp` off and on) against its plain version, on the keys2
-    and hypernetwork vectors of one decode batch of `model`."""
+    and hypernetwork vectors of one decode batch of `model`; beside it the
+    kernel built with the exact-erf GELU (`variants`,
+    `finish_mask_head_variants`), checked and timed, and the CUDA-core
+    issue floor of the GELUs alone for both."""
     from crowdsam_tpu_torch.models import fused_decode as fd
     from crowdsam_tpu_torch.models import mask_head_kernel as mhk
 
@@ -868,13 +877,38 @@ def phase_mask_head(model, img, label, tail_out):
             f_ln = mhk.mask_head_plain(keys2, hyper, weights)
         f_swap = want[0].reshape(p, k, m, 4, 4).transpose(-1, -2).reshape(
             p, k, m, 16)
+        # Faults of the persistent design: block b walks tiles b + i G (G =
+        # min(tiles, SMs)) through two keys stages, warpgroup i % 2 taking
+        # tile i.  The other stage holds the walk's neighbour, tile i - 1
+        # (i odd) or i + 1, or nothing (zeros) in a block of one tile.
+        n_t = p * (m // mhk.ROW_TILE)
+        grid = min(n_t, torch.cuda.get_device_properties(0)
+                   .multi_processor_count)
+        t = torch.arange(n_t, device="cuda")
+        other = torch.where((t // grid) % 2 == 1, t - grid, t + grid)
+        has_other = other < n_t
+        tiles = keys2.reshape(n_t, mhk.ROW_TILE, c)
+        f_keys = torch.where(has_other[:, None, None],
+                             tiles[other.clamp(max=n_t - 1)], 0.0)
+        f_stage = mhk.mask_head_plain(f_keys.reshape(p, m, c), hyper,
+                                      weights, emit_exp=True)
+        # The tile max from the other warpgroup's tile (where the block has
+        # one tile, from the next tile's).
+        mx_other = want[2].reshape(-1)[torch.where(has_other, other, t ^ 1)
+                                       .clamp(max=n_t - 1)].reshape(p, -1)
+        f_mx_e = (want[1].float().reshape(p, k, n_t // p, -1)
+                  * torch.exp(want[2] - mx_other)[:, None, :, None]
+                  ).reshape(p, k, m, 16)
     rms = float(want[0].float().square().mean().sqrt())
     # Masks are a 32-term dot of GELU outputs with the hypernetwork vector,
     # the operands as hi + lo on both sides: atol 3% of the masks' rms
     # covers their own bf16 rounding.
     atol = 0.03 * rms
+    stage_fault = "a tile's keys read from the other ring stage"
+    mx_fault = "the tile max taken from the other warpgroup's tile"
     faults = (("LayerNorm over all 256 lanes, not per group of 64", f_ln),
-              ("sub-pixel levels swapped (q1 <-> q2)", f_swap))
+              ("sub-pixel levels swapped (q1 <-> q2)", f_swap),
+              (stage_fault, f_stage[0]))
     outs = {
         "masks": compare(f"mask_head {label} masks", got_off, want[0], atol,
                          faults=faults),
@@ -882,8 +916,12 @@ def phase_mask_head(model, img, label, tail_out):
                                     got[0], want[0], atol, faults=faults),
         # e in (0, 1]: a mask off by d moves e by d e; the f32 masks of the
         # two sides agree to ~1e-3 at this scale, and e is rounded to bf16.
-        "e": compare(f"mask_head {label} e", got[1], want[1], 2e-2),
-        "mx": compare(f"mask_head {label} mx", got[2], want[2], atol),
+        "e": compare(f"mask_head {label} e", got[1], want[1], 2e-2,
+                     faults=((stage_fault, f_stage[1]),
+                             (mx_fault, f_mx_e))),
+        "mx": compare(f"mask_head {label} mx", got[2], want[2], atol,
+                      faults=((stage_fault, f_stage[2]),
+                              (mx_fault, mx_other))),
     }
     with torch.no_grad():
         # The pooled result: the kernel's e and mx against the plain ones,
@@ -925,6 +963,11 @@ def phase_mask_head(model, img, label, tail_out):
         t_k0 = time_ms(lambda: mhk.mask_head(keys2, hyper, weights), 20)
         d_k = device_ms(lambda: mhk.mask_head(keys2, hyper, weights,
                                               emit_exp=True), 20)
+        erf_out = _mask_head_erf(variants["erf_fn"], keys2, hyper, weights)
+        d_erf = device_ms(lambda: _mask_head_erf(
+            variants["erf_fn"], keys2, hyper, weights), 20)
+        d_k2 = device_ms(lambda: mhk.mask_head(keys2, hyper, weights,
+                                               emit_exp=True), 20)
         t_p = time_ms(lambda: mhk.mask_head_plain(keys2, hyper, weights,
                                                   emit_exp=True), 3)
         # What K6 replaced: the module-level packed head and softmax
@@ -939,9 +982,31 @@ def phase_mask_head(model, img, label, tail_out):
     nbytes += sum(x.numel() * x.element_size() for x in weights.values())
     nbytes += sum(x.numel() * x.element_size() for x in got)
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    # The exact-erf build against the same plain version and bounds.
+    erf_err = {name: compare(f"mask_head {label} exact-erf build {name}",
+                             got_, want_, tol_)["err_over_tol"]
+               for name, got_, want_, tol_ in (
+                   ("masks", erf_out[0], want[0], atol),
+                   ("e", erf_out[1], want[1], 2e-2),
+                   ("mx", erf_out[2], want[2], atol))}
+    # The GELUs alone at four warp instructions a clock on every SM at the
+    # card's maximum SM clock: 768 a row (4 x 64 after the first product,
+    # 16 x 32 after the second), SASS instructions from the probes.
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gelus = p * m * (4 * c1 + 16 * c2)
+    floor = {kind: gelus * n / 32 / (4 * sms * clock_hz) * 1e3
+             for kind, n in variants["sass_per_gelu"].items()}
     row = dict(shape=f"{p}x{m}x{c} keys2, {p}x{k}x{c2} hyper_in, emit_exp",
                max_abs_err=outs["masks (emit_exp)"]["max_abs_err"],
-               outputs=outs, ms=t_k, device_ms=d_k, ms_no_exp=t_k0,
+               outputs=outs, ms=t_k, device_ms=d_k, device_ms_again=d_k2,
+               exact_erf_device_ms=d_erf, exact_erf_err_over_tol=erf_err,
+               sass_per_gelu=variants["sass_per_gelu"],
+               gelu_issue_floor_ms=floor, gelus=gelus,
+               max_sm_clock_mhz=clock_hz / 1e6, ms_no_exp=t_k0,
                plain_ms=t_p,
                replaced_ms=t_r, heads_with_kernel_ms=t_h,
                replaced="module-level packed head + softmax pooling "
@@ -950,6 +1015,98 @@ def phase_mask_head(model, img, label, tail_out):
                gflop=flops / 1e9, mbytes=nbytes / 1e6)
     print(json.dumps({"phase": f"K6 mask_head {label}", **row}), flush=True)
     return row
+
+
+_GELU_PROBES = """
+extern "C" __global__ void copy_probe(const float* x, float* y) {
+  y[threadIdx.x] = x[threadIdx.x];
+}
+extern "C" __global__ void gelu_probe(const float* x, float* y) {
+  y[threadIdx.x] = gelu(x[threadIdx.x]);
+}
+"""
+
+
+def start_mask_head_variants():
+    """Start nvcc, beside the kernels' build, for K6 with the exact-erf GELU
+    (-DMASK_HEAD_EXACT_ERF, a library timed against the shipped kernel) and
+    for a probe cubin per GELU (the source's own `gelu` in a kernel of one
+    call), whose SASS gives the instructions of one GELU.  Returns the
+    processes and their outputs; `finish_mask_head_variants` waits."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "k6_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = _build.CSRC_DIR / "mask_head.cu"
+    probe = out / "gelu_probe.cu"
+    probe.write_text(f'#include "{src}"\n' + _GELU_PROBES)
+    cubin = ["-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3"]
+    erf = ["-DMASK_HEAD_EXACT_ERF"]
+    jobs = {
+        "erf_lib": ([*_build.NVCC_FLAGS, *erf], src, out / "libk6_erf.so"),
+        "poly_cubin": (cubin, probe, out / "gelu_poly.cubin"),
+        "erf_cubin": ([*cubin, *erf], probe, out / "gelu_erf.cubin"),
+    }
+    return {name: (subprocess.Popen(
+        [_build._nvcc(), *flags, "-o", str(dst), str(path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), dst)
+        for name, (flags, path, dst) in jobs.items()}
+
+
+def _sass_count(cubin, fn):
+    """Instructions of kernel `fn` in a cubin's SASS, up to its EXIT."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    body = text.split(f"Function : {fn}")[1]
+    n = 0
+    for line in body.splitlines():
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m:
+            n += 1
+            if m.group(1).strip().startswith("EXIT"):
+                return n
+    raise AssertionError(f"no EXIT in the SASS of {fn}")
+
+
+def finish_mask_head_variants(jobs):
+    """Wait for `start_mask_head_variants`: the exact-erf kernel's entry
+    point and the SASS instructions of one GELU, polynomial and erff."""
+    import ctypes
+
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+
+    for name, (proc, _) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"K6 variant {name} failed to build:\n{text}")
+    fn = ctypes.CDLL(str(jobs["erf_lib"][1])).mask_head_forward
+    fn.argtypes, fn.restype = list(mhk._ARGTYPES), ctypes.c_int
+    per_gelu = {}
+    for kind in ("poly", "erf"):
+        cubin = jobs[f"{kind}_cubin"][1]
+        per_gelu[kind] = (_sass_count(cubin, "gelu_probe")
+                          - _sass_count(cubin, "copy_probe"))
+    return {"erf_fn": fn, "sass_per_gelu": per_gelu}
+
+
+def _mask_head_erf(fn, keys2, hyper, weights):
+    """K6 built with the exact-erf GELU, `emit_exp` on, through its C entry
+    point (the shipped wrapper's checks and outputs)."""
+    p, m, _ = keys2.shape
+    masks = torch.empty((p, 4, m, 16), dtype=torch.bfloat16, device="cuda")
+    e = torch.empty_like(masks)
+    mx = torch.empty((p, m // 64), device="cuda")
+    w = weights
+    status = fn(keys2.data_ptr(), hyper.data_ptr(), w["w0t"].data_ptr(),
+                w["b0"].data_ptr(), w["ln_w"].data_ptr(),
+                w["ln_b"].data_ptr(), w["w2t"].data_ptr(),
+                w["b2"].data_ptr(), masks.data_ptr(), e.data_ptr(),
+                mx.data_ptr(), p, m, 1,
+                torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise RuntimeError(f"K6 (exact erf): CUDA error {status}")
+    return masks, e, mx
 
 
 # --------------------------------------------------------------------------
@@ -1026,6 +1183,57 @@ def _rle_strings(out, hw):
     return strings
 
 
+def _survivor_merge_faults(want, hw, band_rows):
+    """The plain outputs with a fault of K7's band merge, from the plain
+    bitmap: the change at each band boundary (rows b * band_rows, b >= 1)
+    dropped, and the bands' change rows merged in reverse band order.  The
+    same construction in band order must give the plain outputs."""
+    from crowdsam_tpu_torch.ops import survivor_kernel as sk
+
+    k, s, _ = want["packed"].shape
+    dev = want["packed"].device
+    full = torch.tensor(np.unpackbits(want["packed"].cpu().numpy(), -1),
+                        device=dev).bool()
+    hw_l = hw.long().clamp(1, s)
+    ys = torch.arange(s, device=dev)
+    inside = ((ys[None, :, None] < hw_l[:, 0, None, None])
+              & (ys[None, None, :] < hw_l[:, 1, None, None]))
+    prev = torch.empty_like(full)
+    prev[:, 1:] = full[:, :-1]
+    prev[:, 0] = sk._column_link(full, hw_l)
+    change = inside & (full != prev)
+
+    def merged(change, order):
+        perm = torch.cat([torch.arange(b * band_rows, (b + 1) * band_rows)
+                          for b in order]).to(dev)
+        ch = change[:, perm]
+        n_col = ch.sum(1)
+        rank = ch.int().cumsum(1)
+        kk, yy, xx = torch.nonzero(ch & (rank <= sk.COL_SLOTS),
+                                   as_tuple=True)
+        rows = torch.full((k, sk.COL_SLOTS, s), s - 1, dtype=torch.int32,
+                          device=dev)
+        rows[kk, rank[kk, yy, xx] - 1, xx] = perm[yy].int()
+        rows = rows.reshape(k, sk.CAND_WORDS, 3, s)
+        summary = want["summary"].clone()
+        summary[:, 5] = n_col.sum(1).int()
+        summary[:, 6] = (n_col.amax(1) > sk.COL_SLOTS).int()
+        return {"packed": want["packed"],
+                "cand": (rows[:, :, 0] << 20) | (rows[:, :, 1] << 10)
+                | rows[:, :, 2],
+                "n_col": n_col.int(), "summary": summary}
+
+    bands = list(range(s // band_rows))
+    same = merged(change, bands)
+    if not all(torch.equal(same[x], want[x]) for x in want):
+        raise AssertionError("survivor_rle: the band-merge emulation does "
+                             "not reproduce the plain version")
+    dropped = change.clone()
+    dropped[:, band_rows::band_rows] = False
+    return (("band-boundary change dropped", merged(dropped, bands)),
+            ("bands merged out of order", merged(change, bands[::-1])))
+
+
 def phase_survivor(k, seed):
     """K7 against its plain version on k person-shaped masks; the RLE
     strings built from its change rows against `encode_masks_coco` of the
@@ -1063,9 +1271,10 @@ def phase_survivor(k, seed):
                      lambda full, hw_: torch.zeros_like(full[:, 0])):
             f_link = sk.survivor_rle_plain(logits, edit, hw)
         f_sign = sk.survivor_rle_plain(logits, -edit, hw)
+        f_merge = _survivor_merge_faults(want, hw, s // sk.BANDS)
     faults = {label: sum(int((f[x] != got[x]).sum()) for x in keys)
               for label, f in (("column link dropped", f_link),
-                               ("edit signs swapped", f_sign))}
+                               ("edit signs swapped", f_sign), *f_merge)}
     h_w = hw.tolist()
     strings = _rle_strings(got, hw)
     bits_p = bits_p.numpy()
@@ -1590,7 +1799,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
+    k6_jobs = start_mask_head_variants()
     _build.build_all(ptxas_verbose=True)
+    k6_variants = finish_mask_head_variants(k6_jobs)
     log(f"kernels built in {time.time() - t0:.1f} s")
     for name, text in _build.BUILD_LOGS.items():
         log(f"--- ptxas {name}.cu\n{text}")
@@ -1615,12 +1826,15 @@ def main() -> int:
     log(f"models built in {time.time() - t0:.1f} s")
     frame = synthetic_images(3, 1)[0]
     k5, tail_out = phase_twoway_tail(model, frame, "main path, M=4096")
-    k6 = phase_mask_head(model, frame, "main path, M=4096", tail_out)
+    k6 = phase_mask_head(model, frame, "main path, M=4096", tail_out,
+                         k6_variants)
     phase_twoway_tail_normal(model, frame)
     _, tail_small = phase_twoway_tail(small, _small_image(), "small, M=256")
-    phase_mask_head(small, _small_image(), "small, M=256", tail_small)
+    phase_mask_head(small, _small_image(), "small, M=256", tail_small,
+                    k6_variants)
     del tail_out, tail_small
     torch.cuda.empty_cache()
+    phase_survivor(1, 70)
     k7 = phase_survivor(32, 50)
     phase_survivor(model.engine_cfg.max_keep, 60)
     torch.cuda.empty_cache()

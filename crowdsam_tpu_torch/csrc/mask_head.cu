@@ -10,91 +10,168 @@
 // e = exp(mask - tile max) in the same layout and the tile maxes (P, M/64),
 // the softmax terms of the PWD pooling.
 //
-// Bound: bytes.  Per 32 prompts at M = 4096 the kernel must read 64 MB of
-// keys2 and write 16 MB of masks (and 16 MB of e), against ~27 GFLOP of
-// useful bf16 products.
+// What bounds it.  Per 32 prompts at M = 4096 the kernel must read 64 MB of
+// keys2 and write 16 MB of masks and 16 MB of e (0.030 ms at 3.35 TB/s),
+// against ~34 GFLOP of bf16 products with the split operands (0.035 ms at
+// 989 TFLOP/s).  Above both lies the CUDA-core work: 768 GELUs a row (256
+// after the first product, 512 after the second), the group LayerNorm and
+// the hi/lo splits.  With erff (24 SASS instructions from argument to
+// result, branch-free, on sm_90a) this design's SASS issues 14,700
+// instructions a thread per tile, 120 M warp instructions a call: 0.115 ms
+// at four a clock on 132 SMs at 1.98 GHz.  So the design cuts the
+// instruction stream and keeps the CUDA cores issuing while the products
+// and the loads run.
 //
-// Design: one block of four warps per (tile of 64 rows, prompt); a warp
-// owns 16 rows.  Nothing between keys2 and the masks touches device memory:
-// the warp keeps its rows as mma.sync A fragments, and each stage's m16n8 C
-// tiles, rounded to bf16, are the next stage's A fragments (two adjacent
-// column tiles make one m16k16 tile).  The first weight (128 KB in bf16)
-// streams through shared memory one sub-pixel group (64 output columns) at
-// a time, double-buffered with cp.async; the second weight and the prompt's
-// hypernetwork vectors stay in shared memory; all are stored [n][k] with
-// padded rows, so the ldmatrix reads of the B fragments meet no bank
-// conflicts.  The group LayerNorm takes its f32 mean and variance directly
-// from the four lanes that hold a row.  The hypernetwork contraction is an
-// m16n8k16 product with the K masks as columns.  Between the products every
-// value stays f32, and the two GELU outputs enter the next product as two
-// bf16 terms, hi + lo (~16 bits): with bf16 stages, one rounding step
-// anywhere, times hypernetwork weights of tens, moved a mask by ~0.06 and e
-// by twice its bound (the same step lands on two sides of a rounding
-// boundary in two computations whose f32 sums differ in the last bits; two
-// more mma.sync a k-step of the second product and of the last).  The tile's
-// masks are staged in shared memory in f32, so that the tile max is known
-// before e is formed and the (P, K, M, 16) output is written in 16-byte
-// pieces, whole rows at a time.  What bounds the kernel in practice is neither
-// bytes nor the tensor cores but erff on the CUDA cores: 768 GELUs a row.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+// Design: a persistent grid of one block an SM, min(tiles, #SMs) blocks,
+// each walking the (prompt, 64-row tile) pairs t = blockIdx.x + i * grid in
+// order.  A block is two consumer warpgroups and one producer warp:
+// - Resident weights.  The first weight (256 x 256 bf16, 128 KB) and the
+//   second (128 x 64, 16 KB) are loaded into shared memory once per block
+//   by TMA, 128-byte swizzled, K-major: ~19 MB of L2 traffic a call where
+//   the PR 2 design, which streamed the first weight through every one of
+//   its 2048 blocks, moved 268 MB.
+// - A two-stage TMA ring for keys2: the producer warp loads tile i (64 x
+//   256 bf16, 32 KB, four 64-column boxes) into stage i % 2 behind a full
+//   mbarrier and refills a stage when its empty mbarrier says the four
+//   warps of its consumer have retired their last product that reads it.
+// - Consumer warpgroup w takes the block's tiles i = w, w + 2, ...: each
+//   warpgroup works on its own tile, so one's LayerNorm and GELUs on the
+//   CUDA cores overlap the other's wgmma and the next tile's load.
+// - The first product: per sub-pixel group q1, wgmma m64n64k16 with A = the
+//   keys tile and B = the group's 64 weight rows, both from shared memory
+//   (16 k-steps).  The accumulator of a warp's 16 rows is the m16n8 layout,
+//   so the group LayerNorm takes its f32 mean and variance from the four
+//   lanes that hold a row (quad shuffles), and the GELU output becomes the
+//   next product's A fragments in registers.
+// - The second product: wgmma m64n64k16 with A from registers (the GELU
+//   output as hi and lo bf16 fragments), one product per pair of
+//   sub-pixels q2 (64 of the 128 columns): a 32-register accumulator
+//   rather than one of 64, inside the 168 registers a thread has when a
+//   block of nine warps puts three on one scheduler.
+// - The hypernetwork contraction: mma.sync m16n8k16 from registers, the
+//   pair's two sub-pixels as a block-diagonal B (the K = 4 vectors in
+//   columns 0-3 for the first, 4-7 for the second), so that every lane's
+//   accumulator holds masks and no lane idles; a wgmma would need its A,
+//   16 rows of the GELU output a warp, staged in shared memory first.
+// - The tile's masks stay in registers (32 f32 a thread).  The tile max is
+//   a warp shuffle and a reduction over the warpgroup's four warps through
+//   shared memory (a named barrier of the warpgroup); one shuffle between
+//   lanes t4 and t4 ^ 2 then gives each lane one mask's 16 sub-pixels of
+//   its two rows, written as two 16-byte pieces a row: no staging.
+// - Fewer instructions: GELU from a polynomial and one ex2 (10 instructions,
+//   `gelu` below); the lo term of the split from the packed hi pair itself;
+//   the wgmma descriptors formed once a tile and offset.
+//
+// Numerics.  Between the products every value stays f32, and the two GELU
+// outputs enter the next product as two bf16 terms, hi + lo (~16 bits):
+// with bf16 stages, one rounding step anywhere, times hypernetwork weights
+// of tens, moved a mask by ~0.06 and e by twice its bound.  The GELU is
+// within 1.7e-7 max(|x|, 1) of the exact-erf one (the plain version keeps
+// torch.erf), far below the split's 2^-17.
+//
+// Measured against each other in single calls (device ms at P = 32,
+// M = 4096, H100 80GB HBM3 at 700 W, one-off A/B probes on random
+// operands): the PR 2 design (a block per tile and prompt, the first
+// weight streamed, mma.sync) 0.274-0.279; this design with erff
+// 0.208-0.213; with a degree-8 polynomial GELU 0.158-0.167; with the
+// degree-6 one, the split and the descriptors as here 0.125-0.132
+// (chip_smoke.py on the model's operands: 0.131-0.135, and this source
+// built with -DMASK_HEAD_EXACT_ERF 0.200-0.201).
+// Lost: a software-pipelined form (the next group's first product and both
+// second-product halves issued ahead, a producer warpgroup giving its
+// registers to the consumers by setmaxnreg, 384 threads) at 0.136-0.140,
+// and the Abramowitz-Stegun rational erf of the TPU kernel (in the PR 2
+// design: 0.39 against 0.27).
+//
+// Shared memory (1024-byte aligned base): first weight 131072, second
+// weight 16384, keys ring 2 x 32768, biases and LayerNorm parameters 2048,
+// tile-max reduction 64, barriers 64: 215,104 bytes + 1024 of alignment
+// slack, of the 232,448 a block may have.  A third keys stage does not fit
+// (248 KB); nor does an f32 staging of the tile's masks (16 KB a
+// warpgroup), which the register epilogue avoids.
+#include "sm90.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using sm90::kmajor_desc;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::pack_bf16;
+using sm90::smem_u32;
+using sm90::tma_load_2d;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
 
 constexpr int C = 256;       // input width
 constexpr int C1 = 64;       // channels after the first upscale
 constexpr int C2 = 32;       // channels after the second upscale
 constexpr int K = 4;         // masks per prompt
-constexpr int TM = 64;       // rows per block
-constexpr int WLD = C + 8;   // shared row strides (bf16 elements)
-constexpr int W2LD = C1 + 8;
-constexpr int HLD = C2 + 8;
+constexpr int TM = 64;       // rows per tile
+constexpr int CONSUMERS = 2;                   // warpgroups
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + the producer warp
 constexpr float EPS = 1e-6f;
 
-constexpr int SMEM = 2 * C1 * WLD * 2      // first weight, two groups
-                     + 4 * C2 * W2LD * 2   // second weight
-                     + 8 * HLD * 2         // hypernetwork vectors (8 rows)
-                     + K * TM * 16 * 4     // the tile's masks, f32
-                     + 16                  // block reduction
-                     + (4 * C1 + 2 * C1 + 4 * C2) * 4;  // biases, LN params
+constexpr int ATOM = 128;                // bytes of one swizzled row (64 k)
+constexpr int W0_ATOM = C * ATOM;        // 256 weight rows, 64 inputs
+constexpr int W0_BYTES = 4 * W0_ATOM;
+constexpr int W2_BYTES = 4 * C2 * ATOM;  // 128 rows, 64 inputs
+constexpr int KEY_ATOM = TM * ATOM;      // 64 rows, 64 inputs
+constexpr int KEY_BYTES = 4 * KEY_ATOM;
+constexpr int O_W0 = 0;
+constexpr int O_W2 = O_W0 + W0_BYTES;
+constexpr int O_KEYS = O_W2 + W2_BYTES;
+constexpr int O_B0 = O_KEYS + 2 * KEY_BYTES;   // f32 [4 C1]
+constexpr int O_LNW = O_B0 + 4 * C1 * 4;       // f32 [C1]
+constexpr int O_LNB = O_LNW + C1 * 4;          // f32 [C1]
+constexpr int O_B2 = O_LNB + C1 * 4;           // f32 [4 C2]
+constexpr int O_RED = O_B2 + 4 * C2 * 4;       // f32 [warpgroup][2][4]
+constexpr int O_BAR = O_RED + 64;              // weights, full[2], empty[2]
+constexpr int SMEM = O_BAR + 64 + 1024;
+static_assert(SMEM <= 232448, "shared memory budget");
 
 struct Args {
-  const bf16* keys;    // (P, M, C)
   const bf16* hyper;   // (P, K, C2)
-  const bf16* w0t;     // (4*C1, C): [q1*C1 + o][c]
   const float* b0;     // (4*C1)
   const float* lnw;    // (C1)
   const float* lnb;    // (C1)
-  const bf16* w2t;     // (4*C2, C1): [q2*C2 + o][c]
   const float* b2;     // (4*C2)
   bf16* masks;         // (P, K, M, 16)
   bf16* e;             // (P, K, M, 16) or null
   float* mx;           // (P, M/TM) or null
-  int M;
+  int P, M;
 };
-
-__device__ __forceinline__ float rnd(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Exact-erf GELU.  (The Abramowitz-Stegun rational form of the TPU kernel,
-// with a reciprocal and an exponential per value, measured slower here:
-// 0.39 ms against 0.27 ms for the whole kernel on an H100 at 700 W.)
+// GELU(x) = x Phi(x) = relu(x) - |x| 2^g(|x|), 2^g(a) = erfc(a / sqrt 2) / 2:
+// g a degree-6 polynomial in a <= 4 sqrt 2 (weighted least squares, f32
+// coefficients), beyond which |x| 2^g < 8e-9 |x|.  Within 1.7e-7 max(|x|,
+// 1) of the exact-erf GELU in float32, ex2.approx included (below the
+// 2^-17 of the hi + lo split), in 10 instructions where erff takes ~30.
 __device__ __forceinline__ float gelu(float x) {
+#ifdef MASK_HEAD_EXACT_ERF
+  // The plain version's exact-erf GELU: chip_smoke.py builds the kernel so
+  // beside the shipped one, to time what the polynomial saves.
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+#else
+  const float a = fminf(fabsf(x), 5.656854f);
+  float g = 2.1093423e-05f;
+  g = fmaf(g, a, -6.719686e-04f);
+  g = fmaf(g, a, 7.7875615e-03f);
+  g = fmaf(g, a, -5.300123e-02f);
+  g = fmaf(g, a, -4.590438e-01f);
+  g = fmaf(g, a, -1.1511246e+00f);
+  g = fmaf(g, a, -9.9999964e-01f);
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(g));
+  return fmaf(-fabsf(x), e, fmaxf(x, 0.f));
+#endif
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -106,270 +183,371 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i (16 contiguous bytes each).  From a weight stored
-// [n][k], rows n0 + (lane & 7) and columns k0 + 8 (lane >> 3) give the B
-// fragments of column tile n0 for the two 16-deep steps at k0 and k0 + 16.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+// D(64x64, f32) (+)= A(64x16, bf16 registers) B(16x64), B K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+// f32 accumulator pieces (m16n8 layout: [4j + c], row g for c < 2, g + 8
+// otherwise) through GELU into hi and lo A fragments of the next product:
+// k-step j / 2 takes pieces j (registers 0, 1) and j + 1 (registers 2, 3).
+template <int N>
+__device__ __forceinline__ void gelu_split(const float (&y)[4 * N],
+                                           uint32_t (&hi)[N / 2][4],
+                                           uint32_t (&lo)[N / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float y0 = gelu(y[4 * j + 2 * r]);
+      const float y1 = gelu(y[4 * j + 2 * r + 1]);
+      const uint32_t h = pack_bf16(y0, y1);
+      hi[j >> 1][(j & 1) * 2 + r] = h;
+      // rnd(y) from the packed pair itself: its halves as f32.
+      lo[j >> 1][(j & 1) * 2 + r] =
+          pack_bf16(y0 - __uint_as_float(h << 16),
+                    y1 - __uint_as_float(h & 0xffff0000u));
+    }
+  }
 }
 
-// Eight consecutive f32 -> bf16, as one 16-byte value.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sm90::fence_reg(x[k][i]);
+}
+
+// Eight f32 -> bf16, as one 16-byte value.
 __device__ __forceinline__ uint4 pack8(const float* v) {
-  uint4 o;
-  o.x = pack_bf16(v[0], v[1]);
-  o.y = pack_bf16(v[2], v[3]);
-  o.z = pack_bf16(v[4], v[5]);
-  o.w = pack_bf16(v[6], v[7]);
-  return o;
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
 template <bool EMIT_EXP>
-__global__ void __launch_bounds__(128) mask_head(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* wbuf = reinterpret_cast<bf16*>(smem_raw);          // [2][C1][WLD]
-  bf16* w2s = wbuf + 2 * C1 * WLD;                          // [4*C2][W2LD]
-  bf16* hyp = w2s + 4 * C2 * W2LD;                          // [8][HLD]
-  float* mst = reinterpret_cast<float*>(hyp + 8 * HLD);     // [K][TM][16]
-  float* red = mst + K * TM * 16;                           // [4]
-  // Biases and LayerNorm parameters, staged: a load from device memory
-  // inside the register-bound chain would wait out its latency.
-  float* sb0 = red + 4;                                     // [4*C1]
-  float* slnw = sb0 + 4 * C1;                               // [C1]
-  float* slnb = slnw + C1;                                  // [C1]
-  float* sb2 = slnb + C1;                                   // [4*C2]
+__global__ void __launch_bounds__(THREADS, 1)
+    mask_head(const __grid_constant__ CUtensorMap tm_keys,
+              const __grid_constant__ CUtensorMap tm_w0,
+              const __grid_constant__ CUtensorMap tm_w2, const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  float* sb0 = reinterpret_cast<float*>(sm + O_B0);
+  float* slnw = reinterpret_cast<float*>(sm + O_LNW);
+  float* slnb = reinterpret_cast<float*>(sm + O_LNB);
+  float* sb2 = reinterpret_cast<float*>(sm + O_B2);
+  float* red = reinterpret_cast<float*>(sm + O_RED);
+  const uint32_t wbar = base + O_BAR;
+  const uint32_t full = wbar + 8, empty = wbar + 24;   // + 8 * stage
 
-  const int tile = blockIdx.x, p = blockIdx.y;
-  const int m0 = tile * TM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int lm_r = lane & 7, lm_i = lane >> 3;   // ldmatrix: row, matrix
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
+  const int tiles_p = a.M / TM, n_tiles = a.P * tiles_p;
 
-  auto prefetch = [&](int q1) {
-    const bf16* src = a.w0t + (size_t)q1 * C1 * C;
-    bf16* dst = wbuf + (q1 & 1) * C1 * WLD;
-#pragma unroll
-    for (int it = 0; it < C1 * (C / 8) / 128; ++it) {
-      const int e = it * 128 + tid;
-      const int r = e / (C / 8), part = e % (C / 8);
-      cp_async16(dst + r * WLD + part * 8, src + r * C + part * 8);
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);     // the consumer's four warps
     }
-    cp_async_commit();
-  };
-  prefetch(0);
-
-  for (int e = tid; e < 4 * C2 * (C1 / 8); e += 128) {
-    const int n = e / (C1 / 8), part = e % (C1 / 8);
-    *reinterpret_cast<uint4*>(w2s + n * W2LD + part * 8) =
-        *reinterpret_cast<const uint4*>(a.w2t + n * C1 + part * 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sm90::fence_proxy_async();
   }
-  for (int i = tid; i < 4 * C1; i += 128) sb0[i] = a.b0[i];
+  for (int i = tid; i < 4 * C1; i += THREADS) sb0[i] = a.b0[i];
+  for (int i = tid; i < 4 * C2; i += THREADS) sb2[i] = a.b2[i];
   if (tid < C1) {
     slnw[tid] = a.lnw[tid];
     slnb[tid] = a.lnb[tid];
   }
-  sb2[tid] = a.b2[tid];                 // 4 * C2 == 128 threads
-  {
-    // Rows K..7 of the hypernetwork operand are zero: the product has 8
-    // columns, K of them masks.
-    const int k = tid >> 5, ch = tid & 31;
-    hyp[k * HLD + ch] = a.hyper[((size_t)p * K + k) * C2 + ch];
-    hyp[(K + k) * HLD + ch] = __float2bfloat16(0.f);
-  }
-
-  // The warp's 16 rows of keys2 as A fragments (K = 256: 16 steps).
-  uint32_t xa[C / 16][4];
-  {
-    const bf16* x0 = a.keys + ((size_t)p * a.M + m0 + lr0) * C;
-    const bf16* x1 = x0 + 8 * C;
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk) {
-      const int col = kk * 16 + 2 * t4;
-      xa[kk][0] = ld32(x0 + col);
-      xa[kk][1] = ld32(x1 + col);
-      xa[kk][2] = ld32(x0 + col + 8);
-      xa[kk][3] = ld32(x1 + col + 8);
-    }
-  }
   __syncthreads();
-  uint32_t hb[C2 / 16][2];
+
+  if (warp == 4 * CONSUMERS) {
+    // The producer: both weights once, then the block's keys tiles in
+    // order through the two stages.
+    if (lane == 0) {
+      sm90::prefetch_map(&tm_keys);
+      mbar_expect_tx(wbar, W0_BYTES + W2_BYTES);
 #pragma unroll
-  for (int kk = 0; kk < C2 / 16; ++kk) {
-    hb[kk][0] = ld32(hyp + g * HLD + kk * 16 + 2 * t4);
-    hb[kk][1] = ld32(hyp + g * HLD + kk * 16 + 2 * t4 + 8);
+      for (int at = 0; at < 4; ++at)
+        tma_load_2d(base + O_W0 + at * W0_ATOM, &tm_w0, wbar, at * 64, 0);
+      tma_load_2d(base + O_W2, &tm_w2, wbar, 0, 0);
+      int i = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
+        const int s = i & 1;
+        if (i >= 2) mbar_wait(empty + 8 * s, ((i >> 1) - 1) & 1);
+        mbar_expect_tx(full + 8 * s, KEY_BYTES);
+        const uint32_t dst = base + O_KEYS + s * KEY_BYTES;
+#pragma unroll
+        for (int at = 0; at < 4; ++at)
+          tma_load_2d(dst + at * KEY_ATOM, &tm_keys, full + 8 * s, at * 64,
+                      t * TM);
+      }
+    }
+    return;
   }
 
-#pragma unroll 1
-  for (int q1 = 0; q1 < 4; ++q1) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (q1 + 1 < 4) prefetch(q1 + 1);
-    const bf16* wc = wbuf + (q1 & 1) * C1 * WLD;
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int lr0 = wl * 16 + g, lr1 = lr0 + 8;   // tile rows of this lane
+  // After the exchange below, lane t4 holds mask mk of its two rows.
+  const int h2 = t4 >> 1, mk = ((2 * t4) & 3) + h2;
+  const uint64_t dw0 = kmajor_desc(base + O_W0);
+  const uint64_t dw2 = kmajor_desc(base + O_W2);
+  mbar_wait(wbar, 0);
 
-    // up1 = x @ w0[:, group q1] + b0 (f32): 16 rows x 64 channels.
-    float acc[C1 / 8][4];
+  int i = wg;
+  for (int t = blockIdx.x + wg * gridDim.x; t < n_tiles;
+       t += CONSUMERS * gridDim.x, i += CONSUMERS) {
+    const int s = i & 1;
+    const int p = t / tiles_p, m0 = (t - p * tiles_p) * TM;
+
+    // The contraction's B fragments: column n = g of a pair's block-diagonal
+    // operand is vector g & 3 of the pair's first (g < 4) or second
+    // sub-pixel; the other block is zero.
+    uint32_t hv[2][2];
+    {
+      const bf16* hp = a.hyper + ((size_t)p * K + (g & 3)) * C2 + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < C1 / 8; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        hv[h][0] = ld32(hp + 16 * h);
+        hv[h][1] = ld32(hp + 16 * h + 8);
+      }
+    }
+    uint32_t hb[2][2][2];   // [block][channel half][register]
 #pragma unroll
-    for (int k2 = 0; k2 < C / 32; ++k2) {
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) hb[x][h][r] = (g >> 2) == x ? hv[h][r] : 0u;
+
+    mbar_wait(full + 8 * s, (i >> 1) & 1);
+    // Operand descriptors, formed once: an address offset moves the
+    // descriptor's start field by offset / 16 (no carry below 256 KB).
+    const uint64_t dkeys = kmajor_desc(base + O_KEYS + s * KEY_BYTES);
+
+    // mres[q1][pair]: rows lr0 (0, 1) and lr1 (2, 3); columns 2 t4, 2 t4 +
+    // 1 of the pair's block-diagonal product: sub-pixel q1 * 4 + 2 pair +
+    // (t4 >> 1), masks (2 t4) & 3 and that + 1.  The q1 loop is not
+    // unrolled (its body holds 160 inlined GELUs): each group's results
+    // go to mres[3] after the older ones move down one, so that every
+    // index stays static.
+    float mres[4][2][4];
+#pragma unroll 1
+    for (int q1 = 0; q1 < 4; ++q1) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mres[j][pr][c] = mres[j + 1][pr][c];
+      // up1 = x @ w0[:, group q1] (f32): 64 rows x 64 channels.
+      float acc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        sm90::wgmma_m64n64k16_ss(
+            acc, dkeys + (((kk >> 2) * KEY_ATOM + (kk & 3) * 32) >> 4),
+            dw0 + ((q1 * C1 * ATOM + (kk >> 2) * W0_ATOM + (kk & 3) * 32) >>
+                   4),
+            kk > 0 ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (q1 == 3) {
+        // The keys stage is free once all four warps' products retired.
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+
+      // + b0, LayerNorm over the group's 64 channels (f32 mean and
+      // variance from the four lanes of a row), GELU.
+      float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int j = 0; j < C1 / 8; ++j) {
-        uint32_t b[4];
-        ldsm_x4(b, wc + (j * 8 + lm_r) * WLD + k2 * 32 + lm_i * 8);
-        mma_bf16(acc[j], xa[2 * k2], b[0], b[1]);
-        mma_bf16(acc[j], xa[2 * k2 + 1], b[2], b[3]);
+        const float2 b =
+            *reinterpret_cast<const float2*>(sb0 + q1 * C1 + j * 8 + 2 * t4);
+        acc[4 * j] += b.x;
+        acc[4 * j + 1] += b.y;
+        acc[4 * j + 2] += b.x;
+        acc[4 * j + 3] += b.y;
+        s0 += acc[4 * j] + acc[4 * j + 1];
+        s1 += acc[4 * j + 2] + acc[4 * j + 3];
       }
-    }
-    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < C1 / 8; ++j) {
-      const float2 b =
-          *reinterpret_cast<const float2*>(sb0 + q1 * C1 + j * 8 + 2 * t4);
-      acc[j][0] += b.x;
-      acc[j][1] += b.y;
-      acc[j][2] += b.x;
-      acc[j][3] += b.y;
-      s0 += acc[j][0] + acc[j][1];
-      s1 += acc[j][2] + acc[j][3];
-    }
-    // LayerNorm over the group's 64 channels (f32 mean and variance), GELU.
+      for (int off = 1; off < 4; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      const float mean0 = s0 * (1.f / C1), mean1 = s1 * (1.f / C1);
+      float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    }
-    const float mean0 = s0 * (1.f / C1), mean1 = s1 * (1.f / C1);
-    float v0 = 0.f, v1 = 0.f;
+      for (int j = 0; j < C1 / 8; ++j) {
+        acc[4 * j] -= mean0;
+        acc[4 * j + 1] -= mean0;
+        acc[4 * j + 2] -= mean1;
+        acc[4 * j + 3] -= mean1;
+        v0 += acc[4 * j] * acc[4 * j] + acc[4 * j + 1] * acc[4 * j + 1];
+        v1 += acc[4 * j + 2] * acc[4 * j + 2] +
+              acc[4 * j + 3] * acc[4 * j + 3];
+      }
 #pragma unroll
-    for (int j = 0; j < C1 / 8; ++j) {
-      v0 += (acc[j][0] - mean0) * (acc[j][0] - mean0) +
-            (acc[j][1] - mean0) * (acc[j][1] - mean0);
-      v1 += (acc[j][2] - mean1) * (acc[j][2] - mean1) +
-            (acc[j][3] - mean1) * (acc[j][3] - mean1);
-    }
+      for (int off = 1; off < 4; off <<= 1) {
+        v0 += __shfl_xor_sync(0xffffffffu, v0, off);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+      }
+      const float r0 = rsqrtf(v0 * (1.f / C1) + EPS);
+      const float r1 = rsqrtf(v1 * (1.f / C1) + EPS);
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      v0 += __shfl_xor_sync(0xffffffffu, v0, off);
-      v1 += __shfl_xor_sync(0xffffffffu, v1, off);
-    }
-    const float r0 = rsqrtf(v0 * (1.f / C1) + EPS);
-    const float r1 = rsqrtf(v1 * (1.f / C1) + EPS);
-    // The GELU output y as the A operand of the next product in two bf16
-    // terms, hi = rnd(y) (ga) and lo = rnd(y - hi) (gl).
-    uint32_t ga[C1 / 16][4], gl[C1 / 16][4];
-#pragma unroll
-    for (int j = 0; j < C1 / 8; ++j) {
-      const float2 w = *reinterpret_cast<const float2*>(slnw + j * 8 + 2 * t4);
-      const float2 b = *reinterpret_cast<const float2*>(slnb + j * 8 + 2 * t4);
-      const float y00 = gelu((acc[j][0] - mean0) * r0 * w.x + b.x);
-      const float y01 = gelu((acc[j][1] - mean0) * r0 * w.y + b.y);
-      const float y10 = gelu((acc[j][2] - mean1) * r1 * w.x + b.x);
-      const float y11 = gelu((acc[j][3] - mean1) * r1 * w.y + b.y);
-      ga[j >> 1][(j & 1) * 2] = pack_bf16(y00, y01);
-      ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(y10, y11);
-      gl[j >> 1][(j & 1) * 2] = pack_bf16(y00 - rnd(y00), y01 - rnd(y01));
-      gl[j >> 1][(j & 1) * 2 + 1] = pack_bf16(y10 - rnd(y10), y11 - rnd(y11));
-    }
+      for (int j = 0; j < C1 / 8; ++j) {
+        const float2 w = *reinterpret_cast<const float2*>(slnw + j * 8 + 2 * t4);
+        const float2 b = *reinterpret_cast<const float2*>(slnb + j * 8 + 2 * t4);
+        acc[4 * j] = acc[4 * j] * r0 * w.x + b.x;
+        acc[4 * j + 1] = acc[4 * j + 1] * r0 * w.y + b.y;
+        acc[4 * j + 2] = acc[4 * j + 2] * r1 * w.x + b.x;
+        acc[4 * j + 3] = acc[4 * j + 3] * r1 * w.y + b.y;
+      }
+      // The GELU output y as two bf16 terms, hi = rnd(y), lo = rnd(y - hi).
+      uint32_t ga[C1 / 16][4], gl[C1 / 16][4];
+      gelu_split<C1 / 8>(acc, ga, gl);
 
-    // Second upscale, one sub-pixel q2 (32 channels) at a time, then the
-    // hypernetwork contraction of that sub-pixel.
+      // Second upscale, two sub-pixels q2 (64 channels) a product, then the
+      // hypernetwork contraction of that pair.
 #pragma unroll
-    for (int q2 = 0; q2 < 4; ++q2) {
-      float acc2[C2 / 8][4];
+      for (int pair = 0; pair < 2; ++pair) {
+        float acc2[32];
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < C2 / 8; ++j)
-        acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+        for (int kk = 0; kk < C1 / 16; ++kk) {
+          const uint64_t db = dw2 + ((pair * 64 * ATOM + kk * 32) >> 4);
+          wgmma_rs_n64(acc2, ga[kk], db, kk > 0);
+          wgmma_rs_n64(acc2, gl[kk], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        sm90::fence_regs(acc2);
+        fence_frags(ga);
+        fence_frags(gl);
 #pragma unroll
-      for (int k2 = 0; k2 < C1 / 32; ++k2) {
+        for (int j = 0; j < 8; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              sb2 + pair * 64 + j * 8 + 2 * t4);
+          acc2[4 * j] += b.x;
+          acc2[4 * j + 1] += b.y;
+          acc2[4 * j + 2] += b.x;
+          acc2[4 * j + 3] += b.y;
+        }
+        // u, like y, as two bf16 terms: k-steps 0, 1 are the pair's first
+        // sub-pixel, 2, 3 its second.
+        uint32_t ua[4][4], ul[4][4];
+        gelu_split<8>(acc2, ua, ul);
+        float* mc = mres[3][pair];
+        mc[0] = mc[1] = mc[2] = mc[3] = 0.f;
 #pragma unroll
-        for (int j = 0; j < C2 / 8; ++j) {
-          uint32_t b[4];
-          ldsm_x4(b, w2s + (q2 * C2 + j * 8 + lm_r) * W2LD + k2 * 32 +
-                         lm_i * 8);
-          mma_bf16(acc2[j], ga[2 * k2], b[0], b[1]);
-          mma_bf16(acc2[j], ga[2 * k2 + 1], b[2], b[3]);
-          mma_bf16(acc2[j], gl[2 * k2], b[0], b[1]);
-          mma_bf16(acc2[j], gl[2 * k2 + 1], b[2], b[3]);
+        for (int kk = 0; kk < 4; ++kk) {
+          mma_bf16(mc, ua[kk], hb[kk >> 1][kk & 1][0], hb[kk >> 1][kk & 1][1]);
+          mma_bf16(mc, ul[kk], hb[kk >> 1][kk & 1][0], hb[kk >> 1][kk & 1][1]);
         }
       }
-      // u, like y, as two bf16 terms for the hypernetwork contraction.
-      uint32_t ua[C2 / 16][4], ul[C2 / 16][4];
-#pragma unroll
-      for (int j = 0; j < C2 / 8; ++j) {
-        const float2 b =
-            *reinterpret_cast<const float2*>(sb2 + q2 * C2 + j * 8 + 2 * t4);
-        const float u00 = gelu(acc2[j][0] + b.x);
-        const float u01 = gelu(acc2[j][1] + b.y);
-        const float u10 = gelu(acc2[j][2] + b.x);
-        const float u11 = gelu(acc2[j][3] + b.y);
-        ua[j >> 1][(j & 1) * 2] = pack_bf16(u00, u01);
-        ua[j >> 1][(j & 1) * 2 + 1] = pack_bf16(u10, u11);
-        ul[j >> 1][(j & 1) * 2] = pack_bf16(u00 - rnd(u00), u01 - rnd(u01));
-        ul[j >> 1][(j & 1) * 2 + 1] =
-            pack_bf16(u10 - rnd(u10), u11 - rnd(u11));
-      }
-      float mk[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < C2 / 16; ++kk) {
-        mma_bf16(mk, ua[kk], hb[kk][0], hb[kk][1]);
-        mma_bf16(mk, ul[kk], hb[kk][0], hb[kk][1]);
-      }
-      // Columns 2*t4, 2*t4+1 of the product are masks only for t4 < K/2.
-      if (2 * t4 < K) {
-        const int sub = q1 * 4 + q2;
-        mst[((2 * t4) * TM + lr0) * 16 + sub] = mk[0];
-        mst[((2 * t4 + 1) * TM + lr0) * 16 + sub] = mk[1];
-        mst[((2 * t4) * TM + lr1) * 16 + sub] = mk[2];
-        mst[((2 * t4 + 1) * TM + lr1) * 16 + sub] = mk[3];
-      }
     }
-  }
-  __syncthreads();
 
-  float tile_max = 0.f;
-  if (EMIT_EXP) {
-    float mx = -INFINITY;
-    for (int i = tid; i < K * TM * 16; i += 128) mx = fmaxf(mx, mst[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) red[warp] = mx;
-    __syncthreads();
-    tile_max = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-    if (tid == 0) a.mx[(size_t)p * (a.M / TM) + tile] = tile_max;
-  }
-  // (k, row) pairs hold 16 contiguous values: two 16-byte pieces each.
-  for (int u = tid; u < K * TM * 2; u += 128) {
-    const int k = u / (TM * 2), rem = u % (TM * 2);
-    const int row = rem >> 1, half = rem & 1;
-    const float* src = mst + (k * TM + row) * 16 + half * 8;
-    const size_t dst = (((size_t)p * K + k) * a.M + m0 + row) * 16 + half * 8;
-    *reinterpret_cast<uint4*>(a.masks + dst) = pack8(src);
+    float tile_max = 0.f;
     if (EMIT_EXP) {
-      float ev[8];
+      float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) ev[i] = __expf(src[i] - tile_max);
-      *reinterpret_cast<uint4*>(a.e + dst) = pack8(ev);
+      for (int q1 = 0; q1 < 4; ++q1)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mx = fmaxf(mx, mres[q1][pr][c]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      // Two buffers by tile parity: a warp writes this buffer again two
+      // tiles on, after the next tile's barrier, which every warp reaches
+      // only after its read of this tile's partials.
+      float* rb = red + (wg * 2 + ((i >> 1) & 1)) * 4;
+      if (lane == 0) rb[wl] = mx;
+      sm90::named_bar(1 + wg, 128);
+      tile_max = fmaxf(fmaxf(rb[0], rb[1]), fmaxf(rb[2], rb[3]));
+      if (wl == 0 && lane == 0) a.mx[t] = tile_max;
+    }
+
+    // Lanes t4 and t4 ^ 2 hold the same two masks for complementary
+    // sub-pixels: after one exchange, lane t4 holds mask mk, all 16
+    // sub-pixels of rows lr0 and lr1.
+    float v[2][16];
+#pragma unroll
+    for (int q1 = 0; q1 < 4; ++q1)
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const float* mc = mres[q1][pr];
+        const int sub = q1 * 4 + 2 * pr;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float keep = h2 ? mc[2 * r + 1] : mc[2 * r];
+          const float send = h2 ? mc[2 * r] : mc[2 * r + 1];
+          const float got = __shfl_xor_sync(0xffffffffu, send, 2);
+          v[r][sub] = h2 ? got : keep;
+          v[r][sub + 1] = h2 ? keep : got;
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t dst =
+          (((size_t)p * K + mk) * a.M + m0 + (r ? lr1 : lr0)) * 16;
+      uint4* out = reinterpret_cast<uint4*>(a.masks + dst);
+      out[0] = pack8(v[r]);
+      out[1] = pack8(v[r] + 8);
+      if (EMIT_EXP) {
+        float ev[16];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) ev[c] = __expf(v[r][c] - tile_max);
+        uint4* eo = reinterpret_cast<uint4*>(a.e + dst);
+        eo[0] = pack8(ev);
+        eo[1] = pack8(ev + 8);
+      }
     }
   }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// A 2-d bf16 map of a row-major (rows, cols) tensor, boxes of 64 columns x
+// `box_rows` rows (128-byte swizzle).
+bool encode_2d(CUtensorMap* map, const void* ptr, int cols, long long rows,
+               int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return sm90::encode_bf16(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace
@@ -378,7 +556,8 @@ __global__ void __launch_bounds__(128) mask_head(const Args a) {
 // (128, 64) bf16, [out][in] with the sub-pixel index major in `out`; b0
 // (256), lnw/lnb (64), b2 (128) f32; masks (P, 4, M, 16) bf16.  With
 // emit_exp != 0 also e (like masks) and mx (P, M/64) f32.  Requires
-// M % 64 == 0.  Launches on `stream`; returns cudaGetLastError().
+// M % 64 == 0 and 16-byte aligned operands.  Launches on `stream`;
+// returns cudaGetLastError() (or an error before the launch).
 extern "C" int mask_head_forward(const void* keys, const void* hyper,
                                  const void* w0t, const void* b0,
                                  const void* lnw, const void* lnb,
@@ -388,29 +567,36 @@ extern "C" int mask_head_forward(const void* keys, const void* hyper,
   if (P <= 0 || M <= 0 || M % TM) return (int)cudaErrorInvalidValue;
   if (emit_exp && (e == nullptr || mx == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sm90::encode_fn() == nullptr || sms == 0)
+    return (int)cudaErrorNotSupported;
+  alignas(64) CUtensorMap tm_keys, tm_w0, tm_w2;
+  if (!encode_2d(&tm_keys, keys, C, (long long)P * M, TM) ||
+      !encode_2d(&tm_w0, w0t, C, 4 * C1, 4 * C1) ||
+      !encode_2d(&tm_w2, w2t, C1, 4 * C2, 4 * C2))
+    return (int)cudaErrorInvalidValue;
   Args a;
-  a.keys = static_cast<const bf16*>(keys);
   a.hyper = static_cast<const bf16*>(hyper);
-  a.w0t = static_cast<const bf16*>(w0t);
   a.b0 = static_cast<const float*>(b0);
   a.lnw = static_cast<const float*>(lnw);
   a.lnb = static_cast<const float*>(lnb);
-  a.w2t = static_cast<const bf16*>(w2t);
   a.b2 = static_cast<const float*>(b2);
   a.masks = static_cast<bf16*>(masks);
   a.e = static_cast<bf16*>(e);
   a.mx = static_cast<float*>(mx);
+  a.P = P;
   a.M = M;
   const void* fn = emit_exp ? (const void*)mask_head<true>
                             : (const void*)mask_head<false>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(M / TM, P);
+  const int tiles = P * (M / TM);
+  const int grid = tiles < sms ? tiles : sms;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (emit_exp)
-    mask_head<true><<<grid, 128, SMEM, st>>>(a);
+    mask_head<true><<<grid, THREADS, SMEM, st>>>(tm_keys, tm_w0, tm_w2, a);
   else
-    mask_head<false><<<grid, 128, SMEM, st>>>(a);
+    mask_head<false><<<grid, THREADS, SMEM, st>>>(tm_keys, tm_w0, tm_w2, a);
   return (int)cudaGetLastError();
 }

@@ -19,13 +19,14 @@ used as it is, (c1, 4 c2) seen as [out][in], and `hyper_in` as (P, K, c2).
 
 Numerics, the same in the kernel and the plain version: keys2, the weights
 and the hypernetwork vectors in the working dtype (bf16 on the card), f32
-accumulation, f32 values between the products (LayerNorm, exact GELU), the
-two GELU outputs entering the next product as two working-dtype terms, hi =
+accumulation, f32 values between the products (LayerNorm, GELU), the two
+GELU outputs entering the next product as two working-dtype terms, hi =
 rnd(y) and lo = rnd(y - hi); masks rounded from the f32 products, e from the
-unrounded f32 masks.  With a rounding after each stage instead, a step that
-two computations take on two sides of a rounding boundary, times
+unrounded f32 masks.  With a rounding after each stage instead, a step
+that two computations take on two sides of a rounding boundary, times
 hypernetwork weights of tens, moved a mask by ~0.06 and e by twice its
-bound.
+bound.  The plain version's GELU uses the exact erf; the kernel's is a
+polynomial within 1.7e-7 max(|x|, 1) of it, far below the split's 2^-17.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 
 from crowdsam_tpu_torch.kernels import _build
 
-ROW_TILE = 64           # rows per block: the tile of the `emit_exp` maxes
+ROW_TILE = 64           # rows per kernel tile: the `emit_exp` maxes' tile
 NUM_MASKS = 4
 LN_EPS = 1e-6
 

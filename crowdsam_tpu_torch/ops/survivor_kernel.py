@@ -32,7 +32,9 @@ from crowdsam_tpu_torch.ops.resize import linear_resize_matrix
 
 COL_SLOTS = 24                  # change rows kept per column
 CAND_WORDS = COL_SLOTS // 3     # three 10-bit rows per int32 word
-STRIP = 128                     # output columns per kernel block
+STRIP = 32                      # output columns per kernel block
+BANDS = 8                       # row bands per kernel block (S / 8 rows)
+RES_MULTIPLE = 32               # R a multiple of 32: the contract's shapes
 MAX_RES = 256                   # R <= 256: S <= 1024 fits 10 bits
 
 _ARGTYPES = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -161,10 +163,10 @@ def survivor_rle(logits: torch.Tensor, edit: torch.Tensor, in_hw,
         raise ValueError(f"survivor_rle: logits must be (K, R, R), got "
                          f"{tuple(logits.shape)}")
     k, r, _ = logits.shape
-    if k == 0 or r % (STRIP // 4) or r > MAX_RES:
+    if k == 0 or r % RES_MULTIPLE or r > MAX_RES:
         raise ValueError(
             f"survivor_rle: unsupported shape {tuple(logits.shape)} (K >= 1, "
-            f"R a multiple of {STRIP // 4}, at most {MAX_RES})")
+            f"R a multiple of {RES_MULTIPLE}, at most {MAX_RES})")
     if logits.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"survivor_rle: logits must be bfloat16 or float32, "
                         f"got {logits.dtype}")

@@ -81,8 +81,8 @@ def test_port_files_include_the_survivor_rle_slice():
 @pytest.mark.parametrize("name", ["decode_tail.cu", "mask_head.cu"])
 def test_decode_kernels_are_cuda_sources_without_library_calls(name):
     """K5 and K6 are CUDA C++ built by `kernels/_build.py`: their sources
-    hold the products themselves (mma.sync in K6, wgmma in K5) and call no
-    library."""
+    hold the products themselves (wgmma in both, K6's hypernetwork
+    contraction on mma.sync) and call no library."""
     text = (ROOT / "crowdsam_tpu_torch" / "csrc" / name).read_text()
     assert "__global__" in text
     assert "mma.sync" in text or "wgmma.mma_async" in text
@@ -115,11 +115,15 @@ def test_twoway_tail_is_a_wgmma_cluster_kernel_without_libcuda():
 
 
 def test_survivor_kernel_is_a_cuda_source_without_library_calls():
-    """K7 is CUDA C++ built for sm_90a: its own scan, ballots and
-    reductions, no library; the host codec is plain C++ (no CUDA)."""
+    """K7 is CUDA C++ built for sm_90a: its own scan, warp bit transposes
+    (shuffles) and reductions, no library; the host codec is plain C++ (no
+    CUDA)."""
     csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
     text = (csrc / "survivor.cu").read_text()
-    assert "__global__" in text and "__ballot_sync" in text
+    assert "__global__" in text and "__shfl_xor_sync" in text
+    # The bands merge in band order in shared memory: no atomics, so that
+    # two runs agree bit for bit.
+    assert not re.search(r"\batomic[A-Z]|\batom\.(global|shared)", text)
     includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
     assert includes == ["#include <cuda_bf16.h>", "#include <cuda_runtime.h>",
                         "#include <stdint.h>"]
@@ -157,6 +161,28 @@ def test_flash_sm90_is_a_tma_wgmma_kernel_without_libcuda():
                    for f in _build.NVCC_FLAGS)
     attn = (csrc / "attention.cu").read_text()
     assert "flash_attn_relpos" in attn and "template <bool" not in attn
+
+
+def test_mask_head_is_a_persistent_tma_wgmma_kernel():
+    """K6 is CUDA C++ for sm_90a: a grid of at most one block an SM (the
+    device's SM count read at launch) walking the row tiles, both weights
+    loaded once a block and keys2 through a ring by TMA behind full/empty
+    mbarriers, wgmma for both products, the tile max over the warpgroup by
+    a named barrier; no weight streamed by cp.async, no ldmatrix, no
+    atomics and no library."""
+    text = _with_headers("mask_head.cu")
+    for needle in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                   "mbarrier.arrive.shared",
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                   "cudaDevAttrMultiProcessorCount", "bar.sync",
+                   "cudaGetDriverEntryPoint"):
+        assert needle in text, needle
+    assert "cp.async.cg" not in (ROOT / "crowdsam_tpu_torch" / "csrc"
+                                 / "mask_head.cu").read_text()
+    assert "ldmatrix" not in text
+    assert not re.search(r"\batomic[A-Z]|\batom\.(global|shared)", text)
+    for lib in ("cublas", "cutlass", "cute/", "cudnn", "torch/"):
+        assert lib not in text.lower()
 
 
 def test_relpos_attention_is_a_tma_wgmma_kernel_without_libcuda():

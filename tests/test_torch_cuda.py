@@ -269,10 +269,16 @@ def test_twoway_tail_kernel(gen, image_size, p, t, point_tokens):
     assert torch.equal(again[0], keys2) and torch.equal(again[1], tok)
 
 
-@pytest.mark.parametrize("image_size,p", [(256, 3), (1024, 8)])
+@pytest.mark.parametrize("image_size,p", [
+    (256, 3), (1024, 8),
+    # The persistent grid (min(tiles, SMs) blocks of two warpgroups): 4,
+    # 64 and 128 tiles (fewer than 132 SMs), 132 (one a block), 2048 (the
+    # main path's, not a multiple of 132).
+    (256, 1), (1024, 1), (256, 32), (256, 33), (1024, 32)])
 @pytest.mark.parametrize("emit_exp", [False, True])
 def test_mask_head_kernel(gen, image_size, p, emit_exp):
-    """K6 at M = 256 and 4096 image rows, with and without the exp terms."""
+    """K6 at M = 256 and 4096 image rows, 1 to 33 prompts, with and without
+    the exp terms."""
     shared, tokens, hyper = _decoder_operands(gen, image_size, p, 7)
     keys2, _ = decode_tail_kernel.twoway_tail_plain(*_tail_args(shared,
                                                                 tokens))
@@ -358,6 +364,24 @@ def test_survivor_kernel(gen, r, k):
         assert torch.equal(got[key], want[key]), key
     again = survivor_kernel.survivor_rle(x, edit, hw)
     assert all(torch.equal(again[key], got[key]) for key in got)
+
+
+@pytest.mark.parametrize("k", [1, 32, 320])
+def test_survivor_kernel_ragged_bands(gen, k):
+    """K7 at the loaded pass's k = 1, k = 32 and the survivor slab's 320,
+    R = 256, float32 and bf16 logits, with in_h and in_w off the band grid
+    (S / 8 = 128 rows) and off multiples of 8, and one mask cut inside its
+    first band: every output equal to the plain version's."""
+    s = 1024
+    x, edit, _ = _survivor_operands(gen, k, 256)
+    hw = torch.tensor([[s - 37 - 131 * (i % 7), s - 5 - 97 * (i % 9)]
+                       for i in range(k)], dtype=torch.int32, device="cuda")
+    hw[0] = torch.tensor([77, 300])
+    for logits in (x, x.float()):
+        got = survivor_kernel.survivor_rle(logits, edit, hw)
+        want = survivor_kernel.survivor_rle_plain(logits, edit, hw)
+        for key in ("packed", "cand", "n_col", "summary"):
+            assert torch.equal(got[key], want[key]), key
 
 
 def test_survivor_kernel_refuses_what_it_does_not_take(gen):

@@ -22,6 +22,7 @@ from crowdsam_tpu_torch.ops.rle import (
     unpack_cand10,
 )
 from crowdsam_tpu_torch.ops.survivor_kernel import (
+    BANDS,
     COL_SLOTS,
     survivor_rle,
     survivor_rle_plain,
@@ -167,3 +168,116 @@ def test_wrapper_refuses_other_devices():
     x = torch.zeros((1, 64, 64), device="meta")
     with pytest.raises(ValueError, match="device"):
         survivor_rle(x, x.to(torch.int8), (256, 256))
+
+
+# ---------------------------------------------------------------------------
+# The band merge of the CUDA kernel, as a numpy model
+# ---------------------------------------------------------------------------
+
+def _band_merge_model(full, in_hw, bands):
+    """K7's band decomposition in numpy, from the dense (S, S) bitmap of one
+    mask: each column is cut into `bands` row bands; a band keeps its change
+    count and first COL_SLOTS change rows (changes inside the band only),
+    its first and last set rows, and its first and last pixel.  Merged in
+    band order: a change counts at each band boundary where the last pixel
+    of band b - 1 differs from the first pixel of band b (band 0's first
+    pixel against the column link, pixel (in_h - 1, x - 1)); the change
+    rows are the bands' lists, each boundary change before its band's,
+    concatenated and cut at COL_SLOTS.  Returns n_col (S,), the change rows
+    (COL_SLOTS, S) with empty slots S - 1, per-column first and last set
+    rows, and the overflow flag."""
+    s = full.shape[0]
+    in_h, in_w = (min(max(v, 1), s) for v in in_hw)
+    rows_b = s // bands
+    n_col = np.zeros(s, np.int64)
+    slots = np.full((COL_SLOTS, s), s - 1, np.int64)
+    y_lo = np.full(s, s)
+    y_hi = np.full(s, -1)
+    for x in range(in_w):
+        col = full[:in_h, x].astype(np.int64)
+        link = int(full[in_h - 1, x - 1]) if x > 0 else 0
+        merged, prev_last = [], link
+        for b in range(bands):
+            y0, y1 = b * rows_b, min((b + 1) * rows_b, in_h)
+            if y0 >= y1:
+                break
+            band = col[y0:y1]
+            inner = y0 + 1 + np.nonzero(band[1:] != band[:-1])[0]
+            boundary = [y0] if band[0] != prev_last else []
+            merged += boundary + list(inner)
+            set_rows = y0 + np.nonzero(band)[0]
+            if len(set_rows):
+                y_lo[x] = min(y_lo[x], set_rows[0])
+                y_hi[x] = max(y_hi[x], set_rows[-1])
+            prev_last = band[-1]
+        n_col[x] = len(merged)
+        first = merged[:COL_SLOTS]
+        slots[:len(first), x] = first
+    return n_col, slots, y_lo, y_hi, bool((n_col > COL_SLOTS).any())
+
+
+def _painted(r, cells, base=-8.0):
+    """(1, r, r) logits of `base` with edits forcing the (row, col) low-res
+    `cells` on: 4x4 output blocks, so edges fall on chosen output rows."""
+    logits = np.full((1, r, r), base, np.float32)
+    edit = np.zeros((1, r, r), np.int8)
+    for rows, cols in cells:
+        edit[0, rows, cols] = 1
+    return logits, edit
+
+
+def _merge_case(name):
+    r = 64                                   # S = 256: bands of 32 rows
+    rng = np.random.default_rng(4)
+    if name == "change at a band boundary":  # edges at rows 32, 64, 160
+        return _painted(r, [(slice(8, 16), slice(5, 40)),
+                            (slice(40, 48), slice(20, 30))]) + ((256, 256),)
+    if name == "more than 24 changes over several bands":
+        return _painted(r, [(slice(0, r, 2), slice(10, 20))]) + ((256, 256),)
+    if name == "ragged in_h":                # 203: not a multiple of 32 or 8
+        logits, edit = _blob_logits(rng, 1, r)
+        return logits, edit, (203, 241)
+    if name == "column link":                # a bar down to row in_h - 1
+        logits = np.full((1, r, r), -8.0, np.float32)
+        logits[0, 13:, 10:14] = 8.0
+        return logits, np.zeros((1, r, r), np.int8), (172, 256)
+    if name == "empty mask":
+        return (np.full((1, r, r), -8.0, np.float32),
+                np.zeros((1, r, r), np.int8), (200, 256))
+    if name == "full mask":
+        return (np.full((1, r, r), 8.0, np.float32),
+                np.zeros((1, r, r), np.int8), (200, 256))
+    logits = (rng.normal(size=(1, r, r)) * 3).astype(np.float32)
+    return logits, np.zeros((1, r, r), np.int8), (229, 250)   # noise
+
+
+@pytest.mark.parametrize("name", [
+    "change at a band boundary", "more than 24 changes over several bands",
+    "ragged in_h", "column link", "empty mask", "full mask", "noise"])
+def test_band_merge_model_matches_plain(name):
+    """The kernel's merge rule (`_band_merge_model`, bands of S / BANDS
+    rows) gives the plain version's per-column counts, change rows, box and
+    overflow flag at the edges the rule must get right."""
+    logits, edit, in_hw = _merge_case(name)
+    out = survivor_rle_plain(torch.tensor(logits), torch.tensor(edit),
+                             in_hw)
+    full = np.unpackbits(out["packed"][0].numpy(), axis=-1).astype(bool)
+    n_col, slots, y_lo, y_hi, overflow = _band_merge_model(full, in_hw,
+                                                           BANDS)
+    np.testing.assert_array_equal(n_col, out["n_col"][0].numpy())
+    np.testing.assert_array_equal(slots, unpack_cand10(out["cand"][0].numpy()))
+    summary = out["summary"][0].numpy()
+    assert overflow == bool(summary[6])
+    assert n_col.sum() == summary[5]
+    if summary[4]:
+        assert (y_lo.min(), y_hi.max()) == (summary[1], summary[3])
+    else:
+        assert y_hi.max() == -1
+    s = full.shape[0]
+    rows_b = s // BANDS
+    on_boundary = int(((slots % rows_b == 0) & (slots > 0)
+                       & (slots < s - 1)).sum())
+    if name == "change at a band boundary":
+        assert on_boundary > 0
+    if name == "more than 24 changes over several bands":
+        assert overflow and (slots[COL_SLOTS - 1] < s - 1).any()

@@ -28,8 +28,9 @@
 // - Resident weights.  The first weight (256 x 256 bf16, 128 KB) and the
 //   second (128 x 64, 16 KB) are loaded into shared memory once per block
 //   by TMA, 128-byte swizzled, K-major: ~19 MB of L2 traffic a call where
-//   the PR 2 design, which streamed the first weight through every one of
-//   its 2048 blocks, moved 268 MB.
+//   the first design, which streamed the first weight through every one of
+//   its 2048 blocks, moved 268 MB.  Their tensor maps are encoded once per
+//   weight pointer; only the keys map is encoded per call.
 // - A two-stage TMA ring for keys2: the producer warp loads tile i (64 x
 //   256 bf16, 32 KB, four 64-column boxes) into stage i % 2 behind a full
 //   mbarrier and refills a stage when its empty mbarrier says the four
@@ -66,22 +67,24 @@
 // outputs enter the next product as two bf16 terms, hi + lo (~16 bits):
 // with bf16 stages, one rounding step anywhere, times hypernetwork weights
 // of tens, moved a mask by ~0.06 and e by twice its bound.  The GELU is
-// within 1.7e-7 max(|x|, 1) of the exact-erf one (the plain version keeps
-// torch.erf), far below the split's 2^-17.
+// within 2^-22 max(|x|, 1) of the exact-erf one (the plain version keeps
+// torch.erf), far below the split's 2^-17; chip_smoke.py holds the compiled
+// `gelu` to that over a sweep of x, and the kernel's mean error against
+// float32 to that of the plain version.
 //
 // Measured against each other in single calls (device ms at P = 32,
 // M = 4096, H100 80GB HBM3 at 700 W, one-off A/B probes on random
-// operands): the PR 2 design (a block per tile and prompt, the first
+// operands): the first design (a block per tile and prompt, the first
 // weight streamed, mma.sync) 0.274-0.279; this design with erff
 // 0.208-0.213; with a degree-8 polynomial GELU 0.158-0.167; with the
 // degree-6 one, the split and the descriptors as here 0.125-0.132
-// (chip_smoke.py on the model's operands: 0.131-0.135, and this source
-// built with -DMASK_HEAD_EXACT_ERF 0.200-0.201).
+// (chip_smoke.py on the model's operands: 0.131-0.135, and the same kernel
+// with the erff GELU 0.200-0.201).
 // Lost: a software-pipelined form (the next group's first product and both
 // second-product halves issued ahead, a producer warpgroup giving its
 // registers to the consumers by setmaxnreg, 384 threads) at 0.136-0.140,
-// and the Abramowitz-Stegun rational erf of the TPU kernel (in the PR 2
-// design: 0.39 against 0.27).
+// the erff GELU (above), and the Abramowitz-Stegun rational erf of the TPU
+// kernel (in the first design: 0.39 against 0.27).
 //
 // Shared memory (1024-byte aligned base): first weight 131072, second
 // weight 16384, keys ring 2 x 32768, biases and LayerNorm parameters 2048,
@@ -151,15 +154,10 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 
 // GELU(x) = x Phi(x) = relu(x) - |x| 2^g(|x|), 2^g(a) = erfc(a / sqrt 2) / 2:
 // g a degree-6 polynomial in a <= 4 sqrt 2 (weighted least squares, f32
-// coefficients), beyond which |x| 2^g < 8e-9 |x|.  Within 1.7e-7 max(|x|,
-// 1) of the exact-erf GELU in float32, ex2.approx included (below the
-// 2^-17 of the hi + lo split), in 10 instructions where erff takes ~30.
+// coefficients), beyond which |x| 2^g < 8e-9 |x|.  Within 2^-22 max(|x|, 1)
+// of the exact-erf GELU in float32, ex2.approx included (below the 2^-17
+// of the hi + lo split), in 11 SASS instructions where erff takes 32.
 __device__ __forceinline__ float gelu(float x) {
-#ifdef MASK_HEAD_EXACT_ERF
-  // The plain version's exact-erf GELU: chip_smoke.py builds the kernel so
-  // beside the shipped one, to time what the polynomial saves.
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-#else
   const float a = fminf(fabsf(x), 5.656854f);
   float g = 2.1093423e-05f;
   g = fmaf(g, a, -6.719686e-04f);
@@ -171,7 +169,6 @@ __device__ __forceinline__ float gelu(float x) {
   float e;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(g));
   return fmaf(-fabsf(x), e, fmaxf(x, 0.f));
-#endif
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -550,6 +547,20 @@ bool encode_2d(CUtensorMap* map, const void* ptr, int cols, long long rows,
   return sm90::encode_bf16(map, ptr, 2, dims, strides, box);
 }
 
+// The map of a weight, whole in one box.  It depends only on the pointer and
+// the fixed shape, so it is encoded once and kept until another weight comes.
+struct WeightMap {
+  const void* ptr = nullptr;
+  alignas(64) CUtensorMap map;
+};
+
+const CUtensorMap* weight_map(WeightMap& w, const void* ptr, int cols,
+                              int rows) {
+  if (w.ptr == ptr) return &w.map;
+  w.ptr = encode_2d(&w.map, ptr, cols, rows, rows) ? ptr : nullptr;
+  return w.ptr ? &w.map : nullptr;
+}
+
 }  // namespace
 
 // keys (P, M, 256) bf16; hyper (P, 4, 32) bf16; w0t (256, 256) and w2t
@@ -570,10 +581,12 @@ extern "C" int mask_head_forward(const void* keys, const void* hyper,
   const int sms = sm_count();
   if (sm90::encode_fn() == nullptr || sms == 0)
     return (int)cudaErrorNotSupported;
-  alignas(64) CUtensorMap tm_keys, tm_w0, tm_w2;
-  if (!encode_2d(&tm_keys, keys, C, (long long)P * M, TM) ||
-      !encode_2d(&tm_w0, w0t, C, 4 * C1, 4 * C1) ||
-      !encode_2d(&tm_w2, w2t, C1, 4 * C2, 4 * C2))
+  static WeightMap map_w0, map_w2;
+  const CUtensorMap* tm_w0 = weight_map(map_w0, w0t, C, 4 * C1);
+  const CUtensorMap* tm_w2 = weight_map(map_w2, w2t, C1, 4 * C2);
+  alignas(64) CUtensorMap tm_keys;
+  if (tm_w0 == nullptr || tm_w2 == nullptr ||
+      !encode_2d(&tm_keys, keys, C, (long long)P * M, TM))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.hyper = static_cast<const bf16*>(hyper);
@@ -595,8 +608,9 @@ extern "C" int mask_head_forward(const void* keys, const void* hyper,
   const int grid = tiles < sms ? tiles : sms;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (emit_exp)
-    mask_head<true><<<grid, THREADS, SMEM, st>>>(tm_keys, tm_w0, tm_w2, a);
+    mask_head<true><<<grid, THREADS, SMEM, st>>>(tm_keys, *tm_w0, *tm_w2, a);
   else
-    mask_head<false><<<grid, THREADS, SMEM, st>>>(tm_keys, tm_w0, tm_w2, a);
+    mask_head<false><<<grid, THREADS, SMEM, st>>>(tm_keys, *tm_w0, *tm_w2,
+                                                   a);
   return (int)cudaGetLastError();
 }

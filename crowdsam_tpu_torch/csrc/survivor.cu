@@ -11,7 +11,7 @@
 // What bounds it.  By bytes, a mask reads R*R logits and edits (192 KB at
 // R = 256, bf16) and writes 164 KB (packed bits, change rows, counts): 0.0035
 // ms for 32 masks at 3.35 TB/s.  The arithmetic is a few float operations a
-// pixel, but the column walk is a chain: the PR 3 design gave each thread
+// pixel, but the column walk is a chain: the first design gave each thread
 // one column and walked its 1024 rows in order, 8 blocks of 4 warps a mask,
 // and spent ~450 cycles a row step waiting on its own chain (0.263 ms at
 // k = 32, 1.3% of its bound's rate).  The packed bits of a row do not depend
@@ -65,7 +65,7 @@
 //
 // Measured against each other in single calls (device ms at k = 1 / 32 /
 // 320 person-shaped masks, H100 80GB HBM3 at 700 W, one-off A/B probes):
-// the PR 3 design 0.209 / 0.261 / 1.130; bands with four ballots a step and
+// the first design 0.209 / 0.261 / 1.130; bands with four ballots a step and
 // the change bookkeeping every step 0.018 / 0.060 / 0.448; with the
 // transpose 0.018 / 0.053 / 0.370; as here 0.0124 / 0.0403 / 0.2856
 // (chip_smoke.py: 0.0120 / 0.0405-0.0407 / 0.2856-0.2890).

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -183,6 +184,41 @@ def test_mask_head_is_a_persistent_tma_wgmma_kernel():
     assert not re.search(r"\batomic[A-Z]|\batom\.(global|shared)", text)
     for lib in ("cublas", "cutlass", "cute/", "cudnn", "torch/"):
         assert lib not in text.lower()
+
+
+def test_mask_head_gelu_polynomial_is_within_its_bound():
+    """K6's GELU, relu(x) - |x| 2^g(min(|x|, c)) with g a polynomial, read
+    from the source and evaluated as the kernel does in float32 (each fmaf
+    rounded once, 2^g exact here; the chip smoke test sweeps the compiled
+    form with ex2.approx), stays within 2^-22 max(|x|, 1) of the exact-erf
+    GELU over [-12, 12] and around the clamp."""
+    text = (ROOT / "crowdsam_tpu_torch" / "csrc" / "mask_head.cu").read_text()
+    body = text[text.index("float gelu(float x)"):]
+    body = body[:body.index("\n}\n")]
+    clamp = np.float32(re.search(r"fminf\(fabsf\(x\), ([-+.e\d]+)f\)",
+                                 body).group(1))
+    coef = [np.float32(re.search(r"float g = ([-+.e\d]+)f;", body).group(1))]
+    coef += [np.float32(c) for c in
+             re.findall(r"g = fmaf\(g, a, ([-+.e\d]+)f\);", body)]
+    assert len(coef) == 7 and "ex2.approx" in body
+
+    def fma32(a, b, c):          # a * b + c rounded once to float32
+        return (a.astype(np.float64) * b + c).astype(np.float32)
+
+    x = np.concatenate([np.linspace(-12, 12, 400_001, dtype=np.float32),
+                        np.float32(clamp) + np.arange(-64, 64) * 4.8e-7,
+                        -np.float32(clamp) + np.arange(-64, 64) * 4.8e-7
+                        ]).astype(np.float32)
+    a = np.minimum(np.abs(x), clamp)
+    g = np.full_like(a, coef[0])
+    for c in coef[1:]:
+        g = fma32(g, a, c)
+    e = np.exp2(g.astype(np.float64)).astype(np.float32)
+    y = fma32(-np.abs(x), e, np.maximum(x, np.float32(0)))
+    xd = torch.from_numpy(x.astype(np.float64))
+    want = (0.5 * xd * (1 + torch.erf(xd / np.sqrt(2.0)))).numpy()
+    rel = np.abs(y - want) / np.maximum(np.abs(x), 1.0)
+    assert rel.max() <= 2.0 ** -22, (rel.max(), x[rel.argmax()])
 
 
 def test_relpos_attention_is_a_tma_wgmma_kernel_without_libcuda():

@@ -49,6 +49,20 @@ the gitignored `build/kernels/`), then:
    same frames and noise; last, the model built with the shipped msgpack
    adapter (`adapter_weights/10_shot.msgpack`, read by the port's own
    reader) runs one `generate`;
+   K1's backward kernel is held against autograd of the plain LayerNorm
+   at the training step's shapes (dx, dw, db with max and mean bounds;
+   faults: the mean(g w xhat) term dropped, one block's dw/db partial left
+   out, the neighbouring row's rstd), twice bit for bit, beside
+   `aten::native_layer_norm_backward`.  The full-width weights are the
+   JAX package's numpy draws, timed and held to the manifest's checksums
+   (`numpy init`).  The trainer runs at full width on the in-memory
+   synthetic 10-shot set: 20 head-only steps, 20 full-decoder steps (K1
+   forward and backward on every decoder LayerNorm), ms per step, peak
+   memory, frozen leaves unchanged and every trainable leaf moved, and one
+   step's gradients through K1 against those through the plain LayerNorm.
+   Last, the shipped adapter on those encoders at the reference thresholds
+   on the JAX bench's golden frames: detections, their share of the JAX
+   bench's golden boxes, ms per image, the survivor pass and K7;
 3. checks the outputs: finite boxes and scores of the expected shapes inside
    the image, every RLE string's mask inside its detection's box, and, on a
    small configuration with head dim 64, the card's bf16 kernel path
@@ -62,6 +76,7 @@ result, when CUDA is absent or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -183,8 +198,9 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 
 def compare(name, got, want, atol, faults=(), require_faults=True,
-            mean_atol=None, min_fault=1.0):
-    """|got - want| <= atol + BF16_ULP |want| everywhere (and, with
+            mean_atol=None, min_fault=1.0, rtol=BF16_ULP):
+    """|got - want| <= atol + rtol |want| everywhere (rtol one bf16 ulp
+    unless given; and, with
     `mean_atol`, a mean |got - want| of at most that), and every plain
     version with a known fault (label, tensor) breaks the bound, by more
     than `min_fault` times (a phase with several outputs passes
@@ -192,7 +208,7 @@ def compare(name, got, want, atol, faults=(), require_faults=True,
     `require_faults_seen`).
     Returns the figures of the comparison; raises when either fails."""
     got, want = got.float(), want.float()
-    tol = atol + BF16_ULP * want.abs()
+    tol = atol + rtol * want.abs()
 
     def over_tol(x):
         err = (x.float() - want).abs()
@@ -207,7 +223,7 @@ def compare(name, got, want, atol, faults=(), require_faults=True,
         "mean_abs_err": float(err.mean()),
         "out_rms": float(want.square().mean().sqrt()),
         "out_max_abs": float(want.abs().max()),
-        "tol": f"{atol:g}+2^-7*|y|" + (
+        "tol": f"{atol:g}+{rtol:g}*|y|" + (
             f", mean {mean_atol:g}" if mean_atol is not None else ""),
         "err_over_tol": over_tol(got),
         "fault_err_over_tol": {label: over_tol(f) for label, f in faults},
@@ -820,7 +836,7 @@ def phase_msgpack_adapter(img):
     """The shipped adapter, a flax msgpack tree, through the port's own
     reader on this machine: the full-width model built with
     `model.sam_adapter_checkpoint` set back to `configs/crowdhuman.yaml`'s
-    value holds its values, and one `generate` runs."""
+    value holds its values, and one `generate` runs.  Returns the model."""
     from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
     from crowdsam_tpu_torch.utils import msgpack_io
@@ -840,9 +856,7 @@ def phase_msgpack_adapter(img):
     row = dict(adapter=path, decoder_tensors_checked=len(want),
                detections=len(data["boxes"]), ms=ms)
     print(json.dumps({"phase": "msgpack adapter", **row}), flush=True)
-    del model
-    torch.cuda.empty_cache()
-    return row
+    return model
 
 
 def phase_mask_head(model, img, label, tail_out, probe):
@@ -1819,6 +1833,343 @@ def phase_small_reference(gpu):
                              f"{n_cpu} on the CPU, boxes {box_err} px apart")
 
 
+# --------------------------------------------------------------------------
+# K1 backward, the JAX package's weights, training, the shipped adapter
+# --------------------------------------------------------------------------
+
+def _ln_backward_faults(x, g, w, eps, blocks):
+    """The plain backward with a known fault each: (label, dx, dw, db).
+    The mean(g w xhat) term of dx dropped; one block's rows left out of the
+    dw/db sums (the kernel's own block of rows, `blocks` of them); the rstd
+    of the neighbouring row."""
+    xf, gf = x.float(), g.float()
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mu).square().mean(-1, keepdim=True) + eps)
+    n = xf.shape[0]
+
+    def dx_of(r, drop_c2=False):
+        xh = (xf - mu) * r
+        gw = gf * w
+        a = gw.mean(-1, keepdim=True)
+        c2 = 0.0 if drop_c2 else (gw * xh).mean(-1, keepdim=True)
+        return (r * (gw - a - xh * c2)).to(x.dtype)
+
+    xh = (xf - mu) * rstd
+    dw, db = (gf * xh).sum(0), gf.sum(0)
+    per = -(-n // blocks)
+    k = blocks // 2
+    rows = slice(k * per, min((k + 1) * per, n))
+    dw_drop = dw - (gf[rows] * xh[rows]).sum(0)
+    db_drop = db - gf[rows].sum(0)
+    good = dx_of(rstd)
+    return [("c2 term dropped", dx_of(rstd, True), dw, db),
+            ("one block's partial left out", good, dw_drop, db_drop),
+            ("rstd of the neighbouring row",
+             dx_of(torch.roll(rstd, 1, 0)), dw, db)]
+
+
+def phase_layernorm_backward(gen):
+    """K1's backward against the plain version's autograd at the training
+    step's shapes (full decoder, 60 prompts, bf16: norm4 245760x256, the
+    token norms 420x256, the upscaling's 983040x64) and the DINOv2 width in
+    float32: dx, dw and db each with a max and a mean bound, and faults of
+    the kernel's design that must break them."""
+    from crowdsam_tpu_torch.kernels import _build
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    rows = []
+    for n, d, dtype, eps in ((245760, 256, torch.bfloat16, 1e-5),
+                             (983040, 64, torch.bfloat16, 1e-6),
+                             (420, 256, torch.bfloat16, 1e-5),
+                             (5330, 1024, torch.float32, 1e-6)):
+        x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        g = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        _, mean, rstd = ln._forward(x, w, b, eps, stats=True)
+        got = ln.layer_norm_backward(g, x, w, mean, rstd)
+        want = ln.layer_norm_grads_plain(g, x, w, b, eps)
+        blocks = _build.function("layernorm", "ln_backward_blocks",
+                                 (ctypes.c_longlong,))(n)
+        faults = _ln_backward_faults(x, g, w, eps, blocks)
+        bf16 = dtype == torch.bfloat16
+        # dx: both sides round one f32 value to x's dtype (one ulp apart at
+        # most); dw, db: f32 sums over n rows in another order.
+        out = {"dx": compare(
+            f"ln_backward dx {n}x{d}", got[0], want[0],
+            1e-2 if bf16 else 1e-5, [(f[0], f[1]) for f in faults],
+            require_faults=False, mean_atol=1e-3 if bf16 else 1e-6,
+            rtol=BF16_ULP if bf16 else 0.0)}
+        for i, key in ((1, "dw"), (2, "db")):
+            scale = float(want[i].abs().max())
+            out[key] = compare(
+                f"ln_backward {key} {n}x{d}", got[i], want[i], 2e-5 * scale,
+                [(f[0], f[1 + i]) for f in faults], require_faults=False,
+                mean_atol=4e-6 * scale, rtol=0.0)
+        require_faults_seen(f"ln_backward {n}x{d}", out)
+        again = ln.layer_norm_backward(g, x, w, mean, rstd)
+        if not all(torch.equal(a, c) for a, c in zip(again, got)):
+            raise AssertionError("ln_backward: two calls differ")
+        wl, bl = w.to(dtype), b.to(dtype)
+        _, mean2, rstd2 = torch.native_layer_norm(x, [d], wl, bl, eps)
+
+        def library():
+            return torch.ops.aten.native_layer_norm_backward(
+                g, x, [d], mean2, rstd2, wl, bl, [True, True, True])
+
+        t_k = time_ms(lambda: ln.layer_norm_backward(g, x, w, mean, rstd), 30)
+        t_p = time_ms(lambda: ln.layer_norm_grads_plain(g, x, w, b, eps), 5)
+        t_l = time_ms(library, 30)
+        d_k = device_ms(lambda: ln.layer_norm_backward(g, x, w, mean, rstd),
+                        30, "ln_bwd")
+        d_l = device_ms(library, 30)
+        esz = x.element_size()
+        b_ms, by = bound(3 * n * d * esz + 8 * n + 3 * 4 * d, 12.0 * n * d,
+                         F32_FLOP_PER_S)
+        row = dict(shape=f"{n}x{d}", dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err=max(o["max_abs_err"] for o in out.values()),
+                   err_over_tol={k: o["err_over_tol"] for k, o in
+                                 out.items()},
+                   fault_err_over_tol={k: o["fault_err_over_tol"] for k, o in
+                                       out.items()},
+                   tol={k: o["tol"] for k, o in out.items()},
+                   deterministic=True, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                   library_ms=t_l, library_device_ms=d_l, bound_ms=b_ms,
+                   bound_by=by, partial_blocks=blocks)
+        rows.append(row)
+        print(json.dumps({"phase": "K1 backward", **row}), flush=True)
+        del x, g, got, want, faults
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_numpy_init():
+    """The full-width model's weights, drawn on the host as the JAX package
+    draws them (SAM ViT-L from seed 0, DINOv2 ViT-L/14 from environ.seed
+    42): the draw's time, and each module's elements, sum and sum of squares
+    against the manifest's checksums (numpy's draws are the same on any
+    machine).  The draws stay cached for the models built after."""
+    from crowdsam_tpu_torch.utils import init
+
+    t = time.perf_counter()
+    sam = init.sam_state_dict("vit_l", 0, None, 1, 1024)
+    dino = init.dino_state_dict("dinov2_vitl14", 42)
+    draw_s = time.perf_counter() - t
+    want = init.manifest()["checksums"]
+    got = {f"sam/vit_l/0/{k}": v for k, v in init.sam_checksums(sam).items()}
+    got["dino/dinov2_vitl14/42"] = init.checksum(dino.values())
+    rel = {}
+    for key, (n, total, sq) in got.items():
+        leaves, n_want, total_want, sq_want = want[key]
+        if n != n_want:
+            raise AssertionError(f"numpy init {key}: {n} elements, the "
+                                 f"manifest {n_want}")
+        rel[key] = max(abs(total - total_want) / abs(total_want),
+                       abs(sq - sq_want) / abs(sq_want))
+    row = {"phase": "numpy init", "draw_s": draw_s,
+           "elements": {k: v[0] for k, v in got.items()},
+           "leaves_in_manifest": {k: want[k][0] for k in got},
+           "sum_sumsq_rel_diff": rel, "tol": 1e-9}
+    print(json.dumps(row), flush=True)
+    if max(rel.values()) > 1e-9:
+        raise AssertionError(f"numpy init differs from the manifest: {row}")
+    return row
+
+
+def _train_run(model, cfg, label, data, plain_check=False):
+    """One `AdapterTrainer.train` run of cfg's steps on `model` (whose
+    decoder it trains in place), timed per step, with K1's launches."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.train.trainer import AdapterTrainer
+
+    trainer = AdapterTrainer(cfg, model.predictor)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.cache_features(data)
+    torch.cuda.synchronize()
+    cache_ms = (time.perf_counter() - t) * 1e3
+    before = {k: v.clone() for k, v in
+              model.sam.mask_decoder.state_dict().items()}
+    check = None
+    if plain_check:
+        check = _plain_ln_gradients(trainer)
+    step_ms, losses = [], []
+    last = [time.perf_counter()]
+
+    def on_step(step, ls):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - last[0]) * 1e3)
+        last[0] = now
+        losses.append({k: float(v) for k, v in ls.items()})
+
+    fwd, bwd = ln.layer_norm.launches, ln.layer_norm_backward.launches
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    params = trainer.train(data, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(step_ms)
+    launches = {"layer_norm": ln.layer_norm.launches - fwd,
+                "layer_norm_backward": ln.layer_norm_backward.launches - bwd}
+    after = model.sam.mask_decoder.state_dict()
+    frozen_changed = [k for k in before if k not in params
+                      and not torch.equal(after[k], before[k])]
+    unmoved = [k for k in params if torch.equal(after[k], before[k])]
+    finite = all(np.isfinite(v) for ls in losses for v in ls.values())
+    row = {"phase": f"train {label}", "steps": steps,
+           "trainable_leaves": len(params),
+           "cache_features_ms": cache_ms,
+           "cache_shots": len(trainer.cache["n_boxes"]),
+           "ms_per_step": step_ms,
+           "ms_per_step_median": float(np.median(step_ms[1:])),
+           "peak_memory_gib": peak, "first_losses": losses[0],
+           "last_losses": losses[-1], "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "frozen_changed": frozen_changed, "trainable_unmoved": unmoved}
+    if check is not None:
+        row["plain_layer_norm_gradients"] = check
+    print(json.dumps(row), flush=True)
+    if frozen_changed or unmoved or not finite:
+        raise AssertionError(f"train {label}: {row}")
+    return row
+
+
+def _plain_ln_gradients(trainer):
+    """One full-decoder step's gradients through K1 (forward and
+    backward) and through the plain LayerNorm (an explicit call), from the
+    same parameters and draws: the largest difference over the global
+    gradient norm."""
+    import crowdsam_tpu_torch.models.common as common
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    params = trainer.trainable_params()
+    draws = trainer.draw(0)
+    bwd = ln.layer_norm_backward.launches
+    _, l_k, g_k = trainer.loss_and_grads(params, 0, draws)
+    kernel_launches = ln.layer_norm_backward.launches - bwd
+    with patched(common, "layer_norm", ln.layer_norm_plain):
+        _, l_p, g_p = trainer.loss_and_grads(params, 0, draws)
+    norm = float(torch.sqrt(sum(g.double().square().sum()
+                                for g in g_p.values())))
+    err = max(float((g_k[k] - g_p[k]).abs().max()) for k in g_p)
+    row = {"max_abs_diff_over_global_norm": err / norm,
+           "global_norm": norm, "tol": 2e-2,
+           "loss_kernel": {k: float(v) for k, v in l_k.items()},
+           "loss_plain": {k: float(v) for k, v in l_p.items()},
+           "backward_launches_kernel_step": kernel_launches}
+    if not err / norm <= 2e-2 or kernel_launches == 0:
+        raise AssertionError(f"plain LayerNorm gradients: {row}")
+    return row
+
+
+def phase_train(model):
+    """The 10-shot trainer at full width on the in-memory synthetic set
+    (`ten_shot_arrays(0)`): 20 head-only steps at the config's lr, then 20
+    with `train.full_decoder` at the bench recipe's lr 2e-4 (which runs
+    every decoder LayerNorm through K1 forward and backward).  The model's
+    decoder is trained in place; nothing after reads it."""
+    import copy
+
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.train.dataset import ArrayDataset
+    from crowdsam_tpu_torch.utils.fixtures import ten_shot_arrays
+
+    data = ArrayDataset(*ten_shot_arrays(0))
+    head = modify_config(copy.deepcopy(model.config), ["train.steps", "20"])
+    rows = {"head_only": _train_run(model, head, "head-only", data)}
+    full = modify_config(copy.deepcopy(head), ["train.full_decoder", "True",
+                                               "train.lr", "2e-4"])
+    rows["full_decoder"] = _train_run(model, full, "full decoder", data,
+                                      plain_check=True)
+    return rows
+
+
+def _match_share(boxes, golden, thr=0.5):
+    """The share of `golden` boxes (xyxy, by falling score) matched one to
+    one, greedily, by a box of `boxes` at IoU >= thr."""
+    boxes = np.asarray(boxes, dtype=np.float64).reshape(-1, 4)
+    golden = np.asarray(golden, dtype=np.float64).reshape(-1, 4)
+    if len(golden) == 0:
+        return None
+    used = np.zeros(len(boxes), bool)
+    hits = 0
+    for gb in golden:
+        if not len(boxes):
+            break
+        x0 = np.maximum(boxes[:, 0], gb[0])
+        y0 = np.maximum(boxes[:, 1], gb[1])
+        x1 = np.minimum(boxes[:, 2], gb[2])
+        y1 = np.minimum(boxes[:, 3], gb[3])
+        inter = np.clip(x1 - x0, 0, None) * np.clip(y1 - y0, 0, None)
+        area = ((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+                + (gb[2] - gb[0]) * (gb[3] - gb[1]) - inter)
+        iou = np.where(used, -1.0, inter / np.maximum(area, 1e-9))
+        j = int(np.argmax(iou))
+        if iou[j] >= thr:
+            used[j] = True
+            hits += 1
+    return hits / len(golden)
+
+
+def phase_loaded_reference(model):
+    """The shipped adapter (`adapter_weights/10_shot.msgpack`, the JAX
+    bench's decoder) on the JAX package's own random encoders, every filter
+    at the defaults of `configs/crowdhuman.yaml`, on the JAX bench's golden
+    frames `crowd_scene(0)` and `mid_scene(7)`: detections, ms per image,
+    the survivor pass's ms, K7's launches, and the share of the JAX bench's
+    golden boxes (`adapter_weights/bench_golden_detections.json`) matched
+    at IoU >= 0.5.  The engine noise is the port's (not `jax.random`), so
+    the counts are printed, not gated; crowd_scene(0) must give
+    detections."""
+    import crowdsam_tpu_torch.pipeline.crowdsam as pipeline
+    from crowdsam_tpu_torch.utils.bench_fixture import crowd_scene, mid_scene
+
+    with open("adapter_weights/bench_golden_detections.json") as f:
+        golden = json.load(f)["regimes"]
+    frames = [("crowded", "crowd_scene(0)", crowd_scene(0)[0]),
+              ("sparse", "mid_scene(7)", mid_scene(7)[0])]
+    _timed_generate(model, frames[0][2])                # warm-up
+    out = []
+    for regime, name, img in frames:
+        counters = _reset_counts()
+        data, ms = _timed_generate(model, img)
+        k7 = counters["survivor_rle"].launches
+        surv = [0.0]
+
+        def timed_core(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = real_core(*a, **kw)
+            torch.cuda.synchronize()
+            surv[0] += (time.perf_counter() - t) * 1e3
+            return res
+
+        real_core = pipeline.survivor_core
+        with patched(pipeline, "survivor_core", timed_core):
+            _timed_generate(model, img)
+        gold = golden[regime]
+        if list(gold["hw"]) != list(img.shape[:2]):
+            raise AssertionError(f"golden frame {regime}: {gold['hw']}")
+        nonempty = _check_rles(data, img) if len(data["boxes"]) else 0
+        out.append({"frame": name, "golden_regime": regime,
+                    "detections": len(data["boxes"]),
+                    "jax_bench_detections": len(gold["boxes"]),
+                    "golden_matched_share_iou50": _match_share(
+                        data["boxes"], gold["boxes"]),
+                    "ms_per_image": ms, "survivor_pass_ms": surv[0],
+                    "survivor_rle_launches": k7,
+                    "nonempty_masks": nonempty})
+    row = {"phase": "loaded at the reference thresholds",
+           "adapter": "adapter_weights/10_shot.msgpack",
+           "config": "configs/crowdhuman.yaml defaults, JAX-drawn encoders",
+           "frames": out}
+    print(json.dumps(row), flush=True)
+    if out[0]["detections"] == 0:
+        raise AssertionError(f"crowd_scene(0) gives no detection: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -1836,11 +2187,15 @@ def main() -> int:
         log(f"--- ptxas {name}.cu\n{text}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase_gelu(k6_probe)
-    ln_rows = phase_layernorm(gen)
-    k2 = phase_window(gen)
-    k3 = phase_global(gen)
-    k4 = phase_dino(gen)[0]
+    # Serving and the kernels without a backward run under no_grad; K1's
+    # backward and the trainer take their gradients themselves.
+    with torch.no_grad():
+        phase_gelu(k6_probe)
+        ln_rows = phase_layernorm(gen)
+        k2 = phase_window(gen)
+        k3 = phase_global(gen)
+        k4 = phase_dino(gen)[0]
+    ln_bwd_rows = phase_layernorm_backward(gen)
     torch.cuda.empty_cache()
 
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
@@ -1849,30 +2204,39 @@ def main() -> int:
         synthetic_images,
     )
 
+    phase_numpy_init()
     t0 = time.time()
     model = CrowdSAM(full_width_config(), device="cuda")
     small = CrowdSAM(_small_config(), device="cuda")
     torch.cuda.synchronize()
     log(f"models built in {time.time() - t0:.1f} s")
     frame = synthetic_images(3, 1)[0]
-    k5, tail_out = phase_twoway_tail(model, frame, "main path, M=4096")
-    k6 = phase_mask_head(model, frame, "main path, M=4096", tail_out,
-                         k6_probe)
-    phase_twoway_tail_normal(model, frame)
-    _, tail_small = phase_twoway_tail(small, _small_image(), "small, M=256")
-    phase_mask_head(small, _small_image(), "small, M=256", tail_small,
-                    k6_probe)
-    del tail_out, tail_small
-    torch.cuda.empty_cache()
-    phase_survivor(1, 70)
-    k7 = phase_survivor(32, 50)
-    phase_survivor(model.engine_cfg.max_keep, 60)
-    torch.cuda.empty_cache()
+    with torch.no_grad():
+        k5, tail_out = phase_twoway_tail(model, frame, "main path, M=4096")
+        k6 = phase_mask_head(model, frame, "main path, M=4096", tail_out,
+                             k6_probe)
+        phase_twoway_tail_normal(model, frame)
+        _, tail_small = phase_twoway_tail(small, _small_image(),
+                                          "small, M=256")
+        phase_mask_head(small, _small_image(), "small, M=256", tail_small,
+                        k6_probe)
+        del tail_out, tail_small
+        torch.cuda.empty_cache()
+        phase_survivor(1, 70)
+        k7 = phase_survivor(32, 50)
+        phase_survivor(model.engine_cfg.max_keep, 60)
+        torch.cuda.empty_cache()
     launches, loaded_launches = phase_end_to_end(model)
     phase_small_reference(small)
+    del small
+    torch.cuda.empty_cache()
+    train = phase_train(model)
     del model
     torch.cuda.empty_cache()
-    phase_msgpack_adapter(frame)
+    adapted = phase_msgpack_adapter(frame)
+    phase_loaded_reference(adapted)
+    del adapted
+    torch.cuda.empty_cache()
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")
     src_attn = "crowdsam_tpu_torch/csrc/attention.cu"
@@ -1886,6 +2250,19 @@ def main() -> int:
              **{k: ln[k] for k in keys}, device_ms=ln["device_ms"],
              library_device_ms=ln["library_device_ms"]),
     ]
+    bw = next(r for r in ln_bwd_rows if r["shape"] == "245760x256")
+    table.append(dict(
+        name="layer_norm_backward", route="cuda",
+        source="crowdsam_tpu_torch/csrc/layernorm.cu",
+        replaces="crowdsam_tpu/ops/layernorm.py:34",
+        replaces_note="K1's backward: the Pallas kernel has no VJP; the "
+                      "JAX trainer differentiates jnp _ln_impl "
+                      "(crowdsam_tpu/models/common.py:33)",
+        launches=train["full_decoder"]["launches"]["layer_norm_backward"],
+        launches_in="train full decoder, 20 steps",
+        max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows),
+        **{k: bw[k] for k in keys}, device_ms=bw["device_ms"],
+        library_device_ms=bw["library_device_ms"]))
     for name, src, rep, row, extra in (
             ("window_attention", src_attn,
              "crowdsam_tpu/models/attention.py:163", k2,

@@ -76,7 +76,9 @@
 // update of all heads: scores by one m64n8k16 per head against the token
 // keys, the per-head softmax over the 4 lanes that hold a row, then P (64 x
 // 64 (head, token)) times the folded values (64 x 256) as four m64n64k16
-// products, and the LayerNorm from one pass of sums of x and x^2.  The
+// products, and the LayerNorm from one pass of sums of x and x^2 taken on
+// the f32 sum (the four products run twice: for the statistics, then for
+// the output, instead of holding the f32 sum in registers).  The
 // updated rows go to device memory through a swizzled staging tile, a warp
 // per 512-byte row.  keys1 makes that round trip (64 MB each way at 32
 // prompts) rather than being recomputed in row 2: measured, the recompute
@@ -1320,7 +1322,7 @@ __device__ __forceinline__ void head_scores(float (&sc)[H][4],
   fence_regs(qa);
 }
 
-// x <- rnd(LN(rnd(x + rnd(P U) + ob)) * lnw + lnb) on the warpgroup's 64
+// x <- rnd(LN(x + rnd(P U) + ob) * lnw + lnb) on the warpgroup's 64
 // rows held as A fragments: P = per-head softmax of the scores over the T
 // tokens, U^T staged at `ut` ([256 c][64 (h,t)], K-major).
 __device__ __forceinline__ void image_update(uint32_t (&xa)[C / 16][4],
@@ -1356,77 +1358,74 @@ __device__ __forceinline__ void image_update(uint32_t (&xa)[C / 16][4],
     pa[h >> 1][(h & 1) * 2 + 1] = pack_bf16(b0 * ib, b1 * ib);
   }
 
-  // delta = P U in quarters of 64 columns (K = 64 (head, token) pairs),
-  // folded into x in place.
-#pragma unroll
-  for (int qd = 0; qd < 4; ++qd) {
-    float acc[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HT / 16; ++kk)
-      wgmma_rs_n64(acc, pa[kk], kdesc(ut + qd * 64 * 128 + kk * 32),
-                   kk > 0 ? 1 : 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(pa);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int nt = qd * 8 + j;
-      const float2 o = *reinterpret_cast<const float2*>(ob + nt * 8 + 2 * t4);
-      const int kx = nt >> 1, ix = (nt & 1) * 2;
-      const float2 x0 = unpack_bf16(xa[kx][ix]);
-      const float2 x1 = unpack_bf16(xa[kx][ix + 1]);
-      // rnd(delta), a pair at a time
-      const float2 d0 = unpack_bf16(pack_bf16(acc[4 * j], acc[4 * j + 1]));
-      const float2 d1 =
-          unpack_bf16(pack_bf16(acc[4 * j + 2], acc[4 * j + 3]));
-      xa[kx][ix] = pack_bf16(x0.x + d0.x + o.x, x0.y + d0.y + o.y);
-      xa[kx][ix + 1] = pack_bf16(x1.x + d1.x + o.x, x1.y + d1.y + o.y);
-    }
-  }
-
-  // LayerNorm over the 256 columns of rows g and g + 8 (four lanes a row):
-  // the sums of x and x^2 in one pass (the inputs are O(1), so E[x^2] -
-  // mean^2 loses nothing at f32 that the bf16 output would keep), then y =
-  // (x rstd - mean rstd) w + b.
+  // The LayerNorm's input, x + rnd(P U) + ob, stays f32: rounding it to
+  // bf16 first would turn a one-ulp difference of P U's sum order into
+  // several ulps of the normalized output.  It is formed twice, P U in
+  // quarters of 64 columns (K = 64 (head, token) pairs) each time, for the
+  // statistics and then for the output, rather than held in registers; the
+  // products are the same instructions on the same operands, so both
+  // passes see the same sums.  The statistics are one pass of sums of x and
+  // x^2 (the inputs are O(1), so E[x^2] - mean^2 loses nothing at f32 that
+  // the bf16 output would keep); y = (x rstd - mean rstd) w + b.
   float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+  float r0 = 0.f, r1 = 0.f, c0 = 0.f, c1 = 0.f;
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-  for (int kk = 0; kk < C / 16; ++kk) {
+    for (int qd = 0; qd < 4; ++qd) {
+      float acc[32];
+      wgmma_fence();
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float2 x0 = unpack_bf16(xa[kk][hf * 2]);
-      const float2 x1 = unpack_bf16(xa[kk][hf * 2 + 1]);
-      s0 += x0.x + x0.y;
-      s1 += x1.x + x1.y;
-      q0 = fmaf(x0.x, x0.x, fmaf(x0.y, x0.y, q0));
-      q1 = fmaf(x1.x, x1.x, fmaf(x1.y, x1.y, q1));
+      for (int kk = 0; kk < HT / 16; ++kk)
+        wgmma_rs_n64(acc, pa[kk], kdesc(ut + qd * 64 * 128 + kk * 32),
+                     kk > 0 ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int nt = qd * 8 + j;
+        const float2 o =
+            *reinterpret_cast<const float2*>(ob + nt * 8 + 2 * t4);
+        const int kx = nt >> 1, ix = (nt & 1) * 2;
+        const float2 x0 = unpack_bf16(xa[kx][ix]);
+        const float2 x1 = unpack_bf16(xa[kx][ix + 1]);
+        // rnd(delta), a pair at a time
+        const float2 d0 = unpack_bf16(pack_bf16(acc[4 * j], acc[4 * j + 1]));
+        const float2 d1 =
+            unpack_bf16(pack_bf16(acc[4 * j + 2], acc[4 * j + 3]));
+        const float v00 = x0.x + d0.x + o.x, v01 = x0.y + d0.y + o.y;
+        const float v10 = x1.x + d1.x + o.x, v11 = x1.y + d1.y + o.y;
+        if (pass == 0) {
+          s0 += v00 + v01;
+          s1 += v10 + v11;
+          q0 = fmaf(v00, v00, fmaf(v01, v01, q0));
+          q1 = fmaf(v10, v10, fmaf(v11, v11, q1));
+        } else {
+          const int col = nt * 8 + 2 * t4;
+          const float2 w = *reinterpret_cast<const float2*>(lnw + col);
+          const float2 b = *reinterpret_cast<const float2*>(lnb + col);
+          xa[kx][ix] = pack_bf16(fmaf(fmaf(v00, r0, c0), w.x, b.x),
+                                 fmaf(fmaf(v01, r0, c0), w.y, b.y));
+          xa[kx][ix + 1] = pack_bf16(fmaf(fmaf(v10, r1, c1), w.x, b.x),
+                                     fmaf(fmaf(v11, r1, c1), w.y, b.y));
+        }
+      }
     }
-  }
+    if (pass == 0) {
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    q0 += __shfl_xor_sync(0xffffffffu, q0, off);
-    q1 += __shfl_xor_sync(0xffffffffu, q1, off);
-  }
-  const float mean0 = s0 * (1.f / C), mean1 = s1 * (1.f / C);
-  const float r0 = rsqrtf(fmaxf(q0 * (1.f / C) - mean0 * mean0, 0.f) + EPS);
-  const float r1 = rsqrtf(fmaxf(q1 * (1.f / C) - mean1 * mean1, 0.f) + EPS);
-  const float c0 = -mean0 * r0, c1 = -mean1 * r1;
-#pragma unroll
-  for (int kk = 0; kk < C / 16; ++kk) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int col = kk * 16 + hf * 8 + 2 * t4;
-      const float2 w = *reinterpret_cast<const float2*>(lnw + col);
-      const float2 b = *reinterpret_cast<const float2*>(lnb + col);
-      const float2 x0 = unpack_bf16(xa[kk][hf * 2]);
-      const float2 x1 = unpack_bf16(xa[kk][hf * 2 + 1]);
-      xa[kk][hf * 2] = pack_bf16(fmaf(fmaf(x0.x, r0, c0), w.x, b.x),
-                                 fmaf(fmaf(x0.y, r0, c0), w.y, b.y));
-      xa[kk][hf * 2 + 1] = pack_bf16(fmaf(fmaf(x1.x, r1, c1), w.x, b.x),
-                                     fmaf(fmaf(x1.y, r1, c1), w.y, b.y));
+      for (int off = 1; off < 4; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+        q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+      }
+      const float mean0 = s0 * (1.f / C), mean1 = s1 * (1.f / C);
+      r0 = rsqrtf(fmaxf(q0 * (1.f / C) - mean0 * mean0, 0.f) + EPS);
+      r1 = rsqrtf(fmaxf(q1 * (1.f / C) - mean1 * mean1, 0.f) + EPS);
+      c0 = -mean0 * r0;
+      c1 = -mean1 * r1;
     }
   }
 }

@@ -22,6 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -138,6 +140,23 @@ def require_operand(fn_name: str, t, name: str, shape, dtype,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{fn_name}: {name} must be contiguous")
+
+
+def refuse_grad(fn_name: str, *tensors) -> None:
+    """Raise when autograd would want a gradient through a kernel that has
+    no backward (K2-K7): grad mode on and a tensor (or a dict of them)
+    that requires grad.  Such a call would otherwise return a tensor with
+    no graph and cut the gradient without a word; on both devices, so the
+    CPU route shows what the card would do.  Serving runs under
+    `torch.no_grad()`."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        for u in (t.values() if isinstance(t, dict) else (t,)):
+            if isinstance(u, torch.Tensor) and u.requires_grad:
+                raise RuntimeError(
+                    f"{fn_name}: the kernel has no backward and an input "
+                    "requires grad; call it under torch.no_grad()")
 
 
 def check(status: int, what: str) -> None:

@@ -237,6 +237,7 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
     head, read in place from `qkv`; fh and fw are formed in the kernel.
     Windows of more than MAX_WINDOW^2 tokens (up to 64x64) go to K3's
     kernel as batches of partitioned windows."""
+    _build.refuse_grad("window_attention", qkv, rel_h_tab, rel_w_tab)
     if not _device_check(qkv, "window_attention"):
         return window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads,
                                       scale, window)
@@ -291,6 +292,7 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
     (h, h, D)/(w, w, D) gathered tables.  Returns (B, H, S, D), a (B, S, H,
     D) buffer seen as (B, H, S, D).  A grid 64 wide (SAM's) takes the
     kernel's bias-in-registers form, any other the folded form."""
+    _build.refuse_grad("flash_mha_decomposed_relpos", q, k, v, rel_h, rel_w)
     if not _device_check(q, "flash_mha_decomposed_relpos"):
         return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw)
     out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw,
@@ -365,6 +367,7 @@ def flash_mha(q, k, v, sm_scale: float,
     beyond `valid_len` masked.  Views with a contiguous head dim and 16-byte
     aligned strides are read in place (`tma_layout`); the output is a (B, S,
     H, D) buffer seen as (B, H, S, D)."""
+    _build.refuse_grad("flash_mha", q, k, v)
     if not _device_check(q, "flash_mha"):
         return flash_mha_plain(q, k, v, sm_scale, valid_len)
     b, nh, s, d = q.shape

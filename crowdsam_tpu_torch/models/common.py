@@ -42,17 +42,30 @@ class Conv2d(nn.Conv2d):
 class ConvTranspose2x2(nn.ConvTranspose2d):
     """ConvTranspose2d(kernel 2, stride 2) on NHWC tensors, computed as one
     dense product to 4*out channels plus depth-to-space:
-    out[2i+di, 2j+dj, o] = sum_c x[i, j, c] * W[c, o, di, dj] + b[o]."""
+    out[2i+di, 2j+dj, o] = sum_c x[i, j, c] * W[c, o, di, dj]
+                           + b[(2 di + dj) out + o].
+
+    The bias has one value per sub-pixel and channel (4*out), as the JAX
+    package's dense layer holds it: full-decoder training makes the four
+    copies differ.  A reference checkpoint's (out,) bias loads tiled 4x."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, kernel_size=2, stride=2)
+        self.bias = nn.Parameter(torch.zeros(4 * out_channels))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        key = prefix + "bias"
+        if key in state_dict and tuple(state_dict[key].shape) == (
+                self.out_channels,):
+            state_dict[key] = state_dict[key].repeat(4)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
         cout = self.out_channels
         wmat = self.weight.permute(0, 2, 3, 1).reshape(self.in_channels,
                                                        4 * cout)
-        y = x.to(wmat.dtype) @ wmat + self.bias.repeat(4)
+        y = x.to(wmat.dtype) @ wmat + self.bias
         y = y.reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
         return y.reshape(b, 2 * h, 2 * w, cout)
 

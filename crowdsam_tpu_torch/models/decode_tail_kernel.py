@@ -164,15 +164,11 @@ class _Stages:
                         + self.par(f"{pfx}_b"))
 
     def ln32(self, x, pfx):
-        """LayerNorm of x in f32, the output f32 (the token side)."""
+        """LayerNorm of x in f32, the output f32."""
         u = x.mean(-1, keepdim=True)
         s = (x - u).square().mean(-1, keepdim=True)
         y = (x - u) * torch.rsqrt(s + LN_EPS)
         return y * self.par(f"{pfx}_w") + self.par(f"{pfx}_b")
-
-    def ln(self, x, pfx):
-        """LayerNorm of rnd(x), the output rounded (the image side)."""
-        return self.rnd(self.ln32(self.rnd(x), pfx))
 
 
 def _t2i_attend(st: _Stages, qh: torch.Tensor, k_img: torch.Tensor,
@@ -204,7 +200,8 @@ def _image_update(st: _Stages, prev, q_img, tok, pe, pfx: str, npfx: str,
                   num_heads: int) -> torch.Tensor:
     """LN(prev + out_proj(attn(q=image, k=tokens + PE, v=tokens))): every
     head's softmax over the tokens, the probabilities rounded, the
-    out-projection folded onto the token values."""
+    out-projection folded onto the token values; the LayerNorm of the f32
+    sum, its output rounded."""
     k_tok = _heads(st.dense(_with_pe(tok, pe), f"{pfx}_k"), num_heads)
     v_tok = _heads(st.dense(tok, f"{pfx}_v"), num_heads)   # (P, H, T, d)
     scale = 1.0 / math.sqrt(k_tok.shape[-1])
@@ -214,7 +211,9 @@ def _image_update(st: _Stages, prev, q_img, tok, pe, pfx: str, npfx: str,
     u = st.rnd(torch.einsum("phtd,chd->phtc", v_tok,
                             w_o.reshape(w_o.shape[0], num_heads, -1)))
     delta = torch.einsum("phmt,phtc->pmc", p, u)
-    return st.ln(prev + st.rnd(delta) + st.par(f"{pfx}_o_b"), npfx)
+    # The LayerNorm's input sum stays f32 (the kernel forms it twice).
+    return st.rnd(st.ln32(prev + st.rnd(delta) + st.par(f"{pfx}_o_b"),
+                          npfx))
 
 
 def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
@@ -300,6 +299,7 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
 
     CPU: the plain version.  CUDA: the kernel (bf16, M a multiple of 64,
     2 <= T <= 8, 8 heads, MLP width 2048), or an error."""
+    _build.refuse_grad("twoway_tail", keys0, q1i, k1, v1, tokens, params)
     if keys0.device.type == "cpu":
         return twoway_tail_plain(keys0, q1i, k1, v1, tokens, params,
                                  num_heads)

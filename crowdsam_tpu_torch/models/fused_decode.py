@@ -295,11 +295,11 @@ def _decode_heads(decoder, shared: Dict, queries: torch.Tensor,
         m = h * w
         up0, ln1, up3 = up_mods[0], up_mods[1], up_mods[3]
         w0 = up0.weight.permute(0, 2, 3, 1).reshape(c, -1)   # (C, 4 c1)
-        up = keys2.to(dtype) @ w0 + up0.bias.repeat(4)
+        up = keys2.to(dtype) @ w0 + up0.bias
         up = up.reshape(p_cnt, m, 4, -1)
         up = gelu(ln1(up))
         w2 = up3.weight.permute(0, 2, 3, 1).reshape(up3.in_channels, -1)
-        up = gelu(up @ w2 + up3.bias.repeat(4))              # (P, m, 4, 4 c2)
+        up = gelu(up @ w2 + up3.bias)                        # (P, m, 4, 4 c2)
         up = up.reshape(p_cnt, m, 16, -1)
         masks = torch.einsum("pkc,pxqc->pkxq", hyper_in, up)  # (P, K, m, 16)
     else:

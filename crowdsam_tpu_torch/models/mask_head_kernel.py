@@ -62,11 +62,11 @@ def build_mask_head_weights(decoder, dtype: torch.dtype
     up = decoder.output_upscaling
     return {
         "w0t": _subpixel_weight(up[0]).to(dtype).contiguous(),
-        "b0": up[0].bias.detach().float().repeat(4).contiguous(),
+        "b0": up[0].bias.detach().float().contiguous(),
         "ln_w": up[1].weight.detach().float().contiguous(),
         "ln_b": up[1].bias.detach().float().contiguous(),
         "w2t": _subpixel_weight(up[3]).to(dtype).contiguous(),
-        "b2": up[3].bias.detach().float().repeat(4).contiguous(),
+        "b2": up[3].bias.detach().float().contiguous(),
     }
 
 
@@ -141,6 +141,7 @@ def mask_head(keys2: torch.Tensor, hyper_in: torch.Tensor,
 
     CPU: the plain version.  CUDA: the kernel (bf16, M a multiple of
     ROW_TILE, K = 4, widths 256 -> 64 -> 32), or an error."""
+    _build.refuse_grad("mask_head", keys2, hyper_in, weights)
     if keys2.device.type == "cpu":
         return mask_head_plain(keys2, hyper_in, weights, emit_exp)
     if keys2.device.type != "cuda":

@@ -154,6 +154,7 @@ def survivor_rle(logits: torch.Tensor, edit: torch.Tensor, in_hw,
 
     CPU: the plain version.  CUDA: the kernel (K >= 1, R a multiple of 32
     and at most 256), or an error."""
+    _build.refuse_grad("survivor_rle", logits, edit)
     if logits.device.type == "cpu":
         return survivor_rle_plain(logits, edit, in_hw, thresh)
     if logits.device.type != "cuda":

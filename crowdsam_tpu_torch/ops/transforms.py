@@ -98,8 +98,10 @@ class ResizeLongestSide:
             return image
         mh = _pil_bilinear_matrix(image.shape[0], th)
         mw = _pil_bilinear_matrix(image.shape[1], tw)
-        out = np.einsum("oh,hwc->owc", mh, image.astype(np.float64))
-        out = np.einsum("pw,owc->opc", mw, out)
+        h, w, c = image.shape
+        out = (mh @ image.reshape(h, w * c).astype(np.float64)).reshape(
+            th, w, c)
+        out = np.matmul(mw, out)                    # (th, tw, c), BLAS
         return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
 
     def apply_coords(self, coords: np.ndarray,

@@ -13,8 +13,10 @@ None per detection and the low-res boxes, as the JAX package does.
 the time of each.
 
 Runs on CUDA unless `device` names another device; with no device given
-and no CUDA present it raises.  Without checkpoints the weights are random,
-drawn from a `torch.Generator` seeded with `environ.seed`; a torch
+and no CUDA present it raises.  Without checkpoints the weights are the JAX
+package's random ones, drawn with numpy in its leaf order
+(`utils/init.py`): SAM from seed 0 (its parts 0-3), DINOv2 from
+`environ.seed`; a torch
 checkpoint of the reference (same state-dict keys) loads as it is, and a
 flax msgpack adapter (the JAX package's mask-decoder tree, as the trained
 adapters under `adapter_weights/` are saved) goes through
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from crowdsam_tpu_torch.config import dtype_from_str, resolve_device
-from crowdsam_tpu_torch.models.build import init_random_, sam_model_registry
+from crowdsam_tpu_torch.models.build import sam_model_registry
 from crowdsam_tpu_torch.models.common import cast_compute_params
 from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
 from crowdsam_tpu_torch.models.mask_decoder import MaskDecoder
@@ -52,7 +54,7 @@ from crowdsam_tpu_torch.pipeline.engine import (
     survivor_core,
 )
 from crowdsam_tpu_torch.pipeline.predictor import SamPredictor
-from crowdsam_tpu_torch.utils import msgpack_io
+from crowdsam_tpu_torch.utils import init, msgpack_io
 from crowdsam_tpu_torch.utils.weights import mask_decoder_state_dict
 
 _DINO_DIMS = {"dinov2_vitl14": 1024, "dinov2_vits14": 384}
@@ -97,6 +99,21 @@ def _float_leaves(tree):
     return tree
 
 
+def _load_drawn(module: torch.nn.Module, sd) -> None:
+    """Load a drawn JAX-layout state dict.  The JAX trees have no 5th
+    hypernetwork MLP (kept here for the reference's keys, never run): it
+    is set to zero."""
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    unused = "mask_decoder.output_hypernetworks_mlps.4."
+    if unexpected or any(not k.startswith(unused) for k in missing):
+        raise RuntimeError(f"drawn weights do not fit the module: missing "
+                           f"{missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for name, t in module.state_dict(keep_vars=True).items():
+            if name.startswith(unused):
+                t.zero_()
+
+
 def _uncrop_boxes_np(boxes, crop_box, downscale):
     x0, y0 = crop_box[0], crop_box[1]
     return boxes / downscale + np.asarray([x0, y0, x0, y0], dtype=np.float64)
@@ -105,6 +122,70 @@ def _uncrop_boxes_np(boxes, crop_box, downscale):
 def _uncrop_points_np(points, crop_box, downscale):
     x0, y0 = crop_box[0], crop_box[1]
     return points / downscale + np.asarray([x0, y0], dtype=np.float64)
+
+
+def _load(module: torch.nn.Module, path: Optional[str], what: str,
+          device, logger) -> None:
+    """Overlay a checkpoint non-strictly (as the reference loads its
+    checkpoints); a missing file leaves the random weights.  A torch
+    checkpoint loads as it is; a flax msgpack tree (`.msgpack`, `.flax`)
+    only as the adapter, the JAX package's mask-decoder tree mapped to this
+    package's keys."""
+    if not path:
+        return
+    if not os.path.exists(path):
+        logger.warning("%s %s not found; using random init", what, path)
+        return
+    if path.endswith((".msgpack", ".flax")):
+        if not isinstance(module, MaskDecoder):
+            raise NotImplementedError(
+                f"{what} {path}: msgpack trees load only as the adapter "
+                "(the mask decoder) here")
+        tree = _float_leaves(msgpack_io.load(path))
+        module.load_state_dict(mask_decoder_state_dict(tree), strict=False)
+        return
+    if not path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{what} {path}: only torch checkpoints and msgpack adapters "
+            "load here")
+    sd = torch.load(path, map_location=device, weights_only=True)
+    module.load_state_dict(sd.get("state_dict", sd), strict=False)
+
+
+def build_models(config: Dict[str, Any], device, dino_seed=None,
+                 load_adapter: bool = True, logger=None):
+    """(Sam, DINOv2) of a config on `device`, Linear/Conv weights in the
+    compute dtype.  Without checkpoints the weights are the JAX package's
+    random ones: SAM from seed 0, DINOv2 from `dino_seed` (default
+    `environ.seed`); the SAM and DINOv2 checkpoints, then (with
+    `load_adapter`) the adapter, overlay them."""
+    logger = logger or logging.getLogger("crowdsam_tpu_torch")
+    mcfg = config["model"]
+    dtype = dtype_from_str(config.get("tpu", {}).get("compute_dtype",
+                                                     "bfloat16"))
+    if dino_seed is None:
+        dino_seed = int(config["environ"].get("seed", 42))
+    n_class = int(mcfg.get("n_class", 1))
+    sam_model = mcfg.get("sam_model", "vit_l")
+    dino_model = mcfg.get("dino_model", "dinov2_vitl14")
+    build_kw = dict(n_class=n_class, dino_dim=_DINO_DIMS.get(dino_model, 1024))
+    if mcfg.get("image_size"):
+        build_kw["image_size"] = int(mcfg["image_size"])
+    sam = sam_model_registry[sam_model](**build_kw)
+    dino = dino_model_registry[dino_model]()
+    _load_drawn(sam, init.sam_state_dict(
+        sam_model, 0, build_kw.get("image_size"), n_class,
+        build_kw["dino_dim"]))
+    _load_drawn(dino, init.dino_state_dict(dino_model, dino_seed))
+    sam.to(device)
+    dino.to(device)
+    _load(sam, mcfg.get("sam_checkpoint"), "SAM checkpoint", device, logger)
+    _load(dino, mcfg.get("dino_checkpoint"), "DINOv2 checkpoint", device,
+          logger)
+    if load_adapter:
+        _load(sam.mask_decoder, mcfg.get("sam_adapter_checkpoint"),
+              "adapter checkpoint", device, logger)
+    return cast_compute_params(sam, dtype), cast_compute_params(dino, dtype)
 
 
 class CrowdSAM:
@@ -117,27 +198,11 @@ class CrowdSAM:
             raise NotImplementedError(why)
         mcfg, tcfg = config["model"], config["test"]
         tpucfg = config.get("tpu", {})
-        dtype = dtype_from_str(tpucfg.get("compute_dtype", "bfloat16"))
         seed = int(config["environ"].get("seed", 42))
         self.n_class = int(mcfg.get("n_class", 1))
 
-        build_kw = dict(
-            n_class=self.n_class,
-            dino_dim=_DINO_DIMS.get(mcfg.get("dino_model", "dinov2_vitl14"),
-                                    1024))
-        if mcfg.get("image_size"):
-            build_kw["image_size"] = int(mcfg["image_size"])
-        sam = sam_model_registry[mcfg.get("sam_model", "vit_l")](**build_kw)
-        dino = dino_model_registry[mcfg.get("dino_model", "dinov2_vitl14")]()
-        for module, s in ((sam, seed), (dino, seed + 1)):
-            module.to(self.device)
-            init_random_(module, torch.Generator(self.device).manual_seed(s))
-        self._load(sam, mcfg.get("sam_checkpoint"), "SAM checkpoint")
-        self._load(dino, mcfg.get("dino_checkpoint"), "DINOv2 checkpoint")
-        self._load(sam.mask_decoder, mcfg.get("sam_adapter_checkpoint"),
-                   "adapter checkpoint")
-        self.sam = cast_compute_params(sam, dtype)
-        self.dino = cast_compute_params(dino, dtype)
+        self.sam, self.dino = build_models(config, self.device,
+                                           logger=self.logger)
         self.predictor = SamPredictor(self.sam, self.dino, self.device)
 
         self.max_size = tcfg["max_size"]
@@ -153,9 +218,9 @@ class CrowdSAM:
             points_per_batch=tcfg["points_per_batch"],
             max_prompts=tcfg["max_prompts"],
             n_class=self.n_class,
-            img_size=sam.img_size,
-            low_res=sam.img_size // 4,
-            mask_threshold=sam.mask_threshold,
+            img_size=self.sam.img_size,
+            low_res=self.sam.img_size // 4,
+            mask_threshold=self.sam.mask_threshold,
             pos_sim_thresh=tcfg["pos_sim_thresh"],
             filter_thresh=tcfg["filter_thresh"],
             pred_iou_thresh=tcfg["pred_iou_thresh"],
@@ -170,35 +235,6 @@ class CrowdSAM:
         # Candidate-order noise, drawn on the CPU so that every device
         # sees the same order for a seed.
         self.generator = torch.Generator().manual_seed(seed)
-
-    def _load(self, module: torch.nn.Module, path: Optional[str],
-              what: str) -> None:
-        """Overlay a checkpoint non-strictly (as the reference loads its
-        checkpoints); a missing file leaves the random weights.  A torch
-        checkpoint loads as it is; a flax msgpack tree (`.msgpack`,
-        `.flax`) only as the adapter, the JAX package's mask-decoder tree
-        mapped to this package's keys."""
-        if not path:
-            return
-        if not os.path.exists(path):
-            self.logger.warning("%s %s not found; using random init", what,
-                                path)
-            return
-        if path.endswith((".msgpack", ".flax")):
-            if not isinstance(module, MaskDecoder):
-                raise NotImplementedError(
-                    f"{what} {path}: msgpack trees load only as the adapter "
-                    "(the mask decoder) here")
-            tree = _float_leaves(msgpack_io.load(path))
-            module.load_state_dict(mask_decoder_state_dict(tree),
-                                   strict=False)
-            return
-        if not path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{what} {path}: only torch checkpoints and msgpack adapters "
-                "load here")
-        sd = torch.load(path, map_location=self.device, weights_only=True)
-        module.load_state_dict(sd.get("state_dict", sd), strict=False)
 
     # ---------------------------------------------------------------- api
     def crop_image(self, image: np.ndarray, crop_box) -> None:

@@ -127,10 +127,12 @@ class SamPredictor:
     @torch.no_grad()
     def predict_batch(self, point_coords=None, point_labels=None, boxes=None,
                       mask_input=None, multimask_output: bool = True,
-                      return_logits: bool = False):
+                      return_logits: bool = False,
+                      return_full_masks: bool = True):
         """Prompts in the input frame: points (B, N, 2) / labels (B, N),
         boxes (B, 4), mask_input (B, 256, 256, 1).  Returns (masks at
-        original_size, iou_pred, cls_scores, low-res logits)."""
+        original_size, None without `return_full_masks`; iou_pred,
+        cls_scores, low-res logits)."""
         if not self.is_image_set:
             raise RuntimeError("call set_image first")
         points = None
@@ -146,6 +148,8 @@ class SamPredictor:
             self._cache["features"], self._cache["dense_pe"], sparse, dense,
             multimask_output,
             dino_feats_proj=self._cache.get("dino_proj_256"))
+        if not return_full_masks:
+            return None, iou, cls, low_res
         masks = postprocess_masks(low_res, self.input_size,
                                   self.original_size, self.model.img_size)
         if not return_logits:

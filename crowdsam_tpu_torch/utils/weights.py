@@ -9,9 +9,13 @@ arrays (a JAX tree after `jax_tree_to_numpy`) and return {key: tensor}:
 
 - Dense kernel (in, out) -> Linear weight (out, in);
 - Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw);
-- ConvTranspose2x2 dense kernel (in, 4*out), bias tiled 4x ->
-  ConvTranspose2d weight (in, out, 2, 2) and bias (out,);
+- ConvTranspose2x2 dense kernel (in, 4*out) and bias (4*out,) ->
+  ConvTranspose2d weight (in, out, 2, 2) and the port's per-sub-pixel bias
+  (4*out,);
 - LayerNorm weight/bias, embeddings and tables unchanged.
+
+`mask_decoder_tree` goes the other way for the mask decoder, so that a
+decoder the port trains is saved as the JAX package saves one.
 """
 
 from __future__ import annotations
@@ -45,7 +49,10 @@ def _convT2x2(sd, key: str, p: Tree) -> None:
     cin, cout = kernel.shape[0], kernel.shape[1] // 4
     sd[f"{key}.weight"] = _t(kernel.reshape(cin, 2, 2, cout)
                              .transpose(0, 3, 1, 2))
-    sd[f"{key}.bias"] = _t(np.asarray(p["dense"]["bias"])[:cout])
+    # One bias per (sub-pixel, channel), 4*cout.  The JAX converter tiles a
+    # torch (cout,) bias 4x, so a port state dict it converts comes back
+    # tiled again: its first 4*cout values are the port's.
+    sd[f"{key}.bias"] = _t(np.asarray(p["dense"]["bias"])[:4 * cout])
 
 
 def _ln(sd, key: str, p: Tree) -> None:
@@ -171,3 +178,71 @@ def dino_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
         sd[f"{k}.ls2.gamma"] = _t(b["ls2_gamma"])
         i += 1
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def mask_decoder_tree(sd: Dict[str, torch.Tensor], prefix: str = "") -> Tree:
+    """The inverse of `mask_decoder_state_dict`: a `MaskDecoder` state dict
+    -> the JAX package's mask-decoder tree of float32 numpy arrays (without
+    the unused 5th hypernetwork MLP, which the JAX tree does not have)."""
+    def lin(key):
+        out = {"kernel": _np(sd[f"{prefix}{key}.weight"]).T.copy()}
+        if f"{prefix}{key}.bias" in sd:
+            out["bias"] = _np(sd[f"{prefix}{key}.bias"])
+        return out
+
+    def ln(key):
+        return {"weight": _np(sd[f"{prefix}{key}.weight"]),
+                "bias": _np(sd[f"{prefix}{key}.bias"])}
+
+    def mlp(key):
+        out, i = {}, 0
+        while f"{prefix}{key}.layers.{i}.weight" in sd:
+            out[f"layers_{i}"] = lin(f"{key}.layers.{i}")
+            i += 1
+        return out
+
+    def convT(key):
+        w = _np(sd[f"{prefix}{key}.weight"])               # (in, out, 2, 2)
+        return {"dense": {
+            "kernel": w.transpose(0, 2, 3, 1).reshape(w.shape[0], -1).copy(),
+            "bias": _np(sd[f"{prefix}{key}.bias"])}}
+
+    def attn(key):
+        return {n: lin(f"{key}.{n}")
+                for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    t, i = {}, 0
+    while f"{prefix}transformer.layers.{i}.norm1.weight" in sd:
+        k = f"transformer.layers.{i}"
+        layer = {n: attn(f"{k}.{n}") for n in (
+            "self_attn", "cross_attn_token_to_image",
+            "cross_attn_image_to_token")}
+        layer.update({n: ln(f"{k}.{n}")
+                      for n in ("norm1", "norm2", "norm3", "norm4")})
+        layer["mlp"] = {"lin1": lin(f"{k}.mlp.lin1"),
+                        "lin2": lin(f"{k}.mlp.lin2")}
+        t[f"layers_{i}"] = layer
+        i += 1
+    t["final_attn_token_to_image"] = attn(
+        "transformer.final_attn_token_to_image")
+    t["norm_final_attn"] = ln("transformer.norm_final_attn")
+    n_tok = sd[f"{prefix}mask_tokens.weight"].shape[0]
+    tree: Tree = {
+        "iou_token": _np(sd[f"{prefix}iou_token.weight"]),
+        "mask_tokens": _np(sd[f"{prefix}mask_tokens.weight"]),
+        "transformer": t,
+        "upscale_0": convT("output_upscaling.0"),
+        "upscale_1": ln("output_upscaling.1"),
+        "upscale_3": convT("output_upscaling.3"),
+        "iou_prediction_head": mlp("iou_prediction_head"),
+        "dino_proj": lin("dino_proj"),
+        "parallel_iou_head": mlp("parallel_iou_head"),
+        "point_classifier": mlp("point_classifier"),
+    }
+    for i in range(n_tok):
+        tree[f"hyper_mlps_{i}"] = mlp(f"output_hypernetworks_mlps.{i}")
+    return tree

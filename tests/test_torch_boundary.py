@@ -294,3 +294,82 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_port_files_include_the_training_slice():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"crowdsam_tpu_torch/train/losses.py",
+            "crowdsam_tpu_torch/train/trainer.py",
+            "crowdsam_tpu_torch/train/dataset.py",
+            "crowdsam_tpu_torch/train/__main__.py",
+            "crowdsam_tpu_torch/utils/init.py",
+            "crowdsam_tpu_torch/utils/fixtures.py",
+            "crowdsam_tpu_torch/utils/bench_fixture.py"} <= names
+    assert (ROOT / "crowdsam_tpu_torch" / "utils" /
+            "init_manifest.json").is_file()
+
+
+def test_layernorm_source_holds_its_backward_without_library_calls():
+    src = (ROOT / "crowdsam_tpu_torch" / "csrc" / "layernorm.cu").read_text()
+    for name in ("ln_bwd_rows", "ln_bwd_reduce", "ln_backward",
+                 "ln_forward_stats"):
+        assert name in src, name
+    code = re.sub(r"//[^\n]*", "", src)
+    includes = set(re.findall(r"#include\s*<([^>]+)>", code))
+    assert includes <= {"cuda_runtime.h", "cuda_bf16.h"}, includes
+    for lib in ("cublas", "cub::", "DeviceReduce", "thrust", "atomicAdd",
+                "cudnn"):
+        assert lib not in code, lib
+
+
+def _guard_cases():
+    from crowdsam_tpu_torch.models import attention
+    from crowdsam_tpu_torch.models.decode_tail_kernel import twoway_tail
+    from crowdsam_tpu_torch.models.mask_head_kernel import mask_head
+    from crowdsam_tpu_torch.ops.survivor_kernel import survivor_rle
+
+    def t(*shape):
+        return torch.zeros(shape)
+
+    return {
+        "window_attention": lambda g: attention.window_attention(
+            t(1, 14, 14, 3 * 64), g(14, 14, 64), t(14, 14, 64), 1, 0.125,
+            14),
+        "flash_mha_decomposed_relpos": lambda g:
+            attention.flash_mha_decomposed_relpos(
+                t(1, 1, 4, 64), t(1, 1, 4, 64), t(1, 1, 4, 64), 0.125,
+                g(2, 2, 64), t(2, 2, 64), (2, 2)),
+        "flash_mha": lambda g: attention.flash_mha(
+            g(1, 1, 4, 64), t(1, 1, 4, 64), t(1, 1, 4, 64), 0.125),
+        "twoway_tail": lambda g: twoway_tail(
+            t(64, 256), t(64, 128), t(64, 128), t(64, 128), t(1, 7, 256),
+            {"w": g(4)}),
+        "mask_head": lambda g: mask_head(t(1, 64, 256), t(1, 4, 32),
+                                         {"w0t": g(4)}),
+        "survivor_rle": lambda g: survivor_rle(
+            g(1, 32, 32), torch.zeros((1, 32, 32), dtype=torch.int8),
+            torch.tensor([128, 128], dtype=torch.int32)),
+    }
+
+
+@pytest.mark.parametrize("name", ["window_attention",
+                                  "flash_mha_decomposed_relpos", "flash_mha",
+                                  "twoway_tail", "mask_head", "survivor_rle"])
+def test_kernels_without_backward_refuse_grad(name):
+    """K2-K7 have no backward: with grad mode on and an input or weight
+    that requires grad, the wrapper raises (on the CPU route as on the
+    card) instead of returning a tensor with no graph."""
+    call = _guard_cases()[name]
+
+    def needs_grad(*shape):
+        return torch.zeros(shape, requires_grad=True)
+
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(needs_grad)
+    with torch.no_grad():
+        try:
+            call(needs_grad)
+        except RuntimeError as e:
+            assert "no backward" not in str(e)
+        except (ValueError, TypeError, KeyError):
+            pass

@@ -114,3 +114,89 @@ def test_unported_model_names_name_their_slice(key, name):
     cfg["model"][key] = name
     with pytest.raises(NotImplementedError, match=r"item 5"):
         CrowdSAM(cfg, device="cpu")
+
+
+def _mixed_tree():
+    rng = np.random.default_rng(0)
+    return {
+        "step": np.asarray(7),
+        "adapter": {"k": rng.normal(size=(3, 40)).astype(np.float32),
+                    "b": np.arange(300, dtype=np.int32),
+                    "bf": np.asarray(jnp.ones((2, 3), jnp.bfloat16)),
+                    "e": np.zeros((0, 4), np.float32)},
+        "name": "x" * 40, "n": -5, "big": 70000, "f": 1.5, "none": None,
+        "flag": True, "scalar": np.float32(3.0), "list": [1, 2.0, "a"],
+    }
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 64])
+def test_writer_gives_flax_bytes(monkeypatch, chunk_bytes):
+    """`dump` of a tree (numpy leaves, or torch tensors for the arrays)
+    equals `flax.serialization.msgpack_serialize` byte for byte; with
+    `chunk_bytes` both split the larger arrays into chunks."""
+    if chunk_bytes is not None:
+        monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", chunk_bytes)
+        monkeypatch.setattr(msgpack_io, "MAX_CHUNK_SIZE", chunk_bytes)
+    tree = _mixed_tree()
+    want = serialization.msgpack_serialize(tree)
+    assert msgpack_io.dump(tree) == want
+    as_torch = dict(tree, adapter={
+        "k": torch.from_numpy(tree["adapter"]["k"]),
+        "b": torch.from_numpy(tree["adapter"]["b"]),
+        "bf": torch.ones((2, 3), dtype=torch.bfloat16),
+        "e": torch.zeros((0, 4))})
+    assert msgpack_io.dump(as_torch) == want
+
+
+@pytest.mark.parametrize("path", ADAPTERS, ids=lambda p: p.name)
+def test_writer_round_trips_committed_adapters(path):
+    """Read by the port and written again: the same file."""
+    raw = path.read_bytes()
+    assert msgpack_io.dump(msgpack_io.msgpack_restore(raw)) == raw
+
+
+def test_save_pytree_and_port_save_read_each_other(tmp_path):
+    """A tree the port saves loads with the JAX package's `load_pytree`,
+    and one `save_pytree` writes loads with the port's reader."""
+    from crowdsam_tpu.utils.checkpoint import load_pytree, save_pytree
+
+    tree = {"step": np.asarray(3), "adapter": {
+        "w": np.random.default_rng(1).normal(size=(4, 5)).astype(np.float32)},
+        "opt_state": {"count": np.asarray(3, np.int32)}}
+    msgpack_io.save(str(tmp_path / "port.msgpack"), tree)
+    back = load_pytree(str(tmp_path / "port.msgpack"))
+    np.testing.assert_array_equal(back["adapter"]["w"], tree["adapter"]["w"])
+    assert int(back["step"]) == 3 and int(back["opt_state"]["count"]) == 3
+    save_pytree(str(tmp_path / "jax.msgpack"), tree)
+    got = msgpack_io.load(str(tmp_path / "jax.msgpack"))
+    np.testing.assert_array_equal(got["adapter"]["w"].numpy(),
+                                  tree["adapter"]["w"])
+    assert (tmp_path / "jax.msgpack").read_bytes() == \
+        (tmp_path / "port.msgpack").read_bytes()
+
+
+def test_port_decoder_tree_loads_as_a_jax_adapter(tmp_path):
+    """A decoder saved from the port's state dict (`mask_decoder_tree`)
+    loads with `load_adapter_checkpoint` as the JAX package's own decoder
+    tree: same structure, same values."""
+    from crowdsam_tpu.models.build import build_sam_vit_tiny
+    from crowdsam_tpu.utils.checkpoint import load_adapter_checkpoint
+    from crowdsam_tpu.utils.checkpoint import jax_tree_to_numpy
+    from crowdsam_tpu_torch.utils.weights import mask_decoder_tree
+
+    jsam = build_sam_vit_tiny(dtype=jnp.float32, seed=1, dino_dim=64)
+    want = jax_tree_to_numpy(jsam.params["mask_decoder"])
+    sd = mask_decoder_state_dict(want)
+    msgpack_io.save(str(tmp_path / "dec.msgpack"), mask_decoder_tree(sd))
+    got = load_adapter_checkpoint(str(tmp_path / "dec.msgpack"))
+
+    def same(a, b, path=""):
+        assert set(a) == set(b), path
+        for k in a:
+            if isinstance(a[k], dict):
+                same(a[k], b[k], f"{path}/{k}")
+            else:
+                np.testing.assert_array_equal(np.asarray(a[k]),
+                                              np.asarray(b[k]),
+                                              err_msg=f"{path}/{k}")
+    same(got, want)

@@ -12,8 +12,13 @@ LayerNorm: 1e-5.  The two decode kernels (two-way transformer, mask head) round 
 same points as their plain versions: 2e-2 on LayerNorm outputs of rms ~1,
 3% of the masks' rms on the masks.  The survivor kernel (K7) and its plain
 version round the same float32 operations: its outputs are bit for bit
-equal."""
+equal.  K1's backward: dx within 1e-2 + 2^-7 |dx| in bf16 (1e-5 in
+float32), dw and db within 1e-4 of their largest value (float32 sums over
+rows in another order), and bit for bit equal from call to call.  The
+2-step full-decoder training on the card only has to move every trainable
+leaf, leave the others as they were and stay finite."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,7 +43,11 @@ def gen():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.Generator(device="cuda").manual_seed(0)
+    # The kernels without a backward refuse inputs that require grad with
+    # grad mode on (module weights among them): the tests run as serving
+    # does, under no_grad; a test of a gradient turns it back on.
+    with torch.no_grad():
+        yield torch.Generator(device="cuda").manual_seed(0)
 
 
 def _close(got, want, atol, rtol=2.0 ** -7):
@@ -411,3 +420,87 @@ def test_survivor_kernel_clamps_in_hw_as_the_plain_version(gen):
     want = survivor_kernel.survivor_rle_plain(x, edit, hw)
     for key in ("packed", "cand", "n_col", "summary"):
         assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("n,d", [(1001, 64), (333, 256), (77, 1024),
+                                 (7, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_kernel(gen, n, d, dtype):
+    """K1 forward with statistics and K1's backward against autograd of
+    the plain version, at ragged row counts; then the autograd path of
+    `layer_norm` (forward and backward through the kernels)."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    dy = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    y, mean, rstd = ln._forward(x, w, b, 1e-5, stats=True)
+    assert torch.equal(y, layer_norm(x, w, b, 1e-5))
+    before = ln.layer_norm_backward.launches
+    dx, dw, db = ln.layer_norm_backward(dy, x, w, mean, rstd)
+    assert ln.layer_norm_backward.launches == before + 1
+    want = ln.layer_norm_grads_plain(dy, x, w, b, 1e-5)
+    _close(dx, want[0], 1e-2 if dtype == torch.bfloat16 else 1e-5,
+           2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    for got, ref in ((dw, want[1]), (db, want[2])):
+        _close(got, ref, 1e-4 * float(ref.abs().max()), 0.0)
+    again = ln.layer_norm_backward(dy, x, w, mean, rstd)
+    assert all(torch.equal(a, c) for a, c in zip(again, (dx, dw, db)))
+    with torch.enable_grad():
+        xr = x.clone().requires_grad_()
+        wr = w.clone().requires_grad_()
+        br = b.clone().requires_grad_()
+        fwd, bwd = layer_norm.launches, ln.layer_norm_backward.launches
+        layer_norm(xr, wr, br, 1e-5).backward(dy)
+        assert layer_norm.launches == fwd + 1
+        assert ln.layer_norm_backward.launches == bwd + 1
+    assert torch.equal(xr.grad, dx) and torch.equal(wr.grad, dw)
+    assert torch.equal(br.grad, db)
+
+
+def test_full_decoder_training_steps_on_the_card(gen):
+    """Two full-decoder steps of the port's trainer on a small config in
+    bf16 (SAM ViT-B at 256^2 and DINOv2 ViT-S/14: head dim 64, which the
+    attention kernels take): K1 forward and backward launch, every
+    trainable leaf moves, the unused 5th hypernetwork MLP does not."""
+    from crowdsam_tpu_torch.config import load_config, modify_config
+    from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.ops.transforms import ResizeLongestSide
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.train.dataset import ArrayDataset
+    from crowdsam_tpu_torch.train.trainer import AdapterTrainer
+    from crowdsam_tpu_torch.utils.fixtures import ten_shot_arrays
+
+    cfg = modify_config(load_config(None), [
+        "model.sam_model", "vit_b", "model.image_size", "256",
+        "model.dino_model", "dinov2_vits14",
+        "model.sam_checkpoint", "", "model.dino_checkpoint", "",
+        "model.sam_adapter_checkpoint", "", "train.n_shot", "2",
+        "train.steps", "2", "train.samples_per_batch", "4",
+        "train.lr", "1e-3", "train.full_decoder", "True"])
+    model = CrowdSAM(cfg, device="cuda")
+    imgs, boxes = ten_shot_arrays(0, n_images=2)
+    data = ArrayDataset([ResizeLongestSide(256).apply_image(i)
+                         for i in imgs], boxes)
+    trainer = AdapterTrainer(cfg, model.predictor)
+    before = {k: v.clone() for k, v in
+              model.sam.mask_decoder.state_dict().items()}
+    fwd, bwd = layer_norm.launches, ln.layer_norm_backward.launches
+    history = []
+    params = trainer.train(data, on_step=lambda step, ls: history.append(
+        {k: float(v) for k, v in ls.items()}))
+    # Ten LayerNorms a step: norm1-norm4 of both blocks, the final one and
+    # the upscaling's.
+    assert ln.layer_norm_backward.launches - bwd == 2 * 10
+    assert layer_norm.launches > fwd
+    assert len(history) == 2
+    assert all(np.isfinite(v) for h in history for v in h.values())
+    after = model.sam.mask_decoder.state_dict()
+    for k, v in before.items():
+        if k in params:
+            assert torch.isfinite(params[k]).all()
+            assert not torch.equal(after[k], v), k
+        else:
+            assert k.startswith("output_hypernetworks_mlps.4.")
+            assert torch.equal(after[k], v), k

@@ -128,3 +128,41 @@ def test_cast_compute_params_keeps_norms_f32():
     assert m[1].weight.dtype == torch.float32
     y = m(torch.randn(3, 8))
     assert y.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n,d,eps", [(37, 256, 1e-5), (130, 64, 1e-6),
+                                     (9, 1024, 1e-5)])
+def test_plain_backward_matches_jax_grad(n, d, eps):
+    """K1's plain backward (autograd of the plain version: dx, dw, db)
+    against jax.grad of the JAX package's float32 `_ln_impl`, on one
+    output gradient: within 1e-4 (float32 sums in another order)."""
+    from crowdsam_tpu_torch.ops.layernorm import layer_norm_grads_plain
+
+    x, w, b = _inputs(n, d, seed=2)
+    g = np.random.default_rng(3).normal(size=(n, d)).astype(np.float32)
+
+    def f(x, w, b):
+        return jnp.sum(jcommon._ln_impl(x, w, b, eps, jnp.float32) * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                          jnp.asarray(b))
+    got = layer_norm_grads_plain(torch.from_numpy(g), torch.from_numpy(x),
+                                 torch.from_numpy(w), torch.from_numpy(b),
+                                 eps)
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(e).max()))
+
+
+def test_layer_norm_on_cpu_passes_gradients():
+    """On the CPU the wrapper is the plain version, autograd included:
+    the same gradients as layer_norm_grads_plain."""
+    from crowdsam_tpu_torch.ops.layernorm import layer_norm_grads_plain
+
+    x, w, b = (torch.from_numpy(a) for a in _inputs(20, 128, seed=4))
+    g = torch.randn(20, 128, generator=torch.Generator().manual_seed(0))
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    (layer_norm(xr, wr, br, 1e-5) * g).sum().backward()
+    for got, want in zip((xr.grad, wr.grad, br.grad),
+                         layer_norm_grads_plain(g, x, w, b, 1e-5)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

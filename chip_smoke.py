@@ -60,13 +60,25 @@ the gitignored `build/kernels/`), then:
    forward and backward on every decoder LayerNorm), ms per step, peak
    memory, frozen leaves unchanged and every trainable leaf moved, and one
    step's gradients through K1 against those through the plain LayerNorm.
-   Last, the shipped adapter on those encoders at the reference thresholds
+   Then the shipped adapter on those encoders at the reference thresholds
    on the JAX bench's golden frames: detections, their share of the JAX
-   bench's golden boxes, ms per image, the survivor pass and K7;
+   bench's golden boxes, ms per image, the survivor pass and K7.
+   The user-facing paths, each with the counts set to 0 just before and
+   read just after: the automatic mask generator on SAM ViT-L with that
+   decoder (32 points a side, 64 a batch, coco_rle) at its default filters
+   and loaded (filters off, cleanup at 100 px), K1-K3 required (phase
+   `amg`); and the annotation job through the command-line tools in-process
+   on 8 seeded frames written as a CrowdHuman-style dataset: `tools.test`
+   with `configs/crowdhuman.yaml` as shipped (K1-K6 required, the result
+   dicts equal to `generate_many` with the same noise), the COCO
+   conversion, `tools.crowdhuman_eval` (AP, MR^-2, Recall, tp, fp; AP above
+   0 required) and `tools.batch_eval --inline` printing the same metrics
+   (phase `cli`);
 3. checks the outputs: finite boxes and scores of the expected shapes inside
-   the image, every RLE string's mask inside its detection's box, and, on a
-   small configuration with head dim 64, the card's bf16 kernel path
-   against the plain float32 path on the CPU, detections included.
+   the image, every RLE string's mask inside its detection's box, every
+   AMG record's mask inside its bbox with its area, and, on a small
+   configuration with head dim 64, the card's bf16 kernel path against the
+   plain float32 path on the CPU, detections and AMG records included.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  Exits non-zero, printing no
@@ -79,6 +91,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -92,6 +105,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
 N_IMAGES = 3
+# The share of the small configuration's CPU AMG records that the card's
+# records match at box IoU >= 0.9 (bf16 kernels against float32).
+AMG_SMALL_MATCH_BOUND = 0.9
 # One bf16 ulp of an output y is at most 2^-7 |y|: two roundings of nearly
 # equal f32 values may land one ulp apart.
 BF16_ULP = 2.0 ** -7
@@ -1831,6 +1847,39 @@ def phase_small_reference(gpu):
     if n_gpu == 0 or n_gpu != n_cpu or box_err > 4.0:
         raise AssertionError(f"detections differ: {n_gpu} on the card, "
                              f"{n_cpu} on the CPU, boxes {box_err} px apart")
+    phase_small_amg(gpu, cpu, img)
+
+
+def _xywh_to_xyxy(records):
+    b = np.asarray([r["bbox"] for r in records], np.float64).reshape(-1, 4)
+    return np.concatenate([b[:, :2], b[:, :2] + b[:, 2:]], axis=1)
+
+
+def phase_small_amg(gpu, cpu, img):
+    """The automatic mask generator on the small configuration: the card's
+    bf16 kernel path against the plain float32 path on the CPU (same
+    weights, filters off so that random weights leave records): the share
+    of the CPU's records whose box a record of the card matches at IoU >=
+    0.9, gated at AMG_SMALL_MATCH_BOUND."""
+    from crowdsam_tpu_torch.pipeline.amg_generator import (
+        SamAutomaticMaskGenerator,
+    )
+
+    kw = dict(points_per_side=16, points_per_batch=64, pred_iou_thresh=0.0,
+              stability_score_thresh=0.0, output_mode="coco_rle")
+    on_card = SamAutomaticMaskGenerator(gpu.sam, device="cuda",
+                                        **kw).generate(img)
+    on_cpu = SamAutomaticMaskGenerator(cpu.sam, device="cpu",
+                                       **kw).generate(img)
+    share = _match_share(_xywh_to_xyxy(on_card), _xywh_to_xyxy(on_cpu),
+                         thr=0.9)
+    row = {"phase": "small_reference amg", "gpu_records": len(on_card),
+           "cpu_records": len(on_cpu), "cpu_records_matched_iou90": share,
+           "bound": AMG_SMALL_MATCH_BOUND, **{k: v for k, v in kw.items()
+                                              if k != "output_mode"}}
+    print(json.dumps(row), flush=True)
+    if not on_cpu or share is None or share < AMG_SMALL_MATCH_BOUND:
+        raise AssertionError(f"AMG on the card far from the CPU: {row}")
 
 
 # --------------------------------------------------------------------------
@@ -2127,11 +2176,11 @@ def phase_loaded_reference(model):
 
     with open("adapter_weights/bench_golden_detections.json") as f:
         golden = json.load(f)["regimes"]
-    frames = [("crowded", "crowd_scene(0)", crowd_scene(0)[0]),
-              ("sparse", "mid_scene(7)", mid_scene(7)[0])]
-    _timed_generate(model, frames[0][2])                # warm-up
+    frames = [("crowded", "crowd_scene(0)", crowd_scene(0)),
+              ("sparse", "mid_scene(7)", mid_scene(7))]
+    _timed_generate(model, frames[0][2][0])             # warm-up
     out = []
-    for regime, name, img in frames:
+    for regime, name, (img, drawn) in frames:
         counters = _reset_counts()
         data, ms = _timed_generate(model, img)
         k7 = counters["survivor_rle"].launches
@@ -2157,6 +2206,11 @@ def phase_loaded_reference(model):
                     "jax_bench_detections": len(gold["boxes"]),
                     "golden_matched_share_iou50": _match_share(
                         data["boxes"], gold["boxes"]),
+                    # The drawn persons (the `cli` phase's ground truth)
+                    # matched by the JAX bench's own detections.
+                    "drawn_matched_by_golden_share_iou50": _match_share(
+                        gold["boxes"], [(x, y, x + w, y + h)
+                                        for x, y, w, h in drawn]),
                     "ms_per_image": ms, "survivor_pass_ms": surv[0],
                     "survivor_rle_launches": k7,
                     "nonempty_masks": nonempty})
@@ -2167,6 +2221,244 @@ def phase_loaded_reference(model):
     print(json.dumps(row), flush=True)
     if out[0]["detections"] == 0:
         raise AssertionError(f"crowd_scene(0) gives no detection: {row}")
+    return row
+
+
+def _amg_records_check(records, hw):
+    """Every record's mask has the image's size, its `area` pixels, and
+    lies inside its xywh `bbox`."""
+    from crowdsam_tpu_torch.ops.rle import coco_decode_rle
+
+    for r in records:
+        m = coco_decode_rle(r["segmentation"])
+        assert m.shape == tuple(hw), m.shape
+        assert int(m.sum()) == r["area"], (int(m.sum()), r["area"])
+        if r["area"]:
+            ys, xs = np.nonzero(m)
+            x, y, w, h = r["bbox"]
+            assert (xs.min() >= x and xs.max() <= x + w and ys.min() >= y
+                    and ys.max() <= y + h), (r["bbox"], xs.min(), xs.max(),
+                                             ys.min(), ys.max())
+
+
+def phase_amg(sam):
+    """Path (b): `SamAutomaticMaskGenerator.generate` on SAM ViT-L (the
+    JAX-drawn encoder, the shipped adapter's decoder, bf16, no DINOv2) at
+    the reference defaults (32 points a side, 64 a batch, 4 masks a point)
+    in coco_rle on crowd_scene(0), once at the generator's default filters
+    (after a warm-up call) and once loaded: the pred-IoU and stability
+    filters off and min_mask_region_area 100, so that records reach the
+    NMS, the small-region cleanup and the RLE.  The counts are set to 0
+    just before each call and read just after; K1, K2 and K3 must launch,
+    the loaded call must give a record, and every record's mask lies
+    inside its bbox with its area's pixel count.  Prints records, ms per
+    image, the cleanup's ms and the launches."""
+    from crowdsam_tpu_torch.pipeline.amg_generator import (
+        SamAutomaticMaskGenerator,
+    )
+    from crowdsam_tpu_torch.utils.bench_fixture import crowd_scene
+
+    img = crowd_scene(0)[0]
+    row = {"phase": "amg", "frame": "crowd_scene(0)",
+           "model": "SAM ViT-L (JAX-drawn encoder) + "
+                    "adapter_weights/10_shot.msgpack decoder, bf16",
+           "points_per_side": 32, "points_per_batch": 64,
+           "output_mode": "coco_rle"}
+    runs = (("default_filters", {}),
+            ("loaded", dict(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                            min_mask_region_area=100)))
+    for name, kw in runs:
+        gen = SamAutomaticMaskGenerator(
+            sam, points_per_side=32, points_per_batch=64,
+            output_mode="coco_rle", device="cuda", **kw)
+        cleanup = [0.0]
+        real = gen.postprocess_small_regions
+
+        def timed_cleanup(*a, real=real, cleanup=cleanup):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a)
+            torch.cuda.synchronize()
+            cleanup[0] += (time.perf_counter() - t) * 1e3
+            return out
+
+        gen.postprocess_small_regions = timed_cleanup
+        if name == "default_filters":
+            gen.generate(img)                           # warm-up
+            cleanup[0] = 0.0
+        counters = _reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        records = gen.generate(img)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: fn.launches for k, fn in counters.items()}
+        _amg_records_check(records, img.shape[:2])
+        row[name] = {"records": len(records), "ms_per_image": ms,
+                     "cleanup_ms": cleanup[0], "launches": launches, **kw}
+        del gen
+        torch.cuda.empty_cache()
+    print(json.dumps(row), flush=True)
+    for name, _ in runs:
+        missing = [k for k in ("layer_norm", "window_attention",
+                               "flash_mha_decomposed_relpos")
+                   if row[name]["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"amg {name}: {missing} never launched")
+    if row["loaded"]["records"] == 0:
+        raise AssertionError(f"amg: the loaded call gives no record: {row}")
+    return row
+
+
+def _write_cli_dataset(root, n=8):
+    """A CrowdHuman-style dataset of n seeded 683x1024 frames under root:
+    crowd_scene(s) for the first half, mid_scene(s) for the rest, each
+    drawn person's box its ground truth; Images/*.png, a COCO json and an
+    odgt (fbox = vbox).  Returns the frames (RGB)."""
+    import cv2
+
+    from crowdsam_tpu_torch.utils.bench_fixture import crowd_scene, mid_scene
+
+    os.makedirs(os.path.join(root, "Images"))
+    frames, images, annots, odgt = [], [], [], []
+    for i in range(n):
+        img, boxes = crowd_scene(i) if i < n // 2 else mid_scene(i)
+        name = f"scene_{i:02d}"
+        cv2.imwrite(os.path.join(root, "Images", name + ".png"),
+                    img[..., ::-1])
+        frames.append(img)
+        h, w = img.shape[:2]
+        images.append({"file_name": name + ".png", "id": i, "height": h,
+                       "width": w})
+        for x, y, bw, bh in boxes:
+            annots.append({"image_id": i, "bbox": [x, y, bw, bh],
+                           "id": len(annots), "category_id": 1, "ignore": 0,
+                           "iscrowd": False, "area": bw * bh})
+        odgt.append({"ID": name, "width": w, "height": h, "gtboxes": [
+            {"tag": "person", "fbox": list(b), "vbox": list(b), "extra": {}}
+            for b in boxes]})
+    with open(os.path.join(root, "val.json"), "w") as f:
+        json.dump({"images": images, "annotations": annots, "categories": [
+            {"id": 1, "name": "person", "supercategory": "person"}]}, f)
+    with open(os.path.join(root, "val.odgt"), "w") as f:
+        f.write("\n".join(json.dumps(r) for r in odgt))
+    return frames
+
+
+def _printed(fn, argv):
+    """fn(argv)'s standard output, echoed, and its metric lines parsed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    text = buf.getvalue()
+    log(text.rstrip())
+    metrics = {}
+    for line in text.splitlines():
+        key, _, val = line.partition(": ")
+        if key in ("AP", "MR", "Recall", "tp", "fp"):
+            metrics[key] = float(val)
+    return metrics
+
+
+def phase_cli():
+    """Path (a), the annotation job through the port's own entry points:
+    `tools.test` in-process (`main(argv)`, -c configs/crowdhuman.yaml as
+    shipped, data paths overridden) on 8 seeded frames written as a
+    CrowdHuman-style dataset, the conversion to COCO, `tools.crowdhuman_eval`
+    on it, and `tools.batch_eval --inline` on the same data, which must
+    print the same metrics.  The counts are set to 0 just before the
+    `tools.test` run and read just after: K1-K6 must launch (K7 launches
+    on every frame with a detection).  The result dicts must equal
+    `generate_many` on the same frames with the same noise (the CLI's model,
+    its generator reset to `environ.seed`), every detection's RLE mask
+    must span its box, and AP must be above 0 (AP itself is printed, not
+    gated: seeded synthetic scenes, random encoders)."""
+    import tempfile
+
+    from crowdsam_tpu_torch.evallib.coco_convert import convert_to_coco
+    from crowdsam_tpu_torch.tools import batch_eval, crowdhuman_eval
+    from crowdsam_tpu_torch.tools import test as test_cli
+
+    root = tempfile.mkdtemp(prefix="crowdsam_cli_")
+    try:
+        frames = _write_cli_dataset(root)
+        n = len(frames)
+        data = ["data.dataset_root", root,
+                "data.json_file", os.path.join(root, "val.json"),
+                "data.odgt_file", os.path.join(root, "val.odgt"),
+                "environ.output_dir", os.path.join(root, "out")]
+        result_path = os.path.join(root, "result.json")
+        captured = []
+
+        class Capturing(test_cli.CrowdSAM):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                captured.append(self)
+
+        counters = _reset_counts()
+        with patched(test_cli, "CrowdSAM", Capturing):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            test_cli.main(["-c", "configs/crowdhuman.yaml", "-s",
+                           result_path] + data)
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with open(result_path) as f:
+            results = json.load(f)
+        nonempty = sum(_check_rles(r, img) for r, img in zip(results, frames)
+                       if r["boxes"])
+
+        model = captured.pop()
+        model.generator.manual_seed(int(model.config["environ"]["seed"]))
+        times = []
+        many = model.generate_many(frames, times_out=times)
+        del model
+        torch.cuda.empty_cache()
+        same = len(many) == len(results) == n and all(
+            json.loads(json.dumps({k: np.asarray(m[k]).tolist() for k in
+                                   ("boxes", "scores", "categories")}))
+            == {k: r[k] for k in ("boxes", "scores", "categories")}
+            and m["rles"] == r["rles"] for m, r in zip(many, results))
+
+        with open(os.path.join(root, "val.json")) as f:
+            gt_js = json.load(f)
+        det_path = os.path.join(root, "det.json")
+        with open(det_path, "w") as f:
+            json.dump(convert_to_coco(results, gt_js), f)
+        metrics = _printed(crowdhuman_eval.main, [
+            "-d", det_path, "-g", os.path.join(root, "val.odgt"), "-f", "-v",
+            "-o", os.path.join(root, "record.txt")])
+        batch = _printed(batch_eval.main, ["-c", "configs/crowdhuman.yaml",
+                                           "--inline"] + data)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "cli", "config": "configs/crowdhuman.yaml as shipped",
+           "frames": f"crowd_scene(0..3), mid_scene(4..7), 683x1024, n={n}",
+           "metrics": metrics, "batch_eval_inline_metrics": batch,
+           "detections_per_image": [len(r["boxes"]) for r in results],
+           "gt_per_image": [sum(a["image_id"] == i
+                                for a in gt_js["annotations"])
+                            for i in range(n)],
+           "nonempty_masks": nonempty,
+           "ms_per_image": float(np.mean(times)) * 1e3,
+           "ms_per_image_each": [x * 1e3 for x in times],
+           "tools_test_wall_s": cli_s,
+           "launches_per_image": {k: v / n for k, v in launches.items()},
+           "equal_to_generate_many": same}
+    print(json.dumps(row), flush=True)
+    missing = [k for k, v in launches.items()
+               if v == 0 and k != "survivor_rle"]
+    if missing:
+        raise AssertionError(f"cli: {missing} never launched")
+    if not same:
+        raise AssertionError("cli: result.json differs from generate_many")
+    if batch != metrics:
+        raise AssertionError(f"cli: batch_eval {batch} != {metrics}")
+    if not metrics.get("AP", 0.0) > 0.0:
+        raise AssertionError(f"cli: AP is 0: {row}")
     return row
 
 
@@ -2235,7 +2527,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     adapted = phase_msgpack_adapter(frame)
     phase_loaded_reference(adapted)
+    with torch.no_grad():
+        phase_amg(adapted.sam)
     del adapted
+    torch.cuda.empty_cache()
+    phase_cli()
     torch.cuda.empty_cache()
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")

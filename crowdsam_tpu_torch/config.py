@@ -131,8 +131,9 @@ def modify_config(config: Dict[str, Any], options: List[str]) -> Dict[str, Any]:
     return config
 
 
-def resolve_device(device=None) -> torch.device:
-    """The entry points' device: CUDA unless the caller names another.
+def resolve_device(device=None, index=None) -> torch.device:
+    """The entry points' device: CUDA (card `index` where given) unless
+    the caller names another.
 
     With no device given and no CUDA present this raises; the CPU is used
     only when asked for by name."""
@@ -141,7 +142,7 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the plain "
                 "PyTorch path on the CPU")
-        return torch.device("cuda")
+        return torch.device("cuda", index)
     return torch.device(device)
 
 

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `models/build.py` for the `crowdsam` arch
 (PWD-Net decoder): `vit_l` on the main path, `vit_b` (head dim 64 at a
 small width) for `chip_smoke.py`'s reference check, `vit_tiny` for the CPU
-tests.
+tests; `build_sam` / `build_sam_vit_h` (the JAX package's default arch)
+raise until vit_h is ported.
 No pretrained weights ship with the repository, so a model without a
 checkpoint takes `init_random_`: biases 0, LayerNorm weights 1, LayerScale
 1e-5, the positional Fourier matrix and the token/prompt embeddings N(0, 1),
@@ -62,6 +63,17 @@ def build_sam_vit_tiny(n_class: int = 1, **kw) -> Sam:
     return _build_sam(64, 2, 2, (1,), n_class, **kw)
 
 
+def build_sam_vit_h(*args, **kw) -> Sam:
+    """SAM ViT-H (width 1280, head dim 80) is not ported yet: K1 stops at
+    width 1024 and K2/K3 take head dim 64 only."""
+    raise NotImplementedError(
+        "build_sam_vit_h: vit_h needs K1 at width 1280 and K2/K3 at head "
+        "dim 80 (other archs, ROADMAP section 1 item 5: later slice)")
+
+
+build_sam = build_sam_vit_h
+
+# The ported archs only: `CrowdSAM` refuses a name outside this registry.
 sam_model_registry = {
     "vit_l": build_sam_vit_l,
     "vit_b": build_sam_vit_b,

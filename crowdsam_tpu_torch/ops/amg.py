@@ -1,8 +1,8 @@
 """Automatic-mask-generation math and the MaskData container.
 
 Counterpart of the JAX package's `ops/amg.py`: stability score, mask->box,
-crop boxes, and `MaskData` (row-wise filter/concat over numpy arrays,
-tensors and lists).
+point grids, crop boxes and uncropping, batching, and `MaskData` (row-wise
+filter/concat over numpy arrays, tensors and lists).
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import math
 from copy import deepcopy
 from itertools import product
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Generator, List, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +82,15 @@ class MaskData:
                 self._d[k] = v.detach().cpu().numpy()
 
 
+def batch_iterator(batch_size: int, *args) -> Generator[List[Any], None, None]:
+    """Slices of `batch_size` rows of each of `args` together."""
+    if not args or any(len(a) != len(args[0]) for a in args):
+        raise ValueError("batch_iterator needs arguments of one length")
+    n_batches = -(-len(args[0]) // batch_size)
+    for b in range(n_batches):
+        yield [arg[b * batch_size:(b + 1) * batch_size] for arg in args]
+
+
 def calculate_stability_score(masks: torch.Tensor, mask_threshold: float,
                               threshold_offset: float) -> torch.Tensor:
     """IoU of the masks binarized at threshold +- offset, over the last two
@@ -115,6 +124,22 @@ def batched_mask_to_box(masks: torch.Tensor) -> torch.Tensor:
     return out.reshape(shape[:-2] + (4,))
 
 
+def build_point_grid(n_per_side: int) -> np.ndarray:
+    """(n^2, 2) evenly spaced points in [0, 1]^2, x fastest."""
+    offset = 1 / (2 * n_per_side)
+    side = np.linspace(offset, 1 - offset, n_per_side)
+    xs = np.tile(side[None, :], (n_per_side, 1))
+    ys = np.tile(side[:, None], (1, n_per_side))
+    return np.stack([xs, ys], axis=-1).reshape(-1, 2)
+
+
+def build_all_layer_point_grids(n_per_side: int, n_layers: int,
+                                scale_per_layer: int) -> List[np.ndarray]:
+    """One point grid per crop layer, n_per_side / scale^layer a side."""
+    return [build_point_grid(int(n_per_side / (scale_per_layer ** i)))
+            for i in range(n_layers + 1)]
+
+
 def generate_crop_boxes(im_size: Tuple[int, ...], n_layers: int,
                         overlap_ratio: float
                         ) -> Tuple[List[List[int]], List[int]]:
@@ -141,3 +166,12 @@ def generate_crop_boxes(im_size: Tuple[int, ...], n_layers: int,
             layer_idxs.append(i_layer + 1)
     return crop_boxes, layer_idxs
 
+
+def uncrop_masks(masks: torch.Tensor, crop_box: List[int], orig_h: int,
+                 orig_w: int) -> torch.Tensor:
+    """Zero-pad crop-frame masks (..., h, w) into the image frame."""
+    x0, y0, x1, y1 = crop_box
+    if x0 == 0 and y0 == 0 and x1 == orig_w and y1 == orig_h:
+        return masks
+    pad_x, pad_y = orig_w - (x1 - x0), orig_h - (y1 - y0)
+    return torch.nn.functional.pad(masks, (x0, pad_x - x0, y0, pad_y - y0))

@@ -34,6 +34,18 @@ def uncrop_boxes_xyxy(boxes: torch.Tensor, crop_box: Sequence,
     return boxes / downscale + offset
 
 
+def uncrop_points(points: torch.Tensor, crop_box: Sequence,
+                  downscale=1.0) -> torch.Tensor:
+    """points / downscale + the crop's (x0, y0) offset."""
+    crop = _as_f32(crop_box, points.device)
+    return points / downscale + crop[:2]
+
+
+def box_xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    return torch.stack([x0, y0, x1 - x0, y1 - y0], dim=-1)
+
+
 def is_box_near_crop_edge(boxes: torch.Tensor, crop_box: Sequence,
                           orig_box: Sequence, downscale=1.0,
                           atol: float = 20.0) -> torch.Tensor:

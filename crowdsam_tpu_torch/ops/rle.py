@@ -19,6 +19,7 @@ import ctypes
 from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 from crowdsam_tpu_torch.kernels import _build
 
@@ -44,17 +45,23 @@ def codec(fn_name: str):
 # ---------------------------------------------------------------------------
 
 def mask_to_rle(masks) -> List[Dict[str, Any]]:
-    """(B, H, W) binary masks -> uncompressed Fortran-order RLE dicts."""
-    masks = np.asarray(masks)
-    b, h, w = masks.shape
-    flat = masks.transpose(0, 2, 1).reshape(b, -1).astype(bool)
+    """(B, H, W) binary masks -> uncompressed Fortran-order RLE dicts.
+
+    `masks` is a numpy array or a tensor on any device: the changes are
+    found on its device, and only their positions reach the host."""
+    m = masks if isinstance(masks, torch.Tensor) else torch.from_numpy(
+        np.asarray(masks))
+    b, h, w = m.shape
+    flat = m.transpose(1, 2).reshape(b, h * w).bool()
+    change = torch.nonzero(flat[:, 1:] != flat[:, :-1]).cpu().numpy()
+    first = flat[:, 0].cpu().numpy()
+    bounds = np.searchsorted(change[:, 0], np.arange(b + 1))
     out = []
     for i in range(b):
-        row = flat[i]
-        change = np.nonzero(row[1:] != row[:-1])[0]
-        runs = np.diff(np.concatenate([[0], change + 1, [h * w]]))
+        pos = change[bounds[i]:bounds[i + 1], 1]
+        runs = np.diff(np.concatenate([[0], pos + 1, [h * w]]))
         # A leading one-run needs an explicit zero-length 0-run first.
-        counts: List[int] = [0] if row[0] else []
+        counts: List[int] = [0] if first[i] else []
         counts.extend(runs.tolist())
         out.append({"size": [h, w], "counts": counts})
     return out

@@ -123,6 +123,23 @@ class SamPredictor:
         logits = resize_linear(logits, (256, 256))
         return logits.permute(0, 3, 1, 2)
 
+    @torch.no_grad()
+    def predict_fg_with_prototypes(self, prototypes) -> torch.Tensor:
+        """(1, n_class, 256, 256) float32 FG map from class prototypes (the
+        reference's multi-class variant): the cosine of the L2-normalized
+        DINOv2 patch tokens against each class's mean prototype, resized
+        linearly.  `prototypes`: (n_class, k, C) or (n_class, C)."""
+        if not self.is_image_set or self.dino_feats is None:
+            raise RuntimeError("set an image (with DINOv2) first")
+        protos = torch.as_tensor(np.asarray(prototypes), device=self.device)
+        if protos.ndim == 3:
+            protos = protos.mean(dim=1)
+        f = self.dino_feats
+        f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True).clamp(
+            min=1e-6)
+        sim = torch.einsum("bhwc,nc->bnhw", f.float(), protos.float())
+        return resize_linear(sim, (256, 256), axes=(-2, -1))
+
     # ------------------------------------------------------------- decode
     @torch.no_grad()
     def predict_batch(self, point_coords=None, point_labels=None, boxes=None,

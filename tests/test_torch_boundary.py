@@ -309,6 +309,39 @@ def test_port_files_include_the_training_slice():
             "init_manifest.json").is_file()
 
 
+USER_SURFACE = (
+    "crowdsam_tpu_torch/coco_names.py",
+    "crowdsam_tpu_torch/segment_anything_cs.py",
+    "crowdsam_tpu_torch/evallib/crowdhuman.py",
+    "crowdsam_tpu_torch/evallib/coco_convert.py",
+    "crowdsam_tpu_torch/utils/data.py",
+    "crowdsam_tpu_torch/utils/logging.py",
+    "crowdsam_tpu_torch/utils/misc.py",
+    "crowdsam_tpu_torch/utils/visualize.py",
+    "crowdsam_tpu_torch/pipeline/amg_generator.py",
+    "crowdsam_tpu_torch/tools/test.py",
+    "crowdsam_tpu_torch/tools/demo.py",
+    "crowdsam_tpu_torch/tools/batch_eval.py",
+    "crowdsam_tpu_torch/tools/crowdhuman_eval.py",
+    "crowdsam_tpu_torch/tools/crowdhuman2coco.py",
+)
+
+
+def test_port_files_include_the_user_facing_surface():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(USER_SURFACE) <= names
+
+
+def test_user_facing_surface_leaves_jax_out_of_sys_modules():
+    mods = ", ".join(p[:-3].replace("/", ".") for p in USER_SURFACE)
+    code = (f"import sys, {mods}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
 def test_layernorm_source_holds_its_backward_without_library_calls():
     src = (ROOT / "crowdsam_tpu_torch" / "csrc" / "layernorm.cu").read_text()
     for name in ("ln_bwd_rows", "ln_bwd_reduce", "ln_backward",

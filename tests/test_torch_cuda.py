@@ -504,3 +504,145 @@ def test_full_decoder_training_steps_on_the_card(gen):
         else:
             assert k.startswith("output_hypernetworks_mlps.4.")
             assert torch.equal(after[k], v), k
+
+
+SMALL = ["model.sam_model", "vit_b", "model.image_size", "256",
+         "model.dino_model", "dinov2_vits14", "model.sam_checkpoint", "",
+         "model.dino_checkpoint", "", "model.sam_adapter_checkpoint", "",
+         "test.max_size", "256", "test.grid_size", "48",
+         "test.max_prompts", "64", "test.pred_iou_thresh", "0.0",
+         "test.stability_score_thresh", "0.0"]
+
+
+def _record_masks_fit(records, hw):
+    from crowdsam_tpu_torch.ops.rle import coco_decode_rle
+
+    for r in records:
+        m = coco_decode_rle(r["segmentation"])
+        assert m.shape == hw and int(m.sum()) == r["area"]
+        if r["area"]:
+            ys, xs = np.nonzero(m)
+            x, y, w, h = r["bbox"]
+            assert xs.min() >= x and xs.max() <= x + w
+            assert ys.min() >= y and ys.max() <= y + h
+
+
+def test_amg_on_the_small_config(gen):
+    """The automatic mask generator on the card (bf16, K1-K3 in the SAM
+    encoder) against the plain float32 path on the CPU, same weights:
+    records whose masks fit their boxes, and the CPU's record boxes
+    matched at IoU >= 0.9."""
+    from crowdsam_tpu_torch.config import load_config, modify_config
+    from crowdsam_tpu_torch.pipeline.amg_generator import (
+        SamAutomaticMaskGenerator,
+    )
+    from crowdsam_tpu_torch.pipeline.crowdsam import build_models
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    cfg = modify_config(load_config(None), list(SMALL))
+    sam, _ = build_models(cfg, "cuda")
+    cpu_sam, _ = build_models(
+        modify_config(cfg, ["tpu.compute_dtype", "float32"]), "cpu")
+    img = crowd_scene(3, 171, 256, people=(3, 6))[0]
+    kw = dict(points_per_side=16, points_per_batch=64, pred_iou_thresh=0.0,
+              stability_score_thresh=0.0, min_mask_region_area=20,
+              output_mode="coco_rle")
+    before = {k: getattr(attention, k).launches for k in
+              ("window_attention", "flash_mha_decomposed_relpos")}
+    ln0 = layer_norm.launches
+    on_card = SamAutomaticMaskGenerator(sam, device="cuda",
+                                        **kw).generate(img)
+    assert layer_norm.launches > ln0
+    for k, v in before.items():
+        assert getattr(attention, k).launches > v, k
+    on_cpu = SamAutomaticMaskGenerator(cpu_sam, device="cpu",
+                                       **kw).generate(img)
+    assert on_card and on_cpu
+    _record_masks_fit(on_card, img.shape[:2])
+    card = np.asarray([r["bbox"] for r in on_card], np.float64)
+    for r in on_cpu:
+        b = np.asarray(r["bbox"], np.float64)
+        lt = np.maximum(card[:, :2], b[:2])
+        rb = np.minimum(card[:, :2] + card[:, 2:], b[:2] + b[2:])
+        inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+        iou = inter / (card[:, 2] * card[:, 3] + b[2] * b[3] - inter)
+        assert iou.max() >= 0.9
+
+
+def test_tools_test_cli_on_the_small_config(gen, tmp_path):
+    """`tools.test` in-process on the card (no --device) on two seeded
+    frames: every kernel of the fused path launches, the result dicts
+    have the JAX CLI's keys and the scores of `generate_many` with the
+    same noise, and `tools.crowdhuman_eval` scores them."""
+    import json
+
+    import cv2
+
+    from crowdsam_tpu_torch.tools import crowdhuman_eval
+    from crowdsam_tpu_torch.tools import test as test_cli
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    (tmp_path / "Images").mkdir()
+    images, annots, odgt, frames = [], [], [], []
+    for i in range(2):
+        img, boxes = crowd_scene(10 + i, 171, 256, people=(3, 6))
+        frames.append(img)
+        cv2.imwrite(str(tmp_path / "Images" / f"s{i}.png"), img[..., ::-1])
+        images.append({"file_name": f"s{i}.png", "id": i, "height": 171,
+                       "width": 256})
+        for b in boxes:
+            annots.append({"image_id": i, "bbox": list(b), "ignore": 0,
+                           "id": len(annots), "category_id": 1})
+        odgt.append({"ID": f"s{i}", "gtboxes": [
+            {"tag": "person", "fbox": list(b), "vbox": list(b)}
+            for b in boxes]})
+    (tmp_path / "val.json").write_text(json.dumps(
+        {"images": images, "annotations": annots, "categories": []}))
+    (tmp_path / "val.odgt").write_text("\n".join(map(json.dumps, odgt)))
+    data = ["data.dataset_root", str(tmp_path),
+            "data.json_file", str(tmp_path / "val.json"),
+            "environ.output_dir", str(tmp_path / "out")]
+    captured = []
+
+    class Capturing(test_cli.CrowdSAM):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            captured.append(self)
+
+    counts = {k: getattr(m, k).launches for m, k in (
+        (attention, "window_attention"),
+        (attention, "flash_mha_decomposed_relpos"), (attention, "flash_mha"),
+        (decode_tail_kernel, "twoway_tail"), (mask_head_kernel, "mask_head"))}
+    ln0 = layer_norm.launches
+    out = tmp_path / "result.json"
+    old = test_cli.CrowdSAM
+    test_cli.CrowdSAM = Capturing
+    try:
+        assert test_cli.main(["-c", "", "-s", str(out)] + SMALL + data) == 0
+    finally:
+        test_cli.CrowdSAM = old
+    assert layer_norm.launches > ln0
+    for (k, v), m in zip(counts.items(), (attention, attention, attention,
+                                          decode_tail_kernel,
+                                          mask_head_kernel)):
+        assert getattr(m, k).launches > v, k
+    results = json.loads(out.read_text())
+    assert [r["image_id"] for r in results] == [0, 1]
+    for r in results:
+        assert set(r) == {"image_id", "num_gt", "boxes", "scores",
+                          "categories", "rles"}
+    model = captured[0]
+    model.generator.manual_seed(int(model.config["environ"]["seed"]))
+    many = model.generate_many(frames)
+    for m, r in zip(many, results):
+        assert np.asarray(m["scores"]).tolist() == r["scores"]
+        assert m["rles"] == r["rles"]
+    from crowdsam_tpu_torch.evallib.coco_convert import convert_to_coco
+
+    det = tmp_path / "det.json"
+    det.write_text(json.dumps(convert_to_coco(
+        results, json.loads((tmp_path / "val.json").read_text()))))
+    assert crowdhuman_eval.main(["-d", str(det), "-g",
+                                 str(tmp_path / "val.odgt"), "-f", "-v",
+                                 "-o", str(tmp_path / "rec.txt")]) == 0
+    assert (tmp_path / "rec.txt").read_text().startswith("AP: ")

@@ -74,11 +74,21 @@ the gitignored `build/kernels/`), then:
    conversion, `tools.crowdhuman_eval` (AP, MR^-2, Recall, tp, fp; AP above
    0 required) and `tools.batch_eval --inline` printing the same metrics
    (phase `cli`);
+   The other archs, each with the counts set to 0 just before and read
+   just after: SAM ViT-H (width 1280, head dim 80) at full width and depth
+   with the shipped adapter on the three frames and a loaded crowd scene
+   (phase `vit_h`: K1 must launch at width 1280 and K2/K3 at head dim 80
+   only; the kernels K1 at 4096x1280 and K2/K3 at head dim 80 are held
+   against their plain versions beforehand, phases `K1 1280`, `K2 hd80`
+   and `K3 hd80`, with two faults of the head's 16-dim slab besides those
+   of their design), `sam_hq` on ViT-L (K5/K6 must not launch: the HQ
+   decoder decodes unfused) and `mobile_sam` (K2/K3 must not);
 3. checks the outputs: finite boxes and scores of the expected shapes inside
    the image, every RLE string's mask inside its detection's box, every
    AMG record's mask inside its bbox with its area, and, on a small
    configuration with head dim 64, the card's bf16 kernel path against the
-   plain float32 path on the CPU, detections and AMG records included.
+   plain float32 path on the CPU, detections and AMG records included,
+   and the same at head dim 80 (SAM ViT-H at 256^2).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  Exits non-zero, printing no
@@ -332,10 +342,11 @@ def phase_layernorm(gen):
 
     rows = []
     # SAM blocks, DINOv2 blocks, the neck, the decoder's norm4 on keys, the
-    # decoder's upscaling ChannelLayerNorm.
+    # decoder's upscaling ChannelLayerNorm; SAM ViT-H's blocks (phase `K1
+    # 1280`).
     for n, d, eps in ((4096, 1024, 1e-6), (5330, 1024, 1e-6),
                       (4096, 256, 1e-6), (131072, 256, 1e-5),
-                      (524288, 64, 1e-6)):
+                      (524288, 64, 1e-6), (4096, 1280, 1e-6)):
         x = torch.randn((n, d), generator=gen, device="cuda").to(
             torch.bfloat16)
         w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
@@ -359,11 +370,27 @@ def phase_layernorm(gen):
                          plain_ms=t_p, library_ms=t_l,
                          library_device_ms=d_l, bound_ms=b_ms,
                          bound_by=by))
-        print(json.dumps({"phase": "K1 layer_norm", **rows[-1]}), flush=True)
+        name = "K1 1280" if d == 1280 else "K1 layer_norm"
+        print(json.dumps({"phase": name, **rows[-1]}), flush=True)
     return rows
 
 
-def phase_window(gen):
+def _slab_faults(q, v, attend):
+    """Faults of head dim 80's second slab (dims 64-79): its k-step left
+    out of Q K^T (q.k over dims 0-63, the bias terms from the whole q), and
+    V's slab misaligned (its two 16-byte chunks swapped).  `attend(q, v)`
+    runs the plain attention on the faulty operands."""
+    q_cut = q.clone()
+    q_cut[..., 64:] = 0
+    v_sw = v.clone()
+    v_sw[..., 64:72], v_sw[..., 72:80] = v[..., 72:80], v[..., 64:72]
+    return (("the 16-dim slab left out of Q K^T", attend(q_cut, v)),
+            ("V's 16-dim slab misaligned (its 16-byte chunks swapped)",
+             attend(q, v_sw)))
+
+
+def phase_window(gen, hd=64):
+    """K2 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K2 hd80`)."""
     from crowdsam_tpu_torch.models.attention import (
         window_attention,
         window_attention_plain,
@@ -372,7 +399,7 @@ def phase_window(gen):
     )
     from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 
-    ws, heads, hd, grid = 14, 16, 64, 70
+    ws, heads, grid = 14, 16, 70
     dim, n = heads * hd, ws * ws
     qkv = torch.randn((1, grid, grid, 3 * dim), generator=gen,
                       device="cuda").to(torch.bfloat16)
@@ -391,9 +418,9 @@ def phase_window(gen):
         return window_unpartition(o.permute(0, 2, 1, 3).reshape(-1, n, dim),
                                   ws, grid, grid)
 
-    def faulty(terms=None, drop=None, tables=(rh, rw)):
+    def faulty(terms=None, drop=None, tables=(rh, rw), qq=q, vv=v):
         bias = _relpos_bias(qf, *tables, (ws, ws), terms)
-        return as_grid(_attention_plain(q, k, v, scale, bias, drop))
+        return as_grid(_attention_plain(qq, k, vv, scale, bias, drop))
 
     rh_next = torch.zeros_like(rh)
     rh_next[:-1] = rh[1:]
@@ -402,7 +429,7 @@ def phase_window(gen):
     # 1.5% of it.  The kernel's error (bf16 probabilities into PV, bf16
     # fh/fw) stays well inside both; every fault of the kernel's design
     # must break the bound 8-fold.
-    cmp = compare("window_attention", got, want, 1.5e-2, faults=(
+    faults = (
         ("last key tile (keys 128-195) dropped",
          faulty(drop=slice(128, n))),
         ("rel-pos tables swapped", faulty(tables=(rw, rh))),
@@ -410,7 +437,12 @@ def phase_window(gen):
          faulty(terms=lambda fh, fw: (fh, _shift_last(fw, 1)))),
         ("fh selected from the next window row's table tile",
          faulty(tables=(rh_next, rw))),
-    ), mean_atol=0.015 * rms, min_fault=8.0)
+    )
+    if hd == 80:
+        faults += _slab_faults(q, v, lambda qq, vv: faulty(qq=qq, vv=vv))
+    cmp = compare(f"window_attention hd {hd}", got, want, 1.5e-2,
+                  faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
+    del faults
     t_k = time_ms(lambda: window_attention(qkv, rh, rw, heads, scale, ws), 20)
     d_k = device_ms(lambda: window_attention(qkv, rh, rw, heads, scale, ws),
                     20, "window_attn_relpos")
@@ -447,11 +479,13 @@ def phase_window(gen):
                whole_fn_covers="partition + bias from q and tables + SDPA + "
                                "unpartition (several PyTorch calls)",
                whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
-    print(json.dumps({"phase": "K2 window_attention", **row}), flush=True)
+    name = "K2 hd80" if hd == 80 else "K2 window_attention"
+    print(json.dumps({"phase": name, **row}), flush=True)
     return row
 
 
-def phase_global(gen):
+def phase_global(gen, hd=64):
+    """K3 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K3 hd80`)."""
     from crowdsam_tpu_torch.models.attention import (
         flash_mha_decomposed_relpos,
         relpos_attention_plain,
@@ -459,7 +493,7 @@ def phase_global(gen):
     )
     from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 
-    g, heads, hd = 64, 16, 64
+    g, heads = 64, 16
     s, dim = g * g, heads * hd
     qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -473,9 +507,9 @@ def phase_global(gen):
     got = flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, (g, g))
     qf = q.float()
 
-    def faulty(terms=None, drop=None):
+    def faulty(terms=None, drop=None, qq=q, vv=v):
         bias = _relpos_bias(qf, rh, rw, (g, g), terms)
-        out = _attention_plain(q, k, v, scale, bias, drop)
+        out = _attention_plain(qq, k, vv, scale, bias, drop)
         del bias
         return out
 
@@ -499,7 +533,9 @@ def phase_global(gen):
         ("a 128-key tile's second half given its first half's grid row",
          faulty(terms=second_half_as_first)),
     )
-    cmp = compare("flash_mha_decomposed_relpos", got, want, 6e-3,
+    if hd == 80:
+        faults += _slab_faults(q, v, lambda qq, vv: faulty(qq=qq, vv=vv))
+    cmp = compare(f"flash_mha_decomposed_relpos hd {hd}", got, want, 6e-3,
                   faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
     # The folded form (the kernel's path for grids not 64 wide) on the same
     # inputs: held to the same bound, and timed beside the main form.
@@ -543,8 +579,8 @@ def phase_global(gen):
                whole_fn_covers="bias from q and tables + SDPA (several "
                                "PyTorch calls)",
                whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
-    print(json.dumps({"phase": "K3 flash_mha_decomposed_relpos", **row}),
-          flush=True)
+    name = "K3 hd80" if hd == 80 else "K3 flash_mha_decomposed_relpos"
+    print(json.dumps({"phase": name, **row}), flush=True)
     return row
 
 
@@ -1402,7 +1438,19 @@ def _reset_counts():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+        for tally in ("launches_by_width", "launches_by_head_dim"):
+            if hasattr(fn, tally):
+                getattr(fn, tally).clear()
     return counters
+
+
+def _launches_by_shape():
+    """K1's launches by row width, K2's and K3's by head dim, since the
+    counts were last set to 0."""
+    c = _counters()
+    return {"layer_norm_by_width": dict(c["layer_norm"].launches_by_width),
+            **{f"{k}_by_head_dim": dict(c[k].launches_by_head_dim)
+               for k in ("window_attention", "flash_mha_decomposed_relpos")}}
 
 
 def _timed_generate(model, img, noise=None):
@@ -1808,11 +1856,19 @@ def _small_image():
 def phase_small_reference(gpu):
     """The small configuration: the card's bf16 kernel path (`gpu`, fused
     decode through K5 and K6) against the plain float32 path on the CPU,
-    same weights."""
+    same weights; then the AMG on it."""
+    cpu = _compare_small(gpu, _small_config(), "small_reference")
+    phase_small_amg(gpu, cpu, _small_image())
+
+
+def _compare_small(gpu, cfg, label):
+    """The model `gpu` of the small configuration `cfg` against the same
+    weights in float32 on the CPU: features, DINOv2 tokens and the FG map
+    within 5% relative L2, the same detection count, boxes within 4 px.
+    Returns the CPU model."""
     from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 
-    cfg = _small_config()
     cpu_cfg = modify_config(cfg, ["tpu.compute_dtype", "float32"])
     cpu = CrowdSAM(cpu_cfg, device="cpu")
     cpu.sam.load_state_dict({k: v.float().cpu() for k, v in
@@ -1838,7 +1894,7 @@ def phase_small_reference(gpu):
                if n_gpu == n_cpu and n_gpu else None)
     # Boxes of masks thresholded at 64^2 and drawn on the 256^2 frame: bf16
     # logits may move a mask edge by one low-res cell, 4 px.
-    print(json.dumps({"phase": "small_reference", "relative_l2": rel,
+    print(json.dumps({"phase": label, "relative_l2": rel,
                       "tol": 5e-2, "gpu_detections": n_gpu,
                       "cpu_detections": n_cpu, "box_max_abs_diff_px": box_err,
                       "box_tol_px": 4.0}), flush=True)
@@ -1847,7 +1903,7 @@ def phase_small_reference(gpu):
     if n_gpu == 0 or n_gpu != n_cpu or box_err > 4.0:
         raise AssertionError(f"detections differ: {n_gpu} on the card, "
                              f"{n_cpu} on the CPU, boxes {box_err} px apart")
-    phase_small_amg(gpu, cpu, img)
+    return cpu
 
 
 def _xywh_to_xyxy(records):
@@ -2462,6 +2518,166 @@ def phase_cli():
     return row
 
 
+# --------------------------------------------------------------------------
+# the other archs: SAM ViT-H (head dim 80), sam_hq, mobile_sam
+# --------------------------------------------------------------------------
+
+ADAPTER = "./adapter_weights/10_shot.msgpack"
+
+
+def _arch_model(overrides):
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import full_width_config
+
+    t = time.time()
+    model = CrowdSAM(modify_config(full_width_config(), overrides),
+                     device="cuda")
+    torch.cuda.synchronize()
+    return model, time.time() - t
+
+
+def _require_launches(label, launches, required, absent=()):
+    missing = [k for k in required if launches[k] == 0]
+    present = [k for k in absent if launches[k] != 0]
+    if missing or present:
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"launched where they must not {present}: "
+                             f"{launches}")
+
+
+def phase_vit_h():
+    """SAM ViT-H (width 1280, head dim 80) at full width and depth with
+    DINOv2 ViT-L/14 and the shipped adapter, `configs/crowdhuman.yaml`'s
+    defaults (fused decode, RLEs): the three synthetic frames, then one
+    crowd scene with the pred-IoU and stability filters off (K7 on its
+    detections); the counts set to 0 just before each and read just after.
+    K1 must have launched at width 1280 and K2/K3 at head dim 80 (and at
+    no other head dim).  Also the encode's ms, the device's idle share and
+    peak memory.  Returns the launches by shape."""
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene, synthetic_images
+
+    model, build_s = _arch_model(["model.sam_model", "vit_h",
+                                  "model.sam_adapter_checkpoint", ADAPTER])
+    assert model.sam.image_encoder.embed_dim == 1280
+    images = synthetic_images(0, N_IMAGES + 1)
+    model.generate(images[-1])               # warm-up
+    torch.cuda.synchronize()
+    counters = _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_timed_generate(model, img) for img in images[:N_IMAGES]]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_shape = _launches_by_shape()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    encode = [_encode_ms(model, img) for img in images[:N_IMAGES]]
+    wall, busy, top = _device_busy(model, images[0])
+    reference_cfg = model.engine_cfg
+    model.engine_cfg = dataclasses.replace(
+        reference_cfg, pred_iou_thresh=0.0, stability_score_thresh=0.0)
+    scene = crowd_scene(20, 683, 1024)[0]
+    _timed_generate(model, scene)            # warm-up of the survivor path
+    counters = _reset_counts()
+    loaded, loaded_ms = _timed_generate(model, scene)
+    loaded_launches = {k: fn.launches for k, fn in counters.items()}
+    nonempty = _check_rles(loaded, scene)
+    model.engine_cfg = reference_cfg
+    row = {
+        "phase": "vit_h",
+        "config": "vit_h (1280 wide, 32 blocks, head dim 80) + dinov2_vitl14 "
+                  "+ the shipped adapter, bf16, configs/crowdhuman.yaml "
+                  "defaults (fused decode, RLEs)",
+        "build_s": build_s,
+        "image_hw": [list(i.shape[:2]) for i in images[:N_IMAGES]],
+        "ms_per_image": [ms for _, ms in runs],
+        "ms_per_image_mean": float(np.mean([ms for _, ms in runs])),
+        "encode_ms_per_image": encode,
+        "detections_per_image": [len(d["boxes"]) for d, _ in runs],
+        "peak_memory_gib": peak,
+        "launches_per_image": {k: v / N_IMAGES for k, v in launches.items()},
+        "launches_by_shape": by_shape,
+        "device_profile": {"wall_ms": wall, "device_busy_ms": busy,
+                           "device_idle_share": 1.0 - busy / wall,
+                           "kernels_ms": top},
+        "loaded": {"image_hw": list(scene.shape[:2]),
+                   "filters": "pred_iou_thresh 0, stability_score_thresh 0",
+                   "ms": loaded_ms, "detections": len(loaded["boxes"]),
+                   "nonempty_masks": nonempty,
+                   "launches": loaded_launches},
+    }
+    print(json.dumps(row), flush=True)
+    _require_launches("vit_h", launches,
+                      [k for k in launches if k != "survivor_rle"])
+    _require_launches("vit_h loaded", loaded_launches, list(loaded_launches))
+    if (by_shape["layer_norm_by_width"].get(1280, 0) == 0
+            or set(by_shape["window_attention_by_head_dim"]) != {80}
+            or set(by_shape["flash_mha_decomposed_relpos_by_head_dim"])
+            != {80}):
+        raise AssertionError(f"vit_h: K1 not at width 1280 or K2/K3 not "
+                             f"at head dim 80 alone: {by_shape}")
+    return by_shape
+
+
+def phase_small_vit_h():
+    """A small head-dim-80 configuration (SAM ViT-H at 256^2, DINOv2
+    ViT-S/14): the card's bf16 kernel path (K1 at 1280, K2/K3 at head dim
+    80, fused decode through K5/K6) against the plain float32 path on the
+    CPU, same weights, with the bounds of `small_reference`."""
+    from crowdsam_tpu_torch.config import modify_config
+
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+
+    cfg = modify_config(_small_config(), ["model.sam_model", "vit_h"])
+    gpu = CrowdSAM(cfg, device="cuda")
+    _compare_small(gpu, cfg, "small_reference hd80")
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def _arch_once(label, overrides, required, absent):
+    """One arch's model: a warm-up and one timed `generate` on a synthetic
+    frame, the counts set to 0 just before it."""
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    model, build_s = _arch_model(overrides)
+    img = synthetic_images(0, 1)[0]
+    model.generate(img)                      # warm-up
+    torch.cuda.synchronize()
+    counters = _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    data, ms = _timed_generate(model, img)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    row = {"phase": label, "overrides": overrides, "build_s": build_s,
+           "image_hw": list(img.shape[:2]), "ms_per_image": ms,
+           "detections": len(data["boxes"]),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_image": launches,
+           "launches_by_shape": _launches_by_shape()}
+    print(json.dumps(row), flush=True)
+    _require_launches(label, launches, required, absent)
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sam_hq():
+    """`sam_hq` on SAM ViT-L at full width: the HQ decoder decodes unfused
+    whatever `tpu.fused_decode` says, so K5 and K6 must not launch."""
+    return _arch_once(
+        "sam_hq", ["model.sam_arch", "sam_hq", "model.sam_model", "vit_l"],
+        ["layer_norm", "window_attention", "flash_mha_decomposed_relpos",
+         "flash_mha"], ["twoway_tail", "mask_head"])
+
+
+def phase_mobile_sam():
+    """`mobile_sam` (TinyViT-5M, no window/global rel-pos attention: K2 and
+    K3 must not launch) with the fused decode."""
+    return _arch_once(
+        "mobile_sam", ["model.sam_arch", "mobile_sam", "model.sam_model",
+                       "vit_t"],
+        ["layer_norm", "flash_mha", "twoway_tail", "mask_head"],
+        ["window_attention", "flash_mha_decomposed_relpos"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -2487,6 +2703,10 @@ def main() -> int:
         k2 = phase_window(gen)
         k3 = phase_global(gen)
         k4 = phase_dino(gen)[0]
+        torch.cuda.empty_cache()
+        # SAM ViT-H's shapes, K2/K3 at 64 and K4 timed just before them.
+        k2_80 = phase_window(gen, hd=80)
+        k3_80 = phase_global(gen, hd=80)
     ln_bwd_rows = phase_layernorm_backward(gen)
     torch.cuda.empty_cache()
 
@@ -2533,6 +2753,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli()
     torch.cuda.empty_cache()
+    vit_h_shapes = phase_vit_h()
+    torch.cuda.empty_cache()
+    phase_small_vit_h()
+    phase_sam_hq()
+    phase_mobile_sam()
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")
     src_attn = "crowdsam_tpu_torch/csrc/attention.cu"
@@ -2599,6 +2824,32 @@ def main() -> int:
                       replaced_ms=k7["replaced_ms"],
                       interpolate_threshold_ms=k7[
                           "interpolate_threshold_ms"]))
+    # The head-dim-80 / width-1280 rows: launches on the vit_h path.
+    ln80 = next(r for r in ln_rows if r["shape"] == "4096x1280")
+    table.insert(1, dict(
+        name="layer_norm", route="cuda",
+        source="crowdsam_tpu_torch/csrc/layernorm.cu",
+        replaces="crowdsam_tpu/ops/layernorm.py:34",
+        launches=vit_h_shapes["layer_norm_by_width"].get(1280, 0),
+        launches_in=f"vit_h, {N_IMAGES} frames, width 1280",
+        max_abs_err=ln80["max_abs_err"], **{k: ln80[k] for k in keys},
+        device_ms=ln80["device_ms"],
+        library_device_ms=ln80["library_device_ms"]))
+    for name, rep, row, extra in (
+            ("window_attention", "crowdsam_tpu/models/attention.py:163",
+             k2_80, ("wrapper_device_ms", "library_device_ms",
+                     "whole_fn_ms")),
+            ("flash_mha_decomposed_relpos",
+             "crowdsam_tpu/models/attention.py:126", k3_80,
+             ("wrapper_device_ms", "library_device_ms", "folded_form",
+              "whole_fn_ms"))):
+        at = next(i for i, r in enumerate(table) if r["name"] == name)
+        table.insert(at + 1, dict(
+            name=name, route="cuda", source=src_attn, replaces=rep,
+            launches=vit_h_shapes[f"{name}_by_head_dim"].get(80, 0),
+            launches_in=f"vit_h, {N_IMAGES} frames, head dim 80",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"], **{k: row[k] for k in extra}))
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

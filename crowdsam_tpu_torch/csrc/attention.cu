@@ -1,6 +1,6 @@
-// Attention with SAM's decomposed relative-position bias (head dim 64, bf16)
-// for Hopper (sm_90a): TMA loads behind mbarriers, warp specialization and
-// wgmma for every product.
+// Attention with SAM's decomposed relative-position bias (head dim 64, or 80
+// for SAM ViT-H; bf16) for Hopper (sm_90a): TMA loads behind mbarriers, warp
+// specialization and wgmma for every product.
 //
 // Replaces two TPU kernels of crowdsam_tpu/models/attention.py:
 //   - `flash_mha_decomposed_relpos` (K3, SAM's 4 global blocks: 16 heads x
@@ -85,6 +85,24 @@
 //   6. A wrong grid row for the second half of a tile, fw one column off or
 //      one-hot columns shifted by one: chip_smoke.py's K2/K3 phases hold
 //      plain versions with each of those faults against the tolerance.
+//
+// Head dim 80 (SAM ViT-H: width 1280, 16 heads; the template's HD).  A
+// token's 80 bf16 are 160 bytes: not one 128-byte swizzle atom, and TMA's
+// 128-byte swizzle takes an inner box of at most 128 bytes.  Each operand is
+// split into two slabs instead of being zero-padded to 128 dims in shared
+// memory: dims 0-63 stay the 128-byte swizzled tile every helper above
+// reads, and dims 64-79 come by a second TMA box (16 dims, the 32-byte
+// swizzle) into a tile of 32-byte rows (`sm90.cuh`: `sw32`, layout type 3
+// descriptors).  Q K^T takes 4 + 1 k-steps, P V one m64n16k16 beside the
+// m64n64k16 (O: 32 + 8 f32 a thread), fh = Q Rh^T (K3 GRID64) and K2's
+// G = Q R^T one k-step more; the bias terms and their fold do not depend on
+// the head dim.  The split costs 25% more shared memory for Q, K, V and the
+// tables, where the zero pad would cost 100% (every K/V stage two 16 KB
+// tiles, of which 48 of 64 dims zeros, and 3 more k-steps of zeros a tile).
+// Both head dims are instantiations of the same templates; the slab code is
+// `if constexpr (HD == 80)`, so that the head-dim-64 kernels keep their
+// code and layout.  With the slab the head-dim-80 blocks need more than
+// half of the SM's shared memory, so one block runs a SM (two at 64).
 #include "sm90.cuh"
 
 namespace {
@@ -100,39 +118,66 @@ constexpr int TILE_BYTES = BK * ROW_BYTES;   // 16 KB: 128 rows
 constexpr int MAX_GRID = 64;       // K3: h, w <= 64
 constexpr int MAX_WINDOW = 16;     // K2: ws^2 <= 256 keys (two tiles)
 constexpr int BLOCKS_PER_SM = 2;
+constexpr int Q1_BYTES = BQ * ROW1_BYTES;    // 2 KB: the slab of 64 rows
+constexpr int TILE1_BYTES = BK * ROW1_BYTES; // 4 KB: the slab of 128 rows
+constexpr int TABLE1_BYTES = MAX_WINDOW * 16 * ROW1_BYTES;  // K2's Rh slab
 
-// Shared memory (bytes from the 1024-byte aligned base).
-//   GRID64: Q | QA (fw) | KA (128 keys) | fh (64 x 64 bf16) | K ring |
-//           V ring | barriers
-//   FOLD:   Q | QA (2 slabs) | KA (2 slabs) | K ring | V ring | barriers
-//   WINDOW: Q | QA | KA (256 rows; holds Rh first) | K (the window's rows,
-//           rounded to 8) | V (256 rows; holds Rw first) | barriers
+// The tensor maps of the second slab (head dim 80), a kernel's last
+// argument; an empty struct at head dim 64.
+template <int HD>
+struct SlabMaps {
+  CUtensorMap a, b, c, d;
+};
+template <>
+struct SlabMaps<64> {};
+
+// Shared memory (bytes from the 1024-byte aligned base); the [slabs] of
+// dims 64-79 exist at head dim 80 only.
+//   GRID64: Q | [Q1] | QA (fw) | KA (128 keys) | fh (64 x 64 bf16) | [Rh1] |
+//           K ring | [K1 ring] | V ring | [V1 ring] | barriers
+//   FOLD:   Q | [Q1] | QA (2 slabs) | KA (2 slabs) | K ring | [K1 ring] |
+//           V ring | [V1 ring] | barriers
+//   WINDOW: Q | [Q1] | QA | KA (256 rows; holds Rh first) | K (the window's
+//           rows, rounded to 8) | [K1] | V (256 rows; holds Rw first) |
+//           [V1 (256 rows; holds Rw's slab first)] | [Rh1] | barriers
 // A product over a window's second tile reads TK rows of K and KA: the
 // rows past the window's keys are masked, whatever buffer they fall in.
-template <int MODE>
+template <int MODE, int HD>
 struct Ring {                      // K3: GRID64, FOLD
+  static constexpr bool WIDE = HD == D_WIDE;
   static constexpr int STAGES = 2;
-  static constexpr int QA = Q_BYTES;
+  static constexpr int Q1 = Q_BYTES;
+  static constexpr int QA = Q1 + (WIDE ? Q1_BYTES : 0);
   static constexpr int KA = QA + (MODE == FOLD ? 2 : 1) * Q_BYTES;
   static constexpr int FH = KA + (MODE == GRID64 ? 1 : 2) * TILE_BYTES;
-  static constexpr int K = FH + (MODE == GRID64 ? Q_BYTES : 0);
-  static constexpr int V = K + STAGES * TILE_BYTES;
-  static constexpr int BAR = V + STAGES * TILE_BYTES;
+  static constexpr int RH1 = FH + (MODE == GRID64 ? Q_BYTES : 0);
+  static constexpr int K = RH1 + (MODE == GRID64 && WIDE ? Q1_BYTES : 0);
+  static constexpr int K1 = K + STAGES * TILE_BYTES;
+  static constexpr int V = K1 + (WIDE ? STAGES * TILE1_BYTES : 0);
+  static constexpr int V1 = V + STAGES * TILE_BYTES;
+  static constexpr int BAR = V1 + (WIDE ? STAGES * TILE1_BYTES : 0);
   static constexpr int N_BARS = 2 + 3 * STAGES;  // q, rh, full_k/v, empty
   static constexpr int SMEM = BAR + 8 * N_BARS + 1024;
 };
 
 // WINDOW layout for a window of `n` tokens.
 struct WinLayout {
-  int qa, ka, k, v, bar, smem;
+  int q1, qa, ka, k, k1, v, v1, rh1, bar, smem;
 };
+template <int HD>
 __host__ __device__ inline WinLayout win_layout(int n) {
+  constexpr bool WIDE = HD == D_WIDE;
+  const int rows = ((n + 7) / 8) * 8;
   WinLayout w;
-  w.qa = Q_BYTES;
+  w.q1 = Q_BYTES;
+  w.qa = w.q1 + (WIDE ? Q1_BYTES : 0);
   w.ka = w.qa + Q_BYTES;
   w.k = w.ka + 2 * TILE_BYTES;
-  w.v = w.k + ((n + 7) / 8) * 8 * ROW_BYTES;
-  w.bar = w.v + 2 * TILE_BYTES;
+  w.k1 = w.k + rows * ROW_BYTES;
+  w.v = w.k1 + (WIDE ? (rows * ROW1_BYTES + 1023) / 1024 * 1024 : 0);
+  w.v1 = w.v + 2 * TILE_BYTES;
+  w.rh1 = w.v1 + (WIDE ? 2 * TILE1_BYTES : 0);
+  w.bar = w.rh1 + (WIDE ? TABLE1_BYTES : 0);
   w.smem = w.bar + 8 * 5 + 1024;   // k_full, v_full, rh_full, rw_full, v_free
   return w;
 }
@@ -208,23 +253,55 @@ __device__ __forceinline__ void store_rows(const float (&o)[32], float (&l)[2],
   }
 }
 
+// `store_rows` at head dim 80: dims 0-63 from o, 64-79 from o1.
+template <typename Dst>
+__device__ __forceinline__ void store_rows_wide(const float (&o)[32],
+                                                const float (&o1)[8],
+                                                float (&l)[2], int warp,
+                                                int lane, Dst dst) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+    __nv_bfloat16* out = dst(warp * 16 + (lane >> 2) + 8 * r);
+    if (out == nullptr) continue;
+    const float inv = 1.f / l[r];
+    out += 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<uint32_t*>(out + D + 8 * j) =
+          pack_bf16(o1[4 * j + 2 * r] * inv, o1[4 * j + 2 * r + 1] * inv);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K3: GRID64 and FOLD
 // ---------------------------------------------------------------------------
 
-// NSLAB: FOLD's 64-dim slabs of [fh | fw] (h + w <= 64 * NSLAB).
-template <int MODE, int NSLAB>
+// NSLAB: FOLD's 64-dim slabs of [fh | fw] (h + w <= 64 * NSLAB).  HD: the
+// head dim, 64 or 80 (`m`: the maps of dims 64-79 of q, k, v and Rh).
+template <int MODE, int NSLAB, int HD>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  const __grid_constant__ CUtensorMap tm_rh, const Params p) {
-  using L = Ring<MODE>;
+                  const __grid_constant__ CUtensorMap tm_rh, const Params p,
+                  const __grid_constant__ SlabMaps<HD> m) {
+  using L = Ring<MODE, HD>;
+  constexpr bool WIDE = L::WIDE;
   constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sqa = base + L::QA, ska = base + L::KA;
   const uint32_t sfh = base + L::FH, sk = base + L::K, sv = base + L::V;
+  const uint32_t sq1 = base + L::Q1, srh1 = base + L::RH1;
+  const uint32_t sk1 = base + L::K1, sv1 = base + L::V1;
   const uint32_t q_full = base + L::BAR, rh_full = q_full + 8;
   const uint32_t full_k = rh_full + 8;                // [STAGES]
   const uint32_t full_v = full_k + 8 * STAGES;        // [STAGES]
@@ -255,23 +332,32 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
       prefetch_map(&tm_q);
       prefetch_map(&tm_k);
       prefetch_map(&tm_v);
-      mbar_expect_tx(q_full, Q_BYTES);
+      mbar_expect_tx(q_full, Q_BYTES + (WIDE ? Q1_BYTES : 0));
       load_bhsd(sq, &tm_q, q_full, p.pos[0], h, q0, b);
+      if constexpr (WIDE) load_bhsd1(sq1, &m.a, q_full, p.pos[0], h, q0, b);
       if (MODE == GRID64) {
         // The block's 64 queries are grid row blockIdx.x: Rh[row] (64 j
         // x 64 dims, rows past the table's end zero).
-        mbar_expect_tx(rh_full, Q_BYTES);
+        mbar_expect_tx(rh_full, Q_BYTES + (WIDE ? Q1_BYTES : 0));
         tma_load_2d(sfh, &tm_rh, rh_full, 0, blockIdx.x * p.rel_h);
+        if constexpr (WIDE)
+          tma_load_2d(srh1, &m.d, rh_full, D, blockIdx.x * p.rel_h);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full_k + 8 * s, TILE_BYTES);
+        mbar_expect_tx(full_k + 8 * s, TILE_BYTES + (WIDE ? TILE1_BYTES : 0));
         load_bhsd(sk + s * TILE_BYTES, &tm_k, full_k + 8 * s, p.pos[1], h,
                   it * BK, b);
-        mbar_expect_tx(full_v + 8 * s, TILE_BYTES);
+        if constexpr (WIDE)
+          load_bhsd1(sk1 + s * TILE1_BYTES, &m.b, full_k + 8 * s, p.pos[1],
+                     h, it * BK, b);
+        mbar_expect_tx(full_v + 8 * s, TILE_BYTES + (WIDE ? TILE1_BYTES : 0));
         load_bhsd(sv + s * TILE_BYTES, &tm_v, full_v + 8 * s, p.pos[2], h,
                   it * BK, b);
+        if constexpr (WIDE)
+          load_bhsd1(sv1 + s * TILE1_BYTES, &m.c, full_v + 8 * s, p.pos[2],
+                     h, it * BK, b);
       }
     }
     return;
@@ -283,10 +369,13 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
   const int rh = p.rel_h, rw = p.rel_w;
   const long long bh = (long long)b * p.heads + h;
   float o[32], sc[NS], alpha[2];
+  float o1[8];                    // head dim 80: O's dims 64-79
   uint32_t pa[NP][4];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o1[i] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   // GRID64: QA = fw / scale (a 64-dim slab), KA = onehot(col(k)) =
   // onehot(k % 64), the same for every tile, and fh = Q Rh[row]^T (0 past
@@ -317,6 +406,8 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_m64n64k16_ss(fh, kmajor_desc(sq + kk * 32),
                          kmajor_desc(sfh + kk * 32), kk > 0 ? 1 : 0);
+    if constexpr (WIDE)
+      wgmma_m64n64k16_ss(fh, kmajor32_desc(sq1), kmajor32_desc(srh1), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(fh);
@@ -397,32 +488,38 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(full_k + 8 * s, par);
     wgmma_fence();
     issue_qk(sc, sq, sk + s * TILE_BYTES, false);
+    if constexpr (WIDE) issue_qk_slab1(sc, sq1, sk1 + s * TILE1_BYTES);
     if constexpr (MODE == GRID64) issue_fold<4>(sc, sqa, ska, 0);
     if constexpr (MODE == FOLD)
       issue_fold<4 * NSLAB>(sc, sqa, ska, TILE_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax_tile(sc, pa, m, l, alpha, p.seq - it * BK, t4, p.scale_log2,
+    softmax_tile(sc, pa, mx, l, alpha, p.seq - it * BK, t4, p.scale_log2,
                  off);
     rescale(o, alpha);
+    if constexpr (WIDE) rescale8(o1, alpha);
     mbar_wait(full_v + 8 * s, par);
     wgmma_fence();
     issue_pv(o, pa, sv + s * TILE_BYTES);
+    if constexpr (WIDE) issue_pv_slab1(o1, pa, sv1 + s * TILE1_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    if constexpr (WIDE) fence_regs(o1);
     fence_regs(pa);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-  store_rows(o, l, warp, lane, [&](int i) -> __nv_bfloat16* {
+  auto dst = [&](int i) -> __nv_bfloat16* {
     const int q = q0 + i;
     if (q >= p.seq) return nullptr;
     return p.o + (long long)b * p.obs + (long long)h * p.ohs +
            (long long)q * p.old;
-  });
+  };
+  if constexpr (WIDE) store_rows_wide(o, o1, l, warp, lane, dst);
+  else store_rows(o, l, warp, lane, dst);
 }
 
 // ---------------------------------------------------------------------------
@@ -430,20 +527,24 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 
 // TK: keys of a score tile, 112 (two tiles cover a 14x14 window with 28
-// keys masked) or 128 (windows of up to 16x16).
-template <int TK>
+// keys masked) or 128 (windows of up to 16x16).  HD: the head dim, 64 or
+// 80 (`m`: the maps of dims 64-79 of k, v, Rh and Rw).
+template <int TK, int HD>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_rh,
                    const __grid_constant__ CUtensorMap tm_rw,
-                   const Params p) {
+                   const Params p, const __grid_constant__ SlabMaps<HD> m) {
+  constexpr bool WIDE = HD == D_WIDE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int ws = p.rel_w, n = ws * ws;
-  const WinLayout lay = win_layout(n);
+  const WinLayout lay = win_layout<HD>(n);
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sqa = base + lay.qa, ska = base + lay.ka;
   const uint32_t sk = base + lay.k, sv = base + lay.v;
+  const uint32_t sq1 = base + lay.q1, sk1 = base + lay.k1;
+  const uint32_t sv1 = base + lay.v1, srh1 = base + lay.rh1;
   const uint32_t k_full = base + lay.bar, v_full = k_full + 8;
   const uint32_t rh_full = v_full + 8, rw_full = rh_full + 8;
   const uint32_t v_free = rw_full + 8;
@@ -454,7 +555,8 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   const int per_img = p.nwh * p.nww;
   const int img = blockIdx.z / per_img, wy = (blockIdx.z % per_img) / p.nww,
             wx = blockIdx.z % p.nww;
-  const int box_bytes = n * ROW_BYTES;
+  const int box_bytes = n * (ROW_BYTES + (WIDE ? ROW1_BYTES : 0));
+  const int table_bytes = ws * 16 * (ROW_BYTES + (WIDE ? ROW1_BYTES : 0));
 
   if (tid == 0) {
     mbar_init(k_full, 1);
@@ -473,15 +575,21 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
     if (warp == CONSUMER_WARPS && lane == 0) {
       prefetch_map(&tm_k);
       prefetch_map(&tm_v);
-      mbar_expect_tx(rw_full, ws * 16 * ROW_BYTES);
+      mbar_expect_tx(rw_full, table_bytes);
       tma_load_3d(sv, &tm_rw, rw_full, 0, 0, 0);
-      mbar_expect_tx(rh_full, ws * 16 * ROW_BYTES);
+      if constexpr (WIDE) tma_load_3d(sv1, &m.d, rw_full, D, 0, 0);
+      mbar_expect_tx(rh_full, table_bytes);
       tma_load_3d(ska, &tm_rh, rh_full, 0, 0, 0);
+      if constexpr (WIDE) tma_load_3d(srh1, &m.c, rh_full, D, 0, 0);
       mbar_expect_tx(k_full, box_bytes);
       tma_load_5d(sk, &tm_k, k_full, 0, h, wx * ws, wy * ws, img);
+      if constexpr (WIDE)
+        tma_load_5d(sk1, &m.a, k_full, D, h, wx * ws, wy * ws, img);
       mbar_wait(v_free, 0);
       mbar_expect_tx(v_full, box_bytes);
       tma_load_5d(sv, &tm_v, v_full, 0, h, wx * ws, wy * ws, img);
+      if constexpr (WIDE)
+        tma_load_5d(sv1, &m.b, v_full, D, h, wx * ws, wy * ws, img);
     }
     return;
   }
@@ -491,7 +599,7 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   const int t4 = lane & 3;
   const long long tok_ld = 3LL * p.dim;              // qkv token stride
   const __nv_bfloat16* qkv_img =
-      p.qkv + (long long)img * p.hp * p.wp * tok_ld + h * D;
+      p.qkv + (long long)img * p.hp * p.wp * tok_ld + h * HD;
   auto pixel = [&](int t) {                          // window token -> pixel
     return (long long)(wy * ws + t / ws) * p.wp + wx * ws + t % ws;
   };
@@ -502,6 +610,14 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
     const __nv_bfloat16* src =
         t < n ? qkv_img + pixel(t) * tok_ld + ch * 8 : p.qkv;
     cp_async16(sq + sw128(i, ch), src, t < n ? 16 : 0);
+  }
+  if constexpr (WIDE) {           // dims 64-79: two chunks a row
+    for (int e = tid; e < BQ * 2; e += 128) {
+      const int i = e >> 1, ch = e & 1, t = q0 + i;
+      const __nv_bfloat16* src =
+          t < n ? qkv_img + pixel(t) * tok_ld + D + ch * 8 : p.qkv;
+      cp_async16(sq1 + sw32(i, ch), src, t < n ? 16 : 0);
+    }
   }
   cp_async_wait_all();
   fence_proxy_async();
@@ -537,6 +653,7 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
     mbar_wait(tab == 0 ? rw_full : rh_full, 0);
     const int lo = tab == 0 ? 0 : r_lo, hi = tab == 0 ? ws - 1 : r_hi;
     const uint32_t table = tab == 0 ? sv : ska;
+    const uint32_t table1 = tab == 0 ? sv1 : srh1;   // dims 64-79 (HD 80)
     for (int x0 = lo; x0 <= hi; x0 += GB) {
       // The last batch of a large window starts early so as to stay in
       // the buffer (tiles past the table are never kept).
@@ -548,6 +665,9 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
         wgmma_m64n112k16_ss(g, kmajor_desc(sq + kk * 32),
                             kmajor_desc(table + xs * 2048 + kk * 32),
                             kk > 0 ? 1 : 0);
+      if constexpr (WIDE)
+        wgmma_m64n112k16_ss(g, kmajor32_desc(sq1),
+                            kmajor32_desc(table1 + xs * 16 * ROW1_BYTES), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(g);
@@ -591,6 +711,10 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   named_bar(1, 128);
   for (int e = n * 8 + tid; e < 2 * BK * 8; e += 128)
     st_shared_v4(sv + (e >> 3) * ROW_BYTES + ((e & 7) << 4), 0u, 0u, 0u, 0u);
+  if constexpr (WIDE)
+    for (int e = n * 2 + tid; e < 2 * BK * 2; e += 128)
+      st_shared_v4(sv1 + (e >> 1) * ROW1_BYTES + ((e & 1) << 4), 0u, 0u, 0u,
+                   0u);
   for (int e = tid; e < n * 4; e += 128) {    // dims 0-31: two k-steps
     const int key = e >> 2, ch = e & 3;
     onehot_chunk(ska + sw128(key, ch), ch, key / ws, 16 + key % ws);
@@ -599,10 +723,13 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   named_bar(1, 128);
 
   float o[32], alpha[2];
+  float o1[8];                    // head dim 80: O's dims 64-79
   uint32_t pa[TK / 16][4];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o1[i] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   // Two key tiles (a window of up to TK keys has its second tile all
   // masked: it leaves O and the running sums as they were).
   float sc[TK / 2];
@@ -610,29 +737,37 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
   for (int tt = 0; tt < 2; ++tt) {
     const uint32_t rows = tt * TK * ROW_BYTES;   // the tile's first key
+    const uint32_t rows1 = tt * TK * ROW1_BYTES;
     wgmma_fence();
     issue_qk(sc, sq, sk + rows, false);
+    if constexpr (WIDE) issue_qk_slab1(sc, sq1, sk1 + rows1);
     issue_fold<2>(sc, sqa, ska + rows, 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     const float no_off[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    softmax_tile(sc, pa, m, l, alpha, n - tt * TK, t4, p.scale_log2, no_off);
+    softmax_tile(sc, pa, mx, l, alpha, n - tt * TK, t4, p.scale_log2,
+                 no_off);
     rescale(o, alpha);
+    if constexpr (WIDE) rescale8(o1, alpha);
     if (tt == 0) mbar_wait(v_full, 0);
     wgmma_fence();
     issue_pv(o, pa, sv + rows);
+    if constexpr (WIDE) issue_pv_slab1(o1, pa, sv1 + rows1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    if constexpr (WIDE) fence_regs(o1);
     fence_regs(pa);
   }
 
   __nv_bfloat16* out_img = p.o + (long long)img * p.obs + h * p.ohs;
-  store_rows(o, l, warp, lane, [&](int i) -> __nv_bfloat16* {
+  auto dst = [&](int i) -> __nv_bfloat16* {
     const int t = q0 + i;
     return t < n ? out_img + pixel(t) * p.old : nullptr;
-  });
+  };
+  if constexpr (WIDE) store_rows_wide(o, o1, l, warp, lane, dst);
+  else store_rows(o, l, warp, lane, dst);
 }
 
 template <typename K>
@@ -641,19 +776,78 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// K3's launch at head dim HD; maps[4..7] are the second slab's (HD 80).
+template <int HD>
+int global_launch(const CUtensorMap* maps, const Params& p, int batch,
+                  int heads, int mode, cudaStream_t st) {
+  using G = Ring<GRID64, HD>;
+  using F = Ring<FOLD, HD>;
+  static const cudaError_t attr[3] = {
+      allow_smem(flash_attn_relpos<GRID64, 1, HD>, G::SMEM),
+      allow_smem(flash_attn_relpos<FOLD, 1, HD>, F::SMEM),
+      allow_smem(flash_attn_relpos<FOLD, 2, HD>, F::SMEM)};
+  for (cudaError_t e : attr)
+    if (e != cudaSuccess) return (int)e;
+  SlabMaps<HD> m;
+  if constexpr (HD == D_WIDE) m = {maps[4], maps[5], maps[6], maps[7]};
+  if (batch > 0 && heads > 0) {
+    const dim3 grid((p.seq + BQ - 1) / BQ, heads, batch);
+    if (mode == GRID64)
+      flash_attn_relpos<GRID64, 1, HD><<<grid, THREADS, G::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+    else if (p.rel_h + p.rel_w <= D)
+      flash_attn_relpos<FOLD, 1, HD><<<grid, THREADS, F::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+    else
+      flash_attn_relpos<FOLD, 2, HD><<<grid, THREADS, F::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2's launch at head dim HD; maps[4..7] are the second slab's (HD 80).
+template <int HD>
+int window_launch(const CUtensorMap* maps, const Params& p, int batch,
+                  int heads, cudaStream_t st) {
+  const int smem = win_layout<HD>(MAX_WINDOW * MAX_WINDOW).smem;
+  static const cudaError_t attr[2] = {
+      allow_smem(window_attn_relpos<112, HD>, smem),
+      allow_smem(window_attn_relpos<BK, HD>, smem)};
+  for (cudaError_t e : attr)
+    if (e != cudaSuccess) return (int)e;
+  SlabMaps<HD> m;
+  if constexpr (HD == D_WIDE) m = {maps[4], maps[5], maps[6], maps[7]};
+  const int n = p.seq;
+  if (batch > 0 && heads > 0) {
+    const dim3 grid((n + BQ - 1) / BQ, heads, batch * p.nwh * p.nww);
+    if (n <= 2 * 112)
+      window_attn_relpos<112, HD><<<grid, THREADS, win_layout<HD>(n).smem,
+                                    st>>>(maps[0], maps[1], maps[2], maps[3],
+                                          p, m);
+    else
+      window_attn_relpos<BK, HD><<<grid, THREADS, win_layout<HD>(n).smem,
+                                   st>>>(maps[0], maps[1], maps[2], maps[3],
+                                         p, m);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K3. q, k, v: (B, H, S, 64) bf16 operands, S = rel_h * rel_w, with their
-// tensor-map layouts (`layouts`: 3 x 14 int64, q then k then v); rh_table: the
-// (rel_h, rel_h, 64) bf16 table, contiguous.  FOLD: fh/fw contiguous (B, H, S,
-// rel_h) / (B, H, S, rel_w) bf16.  GRID64: fh unused (formed in the kernel);
-// fw (64 j contiguous) at column c, (batch, head) bh and grid row r at c
-// fw_strides[0] + bh fw_strides[1] + r fw_strides[2]; o: the output, strides
-// `o_strides` (batch, head, token; elements).  `mode`: 0 (GRID64, a grid 64
-// wide only) or 1 (FOLD, any grid).  Returns cudaGetLastError(), or -1 when
-// the CUDA driver has no cuTensorMapEncodeTiled, -2 - i when operand i's
-// tensor map is refused, -6 for a grid outside 1..64 or a mode it does not
-// take.
+// K3. q, k, v: (B, H, S, hd) bf16 operands, hd = head_dim (64 or 80), S =
+// rel_h * rel_w, with their tensor-map layouts (`layouts`: 3 x 14 int64, q
+// then k then v, each with dims[0] = hd and a box of 64 dims); rh_table:
+// the (rel_h, rel_h, hd) bf16 table, contiguous.  FOLD: fh/fw contiguous
+// (B, H, S, rel_h) / (B, H, S, rel_w) bf16.  GRID64: fh unused (formed in
+// the kernel); fw (64 j contiguous) at column c, (batch, head) bh and grid
+// row r at c fw_strides[0] + bh fw_strides[1] + r fw_strides[2]; o: the
+// output, strides `o_strides` (batch, head, token; elements).  `mode`: 0
+// (GRID64, a grid 64 wide only) or 1 (FOLD, any grid).  At head dim 80
+// fh/fw come already divided by `scale` (at 64 the kernel divides, x8
+// being exact).  Returns
+// cudaGetLastError(), or -1 when the CUDA driver has no
+// cuTensorMapEncodeTiled, -2 - i when operand i's tensor map is refused, -6
+// for a grid outside 1..64, a mode it does not take or another head dim.
 extern "C" int relpos_global_forward(const void* q, const void* k,
                                      const void* v, void* o, const void* fh,
                                      const void* fw,
@@ -662,30 +856,37 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
                                      const long long* layouts,
                                      const long long* o_strides, int batch,
                                      int heads, int rel_h, int rel_w,
-                                     int mode, float scale, void* stream) {
+                                     int head_dim, int mode, float scale,
+                                     void* stream) {
   if (encode_fn() == nullptr) return -1;
   if (rel_h < 1 || rel_w < 1 || rel_h > MAX_GRID || rel_w > MAX_GRID)
     return -6;
   if (mode != GRID64 && mode != FOLD) return -6;
   if (mode == GRID64 && rel_w != MAX_GRID) return -6;
-  static const cudaError_t attr[3] = {
-      allow_smem(flash_attn_relpos<GRID64, 1>, Ring<GRID64>::SMEM),
-      allow_smem(flash_attn_relpos<FOLD, 1>, Ring<FOLD>::SMEM),
-      allow_smem(flash_attn_relpos<FOLD, 2>, Ring<FOLD>::SMEM)};
-  for (cudaError_t e : attr)
-    if (e != cudaSuccess) return (int)e;
-  alignas(64) CUtensorMap maps[4];
+  if (head_dim != D && head_dim != D_WIDE) return -6;
+  const bool wide = head_dim == D_WIDE;
+  alignas(64) CUtensorMap maps[8];
   Params p = {};
   const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
-    if (!encode_bhsd(&maps[i], ptrs[i], layouts + 14 * i, p.pos[i],
-                     i == 0 ? BQ : BK))
-      return -2 - i;
-  // Rh: {64, h^2} rows of the (h, h, 64) table, a box of 64 rows.
-  const cuuint64_t rh_dims[2] = {(cuuint64_t)D, (cuuint64_t)rel_h * rel_h};
-  const cuuint64_t rh_str[1] = {ROW_BYTES};
+  for (int i = 0; i < 3; ++i) {
+    const long long* lay = layouts + 14 * i;
+    if (lay[0] != head_dim) return -2 - i;
+    for (int slab = 0; slab < (wide ? 2 : 1); ++slab)
+      if (!encode_bhsd_slab(&maps[slab ? 4 + i : i], ptrs[i], lay,
+                            p.pos[i], i == 0 ? BQ : BK, slab))
+        return -2 - i;
+  }
+  // Rh: {hd, h^2} rows of the (h, h, hd) table, a box of 64 rows (of 64
+  // dims; of 16 dims from dim 64 on for the second slab).
+  const cuuint64_t rh_dims[2] = {(cuuint64_t)head_dim,
+                                 (cuuint64_t)rel_h * rel_h};
+  const cuuint64_t rh_str[1] = {(cuuint64_t)head_dim * 2};
   const cuuint32_t rh_box[2] = {(cuuint32_t)D, (cuuint32_t)BQ};
   if (!encode_bf16(&maps[3], rh_table, 2, rh_dims, rh_str, rh_box)) return -5;
+  const cuuint32_t rh_box1[2] = {(cuuint32_t)D1, (cuuint32_t)BQ};
+  if (wide && !encode_bf16(&maps[7], rh_table, 2, rh_dims, rh_str, rh_box1,
+                           CU_TENSOR_MAP_SWIZZLE_32B))
+    return -5;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.obs = o_strides[0];
   p.ohs = o_strides[1];
@@ -700,67 +901,65 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
   p.rel_h = rel_h;
   p.rel_w = rel_w;
   p.scale_log2 = scale * LOG2E;
-  p.inv_scale = 1.f / scale;
-  if (batch > 0 && heads > 0) {
-    const dim3 grid((p.seq + BQ - 1) / BQ, heads, batch);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (mode == GRID64)
-      flash_attn_relpos<GRID64, 1><<<grid, THREADS, Ring<GRID64>::SMEM, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p);
-    else if (rel_h + rel_w <= D)
-      flash_attn_relpos<FOLD, 1><<<grid, THREADS, Ring<FOLD>::SMEM, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p);
-    else
-      flash_attn_relpos<FOLD, 2><<<grid, THREADS, Ring<FOLD>::SMEM, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p);
-  }
-  return (int)cudaGetLastError();
+  p.inv_scale = wide ? 1.f : 1.f / scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wide ? global_launch<D_WIDE>(maps, p, batch, heads, mode, st)
+              : global_launch<D>(maps, p, batch, heads, mode, st);
 }
 
-// K2.  qkv: (B, Hp, Wp, 3 * heads * 64) bf16, contiguous, Hp and Wp
-// multiples of ws; rh/rw: (ws, ws, 64) bf16 tables, contiguous; o: (B, Hp,
-// Wp, heads * 64) bf16, contiguous.  Returns cudaGetLastError(), -1 as
-// above, -2 - i when map i (k, v, Rh, Rw) is refused, -6 for a window
-// outside 1..16 or a grid it does not divide.
+// K2.  qkv: (B, Hp, Wp, 3 * heads * hd) bf16, contiguous, hd = head_dim (64
+// or 80), Hp and Wp multiples of ws; rh/rw: (ws, ws, hd) bf16 tables,
+// contiguous; o: (B, Hp, Wp, heads * hd) bf16, contiguous.  Returns
+// cudaGetLastError(), -1 as above, -2 - i when map i (k, v, Rh, Rw) is
+// refused, -6 for a window outside 1..16, a grid it does not divide or
+// another head dim.
 extern "C" int relpos_window_forward(const void* qkv, void* o, const void* rh,
                                      const void* rw, int batch, int hp,
-                                     int wp, int heads, int ws, float scale,
-                                     void* stream) {
+                                     int wp, int heads, int ws, int head_dim,
+                                     float scale, void* stream) {
   if (encode_fn() == nullptr) return -1;
   if (ws < 1 || ws > MAX_WINDOW || hp % ws || wp % ws) return -6;
-  const int smem = win_layout(MAX_WINDOW * MAX_WINDOW).smem;
-  static const cudaError_t attr[2] = {
-      allow_smem(window_attn_relpos<112>, smem),
-      allow_smem(window_attn_relpos<BK>, smem)};
-  for (cudaError_t e : attr)
-    if (e != cudaSuccess) return (int)e;
-  const int dim = heads * D, n = ws * ws;
+  if (head_dim != D && head_dim != D_WIDE) return -6;
+  const bool wide = head_dim == D_WIDE;
+  const int dim = heads * head_dim, n = ws * ws;
   const cuuint64_t esz = sizeof(__nv_bfloat16);
-  alignas(64) CUtensorMap maps[4];
-  // k and v: {64, heads, Wp, Hp, B}, a box a window of one head.
-  const cuuint64_t dims5[5] = {(cuuint64_t)D, (cuuint64_t)heads,
+  alignas(64) CUtensorMap maps[8];
+  // k and v: {hd, heads, Wp, Hp, B}, a box a window of one head (64 dims;
+  // 16 from dim 64 on for the second slab).
+  const cuuint64_t dims5[5] = {(cuuint64_t)head_dim, (cuuint64_t)heads,
                                (cuuint64_t)wp, (cuuint64_t)hp,
                                (cuuint64_t)batch};
-  const cuuint64_t str5[4] = {D * esz, 3ull * dim * esz, 3ull * dim * wp * esz,
+  const cuuint64_t str5[4] = {head_dim * esz, 3ull * dim * esz,
+                              3ull * dim * wp * esz,
                               3ull * dim * wp * hp * esz};
   const cuuint32_t box5[5] = {(cuuint32_t)D, 1, (cuuint32_t)ws,
                               (cuuint32_t)ws, 1};
+  const cuuint32_t box5_1[5] = {(cuuint32_t)D1, 1, (cuuint32_t)ws,
+                                (cuuint32_t)ws, 1};
   const char* qkv_b = static_cast<const char*>(qkv);
-  if (!encode_bf16(&maps[0], qkv_b + dim * esz, 5, dims5, str5, box5))
-    return -2;
-  if (!encode_bf16(&maps[1], qkv_b + 2 * dim * esz, 5, dims5, str5, box5))
-    return -3;
-  // The tables: {64, ws (j), ws (r)}, one box of 16 j a row, so that each
+  // The tables: {hd, ws (j), ws (r)}, one box of 16 j a row, so that each
   // Rh[r] lands as a 16-row tile (rows j >= ws filled with zeros).
-  const cuuint64_t dims3[3] = {(cuuint64_t)D, (cuuint64_t)ws, (cuuint64_t)ws};
-  const cuuint64_t str3[2] = {D * esz, D * esz * ws};
+  const cuuint64_t dims3[3] = {(cuuint64_t)head_dim, (cuuint64_t)ws,
+                               (cuuint64_t)ws};
+  const cuuint64_t str3[2] = {head_dim * esz, head_dim * esz * ws};
   const cuuint32_t box3[3] = {(cuuint32_t)D, 16, (cuuint32_t)ws};
-  if (!encode_bf16(&maps[2], rh, 3, dims3, str3, box3)) return -4;
-  if (!encode_bf16(&maps[3], rw, 3, dims3, str3, box3)) return -5;
+  const cuuint32_t box3_1[3] = {(cuuint32_t)D1, 16, (cuuint32_t)ws};
+  const void* srcs[4] = {qkv_b + dim * esz, qkv_b + 2 * dim * esz, rh, rw};
+  for (int i = 0; i < 4; ++i) {
+    const bool table = i >= 2;
+    for (int slab = 0; slab < (wide ? 2 : 1); ++slab) {
+      const bool ok = encode_bf16(
+          &maps[slab ? 4 + i : i], srcs[i], table ? 3 : 5,
+          table ? dims3 : dims5, table ? str3 : str5,
+          slab ? (table ? box3_1 : box5_1) : (table ? box3 : box5),
+          slab ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B);
+      if (!ok) return -2 - i;
+    }
+  }
   Params p = {};
   p.o = static_cast<__nv_bfloat16*>(o);
   p.obs = (long long)hp * wp * dim;
-  p.ohs = D;
+  p.ohs = head_dim;
   p.old = dim;
   p.qkv = static_cast<const __nv_bfloat16*>(qkv);
   p.seq = n;
@@ -773,15 +972,7 @@ extern "C" int relpos_window_forward(const void* qkv, void* o, const void* rh,
   p.dim = dim;
   p.nwh = hp / ws;
   p.nww = wp / ws;
-  if (batch > 0 && heads > 0) {
-    const dim3 grid((n + BQ - 1) / BQ, heads, batch * p.nwh * p.nww);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (n <= 2 * 112)
-      window_attn_relpos<112><<<grid, THREADS, win_layout(n).smem, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p);
-    else
-      window_attn_relpos<BK><<<grid, THREADS, win_layout(n).smem, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wide ? window_launch<D_WIDE>(maps, p, batch, heads, st)
+              : window_launch<D>(maps, p, batch, heads, st);
 }

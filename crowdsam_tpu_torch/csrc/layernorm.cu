@@ -9,14 +9,15 @@
 //
 // Forward bound: memory.  One read of x and one write of y (N*D elements
 // each) plus two D-wide f32 vectors; at 3.35 TB/s a (5330, 1024) bf16 call
-// needs ~6.5 us.  There is nothing to gain from the tensor cores.
+// needs ~6.5 us, a (4096, 1280) one (SAM ViT-H) ~6.3 us.  There is nothing
+// to gain from the tensor cores.
 //
 // Forward design: one warp per row, eight rows per 256-thread block.  A
-// lane holds D/32 values of its row in registers (D <= 1024), so the row is
-// read from device memory once: the mean and the centred variance (two
-// passes over the registers, f32) need no second read.  Neighbouring lanes
-// read neighbouring elements.  Widths up to 1024 (the port's widest
-// LayerNorm); the wrapper refuses wider rows.  Input and output are bf16 or
+// lane holds D/32 values of its row in registers (D <= 1280: 40 a lane),
+// so the row is read from device memory once: the mean and the centred
+// variance (two passes over the registers, f32) need no second read.
+// Neighbouring lanes read neighbouring elements.  Widths up to 1280 (SAM
+// ViT-H's, the port's widest LayerNorm); wider rows are refused.  Input and output are bf16 or
 // f32, the affine weights f32, eps a per-call argument.  When a gradient is
 // wanted, lane 0 also writes the row's f32 mean and rstd (`ln_forward_stats`).
 //
@@ -55,6 +56,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 constexpr int kWarps = 8;
+// Widest rows: the forward's register ladder ends at 40 values a lane
+// (1280), the backward's at 32 (1024: no training path is wider).
+constexpr int kMaxWidth = 1280;
+constexpr int kMaxBwdWidth = 1024;
 
 template <typename T, int VPT>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -115,8 +120,11 @@ void launch(const void* x, const float* w, const float* b, void* y,
   else if (d <= 512)
     ln_rows<T, 16><<<grid, block, 0, st>>>(xp, w, b, yp, rows, d, eps,
                                                 mean, rstd);
-  else
+  else if (d <= 1024)
     ln_rows<T, 32><<<grid, block, 0, st>>>(xp, w, b, yp, rows, d, eps,
+                                                mean, rstd);
+  else
+    ln_rows<T, 40><<<grid, block, 0, st>>>(xp, w, b, yp, rows, d, eps,
                                                 mean, rstd);
 }
 
@@ -254,11 +262,12 @@ void launch_bwd(const void* x, const void* dy, const float* w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; 0 < d <= 1024.  Returns
-// cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; 0 < d <= 1280 (else
+// cudaErrorInvalidValue).  Returns cudaGetLastError().
 extern "C" int ln_forward(const void* x, const void* w, const void* b,
                           void* y, long long rows, int d, float eps,
                           int dtype, void* stream) {
+  if (d < 1 || d > kMaxWidth) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wp = static_cast<const float*>(w);
   const float* bp = static_cast<const float*>(b);
@@ -278,6 +287,7 @@ extern "C" int ln_forward_stats(const void* x, const void* w, const void* b,
                                 void* y, void* mean, void* rstd,
                                 long long rows, int d, float eps, int dtype,
                                 void* stream) {
+  if (d < 1 || d > kMaxWidth) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wp = static_cast<const float*>(w);
   const float* bp = static_cast<const float*>(b);
@@ -301,11 +311,13 @@ extern "C" int ln_backward_blocks(long long rows) {
 
 // dx (x's dtype), dw and db (f32, d each) from x, dy, w and the forward's
 // mean and rstd; part_w and part_b hold ln_backward_blocks(rows) * d floats
-// each.  Returns cudaGetLastError().
+// each; 0 < d <= 1024 (else cudaErrorInvalidValue).  Returns
+// cudaGetLastError().
 extern "C" int ln_backward(const void* x, const void* dy, const void* w,
                            const void* mean, const void* rstd, void* dx,
                            void* part_w, void* part_b, void* dw, void* db,
                            long long rows, int d, int dtype, void* stream) {
+  if (d < 1 || d > kMaxBwdWidth) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wp = static_cast<const float*>(w);
   const float* mp = static_cast<const float*>(mean);

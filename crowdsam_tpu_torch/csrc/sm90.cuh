@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels: mbarrier
 // waits, TMA tensor loads, wgmma descriptors and products for 128-byte
-// swizzled tiles of 64 bf16 a row, the online softmax of one 64 x 128 tile
-// of scores in the wgmma accumulator layout, and the driver entry point
-// that encodes tensor maps without linking libcuda.
+// swizzled tiles of 64 bf16 a row (and, for head dim 80, 32-byte swizzled
+// tiles of the 16 dims past the first 64), the online softmax of one 64 x
+// 128 tile of scores in the wgmma accumulator layout, and the driver entry
+// point that encodes tensor maps without linking libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -472,14 +473,15 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
 // A bf16 tensor map of `rank` dims (innermost first, `dims` in elements,
 // byte `strides` of dims 1..rank-1) whose box of `box` elements lands in
 // shared memory under the 128-byte swizzle.
+// (`swizzle`: the 32-byte swizzle for the 16-dim slab of head dim 80.)
 inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
                         const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+                        const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                      const_cast<void*>(ptr), dims, strides, box, elem,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -517,6 +519,127 @@ __device__ __forceinline__ void load_bhsd(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, const int* pos, int h,
                                           int row, int b) {
   tma_load_4d(dst, map, bar, 0, coord(pos, 1, h, row, b),
+              coord(pos, 2, h, row, b), coord(pos, 3, h, row, b));
+}
+
+// ---------------------------------------------------------------------------
+// Head dim 80 (SAM ViT-H): a token's 80 dims as two slabs.  Dims 0-63 keep
+// the 128-byte rows above; dims 64-79 form a second tile of 32-byte rows
+// under the 32-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_32B, wgmma layout
+// type 3), so that Q K^T takes one more k-step and P V one m64n16k16 more.
+// ---------------------------------------------------------------------------
+
+constexpr int D_WIDE = 80;             // the second head dim the kernels take
+constexpr int D1 = D_WIDE - D;         // 16 dims of the second slab
+constexpr int ROW1_BYTES = D1 * 2;     // 32 bytes a token
+
+// Byte offset of (row, 16-byte chunk 0/1) in a tile of 32-byte rows under
+// the 32-byte swizzle: the chunk index XORed with bit 2 of the row (the
+// tile 256-byte aligned).
+__device__ __forceinline__ uint32_t sw32(int row, int chunk) {
+  return (uint32_t)(row * ROW1_BYTES + ((chunk ^ ((row >> 2) & 1)) << 4));
+}
+
+// wgmma shared-memory descriptor, 32-byte swizzle (layout type 3).
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t saddr, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)3 << 62;
+  return d;
+}
+
+// K-major tile of 32-byte rows: one k-step of 16 dims is the whole row;
+// 8-row groups 256 bytes apart.
+__device__ __forceinline__ uint64_t kmajor32_desc(uint32_t saddr) {
+  return sw32_desc(saddr, 16, 256);
+}
+
+// MN-major tile (V's dims 64-79: keys x 16 dims): 8-key groups 256 bytes
+// apart; the N extent (16) is one atom.
+__device__ __forceinline__ uint64_t mnmajor32_desc(uint32_t saddr) {
+  return sw32_desc(saddr, 256, 256);
+}
+
+// D(64x16, f32) += A(64x16, bf16 registers) B(16x16), B MN-major in shared
+// memory (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The k-step of the second slab: S += Q[:, 64:80] K[:, 64:80]^T.
+template <int NSC>
+__device__ __forceinline__ void issue_qk_slab1(float (&sc)[NSC],
+                                               uint32_t q_tile1,
+                                               uint32_t k_tile1) {
+  wgmma_scores(sc, kmajor32_desc(q_tile1), kmajor32_desc(k_tile1), 1);
+}
+
+// O[:, 64:80] += P V[:, 64:80] for one tile: k-steps of 16 keys (512 bytes
+// of the slab each).
+template <int NPV>
+__device__ __forceinline__ void issue_pv_slab1(float (&o1)[8],
+                                               const uint32_t (&pa)[NPV][4],
+                                               uint32_t v_tile1) {
+#pragma unroll
+  for (int kq = 0; kq < NPV; ++kq)
+    wgmma_m64n16k16_rs(o1, pa[kq], mnmajor32_desc(v_tile1 + kq * 512));
+}
+
+__device__ __forceinline__ void rescale8(float (&o1)[8], const float (&a)[2]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    o1[4 * j] *= a[0];
+    o1[4 * j + 1] *= a[0];
+    o1[4 * j + 2] *= a[1];
+    o1[4 * j + 3] *= a[1];
+  }
+}
+
+// A 4-d map of one slab of a (B, H, S, hd) operand, hd 64 or 80, from its
+// layout row (as `encode_bhsd`; the row's box is the first slab's, 64
+// dims): slab 0 brings dims 0-63 under the 128-byte swizzle, slab 1 (hd 80
+// only) dims 64-79 under the 32-byte swizzle.  The box is `rows` tokens.
+inline bool encode_bhsd_slab(CUtensorMap* map, const void* ptr,
+                             const long long* lay, int* pos, int rows,
+                             int slab) {
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)lay[i];
+    box[i] = (cuuint32_t)lay[7 + i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = (cuuint64_t)lay[4 + i];
+    pos[i] = (int)lay[11 + i];
+    if (pos[i] < 1 || pos[i] > 3) return false;
+  }
+  if ((dims[0] != D && dims[0] != D_WIDE) || box[0] != D ||
+      box[pos[1]] != (cuuint32_t)rows || box[pos[0]] != 1 ||
+      box[pos[2]] != 1)
+    return false;
+  if (slab == 0) return encode_bf16(map, ptr, 4, dims, strides, box);
+  if (dims[0] != D_WIDE) return false;
+  box[0] = D1;
+  return encode_bf16(map, ptr, 4, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// `load_bhsd` of the second slab (dims 64-79).
+__device__ __forceinline__ void load_bhsd1(uint32_t dst,
+                                           const CUtensorMap* map,
+                                           uint32_t bar, const int* pos,
+                                           int h, int row, int b) {
+  tma_load_4d(dst, map, bar, D, coord(pos, 1, h, row, b),
               coord(pos, 2, h, row, b), coord(pos, 3, h, row, b));
 }
 

@@ -18,9 +18,11 @@ one batched product here (a block's queries share their grid row, not their
 column), and on other grids takes both from here (two einsums, as the JAX code
 computes them).  The kernels read q/k/v straight out of the qkv projection
 through TMA tensor maps, so no head transpose or window partition is
-materialized: K3 and K4 through one map per (B, H, S, 64) operand, whose
+materialized: K3 and K4 through one map per (B, H, S, hd) operand, whose
 host-side layout `tma_layout` builds and checks; K2 through 5-d maps of the
-projection built in the kernel's entry point.
+projection built in the kernel's entry point.  K2 and K3 take head dim 64
+(SAM ViT-B/L) and 80 (SAM ViT-H, its dims 64-79 as a second slab in the
+kernel); K4 takes 64 (every DINOv2 arch).
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
 launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
@@ -28,6 +30,7 @@ launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -42,19 +45,20 @@ _GLOBAL_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 _WINDOW_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 _SM90_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
-HEAD_DIM = 64
+HEAD_DIM = 64           # K4 (DINOv2), and the box of one TMA load
+RELPOS_HEAD_DIMS = (64, 80)   # K2, K3: SAM ViT-B/L and ViT-H
 MAX_REL = 64            # K3: grids up to 64x64
 MAX_WINDOW = 16         # K2's kernel: a window's keys fit two key tiles
 # Tokens a TMA box of K4 brings: a block's query rows and a stage's keys
@@ -149,10 +153,11 @@ def flash_mha_plain(q, k, v, sm_scale: float,
 
 @dataclass(frozen=True)
 class TmaLayout:
-    """Host-side layout of the TMA tensor map of one K4 operand: `dims` in
-    elements, innermost (the head dim) first; `strides` in bytes, of dims
-    1-3; `box` the tile one load brings (64 dims x `rows` tokens);
-    `pos` the map dim (1-3) of the head, the token and the batch axis."""
+    """Host-side layout of the TMA tensor map of one K3/K4 operand: `dims`
+    in elements, innermost (the head dim, 64 or 80) first; `strides` in
+    bytes, of dims 1-3; `box` the tile one load brings (64 dims x `rows`
+    tokens: at head dim 80 the kernel adds a box of dims 64-79); `pos` the
+    map dim (1-3) of the head, the token and the batch axis."""
 
     dims: Tuple[int, int, int, int]
     strides: Tuple[int, int, int]
@@ -165,16 +170,18 @@ class TmaLayout:
 
 
 def tma_layout(t: torch.Tensor, name: str = "operand",
-               rows: int = TMA_KV_ROWS, fn: str = "flash_mha") -> TmaLayout:
-    """The tensor map of a (B, H, S, 64) bf16 view, read in place, whose
+               rows: int = TMA_KV_ROWS, fn: str = "flash_mha",
+               head_dims: Tuple[int, ...] = (HEAD_DIM,)) -> TmaLayout:
+    """The tensor map of a (B, H, S, hd) bf16 view, read in place, whose
     box brings `rows` tokens: the head, token and batch axes become map
     dims 1-3 in order of stride (the CUDA driver's maps grow outwards), an
     axis of extent 1 taking the stride past the others.  Raises on what TMA
-    does not take: a head dim other than 64 or not contiguous, a base or
-    stride not a multiple of 16 bytes (messages name the wrapper `fn`)."""
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
+    does not take: a head dim outside `head_dims` or not contiguous, a base
+    or stride not a multiple of 16 bytes (messages name the wrapper
+    `fn`)."""
+    if t.dim() != 4 or t.shape[-1] not in head_dims:
         raise ValueError(f"{fn}: {name} of shape {tuple(t.shape)}: "
-                         f"head dim must be {HEAD_DIM}")
+                         f"head dim must be one of {head_dims}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{fn}: {name} must be bfloat16, got {t.dtype}")
     if t.stride(-1) != 1:
@@ -191,15 +198,15 @@ def tma_layout(t: torch.Tensor, name: str = "operand",
 @functools.lru_cache(maxsize=64)
 def _layout_of(shape, stride, esz: int, rows: int) -> TmaLayout:
     """`tma_layout` of a shape and strides (cached: 24 calls a frame)."""
-    b, h, s, _ = shape
+    b, h, s, hd = shape
     axes = [(h, stride[1]), (s, stride[2]), (b, stride[0])]
-    span = max([HEAD_DIM] + [n * st for n, st in axes if n > 1])
+    span = max([hd] + [n * st for n, st in axes if n > 1])
     axes = [(n, st if n > 1 else span) for n, st in axes]
     order = sorted(range(3), key=lambda i: axes[i][1])
     pos = tuple(order.index(i) + 1 for i in range(3))
     box = [HEAD_DIM, 1, 1, 1]
     box[pos[1]] = rows
-    return TmaLayout(dims=(HEAD_DIM,) + tuple(axes[i][0] for i in order),
+    return TmaLayout(dims=(hd,) + tuple(axes[i][0] for i in order),
                      strides=tuple(axes[i][1] * esz for i in order),
                      box=tuple(box), pos=pos)
 
@@ -244,11 +251,11 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
     b, hp, wp, c3 = qkv.shape
     dim = c3 // 3
     hd = dim // num_heads
-    if (hd != HEAD_DIM or c3 != 3 * num_heads * HEAD_DIM or hp % window
-            or wp % window or not 0 < window <= MAX_REL):
+    if (hd not in RELPOS_HEAD_DIMS or c3 != 3 * num_heads * hd
+            or hp % window or wp % window or not 0 < window <= MAX_REL):
         raise ValueError(f"window_attention: unsupported shape {qkv.shape}, "
-                         f"heads {num_heads}, window {window} (head dim "
-                         f"{HEAD_DIM}, windows up to {MAX_REL})")
+                         f"heads {num_heads}, window {window} (head dims "
+                         f"{RELPOS_HEAD_DIMS}, windows up to {MAX_REL})")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"window_attention: qkv must be bfloat16, got "
                         f"{qkv.dtype}")
@@ -262,24 +269,26 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
         o = relpos_global_launch(q, k, v, scale, rel_h_tab, rel_w_tab,
                                  (window, window), fold=window != MAX_REL)
         window_attention.launches += 1
+        window_attention.launches_by_head_dim[hd] += 1
         return window_unpartition(o.transpose(1, 2).reshape(-1, n, dim),
                                   window, hp, wp)
     tabs = [t.to(device=qkv.device, dtype=torch.bfloat16).contiguous()
             for t in (rel_h_tab, rel_w_tab)]
     for t, name in zip(tabs, ("rel_h_tab", "rel_w_tab")):
-        if t.shape != (window, window, HEAD_DIM):
+        if t.shape != (window, window, hd):
             raise ValueError(f"window_attention: {name} of shape "
                              f"{tuple(t.shape)}")
     out = torch.empty((b, hp, wp, dim), dtype=qkv.dtype, device=qkv.device)
     fn = _build.function("attention", "relpos_window_forward",
                          _WINDOW_ARGTYPES)
     status = fn(qkv.data_ptr(), out.data_ptr(), tabs[0].data_ptr(),
-                tabs[1].data_ptr(), b, hp, wp, num_heads, window,
+                tabs[1].data_ptr(), b, hp, wp, num_heads, window, hd,
                 float(scale),
                 torch.cuda.current_stream(qkv.device).cuda_stream)
     _kernel_status(status, "window_attention",
                    ("k", "v", "rel_h_tab", "rel_w_tab"))
     window_attention.launches += 1
+    window_attention.launches_by_head_dim[hd] += 1
     return out
 
 
@@ -287,8 +296,9 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
                                 hw) -> torch.Tensor:
     """Global attention with the decomposed rel-pos bias (K3).
 
-    q, k, v: (B, H, S, D) with S = h*w (views with a contiguous head dim and
-    16-byte aligned strides are read in place, `tma_layout`); rel_h/rel_w:
+    q, k, v: (B, H, S, D), D 64 or 80, with S = h*w (views with a contiguous
+    head dim and 16-byte aligned strides are read in place, `tma_layout`);
+    rel_h/rel_w:
     (h, h, D)/(w, w, D) gathered tables.  Returns (B, H, S, D), a (B, S, H,
     D) buffer seen as (B, H, S, D).  A grid 64 wide (SAM's) takes the
     kernel's bias-in-registers form, any other the folded form."""
@@ -298,6 +308,7 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
     out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw,
                                fold=hw[1] != MAX_REL)
     flash_mha_decomposed_relpos.launches += 1
+    flash_mha_decomposed_relpos.launches_by_head_dim[q.shape[-1]] += 1
     return out
 
 
@@ -310,7 +321,8 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
     fn_name = "flash_mha_decomposed_relpos"
     hh, ww = hw
     b, nh, s, d = q.shape
-    if (d != HEAD_DIM or s != hh * ww or not 0 < max(hh, ww) <= MAX_REL
+    if (d not in RELPOS_HEAD_DIMS or s != hh * ww
+            or not 0 < max(hh, ww) <= MAX_REL
             or min(hh, ww) < 1 or not (fold or ww == MAX_REL)):
         raise ValueError(f"{fn_name}: unsupported shape {tuple(q.shape)} "
                          f"grid {hw}")
@@ -320,21 +332,34 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
                              f"{t.device}, q {tuple(q.shape)} on {q.device}")
     if max(b, nh) > 65535:
         raise ValueError(f"{fn_name}: batch {b} or heads {nh} above 65535")
-    layouts = (tma_layout(q, "q", TMA_Q_ROWS, fn_name),
-               tma_layout(k, "k", TMA_KV_ROWS, fn_name),
-               tma_layout(v, "v", TMA_KV_ROWS, fn_name))
+    layouts = (tma_layout(q, "q", TMA_Q_ROWS, fn_name, RELPOS_HEAD_DIMS),
+               tma_layout(k, "k", TMA_KV_ROWS, fn_name, RELPOS_HEAD_DIMS),
+               tma_layout(v, "v", TMA_KV_ROWS, fn_name, RELPOS_HEAD_DIMS))
     rh = rel_h.to(device=q.device, dtype=q.dtype).contiguous()
     rw = rel_w.to(device=q.device, dtype=q.dtype).contiguous()
+    # The kernel folds the terms into the product divided by the scale.  At
+    # head dim 64 that is an exact x8 in the kernel; at 80 (x8.94) the terms
+    # come divided here, in f32, and are rounded to bf16 once (the entry
+    # point then divides by 1).
+    prescale = d != HEAD_DIM
+    qt, rht, rwt = (t.float() for t in (q, rh, rw)) if prescale else (q, rh,
+                                                                      rw)
+
+    def term(t):
+        return (t / sm_scale).to(q.dtype) if prescale else t
+
     if fold:
-        fh, fw = (t.contiguous() for t in _rel_bias_terms(q, rh, rw, hw))
+        fh, fw = (term(t).contiguous()
+                  for t in _rel_bias_terms(qt, rht, rwt, hw))
         fw_strides = (0, 0, 0)
     else:
         # fh is formed in the kernel (a block is one grid row); fw by one
         # batched product over the grid's columns, read in its own layout
         # (column c, then batch and head, then grid row).
         fh = None
-        qc = q.reshape(b, nh, hh, ww, d).permute(3, 0, 1, 2, 4)
-        fw = torch.bmm(qc.reshape(ww, b * nh * hh, d), rw.transpose(1, 2))
+        qc = qt.reshape(b, nh, hh, ww, d).permute(3, 0, 1, 2, 4)
+        fw = term(torch.bmm(qc.reshape(ww, b * nh * hh, d),
+                            rwt.transpose(1, 2)))
         fw_strides = (b * nh * hh * ww, hh * ww, ww)
     out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
@@ -347,8 +372,8 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
                 None if fh is None else fh.data_ptr(), fw.data_ptr(),
                 ctypes.cast(fst, ctypes.c_void_p), rh.data_ptr(),
                 ctypes.cast(lay, ctypes.c_void_p),
-                ctypes.cast(ost, ctypes.c_void_p), b, nh, hh, ww, int(fold),
-                float(sm_scale),
+                ctypes.cast(ost, ctypes.c_void_p), b, nh, hh, ww, d,
+                int(fold), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernel_status(status, fn_name, ("q", "k", "v", "rel_h"))
     return out
@@ -402,3 +427,7 @@ def flash_mha(q, k, v, sm_scale: float,
 window_attention.launches = 0
 flash_mha_decomposed_relpos.launches = 0
 flash_mha.launches = 0
+# K2's and K3's launches by head dim (SAM ViT-H's 80 among them), counted
+# with `launches`.
+window_attention.launches_by_head_dim = collections.Counter()
+flash_mha_decomposed_relpos.launches_by_head_dim = collections.Counter()

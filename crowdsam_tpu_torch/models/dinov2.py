@@ -1,4 +1,4 @@
-"""DINOv2 ViT (ViT-L/14 on the main path).
+"""DINOv2 ViT (ViT-L/14 on the main path; ViT-B/14 and ViT-S/14 too).
 
 Counterpart of the JAX package's `models/dinov2.py`: patch 14, LayerScale,
 LN eps 1e-6, a cls token and no register tokens; the pretrain 37x37
@@ -120,11 +120,20 @@ def dinov2_vitl14() -> DinoVisionTransformer:
     return DinoVisionTransformer(14, 1024, 24, 16)
 
 
+def dinov2_vitb14() -> DinoVisionTransformer:
+    return DinoVisionTransformer(14, 768, 12, 12)
+
+
 def dinov2_vits14() -> DinoVisionTransformer:
     return DinoVisionTransformer(14, 384, 12, 6)
 
 
 dino_model_registry = {
     "dinov2_vitl14": dinov2_vitl14,
+    "dinov2_vitb14": dinov2_vitb14,
     "dinov2_vits14": dinov2_vits14,
 }
+
+# The width of each arch's tokens (the adapter's `dino_dim`).
+DINO_DIMS = {"dinov2_vitl14": 1024, "dinov2_vitb14": 768,
+             "dinov2_vits14": 384}

@@ -3,7 +3,10 @@ the decomposed relative-position bias.
 
 Counterpart of the JAX package's `models/image_encoder.py` (ViT-L: embed
 1024, depth 24, heads 16, window 14, global blocks (5, 11, 17, 23), neck to
-256 channels).  NHWC throughout; the torch reference's state-dict keys.
+256 channels; ViT-H: embed 1280, depth 32, heads 16, so head dim 80).  NHWC
+throughout; the torch reference's state-dict keys.  The head dim is width /
+heads; `forward(x, return_interm=True)` also returns the first global
+block's output, the early feature the HQ decoder fuses.
 
 Window blocks pad the normalized input to a multiple of the window BEFORE
 the qkv projection, so pad tokens carry the qkv bias and take part as keys,
@@ -157,10 +160,19 @@ class ImageEncoderViT(nn.Module):
             ChannelLayerNorm(out_chans),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self.first_global = (min(global_attn_indexes)
+                             if global_attn_indexes else -1)
+
+    def forward(self, x: torch.Tensor, return_interm: bool = False):
+        """With `return_interm`, (features, the output of the first global
+        block) -- the JAX encoder's `return_interm`."""
         x = self.patch_embed(x)
         gh, gw = x.shape[1], x.shape[2]
         x = x + self.pos_embed[:, :gh, :gw].to(x.dtype)
-        for blk in self.blocks:
+        interm = None
+        for i, blk in enumerate(self.blocks):
             x = blk(x)
-        return self.neck(x)
+            if return_interm and i == self.first_global:
+                interm = x
+        x = self.neck(x)
+        return (x, interm) if return_interm else x

@@ -4,15 +4,17 @@ plain PyTorch version.
 Replaces the JAX package's Pallas `layer_norm_2d`
 (crowdsam_tpu/ops/layernorm.py:34).  On a CUDA tensor every LayerNorm and
 ChannelLayerNorm of the port goes through the kernel, at any row count and
-any width up to `MAX_WIDTH` (the port's widest is 1024); a CPU tensor takes
-the plain version.  Where autograd needs a gradient (the full-decoder
+any width up to `MAX_WIDTH` (1280, SAM ViT-H's, the port's widest); a CPU
+tensor takes the plain version.  Where autograd needs a gradient (the full-decoder
 training step), K1 runs as an autograd function whose backward is the
-kernel `ln_backward` of the same source; its plain version is autograd of
-`layer_norm_plain` (`layer_norm_grads_plain`).
+kernel `ln_backward` of the same source, which takes widths up to
+`MAX_BWD_WIDTH` (1024: no training path is wider); its plain version is
+autograd of `layer_norm_plain` (`layer_norm_grads_plain`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -29,7 +31,8 @@ _STATS_ARGTYPES = (ctypes.c_void_p,) * 6 + (
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_WIDTH = 1024        # a lane keeps its D/32 values of the row in registers
+MAX_WIDTH = 1280        # a lane keeps its D/32 values of the row in registers
+MAX_BWD_WIDTH = 1024    # the backward kernel's register ladder ends here
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -57,17 +60,18 @@ def layer_norm_grads_plain(dy: torch.Tensor, x: torch.Tensor,
 
 
 def _affine(fn: str, x: torch.Tensor, weight: torch.Tensor,
-            bias: torch.Tensor):
-    """Check what K1 takes; the affine weights as contiguous f32."""
+            bias: torch.Tensor, max_width: int = MAX_WIDTH):
+    """Check what K1 (forward, or the backward with its own `max_width`)
+    takes; the affine weights as contiguous f32."""
+    d = x.shape[-1]
+    if not 0 < d <= max_width:
+        raise ValueError(f"{fn}: width {d} outside (0, {max_width}]")
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{fn}: dtype {x.dtype} (float32/bfloat16 only)")
     if not x.is_contiguous():
         raise ValueError(f"{fn}: x must be contiguous")
-    d = x.shape[-1]
-    if not 0 < d <= MAX_WIDTH:
-        raise ValueError(f"{fn}: width {d} outside (0, {MAX_WIDTH}]")
     if weight.numel() != d or bias.numel() != d:
         raise ValueError(f"{fn}: affine size {weight.numel()} != {d}")
     w = weight.detach().float().contiguous()
@@ -101,6 +105,7 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     rows, d, float(eps), _DTYPES[x.dtype], stream)
     _build.check(status, "layer_norm")
     layer_norm.launches += 1
+    layer_norm.launches_by_width[d] += 1
     return y, mean, rstd
 
 
@@ -110,7 +115,8 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor,
     """K1's backward kernel: (dx in x's dtype, dw f32, db f32) from the
     forward's input x, the output gradient dy and the row statistics that
     `ln_forward_stats` wrote.  CUDA only."""
-    w, _ = _affine("layer_norm_backward", x, weight, weight)  # no bias here
+    w, _ = _affine("layer_norm_backward", x, weight, weight,  # no bias here
+                   MAX_BWD_WIDTH)
     d = x.shape[-1]
     rows = x.numel() // d
     dev = x.device
@@ -174,4 +180,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 layer_norm.launches = 0
+# The launches by row width (SAM ViT-H's 1280 among them), counted with
+# `launches`.
+layer_norm.launches_by_width = collections.Counter()
 layer_norm_backward.launches = 0

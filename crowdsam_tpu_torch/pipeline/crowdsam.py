@@ -1,16 +1,20 @@
 """CrowdSAM: whole image -> person detections.
 
-Counterpart of the JAX package's `pipeline/crowdsam.py` for the `crowdsam`
-arch (SAM + DINOv2 + PWD-Net): per crop, the host resize, the dual-backbone
-encode, the foreground map and the EPS engine (`_dispatch_crop`), then the
-survivor pass and the host tail (`_finalize_crop`); then the inter-crop
-NMS.  `generate(image)` returns a MaskData with boxes, scores, categories,
-points and stability scores; with `test.output_rles` (the default) `rles`
-holds one COCO RLE dict per detection and nonempty masks give their boxes
-at full resolution (the survivor kernel K7 and the host codec), without it
-None per detection and the low-res boxes, as the JAX package does.
-`generate_many(images)` runs `generate` over a list of images and records
-the time of each.
+Counterpart of the JAX package's `pipeline/crowdsam.py`: per crop, the host
+resize, the dual-backbone encode, the foreground map and the EPS engine
+(`_dispatch_crop`), then the survivor pass and the host tail
+(`_finalize_crop`); then the inter-crop NMS.  `model.sam_arch` picks the
+arch as the JAX package does: `crowdsam` (SAM + DINOv2 + the PWD-Net
+adapter, the main path), vanilla `sam` (the same model without loading the
+adapter), `sam_hq` (the HQ decoder, `model.sam_model` with an `hq` prefix
+stripped; unfused decode) and `mobile_sam` (the `mobile` prefix stripped;
+TinyViT for `vit_t`).  `generate(image)` returns a MaskData with boxes,
+scores, categories, points and stability scores; with `test.output_rles`
+(the default) `rles` holds one COCO RLE dict per detection and nonempty
+masks give their boxes at full resolution (the survivor kernel K7 and the
+host codec), without it None per detection and the low-res boxes, as the
+JAX package does.  `generate_many(images)` runs `generate` over a list of
+images and records the time of each.
 
 Runs on CUDA unless `device` names another device; with no device given
 and no CUDA present it raises.  Without checkpoints the weights are the JAX
@@ -36,8 +40,9 @@ import torch
 from crowdsam_tpu_torch.config import dtype_from_str, resolve_device
 from crowdsam_tpu_torch.models.build import sam_model_registry
 from crowdsam_tpu_torch.models.common import cast_compute_params
-from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
+from crowdsam_tpu_torch.models.dinov2 import DINO_DIMS, dino_model_registry
 from crowdsam_tpu_torch.models.mask_decoder import MaskDecoder
+from crowdsam_tpu_torch.models.mask_decoder_hq import MaskDecoderHQ
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.nms import nms_indices
 from crowdsam_tpu_torch.ops.resize import resize_linear
@@ -57,24 +62,39 @@ from crowdsam_tpu_torch.pipeline.predictor import SamPredictor
 from crowdsam_tpu_torch.utils import init, msgpack_io
 from crowdsam_tpu_torch.utils.weights import mask_decoder_state_dict
 
-_DINO_DIMS = {"dinov2_vitl14": 1024, "dinov2_vits14": 384}
-_OTHER_ARCHS = "other archs, ROADMAP section 1 item 5: later slice"
+SAM_ARCHS = ("crowdsam", "sam", "sam_hq", "mobile_sam")
+
+
+def sam_model_name(mcfg: Dict[str, Any]) -> str:
+    """`model.sam_model` with the arch's prefix stripped, as the JAX
+    package strips it: `hq` for `sam_hq`, `mobile` for `mobile_sam`, unless
+    the name already starts with `vit`."""
+    name = mcfg.get("sam_model", "vit_l")
+    arch = mcfg.get("sam_arch", "crowdsam")
+    if arch == "sam_hq" and not name.startswith("vit"):
+        name = name[2:].lstrip("_")
+    if arch == "mobile_sam" and not name.startswith("vit"):
+        name = name[6:].lstrip("_")
+    return name
 
 
 def _unsupported(config: Dict[str, Any]) -> Optional[str]:
-    """The first option this package does not run yet, named with the
-    work that will bring it, or None."""
+    """The first option this package does not run, named with the reason
+    or the work that will bring it, or None."""
     m, t, tpu = config["model"], config["test"], config.get("tpu", {})
-    if m.get("sam_arch", "crowdsam") != "crowdsam":
-        return f"model.sam_arch {m['sam_arch']!r} (other archs: later slice)"
-    sam_model = m.get("sam_model", "vit_l")
+    if m.get("sam_arch", "crowdsam") not in SAM_ARCHS:
+        return f"model.sam_arch {m['sam_arch']!r} (not an arch: {SAM_ARCHS})"
+    sam_model = sam_model_name(m)
     if sam_model not in sam_model_registry:
-        return f"model.sam_model {sam_model!r} ({_OTHER_ARCHS})"
+        return (f"model.sam_model {m.get('sam_model')!r} (not in the "
+                f"registry: {sorted(sam_model_registry)})")
     dino_model = m.get("dino_model", "dinov2_vitl14")
     if dino_model not in dino_model_registry:
-        return f"model.dino_model {dino_model!r} ({_OTHER_ARCHS})"
+        return (f"model.dino_model {dino_model!r} (not in the registry: "
+                f"{sorted(dino_model_registry)})")
     if m.get("trainfree", False):
-        return "model.trainfree (train-free branch: later slice)"
+        return ("model.trainfree (the train-free branch needs "
+                "test.mask_selection max_area: opt-in modes, later slice)")
     if tpu.get("rect_encode", False):
         return "tpu.rect_encode (later slice)"
     if tpu.get("fullres_cleanup", False):
@@ -137,7 +157,7 @@ def _load(module: torch.nn.Module, path: Optional[str], what: str,
         logger.warning("%s %s not found; using random init", what, path)
         return
     if path.endswith((".msgpack", ".flax")):
-        if not isinstance(module, MaskDecoder):
+        if not isinstance(module, (MaskDecoder, MaskDecoderHQ)):
             raise NotImplementedError(
                 f"{what} {path}: msgpack trees load only as the adapter "
                 "(the mask decoder) here")
@@ -158,7 +178,9 @@ def build_models(config: Dict[str, Any], device, dino_seed=None,
     compute dtype.  Without checkpoints the weights are the JAX package's
     random ones: SAM from seed 0, DINOv2 from `dino_seed` (default
     `environ.seed`); the SAM and DINOv2 checkpoints, then (with
-    `load_adapter`) the adapter, overlay them."""
+    `load_adapter`, and not for the vanilla `sam` arch) the adapter,
+    overlay them.  `sam_hq` builds the HQ decoder (the adapter's tree then
+    loads into its shared leaves, as the JAX package overlays it)."""
     logger = logger or logging.getLogger("crowdsam_tpu_torch")
     mcfg = config["model"]
     dtype = dtype_from_str(config.get("tpu", {}).get("compute_dtype",
@@ -166,23 +188,25 @@ def build_models(config: Dict[str, Any], device, dino_seed=None,
     if dino_seed is None:
         dino_seed = int(config["environ"].get("seed", 42))
     n_class = int(mcfg.get("n_class", 1))
-    sam_model = mcfg.get("sam_model", "vit_l")
+    arch = mcfg.get("sam_arch", "crowdsam")
+    sam_model = sam_model_name(mcfg)
     dino_model = mcfg.get("dino_model", "dinov2_vitl14")
-    build_kw = dict(n_class=n_class, dino_dim=_DINO_DIMS.get(dino_model, 1024))
+    hq = arch == "sam_hq"
+    build_kw = dict(n_class=n_class, dino_dim=DINO_DIMS[dino_model], hq=hq)
     if mcfg.get("image_size"):
         build_kw["image_size"] = int(mcfg["image_size"])
     sam = sam_model_registry[sam_model](**build_kw)
     dino = dino_model_registry[dino_model]()
     _load_drawn(sam, init.sam_state_dict(
         sam_model, 0, build_kw.get("image_size"), n_class,
-        build_kw["dino_dim"]))
+        build_kw["dino_dim"], hq and init.has_hq(sam_model)))
     _load_drawn(dino, init.dino_state_dict(dino_model, dino_seed))
     sam.to(device)
     dino.to(device)
     _load(sam, mcfg.get("sam_checkpoint"), "SAM checkpoint", device, logger)
     _load(dino, mcfg.get("dino_checkpoint"), "DINOv2 checkpoint", device,
           logger)
-    if load_adapter:
+    if load_adapter and arch != "sam":
         _load(sam.mask_decoder, mcfg.get("sam_adapter_checkpoint"),
               "adapter checkpoint", device, logger)
     return cast_compute_params(sam, dtype), cast_compute_params(dino, dtype)
@@ -319,7 +343,7 @@ class CrowdSAM:
         feat_hw = (int(in_h * r), int(in_w * r))
         res = run_eps_engine(
             self.sam, cfg, self.predictor.get_image_embedding(),
-            self.predictor.dense_pe, self.predictor.dino_proj_256,
+            self.predictor.dense_pe, self.predictor.decode_extras(),
             self.fg_sim, feat_hw, (in_h, in_w), crop_box, (orig_h, orig_w),
             self.downscale, noise)
         self.last_engine = res

@@ -6,7 +6,9 @@ Counterpart of the JAX package's `pipeline/engine.py`.  With
 (`ops/packed.py`): shared decoder tensors and the packed-flat DINO map once
 per image, the occupancy bitmap in packed-flat order, packed slab logits,
 and `unpack_spatial` only for the rows kept after NMS.  Without it the
-plain `MaskDecoder` decodes each batch into spatial masks.
+plain `MaskDecoder` decodes each batch into spatial masks.  The HQ decoder
+(`sam_hq`) always decodes unfused, as the JAX engine does, whatever
+`fused_decode` says (so K5 and K6 do not run there).
 
 - Candidates are the foreground-map cells above `pos_sim_thresh` inside the
   valid region, in the order of a STABLE argsort of a noise vector (every
@@ -48,6 +50,7 @@ from crowdsam_tpu_torch.models.fused_decode import (
     fused_decode,
     precompute_decode_shared,
 )
+from crowdsam_tpu_torch.models.mask_decoder_hq import MaskDecoderHQ
 from crowdsam_tpu_torch.ops.amg import (
     batched_mask_to_box,
     calculate_stability_score,
@@ -104,7 +107,8 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
                    noise: torch.Tensor) -> Dict[str, torch.Tensor]:
     """One image's decode.
 
-    features (1, g, g, 256); dense_pe (g, g, 256); dino_feats_proj (R, R, C);
+    features (1, g, g, 256); dense_pe (g, g, 256); dino_feats_proj (R, R, C)
+    (for the HQ decoder, {hq_features, dino_raw}: `decode_extras`);
     sim_map (G, G) foreground probability; feat_hw the valid part of sim_map;
     input_hw the resized image inside the img_size frame; crop_box, orig_hw,
     downscale the uncrop bookkeeping of the edge filter; noise (G*G,)
@@ -116,9 +120,10 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     dev = features.device
     G, K, R = cfg.grid_size, cfg.points_per_batch, cfg.low_res
     N, SLAB = G * G, cfg.slab
-    fused = cfg.fused_decode
-    BH = R // 4                   # packed base grid (the feature grid)
     pe, dec = sam.prompt_encoder, sam.mask_decoder
+    is_hq = isinstance(dec, MaskDecoderHQ)
+    fused = cfg.fused_decode and not is_hq
+    BH = R // 4                   # packed base grid (the feature grid)
     if fused:
         dec_shared = precompute_decode_shared(
             dec, pe.no_mask_embed.weight, features, dense_pe)
@@ -189,6 +194,11 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
             masks, iou_pred, cls_scores = fused_decode(
                 dec, dec_shared, sparse, True, dino_feats_proj=dino_packed,
                 packed_masks=True)
+        elif is_hq:               # masks (K, 3, R, R): SAM masks 1-3
+            masks, iou_pred, cls_scores = dec(
+                features, dense_pe, sparse, dense, True,
+                hq_features=dino_feats_proj["hq_features"],
+                dino_feats_256=dino_feats_proj["dino_raw"])
         else:                     # masks (K, 4, R, R)
             masks, iou_pred, cls_scores = dec(
                 features, dense_pe, sparse, dense, True,

@@ -5,7 +5,10 @@ encode: the image is normalized, its pad zeroed after normalization and
 padded to the square SAM frame; SAM ViT encodes it; the same SAM-normalized
 frame (a reference quirk) is resized linearly to 1022^2 for DINOv2; the
 PWD-Net projection of the DINO tokens is resized to 256^2 once per image,
-stored in bf16 as the JAX package stores it.
+stored in bf16 as the JAX package stores it.  With the HQ decoder (the
+`sam_hq` arch) the encode also keeps the first global block's output and
+computes the per-image HQ feature map from it, and keeps the RAW DINO map
+at 256^2 instead of its projection (the HQ decoder pools, then projects).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from crowdsam_tpu_torch.config import resolve_device
 from crowdsam_tpu_torch.models.dinov2 import DinoVisionTransformer
+from crowdsam_tpu_torch.models.mask_decoder_hq import MaskDecoderHQ
 from crowdsam_tpu_torch.models.sam import (
     PIXEL_MEAN,
     PIXEL_STD,
@@ -37,6 +41,7 @@ class SamPredictor:
         self.model = sam_model.to(self.device).eval()
         self.dino_model = (dino_model.to(self.device).eval()
                            if dino_model is not None else None)
+        self.is_hq = isinstance(sam_model.mask_decoder, MaskDecoderHQ)
         self.transform = ResizeLongestSide(sam_model.img_size)
         self.low_res = sam_model.img_size // 4
         self.dino_grid = sam_model.img_size // 14
@@ -49,7 +54,9 @@ class SamPredictor:
         """bucket_img: (1, hb, wb, 3) pixels, hb, wb <= img_size; input_hw:
         the valid (h, w).  Returns the per-image cache: features (1, g, g,
         256), dense_pe (g, g, 256), dino_feats (1, 73, 73, C) and
-        dino_proj_256 (256, 256, 256) bf16."""
+        dino_proj_256 (256, 256, 256) bf16; with the HQ decoder hq_features
+        (1, 256, 256, 32) and dino_raw_256 (256, 256, C) bf16 in place of
+        dino_proj_256."""
         s = self.model.img_size
         hb, wb = bucket_img.shape[1], bucket_img.shape[2]
         mean = torch.tensor(PIXEL_MEAN, device=self.device)
@@ -59,20 +66,29 @@ class SamPredictor:
         inside[: input_hw[0], : input_hw[1]] = 1.0
         x = x * inside[None, :, :, None]
         x = torch.nn.functional.pad(x, (0, 0, 0, s - wb, 0, s - hb))
-        out = {
-            "features": self.model.image_encoder(x),
-            "dense_pe": self.model.prompt_encoder.get_dense_pe(),
-        }
+        dec = self.model.mask_decoder
+        out = {"dense_pe": self.model.prompt_encoder.get_dense_pe()}
+        if self.is_hq:
+            out["features"], interm = self.model.image_encoder(
+                x, return_interm=True)
+            out["hq_features"] = dec.compute_hq_features(out["features"],
+                                                         interm)
+        else:
+            out["features"] = self.model.image_encoder(x)
         if self.dino_model is not None:
             d, g = self.dino_input, self.dino_grid
             x_dino = resize_linear(x, (d, d))
             dino = self.dino_model(x_dino)["x_norm_patchtokens"]
             dino_feats = dino.reshape(1, g, g, -1)
             out["dino_feats"] = dino_feats
-            proj = self.model.mask_decoder.project_dino(dino_feats)
             r = self.low_res
-            out["dino_proj_256"] = resize_linear(proj[0], (r, r)).to(
-                torch.bfloat16)
+            if self.is_hq:
+                out["dino_raw_256"] = resize_linear(dino_feats[0], (r, r)).to(
+                    torch.bfloat16)
+            else:
+                proj = dec.project_dino(dino_feats)
+                out["dino_proj_256"] = resize_linear(proj[0], (r, r)).to(
+                    torch.bfloat16)
         return out
 
     def set_image(self, image: np.ndarray, image_format: str = "RGB") -> None:
@@ -161,10 +177,17 @@ class SamPredictor:
             boxes=boxes.to(self.device) if boxes is not None else None,
             masks=mask_input.to(self.device) if mask_input is not None
             else None)
-        low_res, iou, cls = self.model.mask_decoder(
-            self._cache["features"], self._cache["dense_pe"], sparse, dense,
-            multimask_output,
-            dino_feats_proj=self._cache.get("dino_proj_256"))
+        if self.is_hq:
+            low_res, iou, cls = self.model.mask_decoder(
+                self._cache["features"], self._cache["dense_pe"], sparse,
+                dense, multimask_output,
+                hq_features=self._cache["hq_features"],
+                dino_feats_256=self._cache["dino_raw_256"])
+        else:
+            low_res, iou, cls = self.model.mask_decoder(
+                self._cache["features"], self._cache["dense_pe"], sparse,
+                dense, multimask_output,
+                dino_feats_proj=self._cache.get("dino_proj_256"))
         if not return_full_masks:
             return None, iou, cls, low_res
         masks = postprocess_masks(low_res, self.input_size,
@@ -205,4 +228,13 @@ class SamPredictor:
 
     @property
     def dino_proj_256(self) -> Optional[torch.Tensor]:
+        return self._cache.get("dino_proj_256")
+
+    def decode_extras(self):
+        """What the EPS engine's decode reads besides the embedding: the
+        projected DINO map at 256^2, or for the HQ decoder {hq_features,
+        dino_raw} (the JAX engine's dict)."""
+        if self.is_hq:
+            return {"hq_features": self._cache["hq_features"],
+                    "dino_raw": self._cache["dino_raw_256"]}
         return self._cache.get("dino_proj_256")

@@ -2,8 +2,8 @@
 
 `from crowdsam_tpu_torch.segment_anything_cs import sam_model_registry,
 SamPredictor, SamAutomaticMaskGenerator` gives the same names as the JAX
-package's `crowdsam_tpu.segment_anything_cs`.  `build_sam` and
-`build_sam_vit_h` raise until vit_h is ported.
+package's `crowdsam_tpu.segment_anything_cs`; `build_sam` is
+`build_sam_vit_h`, as there.
 """
 
 from crowdsam_tpu_torch.models.build import (  # noqa: F401

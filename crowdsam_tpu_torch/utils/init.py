@@ -12,12 +12,16 @@ DINOv2 takes its own seed.
 
 This module replays the same draws.  The order and shapes of the leaves
 come from `init_manifest.json`, the `(path, shape)` list of every module of
-every arch of this package's registries at its default size (n_class 1),
-written from `jax.eval_shape` where JAX runs; the shapes that depend on the
-configuration (the positional embedding and the global blocks' rel-pos
-tables by image size, the point classifier's last layer by class count)
-are set here.  The result is a JAX-layout tree of float32 numpy arrays,
-which `utils/weights` maps to this package's state dicts.
+every arch of this package's registries at its default size (n_class 1;
+under `sam_hq`, the HQ decoder of each ViT arch at dino_dim 1024, whose
+tree holds `dino_proj` itself: `init_sam_params(hq=True)` draws no seed + 3
+projection), written from `jax.eval_shape` where JAX runs; the shapes that
+depend on the configuration (the positional embedding and the global
+blocks' rel-pos tables by image size, TinyViT's attention-bias tables by
+the windows that image size gives, the point classifier's last layer by
+class count, the HQ decoder's `dino_proj` by dino_dim) are set here.  The
+result is a JAX-layout tree of float32 numpy arrays, which `utils/weights`
+maps to this package's state dicts.
 
 The manifest's `checksums` hold, for the main configuration's draws and the
 tiny test ones, each module's (leaves, elements, sum, sum of squares) in
@@ -36,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from crowdsam_tpu_torch.models.tiny_vit import tiny_vit_shapes
 from crowdsam_tpu_torch.utils.weights import (
     dino_state_dict_from_jax,
     sam_state_dict_from_jax,
@@ -88,13 +93,21 @@ def unflatten(flat: Dict[str, np.ndarray]) -> dict:
     return tree
 
 
+def has_hq(arch: str) -> bool:
+    """Whether `arch` has an HQ decoder (TinyViT's `vit_t` has none)."""
+    return arch in manifest()["sam_hq"]
+
+
 def sam_entries(arch: str, image_size: Optional[int] = None,
-                n_class: int = 1) -> Dict[str, Entries]:
+                n_class: int = 1, hq: bool = False,
+                dino_dim: int = 1024) -> Dict[str, Entries]:
     """{module: [(path, shape), ...]} of a SAM arch at `image_size` (the
-    arch's default when None) and `n_class`."""
+    arch's default when None) and `n_class`; with `hq` (an arch that has
+    one) the HQ decoder's, its `dino_proj` from `dino_dim`."""
     m = manifest()["sam"][arch]
     g0 = m["image_size"] // 16
     g = (image_size or m["image_size"]) // 16
+    biases = dict(tiny_vit_shapes(g * 16)) if arch == "vit_t" else {}
     enc = []
     for path, shape in m["image_encoder"]:
         shape = tuple(shape)
@@ -103,15 +116,19 @@ def sam_entries(arch: str, image_size: Optional[int] = None,
         elif path.endswith(("rel_pos_h", "rel_pos_w")) and \
                 shape[0] == 2 * g0 - 1:               # a global block
             shape = (2 * g - 1, shape[1])
+        shape = biases.get(path, shape)
         enc.append((path, shape))
+    hq = hq and has_hq(arch)
+    dec_src = manifest()["sam_hq"][arch] if hq else m["mask_decoder"]
     dec = []
-    last = max(p for p, _ in m["mask_decoder"]
-               if p.startswith("point_classifier/"))
+    last = max(p for p, _ in dec_src if p.startswith("point_classifier/"))
     last = last.rsplit("/", 1)[0]
-    for path, shape in m["mask_decoder"]:
+    for path, shape in dec_src:
         shape = tuple(shape)
         if path.rsplit("/", 1)[0] == last:
             shape = shape[:-1] + (n_class,)
+        elif path == "dino_proj/kernel":
+            shape = (dino_dim, shape[1])
         dec.append((path, shape))
     return {"image_encoder": enc,
             "prompt_encoder": [(p, tuple(s)) for p, s in m["prompt_encoder"]],
@@ -119,14 +136,18 @@ def sam_entries(arch: str, image_size: Optional[int] = None,
 
 
 def sam_params(arch: str, seed: int = 0, image_size: Optional[int] = None,
-               n_class: int = 1, dino_dim: int = 1024) -> dict:
-    """The tree of `init_sam_params` (no HQ decoder): image encoder with
-    `seed`, prompt encoder `seed + 1`, decoder `seed + 2`, and `dino_proj`
-    `seed + 3` (N(0, 0.02) kernel, zero bias)."""
-    entries = sam_entries(arch, image_size, n_class)
+               n_class: int = 1, dino_dim: int = 1024,
+               hq: bool = False) -> dict:
+    """The tree of `init_sam_params`: image encoder with `seed`, prompt
+    encoder `seed + 1`, decoder `seed + 2`, and (not for an HQ decoder,
+    whose tree holds it) `dino_proj` `seed + 3` (N(0, 0.02) kernel, zero
+    bias)."""
+    entries = sam_entries(arch, image_size, n_class, hq, dino_dim)
     tree = {name: unflatten(draw(entries[name], seed + k))
             for k, name in enumerate(("image_encoder", "prompt_encoder",
                                       "mask_decoder"))}
+    if hq and has_hq(arch):
+        return tree
     rng = np.random.default_rng(seed + 3)
     tree["mask_decoder"]["dino_proj"] = {            # decoder width 256
         "kernel": rng.normal(0, 0.02, (dino_dim, 256)).astype(np.float32),
@@ -165,13 +186,13 @@ def sam_checksums(sd: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
 
 @functools.lru_cache(maxsize=4)
 def sam_state_dict(arch: str, seed: int = 0, image_size: Optional[int] = None,
-                   n_class: int = 1, dino_dim: int = 1024
+                   n_class: int = 1, dino_dim: int = 1024, hq: bool = False
                    ) -> Dict[str, torch.Tensor]:
     """`sam_params` mapped to the `Sam` state dict (CPU float32).  Kept
     for the process's next model of the same arch: a full ViT-L draw takes
     seconds on the host."""
     return sam_state_dict_from_jax(sam_params(arch, seed, image_size,
-                                              n_class, dino_dim))
+                                              n_class, dino_dim, hq))
 
 
 @functools.lru_cache(maxsize=4)

@@ -2,9 +2,11 @@
 dicts.
 
 The JAX package converts torch checkpoints with `convert_image_encoder`,
-`convert_prompt_encoder`, `convert_mask_decoder` and `convert_dinov2`
+`convert_tiny_vit`, `convert_prompt_encoder`, `convert_mask_decoder`,
+`convert_mask_decoder_hq` and `convert_dinov2`
 (`crowdsam_tpu/utils/checkpoint.py`); these functions are their inverses, so
-one set of weights drives both packages.  They take nested dicts of numpy
+one set of weights drives both packages (TinyViT's folded convs map to the
+port's `ConvBN` `*.c` convs).  They take nested dicts of numpy
 arrays (a JAX tree after `jax_tree_to_numpy`) and return {key: tensor}:
 
 - Dense kernel (in, out) -> Linear weight (out, in);
@@ -14,8 +16,9 @@ arrays (a JAX tree after `jax_tree_to_numpy`) and return {key: tensor}:
   (4*out,);
 - LayerNorm weight/bias, embeddings and tables unchanged.
 
-`mask_decoder_tree` goes the other way for the mask decoder, so that a
-decoder the port trains is saved as the JAX package saves one.
+`mask_decoder_tree` goes the other way for the mask decoder (the HQ
+decoder's leaves included), so that a decoder the port trains is saved as
+the JAX package saves one.
 """
 
 from __future__ import annotations
@@ -90,6 +93,37 @@ def image_encoder_state_dict(p: Tree, prefix: str = "") -> Dict[str, torch.Tenso
     return sd
 
 
+def tiny_vit_state_dict(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The JAX TinyViT tree (`models/tiny_vit.py`) -> the port's `TinyViT`
+    state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}patch_embed.seq.0.c", p["patch_embed_0"])
+    _conv(sd, f"{prefix}patch_embed.seq.2.c", p["patch_embed_2"])
+    for name, b in p.items():
+        parts = name.split("_")            # layers_{s}_blocks_{i}, ..._downsample
+        if parts[0] != "layers":
+            continue
+        k = f"{prefix}layers.{parts[1]}." + (
+            "downsample" if parts[2] == "downsample" else f"blocks.{parts[3]}")
+        if "conv1" in b:                    # MBConv, PatchMerging
+            for c in ("conv1", "conv2", "conv3"):
+                _conv(sd, f"{k}.{c}.c", b[c])
+            continue
+        _ln(sd, f"{k}.attn.norm", b["attn"]["norm"])
+        _lin(sd, f"{k}.attn.qkv", b["attn"]["qkv"])
+        _lin(sd, f"{k}.attn.proj", b["attn"]["proj"])
+        sd[f"{k}.attn.attention_biases"] = _t(b["attn"]["attention_biases"])
+        _conv(sd, f"{k}.local_conv.c", b["local_conv"])
+        _ln(sd, f"{k}.mlp.norm", b["mlp_norm"])
+        _lin(sd, f"{k}.mlp.fc1", b["fc1"])
+        _lin(sd, f"{k}.mlp.fc2", b["fc2"])
+    _conv(sd, f"{prefix}neck.0", p["neck_0"])
+    _ln(sd, f"{prefix}neck.1", p["neck_1"])
+    _conv(sd, f"{prefix}neck.2", p["neck_2"])
+    _ln(sd, f"{prefix}neck.3", p["neck_3"])
+    return sd
+
+
 def prompt_encoder_state_dict(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {
         f"{prefix}pe_layer.positional_encoding_gaussian_matrix":
@@ -143,13 +177,34 @@ def mask_decoder_state_dict(p: Tree, prefix: str = "") -> Dict[str, torch.Tensor
     _lin(sd, f"{prefix}dino_proj", p["dino_proj"])
     _mlp(sd, f"{prefix}parallel_iou_head", p["parallel_iou_head"])
     _mlp(sd, f"{prefix}point_classifier", p["point_classifier"])
+    # The HQ decoder's own leaves (`MaskDecoderHQ`), where the tree has them.
+    if "hf_token" in p:
+        sd[f"{prefix}hf_token.weight"] = _t(p["hf_token"])
+    if "hf_mlp" in p:
+        _mlp(sd, f"{prefix}hf_mlp", p["hf_mlp"])
+    for jax_name, key in _HQ_STACKS:
+        if f"{jax_name}_0" in p:
+            conv = _convT2x2 if "dense" in p[f"{jax_name}_0"] else _conv
+            conv(sd, f"{prefix}{key}.0", p[f"{jax_name}_0"])
+            _ln(sd, f"{prefix}{key}.1", p[f"{jax_name}_1"])
+            conv(sd, f"{prefix}{key}.3", p[f"{jax_name}_3"])
     return sd
+
+
+# The HQ decoder's fusion stacks: JAX prefix -> the reference's module name.
+_HQ_STACKS = (("compress_vit", "compress_vit_feat"),
+              ("embed_enc", "embedding_encoder"),
+              ("embed_mf", "embedding_maskfeature"))
 
 
 def sam_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
     """{'image_encoder', 'prompt_encoder', 'mask_decoder'} JAX tree -> `Sam`
-    state dict."""
-    sd = image_encoder_state_dict(params["image_encoder"], "image_encoder.")
+    state dict (a TinyViT encoder tree, `patch_embed_0`, included)."""
+    enc = params["image_encoder"]
+    if "patch_embed_0" in enc:
+        sd = tiny_vit_state_dict(enc, "image_encoder.")
+    else:
+        sd = image_encoder_state_dict(enc, "image_encoder.")
     sd.update(prompt_encoder_state_dict(params["prompt_encoder"],
                                         "prompt_encoder."))
     sd.update(mask_decoder_state_dict(params["mask_decoder"],
@@ -211,6 +266,11 @@ def mask_decoder_tree(sd: Dict[str, torch.Tensor], prefix: str = "") -> Tree:
             "kernel": w.transpose(0, 2, 3, 1).reshape(w.shape[0], -1).copy(),
             "bias": _np(sd[f"{prefix}{key}.bias"])}}
 
+    def conv(key):
+        return {"kernel": _np(sd[f"{prefix}{key}.weight"]).transpose(
+                    2, 3, 1, 0).copy(),
+                "bias": _np(sd[f"{prefix}{key}.bias"])}
+
     def attn(key):
         return {n: lin(f"{key}.{n}")
                 for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
@@ -245,4 +305,12 @@ def mask_decoder_tree(sd: Dict[str, torch.Tensor], prefix: str = "") -> Tree:
     }
     for i in range(n_tok):
         tree[f"hyper_mlps_{i}"] = mlp(f"output_hypernetworks_mlps.{i}")
+    if f"{prefix}hf_token.weight" in sd:
+        tree["hf_token"] = _np(sd[f"{prefix}hf_token.weight"])
+        tree["hf_mlp"] = mlp("hf_mlp")
+        for jax_name, key in _HQ_STACKS:
+            up = conv if jax_name == "embed_mf" else convT
+            tree[f"{jax_name}_0"] = up(f"{key}.0")
+            tree[f"{jax_name}_1"] = ln(f"{key}.1")
+            tree[f"{jax_name}_3"] = up(f"{key}.3")
     return tree

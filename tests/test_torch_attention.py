@@ -27,11 +27,13 @@ def _normal(rng, shape, scale=1.0):
 
 
 @pytest.mark.parametrize("grid,ws,heads,hd", [(16, 7, 2, 8), (12, 4, 3, 8),
-                                              (70, 14, 2, 64)])
+                                              (70, 14, 2, 64),
+                                              (28, 14, 2, 80)])
 def test_window_attention_matches_pallas(grid, ws, heads, hd):
     """A grid that is not a multiple of the window: the block pads the
-    normalized input before qkv, so pad tokens carry the qkv bias; and the
-    main path's 70x70 grid of 14x14 windows at head dim 64."""
+    normalized input before qkv, so pad tokens carry the qkv bias; the
+    main path's 70x70 grid of 14x14 windows at head dim 64; and SAM
+    ViT-H's head dim 80 on 14x14 windows."""
     rng = np.random.default_rng(0)
     dim = heads * hd
     x = _normal(rng, (1, grid, grid, dim))
@@ -64,6 +66,24 @@ def _global_inputs(g, heads=2, hd=16, seed=1):
 def test_global_relpos_matches_pallas_flash():
     g, hd = 16, 16
     q, k, v, rel_h, rel_w = _global_inputs(g, hd=hd)
+    rh = jenc._rel_pos_table(jnp.asarray(rel_h), g)
+    rw = jenc._rel_pos_table(jnp.asarray(rel_w), g)
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.flash_mha_decomposed_relpos(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), hd ** -0.5,
+            rh, rw, (g, g))
+    got = attention.flash_mha_decomposed_relpos(
+        *map(torch.from_numpy, (q, k, v)), hd ** -0.5,
+        torch.tensor(np.asarray(rh)), torch.tensor(np.asarray(rw)), (g, g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_global_relpos_head_dim_80_matches_pallas_flash():
+    """SAM ViT-H's head dim 80 through the global rel-pos path: the Pallas
+    flash kernel on augmented heads of 80 + 2 g dims, the port's plain
+    version at the same tolerance as at 16."""
+    g, hd = 16, 80
+    q, k, v, rel_h, rel_w = _global_inputs(g, hd=hd, seed=6)
     rh = jenc._rel_pos_table(jnp.asarray(rel_h), g)
     rw = jenc._rel_pos_table(jnp.asarray(rel_w), g)
     with pltpu.force_tpu_interpret_mode():
@@ -159,6 +179,30 @@ def test_tma_layout_of_dinov2_views():
         assert lay.pos == (1, 2, 3)
         assert t.data_ptr() - qkv.data_ptr() == 2048 * i
         assert len(lay.row()) == 14
+
+
+@pytest.mark.parametrize("g", [64, 14])
+def test_tma_layout_of_vit_h_views(g):
+    """K3's q/k/v at SAM ViT-H's head dim 80, read in place from one qkv
+    buffer (a global block's 64x64 grid; K2's wrapper hands windows past
+    16x16 to K3 the same way): dims {80, H, S, B}, strides {160, ld, bs},
+    a box of 64 dims (the kernel adds the box of dims 64-79); K4's layout
+    (head dim 64 only) refuses them."""
+    s, heads, hd = g * g, 16, 80
+    qkv = torch.empty((1, s, 3 * heads * hd), dtype=torch.bfloat16)
+    views = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    for i, t in enumerate(views):
+        rows = attention.TMA_Q_ROWS if i == 0 else attention.TMA_KV_ROWS
+        lay = attention.tma_layout(t, rows=rows,
+                                   head_dims=attention.RELPOS_HEAD_DIMS)
+        assert lay.dims == (80, heads, s, 1)
+        assert lay.strides == (160, 3 * heads * hd * 2,
+                               s * 3 * heads * hd * 2)
+        assert lay.box == (64, 1, rows, 1)
+        assert lay.pos == (1, 2, 3)
+        assert (t.data_ptr() - qkv.data_ptr()) % 16 == 0
+    with pytest.raises(ValueError, match="head dim"):
+        attention.tma_layout(views[0])
 
 
 def test_tma_layout_orders_dims_by_stride():

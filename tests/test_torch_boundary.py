@@ -70,6 +70,20 @@ def test_port_files_include_the_msgpack_reader():
     assert "crowdsam_tpu_torch/utils/msgpack_io.py" in names
 
 
+def test_port_files_include_the_other_archs():
+    """TinyViT and the HQ decoder are the port's own modules (covered by
+    `test_no_jax_imports`); the rel-pos kernels carry their head-dim-80
+    slab in the shared header, and K4's source keeps head dim 64."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"crowdsam_tpu_torch/models/tiny_vit.py",
+            "crowdsam_tpu_torch/models/mask_decoder_hq.py"} <= names
+    csrc = ROOT / "crowdsam_tpu_torch" / "csrc"
+    header = (csrc / "sm90.cuh").read_text()
+    assert "CU_TENSOR_MAP_SWIZZLE_32B" in header and "m64n16k16" in header
+    assert "D_WIDE" in (csrc / "attention.cu").read_text()
+    assert "D_WIDE" not in (csrc / "flash_sm90.cu").read_text()
+
+
 def test_port_files_include_the_survivor_rle_slice():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"crowdsam_tpu_torch/ops/rle.py",

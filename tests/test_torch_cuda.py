@@ -56,7 +56,8 @@ def _close(got, want, atol, rtol=2.0 ** -7):
     assert ((got - want).abs() <= atol + rtol * want.abs()).all()
 
 
-@pytest.mark.parametrize("n,d", [(1, 64), (37, 256), (1000, 1024)])
+@pytest.mark.parametrize("n,d", [(1, 64), (37, 256), (1000, 1024),
+                                 (1000, 1280)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_kernel(gen, n, d, dtype):
     x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
@@ -132,6 +133,52 @@ def test_relpos_kernel(gen, hw):
         assert (err > 0.12 * rms + 2.0 ** -7 * want.float().abs()).any()
     again = attention.flash_mha_decomposed_relpos(q, k, v, 0.125, rh, rw, hw)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("b,grid,ws,heads", [
+    (1, 28, 14, 2), (1, 70, 14, 16), (2, 28, 14, 3), (1, 32, 16, 2),
+    (1, 24, 8, 2), (1, 40, 20, 2)])
+def test_window_attention_kernel_head_dim_80(gen, b, grid, ws, heads):
+    """K2 at SAM ViT-H's head dim 80 (dims 64-79 as a second slab in the
+    kernel): the main path's 70x70 grid with 16 heads, two images, windows
+    of one and of two key tiles, and 20x20 windows through K3's kernel;
+    atol 8% of the output's rms, as at 64."""
+    hd = 80
+    qkv = torch.randn((b, grid, grid, 3 * heads * hd), generator=gen,
+                      device="cuda").bfloat16()
+    rh, rw = _tables(gen, ws, ws, hd)
+    before = attention.window_attention.launches
+    got = attention.window_attention(qkv, rh, rw, heads, hd ** -0.5, ws)
+    assert attention.window_attention.launches == before + 1
+    want = attention.window_attention_plain(qkv, rh, rw, heads, hd ** -0.5,
+                                            ws)
+    rms = float(want.float().square().mean().sqrt())
+    _close(got, want, 0.08 * rms)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (20, 24), (17, 64), (7, 9)])
+def test_relpos_kernel_head_dim_80(gen, hw):
+    """K3 at head dim 80 on strided views of one qkv buffer: SAM ViT-H's
+    64x64 grid (the bias in registers) and other grids (the bias folded);
+    atol 12% of the output's rms, as at 64."""
+    h, w = hw
+    heads, hd, s = 2, 80, h * w
+    qkv = torch.randn((1, s, 3 * heads * hd), generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    rh, rw = _tables(gen, h, w, hd)
+    got = attention.flash_mha_decomposed_relpos(q, k, v, hd ** -0.5, rh, rw,
+                                                hw)
+    want = attention.relpos_attention_plain(q, k, v, hd ** -0.5, rh, rw, hw)
+    rms = float(want.float().square().mean().sqrt())
+    _close(got, want, 0.12 * rms)
+    # the 16-dim slab matters at this tolerance: without it (q.k over dims
+    # 0-63 only) the plain version breaks the bound
+    q0 = q.clone()
+    q0[..., 64:] = 0
+    drop = attention.relpos_attention_plain(q0, k, v, hd ** -0.5, rh, rw, hw)
+    err = (drop.float() - want.float()).abs()
+    assert (err > 0.12 * rms + 2.0 ** -7 * want.float().abs()).any()
 
 
 @pytest.mark.parametrize("valid", [None, 300])

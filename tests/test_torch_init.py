@@ -31,8 +31,9 @@ from crowdsam_tpu_torch.utils.weights import (
     sam_state_dict_from_jax,
 )
 
-SAM_ARCHS = ("vit_l", "vit_b", "vit_tiny")
-DINO_ARCHS = ("dinov2_vitl14", "dinov2_vits14")
+SAM_ARCHS = ("vit_l", "vit_b", "vit_tiny", "vit_h", "vit_t")
+HQ_ARCHS = ("vit_h", "vit_l", "vit_b", "vit_tiny")
+DINO_ARCHS = ("dinov2_vitl14", "dinov2_vits14", "dinov2_vitb14")
 
 
 def _modules(arch, **kw):
@@ -86,6 +87,52 @@ def test_dino_manifest_matches_eval_shape(arch):
                         jnp.zeros((1, 28, 28, 3), jnp.float32))
     got = [(p, tuple(s)) for p, s in init.manifest()["dino"][arch]]
     assert got == want
+
+
+def _hq_decoder_shapes(arch, dino_dim=1024, n_class=1):
+    """The HQ decoder's leaves, as `init_sam_params(hq=True)` draws them
+    (`init_all` reaches the fusion stacks)."""
+    ie, _, md = _modules(arch, n_class=n_class, hq=True, dino_dim=dino_dim)
+    h = ie.img_size // ie.patch_size
+    return _eval_shapes(
+        md, jnp.zeros((1, h, h, 256)), jnp.zeros((h, h, 256)),
+        jnp.zeros((1, 2, 256)), jnp.zeros((1, h, h, 256)),
+        jnp.zeros((4 * h, 4 * h, dino_dim)),
+        jnp.zeros((1, h, h, ie.embed_dim)), method=md.init_all)
+
+
+@pytest.mark.parametrize("arch", HQ_ARCHS)
+def test_hq_decoder_manifest_matches_eval_shape(arch):
+    assert init.sam_entries(arch, hq=True)["mask_decoder"] == \
+        _hq_decoder_shapes(arch)
+
+
+def test_hq_config_dependent_shapes():
+    """The HQ decoder's `dino_proj` by dino_dim and its classifier by class
+    count; TinyViT's bias tables by image size (windows cut to the grid)."""
+    want = _hq_decoder_shapes("vit_tiny", dino_dim=384, n_class=2)
+    got = init.sam_entries("vit_tiny", n_class=2, hq=True, dino_dim=384)
+    assert got["mask_decoder"] == want
+    assert init.sam_entries("vit_t", image_size=128) == _sam_shapes(
+        "vit_t", n_class=1, image_size=128)
+
+
+def test_hq_and_tinyvit_draws_equal_init_sam_params():
+    """Leaf for leaf, the port's draws of an HQ decoder (no seed + 3
+    projection: the tree holds `dino_proj`) and of TinyViT at 256^2."""
+    for arch, kw in (("vit_tiny", dict(hq=True)),
+                     ("vit_t", dict(image_size=256))):
+        ie, pe, md = _modules(arch, n_class=1, dino_dim=384, **kw)
+        want = jax_build.init_sam_params(ie, pe, md, seed=2, dino_dim=384,
+                                         hq=kw.get("hq", False))
+        got = init.sam_params(arch, seed=2, image_size=kw.get("image_size"),
+                              dino_dim=384, hq=kw.get("hq", False))
+        assert got.keys() == want.keys()
+        for module in want:
+            a, b = _leaves(got[module]), _leaves(want[module])
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_config_dependent_shapes():
@@ -190,3 +237,15 @@ def test_checksums_of_the_tiny_draws():
     assert n == sums["sam/vit_tiny/0/image_encoder"][1]
     np.testing.assert_allclose([s, q], sums["sam/vit_tiny/0/image_encoder"][2:],
                                rtol=1e-9)
+
+
+@pytest.mark.slow
+def test_checksums_of_the_vit_h_draws():
+    """SAM ViT-H's 637 M drawn leaves (seed 0) against the manifest's
+    checksums, written from the JAX package's draw rule."""
+    sums = init.manifest()["checksums"]
+    got = init.sam_checksums(init.sam_state_dict("vit_h", 0))
+    for module, have in got.items():
+        want = sums[f"sam/vit_h/0/{module}"]
+        assert have[0] == want[1]
+        np.testing.assert_allclose(have[1:], want[2:], rtol=1e-9)

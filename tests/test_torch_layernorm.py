@@ -33,8 +33,9 @@ def _inputs(n, d, seed=0):
 
 
 @pytest.mark.parametrize("n,d,eps", [(70, 256, 1e-6), (300, 1024, 1e-5),
-                                     (33, 256, 1e-5)])
+                                     (33, 256, 1e-5), (64, 1280, 1e-6)])
 def test_plain_matches_pallas_interpret(monkeypatch, n, d, eps):
+    """Widths of the port's LayerNorms, SAM ViT-H's 1280 among them."""
     monkeypatch.setattr(pl, "pallas_call",
                         functools.partial(pl.pallas_call, interpret=True))
     x, w, b = _inputs(n, d)
@@ -166,3 +167,21 @@ def test_layer_norm_on_cpu_passes_gradients():
     for got, want in zip((xr.grad, wr.grad, br.grad),
                          layer_norm_grads_plain(g, x, w, b, 1e-5)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_backward_refuses_rows_wider_than_its_kernel():
+    """K1's forward takes SAM ViT-H's 1280, its backward kernel stops at
+    1024 (no training path is wider): a wider row is refused by name, before
+    anything reaches the card."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    assert (ln.MAX_WIDTH, ln.MAX_BWD_WIDTH) == (1280, 1024)
+    x = torch.zeros((4, 1280))
+    w = torch.ones(1280)
+    stats = torch.zeros(4)
+    with pytest.raises(ValueError, match=r"layer_norm_backward: width 1280 "
+                                         r"outside \(0, 1024\]"):
+        ln.layer_norm_backward(x, x, w, stats, stats)
+    with pytest.raises(ValueError, match=r"layer_norm: width 1281"):
+        ln._forward(torch.zeros((4, 1281)), torch.ones(1281),
+                    torch.zeros(1281), 1e-6, stats=False)

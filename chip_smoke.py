@@ -83,12 +83,30 @@ the gitignored `build/kernels/`), then:
    and `K3 hd80`, with two faults of the head's 16-dim slab besides those
    of their design), `sam_hq` on ViT-L (K5/K6 must not launch: the HQ
    decoder decodes unfused) and `mobile_sam` (K2/K3 must not);
+   the opt-in modes and the train-free branch, each with the counts set to
+   0 just before and read just after: `tpu.compute_dtype float32` refused
+   on the card with its reason (phase `f32_refused`); each mode alone on
+   the main model, filters off, one crowd scene (`modes`: mask_selection
+   max_area / min_area, accumulate_occupy, fuse_simmap, fullres_cleanup,
+   under which K7 must not launch); `tpu.rect_encode` against the square
+   encode on the three frames (`rect_encode`: the encode's device and
+   host ms, ms per image, launches by shape; the kernels K2 on the bands'
+   56x70 / 70x56 grids, K3 at 44x64 / 48x64 (bias in registers) and 64x48
+   / 64x44 (folded), K4 at 3724 and 4016 tokens held against their plain
+   versions beforehand, phases `K2 rect`, `K3 rect`, `K4 rect`);
+   `configs/crowdhuman_trainfree.yaml` as shipped (`trainfree`: its
+   missing reference feature's warning, then a template feature from a
+   seeded scene; K4 48 launches a frame, the sim map against the CPU's
+   float32) and `configs/crowdhuman_mc.yaml` (`crop_n_layers 1`: five
+   crops, K4 120 launches);
 3. checks the outputs: finite boxes and scores of the expected shapes inside
    the image, every RLE string's mask inside its detection's box, every
    AMG record's mask inside its bbox with its area, and, on a small
    configuration with head dim 64, the card's bf16 kernel path against the
    plain float32 path on the CPU, detections and AMG records included,
-   and the same at head dim 80 (SAM ViT-H at 256^2).
+   and the same at head dim 80 (SAM ViT-H at 256^2), for the train-free
+   branch (its sim map too), the rect encode, the full-resolution
+   cleanup, `sam_hq`, `mobile_sam` and crop layers.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  Exits non-zero, printing no
@@ -389,8 +407,10 @@ def _slab_faults(q, v, attend):
              attend(q, v_sw)))
 
 
-def phase_window(gen, hd=64):
-    """K2 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K2 hd80`)."""
+def phase_window(gen, hd=64, grid=(70, 70)):
+    """K2 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K2 hd80`), on
+    the main path's 70x70 padded grid or a rect encode's band (phase `K2
+    rect HpxWp`)."""
     from crowdsam_tpu_torch.models.attention import (
         window_attention,
         window_attention_plain,
@@ -399,9 +419,10 @@ def phase_window(gen, hd=64):
     )
     from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 
-    ws, heads, grid = 14, 16, 70
+    ws, heads = 14, 16
+    gh, gw = grid
     dim, n = heads * hd, ws * ws
-    qkv = torch.randn((1, grid, grid, 3 * dim), generator=gen,
+    qkv = torch.randn((1, gh, gw, 3 * dim), generator=gen,
                       device="cuda").to(torch.bfloat16)
     rel_h = 0.1 * torch.randn((2 * ws - 1, hd), generator=gen, device="cuda")
     rel_w = 0.1 * torch.randn((2 * ws - 1, hd), generator=gen, device="cuda")
@@ -416,7 +437,7 @@ def phase_window(gen, hd=64):
 
     def as_grid(o):                     # (nw, heads, n, hd) -> (1, Hp, Wp, C)
         return window_unpartition(o.permute(0, 2, 1, 3).reshape(-1, n, dim),
-                                  ws, grid, grid)
+                                  ws, gh, gw)
 
     def faulty(terms=None, drop=None, tables=(rh, rw), qq=q, vv=v):
         bias = _relpos_bias(qf, *tables, (ws, ws), terms)
@@ -467,9 +488,9 @@ def phase_window(gen, hd=64):
             q_, rh, rw, (ws, ws))))
     whole_err = float((whole().float() - want.float()).abs().max())
     t_w = time_ms(whole, 20)
-    nw = (grid // ws) ** 2
+    nw = (gh // ws) * (gw // ws)
     flops = nw * heads * (4 * n * n * hd + 2 * 2 * n * ws * hd)
-    nbytes = qkv.numel() * 2 + grid * grid * dim * 2 + 2 * rh.numel() * 4
+    nbytes = qkv.numel() * 2 + gh * gw * dim * 2 + 2 * rh.numel() * 4
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
     row = dict(shape=f"{nw}x{heads}x{n}x{hd}", **cmp, ms=t_k, device_ms=d_k,
                **extra, plain_ms=t_p, library_ms=t_l,
@@ -479,13 +500,17 @@ def phase_window(gen, hd=64):
                whole_fn_covers="partition + bias from q and tables + SDPA + "
                                "unpartition (several PyTorch calls)",
                whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
-    name = "K2 hd80" if hd == 80 else "K2 window_attention"
+    name = ("K2 hd80" if hd == 80 else "K2 window_attention"
+            if grid == (70, 70) else f"K2 rect {gh}x{gw}")
     print(json.dumps({"phase": name, **row}), flush=True)
     return row
 
 
-def phase_global(gen, hd=64):
-    """K3 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K3 hd80`)."""
+def phase_global(gen, hd=64, hw=(64, 64)):
+    """K3 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K3 hd80`), on
+    SAM's 64x64 grid or a rect encode's (phase `K3 rect HxW`: the bias in
+    registers when 64 wide, else the folded form), its tables those of the
+    64-wide model resized to the grid as the encoder resizes them."""
     from crowdsam_tpu_torch.models.attention import (
         flash_mha_decomposed_relpos,
         relpos_attention_plain,
@@ -494,21 +519,22 @@ def phase_global(gen, hd=64):
     from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 
     g, heads = 64, 16
-    s, dim = g * g, heads * hd
+    hh, ww = hw
+    s, dim = hh * ww, heads * hd
     qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
         torch.bfloat16)
     q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
     rh = _rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
-                                          device="cuda"), g)
+                                          device="cuda"), hh)
     rw = _rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
-                                          device="cuda"), g)
+                                          device="cuda"), ww)
     scale = hd ** -0.5
-    want = relpos_attention_plain(q, k, v, scale, rh, rw, (g, g))
-    got = flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, (g, g))
+    want = relpos_attention_plain(q, k, v, scale, rh, rw, hw)
+    got = flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, hw)
     qf = q.float()
 
     def faulty(terms=None, drop=None, qq=q, vv=v):
-        bias = _relpos_bias(qf, rh, rw, (g, g), terms)
+        bias = _relpos_bias(qf, rh, rw, hw, terms)
         out = _attention_plain(qq, k, vv, scale, bias, drop)
         del bias
         return out
@@ -524,10 +550,13 @@ def phase_global(gen, hd=64):
     # mean error is held to 1.5% of the rms.  Every fault of the kernel's
     # design must break the bound 8-fold.
     faults = (
-        ("last key tile (keys 3968-4095) dropped",
+        (f"last key tile (keys {s - 128}-{s - 1}) dropped",
          faulty(drop=slice(s - 128, s))),
-        ("rel-pos tables swapped",
-         relpos_attention_plain(q, k, v, scale, rw, rh, (g, g))),
+        ("rel-pos tables swapped" if hh == ww else
+         "rel-pos tables from the neighbouring grid row and column",
+         relpos_attention_plain(q, k, v, scale, rw, rh, hw) if hh == ww
+         else relpos_attention_plain(q, k, v, scale, rh.roll(1, 0),
+                                     rw.roll(1, 0), hw)),
         ("fw taken from the neighbouring column (col(k) + 1)",
          faulty(terms=lambda fh, fw: (fh, _shift_last(fw, 1)))),
         ("a 128-key tile's second half given its first half's grid row",
@@ -535,51 +564,59 @@ def phase_global(gen, hd=64):
     )
     if hd == 80:
         faults += _slab_faults(q, v, lambda qq, vv: faulty(qq=qq, vv=vv))
-    cmp = compare(f"flash_mha_decomposed_relpos hd {hd}", got, want, 6e-3,
-                  faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
-    # The folded form (the kernel's path for grids not 64 wide) on the same
-    # inputs: held to the same bound, and timed beside the main form.
-    fold = relpos_global_launch(q, k, v, scale, rh, rw, (g, g), fold=True)
-    cmp_fold = compare("flash_mha_decomposed_relpos (folded form)", fold,
-                       want, 6e-3, faults=faults, mean_atol=0.015 * rms,
-                       min_fault=8.0)
-    del faults, fold
+    cmp = compare(f"flash_mha_decomposed_relpos hd {hd} {hh}x{ww}", got, want,
+                  6e-3, faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
+    form = "bias in registers" if ww == g else "folded"
+    folded = {}
+    if ww == g:
+        # The folded form (the kernel's path for grids not 64 wide) on the
+        # same inputs: held to the same bound, and timed beside the main
+        # form.
+        fold = relpos_global_launch(q, k, v, scale, rh, rw, hw, fold=True)
+        cmp_fold = compare("flash_mha_decomposed_relpos (folded form)", fold,
+                           want, 6e-3, faults=faults, mean_atol=0.015 * rms,
+                           min_fault=8.0)
+        del fold
+        folded = dict(folded_form=dict(
+            device_ms=device_ms(lambda: relpos_global_launch(
+                q, k, v, scale, rh, rw, hw, fold=True), 10,
+                "flash_attn_relpos"),
+            err_over_tol=cmp_fold["err_over_tol"],
+            max_abs_err=cmp_fold["max_abs_err"]))
+    del faults
     t_k = time_ms(lambda: flash_mha_decomposed_relpos(q, k, v, scale, rh, rw,
-                                                      (g, g)), 10)
+                                                      hw), 10)
     d_k = device_ms(lambda: flash_mha_decomposed_relpos(
-        q, k, v, scale, rh, rw, (g, g)), 10, "flash_attn_relpos")
-    d_fold = device_ms(lambda: relpos_global_launch(
-        q, k, v, scale, rh, rw, (g, g), fold=True), 10, "flash_attn_relpos")
+        q, k, v, scale, rh, rw, hw), 10, "flash_attn_relpos")
     t_p = time_ms(lambda: relpos_attention_plain(q, k, v, scale, rh, rw,
-                                                 (g, g)), 3)
-    bias16 = _relpos_bias(qf, rh, rw, (g, g)).to(torch.bfloat16)
+                                                 hw), 3)
+    bias16 = _relpos_bias(qf, rh, rw, hw).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_l = time_ms(lambda: sdpa(q, k, v, attn_mask=bias16, scale=scale), 10)
     extra = _relpos_extra(
-        lambda: flash_mha_decomposed_relpos(q, k, v, scale, rh, rw,
-                                                  (g, g)),
+        lambda: flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, hw),
         lambda: sdpa(q, k, v, attn_mask=bias16, scale=scale), 10)
     del bias16
 
     def whole():    # bias from q and the tables, then SDPA
         return sdpa(q, k, v, scale=scale,
-                    attn_mask=_relpos_bias(q, rh, rw, (g, g)))
+                    attn_mask=_relpos_bias(q, rh, rw, hw))
     whole_err = float((whole().float() - want.float()).abs().max())
     t_w = time_ms(whole, 10)
-    flops = heads * (4 * s * s * hd + 2 * 2 * s * g * hd)
-    nbytes = qkv.numel() * 2 + s * dim * 2 + 2 * rh.numel() * 4
+    flops = heads * (4 * s * s * hd + 2 * s * (hh + ww) * hd)
+    nbytes = qkv.numel() * 2 + s * dim * 2 + (rh.numel() + rw.numel()) * 4
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    row = dict(shape=f"{heads}x{s}x{hd}", **cmp, ms=t_k, device_ms=d_k,
+    row = dict(shape=f"{heads}x{s}x{hd}", grid=f"{hh}x{ww}", form=form,
+               **cmp, ms=t_k, device_ms=d_k,
                **extra, plain_ms=t_p, library_ms=t_l,
                library_covers="SDPA with the bias built beforehand",
-               folded_form=dict(device_ms=d_fold,
-                                err_over_tol=cmp_fold["err_over_tol"],
-                                max_abs_err=cmp_fold["max_abs_err"]),
+               **folded,
                whole_fn_ms=t_w,
                whole_fn_covers="bias from q and tables + SDPA (several "
                                "PyTorch calls)",
                whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
-    name = "K3 hd80" if hd == 80 else "K3 flash_mha_decomposed_relpos"
+    name = ("K3 hd80" if hd == 80 else "K3 flash_mha_decomposed_relpos"
+            if hw == (g, g) else f"K3 rect {hh}x{ww}")
     print(json.dumps({"phase": name, **row}), flush=True)
     return row
 
@@ -1438,19 +1475,24 @@ def _reset_counts():
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-        for tally in ("launches_by_width", "launches_by_head_dim"):
+        for tally in ("launches_by_width", "launches_by_head_dim",
+                      "launches_by_shape"):
             if hasattr(fn, tally):
                 getattr(fn, tally).clear()
     return counters
 
 
 def _launches_by_shape():
-    """K1's launches by row width, K2's and K3's by head dim, since the
+    """K1's launches by row width, K2's and K3's by head dim, and K2's,
+    K3's and K4's by token grid (K2: its windows' padded grid), since the
     counts were last set to 0."""
     c = _counters()
+    attn = ("window_attention", "flash_mha_decomposed_relpos")
     return {"layer_norm_by_width": dict(c["layer_norm"].launches_by_width),
             **{f"{k}_by_head_dim": dict(c[k].launches_by_head_dim)
-               for k in ("window_attention", "flash_mha_decomposed_relpos")}}
+               for k in attn},
+            **{f"{k}_by_shape": dict(c[k].launches_by_shape)
+               for k in attn + ("flash_mha",)}}
 
 
 def _timed_generate(model, img, noise=None):
@@ -1864,9 +1906,11 @@ def phase_small_reference(gpu):
 def _compare_small(gpu, cfg, label):
     """The model `gpu` of the small configuration `cfg` against the same
     weights in float32 on the CPU: features, DINOv2 tokens and the FG map
-    within 5% relative L2, the same detection count, boxes within 4 px.
-    Returns the CPU model."""
+    (train-free: also its sim map, the reference feature drawn from a seed
+    on both sides) within 5% relative L2, the same detection count, boxes
+    within 4 px.  Returns the CPU model."""
     from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.ops.transforms import stretch_bilinear
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 
     cpu_cfg = modify_config(cfg, ["tpu.compute_dtype", "float32"])
@@ -1876,6 +1920,10 @@ def _compare_small(gpu, cfg, label):
     cpu.dino.load_state_dict({k: v.float().cpu() for k, v in
                               gpu.dino.state_dict().items()})
     img = _small_image()
+    if gpu.train_free:
+        ref = torch.from_numpy(np.random.default_rng(0).normal(
+            size=gpu.dino.embed_dim).astype(np.float32))
+        gpu.ref_feature, cpu.ref_feature = ref.cuda(), ref
     out = {}
     for name, m in (("gpu", gpu), ("cpu", cpu)):
         m.predictor.set_image_presized(img)
@@ -1884,6 +1932,10 @@ def _compare_small(gpu, cfg, label):
             "dino": m.predictor.dino_feats.float().cpu(),
             "fg": m.predictor.predict_fg_map().float().cpu(),
         }
+        if m.train_free:
+            d = m.predictor.dino_input
+            out[name]["trainfree_sim"] = m.predictor.trainfree_sim(
+                stretch_bilinear(img, (d, d)), m.ref_feature).cpu()
     rel = {k: float((out["gpu"][k] - out["cpu"][k]).norm()
                     / out["cpu"][k].norm()) for k in out["cpu"]}
     det = gpu.generate(img)
@@ -2678,6 +2730,396 @@ def phase_mobile_sam():
         ["window_attention", "flash_mha_decomposed_relpos"])
 
 
+# --------------------------------------------------------------------------
+# float32 on the card, the train-free branch, the opt-in modes, rect encode
+# --------------------------------------------------------------------------
+
+TRAINFREE_CONFIG = "configs/crowdhuman_trainfree.yaml"
+MC_CONFIG = "configs/crowdhuman_mc.yaml"
+# The rect encode's shapes on the three frames (683x1024, 1024x768,
+# 768x1024, 64 px buckets): K2's padded bands of 4x5 or 5x4 windows, K3's
+# global grids (64 wide: the bias in registers; 64x48: the folded form;
+# 64x44 as well, a 1024x683 frame's), K4's truncated DINOv2 grids + 1.
+RECT_K2_GRIDS = ((56, 70), (70, 56))
+RECT_K3_GRIDS = ((44, 64), (48, 64), (64, 48), (64, 44))
+RECT_K4_TOKENS = (51 * 73 + 1, 55 * 73 + 1)
+# The opt-in modes, each alone on the loaded configuration.
+MODES = (("mask_selection max_area", dict(mask_selection="max_area")),
+         ("mask_selection min_area", dict(mask_selection="min_area")),
+         ("accumulate_occupy", dict(accumulate_occupy=True)),
+         ("fuse_simmap", dict(fuse_simmap=True)),
+         ("fullres_cleanup", dict(fullres_cleanup=True)))
+# Small configurations held card against CPU (`_compare_small`), with the
+# filters of `_small_config` off.
+SMALL_CASES = (
+    ("small trainfree", ["model.trainfree", "true", "model.sam_arch", "sam",
+                         "test.mask_selection", "max_area",
+                         "test.pos_sim_thresh", "0.05",
+                         "test.filter_thresh", "0.99"]),
+    ("small rect_encode", ["tpu.rect_encode", "true"]),
+    ("small fullres_cleanup", ["tpu.fullres_cleanup", "true"]),
+    ("small sam_hq", ["model.sam_arch", "sam_hq"]),
+    ("small mobile_sam", ["model.sam_arch", "mobile_sam",
+                          "model.sam_model", "vit_t"]),
+    ("small crop_n_layers 1", ["test.crop_n_layers", "1"]),
+)
+
+
+def _sync_timed(fn, acc):
+    """`fn` with a synchronized host clock around each call, its ms added
+    to acc[-1]."""
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        acc[-1] += (time.perf_counter() - t) * 1e3
+        return out
+    return wrapped
+
+
+def phase_f32_refused():
+    """`tpu.compute_dtype float32` on the card: `CrowdSAM` and the AMG
+    refuse it at construction with the reason (the kernels take bf16
+    operands), and a float32 qkv in the encoder raises TypeError rather
+    than being cast to bf16."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.models.build import sam_model_registry
+    from crowdsam_tpu_torch.pipeline.amg_generator import (
+        SamAutomaticMaskGenerator,
+    )
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+
+    cfg = modify_config(_small_config(), ["tpu.compute_dtype", "float32"])
+    sam = sam_model_registry["vit_tiny"]().cuda()      # float32 weights
+    x = torch.zeros((1, 256, 256, 3), device="cuda")
+    refusals = {}
+    for what, fn, exc in (
+            ("CrowdSAM", lambda: CrowdSAM(cfg, device="cuda"),
+             NotImplementedError),
+            ("SamAutomaticMaskGenerator",
+             lambda: SamAutomaticMaskGenerator(sam, device="cuda"),
+             NotImplementedError),
+            ("image encoder, float32 qkv", lambda: sam.image_encoder(x),
+             TypeError)):
+        try:
+            fn()
+        except exc as e:
+            refusals[what] = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError(f"f32_refused: {what} ran float32 on CUDA")
+    print(json.dumps({"phase": "f32_refused", "refusals": refusals}),
+          flush=True)
+    if not all("bf16 operands" in m for m in refusals.values()):
+        raise AssertionError(f"f32_refused: a refusal without its reason: "
+                             f"{refusals}")
+    del sam
+    torch.cuda.empty_cache()
+
+
+def _template_feature(model, seed=30):
+    """A reference feature as the train-free branch's pickle holds one: the
+    mean DINOv2 token (ImageNet-normalized frame stretched to the square
+    input) over the persons of a seeded crowd scene."""
+    from crowdsam_tpu_torch.ops.transforms import stretch_bilinear
+    from crowdsam_tpu_torch.pipeline.predictor import imagenet_tokens
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    img, boxes = crowd_scene(seed, 683, 1024)
+    model.crop_image(img, [0, 0, img.shape[1], img.shape[0]])
+    d, g = model.predictor.dino_input, model.predictor.dino_grid
+    tokens = imagenet_tokens(model.dino, stretch_bilinear(model.image,
+                                                          (d, d)))
+    in_h, in_w = model.image.shape[:2]
+    cy = (np.arange(g) + 0.5) * 14 * in_h / d
+    cx = (np.arange(g) + 0.5) * 14 * in_w / d
+    inside = np.zeros((g, g), bool)
+    for x, y, w, h in boxes:
+        inside |= (((cy >= y) & (cy < y + h))[:, None]
+                   & ((cx >= x) & (cx < x + w))[None, :])
+    return tokens[torch.from_numpy(inside).cuda()].mean(dim=0)
+
+
+def phase_trainfree():
+    """`configs/crowdhuman_trainfree.yaml` at full width (vanilla SAM
+    ViT-L + DINOv2 ViT-L/14, bf16; its checkpoints are absent, so the JAX
+    package's random weights): it builds and warns that its reference
+    feature is missing (zeros).  Then a reference feature is set
+    (`_template_feature`), so that the sim map has candidates, and one
+    frame runs after a warm-up, the counts set to 0 just before it: ms,
+    detections, K4's launches (the encode's DINOv2 and the sim map's, 24
+    each), every kernel but K7 (box-only output) launched.  The frame's sim
+    map against the same function on the CPU in float32 (DINOv2 ViT-L on
+    the CPU, same weights): relative L2 within 5%."""
+    import logging
+
+    from crowdsam_tpu_torch.config import load_config
+    from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
+    from crowdsam_tpu_torch.ops.transforms import stretch_bilinear
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.pipeline.predictor import (
+        cosine_map,
+        imagenet_tokens,
+    )
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    logger = logging.getLogger("chip_smoke.trainfree")
+    logger.addHandler(Keep(level=logging.WARNING))
+    cfg = load_config(TRAINFREE_CONFIG)
+    t = time.time()
+    model = CrowdSAM(cfg, device="cuda", logger=logger)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    p, ecfg = model.predictor, model.engine_cfg
+    if not (any("ref_feature missing" in w for w in warnings)
+            and not bool(model.ref_feature.any())):
+        raise AssertionError(f"trainfree: no zeros and warning for the "
+                             f"missing reference feature: {warnings}")
+    assert model.train_free and not model.output_rles
+    assert ecfg.grid_size == p.dino_grid == 73 and p.dino_input == 1022
+    assert ecfg.mask_selection == "max_area"
+    model.ref_feature = _template_feature(model)
+    img = crowd_scene(20, 683, 1024)[0]
+    _timed_generate(model, img)              # warm-up
+    counters = _reset_counts()
+    data, ms = _timed_generate(model, img)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_shape = _launches_by_shape()
+    d = p.dino_input
+    sq = stretch_bilinear(model.image, (d, d))
+    sim = p.trainfree_sim(sq, model.ref_feature).cpu()
+    cpu_dino = dino_model_registry[cfg["model"]["dino_model"]]()
+    cpu_dino.load_state_dict({k: v.float().cpu() for k, v in
+                              model.dino.state_dict().items()})
+    t = time.time()
+    sim_cpu = cosine_map(imagenet_tokens(cpu_dino.eval(), sq),
+                         model.ref_feature.cpu())
+    cpu_s = time.time() - t
+    rel = float((sim - sim_cpu).norm() / sim_cpu.norm())
+    depth = len(model.dino.blocks)
+    row = {
+        "phase": "trainfree", "config": TRAINFREE_CONFIG + " as shipped "
+        "(checkpoints absent: random weights), bf16",
+        "build_s": build_s, "warnings": warnings,
+        "reference_feature": "mean train-free DINOv2 token over the persons "
+                             "of crowd_scene(30)",
+        "image_hw": list(img.shape[:2]), "ms_per_image": ms,
+        "detections": len(data["boxes"]),
+        "categories": sorted(set(np.asarray(data.get(
+            "categories", [])).tolist())),
+        "candidates": int((model.fg_sim > ecfg.pos_sim_thresh).sum()),
+        "sim_quantiles": np.quantile(sim.numpy(), [0.0, 0.5, 0.9, 1.0])
+        .tolist(),
+        "sim_relative_l2_vs_cpu_f32": rel, "sim_tol": 5e-2,
+        "cpu_f32_sim_s": cpu_s,
+        "launches_per_image": launches, "launches_by_shape": by_shape,
+    }
+    print(json.dumps(row), flush=True)
+    if launches["flash_mha"] != 2 * depth:
+        raise AssertionError(f"trainfree: K4 launched "
+                             f"{launches['flash_mha']} times, not "
+                             f"{2 * depth} (encode + sim map)")
+    _require_launches("trainfree", launches,
+                      [k for k in launches if k != "survivor_rle"],
+                      ["survivor_rle"])
+    if not rel < 5e-2:
+        raise AssertionError(f"trainfree: sim map {rel} from the CPU's")
+    if set(row["categories"]) - {0}:
+        raise AssertionError(f"trainfree: categories {row['categories']}")
+    del model, cpu_dino
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_modes(model, reference_cfg):
+    """Each opt-in mode alone on the main model with the pred-IoU and
+    stability filters off, on one crowd scene with the same noise: ms per
+    image (the survivor pass synchronized around, its ms), detections,
+    launches (every kernel; K7 none under `fullres_cleanup`, whose
+    cleanup runs on the 1024^2 masks in PyTorch ops), RLE strings spanning
+    their boxes."""
+    import crowdsam_tpu_torch.pipeline.crowdsam as pipeline
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    scene = crowd_scene(20, 683, 1024)[0]
+    noise = np.random.default_rng(7).uniform(
+        size=reference_cfg.grid_size ** 2).astype(np.float32)
+    base = dataclasses.replace(reference_cfg, pred_iou_thresh=0.0,
+                               stability_score_thresh=0.0)
+    model.engine_cfg = base
+    _timed_generate(model, scene, noise)      # warm-up
+    rows = []
+    for label, kw in MODES:
+        model.engine_cfg = dataclasses.replace(base, **kw)
+        surv = [0.0]
+        counters = _reset_counts()
+        with patched(pipeline, "survivor_core",
+                     _sync_timed(pipeline.survivor_core, surv)):
+            data, ms = _timed_generate(model, scene, noise)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        row = {"phase": "modes", "mode": label,
+               "image_hw": list(scene.shape[:2]), "ms_per_image": ms,
+               "survivor_pass_ms": surv[0],
+               "detections": len(data["boxes"]),
+               "nonempty_masks": _check_rles(data, scene),
+               "score_range": [float(np.min(data["scores"])),
+                               float(np.max(data["scores"]))]
+               if len(data["boxes"]) else None,
+               "launches_per_image": launches}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        fullres = kw.get("fullres_cleanup", False)
+        _require_launches(f"modes {label}", launches,
+                          [k for k in launches
+                           if not (fullres and k == "survivor_rle")],
+                          ["survivor_rle"] if fullres else [])
+        if not row["detections"]:
+            raise AssertionError(f"modes {label}: no detection")
+    model.engine_cfg = reference_cfg
+    return rows
+
+
+def _encode_device_ms(model, img) -> float:
+    """Device ms of the dual-backbone encode of one frame: the union of its
+    kernels' intervals (torch.profiler, `device_span_ms`), over 3 calls."""
+    h, w = img.shape[:2]
+    model.crop_image(img, [0, 0, w, h])
+    return device_span_ms(
+        lambda: model.predictor.set_image_presized(model.image), 3)
+
+
+def phase_rect(model, reference_cfg):
+    """`tpu.rect_encode` on the main model and path (the reference
+    thresholds) against the square encode on the three frames, in the same
+    call: per frame the encode's device ms, and its host ms and ms per
+    image in turns (square, rect, rect, square, square, rect) after a
+    warm-up of both; launches by shape of the first rect run (counts set
+    to 0 just before it), each of K2's, K3's and K4's shapes one that a
+    kernel phase held against its plain version."""
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    frames = synthetic_images(0, N_IMAGES)
+    model.engine_cfg = reference_cfg
+    p = model.predictor
+    for rect in (False, True):               # warm-up of both encodes
+        p.rect_encode = rect
+        for img in frames:
+            model.generate(img)
+    runs = {"square": [], "rect": []}
+    device = {}
+    launches = by_shape = None
+    for rect in (False, True, True, False, False, True):
+        p.rect_encode = rect
+        first_rect = rect and launches is None
+        if first_rect:
+            counters = _reset_counts()
+        out = [_timed_generate(model, img) for img in frames]
+        if first_rect:
+            launches = {k: fn.launches for k, fn in counters.items()}
+            by_shape = _launches_by_shape()
+        runs["rect" if rect else "square"].append({
+            "ms_per_image": [ms for _, ms in out],
+            "encode_ms_per_image": [_encode_ms(model, img)
+                                    for img in frames],
+            "detections_per_image": [len(d["boxes"]) for d, _ in out]})
+    for rect in (False, True):
+        p.rect_encode = rect
+        device["rect" if rect else "square"] = [
+            _encode_device_ms(model, img) for img in frames]
+    p.rect_encode = False
+
+    def median(key, what):
+        return [float(np.median([r[what][i] for r in runs[key]]))
+                for i in range(len(frames))]
+
+    row = {"phase": "rect_encode",
+           "config": "configs/crowdhuman.yaml defaults, vit_l + "
+                     "dinov2_vitl14, bf16; tpu.rect_encode against square",
+           "image_hw": [list(i.shape[:2]) for i in frames],
+           "encode_device_ms": device,
+           "encode_device_rect_over_square": [
+               r / q for r, q in zip(device["rect"], device["square"])],
+           "encode_ms_median": {k: median(k, "encode_ms_per_image")
+                                for k in runs},
+           "ms_per_image_median": {k: median(k, "ms_per_image")
+                                   for k in runs},
+           **runs, "launches_rect": launches,
+           "launches_by_shape_rect": by_shape}
+    print(json.dumps(row), flush=True)
+    _require_launches("rect_encode", launches,
+                      [k for k in launches if k != "survivor_rle"])
+    held = {"window_attention_by_shape": {f"{h}x{w}" for h, w in
+                                          RECT_K2_GRIDS + ((70, 70),)},
+            "flash_mha_decomposed_relpos_by_shape": {
+                f"{h}x{w}" for h, w in RECT_K3_GRIDS + ((64, 64),)},
+            "flash_mha_by_shape": {f"{s} tokens" for s in
+                                   RECT_K4_TOKENS + (1 + 73 * 73,)}}
+    unheld = {k: sorted(set(by_shape[k]) - v) for k, v in held.items()}
+    if any(unheld.values()):
+        raise AssertionError(f"rect_encode: shapes no kernel phase held: "
+                             f"{unheld}")
+    return row
+
+
+def phase_crop_layers():
+    """`configs/crowdhuman_mc.yaml` (`test.crop_n_layers 1`: the frame and
+    four overlapping crops, each encoded and decoded, then the inter-crop
+    NMS) at full width with the shipped adapter, one frame after a
+    warm-up, the counts set to 0 just before it: ms, detections, crops'
+    launches (every kernel but K7 required: the shipped thresholds may
+    leave no detection for the survivor pass)."""
+    from crowdsam_tpu_torch.config import load_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    t = time.time()
+    model = CrowdSAM(load_config(MC_CONFIG), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    assert model.crop_n_layers == 1
+    img = crowd_scene(20, 683, 1024)[0]
+    _timed_generate(model, img)              # warm-up
+    counters = _reset_counts()
+    data, ms = _timed_generate(model, img)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(json.dumps({
+        "phase": "crop_n_layers 1", "config": MC_CONFIG + " as shipped "
+        "(SAM/DINOv2 checkpoints absent: random encoders), bf16",
+        "build_s": build_s, "image_hw": list(img.shape[:2]),
+        "ms_per_image": ms, "detections": len(data["boxes"]),
+        "launches_per_image": launches}), flush=True)
+    _require_launches("crop_n_layers 1", launches,
+                      [k for k in launches if k != "survivor_rle"])
+    if launches["flash_mha"] != 5 * 24:
+        raise AssertionError(f"crop_n_layers 1: K4 launched "
+                             f"{launches['flash_mha']} times, not 5 x 24")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_small_cases():
+    """Each small case of `SMALL_CASES` (the train-free branch, the rect
+    encode, the full-resolution cleanup, `sam_hq`, `mobile_sam`, crop
+    layers): the card's path against the plain float32 path on the CPU,
+    same weights (`_compare_small`)."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+
+    for label, opts in SMALL_CASES:
+        gpu = CrowdSAM(modify_config(_small_config(), list(opts)),
+                       device="cuda")
+        _compare_small(gpu, modify_config(_small_config(), list(opts)),
+                       label)
+        del gpu
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -2707,6 +3149,15 @@ def main() -> int:
         # SAM ViT-H's shapes, K2/K3 at 64 and K4 timed just before them.
         k2_80 = phase_window(gen, hd=80)
         k3_80 = phase_global(gen, hd=80)
+        # The rect encode's shapes.
+        k2_rect = {g: phase_window(gen, grid=g) for g in RECT_K2_GRIDS}
+        k3_rect = {g: phase_global(gen, hw=g) for g in RECT_K3_GRIDS}
+        k4_rect = {}
+        for s in RECT_K4_TOKENS:
+            k4_rect[s] = _k4_case(gen, s)
+            print(json.dumps({"phase": "K4 rect", **k4_rect[s]}), flush=True)
+        torch.cuda.empty_cache()
+        phase_f32_refused()
     ln_bwd_rows = phase_layernorm_backward(gen)
     torch.cuda.empty_cache()
 
@@ -2739,9 +3190,14 @@ def main() -> int:
         phase_survivor(model.engine_cfg.max_keep, 60)
         torch.cuda.empty_cache()
     launches, loaded_launches = phase_end_to_end(model)
+    with torch.no_grad():
+        phase_modes(model, model.engine_cfg)
+        rect = phase_rect(model, model.engine_cfg)
     phase_small_reference(small)
     del small
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        phase_small_cases()
     train = phase_train(model)
     del model
     torch.cuda.empty_cache()
@@ -2758,6 +3214,9 @@ def main() -> int:
     phase_small_vit_h()
     phase_sam_hq()
     phase_mobile_sam()
+    with torch.no_grad():
+        trainfree = phase_trainfree()
+        phase_crop_layers()
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")
     src_attn = "crowdsam_tpu_torch/csrc/attention.cu"
@@ -2850,6 +3309,45 @@ def main() -> int:
             launches_in=f"vit_h, {N_IMAGES} frames, head dim 80",
             max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
             device_ms=row["device_ms"], **{k: row[k] for k in extra}))
+    # The rect encode's shapes (launches on the rect_encode phase's three
+    # frames) and the train-free pass's K4 (launches on its frame).
+    rect_shapes = rect["launches_by_shape_rect"]
+    for name, rep, rows, key, extra in (
+            ("window_attention", "crowdsam_tpu/models/attention.py:163",
+             k2_rect, "window_attention_by_shape",
+             ("wrapper_device_ms", "library_device_ms", "whole_fn_ms")),
+            ("flash_mha_decomposed_relpos",
+             "crowdsam_tpu/models/attention.py:126", k3_rect,
+             "flash_mha_decomposed_relpos_by_shape",
+             ("wrapper_device_ms", "library_device_ms", "whole_fn_ms",
+              "form"))):
+        for (h, w), row in rows.items():
+            table.append(dict(
+                name=name, route="cuda", source=src_attn, replaces=rep,
+                launches=rect_shapes[key].get(f"{h}x{w}", 0),
+                launches_in=f"rect_encode, {N_IMAGES} frames, grid {h}x{w}",
+                max_abs_err=row["max_abs_err"],
+                **{k: row[k] for k in keys}, device_ms=row["device_ms"],
+                **{k: row[k] for k in extra}))
+    src_k4 = "crowdsam_tpu_torch/csrc/flash_sm90.cu"
+    for s_tok, row in k4_rect.items():
+        table.append(dict(
+            name="flash_mha", route="cuda", source=src_k4,
+            replaces="crowdsam_tpu/models/attention.py:86",
+            launches=rect_shapes["flash_mha_by_shape"].get(
+                f"{s_tok} tokens", 0),
+            launches_in=f"rect_encode, {N_IMAGES} frames, {s_tok} tokens",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"]))
+    table.append(dict(
+        name="flash_mha", route="cuda", source=src_k4,
+        replaces="crowdsam_tpu/models/attention.py:86",
+        launches=trainfree["launches_per_image"]["flash_mha"],
+        launches_in="trainfree, 1 frame (encode + sim map)",
+        max_abs_err=k4["max_abs_err"], **{k: k4[k] for k in keys},
+        device_ms=k4["device_ms"],
+        library_device_ms=k4["library_device_ms"]))
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -148,3 +148,20 @@ def resolve_device(device=None, index=None) -> torch.device:
 
 def dtype_from_str(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def refuse_float32_on_cuda(device, dtype: torch.dtype, where: str) -> None:
+    """Raise NotImplementedError for float32 compute on a CUDA device.
+
+    The port's hand-written kernels (K2-K6) take bf16 operands, and no path
+    leads from a CUDA tensor to a kernel's plain version.  The JAX package
+    runs a float32 config through XLA without its kernels; float32 on the
+    card waits for float32 arms of K2-K6 (ROADMAP.md).  The CPU runs
+    float32 (the plain path)."""
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
+        raise NotImplementedError(
+            f"{where}: tpu.compute_dtype float32 on CUDA is not supported: "
+            "the port's hand-written kernels (K2-K6) take bf16 operands, "
+            "and the JAX package runs float32 through XLA without its "
+            "kernels; float32 on the card waits for float32 arms of K2-K6. "
+            "Use bfloat16 on the card, or device='cpu' for float32.")

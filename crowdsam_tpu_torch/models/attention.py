@@ -211,6 +211,16 @@ def _layout_of(shape, stride, esz: int, rows: int) -> TmaLayout:
                      box=tuple(box), pos=pos)
 
 
+def require_bf16_on_cuda(qkv: torch.Tensor, where: str) -> None:
+    """Raise TypeError for a CUDA qkv that is not bf16: the kernels take
+    bf16 operands and nothing casts for them (a float32 config is refused
+    on CUDA up front, `config.refuse_float32_on_cuda`)."""
+    if qkv.is_cuda and qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{where}: the attention kernels take bf16 "
+                        f"operands on CUDA, got {qkv.dtype} (float32 "
+                        f"compute runs on the CPU only)")
+
+
 def _device_check(t: torch.Tensor, fn_name: str) -> bool:
     """True for CUDA (launch the kernel), False for CPU (plain version)."""
     if t.device.type == "cpu":
@@ -268,8 +278,7 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
         q, k, v = win.permute(2, 0, 3, 1, 4)
         o = relpos_global_launch(q, k, v, scale, rel_h_tab, rel_w_tab,
                                  (window, window), fold=window != MAX_REL)
-        window_attention.launches += 1
-        window_attention.launches_by_head_dim[hd] += 1
+        _count(window_attention, hd, f"{hp}x{wp}")
         return window_unpartition(o.transpose(1, 2).reshape(-1, n, dim),
                                   window, hp, wp)
     tabs = [t.to(device=qkv.device, dtype=torch.bfloat16).contiguous()
@@ -287,8 +296,7 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
                 torch.cuda.current_stream(qkv.device).cuda_stream)
     _kernel_status(status, "window_attention",
                    ("k", "v", "rel_h_tab", "rel_w_tab"))
-    window_attention.launches += 1
-    window_attention.launches_by_head_dim[hd] += 1
+    _count(window_attention, hd, f"{hp}x{wp}")
     return out
 
 
@@ -307,8 +315,7 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
         return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw)
     out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw,
                                fold=hw[1] != MAX_REL)
-    flash_mha_decomposed_relpos.launches += 1
-    flash_mha_decomposed_relpos.launches_by_head_dim[q.shape[-1]] += 1
+    _count(flash_mha_decomposed_relpos, q.shape[-1], f"{hw[0]}x{hw[1]}")
     return out
 
 
@@ -421,13 +428,25 @@ def flash_mha(q, k, v, sm_scale: float,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernel_status(status, "flash_mha", ("q", "k", "v"))
     flash_mha.launches += 1
+    flash_mha.launches_by_shape[f"{s} tokens"] += 1
     return out
+
+
+def _count(wrapper, head_dim: int, grid: str) -> None:
+    """One launch of K2 or K3: its count, by head dim and by token grid
+    (K2: the padded grid of its windows)."""
+    wrapper.launches += 1
+    wrapper.launches_by_head_dim[head_dim] += 1
+    wrapper.launches_by_shape[grid] += 1
 
 
 window_attention.launches = 0
 flash_mha_decomposed_relpos.launches = 0
 flash_mha.launches = 0
-# K2's and K3's launches by head dim (SAM ViT-H's 80 among them), counted
-# with `launches`.
+# K2's and K3's launches by head dim (SAM ViT-H's 80 among them), and K2's,
+# K3's and K4's by shape (the rect encode's grids among them), counted with
+# `launches`.
 window_attention.launches_by_head_dim = collections.Counter()
 flash_mha_decomposed_relpos.launches_by_head_dim = collections.Counter()
+for _wrapper in (window_attention, flash_mha_decomposed_relpos, flash_mha):
+    _wrapper.launches_by_shape = collections.Counter()

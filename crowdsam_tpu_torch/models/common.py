@@ -133,3 +133,12 @@ def cast_compute_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
             for p in m.parameters(recurse=False):
                 p.data = p.data.to(dtype)
     return module
+
+
+def compute_dtype(module: nn.Module) -> torch.dtype:
+    """The compute dtype `cast_compute_params` gave `module`: that of its
+    first Linear/Conv weight."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            return m.weight.dtype
+    raise ValueError("module has no Linear or Conv layer")

@@ -14,7 +14,10 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from crowdsam_tpu_torch.models.attention import flash_mha
+from crowdsam_tpu_torch.models.attention import (
+    flash_mha,
+    require_bf16_on_cuda,
+)
 from crowdsam_tpu_torch.models.common import Conv2d, LayerNorm, Linear, gelu
 from crowdsam_tpu_torch.ops.resize import resize_bicubic_torch
 
@@ -30,8 +33,7 @@ class DinoAttention(nn.Module):
         b, n, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x)
-        if qkv.is_cuda:                 # the kernel takes bf16 operands
-            qkv = qkv.to(torch.bfloat16)
+        require_bf16_on_cuda(qkv, "DINOv2 attention")
         t = qkv.reshape(b, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
         out = flash_mha(t[0], t[1], t[2], (c // nh) ** -0.5, valid_len=n)
         return self.proj(out.transpose(1, 2).reshape(b, n, c).to(x.dtype))
@@ -96,8 +98,13 @@ class DinoVisionTransformer(nn.Module):
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                pos_hw=None) -> Dict[str, torch.Tensor]:
         """x: (B, H, W, 3) normalized NHWC, H and W multiples of the patch.
+        `pos_hw`: the (H_pos, W_pos) grid the positional embedding is
+        interpolated to before its top-left (gh, gw) crop is taken (the
+        rect encode: a band of the square frame keeps the square call's
+        per-position embeddings); the call grid when None.
         Returns {"x_norm_clstoken": (B, C), "x_norm_patchtokens": (B, N, C)}."""
         b, h, w, _ = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
@@ -105,8 +112,10 @@ class DinoVisionTransformer(nn.Module):
         x = self.patch_embed.proj(x).reshape(b, gh * gw, c)
         cls_pos = self.pos_embed[:, :1]
         patch_pos = self.pos_embed[:, 1:].reshape(1, self.n_pre, self.n_pre, c)
-        if (gh, gw) != (self.n_pre, self.n_pre):
-            patch_pos = resize_bicubic_torch(patch_pos, (gh, gw))
+        ph, pw = pos_hw if pos_hw is not None else (gh, gw)
+        if (ph, pw) != (self.n_pre, self.n_pre):
+            patch_pos = resize_bicubic_torch(patch_pos, (ph, pw))
+        patch_pos = patch_pos[:, :gh, :gw]
         x = x + patch_pos.reshape(1, gh * gw, c).to(x.dtype)
         cls = (self.cls_token + cls_pos).expand(b, 1, c)
         x = torch.cat([cls.to(x.dtype), x], dim=1)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from crowdsam_tpu_torch.models.attention import (
     flash_mha_decomposed_relpos,
+    require_bf16_on_cuda,
     window_attention,
 )
 from crowdsam_tpu_torch.models.common import (
@@ -76,22 +77,16 @@ class Attention(nn.Module):
             hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
             x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
             qkv = self.qkv(x)
-            out = self._attend(qkv, lambda t: window_attention(
-                t, _rel_pos_table(self.rel_pos_h, ws),
+            require_bf16_on_cuda(qkv, "SAM window attention")
+            out = window_attention(
+                qkv, _rel_pos_table(self.rel_pos_h, ws),
                 _rel_pos_table(self.rel_pos_w, ws),
-                self.num_heads, self.scale, ws))
-            out = out[:, :h, :w]
+                self.num_heads, self.scale, ws)[:, :h, :w]
         else:
             qkv = self.qkv(x)
-            out = self._attend(qkv, lambda t: self._global(t, h, w))
+            require_bf16_on_cuda(qkv, "SAM global attention")
+            out = self._global(qkv, h, w)
         return self.proj(out)
-
-    @staticmethod
-    def _attend(qkv, fn):
-        """The kernels take bf16: on CUDA a float32 compute dtype goes
-        through them in bf16 (the TPU kernels cast the same way)."""
-        return fn(qkv.to(torch.bfloat16) if qkv.is_cuda else qkv).to(
-            qkv.dtype)
 
     def _global(self, qkv: torch.Tensor, h: int, w: int) -> torch.Tensor:
         b, c = qkv.shape[0], qkv.shape[-1] // 3

@@ -94,3 +94,15 @@ def resize_bicubic_torch(x: torch.Tensor, out_hw) -> torch.Tensor:
     h, w = x.shape[-3], x.shape[-2]
     return _apply(x, [cubic_resize_matrix(h, out_hw[0]),
                       cubic_resize_matrix(w, out_hw[1])], [-3, -2])
+
+
+def resize_linear_band(x: torch.Tensor, frame: int, out: int, out_hw,
+                       axes=(-3, -2)) -> torch.Tensor:
+    """The top-left `out_hw` block of the linear resize (frame -> out on
+    both axes) of a frame x frame image whose top-left band is `x` and
+    which is zero beyond it: `linear_resize_matrix(frame, out)` cut to
+    `out_hw` rows and to x's extent of columns, on each axis.  Exact, since
+    the columns cut away multiply zeros."""
+    mats = [linear_resize_matrix(frame, out)[:n, :x.shape[a]]
+            for a, n in zip(axes, out_hw)]
+    return _apply(x, mats, axes)

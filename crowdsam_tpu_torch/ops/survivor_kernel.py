@@ -96,9 +96,23 @@ def survivor_rle_plain(logits: torch.Tensor, edit: torch.Tensor, in_hw,
     ed = edit.repeat_interleave(4, dim=1).repeat_interleave(4, dim=2)
     full = torch.where(ed > 0, True, torch.where(ed < 0, False, full))
     ys = torch.arange(s, device=dev)
+    full &= ((ys[None, :, None] < hw[:, 0, None, None])
+             & (ys[None, None, :] < hw[:, 1, None, None]))
+    return mask_tail(full, hw)
+
+
+def mask_tail(full: torch.Tensor, hw: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The outputs of `survivor_rle` from finished (K, S, S) bool masks,
+    zero outside the valid region hw (K, 2): the packed bitmap, the box,
+    the Fortran-order change rows and their counts, the summary.  Plain
+    PyTorch ops: the second half of K7's plain version, and the tail of the
+    full-resolution cleanup (`pipeline/engine.py`), where K7 does not run."""
+    k, _, s = full.shape
+    dev = full.device
+    hw = hw.long()
+    ys = torch.arange(s, device=dev)
     inside = ((ys[None, :, None] < hw[:, 0, None, None])
               & (ys[None, None, :] < hw[:, 1, None, None]))
-    full &= inside
 
     bitw = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
                         device=dev)

@@ -8,7 +8,10 @@ is a dependency here, so both resizes are written out in numpy:
   clamped at the edges, 11-bit fixed-point weights, and the rounding of
   cv2's vectorized vertical pass.  Within one grey level of cv2.
 - `ResizeLongestSide.apply_image`: PIL BILINEAR -- a triangle filter whose
-  support widens with the downscale factor.  Within one grey level of PIL.
+  support widens with the downscale factor, in PIL's 8-bit fixed point
+  (`stretch_bilinear`, which also serves the train-free branch's stretch
+  of the frame to DINOv2's square input, the aspect not kept, and the
+  synthetic crowd scenes' backgrounds).  Equal to PIL.
 
 When the target size equals the input size both return the input, as cv2
 and PIL do (the CrowdSAM path at max_size 1024 on a 1024-long image).
@@ -16,6 +19,7 @@ and PIL do (the CrowdSAM path at max_size 1024 on a 1024-long image).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -69,19 +73,68 @@ def resize_image(image: np.ndarray, max_size: int) -> Tuple[np.ndarray, float]:
     return np.clip(out, 0, 255).astype(np.uint8), r
 
 
-def _pil_bilinear_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) weights of PIL's BILINEAR (antialiased) resample."""
+_PIL_PRECISION_BITS = 22        # PIL's 8-bit resample: 32 - 8 - 2
+
+
+@lru_cache(maxsize=32)
+def _pil_int_coeffs(n_in: int, n_out: int):
+    """PIL's BILINEAR taps of one axis as its 8-bit resample fixes them:
+    (first source index (n_out,), int coefficients (n_out, taps)), the
+    float weights normalized per output, then scaled by 2^22 and rounded
+    half away from zero (Resample.c `precompute_coeffs`,
+    `normalize_coeffs_8bpc`)."""
     scale = n_in / n_out
     support = max(scale, 1.0)
-    centers = (np.arange(n_out) + 0.5) * scale
-    lo = np.maximum(np.floor(centers - support + 0.5), 0).astype(np.int64)
-    hi = np.minimum(np.floor(centers + support + 0.5), n_in).astype(np.int64)
-    mat = np.zeros((n_out, n_in))
+    taps = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(n_out, np.int64)
+    coef = np.zeros((n_out, taps), np.int64)
     for i in range(n_out):
-        j = np.arange(lo[i], hi[i])
-        wts = np.maximum(0.0, 1.0 - np.abs((j - centers[i] + 0.5) / support))
-        mat[i, j] = wts / wts.sum()
-    return mat
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        j = np.arange(lo, hi)
+        w = np.maximum(0.0, 1.0 - np.abs((j - center + 0.5) / support))
+        if w.sum() != 0.0:
+            w = w / w.sum()
+        first[i] = lo
+        coef[i, :hi - lo] = np.where(
+            w < 0, np.trunc(-0.5 + w * (1 << _PIL_PRECISION_BITS)),
+            np.trunc(0.5 + w * (1 << _PIL_PRECISION_BITS))).astype(np.int64)
+    return first, coef
+
+
+def _pil_pass(x: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One PIL 8-bit resample pass of uint8 `x` along `axis` (0 rows, 1
+    columns): the fixed-point sum with a half added, shifted and clipped."""
+    first, coef = _pil_int_coeffs(x.shape[axis], n_out)
+    # The sums stay below 2^31: the weights are >= 0 and add up to ~2^22.
+    xs = np.moveaxis(x, axis, 0).astype(np.int32)
+    coef = coef.astype(np.int32)
+    acc = np.full((n_out,) + xs.shape[1:], 1 << (_PIL_PRECISION_BITS - 1),
+                  np.int32)
+    n_in = xs.shape[0]
+    for t in range(coef.shape[1]):
+        idx = np.minimum(first + t, n_in - 1)
+        acc += coef[:, t].reshape((-1,) + (1,) * (xs.ndim - 1)) * xs[idx]
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def stretch_bilinear(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """HWC uint8 -> (out_h, out_w) HWC uint8, PIL's
+    `Image.resize((out_w, out_h), BILINEAR)`: the horizontal pass first,
+    rounded to uint8, then the vertical one, each in PIL's fixed point; the
+    input itself when the size is unchanged."""
+    th, tw = out_hw
+    h, w = image.shape[:2]
+    if (th, tw) == (h, w):
+        return image
+    out = image
+    if tw != w:
+        out = _pil_pass(out, tw, 1)
+    if th != h:
+        out = _pil_pass(out, th, 0)
+    return out
 
 
 class ResizeLongestSide:
@@ -92,17 +145,8 @@ class ResizeLongestSide:
 
     def apply_image(self, image: np.ndarray) -> np.ndarray:
         """HWC uint8 -> HWC uint8 with the long side == target_length."""
-        th, tw = get_preprocess_shape(image.shape[0], image.shape[1],
-                                      self.target_length)
-        if (th, tw) == image.shape[:2]:
-            return image
-        mh = _pil_bilinear_matrix(image.shape[0], th)
-        mw = _pil_bilinear_matrix(image.shape[1], tw)
-        h, w, c = image.shape
-        out = (mh @ image.reshape(h, w * c).astype(np.float64)).reshape(
-            th, w, c)
-        out = np.matmul(mw, out)                    # (th, tw, c), BLAS
-        return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+        return stretch_bilinear(image, get_preprocess_shape(
+            image.shape[0], image.shape[1], self.target_length))
 
     def apply_coords(self, coords: np.ndarray,
                      original_size: Tuple[int, ...]) -> np.ndarray:

@@ -16,6 +16,18 @@ host codec), without it None per detection and the low-res boxes, as the
 JAX package does.  `generate_many(images)` runs `generate` over a list of
 images and records the time of each.
 
+`model.trainfree` runs the train-free branch: its foreground map is the
+cosine of DINOv2's tokens of the frame stretched to the square DINOv2 input
+(PIL BILINEAR, ImageNet normalization) against a reference feature, the
+mean over axis 0 of `ref["f"]` in the pickle `model.ref_feature` (zeros and
+a warning when the file is missing, as in the JAX package), and the engine
+runs on the DINOv2 grid (73 at img_size 1024) in place of
+`test.grid_size`.  The opt-in modes `test.mask_selection`,
+`tpu.accumulate_occupy`, `test.fuse_simmap`, `tpu.fullres_cleanup` and
+`tpu.rect_encode` are wired into the engine and the predictor as the JAX
+package wires them.  `tpu.compute_dtype float32` runs on the CPU only: on
+CUDA the constructor refuses it (`config.refuse_float32_on_cuda`).
+
 Runs on CUDA unless `device` names another device; with no device given
 and no CUDA present it raises.  Without checkpoints the weights are the JAX
 package's random ones, drawn with numpy in its leaf order
@@ -31,13 +43,18 @@ from __future__ import annotations
 
 import logging
 import os
+import pickle
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from crowdsam_tpu_torch.config import dtype_from_str, resolve_device
+from crowdsam_tpu_torch.config import (
+    dtype_from_str,
+    refuse_float32_on_cuda,
+    resolve_device,
+)
 from crowdsam_tpu_torch.models.build import sam_model_registry
 from crowdsam_tpu_torch.models.common import cast_compute_params
 from crowdsam_tpu_torch.models.dinov2 import DINO_DIMS, dino_model_registry
@@ -52,8 +69,9 @@ from crowdsam_tpu_torch.ops.rle import (
     svals_from_cand,
     unpack_cand10,
 )
-from crowdsam_tpu_torch.ops.transforms import resize_image
+from crowdsam_tpu_torch.ops.transforms import resize_image, stretch_bilinear
 from crowdsam_tpu_torch.pipeline.engine import (
+    MASK_SELECTIONS,
     EngineConfig,
     run_eps_engine,
     survivor_core,
@@ -92,18 +110,9 @@ def _unsupported(config: Dict[str, Any]) -> Optional[str]:
     if dino_model not in dino_model_registry:
         return (f"model.dino_model {dino_model!r} (not in the registry: "
                 f"{sorted(dino_model_registry)})")
-    if m.get("trainfree", False):
-        return ("model.trainfree (the train-free branch needs "
-                "test.mask_selection max_area: opt-in modes, later slice)")
-    if tpu.get("rect_encode", False):
-        return "tpu.rect_encode (later slice)"
-    if tpu.get("fullres_cleanup", False):
-        return "tpu.fullres_cleanup (later slice)"
-    if tpu.get("accumulate_occupy", False) or t.get("fuse_simmap", False):
-        return ("tpu.accumulate_occupy / test.fuse_simmap (opt-in modes: "
-                "later slice)")
-    if t.get("mask_selection", "max_iou") != "max_iou":
-        return f"test.mask_selection {t['mask_selection']!r} (later slice)"
+    if t.get("mask_selection", "max_iou") not in MASK_SELECTIONS:
+        return (f"test.mask_selection {t['mask_selection']!r} (not one of "
+                f"{MASK_SELECTIONS})")
     if int(tpu.get("mesh_data", 1)) > 1 or int(tpu.get("mesh_model", 1)) > 1:
         return "tpu.mesh_data / tpu.mesh_model > 1 (multi-device: later slice)"
     return None
@@ -222,12 +231,23 @@ class CrowdSAM:
             raise NotImplementedError(why)
         mcfg, tcfg = config["model"], config["test"]
         tpucfg = config.get("tpu", {})
+        refuse_float32_on_cuda(
+            self.device, dtype_from_str(tpucfg.get("compute_dtype",
+                                                   "bfloat16")), "CrowdSAM")
         seed = int(config["environ"].get("seed", 42))
         self.n_class = int(mcfg.get("n_class", 1))
+        self.train_free = bool(mcfg.get("trainfree", False))
 
         self.sam, self.dino = build_models(config, self.device,
                                            logger=self.logger)
-        self.predictor = SamPredictor(self.sam, self.dino, self.device)
+        self.predictor = SamPredictor(
+            self.sam, self.dino, self.device,
+            rect_encode=bool(tpucfg.get("rect_encode", False)),
+            logger=self.logger)
+        if self.train_free:
+            self.ref_feature = self._load_ref_feature(mcfg.get("ref_feature"))
+            # Read as the JAX package reads it; neither package uses it.
+            self.alpha = mcfg.get("score_fusion", 0.25)
 
         self.max_size = tcfg["max_size"]
         self.crop_n_layers = tcfg["crop_n_layers"]
@@ -238,7 +258,8 @@ class CrowdSAM:
             self.logger.warning("test.apply_box_offsets: True is ignored "
                                 "(the branch is dead in the reference too)")
         self.engine_cfg = EngineConfig(
-            grid_size=tcfg["grid_size"],
+            grid_size=(self.predictor.dino_grid if self.train_free
+                       else tcfg["grid_size"]),
             points_per_batch=tcfg["points_per_batch"],
             max_prompts=tcfg["max_prompts"],
             n_class=self.n_class,
@@ -253,12 +274,37 @@ class CrowdSAM:
             box_nms_thresh=tcfg["box_nms_thresh"],
             crop_nms_thresh=tcfg["crop_nms_thresh"],
             min_mask_region_area=tcfg["min_mask_region_area"],
+            mask_selection=tcfg.get("mask_selection", "max_iou"),
+            accumulate_occupy=bool(tpucfg.get("accumulate_occupy", False)),
+            fuse_simmap=bool(tcfg.get("fuse_simmap", False)),
             cc_max_iters=tpucfg.get("cc_max_iters", 192),
             fused_decode=bool(tpucfg.get("fused_decode", True)),
+            fullres_cleanup=bool(tpucfg.get("fullres_cleanup", False)),
         )
+        if self.engine_cfg.fullres_cleanup and not (
+                self.output_rles and self.engine_cfg.min_mask_region_area > 0):
+            self.logger.warning(
+                "tpu.fullres_cleanup is set but %s; the exact full-res "
+                "cleanup path only runs with output RLEs and a positive "
+                "min_mask_region_area -- falling back to the approximate "
+                "low-res cleanup (documented deviation)",
+                "output_rles is off" if not self.output_rles
+                else "min_mask_region_area == 0")
         # Candidate-order noise, drawn on the CPU so that every device
         # sees the same order for a seed.
         self.generator = torch.Generator().manual_seed(seed)
+
+    def _load_ref_feature(self, path: Optional[str]) -> torch.Tensor:
+        """The train-free reference feature (C,): the mean over axis 0 of
+        `ref["f"]` in the pickle at `path` (read as data with numpy), or
+        zeros and a warning when the file is missing."""
+        if path and os.path.exists(path):
+            with open(path, "rb") as f:
+                ref = pickle.load(f)
+            feat = np.asarray(ref["f"]).mean(axis=0).astype(np.float32)
+            return torch.from_numpy(feat).to(self.device)
+        self.logger.warning("trainfree ref_feature missing; using zeros")
+        return torch.zeros((self.dino.embed_dim,), device=self.device)
 
     # ---------------------------------------------------------------- api
     def crop_image(self, image: np.ndarray, crop_box) -> None:
@@ -305,7 +351,13 @@ class CrowdSAM:
                 torch.as_tensor(1.0 / areas, dtype=torch.float32),
                 torch.zeros(len(data["boxes"]), dtype=torch.int64),
                 self.crop_nms_thresh)
+            # `rles_info` holds two entries a crop, not one a detection:
+            # it stays out of the row filter (the JAX package filters it
+            # and raises past 2 x crops detections).
+            info = data["rles_info"]
+            del data["rles_info"]
             data.filter(keep)
+            data["rles_info"] = info
             del data["crop_boxes"]
         return _wrap_up(data)
 
@@ -338,9 +390,15 @@ class CrowdSAM:
         orig_h, orig_w = self.orig_image.shape[:2]
         in_h, in_w = self.image.shape[:2]
         cfg = self.engine_cfg
-        self.fg_sim = self.sim_map(self.predictor.predict_fg_map())
-        r = cfg.grid_size / max(in_h, in_w)
-        feat_hw = (int(in_h * r), int(in_w * r))
+        if self.train_free:
+            d, g = self.predictor.dino_input, self.predictor.dino_grid
+            self.fg_sim = self.predictor.trainfree_sim(
+                stretch_bilinear(self.image, (d, d)), self.ref_feature)
+            feat_hw = (g, g)
+        else:
+            self.fg_sim = self.sim_map(self.predictor.predict_fg_map())
+            r = cfg.grid_size / max(in_h, in_w)
+            feat_hw = (int(in_h * r), int(in_w * r))
         res = run_eps_engine(
             self.sam, cfg, self.predictor.get_image_embedding(),
             self.predictor.dense_pe, self.predictor.decode_extras(),

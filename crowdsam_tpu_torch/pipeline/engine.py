@@ -17,16 +17,20 @@ plain `MaskDecoder` decodes each batch into spatial masks.  The HQ decoder
   both packages.
 - Each iteration takes the first `points_per_batch` alive candidates
   (`nonzero(size=K, fill_value=N)`), decodes them, fuses the IoU as
-  clamp(iou) * sigmoid(class) (a reference quirk), filters on predicted IoU,
+  clamp(iou) * sigmoid(class) (a reference quirk), picks one of each
+  prompt's masks (`mask_selection`: the largest fused IoU, or the largest
+  or smallest area above the threshold, counted alike on packed and
+  spatial masks; ties take the first mask), filters on predicted IoU,
   stability and crop edges, writes a fixed slab of `max_iters x K` rows
   (logits stored in bf16, as the JAX slab), and prunes the candidates under
-  the occupy mask, which each batch OVERWRITES (a reference quirk).  The
-  loop stops on the JAX `cond`: `it < max_iters and consumed < max_prompts
-  and any(alive)`.  The mask choice is "max_iou" and the score is the fused
-  IoU (`fuse_simmap` off); the other settings of those knobs are later
-  work.
+  the occupy mask, which each batch OVERWRITES (a reference quirk), or ORs
+  into the running mask with `accumulate_occupy`.  The loop stops on the
+  JAX `cond`: `it < max_iters and consumed < max_prompts and any(alive)`.
 - Then greedy box NMS over the slab, the top `max_keep` rows by score
-  (stable sort), and a per-detection summary.
+  (stable sort), and a per-detection summary.  The score is the fused IoU,
+  or with `fuse_simmap` sqrt(clip(iou, 0)) * sqrt(clip(m + 0.5, 0, 1)),
+  m the mean of the sim map (resized linearly to R x R) over the mask's
+  unpacked survivor logits above the threshold.
 - `survivor_core`: small-region cleanup (holes, then islands) at the
   decoder resolution with the area threshold scaled by (low_res/img_size)^2,
   boxes of the cleaned masks, and NMS that prefers unchanged masks; with
@@ -36,7 +40,12 @@ plain `MaskDecoder` decodes each batch into spatial masks.  The HQ decoder
   RLE change rows.  The JAX engine runs the pass speculatively in tiers
   inside its program, and off the TPU extracts the change rows with an
   8-slot XLA path; the results for the survivors are the same when it runs
-  once over them through K7 (24 slots), as here.
+  once over them through K7 (24 slots), as here.  With `fullres_cleanup`
+  (and masks, and a positive area) the cleanup runs instead on the
+  upsampled img_size^2 masks with the unscaled area, and K7 is not
+  launched: the upsample, the cleanup, the boxes, the re-NMS on full-res
+  boxes, the packed bitmap and the change rows are PyTorch ops, as the JAX
+  package's XLA chain is there.
 """
 
 from __future__ import annotations
@@ -65,7 +74,14 @@ from crowdsam_tpu_torch.ops.packed import (
     packed_mask_to_box,
     unpack_spatial,
 )
-from crowdsam_tpu_torch.ops.survivor_kernel import survivor_rle
+from crowdsam_tpu_torch.ops.resize import resize_linear
+from crowdsam_tpu_torch.ops.survivor_kernel import (
+    mask_tail,
+    survivor_rle,
+    upsample_plain,
+)
+
+MASK_SELECTIONS = ("max_iou", "max_area", "min_area")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +101,16 @@ class EngineConfig:
     box_nms_thresh: float = 0.65
     crop_nms_thresh: float = 0.7
     min_mask_region_area: float = 100.0
+    mask_selection: str = "max_iou"
+    accumulate_occupy: bool = False
+    fuse_simmap: bool = False
     max_keep: int = 320           # post-NMS survivor slab
     cc_max_iters: int = 192
     fused_decode: bool = True     # hoisted/low-rank decoder, packed masks
+    # The cleanup on the img_size^2 masks with the unscaled area (the
+    # reference's semantics); needs the masks (`test.output_rles`) and a
+    # positive area, else the low-res cleanup runs.
+    fullres_cleanup: bool = False
 
     @property
     def max_iters(self) -> int:
@@ -96,6 +119,21 @@ class EngineConfig:
     @property
     def slab(self) -> int:
         return self.max_iters * self.points_per_batch
+
+
+def select_mask(cfg: EngineConfig, masks: torch.Tensor,
+                iou_fused: torch.Tensor) -> torch.Tensor:
+    """Index (K,) of each prompt's mask.  masks: (K, M, R, R) logits, or
+    packed (K, M, BH*BH, 16) (a permutation of the same pixels, so areas
+    are the same); iou_fused (K, M).  Ties take the first mask."""
+    if cfg.mask_selection == "max_iou":
+        return iou_fused.argmax(dim=-1)
+    area = (masks > cfg.mask_threshold).sum(dim=(-1, -2))
+    if cfg.mask_selection == "max_area":
+        return area.argmax(dim=-1)
+    if cfg.mask_selection == "min_area":
+        return area.argmin(dim=-1)
+    raise NotImplementedError(f"mask_selection {cfg.mask_selection!r}")
 
 
 @torch.no_grad()
@@ -176,6 +214,7 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     slab_valid = torch.zeros((SLAB,), dtype=torch.bool, device=dev)
     ar = torch.arange(K, device=dev)
     labels = torch.ones((K, 1), dtype=torch.int64, device=dev)
+    occupy = torch.zeros((R * R,), dtype=torch.bool, device=dev)
 
     it = consumed = 0
     while it < cfg.max_iters and consumed < cfg.max_prompts and bool(
@@ -206,7 +245,7 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
         iou_fused = (iou_pred.clamp(min=0.0)
                      * torch.sigmoid(cls_scores.max(dim=-1).values))
         categories = cls_scores.argmax(dim=-1)
-        ind = iou_fused.argmax(dim=-1)          # mask_selection "max_iou"
+        ind = select_mask(cfg, masks, iou_fused)
         m_sel, iou_sel = masks[ar, ind], iou_fused[ar, ind]
         cat_sel = categories[ar, ind]
 
@@ -226,7 +265,9 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
                                        orig_box, down)
 
         hot = binm & (keep & (iou_sel > cfg.filter_thresh))[:, None, None]
-        occupy = hot.any(dim=0).reshape(-1)     # overwritten, not ORed
+        occ_new = hot.any(dim=0).reshape(-1)
+        # Overwritten each batch (the reference quirk) unless accumulated.
+        occupy = (occupy | occ_new) if cfg.accumulate_occupy else occ_new
         alive &= ~occupy[occ_idx]
 
         rs = slice(it * K, (it + 1) * K)
@@ -248,8 +289,19 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
         logits = unpack_spatial(logits, BH, BH)
     iou, valid = slab_iou[top], keep_nms[top]
     m = top.shape[0]
-    summary = torch.cat([                   # score == iou (fuse_simmap off)
-        valid[:, None].float(), iou[:, None], iou[:, None],
+    if cfg.fuse_simmap:
+        masks = (logits.float() > cfg.mask_threshold) & valid[:, None, None]
+        sim_lr = resize_linear(sim_map.float(), (R, R), axes=(-2, -1))
+        msum = masks.sum(dim=(1, 2))
+        mean_sim = torch.where(
+            msum > 0, (masks * sim_lr).sum(dim=(1, 2)) / msum.clamp(min=1),
+            f32(0.0))
+        scores = (iou.clamp(min=0.0).sqrt()
+                  * (mean_sim + 0.5).clamp(0.0, 1.0).sqrt())
+    else:
+        scores = iou
+    summary = torch.cat([
+        valid[:, None].float(), iou[:, None], scores[:, None],
         slab_cat[top][:, None].float(), slab_stab[top][:, None],
         torch.full((m, 1), float(consumed), device=dev),
         slab_boxes[top], slab_points[top],
@@ -274,10 +326,14 @@ def survivor_core(cfg: EngineConfig, logits: torch.Tensor, in_hw=None,
     dict of the JAX survivor pass's (k, 12) summary [keep, changed, low-res
     box(4), full-res box(4), n_changes, nonempty], K7's packed (k, S, S/8),
     cand (k, 8, S) and n_col (k, S), and overflow (k,) bool: a column holds
-    more change rows than `cand` keeps, so the RLE needs `packed`."""
+    more change rows than `cand` keeps, so the RLE needs `packed`.  With
+    `fullres_cleanup` and a positive area, the same outputs from the
+    full-resolution cleanup (`_fullres_survivors`)."""
     k = logits.shape[0]
     dev = logits.device
     thresh = max(cfg.box_nms_thresh, cfg.crop_nms_thresh)
+    if with_masks and cfg.fullres_cleanup and cfg.min_mask_region_area > 0:
+        return _fullres_survivors(cfg, logits, in_hw, thresh)
     binm = logits.float() > cfg.mask_threshold
     valid = torch.ones((k,), dtype=torch.bool, device=dev)
     if cfg.min_mask_region_area > 0:
@@ -305,5 +361,39 @@ def survivor_core(cfg: EngineConfig, logits: torch.Tensor, in_hw=None,
     out["summary"] = torch.cat([
         head, ksum[:, :4].float(), ksum[:, 5:6].float(),
         ksum[:, 4:5].float()], dim=1)
+    out["overflow"] = ksum[:, 6] > 0
+    return out
+
+
+def _fullres_survivors(cfg: EngineConfig, logits: torch.Tensor, in_hw,
+                       thresh: float):
+    """`survivor_core` with masks under `fullres_cleanup`: the JAX
+    package's XLA chain in PyTorch ops.  The logits are upsampled to S =
+    img_size (`jax.image.resize` linear), thresholded and cropped to the
+    valid region; holes, then islands, below the unscaled
+    min_mask_region_area are removed at S^2; the re-NMS prefers unchanged
+    masks on full-res boxes; the low-res box columns hold the full-res
+    boxes scaled by R / S.  The packed bitmap and the change rows come from
+    the cleaned masks (`mask_tail`)."""
+    k = logits.shape[0]
+    s = cfg.img_size
+    full = upsample_plain(logits) > cfg.mask_threshold
+    hw = torch.as_tensor(in_hw, dtype=torch.int64, device=logits.device)
+    ys = torch.arange(s, device=logits.device)
+    full &= (ys[:, None] < hw[0]) & (ys[None, :] < hw[1])
+    f1, ch1 = remove_small_regions(full, cfg.min_mask_region_area, "holes",
+                                   cfg.cc_max_iters)
+    full, ch2 = remove_small_regions(f1, cfg.min_mask_region_area,
+                                     "islands", cfg.cc_max_iters)
+    unchanged = ~(ch1 | ch2)
+    fr_boxes = batched_mask_to_box(full).float()
+    keep = nms_mask(fr_boxes, unchanged.float(), thresh,
+                    torch.ones((k,), dtype=torch.bool, device=full.device))
+    out = mask_tail(full, hw[None].expand(k, 2))
+    ksum = out.pop("summary")
+    out["summary"] = torch.cat([
+        keep[:, None].float(), (~unchanged)[:, None].float(),
+        fr_boxes * (cfg.low_res / s), ksum[:, :4].float(),
+        ksum[:, 5:6].float(), ksum[:, 4:5].float()], dim=1)
     out["overflow"] = ksum[:, 6] > 0
     return out

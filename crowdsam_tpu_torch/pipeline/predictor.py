@@ -9,14 +9,29 @@ stored in bf16 as the JAX package stores it.  With the HQ decoder (the
 `sam_hq` arch) the encode also keeps the first global block's output and
 computes the per-image HQ feature map from it, and keeps the RAW DINO map
 at 256^2 instead of its projection (the HQ decoder pools, then projects).
+
+With `rect_encode` (`tpu.rect_encode`, a documented deviation of the JAX
+package, PARITY.md #9) a non-square input is uploaded in 64 px buckets and
+encoded on its valid band only: SAM on the band with the positional
+embedding's matching crop, its (1, gh, gw, 256) features zero-padded back
+to the square grid; DINOv2 on the square frame's linear resize cut to the
+band's patch rows and columns, its positional embedding interpolated to the
+square grid and cropped, its tokens zero-padded back.  The HQ decoder
+refuses it with a warning and encodes square, as the JAX package does.
+
+`trainfree_sim` is the train-free branch's foreground map: DINOv2 on the
+frame stretched to its square input and ImageNet-normalized, the cosine of
+its patch tokens against a reference feature.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from crowdsam_tpu_torch.config import resolve_device
 from crowdsam_tpu_torch.models.dinov2 import DinoVisionTransformer
@@ -27,21 +42,57 @@ from crowdsam_tpu_torch.models.sam import (
     Sam,
     postprocess_masks,
 )
-from crowdsam_tpu_torch.ops.resize import resize_linear
+from crowdsam_tpu_torch.ops.resize import resize_linear, resize_linear_band
 from crowdsam_tpu_torch.ops.transforms import ResizeLongestSide
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@torch.no_grad()
+def imagenet_tokens(dino: DinoVisionTransformer,
+                    image_sq: np.ndarray) -> torch.Tensor:
+    """DINOv2's patch tokens (g, g, C) float32 of a square HWC uint8 frame
+    (side g * patch), ImageNet-normalized (not SAM's normalization, which
+    the encode's DINOv2 sees), on the device of `dino`."""
+    dev = dino.pos_embed.device
+    g = image_sq.shape[0] // dino.patch_size
+    x = torch.from_numpy(np.ascontiguousarray(image_sq)).to(dev).float()
+    x = (x / 255.0 - torch.tensor(IMAGENET_MEAN, device=dev)) / torch.tensor(
+        IMAGENET_STD, device=dev)
+    return dino(x[None])["x_norm_patchtokens"].reshape(g, g, -1).float()
+
+
+def cosine_map(tokens: torch.Tensor, ref_feature: torch.Tensor
+               ) -> torch.Tensor:
+    """(g, g) cosine of each token (g, g, C) against `ref_feature` (C,),
+    both L2-normalized with eps 1e-6."""
+    f = tokens / torch.linalg.vector_norm(tokens, dim=-1,
+                                          keepdim=True).clamp(min=1e-6)
+    r = ref_feature.to(tokens.device).float()
+    return f @ (r / torch.linalg.vector_norm(r).clamp(min=1e-6))
 
 
 class SamPredictor:
     def __init__(self, sam_model: Sam,
                  dino_model: Optional[DinoVisionTransformer] = None,
-                 device=None):
+                 device=None, rect_encode: bool = False, logger=None):
         """Runs on `device`: CUDA unless the caller names another; the
-        models are moved there."""
+        models are moved there.  `rect_encode`: encode a non-square input's
+        valid band only (not with the HQ decoder: a warning, then square)."""
         self.device = resolve_device(device)
         self.model = sam_model.to(self.device).eval()
         self.dino_model = (dino_model.to(self.device).eval()
                            if dino_model is not None else None)
         self.is_hq = isinstance(sam_model.mask_decoder, MaskDecoderHQ)
+        if rect_encode and self.is_hq:
+            (logger or logging.getLogger("crowdsam_tpu_torch")).warning(
+                "tpu.rect_encode is not supported with the HQ decoder "
+                "(interm-feature fusion assumes the square frame) -- "
+                "falling back to square encode")
+            rect_encode = False
+        self.rect_encode = rect_encode
         self.transform = ResizeLongestSide(sam_model.img_size)
         self.low_res = sam_model.img_size // 4
         self.dino_grid = sam_model.img_size // 14
@@ -56,7 +107,9 @@ class SamPredictor:
         256), dense_pe (g, g, 256), dino_feats (1, 73, 73, C) and
         dino_proj_256 (256, 256, 256) bf16; with the HQ decoder hq_features
         (1, 256, 256, 32) and dino_raw_256 (256, 256, C) bf16 in place of
-        dino_proj_256."""
+        dino_proj_256.  Under `rect_encode` a bucket short of the square
+        frame is encoded as its band; features and DINOv2 tokens come back
+        zero-padded to the square grids."""
         s = self.model.img_size
         hb, wb = bucket_img.shape[1], bucket_img.shape[2]
         mean = torch.tensor(PIXEL_MEAN, device=self.device)
@@ -65,7 +118,9 @@ class SamPredictor:
         inside = torch.zeros((hb, wb), dtype=torch.float32, device=self.device)
         inside[: input_hw[0], : input_hw[1]] = 1.0
         x = x * inside[None, :, :, None]
-        x = torch.nn.functional.pad(x, (0, 0, 0, s - wb, 0, s - hb))
+        rect = self.rect_encode and (hb, wb) != (s, s)
+        if not rect:
+            x = F.pad(x, (0, 0, 0, s - wb, 0, s - hb))
         dec = self.model.mask_decoder
         out = {"dense_pe": self.model.prompt_encoder.get_dense_pe()}
         if self.is_hq:
@@ -75,11 +130,28 @@ class SamPredictor:
                                                          interm)
         else:
             out["features"] = self.model.image_encoder(x)
+        if rect:
+            g = s // self.model.image_encoder.patch_size
+            f = out["features"]
+            out["features"] = F.pad(f, (0, 0, 0, g - f.shape[2],
+                                        0, g - f.shape[1]))
         if self.dino_model is not None:
             d, g = self.dino_input, self.dino_grid
-            x_dino = resize_linear(x, (d, d))
-            dino = self.dino_model(x_dino)["x_norm_patchtokens"]
-            dino_feats = dino.reshape(1, g, g, -1)
+            if rect:
+                # The square frame's resize cut to the patch rows and
+                # columns the band reaches (exact: the rest of the frame
+                # is zero), with the square grid's positional embeddings.
+                p = self.dino_model.patch_size
+                gh_d = min(-(-int(np.ceil(hb * d / s)) // p), g)
+                gw_d = min(-(-int(np.ceil(wb * d / s)) // p), g)
+                x_dino = resize_linear_band(x, s, d, (gh_d * p, gw_d * p))
+                dino = self.dino_model(x_dino, pos_hw=(g, g))[
+                    "x_norm_patchtokens"].reshape(1, gh_d, gw_d, -1)
+                dino_feats = F.pad(dino, (0, 0, 0, g - gw_d, 0, g - gh_d))
+            else:
+                x_dino = resize_linear(x, (d, d))
+                dino = self.dino_model(x_dino)["x_norm_patchtokens"]
+                dino_feats = dino.reshape(1, g, g, -1)
             out["dino_feats"] = dino_feats
             r = self.low_res
             if self.is_hq:
@@ -102,9 +174,12 @@ class SamPredictor:
         self.original_size = original
 
     def encode_bucket_hw(self, h: int, w: int) -> tuple:
-        """Upload bucket of an (h, w) input: rounded up to 256 px."""
+        """Upload bucket of an (h, w) input: rounded up to 256 px, or to 64
+        px (4 patch rows) under `rect_encode`, so that the band encode
+        tracks the valid region."""
         s = self.model.img_size
-        return (min(-(-h // 256) * 256, s), min(-(-w // 256) * 256, s))
+        gran = 64 if self.rect_encode else 256
+        return (min(-(-h // gran) * gran, s), min(-(-w // gran) * gran, s))
 
     def set_image_presized(self, image: np.ndarray) -> None:
         """`image` is already resized (long side == img_size)."""
@@ -128,6 +203,16 @@ class SamPredictor:
         self.input_size = None
 
     # ------------------------------------------------------------- fg map
+    def trainfree_sim(self, image_sq: np.ndarray,
+                      ref_feature: torch.Tensor) -> torch.Tensor:
+        """The train-free foreground map (dino_grid, dino_grid) float32 of
+        `image_sq`, the frame stretched to (dino_input, dino_input) uint8:
+        `cosine_map(imagenet_tokens(...), ref_feature)`."""
+        if self.dino_model is None:
+            raise RuntimeError("the train-free map needs DINOv2")
+        return cosine_map(imagenet_tokens(self.dino_model, image_sq),
+                          ref_feature)
+
     @torch.no_grad()
     def predict_fg_map(self) -> torch.Tensor:
         """(1, n_class, 256, 256) float32 FG logits (256^2 whatever the

@@ -50,6 +50,8 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from crowdsam_tpu_torch.config import refuse_float32_on_cuda
+from crowdsam_tpu_torch.models.common import compute_dtype
 from crowdsam_tpu_torch.ops.resize import resize_linear
 from crowdsam_tpu_torch.train.losses import adapter_loss
 from crowdsam_tpu_torch.utils import msgpack_io
@@ -176,7 +178,10 @@ class AdapterTrainer:
     # ------------------------------------------------------------- cache
     def cache_features(self, dataset) -> Dict[str, Any]:
         """Encode each of the first n_shot images once; the targets of its
-        boxes (padded to a multiple of 8)."""
+        boxes (padded to a multiple of 8).  A float32 model on CUDA is
+        refused (`config.refuse_float32_on_cuda`)."""
+        refuse_float32_on_cuda(self.device, compute_dtype(self.sam),
+                               "AdapterTrainer.cache_features")
         n = min(self.n_shot, len(dataset))
         items = [dataset[i] for i in range(n)]
         box_lists, hws = [], []

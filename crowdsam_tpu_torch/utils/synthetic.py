@@ -8,8 +8,9 @@ weights: no checkpoints ship with the repository.
 
 `crowd_scene` is this package's copy of the JAX bench fixture's crowd scene
 (`crowdsam_tpu/utils/bench_fixture.py`): smooth background noise with drawn
-person silhouettes.  Its background upsample is PIL's BILINEAR written out
-in numpy, so a frame is within one grey level of the JAX package's.
+person silhouettes.  Its background upsample is PIL's 8-bit BILINEAR
+written out in numpy (`ops/transforms.stretch_bilinear`), so a frame
+equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from crowdsam_tpu_torch.config import load_config, modify_config
-from crowdsam_tpu_torch.ops.transforms import _pil_bilinear_matrix
+from crowdsam_tpu_torch.ops.transforms import stretch_bilinear
 
 # CrowdHuman-like frames (h, w): landscape 3:2, portrait 4:3, landscape
 # 4:3, square.
@@ -67,11 +68,7 @@ def crowd_scene(seed: int, h: int = 683, w: int = 1024,
     exclusive).  Returns (HWC uint8 image, [(x, y, w, h), ...])."""
     rng = np.random.default_rng(seed)
     base = rng.integers(60, 180, size=(h // 64 + 2, w // 64 + 2, 3))
-    mh = _pil_bilinear_matrix(base.shape[0], h)
-    mw = _pil_bilinear_matrix(base.shape[1], w)
-    up = np.einsum("oh,hwc->owc", mh, base.astype(np.float64))
-    up = np.einsum("pw,owc->opc", mw, up)
-    img = np.clip(np.floor(up + 0.5), 0, 255).astype(np.float32)
+    img = stretch_bilinear(base.astype(np.uint8), (h, w)).astype(np.float32)
     img += rng.normal(0, 6.0, size=img.shape)
     img = np.clip(img, 0, 255).astype(np.uint8)
     n = int(rng.integers(*people))

@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_pipeline import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 from crowdsam_tpu.config import load_config as jax_load_config
 from crowdsam_tpu.config import modify_config as jax_modify_config
@@ -95,8 +96,8 @@ def test_generate_of_each_arch_matches_jax(arch, monkeypatch):
 
 
 @pytest.mark.parametrize("opt,value,match", [
-    ("model.trainfree", "true", "train-free"),
-    ("test.mask_selection", "max_area", "mask_selection"),
+    ("tpu.mesh_model", "2", "multi-device"),
+    ("test.mask_selection", "max_mask", "mask_selection"),
     ("tpu.mesh_data", "2", "multi-device"),
     ("model.sam_arch", "sam2", "not an arch"),
     ("model.sam_model", "vit_x", "not in the registry"),

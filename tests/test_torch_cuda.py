@@ -83,16 +83,19 @@ def _tables(gen, h, w, hd=64):
 
 @pytest.mark.parametrize("b,grid,ws,heads", [
     (1, 28, 14, 2), (1, 70, 14, 16), (2, 28, 14, 3), (1, 24, 8, 2),
-    (1, 32, 16, 2), (1, 15, 5, 2), (1, 40, 20, 2), (1, 64, 64, 1)])
+    (1, 32, 16, 2), (1, 15, 5, 2), (1, 40, 20, 2), (1, 64, 64, 1),
+    (1, (56, 70), 14, 16), (1, (70, 56), 14, 16)])
 def test_window_attention_kernel(gen, b, grid, ws, heads):
     """K2 (TMA + wgmma, fh/fw formed in the kernel) against its plain
     version: the main path's 70x70 grid of 14x14 windows with 16 heads,
     two images, windows of one key tile (8x8, 5x5) and of exactly two
     (16x16); windows past two tiles (20x20, 64x64) through K3's kernel;
-    distinct tables, so swapped ones would show.  atol 8% of the output's
-    rms (bf16 probabilities into PV, bf16 fh/fw)."""
+    the rect encode's padded bands of 4x5 and 5x4 windows; distinct
+    tables, so swapped ones would show.  atol 8% of the output's rms (bf16
+    probabilities into PV, bf16 fh/fw)."""
     hd = 64
-    qkv = torch.randn((b, grid, grid, 3 * heads * hd), generator=gen,
+    gh, gw = grid if isinstance(grid, tuple) else (grid, grid)
+    qkv = torch.randn((b, gh, gw, 3 * heads * hd), generator=gen,
                       device="cuda").bfloat16()
     rh, rw = _tables(gen, ws, ws)
     before = attention.window_attention.launches
@@ -107,13 +110,16 @@ def test_window_attention_kernel(gen, b, grid, ws, heads):
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (20, 24), (20, 20), (17, 64),
-                                (64, 20), (1, 64), (7, 9)])
+                                (64, 20), (1, 64), (7, 9), (44, 64),
+                                (48, 64), (64, 48), (64, 44)])
 def test_relpos_kernel(gen, hw):
     """K3 (TMA + wgmma) against its plain version on strided views of one
     qkv buffer, distinct rel_h/rel_w tables: the main path's 64x64 grid and
     one 64 wide with a half tile at the end (the bias in registers), grids
     whose h is not w and the 20x20 grid (the bias folded into the product,
-    one or two 64-dim slabs).  atol 12% of the output's rms."""
+    one or two 64-dim slabs); the rect encode's grids of the 683x1024,
+    768x1024 and 1024x768 frames (44x64, 48x64: registers; 64x48: folded)
+    and 64x44.  atol 12% of the output's rms."""
     h, w = hw
     heads, hd, s = 2, 64, h * w
     qkv = torch.randn((1, s, 3 * heads * hd), generator=gen,
@@ -572,6 +578,24 @@ def _record_masks_fit(records, hw):
             x, y, w, h = r["bbox"]
             assert xs.min() >= x and xs.max() <= x + w
             assert ys.min() >= y and ys.max() <= y + h
+
+
+def test_float32_refused_on_the_card(gen):
+    """A `tpu.compute_dtype float32` config on CUDA: `CrowdSAM` refuses it
+    at construction with the reason (the kernels take bf16 operands), and
+    a float32 qkv never reaches a kernel cast to bf16: the encoder raises
+    TypeError."""
+    from crowdsam_tpu_torch.config import load_config, modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+
+    cfg = modify_config(load_config(None), list(SMALL) + [
+        "tpu.compute_dtype", "float32"])
+    with pytest.raises(NotImplementedError, match="bf16 operands"):
+        CrowdSAM(cfg, device="cuda")
+    sam = sam_model_registry["vit_tiny"]().cuda()
+    x = torch.zeros((1, 256, 256, 3), device="cuda")
+    with pytest.raises(TypeError, match="bf16 operands"):
+        sam.image_encoder(x)
 
 
 def test_amg_on_the_small_config(gen):

@@ -39,6 +39,7 @@ from crowdsam_tpu.models.dinov2 import dino_model_registry as jax_dinos
 from crowdsam_tpu.pipeline.predictor import SamPredictor as JaxPredictor
 from crowdsam_tpu.train import losses as jax_losses
 from crowdsam_tpu.utils.init import fast_random_init
+from test_torch_pipeline import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 from crowdsam_tpu_torch.config import load_config, modify_config
 from crowdsam_tpu_torch.models.build import sam_model_registry

@@ -921,6 +921,173 @@ def phase_twoway_tail_normal(model, img):
     return row
 
 
+def _images_decoder_inputs(model, frames, n_prompts=32):
+    """The operands of one lockstep decode iteration over `frames`: the
+    shared tensors of their stacked embeddings (the unbatched form for one
+    frame), each frame's `n_prompts` seeded point prompts' tokens, each
+    prompt's image (None for one frame) and the frames' packed-flat DINO
+    maps (B, R*R, C)."""
+    from crowdsam_tpu_torch.models.fused_decode import (
+        precompute_decode_shared,
+    )
+
+    feats, toks, dinos = [], [], []
+    for i, img in enumerate(frames):
+        _, tokens, dino = _decoder_inputs(model, img, n_prompts, seed=5 + i)
+        feats.append(model.predictor.get_image_embedding())
+        toks.append(tokens)
+        dinos.append(dino)
+    sam = model.sam
+    shared = precompute_decode_shared(
+        sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight,
+        torch.cat(feats), model.predictor.dense_pe)
+    b = len(frames)
+    img = None if b == 1 else torch.arange(
+        b, dtype=torch.int32, device="cuda").repeat_interleave(n_prompts)
+    return shared, torch.cat(toks), img, torch.stack(dinos)
+
+
+def _k5_bound(args, got, p, t, m):
+    """K5's bound (`phase_twoway_tail`'s count) for P prompts of this
+    call's operands: every input and output once, the products' flops."""
+    c, cd, h, ht = 256, 128, 8, 8 * t
+    mlp = args[5]["mlp1_w"].shape[0]
+    flops = p * m * 2 * c * (3 * cd + 2 * cd)
+    flops += 3 * p * m * ht * (cd // h) * 2 * 2
+    flops += 2 * p * m * (ht * (cd // h) * 2 + ht * c * 2)
+    flops += p * t * 2 * (8 * c * c + 12 * c * cd + 4 * c * mlp)
+    nbytes = sum(x.numel() * x.element_size() for x in args[:5])
+    nbytes += sum(x.numel() * x.element_size() for x in args[5].values())
+    nbytes += sum(x.numel() * x.element_size() for x in got)
+    return bound(nbytes, flops, BF16_FLOP_PER_S)
+
+
+def phase_twoway_tail_images(model, frames):
+    """K5 with the image axis (the batched pipeline's lockstep decode): B =
+    4 frames x 32 prompts against the plain version, under the bounds of
+    `phase_twoway_tail` (atol 2e-2 + 2^-7 |y|, mean 2^-11), once with each
+    image's prompts together and once interleaved (every pair of prompts
+    that a block of row phase 0 serves straddles two images, so its k/v
+    tile is reloaded), each with a fault of the image axis that must break
+    the bound: a prompt reading its neighbour image's keys0 and k1 rows,
+    and the k/v tile not reloaded inside a pair.  K6 then takes the grouped
+    case's keys2 (P = 128) against its plain version
+    (`_mask_head_images`).  Then K5's time at B = 1, 2, 4, 8 frames x 32
+    prompts (8 frames needed)."""
+    from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
+
+    b = 4
+    shared, tokens, img, dino = _images_decoder_inputs(model, frames[:b])
+    args = _tail_args(shared, tokens)
+    keys0, q1i, k1, v1 = args[:4]
+    p, t, _ = tokens.shape
+    m = keys0.shape[1]
+    interleaved = (torch.arange(p, device="cuda") % b).to(torch.int32)
+    rows = {}
+    for case, ii in (("grouped", img), ("interleaved", interleaved)):
+        with torch.no_grad():
+            got = dtk.twoway_tail(*args, img=ii)
+            want = dtk.twoway_tail_plain(*args, img=ii)
+            torch.cuda.synchronize()
+            again = dtk.twoway_tail(*args, img=ii)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError("twoway_tail images: two runs differ "
+                                     "bit-wise")
+            roll = [keys0.roll(-1, 0), q1i, k1.roll(-1, 0), v1]
+            f_neighbour = dtk.twoway_tail_plain(*roll, tokens, args[5],
+                                                img=ii)
+        faults = [("each prompt reads its neighbour image's keys0 and k1 "
+                   "rows", f_neighbour)]
+        if case == "interleaved":
+            # Pairs (2j, 2j+1) interleaved are images (2i, 2i+1): the
+            # second prompt keeps the first one's k/v tile.
+            stale = [0, 0, 2, 2]
+            with torch.no_grad():
+                faults.append((
+                    "row phase 0's k/v tile not reloaded for the second "
+                    "prompt of a pair", dtk.twoway_tail_plain(
+                        keys0, q1i, k1[stale], v1[stale], tokens, args[5],
+                        img=ii)))
+        outs = {}
+        for i, name in enumerate(("keys2", "tokens")):
+            outs[name] = compare(
+                f"twoway_tail images {case} {name}", got[i], want[i], 2e-2,
+                faults=[(lb, f[i]) for lb, f in faults],
+                require_faults=False, mean_atol=2.0 ** -11)
+        require_faults_seen(f"twoway_tail images {case}", outs)
+        rows[case] = outs
+        if case == "grouped":
+            k6 = _mask_head_images(model, shared, got, dino)
+        del got, want, again, f_neighbour, faults
+    del shared, args
+    torch.cuda.empty_cache()
+
+    timing = {}
+    for nb in (1, 2, 4, 8):
+        sh, tok, ii, _ = _images_decoder_inputs(model, frames[:nb])
+        a = _tail_args(sh, tok)
+        with torch.no_grad():
+            fn = (lambda: dtk.twoway_tail(*a, img=ii))
+            out = fn()
+            b_ms, by = _k5_bound(a, out, tok.shape[0], tok.shape[1],
+                                 sh["keys0"].shape[-2])
+            timing[nb] = dict(prompts=int(tok.shape[0]),
+                              ms=time_ms(fn, 10),
+                              device_ms=device_span_ms(fn, 10),
+                              bound_ms=b_ms, bound_by=by)
+            if nb == 4:
+                timing[nb]["plain_ms"] = time_ms(
+                    lambda: dtk.twoway_tail_plain(*a, img=ii), 2, warmup=1)
+        del sh, a, out
+        torch.cuda.empty_cache()
+    row = dict(shape=f"{b} images x 32 prompts x {t} tokens, {m}x256 image "
+                     "rows an image",
+               max_abs_err=max(o["max_abs_err"] for r in rows.values()
+                               for o in r.values()),
+               outputs=rows, by_images=timing, k6_images=k6)
+    print(json.dumps({"phase": "K5 twoway_tail images", **row}), flush=True)
+    return row
+
+
+def _mask_head_images(model, shared, tail_out, dino):
+    """K6 on the keys2 of B images x 32 prompts (one lockstep iteration)
+    against its plain version, masks and mx within 3% of the masks' rms, e
+    within 2e-2 (`phase_mask_head`'s bounds, hypernetwork vectors scaled by
+    2^10 as there); the pooled head from the kernel's e and mx, each group
+    of 32 prompts with its own image's DINO map, against the same from the
+    plain version's, within 5% of its rms (`phase_mask_head`'s bound), and
+    a group given its neighbour's map must break that bound."""
+    from crowdsam_tpu_torch.models import fused_decode as fd
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+
+    dec = model.sam.mask_decoder
+    keys2, tok = tail_out
+    k = dec.num_mask_tokens
+    with torch.no_grad():
+        hyper = (fd._hyper_in(dec, tok[:, 1:1 + k, :]) * 1024.0).contiguous()
+        want = mhk.mask_head_plain(keys2, hyper, shared["mask_head"],
+                                   emit_exp=True)
+        got = mhk.mask_head(keys2, hyper, shared["mask_head"],
+                            emit_exp=True)
+        pooled = fd._pooled_from_exp(got[1], got[2], dino, torch.bfloat16)
+        pooled_want = fd._pooled_from_exp(want[1], want[2], dino,
+                                          torch.bfloat16)
+        pooled_fault = fd._pooled_from_exp(want[1], want[2],
+                                           dino.roll(1, 0), torch.bfloat16)
+    atol = 0.03 * float(want[0].float().square().mean().sqrt())
+    p_atol = 0.05 * float(pooled_want.float().square().mean().sqrt())
+    return {
+        "prompts": int(keys2.shape[0]),
+        "masks": compare("mask_head images masks", got[0], want[0], atol),
+        "e": compare("mask_head images e", got[1], want[1], 2e-2),
+        "mx": compare("mask_head images mx", got[2], want[2], atol),
+        "pooled": compare("mask_head images pooled", pooled, pooled_want,
+                          p_atol, faults=(("each group pooled with its "
+                                           "neighbour image's DINO map",
+                                           pooled_fault),)),
+    }
+
+
 def phase_msgpack_adapter(img):
     """The shipped adapter, a flax msgpack tree, through the port's own
     reader on this machine: the full-width model built with
@@ -1705,8 +1872,9 @@ def phase_end_to_end(model):
     phase_box_only(model, scenes[0])
     phase_fused_vs_unfused(model, scenes[0])
     phase_generate_many(model, reference_cfg, loaded_cfg)
+    batch = phase_generate_batch(model, reference_cfg, loaded_cfg)
     model.engine_cfg = reference_cfg
-    return launches, loaded_launches
+    return launches, loaded_launches, batch
 
 
 def phase_box_only(model, img):
@@ -1811,6 +1979,278 @@ def phase_generate_many(model, reference_cfg, loaded_cfg, n=8):
             raise AssertionError(f"generate_many differs from generate "
                                  f"({name})")
     print(json.dumps(row), flush=True)
+
+
+def _survivor_rows(cfg, res, in_hw):
+    """The slab logits of an image's detections, in output order: the
+    engine's valid rows that the survivor pass keeps."""
+    from crowdsam_tpu_torch.pipeline.engine import survivor_core
+
+    idx = torch.nonzero(res["summary"][:, 0] > 0.5).flatten()
+    sp = survivor_core(cfg, res["logits"][idx], torch.tensor(
+        in_hw, dtype=torch.int32, device=res["logits"].device), True)
+    return res["logits"][idx[sp["summary"][:, 0] > 0.5]]
+
+
+def _threshold_ties(cfg, got, want, res_got, res_want):
+    """The pixels where the RLE strings of the same detection differ, each
+    traced to a threshold tie: either the two runs' upsampled logits lie on
+    both sides of the threshold there (within the two runs' largest
+    difference of that mask's logits of it, since the upsample is a convex
+    combination), or the low-res cleanup's edit of the pixel's cell differs
+    between the runs (its input differs only at such ties).  Returns
+    (pixels at an upsample tie, pixels through the cleanup), or raises."""
+    from crowdsam_tpu_torch.ops.connected import remove_small_regions
+    from crowdsam_tpu_torch.ops.rle import coco_decode_rle
+    from crowdsam_tpu_torch.ops.survivor_kernel import upsample_plain
+
+    area = cfg.min_mask_region_area * (cfg.low_res / cfg.img_size) ** 2
+
+    def edit(logits):
+        binm = logits > cfg.mask_threshold
+        if cfg.min_mask_region_area <= 0:
+            return torch.zeros_like(binm, dtype=torch.int8)
+        m1, _ = remove_small_regions(binm, area, "holes", cfg.cc_max_iters)
+        m2, _ = remove_small_regions(m1, area, "islands", cfg.cc_max_iters)
+        return m2.to(torch.int8) - binm.to(torch.int8)
+
+    direct = through_cleanup = 0
+    rows = None
+    for d, (a, b) in enumerate(zip(got["rles"], want["rles"])):
+        if a == b:
+            continue
+        h, w = a["size"]
+        if rows is None:
+            rows = [_survivor_rows(cfg, r, (h, w))
+                    for r in (res_got, res_want)]
+        lg, lw = (r[d:d + 1].float() for r in rows)
+        up_tie = ((upsample_plain(lg) > cfg.mask_threshold)
+                  != (upsample_plain(lw) > cfg.mask_threshold))[0, :h, :w]
+        cell = (edit(lg) != edit(lw)).repeat_interleave(4, 1) \
+            .repeat_interleave(4, 2)[0, :h, :w]
+        up_tie, cell = up_tie.cpu().numpy(), cell.cpu().numpy()
+        diff = coco_decode_rle(a) != coco_decode_rle(b)
+        if not (up_tie | cell)[diff].all():
+            raise AssertionError(f"detection {d}: mask pixels differ away "
+                                 f"from a threshold tie")
+        direct += int((diff & up_tie).sum())
+        through_cleanup += int((diff & ~up_tie).sum())
+    return direct, through_cleanup
+
+
+def _same_detections(got, want, exact):
+    """Counts and categories equal, boxes within 0.5 px, scores within
+    1e-4 (with `exact`, every field equal bit for bit)."""
+    if len(got["boxes"]) != len(want["boxes"]):
+        return False
+    if len(got["boxes"]) == 0:
+        return set(got.keys()) == set(want.keys())
+    if exact:
+        return set(got.keys()) == set(want.keys()) and all(
+            np.array_equal(got[k], want[k]) if isinstance(got[k], np.ndarray)
+            else got[k] == want[k] for k in got.keys())
+    return (np.array_equal(got["categories"], want["categories"])
+            and np.allclose(got["boxes"], want["boxes"], rtol=0, atol=0.5)
+            and np.allclose(got["scores"], want["scores"], rtol=0,
+                            atol=1e-4))
+
+
+def _profiled_busy(fn):
+    """`fn()` under torch.profiler (CUDA activity only), after one run for
+    the profiler's start-up: (wall ms, device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = [(ev.time_range.start, ev.time_range.start + ev.device_time_total)
+             for ev in prof.events() if ev.device_type.name == "CUDA"]
+    return wall, _union_us(spans) / 1e3
+
+
+def phase_generate_batch(model, reference_cfg, loaded_cfg, n=8):
+    """`ShardedPipeline.generate_batch` (the batched pipeline on one card:
+    one encode, one lockstep EPS loop, one survivor pass a chunk) against
+    `generate_many` on the n seeded crowd scenes of `generate_many`'s
+    phase, the generator reset to one seed before each run, at the
+    reference thresholds and loaded (filters off), at B = 1, 2, 4, 8.
+
+    Required: item by item the same detection counts and categories, boxes
+    within 0.5 px, scores within 1e-4, RLE strings equal or differing only
+    at threshold ties (counted); at B = 1 every field equal bit for bit; in
+    the loaded runs every kernel launched (the counts set to 0 just before
+    the batched run and read just after), K5 and K6 once a lockstep
+    iteration; the loop at most one host sync an iteration.  Reported a B:
+    ms per image of both from the host clock (synchronized) over repeated
+    pairs (batch, many, many, batch), the host syncs an iteration (the
+    engine's count and torch's sync-debug warnings inside the loop), K5, K6
+    and K7 launches per image, the device busy and idle share of one
+    profiled call of B images, and the peak device memory at B = 8."""
+    import warnings
+
+    from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+    from crowdsam_tpu_torch.pipeline import engine
+    from crowdsam_tpu_torch.utils.synthetic import FRAME_SIZES, crowd_scene
+
+    scenes = [crowd_scene(40 + i, *FRAME_SIZES[i % len(FRAME_SIZES)])[0]
+              for i in range(n)]
+    row = {"phase": "generate_batch", "images": n,
+           "config": "configs/crowdhuman.yaml defaults at full width "
+                     "(vit_l + dinov2_vitl14 + PWD-Net, bf16, fused decode, "
+                     "RLEs), random weights"}
+    real_dispatch, real_loop = model._dispatch_crop, engine._eps_loop
+    loops = []
+
+    def counted_loop(*a, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = real_loop(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        loops.append(dict(iterations=st["iterations"], syncs=st["syncs"],
+                          warned=sum("synchroniz" in str(w.message)
+                                     for w in caught)))
+        return st
+
+    def timed_many():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate_many(scenes)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    all_launches = {}
+    for name, cfg in (("reference", reference_cfg), ("loaded", loaded_cfg)):
+        model.engine_cfg = cfg
+        engines = []
+
+        def recording(*a, **kw):
+            res, meta = real_dispatch(*a, **kw)
+            engines.append(res)
+            return res, meta
+
+        with patched(model, "_dispatch_crop", recording):
+            model.generator.manual_seed(123)
+            want = model.generate_many(scenes)
+        out = {}
+        for b in (1, 2, 4, 8):
+            pipe = ShardedPipeline(model, batch=b)
+            batched = []
+
+            def run(pipe=pipe, batched=batched):
+                got = []
+                for c0 in range(0, n, pipe.batch):
+                    got += pipe.generate_batch(scenes[c0:c0 + pipe.batch])
+                    batched.extend(pipe.last_engine)
+                return got
+
+            model.generator.manual_seed(123)
+            counters = _reset_counts()
+            if b == 8:
+                torch.cuda.reset_peak_memory_stats()
+            loops.clear()
+            with patched(engine, "_eps_loop", counted_loop):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = run()
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t) * 1e3 / n
+            launches = {k: fn.launches for k, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            iters = sum(lp["iterations"] for lp in loops)
+            ok, ties = [], []
+            box_diff = max((float(np.abs(g["boxes"] - w["boxes"]).max())
+                            for g, w in zip(got, want) if len(g["boxes"])
+                            and len(g["boxes"]) == len(w["boxes"])),
+                           default=0.0)
+            score_diff = max((float(np.abs(g["scores"] - w["scores"]).max())
+                              for g, w in zip(got, want) if len(g["boxes"])
+                              and len(g["boxes"]) == len(w["boxes"])),
+                             default=0.0)
+            for i in range(n):
+                same = _same_detections(got[i], want[i], exact=b == 1)
+                if same and got[i]["rles"] != want[i]["rles"]:
+                    same = b > 1 and len(got[i]["rles"]) == len(
+                        want[i]["rles"])
+                    if same:
+                        ties.append(_threshold_ties(
+                            model.engine_cfg, got[i], want[i], batched[i],
+                            engines[i]))
+                else:
+                    ties.append((0, 0))
+                ok.append(bool(same))
+            # Repeated pairs against generate_many on the host clock.
+            batch_ms, many_ms = [first_ms], []
+            for order in ("many", "batch", "batch", "many") * 1:
+                if order == "many":
+                    many_ms.append(timed_many())
+                else:
+                    model.generator.manual_seed(123)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    pipe.generate_batch(scenes)
+                    torch.cuda.synchronize()
+                    batch_ms.append((time.perf_counter() - t) * 1e3 / n)
+            wall, busy = _profiled_busy(
+                lambda: pipe.generate_batch(scenes[:b]))
+            out[b] = {
+                "equal_items": ok,
+                "max_box_diff_px": box_diff,
+                "max_score_diff": score_diff,
+                "rle_tie_pixels": ties,
+                "rle_tie_pixels_are": "(upsampled logits on both sides of "
+                                      "the threshold, through the low-res "
+                                      "cleanup's edit of a tie) an image",
+                "detections_per_image": [len(g["boxes"]) for g in got],
+                "ms_per_image_batch": batch_ms,
+                "ms_per_image_many": many_ms,
+                "ms_per_image_batch_median": float(np.median(batch_ms)),
+                "ms_per_image_many_median": float(np.median(many_ms)),
+                "lockstep_iterations": iters,
+                "loop_syncs": sum(lp["syncs"] for lp in loops),
+                "loop_sync_warnings": sum(lp["warned"] for lp in loops),
+                "syncs_per_iteration": (sum(lp["syncs"] for lp in loops)
+                                        / max(iters, 1)),
+                "launches": launches,
+                "k5_k6_k7_launches_per_image": {
+                    k: launches[k] / n for k in ("twoway_tail", "mask_head",
+                                                 "survivor_rle")},
+                "profiled_call_images": b,
+                "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall,
+            }
+            if b == 8:
+                out[b]["peak_memory_gib"] = peak
+            row[name] = out
+            if not all(ok):
+                print(json.dumps(row), flush=True)
+                raise AssertionError(f"generate_batch differs from "
+                                     f"generate_many ({name}, B={b}): {ok}")
+            if any(lp["syncs"] > lp["iterations"] + 1 for lp in loops):
+                raise AssertionError(f"generate_batch: more than one host "
+                                     f"sync a lockstep iteration: {loops}")
+            if launches["twoway_tail"] != iters or (
+                    launches["mask_head"] != iters):
+                raise AssertionError(f"generate_batch: K5/K6 not once a "
+                                     f"lockstep iteration: {launches}, "
+                                     f"{iters} iterations")
+            if name == "loaded":
+                missing = [k for k, v in launches.items() if v == 0]
+                if missing:
+                    raise AssertionError(f"generate_batch B={b}: kernels "
+                                         f"not launched: {missing}")
+                all_launches[b] = launches
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def phase_fused_vs_unfused(model, img):
@@ -3179,6 +3619,9 @@ def main() -> int:
         k6 = phase_mask_head(model, frame, "main path, M=4096", tail_out,
                              k6_probe)
         phase_twoway_tail_normal(model, frame)
+        k5_images = phase_twoway_tail_images(
+            model, synthetic_images(20) + synthetic_images(21))
+        torch.cuda.empty_cache()
         _, tail_small = phase_twoway_tail(small, _small_image(),
                                           "small, M=256")
         phase_mask_head(small, _small_image(), "small, M=256", tail_small,
@@ -3189,7 +3632,7 @@ def main() -> int:
         k7 = phase_survivor(32, 50)
         phase_survivor(model.engine_cfg.max_keep, 60)
         torch.cuda.empty_cache()
-    launches, loaded_launches = phase_end_to_end(model)
+    launches, loaded_launches, batch = phase_end_to_end(model)
     with torch.no_grad():
         phase_modes(model, model.engine_cfg)
         rect = phase_rect(model, model.engine_cfg)
@@ -3272,6 +3715,8 @@ def main() -> int:
                           device_ms=row["device_ms"],
                           replaced_ms=row["replaced_ms"]))
     table[-2]["device_by_launch"] = k5["device_by_launch"]
+    # K5's image axis: one call over B images x 32 prompts.
+    table[-2]["by_images"] = k5_images["by_images"]
     table.append(dict(name="survivor_rle", route="cuda",
                       source="crowdsam_tpu_torch/csrc/survivor.cu",
                       replaces="crowdsam_tpu/ops/survivor_kernel.py:231",
@@ -3348,6 +3793,12 @@ def main() -> int:
         max_abs_err=k4["max_abs_err"], **{k: k4[k] for k in keys},
         device_ms=k4["device_ms"],
         library_device_ms=k4["library_device_ms"]))
+    # The batched pipeline's launches (phase generate_batch, loaded, B = 8,
+    # the counts set to 0 just before it) on the main-path rows.
+    for r in table:
+        if r.get("launches_in") in (None, "end_to_end_loaded"):
+            r["launches_generate_batch_loaded_b8"] = batch["loaded"][8][
+                "launches"][r["name"]]
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,9 +4,13 @@
 // (crowdsam_tpu/models/decode_tail_kernel.py:359, body `_kernel`): for each
 // of P prompts, both two-way blocks (token self-attention, token->image
 // attention, ReLU MLP, image->token update + LayerNorm) and the final
-// token->image attention + LayerNorm.  In: keys0 (M, 256) and block 1's
-// image-side projections q1i/k1/v1 (M, 128), shared by the prompts; tokens
-// (P, T, 256).  Out: keys2 (P, M, 256) and the final tokens (P, T, 256).
+// token->image attention + LayerNorm.  In: keys0 (B, M, 256) and block 1's
+// image-side projections q1i/k1/v1 (B, M, 128) of B images, shared by the
+// prompts of an image; img (P,) int32, each prompt's image (null: B = 1);
+// tokens (P, T, 256).  Out: keys2 (P, M, 256) and the final tokens
+// (P, T, 256).  A prompt reads only its own image's rows: `image_row`
+// offsets every image-side load (row 0's k/v tile, row 1's keys0 and q1i);
+// the PE-side terms and the weights are the same for every image.
 //
 // Bound: tensor-core operations.  Per 32 prompts at M = 4096 about 54 GFLOP
 // of bf16 products (keys1 @ wide2 and keys2 @ widef carry two thirds)
@@ -18,7 +22,7 @@
 // caller's stream: token stages (tok), row phases (row) and merges:
 //
 //   tok 0   block 1 self-attention, LN, q projection
-//   row 0   partial token->image softmax over the shared k1/v1
+//   row 0   partial token->image softmax over the image's k1/v1
 //   merge   the row tiles' partials of that softmax
 //   tok 1   out-projection, LN, MLP, LN; token keys and folded values of
 //           update 1; block 2 self-attention, LN, q projection
@@ -161,10 +165,11 @@ enum Param {
 };
 
 struct Args {
-  const bf16* keys0;
-  const bf16* q1i;
+  const bf16* keys0;    // (B, M, C)
+  const bf16* q1i;      // (B, M, CD), and k1, v1
   const bf16* k1;
   const bf16* v1;
+  const int* img;       // (P,) each prompt's image, or null for B = 1
   const bf16* tokens;   // (P, T, C)
   bf16* keys1;          // (P, M, C) scratch: keys1, from row 1 to row 2
   bf16* keys2;          // (P, M, C)
@@ -176,9 +181,17 @@ struct Args {
   float* part;          // (P, HT, NT, PW): a (prompt, head, token)'s tiles
                         // side by side
   float* att;           // (P, TP, CD) the merged token->image attention
-  int P, T, M, NT;
+  int P, T, M, NT, B;
   const void* w[N_PARAMS];
 };
+
+// The first row of prompt q's image in the image-side operands (an index
+// outside 0..B-1 is clamped).
+__device__ __forceinline__ size_t image_row(const Args& a, int q) {
+  if (a.img == nullptr) return 0;
+  const int i = min(max(a.img[q], 0), a.B - 1);
+  return (size_t)i * a.M;
+}
 
 __device__ __forceinline__ const bf16* wb(const Args& a, int i) {
   return static_cast<const bf16*>(a.w[i]);
@@ -1554,7 +1567,7 @@ __device__ __forceinline__ void store_rows(const uint32_t (&xa)[C / 16][4],
   __syncthreads();
 }
 
-// STAGE 0: partial softmax over the shared k1/v1.  STAGE 1: keys1, k2/v2,
+// STAGE 0: partial softmax over the image's k1/v1.  STAGE 1: keys1, k2/v2,
 // partial softmax of block 2.  STAGE 2: keys1, q2i, keys2 (written), kf/vf,
 // partial softmax of the final attention.  tm_a / tm_b: TMA maps of wide2
 // and widef (box 64 inputs x 128 rows).
@@ -1706,27 +1719,40 @@ __global__ void __launch_bounds__(ROW_THREADS, 3)
   };
 
   if constexpr (STAGE == 0) {
-    for (int e = tid; e < TM * (CD / 8); e += ROW_THREADS) {
-      const int r = e / (CD / 8), c = (e % (CD / 8)) * 8;
-      cp_async16(base + R_V + sw_off(r, c, TM),
-                 a.v1 + ((size_t)m0 + r) * CD + c);
-    }
-    cp_async_commit();
+    // The k/v tile of the image whose first row is `ir`: v into shared
+    // memory, k as A fragments.
+    auto load_kv = [&](size_t ir) {
+      for (int e = tid; e < TM * (CD / 8); e += ROW_THREADS) {
+        const int r = e / (CD / 8), c = (e % (CD / 8)) * 8;
+        cp_async16(base + R_V + sw_off(r, c, TM),
+                   a.v1 + (ir + m0 + r) * CD + c);
+      }
+      cp_async_commit();
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      kf[h][0] = ld32(a.k1 + r0 * CD + h * HD + 2 * t4);
-      kf[h][1] = ld32(a.k1 + r1 * CD + h * HD + 2 * t4);
-      kf[h][2] = ld32(a.k1 + r0 * CD + h * HD + 2 * t4 + 8);
-      kf[h][3] = ld32(a.k1 + r1 * CD + h * HD + 2 * t4 + 8);
-    }
-    cp_async_wait<0>();
+      for (int h = 0; h < H; ++h) {
+        kf[h][0] = ld32(a.k1 + (ir + r0) * CD + h * HD + 2 * t4);
+        kf[h][1] = ld32(a.k1 + (ir + r1) * CD + h * HD + 2 * t4);
+        kf[h][2] = ld32(a.k1 + (ir + r0) * CD + h * HD + 2 * t4 + 8);
+        kf[h][3] = ld32(a.k1 + (ir + r1) * CD + h * HD + 2 * t4 + 8);
+      }
+      cp_async_wait<0>();
+    };
+    const int q0 = blockIdx.y * ROW0_PROMPTS;
+    size_t tile_img = image_row(a, q0);
+    load_kv(tile_img);
     grid_wait();          // the token stage's query heads
     grid_launch_next();
-    // The shared k/v tile serves ROW0_PROMPTS prompts in turn.
+    // The k/v tile serves ROW0_PROMPTS prompts in turn; it is reloaded
+    // when a prompt belongs to another image than the one before it.
     for (int i = 0; i < ROW0_PROMPTS; ++i) {
-      const int q = blockIdx.y * ROW0_PROMPTS + i;
+      const int q = q0 + i;
       if (q >= a.P) break;
-      __syncthreads();          // the previous prompt is done with QH, E^T
+      __syncthreads();          // the previous prompt is done with QH, E^T, V
+      const size_t ir = image_row(a, q);
+      if (ir != tile_img) {
+        tile_img = ir;
+        load_kv(ir);
+      }
       load_qh(q);
       fence_async();
       __syncthreads();
@@ -1745,7 +1771,9 @@ __global__ void __launch_bounds__(ROW_THREADS, 3)
       pst[C + i] = wf(a, STAGE == 1 ? n4l0_w : n4_w)[i];
       pst[2 * C + i] = wf(a, STAGE == 1 ? n4l0_b : n4_b)[i];
     }
-    const bf16* src = STAGE == 1 ? a.keys0 : a.keys1 + (size_t)p * a.M * C;
+    const size_t ir = STAGE == 1 ? image_row(a, p) : 0;
+    const bf16* src = STAGE == 1 ? a.keys0 + ir * C
+                                 : a.keys1 + (size_t)p * a.M * C;
     uint32_t xa[C / 16][4];
 #pragma unroll
     for (int kk = 0; kk < C / 16; ++kk) {
@@ -1761,10 +1789,10 @@ __global__ void __launch_bounds__(ROW_THREADS, 3)
     if constexpr (STAGE == 1) {
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        qa[h][0] = ld32(a.q1i + r0 * CD + h * HD + 2 * t4);
-        qa[h][1] = ld32(a.q1i + r1 * CD + h * HD + 2 * t4);
-        qa[h][2] = ld32(a.q1i + r0 * CD + h * HD + 2 * t4 + 8);
-        qa[h][3] = ld32(a.q1i + r1 * CD + h * HD + 2 * t4 + 8);
+        qa[h][0] = ld32(a.q1i + (ir + r0) * CD + h * HD + 2 * t4);
+        qa[h][1] = ld32(a.q1i + (ir + r1) * CD + h * HD + 2 * t4);
+        qa[h][2] = ld32(a.q1i + (ir + r0) * CD + h * HD + 2 * t4 + 8);
+        qa[h][3] = ld32(a.q1i + (ir + r1) * CD + h * HD + 2 * t4 + 8);
       }
     } else {
       // q2i = keys1 @ wide2[q] + its PE-side term (staged in UT's space,
@@ -1911,10 +1939,11 @@ cudaError_t set_smem_attributes() {
 }  // namespace
 
 // params: host array of N_PARAMS device pointers in the order of enum Param.
-// All tensors contiguous; bf16 unless noted.  Scratch (allocated by the
-// caller): keys1 (P, M, 256), tok_state (2, P, 8, 256) f32, qh (P, 8, 128) f32,
-// ktok1/ktok2 (P, 8, 128), ut1/ut2 (P, 256, 64), part (P, 64, M/64, 20) f32,
-// att (P, 8, 128) f32.
+// All tensors contiguous; bf16 unless noted.  keys0 (B, M, 256), q1i/k1/v1
+// (B, M, 128); img (P,) int32 or null (then B must be 1).  Scratch
+// (allocated by the caller): keys1 (P, M, 256), tok_state (2, P, 8, 256)
+// f32, qh (P, 8, 128) f32, ktok1/ktok2 (P, 8, 128), ut1/ut2 (P, 256, 64),
+// part (P, 64, M/64, 20) f32, att (P, 8, 128) f32.
 // Requires M % 64 == 0, 1 <= T <= 8, mlp == 2048.  Launches on `stream` and
 // returns cudaGetLastError(), or -1 when the CUDA driver has no
 // cuTensorMapEncodeTiled, -2 when a weight's tensor map is refused.
@@ -1922,9 +1951,10 @@ extern "C" int twoway_tail_forward(
     const void* keys0, const void* q1i, const void* k1, const void* v1,
     const void* tokens, const void* const* params, void* keys2,
     void* keys1, void* tok_out, void* tok_state, void* qh, void* ktok1,
-    void* ut1, void* ktok2, void* ut2, void* part, void* att, int P, int T,
-    int M, int mlp, void* stream) {
-  if (P <= 0 || M <= 0 || M % TM || T < 1 || T > TP || mlp != MLP)
+    void* ut1, void* ktok2, void* ut2, void* part, void* att, const void* img,
+    int P, int T, int M, int B, int mlp, void* stream) {
+  if (P <= 0 || M <= 0 || M % TM || T < 1 || T > TP || mlp != MLP || B < 1 ||
+      (img == nullptr && B != 1))
     return (int)cudaErrorInvalidValue;
   if (encode_fn() == nullptr) return -1;
   static const cudaError_t attr = set_smem_attributes();
@@ -1939,6 +1969,7 @@ extern "C" int twoway_tail_forward(
   a.q1i = static_cast<const bf16*>(q1i);
   a.k1 = static_cast<const bf16*>(k1);
   a.v1 = static_cast<const bf16*>(v1);
+  a.img = static_cast<const int*>(img);
   a.tokens = static_cast<const bf16*>(tokens);
   a.keys1 = static_cast<bf16*>(keys1);
   a.keys2 = static_cast<bf16*>(keys2);
@@ -1955,6 +1986,7 @@ extern "C" int twoway_tail_forward(
   a.T = T;
   a.M = M;
   a.NT = M / TM;
+  a.B = B;
   for (int i = 0; i < N_PARAMS; ++i) a.w[i] = params[i];
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -31,11 +31,22 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d on NHWC tensors, casting the input to the weight dtype."""
+    """nn.Conv2d on NHWC tensors, casting the input to the weight dtype.
+
+    A batch goes through image by image: cuDNN picks a convolution's
+    algorithm by the batch size, and the one picked for a batch may round
+    an image otherwise than the one picked for it alone (SAM's 3x3 neck
+    convolution at batch 2 on the H100), so a batched encode would not give
+    each image the features of its single encode."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._conv_forward(x.to(self.weight.dtype).permute(0, 3, 1, 2),
-                               self.weight, self.bias)
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        if x.shape[0] > 1:
+            y = torch.cat([self._conv_forward(x[i:i + 1], self.weight,
+                                              self.bias)
+                           for i in range(x.shape[0])])
+        else:
+            y = self._conv_forward(x, self.weight, self.bias)
         return y.permute(0, 2, 3, 1).contiguous()
 
 

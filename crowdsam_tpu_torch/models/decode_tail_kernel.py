@@ -10,6 +10,13 @@ LayerNorm, from the per-image shared tensors of
 `fused_decode.precompute_decode_shared`.  Outputs the per-prompt image
 tensor keys2 (P, M, C) and the final tokens (P, T, C).
 
+Image axis: the image-side operands (keys0 and block 1's q1i/k1/v1) may
+hold B images, (B, M, C) and (B, M, 128), with an int32 image index per
+prompt, `img` (P,); each prompt then reads its own image's rows.  The
+(M, C) form is the case B = 1.  The PE-side parameters and the weights do
+not depend on the image and stay shared.  One call covers the prompts of
+every image: still ten kernel launches whatever B is.
+
 Numerics, the same in the kernel and the plain version: operands rounded to the
 working dtype (bf16 on the card), f32 accumulation, a rounding after each dense
 stage, f32 softmax and LayerNorm statistics (eps 1e-5), ReLU MLP; the softmax
@@ -34,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -216,13 +223,55 @@ def _image_update(st: _Stages, prev, q_img, tok, pe, pfx: str, npfx: str,
                           npfx))
 
 
+def _image_rows(keys0, q1i, k1, v1, img):
+    """The image-side operands as (B, M, .) and the per-prompt image
+    index (P,) int64 on their device (zeros when `img` is None, which
+    needs B = 1)."""
+    ops = [x if x.dim() == 3 else x[None] for x in (keys0, q1i, k1, v1)]
+    b = ops[0].shape[0]
+    if any(x.shape[0] != b for x in ops):
+        raise ValueError("twoway_tail: keys0, q1i, k1 and v1 must hold the "
+                         "same number of images")
+    if img is None and b != 1:
+        raise ValueError(f"twoway_tail: {b} images need an image index per "
+                         "prompt")
+    return ops, b
+
+
 def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
                       k1: torch.Tensor, v1: torch.Tensor,
                       tokens: torch.Tensor, params: Dict[str, torch.Tensor],
-                      num_heads: int = NUM_HEADS
+                      num_heads: int = NUM_HEADS,
+                      img: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `twoway_tail` (same contract), in f32 with the
-    kernel's rounding points; the working dtype is keys0's."""
+    kernel's rounding points; the working dtype is keys0's.  With B > 1
+    images, one single-image computation a present image over its prompts,
+    the results put back in prompt order."""
+    (keys0, q1i, k1, v1), b = _image_rows(keys0, q1i, k1, v1, img)
+    if b == 1:
+        return _tail_one(keys0[0], q1i[0], k1[0], v1[0], tokens, params,
+                         num_heads)
+    img = img.to(device=tokens.device, dtype=torch.int64)
+    if bool(((img < 0) | (img >= b)).any()):
+        raise ValueError(f"twoway_tail: image index outside 0..{b - 1}")
+    keys2 = torch.empty((tokens.shape[0],) + keys0.shape[1:],
+                        dtype=keys0.dtype, device=keys0.device)
+    tok = torch.empty(tokens.shape, dtype=keys0.dtype, device=keys0.device)
+    for i in range(b):
+        rows = torch.nonzero(img == i).flatten()
+        if rows.numel():
+            keys2[rows], tok[rows] = _tail_one(
+                keys0[i], q1i[i], k1[i], v1[i], tokens[rows], params,
+                num_heads)
+    return keys2, tok
+
+
+def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
+              v1: torch.Tensor, tokens: torch.Tensor,
+              params: Dict[str, torch.Tensor], num_heads: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version on one image's operands (M, .)."""
     dt = keys0.dtype
     H = num_heads
     st = _Stages(params, dt)
@@ -277,7 +326,7 @@ def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
 # CUDA launch
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = ((ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 4
+_ARGTYPES = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 5
              + (ctypes.c_void_p,))
 
 
@@ -287,29 +336,34 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
 
 def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
                 v1: torch.Tensor, tokens: torch.Tensor,
-                params: Dict[str, torch.Tensor], num_heads: int = NUM_HEADS
+                params: Dict[str, torch.Tensor], num_heads: int = NUM_HEADS,
+                img: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole two-way transformer for P prompts (K5).
 
-    keys0 (M, 256): image embedding + no-mask embedding; q1i, k1, v1
-    (M, 128): block 1's image-side projections, shared by the prompts;
-    tokens (P, T, 256): output + sparse tokens, both the initial queries
-    and the query PE; params: `build_tail_params`.  Returns (keys2
-    (P, M, 256), tokens (P, T, 256)) in the working dtype.
+    keys0 (M, 256) or (B, M, 256): image embedding + no-mask embedding;
+    q1i, k1, v1 (M, 128) or (B, M, 128): block 1's image-side projections,
+    shared by the prompts of an image; img (P,) int32: each prompt's image
+    (None for one image); tokens (P, T, 256): output + sparse tokens, both
+    the initial queries and the query PE; params: `build_tail_params`.
+    Returns (keys2 (P, M, 256), tokens (P, T, 256)) in the working dtype.
 
     CPU: the plain version.  CUDA: the kernel (bf16, M a multiple of 64,
-    2 <= T <= 8, 8 heads, MLP width 2048), or an error."""
+    2 <= T <= 8, 8 heads, MLP width 2048; an image index outside 0..B-1
+    is clamped there, since the kernel cannot raise), or an error."""
     _build.refuse_grad("twoway_tail", keys0, q1i, k1, v1, tokens, params)
     if keys0.device.type == "cpu":
         return twoway_tail_plain(keys0, q1i, k1, v1, tokens, params,
-                                 num_heads)
+                                 num_heads, img)
     if keys0.device.type != "cuda":
         raise ValueError(f"twoway_tail: unsupported device {keys0.device}")
     dev, bf = keys0.device, torch.bfloat16
-    if tokens.dim() != 3 or keys0.dim() != 2:
-        raise ValueError("twoway_tail: keys0 (M, C) and tokens (P, T, C)")
+    if tokens.dim() != 3 or keys0.dim() not in (2, 3):
+        raise ValueError("twoway_tail: keys0 (M, C) or (B, M, C) and tokens "
+                         "(P, T, C)")
+    (keys0, q1i, k1, v1), b = _image_rows(keys0, q1i, k1, v1, img)
     p, t, c = tokens.shape
-    m = keys0.shape[0]
+    m = keys0.shape[1]
     if (num_heads != NUM_HEADS or c != EMBED_DIM or m == 0 or m % ROW_TILE
             or not 2 <= t <= MAX_TOKENS or p == 0):
         raise ValueError(
@@ -318,10 +372,12 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
             f"{ROW_TILE}, 2..{MAX_TOKENS} tokens, width {EMBED_DIM}, "
             f"{NUM_HEADS} heads)")
     cd = INTERNAL_DIM
-    _check(keys0, "keys0", (m, c), bf, dev)
+    _check(keys0, "keys0", (b, m, c), bf, dev)
     for x, name in ((q1i, "q1i"), (k1, "k1"), (v1, "v1")):
-        _check(x, name, (m, cd), bf, dev)
+        _check(x, name, (b, m, cd), bf, dev)
     _check(tokens, "tokens", (p, t, c), bf, dev)
+    if img is not None:
+        _check(img, "img", (p,), torch.int32, dev)
     mlp = params["mlp1_w"].shape[0]
     if mlp != MLP_DIM or params["mlp1l0_w"].shape[0] != mlp:
         raise ValueError(f"twoway_tail: MLP width {mlp} (the kernel takes "
@@ -362,8 +418,8 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
                 keys1.data_ptr(), tok_out.data_ptr(), tok_state.data_ptr(),
                 qh.data_ptr(), ktok[0].data_ptr(), ut[0].data_ptr(),
                 ktok[1].data_ptr(), ut[1].data_ptr(), part.data_ptr(),
-                att.data_ptr(), p, t, m, mlp,
-                torch.cuda.current_stream(dev).cuda_stream)
+                att.data_ptr(), 0 if img is None else img.data_ptr(), p, t,
+                m, b, mlp, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "twoway_tail")
     twoway_tail.launches += 1
     return keys2, tok_out

@@ -26,6 +26,12 @@ wrappers launch the kernels on CUDA tensors and compute the plain versions
 on CPU tensors.  Without it the module-level body below runs: plain tensor
 code with every head's softmax taken on its own, the reference that the
 kernels' plain versions are held against.
+
+Several images at once (the batched pipeline): `precompute_decode_shared`
+over B > 1 image embeddings stacks the image-side tensors on a leading
+image axis and shares the PE-side ones; `fused_decode` then takes each
+prompt's image (`img`), and the DINO map one per group of prompts (the
+prompts of an image are contiguous, every image sending as many).
 """
 
 from __future__ import annotations
@@ -96,16 +102,21 @@ def precompute_decode_shared(decoder, no_mask_embed: torch.Tensor,
     """The per-image shared tensors of `fused_decode` (rewrites 1 and 3).
 
     decoder: the port's `MaskDecoder`; no_mask_embed (1, C); image_embeddings
-    (1, h, w, C) or (h, w, C); image_pe (h, w, C).  The working dtype is the
-    decoder's Linear weights'.  `kernel_route` adds the operands of K5 and
-    K6, so that `fused_decode` goes through their wrappers; by default it
-    follows the device: on for CUDA tensors, off on the CPU."""
+    (B, h, w, C) or (h, w, C); image_pe (h, w, C).  With B > 1 the
+    image-side tensors (`keys0`, the heads `k1h`, `v1h`, `q1ih` and the
+    kernel's flat operands) take a leading image axis; one image keeps the
+    unbatched form.  The working dtype is the decoder's Linear weights'.
+    `kernel_route` adds the operands of K5 and K6, so that `fused_decode`
+    goes through their wrappers; by default it follows the device: on for
+    CUDA tensors, off on the CPU."""
     t = decoder.transformer
     dtype = decoder.dino_proj.weight.dtype
-    emb = image_embeddings.reshape(image_embeddings.shape[-3:])
-    h, w, c = emb.shape
+    h, w, c = image_embeddings.shape[-3:]
+    emb = image_embeddings.reshape(-1, h, w, c)
+    if emb.shape[0] == 1:
+        emb = emb[0]
     keys0 = (emb.to(dtype) + no_mask_embed.reshape(1, 1, c).to(dtype))
-    keys0 = keys0.reshape(h * w, c)
+    keys0 = keys0.reshape(*emb.shape[:-3], h * w, c)
     pe = image_pe.reshape(h * w, c).to(dtype)
 
     l0t2i = t.layers[0].cross_attn_token_to_image
@@ -152,7 +163,8 @@ def fused_decode(decoder, shared: Dict,
                  sparse_prompt_embeddings: torch.Tensor,
                  multimask_output: bool,
                  dino_feats_proj: Optional[torch.Tensor] = None,
-                 num_heads: int = 8, packed_masks: bool = False
+                 num_heads: int = 8, packed_masks: bool = False,
+                 img: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (masks, iou_pred (P, K), cls (P, K, n_class)) in float32: the
     contract of `MaskDecoder.forward` for point prompts.
@@ -160,7 +172,12 @@ def fused_decode(decoder, shared: Dict,
     sparse_prompt_embeddings (P, N, C).  With `packed_masks` false the masks
     are spatial (P, K, 4h, 4w) and `dino_feats_proj` is (4h, 4w, C); with it
     true they are packed (P, K, h*w, 16) (`ops/packed.py`) and
-    `dino_feats_proj` is the packed-flat (h*w*16, C) DINO map."""
+    `dino_feats_proj` is the packed-flat (h*w*16, C) DINO map.
+
+    With a `shared` of B > 1 images, img (P,) int32 is each prompt's image
+    and `dino_feats_proj` has a leading axis of G maps, (G, 4h, 4w, C) or
+    (G, h*w*16, C): the prompts are G contiguous groups of P / G, and group
+    g's prompts meet map g."""
     t = decoder.transformer
     dtype = decoder.dino_proj.weight.dtype
     p_cnt = sparse_prompt_embeddings.shape[0]
@@ -172,25 +189,37 @@ def fused_decode(decoder, shared: Dict,
     queries = tokens
     query_pe = tokens       # the tokens are the initial queries and the PE
 
+    batched = shared["keys0"].dim() == 3
+    if batched and img is None:
+        raise ValueError("fused_decode: a shared of several images needs "
+                         "each prompt's image")
     if "tail" in shared:
         keys2, queries = twoway_tail(
             shared["keys0"], shared["q1i_flat"], shared["k1_flat"],
             shared["v1_flat"], tokens.contiguous(), shared["tail"],
-            num_heads=num_heads)
+            num_heads=num_heads, img=img if batched else None)
         return _decode_heads(decoder, shared, queries, keys2,
                              dino_feats_proj, multimask_output, packed_masks)
 
+    # The image-side heads of each prompt's image, (P, h, M, d).
+    if batched:
+        ii = img.long()
+        k1h, v1h, q1ih = (shared[n][ii] for n in ("k1h", "v1h", "q1ih"))
+        keys0 = shared["keys0"][ii]
+    else:
+        k1h, v1h, q1ih = shared["k1h"], shared["v1h"], shared["q1ih"]
+        keys0 = shared["keys0"][None]
     # ---- block 1 (no PE on the first self-attention, no residual)
     l0 = t.layers[0]
     queries = l0.norm1(_token_self_attn(l0.self_attn, queries, queries,
                                         num_heads))
     att = _cross_t2i(l0.cross_attn_token_to_image, queries + query_pe,
-                     shared["k1h"], shared["v1h"], num_heads)
+                     k1h, v1h, num_heads)
     queries = l0.norm2(queries + att)
     queries = l0.norm3(queries + l0.mlp(queries))
     keys1 = _image_to_token_update(
-        l0.cross_attn_image_to_token, shared["keys0"][None], shared["q1ih"],
-        queries, query_pe, num_heads)
+        l0.cross_attn_image_to_token, keys0, q1ih, queries, query_pe,
+        num_heads)
     keys1 = l0.norm4(keys1)
 
     # ---- block 2
@@ -229,7 +258,8 @@ def _pooled_from_exp(e: torch.Tensor, mx: torch.Tensor,
     """PWD pooling from the mask head's exp terms.
 
     e (P, K, M, 16) = exp(mask - c_j) for the row tile j of its row; mx
-    (P, nblk) f32 the tile maxes c_j; dino_flat (M*16, C) packed-flat.  The
+    (P, nblk) f32 the tile maxes c_j; dino_flat (M*16, C) packed-flat, or
+    (G, M*16, C): one map per group of P / G contiguous prompts.  The
     softmax weights are exp(v - max_j c_j) / sum: the tiles are combined
     with f32 rescales exp(c_j - max), for any number of tiles.  The
     denominator is guarded: a mask that trails its tile's max (taken over
@@ -238,12 +268,14 @@ def _pooled_from_exp(e: torch.Tensor, mx: torch.Tensor,
     nblk = mx.shape[1]
     x = (m // nblk) * 16                                  # elements per tile
     w = torch.exp(mx - mx.amax(dim=1, keepdim=True))      # (P, nblk) f32
-    dino = dino_flat.reshape(m * 16, -1).to(dtype)
-    ones = torch.ones((m * 16, 1), dtype=dtype, device=dino.device)
-    daug = torch.cat([dino, ones], dim=1).reshape(nblk, x, -1)
-    e_r = e.reshape(p_cnt * k, nblk, x).transpose(0, 1)   # (nblk, P K, x)
-    nd = torch.matmul(e_r, daug).float()                  # (nblk, P K, C+1)
-    nd = nd.reshape(nblk, p_cnt, k, -1)
+    g = dino_flat.shape[0] if dino_flat.dim() == 3 else 1
+    dino = dino_flat.reshape(g, m * 16, -1).to(dtype)
+    ones = torch.ones((g, m * 16, 1), dtype=dtype, device=dino.device)
+    daug = torch.cat([dino, ones], dim=2).reshape(g, nblk, x, -1)
+    # (G, nblk, P K / G, x) against each group's own map
+    e_r = e.reshape(g, p_cnt * k // g, nblk, x).transpose(1, 2)
+    nd = torch.matmul(e_r, daug).float()             # (G, nblk, P K/G, C+1)
+    nd = nd.transpose(0, 1).reshape(nblk, p_cnt, k, -1)
     nd = torch.einsum("jpkc,pj->pkc", nd, w)              # (P, K, C+1) f32
     num, den = nd[..., :-1], nd[..., -1:]
     return (num / den.clamp(min=1e-30)).to(dtype)
@@ -328,8 +360,11 @@ def _decode_heads(decoder, shared: Dict, queries: torch.Tensor,
         npix = 16 * h * w
         mflat = masks.reshape(p_cnt, k_tok, npix).float()
         e = torch.exp(mflat - mflat.amax(dim=-1, keepdim=True)).to(dtype)
-        dino_flat = dino_feats_proj.reshape(npix, -1).to(dtype)
-        num = (e @ dino_flat).float()
+        grouped = dino_feats_proj.dim() == (3 if packed_masks else 4)
+        g = dino_feats_proj.shape[0] if grouped else 1
+        dino_flat = dino_feats_proj.reshape(g, npix, -1).to(dtype)
+        num = (e.reshape(g, -1, npix) @ dino_flat).reshape(
+            p_cnt, k_tok, -1).float()
         den = e.float().sum(dim=-1, keepdim=True)
         pooled = (num / den).to(dtype)
         cls_scores = decoder.point_classifier(pooled)

@@ -69,10 +69,12 @@ class MaskDecoder(nn.Module):
                 multimask_output: bool,
                 dino_feats_proj: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """image_embeddings (1, h, w, C); image_pe (h, w, C); sparse (P, N,
-        C); dense (P, h, w, C); dino_feats_proj (4h, 4w, C).  Returns
-        (masks (P, K, 4h, 4w), iou_pred (P, K), cls_scores (P, K, n_class))
-        in float32, K = 4 with multimask_output else 1."""
+        """image_embeddings (1, h, w, C), or (P, h, w, C) one a prompt;
+        image_pe (h, w, C); sparse (P, N, C); dense (P, h, w, C);
+        dino_feats_proj (4h, 4w, C), or (G, 4h, 4w, C) one a group of P / G
+        contiguous prompts.  Returns (masks (P, K, 4h, 4w), iou_pred (P, K),
+        cls_scores (P, K, n_class)) in float32, K = 4 with multimask_output
+        else 1."""
         p = sparse_prompt_embeddings.shape[0]
         d = self.transformer_dim
         dtype = self.dino_proj.weight.dtype
@@ -107,8 +109,10 @@ class MaskDecoder(nn.Module):
         else:
             weight = torch.softmax(masks.reshape(p, k_tok, hh * ww).float(),
                                    dim=-1)
-            pooled = weight.to(dtype) @ dino_feats_proj.reshape(
-                hh * ww, -1).to(dtype)
+            g = dino_feats_proj.shape[0] if dino_feats_proj.dim() == 4 else 1
+            pooled = (weight.to(dtype).reshape(g, -1, hh * ww)
+                      @ dino_feats_proj.reshape(g, hh * ww, -1).to(dtype)
+                      ).reshape(p, k_tok, -1)
             cls_scores = self.point_classifier(pooled)
         fused = torch.cat([iou_token_out[:, None, :].expand(p, k_tok, d),
                            mask_tokens_out], dim=-1)

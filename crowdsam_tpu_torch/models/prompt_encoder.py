@@ -69,9 +69,16 @@ class PromptEncoder(nn.Module):
         return self.pe_layer.encode(torch.stack([gx, gy], dim=-1))
 
     def _frame(self) -> torch.Tensor:
-        return torch.tensor([self.input_image_size[1],
-                             self.input_image_size[0]],
-                            dtype=torch.float32, device=self._device())
+        """(w, h) of the input frame on the module's device, made once a
+        device: a copy to the card on every prompt batch would be a host
+        sync in the decode loop."""
+        dev = self._device()
+        cache = self.__dict__.setdefault("_frames", {})
+        if dev not in cache:
+            cache[dev] = torch.tensor([self.input_image_size[1],
+                                       self.input_image_size[0]],
+                                      dtype=torch.float32, device=dev)
+        return cache[dev]
 
     def _embed_points(self, points: torch.Tensor, labels: torch.Tensor,
                       pad: bool) -> torch.Tensor:

@@ -49,10 +49,13 @@ def box_xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
 def is_box_near_crop_edge(boxes: torch.Tensor, crop_box: Sequence,
                           orig_box: Sequence, downscale=1.0,
                           atol: float = 20.0) -> torch.Tensor:
-    """Near a crop edge but not near the image edge, after uncropping."""
+    """Near a crop edge but not near the image edge, after uncropping.
+    boxes (..., 4); crop_box and orig_box (4,), or tensors that broadcast
+    against boxes (one crop a leading index); downscale likewise."""
     crop = _as_f32(crop_box, boxes.device)
     orig = _as_f32(orig_box, boxes.device)
-    b = uncrop_boxes_xyxy(boxes.float(), crop, downscale)
-    near_crop = torch.abs(b - crop[None, :]) <= atol
-    near_image = torch.abs(b - orig[None, :]) <= atol
-    return torch.any(near_crop & ~near_image, dim=1)
+    offset = crop[..., :2].repeat(*([1] * (crop.dim() - 1)), 2)
+    b = boxes.float() / downscale + offset
+    near_crop = torch.abs(b - crop) <= atol
+    near_image = torch.abs(b - orig) <= atol
+    return torch.any(near_crop & ~near_image, dim=-1)

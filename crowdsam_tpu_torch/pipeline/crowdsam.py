@@ -411,11 +411,8 @@ class CrowdSAM:
 
     def _finalize_crop(self, res, meta) -> Optional[MaskData]:
         """Host tail of one crop: the survivor pass over the kept slab rows,
-        then boxes (full-res for nonempty masks with `output_rles`) and the
-        RLE strings, from the engine's result `res` and the crop's `meta`."""
-        cfg = self.engine_cfg
-        crop_box, downscale = meta["crop_box"], meta["downscale"]
-        in_h, in_w = meta["in_hw"]
+        then `_crop_data`, from the engine's result `res` and the crop's
+        `meta`."""
         summary = res["summary"].cpu().numpy()
         idx = np.nonzero(summary[:, 0] > 0.5)[0]
         if len(idx) == 0:
@@ -423,11 +420,25 @@ class CrowdSAM:
         dev = res["logits"].device
         logits = res["logits"][torch.as_tensor(idx, device=dev)]
         if self.output_rles:
-            sp = survivor_core(cfg, logits, torch.tensor(
-                [in_h, in_w], dtype=torch.int32, device=dev), with_masks=True)
+            sp = survivor_core(self.engine_cfg, logits, torch.tensor(
+                meta["in_hw"], dtype=torch.int32, device=dev),
+                with_masks=True)
             sp_summary = sp["summary"].cpu().numpy()
         else:
-            sp_summary = survivor_core(cfg, logits).cpu().numpy()
+            sp = None
+            sp_summary = survivor_core(self.engine_cfg, logits).cpu().numpy()
+        return self._crop_data(summary, idx, sp, sp_summary, meta)
+
+    def _crop_data(self, summary: np.ndarray, idx: np.ndarray, sp,
+                   sp_summary: np.ndarray, meta) -> Optional[MaskData]:
+        """The crop's detections from the engine's summary, its kept rows
+        `idx` and the survivor pass over them (`sp`, its outputs with
+        masks, else None; `sp_summary` its summary on the host): boxes
+        (full-res for nonempty masks with `output_rles`) and the RLE
+        strings."""
+        cfg = self.engine_cfg
+        crop_box, downscale = meta["crop_box"], meta["downscale"]
+        in_h, in_w = meta["in_hw"]
         sel = np.nonzero(sp_summary[:, 0] > 0.5)[0]
         if len(sel) == 0:
             return None

@@ -46,6 +46,13 @@ plain `MaskDecoder` decodes each batch into spatial masks.  The HQ decoder
   launched: the upsample, the cleanup, the boxes, the re-NMS on full-res
   boxes, the packed bitmap and the change rows are PyTorch ops, as the JAX
   package's XLA chain is there.
+
+Batched (`run_eps_engine_batch`, `survivor_core_batch`; the JAX package's
+`jax.vmap` of the engine and `make_survivor_pass_batched`): B images run
+one lockstep loop, each with its own candidate order, alive set,
+occupancy, consumed count and slab, one host sync an iteration, and the
+prompts of every running image in one decode; then one survivor pass over
+the flattened survivors.  The single-image functions are these with B = 1.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from crowdsam_tpu_torch.models.fused_decode import (
@@ -143,7 +151,7 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
                    input_hw: Sequence[float], crop_box: Sequence[float],
                    orig_hw: Sequence[float], downscale: float,
                    noise: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One image's decode.
+    """One image's decode: `run_eps_engine_batch` with B = 1.
 
     features (1, g, g, 256); dense_pe (g, g, 256); dino_feats_proj (R, R, C)
     (for the HQ decoder, {hq_features, dino_raw}: `decode_extras`);
@@ -154,43 +162,114 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
 
     Returns the top `max_keep` slab rows: logits (M, R, R) bf16, summary
     (M, 12) [valid, iou, score, category, stability, consumed, box(4),
-    point(2)], and `pre_nms` {iou, valid, boxes} of the whole slab."""
+    point(2)], `num_consumed`, `pre_nms` {iou, valid, boxes} of the whole
+    slab and `loop` {iterations, syncs}."""
+    extras = (dino_feats_proj if isinstance(dino_feats_proj, dict)
+              else dino_feats_proj[None])
+    return run_eps_engine_batch(
+        sam, cfg, features, dense_pe, extras, sim_map[None], [feat_hw],
+        [input_hw], [crop_box], [orig_hw], [downscale], noise[None])[0]
+
+
+@torch.no_grad()
+def run_eps_engine_batch(sam, cfg: EngineConfig, features: torch.Tensor,
+                         dense_pe: torch.Tensor, decode_extras,
+                         sim_map: torch.Tensor, feat_hw, input_hw, crop_box,
+                         orig_hw, downscale, noise: torch.Tensor) -> list:
+    """B images' decode in lockstep (the JAX package's `jax.vmap` of the
+    engine): one list entry a image, each what `run_eps_engine` returns.
+
+    features (B, g, g, 256); dense_pe (g, g, 256); decode_extras (B, R, R,
+    C) (the HQ decoder: B = 1 and its dict); sim_map (B, G, G); feat_hw,
+    input_hw, orig_hw (B, 2), crop_box (B, 4), downscale (B,) (sequences or
+    tensors); noise (B, G*G).
+
+    Every image keeps its own candidate order, alive set, occupancy,
+    consumed count and slab.  Each iteration reads on the host which images
+    still run (`it < max_iters`, consumed < max_prompts and a candidate
+    alive): that one host sync a lockstep iteration is the loop's only one,
+    so a batch of any B takes one a lockstep iteration, and one more that
+    finds no image running unless the loop stops at max_iters.  The
+    running images each send their next K alive candidates, chosen on the
+    device by a rank of the running sum of `alive`; their B' x K prompts go
+    through one decode (with `fused_decode` one K5 and one K6 call); an
+    image that stopped sends nothing and keeps its state.  Then the slab
+    NMS and the top `max_keep` a image."""
+    st = _eps_loop(sam, cfg, features, dense_pe, decode_extras, sim_map,
+                   feat_hw, input_hw, crop_box, orig_hw, downscale, noise)
+    consumed = st.pop("consumed").tolist()
+    loop = {"iterations": st.pop("iterations"), "syncs": st.pop("syncs")}
+    packed = cfg.fused_decode and not isinstance(sam.mask_decoder,
+                                                 MaskDecoderHQ)
+    out = []
+    for b in range(features.shape[0]):
+        res = _eps_finish(cfg, {k: v[b] for k, v in st.items()},
+                          sim_map[b], consumed[b], packed)
+        res["loop"] = loop
+        out.append(res)
+    return out
+
+
+def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A CPU tensor on `dev`; to the card from pinned memory without
+    waiting (a plain copy to the card synchronizes the host with it)."""
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
+              sim_map, feat_hw, input_hw, crop_box, orig_hw, downscale,
+              noise) -> Dict[str, torch.Tensor]:
+    """The lockstep while-loop of `run_eps_engine_batch`: the slabs (B,
+    SLAB, ...), the consumed counts (B,) and the loop's counts."""
     dev = features.device
+    n_img = features.shape[0]
     G, K, R = cfg.grid_size, cfg.points_per_batch, cfg.low_res
     N, SLAB = G * G, cfg.slab
     pe, dec = sam.prompt_encoder, sam.mask_decoder
     is_hq = isinstance(dec, MaskDecoderHQ)
     fused = cfg.fused_decode and not is_hq
+    one = n_img == 1              # one image: the unbatched decode operands
+    if is_hq and not one:
+        raise NotImplementedError(
+            "the HQ decoder decodes one image at a time (the JAX package's "
+            "batched path fails on it too)")
     BH = R // 4                   # packed base grid (the feature grid)
     if fused:
         dec_shared = precompute_decode_shared(
             dec, pe.no_mask_embed.weight, features, dense_pe)
-        # (R*R, C) packed-flat DINO map
-        dino_packed = pack_spatial(dino_feats_proj.movedim(-1, 0)).reshape(
-            dino_feats_proj.shape[-1], -1).T.contiguous()
+        # (B, R*R, C) packed-flat DINO maps
+        dino_packed = torch.stack([
+            pack_spatial(d.movedim(-1, 0)).reshape(d.shape[-1], -1).T
+            for d in decode_extras]).contiguous()
         xmap, ymap = packed_coord_maps(BH, BH, device=dev)
 
-    def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+    # The per-image bookkeeping and the noise reach the device in copies
+    # that do not wait for it (no host sync before the loop).
+    host = np.concatenate([
+        np.asarray(v, np.float32).reshape(n_img, -1) for v in (
+            feat_hw, input_hw, crop_box, orig_hw, downscale,
+            [cfg.img_size] * n_img)], axis=1)
+    book = _to_device(torch.from_numpy(host), dev)
+    feat_h, feat_w, in_h, in_w = (book[:, i:i + 1] for i in range(4))
+    crop = book[:, 4:8]
+    zero = torch.zeros_like(book[:, 0])
+    orig_box = torch.stack([zero, zero, book[:, 9], book[:, 8]], dim=1)
+    down, img_size = book[:, 10], book[:, 11:12]
 
-    feat_h, feat_w = f32(feat_hw[0]), f32(feat_hw[1])
-    in_h, in_w = f32(input_hw[0]), f32(input_hw[1])
-    crop = f32(crop_box)
-    orig_box = f32([0, 0, orig_hw[1], orig_hw[0]])
-    down = f32(downscale)
-
-    # ---- candidates in noise order
+    # ---- candidates in noise order, one row a image
     rows = torch.arange(G, device=dev).repeat_interleave(G)
     cols = torch.arange(G, device=dev).repeat(G)
-    valid_cell = (rows < feat_h) & (cols < feat_w)
-    cand = (sim_map.reshape(-1) > cfg.pos_sim_thresh) & valid_cell
-    key = torch.where(cand, noise.to(device=dev, dtype=torch.float32),
-                      f32(2.0))
-    order = torch.argsort(key, stable=True)
-    rows, cols, alive = rows[order], cols[order], cand[order].clone()
+    valid_cell = (rows < feat_h) & (cols < feat_w)     # (B, N)
+    cand = (sim_map.reshape(n_img, N) > cfg.pos_sim_thresh) & valid_cell
+    noise = _to_device(noise.to(torch.float32), dev).reshape(n_img, N)
+    key = torch.where(cand, noise, 2.0)
+    order = torch.argsort(key, dim=1, stable=True)
+    rows, cols, alive = rows[order], cols[order], cand.gather(1, order)
     px = torch.floor(cols.float() * (in_w / feat_w)).to(torch.int64)
     py = torch.floor(rows.float() * (in_h / feat_h)).to(torch.int64)
-    pts = torch.stack([px, py], dim=-1)
+    pts = torch.stack([px, py], dim=-1)                 # (B, N, 2)
     lr_scale = R / cfg.img_size
     occ_py = (py.float() * lr_scale).to(torch.int64).clamp(0, R - 1)
     occ_px = (px.float() * lr_scale).to(torch.int64).clamp(0, R - 1)
@@ -199,57 +278,96 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     else:
         occ_idx = occ_py * R + occ_px
     # ResizeLongestSide.apply_coords into the prompt frame.
-    scale = f32(cfg.img_size) / torch.maximum(in_h, in_w)
-    coord_factor = torch.stack([torch.floor(in_w * scale + 0.5) / in_w,
-                                torch.floor(in_h * scale + 0.5) / in_h])
+    scale = img_size / torch.maximum(in_h, in_w)
+    coord_factor = torch.cat([torch.floor(in_w * scale + 0.5) / in_w,
+                              torch.floor(in_h * scale + 0.5) / in_h], dim=1)
 
-    # ---- slab
-    slab_logits = torch.zeros((SLAB, BH * BH, 16) if fused else (SLAB, R, R),
-                              dtype=torch.bfloat16, device=dev)
-    slab_iou = torch.full((SLAB,), float("-inf"), device=dev)
-    slab_cat = torch.zeros((SLAB,), dtype=torch.int64, device=dev)
-    slab_stab = torch.zeros((SLAB,), device=dev)
-    slab_boxes = torch.zeros((SLAB, 4), device=dev)
-    slab_points = torch.zeros((SLAB, 2), device=dev)
-    slab_valid = torch.zeros((SLAB,), dtype=torch.bool, device=dev)
-    ar = torch.arange(K, device=dev)
-    labels = torch.ones((K, 1), dtype=torch.int64, device=dev)
-    occupy = torch.zeros((R * R,), dtype=torch.bool, device=dev)
+    # ---- slabs
+    mshape = (BH * BH, 16) if fused else (R, R)
+    slab_logits = torch.zeros((n_img, SLAB) + mshape, dtype=torch.bfloat16,
+                              device=dev)
+    slab_iou = torch.full((n_img, SLAB), float("-inf"), device=dev)
+    slab_cat = torch.zeros((n_img, SLAB), dtype=torch.int64, device=dev)
+    slab_stab = torch.zeros((n_img, SLAB), device=dev)
+    slab_boxes = torch.zeros((n_img, SLAB, 4), device=dev)
+    slab_points = torch.zeros((n_img, SLAB, 2), device=dev)
+    slab_valid = torch.zeros((n_img, SLAB), dtype=torch.bool, device=dev)
+    ar = torch.arange(n_img * K, device=dev)
+    labels = torch.ones((n_img * K, 1), dtype=torch.int64, device=dev)
+    occupy = torch.zeros((n_img, R * R), dtype=torch.bool, device=dev)
+    consumed = torch.zeros((n_img,), dtype=torch.int64, device=dev)
+    all_imgs = torch.arange(n_img, device=dev)
+    cand_idx = torch.arange(N, device=dev)
 
-    it = consumed = 0
-    while it < cfg.max_iters and consumed < cfg.max_prompts and bool(
-            alive.any()):
-        idx = torch.nonzero(alive).flatten()[:K]
-        sel = torch.full((K,), N, dtype=torch.int64, device=dev)
-        sel[: idx.shape[0]] = idx
-        alive[idx] = False
-        consumed += int(idx.shape[0])
-        sel_ok = sel < N
-        coords = pts[sel.clamp(max=N - 1)].float()
+    it = syncs = 0
+    while it < cfg.max_iters:
+        # The loop's one host sync: which images still run.
+        running = ((consumed < cfg.max_prompts) & alive.any(dim=1)).cpu()
+        syncs += 1
+        act = torch.nonzero(running).flatten()
+        n_act = int(act.shape[0])
+        if n_act == 0:
+            break
+        if n_act == n_img:
+            ia, act_d = slice(None), all_imgs
+        else:
+            ia = act_d = _to_device(act, dev)
+        p_cnt = n_act * K
+        # Each running image's next K alive candidates (N pads a short
+        # batch), by the rank of each candidate among the alive ones.
+        al = alive[ia]
+        rank = torch.cumsum(al, dim=1) - 1
+        take = al & (rank < K)
+        sel = torch.full((n_act, K + 1), N, dtype=torch.int64, device=dev)
+        sel.scatter_(1, torch.where(take, rank, K),
+                     cand_idx.expand(n_act, N))
+        sel = sel[:, :K]
+        al = al & ~take
+        consumed[ia] = consumed[ia] + take.sum(dim=1)
+        sel_ok = (sel < N).reshape(p_cnt)
+        coords = pts[ia].gather(
+            1, sel.clamp(max=N - 1)[..., None].expand(n_act, K, 2)).float()
 
-        sparse, dense = pe(points=((coords * coord_factor)[:, None, :],
-                                   labels))
-        if fused:                 # masks (K, 4, BH*BH, 16) packed
-            masks, iou_pred, cls_scores = fused_decode(
-                dec, dec_shared, sparse, True, dino_feats_proj=dino_packed,
-                packed_masks=True)
+        sparse, dense = pe(points=(
+            (coords * coord_factor[ia][:, None, :]).reshape(p_cnt, 1, 2),
+            labels[:p_cnt]))
+        if fused:                 # masks (P, 4, BH*BH, 16) packed
+            if one:
+                masks, iou_pred, cls_scores = fused_decode(
+                    dec, dec_shared, sparse, True,
+                    dino_feats_proj=dino_packed[0], packed_masks=True)
+            else:
+                img = act_d.to(torch.int32)[:, None].expand(
+                    n_act, K).reshape(p_cnt)
+                masks, iou_pred, cls_scores = fused_decode(
+                    dec, dec_shared, sparse, True,
+                    dino_feats_proj=dino_packed[ia], packed_masks=True,
+                    img=img)
         elif is_hq:               # masks (K, 3, R, R): SAM masks 1-3
             masks, iou_pred, cls_scores = dec(
                 features, dense_pe, sparse, dense, True,
-                hq_features=dino_feats_proj["hq_features"],
-                dino_feats_256=dino_feats_proj["dino_raw"])
-        else:                     # masks (K, 4, R, R)
+                hq_features=decode_extras["hq_features"],
+                dino_feats_256=decode_extras["dino_raw"])
+        elif one:                 # masks (K, 4, R, R)
             masks, iou_pred, cls_scores = dec(
                 features, dense_pe, sparse, dense, True,
-                dino_feats_proj=dino_feats_proj)
+                dino_feats_proj=decode_extras[0])
+        else:                     # each prompt with its image's features
+            feats = features[ia][:, None].expand(
+                n_act, K, *features.shape[1:]).reshape(
+                    p_cnt, *features.shape[1:])
+            masks, iou_pred, cls_scores = dec(
+                feats, dense_pe, sparse, dense, True,
+                dino_feats_proj=decode_extras[ia])
         iou_fused = (iou_pred.clamp(min=0.0)
                      * torch.sigmoid(cls_scores.max(dim=-1).values))
         categories = cls_scores.argmax(dim=-1)
         ind = select_mask(cfg, masks, iou_fused)
-        m_sel, iou_sel = masks[ar, ind], iou_fused[ar, ind]
-        cat_sel = categories[ar, ind]
+        pa = ar[:p_cnt]
+        m_sel, iou_sel = masks[pa, ind], iou_fused[pa, ind]
+        cat_sel = categories[pa, ind]
 
-        keep = sel_ok.clone()
+        keep = sel_ok
         if cfg.pred_iou_thresh > 0.0:
             keep &= iou_sel > cfg.pred_iou_thresh
         stab = calculate_stability_score(m_sel, cfg.mask_threshold,
@@ -261,32 +379,51 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
             boxes_lr = packed_mask_to_box(binm, xmap, ymap, BH, BH).float()
         else:
             boxes_lr = batched_mask_to_box(binm).float()
-        keep &= ~is_box_near_crop_edge(boxes_lr * (cfg.img_size / R), crop,
-                                       orig_box, down)
+        keep &= ~is_box_near_crop_edge(
+            (boxes_lr * (cfg.img_size / R)).reshape(n_act, K, 4),
+            crop[ia][:, None], orig_box[ia][:, None],
+            down[ia][:, None, None]).reshape(p_cnt)
 
         hot = binm & (keep & (iou_sel > cfg.filter_thresh))[:, None, None]
-        occ_new = hot.any(dim=0).reshape(-1)
+        occ_new = hot.reshape(n_act, K, -1).any(dim=1)
         # Overwritten each batch (the reference quirk) unless accumulated.
-        occupy = (occupy | occ_new) if cfg.accumulate_occupy else occ_new
-        alive &= ~occupy[occ_idx]
+        occ = (occupy[ia] | occ_new) if cfg.accumulate_occupy else occ_new
+        occupy[ia] = occ
+        alive[ia] = al & ~occ.gather(1, occ_idx[ia])
 
         rs = slice(it * K, (it + 1) * K)
-        slab_logits[rs] = m_sel.to(torch.bfloat16)
-        slab_iou[rs] = torch.where(keep, iou_sel, f32(float("-inf")))
-        slab_cat[rs] = cat_sel
-        slab_stab[rs] = stab
-        slab_boxes[rs] = boxes_lr
-        slab_points[rs] = coords
-        slab_valid[rs] = keep
+        slab_logits[ia, rs] = m_sel.to(torch.bfloat16).reshape(
+            n_act, K, *mshape)
+        slab_iou[ia, rs] = torch.where(keep, iou_sel,
+                                       float("-inf")).reshape(n_act, K)
+        slab_cat[ia, rs] = cat_sel.reshape(n_act, K)
+        slab_stab[ia, rs] = stab.reshape(n_act, K)
+        slab_boxes[ia, rs] = boxes_lr.reshape(n_act, K, 4)
+        slab_points[ia, rs] = coords
+        slab_valid[ia, rs] = keep.reshape(n_act, K)
         it += 1
+    return {"logits": slab_logits, "iou": slab_iou, "cat": slab_cat,
+            "stab": slab_stab, "boxes": slab_boxes, "points": slab_points,
+            "valid": slab_valid, "consumed": consumed, "iterations": it,
+            "syncs": syncs}
 
-    # ---- NMS over the slab, top max_keep by score
+
+def _eps_finish(cfg: EngineConfig, slab: Dict[str, torch.Tensor],
+                sim_map: torch.Tensor, consumed: int, packed: bool) -> Dict:
+    """One image's slab NMS, top `max_keep` rows by score (stable sort) and
+    per-detection summary (`run_eps_engine`'s result); `packed`: the slab
+    logits are packed (the fused decode)."""
+    dev = slab["iou"].device
+    R = cfg.low_res
+    slab_iou, slab_valid, slab_boxes = slab["iou"], slab["valid"], \
+        slab["boxes"]
     keep_nms = nms_mask(slab_boxes, slab_iou, cfg.box_nms_thresh, slab_valid)
-    score_key = torch.where(keep_nms, slab_iou, f32(float("-inf")))
+    score_key = torch.where(keep_nms, slab_iou,
+                            torch.tensor(float("-inf"), device=dev))
     top = torch.argsort(-score_key, stable=True)[: cfg.max_keep]
-    logits = slab_logits[top]
-    if fused:
-        logits = unpack_spatial(logits, BH, BH)
+    logits = slab["logits"][top]
+    if packed:
+        logits = unpack_spatial(logits, R // 4, R // 4)
     iou, valid = slab_iou[top], keep_nms[top]
     m = top.shape[0]
     if cfg.fuse_simmap:
@@ -295,16 +432,16 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
         msum = masks.sum(dim=(1, 2))
         mean_sim = torch.where(
             msum > 0, (masks * sim_lr).sum(dim=(1, 2)) / msum.clamp(min=1),
-            f32(0.0))
+            torch.tensor(0.0, device=dev))
         scores = (iou.clamp(min=0.0).sqrt()
                   * (mean_sim + 0.5).clamp(0.0, 1.0).sqrt())
     else:
         scores = iou
     summary = torch.cat([
         valid[:, None].float(), iou[:, None], scores[:, None],
-        slab_cat[top][:, None].float(), slab_stab[top][:, None],
+        slab["cat"][top][:, None].float(), slab["stab"][top][:, None],
         torch.full((m, 1), float(consumed), device=dev),
-        slab_boxes[top], slab_points[top],
+        slab["boxes"][top], slab["points"][top],
     ], dim=1)
     return {
         "logits": logits,
@@ -318,7 +455,8 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
 @torch.no_grad()
 def survivor_core(cfg: EngineConfig, logits: torch.Tensor, in_hw=None,
                   with_masks: bool = False):
-    """Survivor pass over (k, R, R) survivor logits.
+    """Survivor pass over (k, R, R) survivor logits (`survivor_core_batch`
+    with one image).
 
     Box only (`with_masks` false): (k, 6) [keep, changed, low-res box(4)],
     the first columns of the JAX survivor summary.  With `with_masks` and
@@ -329,40 +467,80 @@ def survivor_core(cfg: EngineConfig, logits: torch.Tensor, in_hw=None,
     more change rows than `cand` keeps, so the RLE needs `packed`.  With
     `fullres_cleanup` and a positive area, the same outputs from the
     full-resolution cleanup (`_fullres_survivors`)."""
-    k = logits.shape[0]
+    hw = None if in_hw is None else torch.as_tensor(
+        in_hw, dtype=torch.int32, device=logits.device)[None]
+    return survivor_core_batch(cfg, logits[None], [logits.shape[0]], hw,
+                               with_masks)[0]
+
+
+@torch.no_grad()
+def survivor_core_batch(cfg: EngineConfig, logits: torch.Tensor,
+                        ns: Sequence[int], in_hws=None,
+                        with_masks: bool = False) -> list:
+    """The survivor pass of B images at once (the JAX package's
+    `make_survivor_pass_batched`): logits (B, k, R, R), of which image b's
+    first ns[b] rows are its survivors; in_hws (B, 2) int32.
+
+    The rows are flattened to (B k, R, R): the small-region cleanup runs
+    once over all of them, the re-NMS per image over its valid rows, and
+    with masks one K7 call covers every mask with its own image's in_hw
+    (the edits of padding rows are -1: empty masks).  With
+    `fullres_cleanup` (masks and a positive area) each image's rows go
+    through `_fullres_survivors` instead, without K7.
+
+    Returns one entry a image: `survivor_core`'s result over its ns[b]
+    rows, or None for an image without survivors."""
+    n_img, k = logits.shape[:2]
     dev = logits.device
     thresh = max(cfg.box_nms_thresh, cfg.crop_nms_thresh)
     if with_masks and cfg.fullres_cleanup and cfg.min_mask_region_area > 0:
-        return _fullres_survivors(cfg, logits, in_hw, thresh)
-    binm = logits.float() > cfg.mask_threshold
-    valid = torch.ones((k,), dtype=torch.bool, device=dev)
+        return [_fullres_survivors(cfg, logits[b, :n], in_hws[b], thresh)
+                if n else None for b, n in enumerate(ns)]
+    flat = logits.reshape(n_img * k, *logits.shape[2:])
+    valid_b = torch.arange(k, device=dev)[None, :] < torch.as_tensor(
+        list(ns), device=dev)[:, None]
+    valid = valid_b.reshape(-1)
+    binm = (flat.float() > cfg.mask_threshold) & valid[:, None, None]
     if cfg.min_mask_region_area > 0:
         area = cfg.min_mask_region_area * (cfg.low_res / cfg.img_size) ** 2
         m1, ch1 = remove_small_regions(binm, area, "holes", cfg.cc_max_iters)
         m2, ch2 = remove_small_regions(m1, area, "islands", cfg.cc_max_iters)
         unchanged = ~(ch1 | ch2)
         new_boxes = batched_mask_to_box(m2).float()
-        keep = nms_mask(new_boxes, unchanged.float(), thresh, valid)
-        changed = ~unchanged
+        keep = torch.cat([
+            nms_mask(new_boxes[b * k:(b + 1) * k],
+                     unchanged[b * k:(b + 1) * k].float(), thresh, valid_b[b])
+            for b in range(n_img)])
+        changed = ~unchanged & valid
     else:
         m2 = binm
         new_boxes = batched_mask_to_box(binm).float()
         keep = valid
-        changed = torch.zeros((k,), dtype=torch.bool, device=dev)
+        changed = torch.zeros((n_img * k,), dtype=torch.bool, device=dev)
     head = torch.cat([keep[:, None].float(), changed[:, None].float(),
                       new_boxes], dim=1)
     if not with_masks:
-        return head
-    # The cleanup as low-res edits: +1 where it filled a hole, -1 where it
-    # removed an island.
-    edit = (~binm & m2).to(torch.int8) - (binm & ~m2).to(torch.int8)
-    out = survivor_rle(logits, edit, in_hw, thresh=cfg.mask_threshold)
-    ksum = out.pop("summary")
-    out["summary"] = torch.cat([
-        head, ksum[:, :4].float(), ksum[:, 5:6].float(),
-        ksum[:, 4:5].float()], dim=1)
-    out["overflow"] = ksum[:, 6] > 0
-    return out
+        out = head
+    else:
+        # The cleanup as low-res edits: +1 where it filled a hole, -1 where
+        # it removed an island; -1 everywhere on a padding row.
+        edit = (~binm & m2).to(torch.int8) - (binm & ~m2).to(torch.int8)
+        edit = torch.where(valid[:, None, None], edit,
+                           torch.tensor(-1, dtype=torch.int8, device=dev))
+        hw = torch.as_tensor(in_hws, dtype=torch.int32, device=dev)[
+            :, None].expand(n_img, k, 2).reshape(n_img * k, 2).contiguous()
+        out = survivor_rle(flat, edit, hw, thresh=cfg.mask_threshold)
+        ksum = out.pop("summary")
+        out["summary"] = torch.cat([
+            head, ksum[:, :4].float(), ksum[:, 5:6].float(),
+            ksum[:, 4:5].float()], dim=1)
+        out["overflow"] = ksum[:, 6] > 0
+
+    def rows(b):
+        r = slice(b * k, b * k + ns[b])
+        return out[r] if not with_masks else {n: v[r] for n, v in out.items()}
+
+    return [rows(b) if n else None for b, n in enumerate(ns)]
 
 
 def _fullres_survivors(cfg: EngineConfig, logits: torch.Tensor, in_hw,

@@ -22,6 +22,12 @@ refuses it with a warning and encodes square, as the JAX package does.
 `trainfree_sim` is the train-free branch's foreground map: DINOv2 on the
 frame stretched to its square input and ImageNet-normalized, the cosine of
 its patch tokens against a reference feature.
+
+`encode_batch` is the batched pipeline's encode (the JAX package's
+`parallel/eval_shard.encode_b`): B square frames, each masked by its valid
+size, through SAM and DINOv2 at once, then each image's DINO projection at
+256^2 and its foreground logits.  It always encodes the square frame, as
+the JAX batched path does, whatever `rect_encode` says.
 """
 
 from __future__ import annotations
@@ -163,6 +169,42 @@ class SamPredictor:
                     torch.bfloat16)
         return out
 
+    @torch.no_grad()
+    def encode_batch(self, frames: torch.Tensor, input_hw) -> dict:
+        """frames (B, S, S, 3) pixels in the square SAM frame, input_hw (B,
+        2) each image's valid size.  Returns features (B, g, g, 256),
+        dense_pe (g, g, 256), dino_feats (B, 73, 73, C), dino_proj_256 (B,
+        256, 256, 256) bf16 and fg_logits (B, n_class, 256, 256): per image
+        what `encode` and `predict_fg_map` give for it.  Not for the HQ
+        decoder (the JAX batched path fails on it too)."""
+        if self.is_hq or self.dino_model is None:
+            raise NotImplementedError(
+                "encode_batch: the crowdsam, sam and mobile_sam archs only")
+        s = self.model.img_size
+        n = frames.shape[0]
+        mean = torch.tensor(PIXEL_MEAN, device=self.device)
+        std = torch.tensor(PIXEL_STD, device=self.device)
+        x = (frames.float() - mean) / std
+        hw = torch.as_tensor(np.asarray(input_hw).reshape(n, 2),
+                             device=self.device)
+        ar = torch.arange(s, device=self.device)
+        inside = ((ar[None, :, None] < hw[:, 0, None, None])
+                  & (ar[None, None, :] < hw[:, 1, None, None])).float()
+        x = x * inside[..., None]
+        dec = self.model.mask_decoder
+        out = {"dense_pe": self.model.prompt_encoder.get_dense_pe(),
+               "features": self.model.image_encoder(x)}
+        d, g, r = self.dino_input, self.dino_grid, self.low_res
+        dino = self.dino_model(resize_linear(x, (d, d)))["x_norm_patchtokens"]
+        out["dino_feats"] = dino.reshape(n, g, g, -1)
+        proj = dec.project_dino(out["dino_feats"])
+        out["dino_proj_256"] = torch.stack(
+            [resize_linear(proj[i], (r, r)) for i in range(n)]).to(
+                torch.bfloat16)
+        out["fg_logits"] = torch.cat([self._fg_logits(out["dino_feats"][i:i + 1])
+                                      for i in range(n)])
+        return out
+
     def set_image(self, image: np.ndarray, image_format: str = "RGB") -> None:
         """image: HWC uint8."""
         if image_format not in ("RGB", "BGR"):
@@ -219,8 +261,12 @@ class SamPredictor:
         model size, as in the JAX package)."""
         if not self.is_image_set or self.dino_feats is None:
             raise RuntimeError("set an image (with DINOv2) first")
+        return self._fg_logits(self.dino_feats)
+
+    def _fg_logits(self, dino_feats: torch.Tensor) -> torch.Tensor:
+        """(1, n_class, 256, 256) FG logits of one image's DINO tokens."""
         dec = self.model.mask_decoder
-        logits = dec.classify_points(dec.project_dino(self.dino_feats))
+        logits = dec.classify_points(dec.project_dino(dino_feats))
         logits = resize_linear(logits, (256, 256))
         return logits.permute(0, 3, 1, 2)
 

@@ -6,6 +6,7 @@ relative to their largest value (two float32 implementations of the same
 graph); the numpy utilities are copies and agree exactly."""
 
 import os
+import sys
 
 import cv2
 import jax.numpy as jnp
@@ -226,3 +227,38 @@ def test_setup_logger_writes_under_the_port_name(tmp_path):
     (log,) = os.listdir(tmp_path / "log")
     assert "hello there" in (tmp_path / "log" / log).read_text()
     assert get_logger() is logger
+
+
+def test_setup_logger_replaces_its_own_handlers(tmp_path, monkeypatch):
+    """A second `setup_logger` call closes and removes the sinks of the
+    first: a stdout sink on a stream closed since then must not break the
+    records that follow, whatever ran before in the process."""
+    import io
+    import logging
+
+    from crowdsam_tpu_torch.utils.logging import setup_logger
+
+    class Other(logging.Handler):
+        def emit(self, record):
+            pass
+
+    other = Other()
+    logging.getLogger("crowdsam_tpu_torch").addHandler(other)
+    try:
+        stream = io.StringIO()
+        monkeypatch.setattr(sys, "stdout", stream)
+        setup_logger(str(tmp_path / "a"), quiet=False)
+        monkeypatch.undo()
+        stream.close()
+        logger = setup_logger(str(tmp_path / "b"), quiet=True)
+        logger.info("after the close")
+        for h in logger.handlers:
+            h.flush()
+        files = [h for h in logger.handlers
+                 if isinstance(h, logging.FileHandler)]
+        assert len(files) == 1
+        assert other in logger.handlers
+        (log,) = os.listdir(tmp_path / "b")
+        assert "after the close" in (tmp_path / "b" / log).read_text()
+    finally:
+        logging.getLogger("crowdsam_tpu_torch").removeHandler(other)

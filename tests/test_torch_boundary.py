@@ -65,6 +65,24 @@ def test_port_files_include_the_fused_decode_slice():
             "chip_smoke.py"} <= names
 
 
+def test_port_files_include_the_batched_pipeline():
+    """The batched pipeline (`parallel/`) is the port's own package
+    (covered by `test_no_jax_imports`), imports nothing of JAX, and K5's
+    source offsets each prompt's image-side rows by its image."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"crowdsam_tpu_torch/parallel/__init__.py",
+            "crowdsam_tpu_torch/parallel/eval_shard.py"} <= names
+    code = ("import sys, crowdsam_tpu_torch.parallel.eval_shard\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+    text = (ROOT / "crowdsam_tpu_torch" / "csrc" /
+            "decode_tail.cu").read_text()
+    assert "image_row(a, q)" in text and "image_row(a, p)" in text
+
+
 def test_port_files_include_the_msgpack_reader():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert "crowdsam_tpu_torch/utils/msgpack_io.py" in names

@@ -717,3 +717,80 @@ def test_tools_test_cli_on_the_small_config(gen, tmp_path):
                                  str(tmp_path / "val.odgt"), "-f", "-v",
                                  "-o", str(tmp_path / "rec.txt")]) == 0
     assert (tmp_path / "rec.txt").read_text().startswith("AP: ")
+
+
+@pytest.mark.parametrize("image_size,b,per_image", [
+    (256, 3, 5), (256, 4, 32), (1024, 2, 32),
+    # one prompt an image: every pair of prompts that a block of row
+    # phase 0 serves straddles two images
+    (256, 4, 1)])
+def test_twoway_tail_kernel_image_axis(gen, image_size, b, per_image):
+    """K5 with B images' operands stacked and an image index a prompt,
+    against its plain version; one call whatever B; a prompt given its
+    neighbour's image must change its rows."""
+    sam = sam_model_registry["vit_tiny"](image_size=image_size).cuda()
+    init_random_(sam, torch.Generator(device="cuda").manual_seed(0))
+    cast_compute_params(sam, torch.bfloat16)
+    g = image_size // 16
+    feats = torch.randn((b, g, g, 256), generator=gen,
+                        device="cuda").bfloat16()
+    shared = precompute_decode_shared(
+        sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight, feats,
+        sam.prompt_encoder.get_dense_pe())
+    assert shared["keys0"].shape == (b, g * g, 256)
+    p = b * per_image
+    tokens = torch.randn((p, 7, 256), generator=gen,
+                         device="cuda").bfloat16()
+    img = torch.arange(b, dtype=torch.int32,
+                       device="cuda").repeat_interleave(per_image)
+    args = _tail_args(shared, tokens)
+    before = decode_tail_kernel.twoway_tail.launches
+    keys2, tok = decode_tail_kernel.twoway_tail(*args, img=img)
+    assert decode_tail_kernel.twoway_tail.launches == before + 1
+    want_keys2, want_tok = decode_tail_kernel.twoway_tail_plain(*args,
+                                                                img=img)
+    _close(keys2, want_keys2, 2e-2)
+    _close(tok, want_tok, 2e-2)
+    other = decode_tail_kernel.twoway_tail(*args, img=(img + 1) % b)
+    assert not torch.equal(other[0], keys2)
+
+
+def test_generate_batch_on_the_small_config(gen):
+    """`ShardedPipeline.generate_batch` on the card against
+    `generate_many` on the same generator seed: B = 1 equal bit for bit,
+    B = 2 the same detection counts, boxes within 0.5 px and scores within
+    1e-4; K5 and K6 once a lockstep iteration, K7 once a chunk with
+    survivors."""
+    from crowdsam_tpu_torch.config import load_config, modify_config
+    from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    model = CrowdSAM(modify_config(load_config(None), list(SMALL)),
+                     device="cuda")
+    frames = [crowd_scene(20 + i, 171, 256, people=(3, 6))[0]
+              for i in range(3)]
+    model.generator.manual_seed(3)
+    want = model.generate_many(frames)
+    assert sum(len(w["boxes"]) for w in want) > 0
+    for b in (1, 2):
+        model.generator.manual_seed(3)
+        pipe = ShardedPipeline(model, batch=b)
+        k5 = decode_tail_kernel.twoway_tail.launches
+        k6 = mask_head_kernel.mask_head.launches
+        got = pipe.generate_batch(frames)
+        iters = pipe.last_engine[0]["loop"]["iterations"]
+        assert decode_tail_kernel.twoway_tail.launches > k5
+        assert mask_head_kernel.mask_head.launches > k6
+        if b == 2:           # the last chunk: one image
+            assert decode_tail_kernel.twoway_tail.launches - k5 >= iters
+        for g, w in zip(got, want):
+            assert len(g["boxes"]) == len(w["boxes"])
+            if b == 1:
+                np.testing.assert_array_equal(g["boxes"], w["boxes"])
+                np.testing.assert_array_equal(g["scores"], w["scores"])
+                assert g["rles"] == w["rles"]
+            else:
+                np.testing.assert_allclose(g["boxes"], w["boxes"], atol=0.5)
+                np.testing.assert_allclose(g["scores"], w["scores"],
+                                           atol=1e-4)

@@ -99,6 +99,20 @@ the gitignored `build/kernels/`), then:
    seeded scene; K4 48 launches a frame, the sim map against the CPU's
    float32) and `configs/crowdhuman_mc.yaml` (`crop_n_layers 1`: five
    crops, K4 120 launches);
+   the multi-device paths on `torch.distributed`, one process a rank
+   (`parallel/launch.run_ranks`), gloo on this one card: K5 and K6 at a
+   prompt shard's counts (16 and 8 prompts, 4 images x 8) against their
+   plain versions (`K5/K6 prompt shards`); `install_prompt_sharding` at
+   M = 2 on the main path's frames and a loaded crowd scene
+   (`prompt_shard`); `ShardedPipeline` with the data axis (2, 1) at batch
+   4 on 8 crowd scenes (and 7, a partial chunk) and the composed (2, 2)
+   with the prompt axis (`data_shard`), each against this process's
+   results on the same noise, every rank's equal to rank 0's, every
+   kernel launched on every rank (counts set to 0 in the rank just before
+   its run); the collectives on a one-rank NCCL group and one try of two
+   NCCL ranks on the card, whose error is printed (`nccl_world1`); the
+   ranks build the model from the weights this process drew (saved under
+   a temporary directory) and load this process's kernel build;
 3. checks the outputs: finite boxes and scores of the expected shapes inside
    the image, every RLE string's mask inside its detection's box, every
    AMG record's mask inside its bbox with its area, and, on a small
@@ -750,11 +764,12 @@ def _nth_call(fn, n, faulty):
     return wrapped
 
 
-def phase_twoway_tail(model, img, label):
-    """K5 against its plain version on one decode batch of `model`."""
+def phase_twoway_tail(model, img, label, n_prompts=32):
+    """K5 against its plain version on one decode batch of `model` of
+    `n_prompts` prompts."""
     from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
 
-    shared, tokens, _ = _decoder_inputs(model, img)
+    shared, tokens, _ = _decoder_inputs(model, img, n_prompts)
     args = _tail_args(shared, tokens)
     p, t, c = tokens.shape
     m = shared["keys0"].shape[0]
@@ -1873,8 +1888,9 @@ def phase_end_to_end(model):
     phase_fused_vs_unfused(model, scenes[0])
     phase_generate_many(model, reference_cfg, loaded_cfg)
     batch = phase_generate_batch(model, reference_cfg, loaded_cfg)
+    multi = phase_multi_device(model, reference_cfg, loaded_cfg)
     model.engine_cfg = reference_cfg
-    return launches, loaded_launches, batch
+    return launches, loaded_launches, batch, multi
 
 
 def phase_box_only(model, img):
@@ -2093,8 +2109,6 @@ def phase_generate_batch(model, reference_cfg, loaded_cfg, n=8):
     engine's count and torch's sync-debug warnings inside the loop), K5, K6
     and K7 launches per image, the device busy and idle share of one
     profiled call of B images, and the peak device memory at B = 8."""
-    import warnings
-
     from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
     from crowdsam_tpu_torch.pipeline import engine
     from crowdsam_tpu_torch.utils.synthetic import FRAME_SIZES, crowd_scene
@@ -2105,21 +2119,9 @@ def phase_generate_batch(model, reference_cfg, loaded_cfg, n=8):
            "config": "configs/crowdhuman.yaml defaults at full width "
                      "(vit_l + dinov2_vitl14 + PWD-Net, bf16, fused decode, "
                      "RLEs), random weights"}
-    real_dispatch, real_loop = model._dispatch_crop, engine._eps_loop
+    real_dispatch = model._dispatch_crop
     loops = []
-
-    def counted_loop(*a, **kw):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                st = real_loop(*a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        loops.append(dict(iterations=st["iterations"], syncs=st["syncs"],
-                          warned=sum("synchroniz" in str(w.message)
-                                     for w in caught)))
-        return st
+    counted_loop = _sync_counted_loop(engine._eps_loop, loops)
 
     def timed_many():
         torch.cuda.synchronize()
@@ -3560,6 +3562,517 @@ def phase_small_cases():
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# multi-device (torch.distributed): the prompt axis, the data axis, NCCL
+# --------------------------------------------------------------------------
+
+SHARING = ("{n} processes sharing one {card} over gloo: not a multi-card "
+           "figure")
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase_decode_prompt_shards(model, frame, frames, probe):
+    """K5 and K6 at the prompt counts a rank of the prompt axis gives them
+    (32 / M: 16 and 8 prompts of one image, and 4 images x 8 prompts of a
+    composed rank's lockstep iteration) against their plain versions, with
+    the bounds and faults of `phase_twoway_tail`, `phase_mask_head` and
+    `phase_twoway_tail_images`, and their device ms beside the 32-prompt
+    rows'."""
+    from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
+
+    rows = {}
+    for p in (16, 8):
+        k5, tail_out = phase_twoway_tail(model, frame, f"prompt shard, P={p}",
+                                         n_prompts=p)
+        k6 = phase_mask_head(model, frame, f"prompt shard, P={p}", tail_out,
+                             probe)
+        rows[str(p)] = dict(k5=k5, k6=k6)
+        del tail_out
+    shared, tokens, img, dino = _images_decoder_inputs(model, frames[:4], 8)
+    args = _tail_args(shared, tokens)
+    with torch.no_grad():
+        got = dtk.twoway_tail(*args, img=img)
+        want = dtk.twoway_tail_plain(*args, img=img)
+        keys0, q1i, k1, v1 = args[:4]
+        f_neighbour = dtk.twoway_tail_plain(
+            keys0.roll(-1, 0), q1i, k1.roll(-1, 0), v1, tokens, args[5],
+            img=img)
+    outs = {}
+    for i, name in enumerate(("keys2", "tokens")):
+        outs[name] = compare(
+            f"twoway_tail 4x8 {name}", got[i], want[i], 2e-2,
+            faults=[("each prompt reads its neighbour image's keys0 and k1 "
+                     "rows", f_neighbour[i])], require_faults=False,
+            mean_atol=2.0 ** -11)
+    require_faults_seen("twoway_tail 4x8", outs)
+    k6 = _mask_head_images(model, shared, got, dino)
+    with torch.no_grad():
+        k6.update(_mask_head_times(model, shared, got),
+                  max_abs_err=k6["masks"]["max_abs_err"])
+        fn = (lambda: dtk.twoway_tail(*args, img=img))
+        b_ms, by = _k5_bound(args, got, tokens.shape[0], tokens.shape[1],
+                             keys0.shape[-2])
+        k5 = dict(outputs=outs, max_abs_err=max(
+            o["max_abs_err"] for o in outs.values()), ms=time_ms(fn, 10),
+            device_ms=device_span_ms(fn, 10), bound_ms=b_ms, bound_by=by,
+            plain_ms=time_ms(lambda: dtk.twoway_tail_plain(*args, img=img),
+                             2, warmup=1))
+    rows["4x8"] = dict(k5=k5, k6=k6)
+    del shared, args, got, want, f_neighbour
+    torch.cuda.empty_cache()
+    summary = {
+        key: dict(k5_device_ms=r["k5"]["device_ms"],
+                  k5_bound_ms=r["k5"]["bound_ms"],
+                  k5_max_abs_err=r["k5"]["max_abs_err"],
+                  k6_device_ms=r["k6"].get("device_ms"),
+                  k6_bound_ms=r["k6"].get("bound_ms"))
+        for key, r in rows.items()}
+    print(json.dumps({"phase": "K5/K6 prompt shards", "by_prompts": summary,
+                      "k5_4x8": rows["4x8"]["k5"],
+                      "k6_4x8": rows["4x8"]["k6"]}), flush=True)
+    return rows
+
+
+def _mask_head_times(model, shared, tail_out) -> dict:
+    """K6 (`emit_exp`) on a decode batch's keys2: event and device ms, the
+    plain version's ms and the bound (`phase_mask_head`'s count)."""
+    from crowdsam_tpu_torch.models import fused_decode as fd
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+
+    dec = model.sam.mask_decoder
+    keys2, tok = tail_out
+    p, m, c = keys2.shape
+    k = dec.num_mask_tokens
+    weights = shared["mask_head"]
+    hyper = (fd._hyper_in(dec, tok[:, 1:1 + k, :]) * 1024.0).contiguous()
+    fn = (lambda: mhk.mask_head(keys2, hyper, weights, emit_exp=True))
+    got = fn()
+    c1, c2 = weights["ln_w"].shape[0], hyper.shape[-1]
+    flops = p * m * 2 * (c * 4 * c1 + 4 * c1 * 4 * c2 + 16 * c2 * k)
+    nbytes = (keys2.numel() + hyper.numel()) * 2
+    nbytes += sum(x.numel() * x.element_size() for x in weights.values())
+    nbytes += sum(x.numel() * x.element_size() for x in got)
+    b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    return dict(ms=time_ms(fn, 10), device_ms=device_ms(fn, 10),
+                plain_ms=time_ms(lambda: mhk.mask_head_plain(
+                    keys2, hyper, weights, emit_exp=True), 2, warmup=1),
+                bound_ms=b_ms, bound_by=by)
+
+
+def _sync_counted_loop(real_loop, records: list):
+    """`engine._eps_loop` run under torch's sync-debug mode: each call
+    appends {iterations, syncs (the engine's own count of its reads of
+    the device), warned (torch's warnings of a synchronizing call inside
+    the loop)} to `records`."""
+    import warnings
+
+    def loop(*a, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = real_loop(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        records.append(dict(iterations=st["iterations"], syncs=st["syncs"],
+                            warned=sum("synchroniz" in str(w.message)
+                                       for w in caught)))
+        return st
+
+    return loop
+
+
+def _rank_model(weights: str):
+    """The full-width model of `full_width_config()` on cuda:0 with the
+    weights the parent drew (`torch.save`d at `weights`), without drawing
+    them again."""
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils import init
+    from crowdsam_tpu_torch.utils.synthetic import full_width_config
+
+    torch.cuda.set_device(0)
+    sd = torch.load(weights, weights_only=True)
+    with patched(init, "sam_state_dict", lambda *a, **k: sd["sam"]), \
+            patched(init, "dino_state_dict", lambda *a, **k: sd["dino"]):
+        return CrowdSAM(full_width_config(), device="cuda")
+
+
+def _kept_rows(res) -> dict:
+    """An engine result's valid rows (summary, slab logits) on the host,
+    enough for `_threshold_ties`."""
+    idx = torch.nonzero(res["summary"][:, 0] > 0.5).flatten()
+    return {"summary": res["summary"][idx].cpu(),
+            "logits": res["logits"][idx].cpu()}
+
+
+def _on_card(rows: dict) -> dict:
+    return {k: v.cuda() for k, v in rows.items()}
+
+
+def _plain(data) -> dict:
+    return {k: data[k] for k in data.keys()}
+
+
+def _rank_task(rank: int, world: int, weights: str, task: dict):
+    """One rank of a multi-device phase (`run_ranks`, gloo on cuda:0): the
+    model, the mesh, then each run of `task` with the kernel counts set to
+    0 just before and read just after; per run its results, host-clock ms
+    per image, loop records, kernel launches, peak device memory, and the
+    host syncs of each engine loop as torch's sync-debug mode sees them
+    (`_sync_counted_loop`; the timed run carries that mode's cost)."""
+    from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+    from crowdsam_tpu_torch.parallel.mesh import create_mesh
+    from crowdsam_tpu_torch.parallel.prompt_shard import (
+        install_prompt_sharding,
+    )
+    from crowdsam_tpu_torch.pipeline import engine
+
+    with torch.no_grad():
+        model = _rank_model(weights)
+        mesh = create_mesh(task["mesh"], device="cuda")
+        coord = mesh.get_coordinate()
+        pipe = None
+        if task["kind"] == "prompt_shard":
+            install_prompt_sharding(model, mesh)
+        else:
+            pipe = ShardedPipeline(model, mesh=mesh, batch=task["batch"],
+                                   prompt_axis=task.get("prompt_axis"))
+        out = dict(rank=rank, coordinate=coord, runs=[])
+        for name, cfg, images, noises in task["runs"]:
+            model.engine_cfg = cfg
+            if task["kind"] == "prompt_shard":     # warm-up
+                model.generate(images[0], noise=[noises[0]])
+            else:
+                model.generator.manual_seed(task["seed"])
+                pipe.generate_batch(images[:task["batch"]])
+            model.generator.manual_seed(task.get("seed", 0))
+            counters = _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            results, loops, rows, checked = [], [], {}, []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with patched(engine, "_eps_loop", _sync_counted_loop(
+                    engine._eps_loop, checked)):
+                _rank_run(task, model, images, noises, mesh, pipe, coord,
+                          results, loops, rows)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3 / len(images)
+            out["runs"].append(dict(
+                name=name, results=results, loops=loops, rows=rows,
+                sync_checks=checked, ms_per_image=ms,
+                launches={k: fn.launches for k, fn in counters.items()},
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+    return out
+
+
+def _rank_run(task, model, images, noises, mesh, pipe, coord, results,
+              loops, rows):
+    """The timed run of `_rank_task`: results, loop records and kept rows
+    of each image this rank ran."""
+    if task["kind"] == "prompt_shard":
+        for i, (img, nz) in enumerate(zip(images, noises)):
+            results.append(_plain(model.generate(img, noise=[nz])))
+            loops.append(model.last_engine["loop"])
+            rows[i] = _kept_rows(model.last_engine)
+        return
+    per = task["batch"] // mesh["data"].size()
+    for c0 in range(0, len(images), task["batch"]):
+        got = pipe.generate_batch(images[c0:c0 + task["batch"]])
+        results += [_plain(r) for r in got]
+        for j, res in enumerate(pipe.last_engine):
+            loops.append(res["loop"])
+            rows[c0 + coord[0] * per + j] = _kept_rows(res)
+
+
+def _compare_runs(label, got, want, got_rows, want_rows, cfg):
+    """Item by item: counts, categories, boxes within 0.5 px, scores within
+    1e-4, RLE strings equal or differing only at threshold ties (counted);
+    whether every field is equal bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results for "
+                             f"{len(want)} images")
+    ties, exact = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not _same_detections(g, w, exact=False):
+            raise AssertionError(f"{label} image {i}: {len(g['boxes'])} "
+                                 f"detections against {len(w['boxes'])}")
+        exact.append(_same_detections(g, w, exact=True))
+        ties.append((0, 0) if g["rles"] == w["rles"] else _threshold_ties(
+            cfg, g, w, _on_card(got_rows[i]), _on_card(want_rows[i])))
+    return dict(bit_for_bit=all(exact), items_bit_for_bit=exact,
+                rle_tie_pixels=ties)
+
+
+def _rank_summary(label, members, want, want_rows, cfg):
+    """Each run of the ranks against the single-process results: rank 0's
+    results against them (`_compare_runs`), every other rank's equal to
+    rank 0's bit for bit, every kernel of the run launched on every rank
+    (K7 only where detections reach the survivor pass), host syncs a
+    lockstep iteration, collectives and bytes reduced."""
+    out = {}
+    for r, run in enumerate(members[0]["runs"]):
+        name = run["name"]
+        rows = {}         # each image's rows, from the rank that ran it
+        for rk in members:
+            rows.update(rk["runs"][r]["rows"])
+        cmp = _compare_runs(f"{label} {name}", run["results"], want[name],
+                            rows, want_rows[name], cfg)
+        for other in members[1:]:
+            o = other["runs"][r]
+            if not all(_same_detections(a, b, exact=True)
+                       for a, b in zip(o["results"], run["results"])):
+                raise AssertionError(f"{label} {name}: rank "
+                                     f"{other['rank']} differs from rank 0")
+        loops = [lp for rk in members for lp in rk["runs"][r]["loops"]]
+        iters = sum(lp["iterations"] for lp in loops)
+        dets = sum(len(g["boxes"]) for g in run["results"])
+        for rk in members:
+            launches = rk["runs"][r]["launches"]
+            need = [k for k in ("layer_norm", "window_attention",
+                                "flash_mha_decomposed_relpos", "flash_mha",
+                                "twoway_tail", "mask_head")
+                    if launches[k] == 0]
+            if dets and launches["survivor_rle"] == 0 and any(
+                    len(rk["runs"][r]["rows"][i]["summary"])
+                    for i in rk["runs"][r]["rows"]):
+                need.append("survivor_rle")
+            if need:
+                raise AssertionError(f"{label} {name} rank {rk['rank']}: "
+                                     f"kernels not launched: {need}")
+        if any(lp["syncs"] > lp["iterations"] + 1 for lp in loops):
+            raise AssertionError(f"{label} {name}: more than one explicit "
+                                 f"host sync a lockstep iteration")
+        checked = [c for rk in members for c in rk["runs"][r]["sync_checks"]]
+        checked_iters = max(sum(c["iterations"] for c in checked), 1)
+        out[name] = dict(
+            **cmp, detections=[len(g["boxes"]) for g in run["results"]],
+            ms_per_image_by_rank=[rk["runs"][r]["ms_per_image"]
+                                  for rk in members],
+            peak_memory_gib_by_rank=[rk["runs"][r]["peak_memory_gib"]
+                                     for rk in members],
+            launches_by_rank=[rk["runs"][r]["launches"] for rk in members],
+            lockstep_iterations=iters,
+            explicit_engine_syncs_per_iteration=sum(
+                lp["syncs"] for lp in loops) / max(iters, 1),
+            # torch's sync-debug warnings inside the engine loops of every
+            # rank; gloo stages each all-reduce of a CUDA tensor through
+            # host memory in its own C++ code, which this mode may not see.
+            sync_debug_warnings_per_iteration=sum(
+                c["warned"] for c in checked) / checked_iters,
+            collectives_per_iteration=(sum(
+                lp["collectives"] - 2 for lp in loops if lp["collectives"])
+                / max(iters, 1)),
+            collectives_after_loop=2 if any(lp["collectives"]
+                                            for lp in loops) else 0,
+            reduced_bytes_per_iteration=(sum(
+                lp["reduced_bytes_in_loop"] for lp in loops)
+                / max(iters, 1)),
+            # An engine call runs a rank's images of a chunk (one image
+            # prompt-sharded, batch / data images on the data axis).
+            reduced_bytes_after_loop_per_call=(sum(
+                lp["reduced_bytes"] - lp["reduced_bytes_in_loop"]
+                for lp in loops) / max(len(loops), 1)))
+    return out
+
+
+def _single_runs(model, runs, seed=None):
+    """The single-process results of `runs` (name, cfg, images, noises):
+    per name the results and each image's kept engine rows, with the
+    given noise, or drawn from the generator seeded with `seed`."""
+    want, want_rows = {}, {}
+    for name, cfg, images, noises in runs:
+        model.engine_cfg = cfg
+        if seed is not None:
+            model.generator.manual_seed(seed)
+        res, rows = [], {}
+        for i, img in enumerate(images):
+            res.append(_plain(model.generate(
+                img, noise=None if noises is None else [noises[i]])))
+            rows[i] = _kept_rows(model.last_engine)
+        want[name], want_rows[name] = res, rows
+    return want, want_rows
+
+
+def phase_multi_device(model, reference_cfg, loaded_cfg):
+    """The multi-device paths, one process a rank on this one card over
+    gloo (NCCL refuses two ranks on one device, shown below), each rank
+    building the full-width model from the weights this process drew:
+
+    - `prompt_shard`: `install_prompt_sharding` at M = 2 (a (1, 2) mesh)
+      on the main path's frames (reference thresholds) and on
+      crowd_scene(0) loaded (filters off), against this process's
+      `generate` with the same noise;
+    - `data_shard`: `ShardedPipeline` on the 8 seeded crowd scenes of
+      `phase_generate_batch` at the reference thresholds and loaded, the
+      generator reset to one seed, against this process's `generate_many`:
+      the data axis (2, 1) at batch 4 with 2 ranks (and loaded on the
+      first 7 scenes, a partial chunk), and the composed (2, 2) with
+      `prompt_axis "model"` and 4 ranks.
+
+    Required: counts and categories equal, boxes within 0.5 px, scores
+    within 1e-4, RLE strings equal or differing only at threshold ties
+    (counted), every rank's results equal to rank 0's bit for bit, every
+    kernel of the path launched on every rank, at most one explicit host
+    sync of the engine a lockstep iteration.  Reported: whether each run is
+    bit for bit the single process's, ms per image on the host clock by
+    rank (with this process's beside it), host syncs per lockstep
+    iteration (the engine's explicit count and torch's sync-debug
+    warnings), collectives per lockstep iteration, bytes
+    reduced a lockstep iteration and after the loop of an engine call,
+    peak memory by rank.  A rank
+    that fails or outlives its time limit fails the phase."""
+    import tempfile
+
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+    from crowdsam_tpu_torch.utils.synthetic import (
+        FRAME_SIZES,
+        crowd_scene,
+        synthetic_images,
+    )
+
+    card, smi = torch.cuda.get_device_name(0), _smi()
+    work = tempfile.mkdtemp(prefix="multi_device_")
+    weights = os.path.join(work, "weights.pt")
+    t = time.perf_counter()
+    torch.save({k: {n: v.cpu() for n, v in m.state_dict().items()}
+                for k, m in (("sam", model.sam), ("dino", model.dino))},
+               weights)
+    save_s = time.perf_counter() - t
+    try:
+        frames = synthetic_images(0, N_IMAGES)
+        scene = crowd_scene(0)[0]
+        gen = torch.Generator().manual_seed(77)
+        n = model.engine_cfg.grid_size ** 2
+        noises = [torch.rand(n, generator=gen) for _ in range(N_IMAGES + 1)]
+        p_runs = [("reference", reference_cfg, frames, noises[:N_IMAGES]),
+                  ("loaded", loaded_cfg, [scene], noises[N_IMAGES:])]
+        with torch.no_grad():
+            t = time.perf_counter()
+            want, want_rows = _single_runs(model, p_runs)
+            single_ms = (time.perf_counter() - t) * 1e3 / (N_IMAGES + 1)
+        t = time.perf_counter()
+        ranks = run_ranks(_rank_task, 2, (weights, dict(
+            kind="prompt_shard", mesh=(1, 2), runs=p_runs)),
+            join_timeout_s=300.0, threads=None)
+        prompt = dict(phase="prompt_shard", ranks=2, mesh=[1, 2],
+                      wall_s=time.perf_counter() - t,
+                      label=SHARING.format(n=2, card=card), nvidia_smi=smi,
+                      single_process_ms_per_image=single_ms,
+                      **_rank_summary("prompt_shard", ranks, want, want_rows,
+                                      reference_cfg))
+        print(json.dumps(prompt), flush=True)
+
+        scenes = [crowd_scene(40 + i, *FRAME_SIZES[i % len(FRAME_SIZES)])[0]
+                  for i in range(8)]
+        d_runs = [("reference", reference_cfg, scenes, None),
+                  ("loaded", loaded_cfg, scenes, None)]
+        with torch.no_grad():
+            want, want_rows = _single_runs(model, d_runs, seed=123)
+        data = dict(phase="data_shard", nvidia_smi=smi)
+        partial = "loaded, 7 images (partial chunk)"
+        want[partial], want_rows[partial] = want["loaded"][:7], want_rows[
+            "loaded"]
+        for key, world, mesh, extra, runs in (
+                ("2x1 batch 4", 2, (2, 1), {},
+                 d_runs + [(partial, loaded_cfg, scenes[:7], None)]),
+                ("2x2 batch 4, prompt_axis model", 4, (2, 2),
+                 {"prompt_axis": "model"}, d_runs)):
+            t = time.perf_counter()
+            ranks = run_ranks(_rank_task, world, (weights, dict(
+                kind="data_shard", mesh=mesh, batch=4, seed=123, runs=runs,
+                **extra)), join_timeout_s=420.0, threads=None)
+            data[key] = dict(
+                ranks=world, wall_s=time.perf_counter() - t,
+                label=SHARING.format(n=world, card=card),
+                **_rank_summary(f"data_shard {key}", ranks, want,
+                                want_rows, reference_cfg))
+        print(json.dumps(data), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(prompt_shard=prompt, data_shard=data, weights_save_s=save_s)
+
+
+def _nccl_pair_rank(rank: int, world: int):
+    """One all-reduce on cuda:0 from each of two NCCL ranks."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return f"no error: {x.tolist()}"
+    except Exception as e:           # the finding is the error itself
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+
+
+def phase_nccl():
+    """The collectives on a one-rank NCCL group, on bf16, int32 and bool
+    CUDA tensors, exact against what they must give (this shows that the
+    NCCL path builds and launches on the card; it is not a multi-card
+    check); then one try of two NCCL ranks on this one card, its error
+    printed on one line (why the multi-rank phases run gloo)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from crowdsam_tpu_torch.parallel import collectives as col
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+
+    work = tempfile.mkdtemp(prefix="nccl_")
+    row = {"phase": "nccl_world1", "cases": {}}
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{work}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=60))
+        shard = col.Shard(dist.group.WORLD, 0, 1)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for dtype in (torch.bfloat16, torch.int32, torch.bool):
+            x = torch.randn((16, 4096, 16), generator=gen, device="cuda")
+            x = (x > 0) if dtype == torch.bool else (
+                (x * 100).to(dtype) if dtype == torch.int32 else x.to(dtype))
+            mine = torch.arange(16, device="cuda") % 3 != 0
+            gathered = col.gather_rows(x, shard)
+            masked = col.masked_psum(x, mine, shard)
+            want_masked = torch.where(mine[:, None, None], x,
+                                      torch.zeros((), dtype=dtype,
+                                                  device="cuda"))
+            case = dict(
+                gather_exact=torch.equal(gathered[0], x),
+                masked_exact=torch.equal(masked, want_masked))
+            if dtype == torch.bool:
+                case["or_exact"] = torch.equal(col.or_reduce(x, shard), x)
+            if not all(case.values()):
+                raise AssertionError(f"nccl_world1 {dtype}: {case}")
+            case["ms_gather"] = time_ms(lambda: col.gather_rows(x, shard), 10)
+            row["cases"][str(dtype)] = case
+        row["all_reduces"], row["bytes"] = shard.calls, shard.bytes
+        dist.destroy_process_group()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # NCCL's own warning (on the ranks' standard error) names the cause.
+    os.environ.setdefault("NCCL_DEBUG", "WARN")
+    try:
+        res = run_ranks(_nccl_pair_rank, 2, backend="nccl",
+                        join_timeout_s=90.0)
+        row["nccl_two_ranks_one_card"] = res
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln for ln in str(e).splitlines() if ln.strip()]
+        row["nccl_two_ranks_one_card"] = " | ".join(lines[-2:])[:400]
+    print(json.dumps(row), flush=True)
+    print(f"nccl, two ranks on one card: {row['nccl_two_ranks_one_card']}",
+          flush=True)
+    return row
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -3622,6 +4135,9 @@ def main() -> int:
         k5_images = phase_twoway_tail_images(
             model, synthetic_images(20) + synthetic_images(21))
         torch.cuda.empty_cache()
+        k56_shards = phase_decode_prompt_shards(
+            model, frame, synthetic_images(20), k6_probe)
+        torch.cuda.empty_cache()
         _, tail_small = phase_twoway_tail(small, _small_image(),
                                           "small, M=256")
         phase_mask_head(small, _small_image(), "small, M=256", tail_small,
@@ -3632,7 +4148,8 @@ def main() -> int:
         k7 = phase_survivor(32, 50)
         phase_survivor(model.engine_cfg.max_keep, 60)
         torch.cuda.empty_cache()
-    launches, loaded_launches, batch = phase_end_to_end(model)
+    launches, loaded_launches, batch, multi = phase_end_to_end(model)
+    phase_nccl()
     with torch.no_grad():
         phase_modes(model, model.engine_cfg)
         rect = phase_rect(model, model.engine_cfg)
@@ -3794,11 +4311,31 @@ def main() -> int:
         device_ms=k4["device_ms"],
         library_device_ms=k4["library_device_ms"]))
     # The batched pipeline's launches (phase generate_batch, loaded, B = 8,
-    # the counts set to 0 just before it) on the main-path rows.
+    # the counts set to 0 just before it) on the main-path rows, and the
+    # multi-device paths' (rank 0 of each, loaded, counts set to 0 in the
+    # rank just before its run).
+    multi_paths = {
+        "prompt_shard M=2": multi["prompt_shard"],
+        "data_shard 2x1": multi["data_shard"]["2x1 batch 4"],
+        "data_shard 2x2 prompt_axis": multi["data_shard"][
+            "2x2 batch 4, prompt_axis model"]}
     for r in table:
         if r.get("launches_in") in (None, "end_to_end_loaded"):
             r["launches_generate_batch_loaded_b8"] = batch["loaded"][8][
                 "launches"][r["name"]]
+            r["launches_multi_device_loaded_rank0"] = {
+                path: row["loaded"]["launches_by_rank"][0][r["name"]]
+                for path, row in multi_paths.items()}
+    # K5 and K6 at a prompt shard's counts (32 / M prompts).
+    for r in table:
+        if r["name"] in ("twoway_tail", "mask_head") and r.get(
+                "launches_in") is None:
+            key = "k5" if r["name"] == "twoway_tail" else "k6"
+            r["by_prompts"] = {
+                p: {f: row[key].get(f) for f in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}
+                for p, row in k56_shards.items()}
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

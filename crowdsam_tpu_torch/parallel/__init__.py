@@ -1,1 +1,1 @@
-"""Batched and (later) multi-device pipelines."""
+"""Batched and multi-device pipelines (torch.distributed)."""

@@ -1,22 +1,34 @@
-"""Batched inference on one device: `ShardedPipeline.generate_batch`.
+"""Batched and data-parallel inference: `ShardedPipeline.generate_batch`.
 
-Counterpart of the JAX package's `parallel/eval_shard.py` with `mesh=None`:
-B images go through one batched encode (`SamPredictor.encode_batch`: SAM
-ViT and DINOv2 over the batch, the square frame always, as the JAX batched
-path ignores `tpu.rect_encode`), one lockstep EPS decode loop
+Counterpart of the JAX package's `parallel/eval_shard.py`.  B images go
+through one batched encode (`SamPredictor.encode_batch`: SAM ViT and
+DINOv2 over the batch, the square frame always, as the JAX batched path
+ignores `tpu.rect_encode`), one lockstep EPS decode loop
 (`engine.run_eps_engine_batch`: each K5 and K6 call takes the prompts of
 every image still running) and one survivor pass
 (`engine.survivor_core_batch`: one K7 call over the survivors of all
 images), then the host tail of each image (`CrowdSAM._crop_data`).
 
+With a mesh (`parallel/mesh.create_mesh`, one process a rank) each chunk
+of B images is split over the `data` axis: the rank at data coordinate d
+runs images [d B/D, (d+1) B/D) of the chunk through the same three
+stages, and the per-image results are gathered over `data`
+(`all_gather_object`), so every rank returns every image's result in
+order, as the JAX `generate_batch` does.  With `prompt_axis` the ranks of
+that axis also split each image's prompt batches (`pipeline/engine.py`,
+the composed layout).
+
 The noise of each real image is drawn from the model's generator in order,
-as `CrowdSAM.generate_many` draws it, so `generate_batch` equals
-`generate_many` item by item on the same generator state.  A partial chunk
-runs the images it has (the JAX package pads it with repeats of its last
-image, for a static shape; the results are the same).  What the JAX
-`ShardedPipeline` refuses or cannot run is refused here with the reason:
-crop layers, the train-free branch, the HQ decoder (`sam_hq`) and any
-mesh, spatial or prompt axis (multi-device is later work).
+as `CrowdSAM.generate_many` draws it, on every rank, and each rank uses
+its own images' vectors; so at any mesh shape `generate_batch` equals
+`generate_many` item by item on the same generator state.  A partial
+chunk runs the images it has (the JAX package pads it with repeats of its
+last image, for a static shape; the results are the same); a rank given
+no image of it skips the encode and the engine and joins the gather.
+What the JAX `ShardedPipeline` refuses or cannot run is refused here with
+the reason: crop layers, the train-free branch and the HQ decoder
+(`sam_hq`); and the spatial axis (GSPMD's automatic partitioning of the
+encode in the JAX package) is later work.
 """
 
 from __future__ import annotations
@@ -26,9 +38,12 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.transforms import resize_image
+from crowdsam_tpu_torch.parallel.mesh import axis_group, check_device
+from crowdsam_tpu_torch.parallel.prompt_shard import axis_shard
 from crowdsam_tpu_torch.pipeline.crowdsam import _wrap_up
 from crowdsam_tpu_torch.pipeline.engine import (
     run_eps_engine_batch,
@@ -40,9 +55,12 @@ def refusal(model, mesh=None, spatial_axis=None, prompt_axis=None
             ) -> Optional[str]:
     """Why the batched path does not run `model` (or these mesh options),
     or None."""
-    if mesh is not None or spatial_axis or prompt_axis:
-        return ("mesh, spatial_axis and prompt_axis are not supported "
-                "(multi-device: M15 part 2)")
+    if spatial_axis:
+        return ("spatial_axis: spatial encode sharding: M15 part 3 (halo "
+                "exchanges in the encoders' convolutions and resizes, K/V "
+                "gathers in their global blocks)")
+    if prompt_axis and mesh is None:
+        return "prompt_axis needs a mesh with that axis"
     if model.crop_n_layers != 0:
         return ("the batched path requires test.crop_n_layers 0 (the JAX "
                 "package's ShardedPipeline asserts it)")
@@ -58,7 +76,8 @@ def refusal(model, mesh=None, spatial_axis=None, prompt_axis=None
 
 class ShardedPipeline:
     """Wraps a `CrowdSAM` with a batched `generate_batch` of `batch` images
-    a chunk, on the model's device."""
+    a chunk, on the model's device; with `mesh`, a chunk's images split
+    over its `data` axis (and each image's prompts over `prompt_axis`)."""
 
     def __init__(self, model, mesh=None, batch: int = 4,
                  spatial_axis: Optional[str] = None,
@@ -70,6 +89,16 @@ class ShardedPipeline:
             raise ValueError(f"batch {batch} (at least 1)")
         self.model = model
         self.batch = batch
+        self.data = None          # (group, this rank's index, size)
+        self.shard = None         # this rank's prompt shard
+        if mesh is not None:
+            check_device(mesh, model.device)
+            self.data = axis_group(mesh, "data")
+            if batch % self.data[2]:
+                raise ValueError(f"batch {batch} does not divide over the "
+                                 f"data axis ({self.data[2]} ranks)")
+            if prompt_axis:
+                self.shard = axis_shard(model, mesh, prompt_axis)
         self.last_engine = None
 
     @torch.no_grad()
@@ -77,10 +106,11 @@ class ShardedPipeline:
                        noise: Optional[Sequence] = None,
                        times_out: Optional[list] = None) -> List[MaskData]:
         """HWC uint8 images -> one MaskData each, as `CrowdSAM.generate`
-        gives it.  `noise`: optional candidate-order vectors, one (grid^2,)
-        a image; drawn from the model's generator when absent.
-        `times_out`: optional list; each image gets its chunk's wall-clock
-        seconds divided by the chunk's images (they sum to the total)."""
+        gives it (on every rank, with a mesh).  `noise`: optional
+        candidate-order vectors, one (grid^2,) a image; drawn from the
+        model's generator when absent.  `times_out`: optional list; each
+        image gets its chunk's wall-clock seconds divided by the chunk's
+        images (they sum to the total)."""
         images = [np.asarray(im, dtype=np.uint8) for im in images]
         if noise is not None and len(noise) != len(images):
             raise ValueError(f"{len(noise)} noise vectors for {len(images)} "
@@ -89,14 +119,35 @@ class ShardedPipeline:
         for c0 in range(0, len(images), self.batch):
             t = time.perf_counter()
             chunk = images[c0:c0 + self.batch]
-            out.extend(self._chunk(chunk, None if noise is None
-                                   else noise[c0:c0 + len(chunk)]))
+            nz = ([self.model.draw_noise() for _ in chunk] if noise is None
+                  else [torch.tensor(np.asarray(v, dtype=np.float32))
+                        for v in noise[c0:c0 + len(chunk)]])
+            if self.data is None:
+                out.extend(self._chunk(chunk, nz))
+            else:
+                out.extend(self._data_chunk(chunk, nz))
             if times_out is not None:
                 per = (time.perf_counter() - t) / len(chunk)
                 times_out.extend([per] * len(chunk))
         return out
 
-    def _chunk(self, chunk: List[np.ndarray], noise) -> List[MaskData]:
+    def _data_chunk(self, chunk: List[np.ndarray], nz) -> List[MaskData]:
+        """This rank's share of a chunk over the data axis, then every
+        share gathered in image order."""
+        group, d, size = self.data
+        per = self.batch // size
+        lo, hi = d * per, min((d + 1) * per, len(chunk))
+        if lo < hi:
+            mine = self._chunk(chunk[lo:hi], nz[lo:hi])
+        else:
+            mine, self.last_engine = [], []
+        shares = [None] * size
+        dist.all_gather_object(shares, mine, group=group)
+        return [r for share in shares for r in share]
+
+    def _chunk(self, chunk: List[np.ndarray], nz) -> List[MaskData]:
+        """Images of a chunk with their noise vectors, through the three
+        stages on this rank."""
         model = self.model
         cfg = model.engine_cfg
         dev = model.device
@@ -111,10 +162,7 @@ class ShardedPipeline:
             frames[i, :ih, :iw] = resized
             metas.append(dict(crop_box=crop_box, orig_hw=img.shape[:2],
                               in_hw=(ih, iw), downscale=downscale))
-        nz = torch.stack([
-            model.draw_noise() if noise is None else torch.tensor(
-                np.asarray(noise[i], dtype=np.float32))
-            for i in range(n)])
+        nz = torch.stack(list(nz))
         in_hw = [m["in_hw"] for m in metas]
 
         enc = model.predictor.encode_batch(
@@ -128,7 +176,7 @@ class ShardedPipeline:
             model.sam, cfg, enc["features"], enc["dense_pe"],
             enc["dino_proj_256"], sims, feat_hw, in_hw,
             [m["crop_box"] for m in metas], [m["orig_hw"] for m in metas],
-            [m["downscale"] for m in metas], nz)
+            [m["downscale"] for m in metas], nz, shard=self.shard)
         self.last_engine = res
 
         # One survivor pass over every image's kept rows, padded to the

@@ -114,7 +114,10 @@ def _unsupported(config: Dict[str, Any]) -> Optional[str]:
         return (f"test.mask_selection {t['mask_selection']!r} (not one of "
                 f"{MASK_SELECTIONS})")
     if int(tpu.get("mesh_data", 1)) > 1 or int(tpu.get("mesh_model", 1)) > 1:
-        return "tpu.mesh_data / tpu.mesh_model > 1 (multi-device: later slice)"
+        return ("tpu.mesh_data / tpu.mesh_model > 1: multi-device runs "
+                "through parallel.eval_shard.ShardedPipeline(mesh=...) and "
+                "parallel.prompt_shard.install_prompt_sharding; the JAX "
+                "CrowdSAM does not read tpu.mesh_*")
     return None
 
 
@@ -293,6 +296,10 @@ class CrowdSAM:
         # Candidate-order noise, drawn on the CPU so that every device
         # sees the same order for a seed.
         self.generator = torch.Generator().manual_seed(seed)
+        # The decode engine `generate` calls, with run_eps_engine's
+        # signature (`parallel.prompt_shard.install_prompt_sharding`
+        # replaces it).
+        self.engine = run_eps_engine
 
     def _load_ref_feature(self, path: Optional[str]) -> torch.Tensor:
         """The train-free reference feature (C,): the mean over axis 0 of
@@ -399,7 +406,7 @@ class CrowdSAM:
             self.fg_sim = self.sim_map(self.predictor.predict_fg_map())
             r = cfg.grid_size / max(in_h, in_w)
             feat_hw = (int(in_h * r), int(in_w * r))
-        res = run_eps_engine(
+        res = self.engine(
             self.sam, cfg, self.predictor.get_image_embedding(),
             self.predictor.dense_pe, self.predictor.decode_extras(),
             self.fg_sim, feat_hw, (in_h, in_w), crop_box, (orig_h, orig_w),

@@ -53,12 +53,25 @@ one lockstep loop, each with its own candidate order, alive set,
 occupancy, consumed count and slab, one host sync an iteration, and the
 prompts of every running image in one decode; then one survivor pass over
 the flattened survivors.  The single-image functions are these with B = 1.
+
+Prompt-sharded (`shard`, a `parallel.collectives.Shard` of M ranks; the
+JAX engine's `shard_axis` / `shard_num` under `shard_map`): every rank
+holds the same inputs and selects the same K candidates of each running
+image, so `alive` and `consumed` stay replicated; rank r decodes only the
+prompts [r K/M, (r+1) K/M) of each and writes them to a slab of
+`max_iters x K/M` rows.  The occupancy is OR-reduced over the ranks once a
+lockstep iteration (one all-reduce, whatever `accumulate_occupy` says).
+After the loop the per-row scalars are gathered in iteration-major order
+(row it K + r K/M + j of the whole slab is rank r's row it K/M + j), the
+NMS and the top `max_keep` run replicated, and the top rows' logits are
+assembled from their owners by a masked sum: two all-reduces.  The result
+equals the single-rank engine's on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,6 +100,12 @@ from crowdsam_tpu_torch.ops.survivor_kernel import (
     mask_tail,
     survivor_rle,
     upsample_plain,
+)
+from crowdsam_tpu_torch.parallel.collectives import (
+    Shard,
+    gather_rows,
+    masked_psum,
+    or_reduce,
 )
 
 MASK_SELECTIONS = ("max_iou", "max_area", "min_area")
@@ -144,13 +163,23 @@ def select_mask(cfg: EngineConfig, masks: torch.Tensor,
     raise NotImplementedError(f"mask_selection {cfg.mask_selection!r}")
 
 
+def check_shard(cfg: EngineConfig, m: int):
+    """Raise unless a prompt batch of `cfg` divides over `m` ranks."""
+    if cfg.points_per_batch % m:
+        raise ValueError(
+            f"points_per_batch {cfg.points_per_batch} does not divide over "
+            f"{m} prompt shards: every rank decodes the same number of "
+            "prompts a batch")
+
+
 @torch.no_grad()
 def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
                    dense_pe: torch.Tensor, dino_feats_proj: torch.Tensor,
                    sim_map: torch.Tensor, feat_hw: Sequence[float],
                    input_hw: Sequence[float], crop_box: Sequence[float],
                    orig_hw: Sequence[float], downscale: float,
-                   noise: torch.Tensor) -> Dict[str, torch.Tensor]:
+                   noise: torch.Tensor,
+                   shard: Optional[Shard] = None) -> Dict[str, torch.Tensor]:
     """One image's decode: `run_eps_engine_batch` with B = 1.
 
     features (1, g, g, 256); dense_pe (g, g, 256); dino_feats_proj (R, R, C)
@@ -163,19 +192,24 @@ def run_eps_engine(sam, cfg: EngineConfig, features: torch.Tensor,
     Returns the top `max_keep` slab rows: logits (M, R, R) bf16, summary
     (M, 12) [valid, iou, score, category, stability, consumed, box(4),
     point(2)], `num_consumed`, `pre_nms` {iou, valid, boxes} of the whole
-    slab and `loop` {iterations, syncs}."""
+    slab and `loop` {iterations, syncs, collectives, reduced_bytes,
+    reduced_bytes_in_loop}.
+    `shard`: decode this rank's share of every batch (the module's note).
+    """
     extras = (dino_feats_proj if isinstance(dino_feats_proj, dict)
               else dino_feats_proj[None])
     return run_eps_engine_batch(
         sam, cfg, features, dense_pe, extras, sim_map[None], [feat_hw],
-        [input_hw], [crop_box], [orig_hw], [downscale], noise[None])[0]
+        [input_hw], [crop_box], [orig_hw], [downscale], noise[None],
+        shard=shard)[0]
 
 
 @torch.no_grad()
 def run_eps_engine_batch(sam, cfg: EngineConfig, features: torch.Tensor,
                          dense_pe: torch.Tensor, decode_extras,
                          sim_map: torch.Tensor, feat_hw, input_hw, crop_box,
-                         orig_hw, downscale, noise: torch.Tensor) -> list:
+                         orig_hw, downscale, noise: torch.Tensor,
+                         shard: Optional[Shard] = None) -> list:
     """B images' decode in lockstep (the JAX package's `jax.vmap` of the
     engine): one list entry a image, each what `run_eps_engine` returns.
 
@@ -194,20 +228,98 @@ def run_eps_engine_batch(sam, cfg: EngineConfig, features: torch.Tensor,
     device by a rank of the running sum of `alive`; their B' x K prompts go
     through one decode (with `fused_decode` one K5 and one K6 call); an
     image that stopped sends nothing and keeps its state.  Then the slab
-    NMS and the top `max_keep` a image."""
+    NMS and the top `max_keep` a image.
+
+    `shard`: each running image's K prompts are split over the shard's M
+    ranks (the module's note); K must divide over M.  `loop` then also
+    counts the all-reduces (one a lockstep iteration, two after the loop)
+    and the bytes they reduced, in the loop and in all."""
+    if shard is not None:
+        check_shard(cfg, shard.size)
+    calls0, bytes0 = ((shard.calls, shard.bytes) if shard is not None
+                      else (0, 0))
     st = _eps_loop(sam, cfg, features, dense_pe, decode_extras, sim_map,
-                   feat_hw, input_hw, crop_box, orig_hw, downscale, noise)
+                   feat_hw, input_hw, crop_box, orig_hw, downscale, noise,
+                   shard)
     consumed = st.pop("consumed").tolist()
     loop = {"iterations": st.pop("iterations"), "syncs": st.pop("syncs")}
     packed = cfg.fused_decode and not isinstance(sam.mask_decoder,
                                                  MaskDecoderHQ)
+    n_img = features.shape[0]
+    if shard is not None:
+        loop["reduced_bytes_in_loop"] = shard.bytes - bytes0
+        _gather_scalars(cfg, st, shard)
+    picks = [_eps_top(cfg, {k: v[b] for k, v in st.items()})
+             for b in range(n_img)]
+    if shard is None:
+        rows = [st["logits"][b][top] for b, (_, top) in enumerate(picks)]
+        loop.update(collectives=0, reduced_bytes=0, reduced_bytes_in_loop=0)
+    else:
+        rows = _top_rows(cfg, st["logits"], [top for _, top in picks],
+                         shard)
+        loop.update(collectives=shard.calls - calls0,
+                    reduced_bytes=shard.bytes - bytes0)
     out = []
-    for b in range(features.shape[0]):
+    for b in range(n_img):
         res = _eps_finish(cfg, {k: v[b] for k, v in st.items()},
-                          sim_map[b], consumed[b], packed)
+                          *picks[b], rows[b], sim_map[b], consumed[b],
+                          packed)
         res["loop"] = loop
         out.append(res)
     return out
+
+
+# The per-row scalars of the slab, gathered over the prompt shards as one
+# int32 buffer: (name, columns); floats travel as their bits.
+_SCALARS = (("iou", 1), ("cat", 1), ("stab", 1), ("boxes", 4),
+            ("points", 2), ("valid", 1))
+
+
+def _gather_scalars(cfg: EngineConfig, st: Dict, shard: Shard) -> None:
+    """Replace each rank's (B, max_iters K/M) per-row scalars in `st` by
+    the whole slab's (B, max_iters K) in iteration-major order, in one
+    all-reduce (the JAX engine's all-gather of iou, cat, stab, boxes,
+    points and valid)."""
+    cols = []
+    for name, _ in _SCALARS:
+        v = st[name]
+        v = v[..., None] if v.dim() == 2 else v
+        if v.dtype == torch.float32:
+            cols.append(v.contiguous().view(torch.int32))
+        else:
+            cols.append(v.to(torch.int32))
+    local = torch.cat(cols, dim=-1)                 # (B, iters KL, W)
+    n_img, w = local.shape[0], local.shape[-1]
+    kl = cfg.points_per_batch // shard.size
+    full = gather_rows(local, shard)                # (M, B, iters KL, W)
+    full = full.reshape(shard.size, n_img, cfg.max_iters, kl, w)
+    full = full.permute(1, 2, 0, 3, 4).reshape(n_img, cfg.slab, w)
+    c = 0
+    for name, n in _SCALARS:
+        part = full[..., c:c + n].contiguous()
+        c += n
+        if st[name].dtype == torch.float32:
+            part = part.view(torch.float32)
+        else:
+            part = part.to(st[name].dtype)
+        st[name] = part[..., 0] if st[name].dim() == 2 else part
+
+
+def _top_rows(cfg: EngineConfig, logits: torch.Tensor, tops: list,
+              shard: Shard) -> torch.Tensor:
+    """The slab logits of each image's top rows (whole-slab indices
+    `tops`, one (T,) a image) from the ranks that decoded them: each rank
+    gives the rows it owns and zeros elsewhere, one masked sum for all
+    images (the JAX engine's masked psum)."""
+    k = cfg.points_per_batch
+    kl = k // shard.size
+    top = torch.stack(tops)                         # (B, T)
+    rem = top % k
+    owner = rem // kl
+    local = (top // k) * kl + rem % kl
+    rows = logits[torch.arange(top.shape[0], device=top.device)[:, None],
+                  local]
+    return masked_psum(rows, owner == shard.rank, shard)
 
 
 def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -220,13 +332,18 @@ def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
               sim_map, feat_hw, input_hw, crop_box, orig_hw, downscale,
-              noise) -> Dict[str, torch.Tensor]:
+              noise, shard: Optional[Shard] = None
+              ) -> Dict[str, torch.Tensor]:
     """The lockstep while-loop of `run_eps_engine_batch`: the slabs (B,
-    SLAB, ...), the consumed counts (B,) and the loop's counts."""
+    SLAB, ...), the consumed counts (B,) and the loop's counts.  With
+    `shard` the slabs hold this rank's max_iters x K/M rows."""
     dev = features.device
     n_img = features.shape[0]
     G, K, R = cfg.grid_size, cfg.points_per_batch, cfg.low_res
-    N, SLAB = G * G, cfg.slab
+    # This rank's prompts of each batch: [k0, k0 + KL) of the K selected.
+    KL = K if shard is None else K // shard.size
+    k0 = 0 if shard is None else shard.rank * KL
+    N, SLAB = G * G, cfg.max_iters * KL
     pe, dec = sam.prompt_encoder, sam.mask_decoder
     is_hq = isinstance(dec, MaskDecoderHQ)
     fused = cfg.fused_decode and not is_hq
@@ -292,8 +409,8 @@ def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
     slab_boxes = torch.zeros((n_img, SLAB, 4), device=dev)
     slab_points = torch.zeros((n_img, SLAB, 2), device=dev)
     slab_valid = torch.zeros((n_img, SLAB), dtype=torch.bool, device=dev)
-    ar = torch.arange(n_img * K, device=dev)
-    labels = torch.ones((n_img * K, 1), dtype=torch.int64, device=dev)
+    ar = torch.arange(n_img * KL, device=dev)
+    labels = torch.ones((n_img * KL, 1), dtype=torch.int64, device=dev)
     occupy = torch.zeros((n_img, R * R), dtype=torch.bool, device=dev)
     consumed = torch.zeros((n_img,), dtype=torch.int64, device=dev)
     all_imgs = torch.arange(n_img, device=dev)
@@ -312,21 +429,22 @@ def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
             ia, act_d = slice(None), all_imgs
         else:
             ia = act_d = _to_device(act, dev)
-        p_cnt = n_act * K
+        p_cnt = n_act * KL
         # Each running image's next K alive candidates (N pads a short
-        # batch), by the rank of each candidate among the alive ones.
+        # batch), by the rank of each candidate among the alive ones; this
+        # rank decodes KL of them (all K unsharded).
         al = alive[ia]
         rank = torch.cumsum(al, dim=1) - 1
         take = al & (rank < K)
         sel = torch.full((n_act, K + 1), N, dtype=torch.int64, device=dev)
         sel.scatter_(1, torch.where(take, rank, K),
                      cand_idx.expand(n_act, N))
-        sel = sel[:, :K]
+        sel = sel[:, k0:k0 + KL]
         al = al & ~take
         consumed[ia] = consumed[ia] + take.sum(dim=1)
         sel_ok = (sel < N).reshape(p_cnt)
         coords = pts[ia].gather(
-            1, sel.clamp(max=N - 1)[..., None].expand(n_act, K, 2)).float()
+            1, sel.clamp(max=N - 1)[..., None].expand(n_act, KL, 2)).float()
 
         sparse, dense = pe(points=(
             (coords * coord_factor[ia][:, None, :]).reshape(p_cnt, 1, 2),
@@ -338,7 +456,7 @@ def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
                     dino_feats_proj=dino_packed[0], packed_masks=True)
             else:
                 img = act_d.to(torch.int32)[:, None].expand(
-                    n_act, K).reshape(p_cnt)
+                    n_act, KL).reshape(p_cnt)
                 masks, iou_pred, cls_scores = fused_decode(
                     dec, dec_shared, sparse, True,
                     dino_feats_proj=dino_packed[ia], packed_masks=True,
@@ -354,7 +472,7 @@ def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
                 dino_feats_proj=decode_extras[0])
         else:                     # each prompt with its image's features
             feats = features[ia][:, None].expand(
-                n_act, K, *features.shape[1:]).reshape(
+                n_act, KL, *features.shape[1:]).reshape(
                     p_cnt, *features.shape[1:])
             masks, iou_pred, cls_scores = dec(
                 feats, dense_pe, sparse, dense, True,
@@ -380,27 +498,29 @@ def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
         else:
             boxes_lr = batched_mask_to_box(binm).float()
         keep &= ~is_box_near_crop_edge(
-            (boxes_lr * (cfg.img_size / R)).reshape(n_act, K, 4),
+            (boxes_lr * (cfg.img_size / R)).reshape(n_act, KL, 4),
             crop[ia][:, None], orig_box[ia][:, None],
             down[ia][:, None, None]).reshape(p_cnt)
 
         hot = binm & (keep & (iou_sel > cfg.filter_thresh))[:, None, None]
-        occ_new = hot.reshape(n_act, K, -1).any(dim=1)
+        occ_new = hot.reshape(n_act, KL, -1).any(dim=1)
+        if shard is not None:     # the OR over every rank's prompts
+            occ_new = or_reduce(occ_new, shard)
         # Overwritten each batch (the reference quirk) unless accumulated.
         occ = (occupy[ia] | occ_new) if cfg.accumulate_occupy else occ_new
         occupy[ia] = occ
         alive[ia] = al & ~occ.gather(1, occ_idx[ia])
 
-        rs = slice(it * K, (it + 1) * K)
+        rs = slice(it * KL, (it + 1) * KL)
         slab_logits[ia, rs] = m_sel.to(torch.bfloat16).reshape(
-            n_act, K, *mshape)
+            n_act, KL, *mshape)
         slab_iou[ia, rs] = torch.where(keep, iou_sel,
-                                       float("-inf")).reshape(n_act, K)
-        slab_cat[ia, rs] = cat_sel.reshape(n_act, K)
-        slab_stab[ia, rs] = stab.reshape(n_act, K)
-        slab_boxes[ia, rs] = boxes_lr.reshape(n_act, K, 4)
+                                       float("-inf")).reshape(n_act, KL)
+        slab_cat[ia, rs] = cat_sel.reshape(n_act, KL)
+        slab_stab[ia, rs] = stab.reshape(n_act, KL)
+        slab_boxes[ia, rs] = boxes_lr.reshape(n_act, KL, 4)
         slab_points[ia, rs] = coords
-        slab_valid[ia, rs] = keep.reshape(n_act, K)
+        slab_valid[ia, rs] = keep.reshape(n_act, KL)
         it += 1
     return {"logits": slab_logits, "iou": slab_iou, "cat": slab_cat,
             "stab": slab_stab, "boxes": slab_boxes, "points": slab_points,
@@ -408,20 +528,29 @@ def _eps_loop(sam, cfg: EngineConfig, features, dense_pe, decode_extras,
             "syncs": syncs}
 
 
+def _eps_top(cfg: EngineConfig, slab: Dict[str, torch.Tensor]):
+    """One image's slab NMS (keep mask over the slab) and its top
+    `max_keep` rows by score (stable sort)."""
+    slab_iou = slab["iou"]
+    keep_nms = nms_mask(slab["boxes"], slab_iou, cfg.box_nms_thresh,
+                        slab["valid"])
+    score_key = torch.where(keep_nms, slab_iou, torch.tensor(
+        float("-inf"), device=slab_iou.device))
+    return keep_nms, torch.argsort(-score_key, stable=True)[: cfg.max_keep]
+
+
 def _eps_finish(cfg: EngineConfig, slab: Dict[str, torch.Tensor],
-                sim_map: torch.Tensor, consumed: int, packed: bool) -> Dict:
-    """One image's slab NMS, top `max_keep` rows by score (stable sort) and
-    per-detection summary (`run_eps_engine`'s result); `packed`: the slab
-    logits are packed (the fused decode)."""
+                keep_nms: torch.Tensor, top: torch.Tensor,
+                logits: torch.Tensor, sim_map: torch.Tensor, consumed: int,
+                packed: bool) -> Dict:
+    """One image's result (`run_eps_engine`'s) from its slab, its NMS keep
+    mask and top rows (`_eps_top`) and those rows' slab logits: the
+    per-detection summary; `packed`: the slab logits are packed (the
+    fused decode)."""
     dev = slab["iou"].device
     R = cfg.low_res
     slab_iou, slab_valid, slab_boxes = slab["iou"], slab["valid"], \
         slab["boxes"]
-    keep_nms = nms_mask(slab_boxes, slab_iou, cfg.box_nms_thresh, slab_valid)
-    score_key = torch.where(keep_nms, slab_iou,
-                            torch.tensor(float("-inf"), device=dev))
-    top = torch.argsort(-score_key, stable=True)[: cfg.max_keep]
-    logits = slab["logits"][top]
     if packed:
         logits = unpack_spatial(logits, R // 4, R // 4)
     iou, valid = slab_iou[top], keep_nms[top]

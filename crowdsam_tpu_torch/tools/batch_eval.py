@@ -10,7 +10,11 @@ merge, `convert_to_coco`, then the CrowdHuman evaluator on
 `data.odgt_file` (empty images removed, visible boxes), printing AP, MR,
 Recall, tp and fp.  With one card, `--inline` or `--device`, the whole
 range runs in this process; with more cards, one `tools.test` process a
-card (`--local_rank`), up to `-n`.
+card (`--local_rank`), up to `-n`, each importing this package from where
+this process does.  A shard draws the noise a whole-range run draws for
+its images (`tools.test.skip_noise`), so the merged result is the inline
+one.  A shard that fails fails the run (the JAX tool ignores a shard's
+exit code).
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ from crowdsam_tpu_torch.evallib.crowdhuman import (
 )
 from crowdsam_tpu_torch.tools import test as test_cli
 
+# The directory that holds this package, for the shards' imports.
+PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
 
 def test_argv(start_idx, end_idx, rank, config_file, options, device=None):
     """`tools.test` arguments of one shard."""
@@ -44,10 +52,13 @@ def test_argv(start_idx, end_idx, rank, config_file, options, device=None):
 
 
 def run_script(argv) -> None:
-    """One shard in its own process."""
+    """One shard in its own process; raises if it fails."""
     cmd = [sys.executable, "-m", "crowdsam_tpu_torch.tools.test"] + argv
     print(f"Running command: {' '.join(cmd)}")
-    subprocess.run(cmd, check=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (PACKAGE_ROOT, env.get("PYTHONPATH")) if p)
+    subprocess.run(cmd, check=True, env=env)
 
 
 def merge_json(json_files):

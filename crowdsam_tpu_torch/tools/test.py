@@ -11,7 +11,10 @@ the same flags and dotted config overrides, the same per-image dicts
 `--local_rank` (cuda:N) unless `--device` names another device; with
 neither and no CUDA it raises.  Up to 64 images without crop layers or
 `--visualize` go through `CrowdSAM.generate_many`, others through
-`generate` one at a time.
+`generate` one at a time.  A run from `--start_idx` N first draws past
+the candidate-order noise of images 0 .. N-1, so that a shard of a
+sharded run (`tools.batch_eval`) gives each image what a run over the
+whole range gives it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from tqdm import tqdm
 
 from crowdsam_tpu_torch.config import load_config, modify_config, \
     resolve_device
+from crowdsam_tpu_torch.ops.amg import generate_crop_boxes
 from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 from crowdsam_tpu_torch.utils.data import (
     data_meta,
@@ -62,6 +66,16 @@ def environ_init(argv=None):
     return args, configs, logger
 
 
+def skip_noise(model: CrowdSAM, n_images: int) -> None:
+    """Advance the model's generator past the noise `generate` draws for
+    `n_images` images (one vector a crop; the count of crops does not
+    depend on the image's size)."""
+    boxes, _ = generate_crop_boxes((64, 64), model.crop_n_layers,
+                                   model.crop_overlap_ratio)
+    for _ in range(n_images * len(boxes)):
+        model.draw_noise()
+
+
 def main(argv=None) -> int:
     args, config, logger = environ_init(argv)
     device = resolve_device(args.device, args.local_rank)
@@ -71,6 +85,7 @@ def main(argv=None) -> int:
     n_class, class_names = data_meta[config["data"]["dataset"]][1:]
 
     model = CrowdSAM(config, device=device, logger=logger)
+    skip_noise(model, args.start_idx)
     logger.info("load images and annotations..")
     with open(config["data"]["json_file"]) as f:
         annots = json.load(f)

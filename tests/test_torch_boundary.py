@@ -83,6 +83,32 @@ def test_port_files_include_the_batched_pipeline():
     assert "image_row(a, q)" in text and "image_row(a, p)" in text
 
 
+def test_port_files_include_the_multi_device_slice():
+    """The mesh, the collectives, the prompt-sharded engine and the rank
+    launcher are the port's own (covered by `test_no_jax_imports`); with
+    the tests' rank functions (`tests/torch_ranks.py`, which spawned ranks
+    import) they leave JAX out of `sys.modules`, and the collectives use
+    `all_reduce` alone."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    parallel = ("mesh", "collectives", "prompt_shard", "launch")
+    assert {f"crowdsam_tpu_torch/parallel/{n}.py" for n in parallel} <= names
+    ranks = ROOT / "tests" / "torch_ranks.py"
+    assert not {m for m in _imported_roots(ranks) if m in FORBIDDEN}
+    code = ("import sys; sys.path.insert(0, 'tests')\n"
+            "import torch_ranks, crowdsam_tpu_torch.parallel.launch\n"
+            + "".join(f"import crowdsam_tpu_torch.parallel.{n}\n"
+                      for n in parallel) +
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+    text = (ROOT / "crowdsam_tpu_torch" / "parallel" /
+            "collectives.py").read_text()
+    calls = set(re.findall(r"dist\.(\w+)\(", text))
+    assert calls == {"all_reduce"}, calls
+
+
 def test_port_files_include_the_msgpack_reader():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert "crowdsam_tpu_torch/utils/msgpack_io.py" in names

@@ -11,7 +11,9 @@ detection counts and categories, boxes within 0.5 px, scores within 1e-4,
 RLE strings equal.  `tools.crowdhuman_eval` and `tools.batch_eval --inline`
 print the JAX CLIs' metric lines (the evaluator is the same numpy code);
 the JAX batch_eval's shard is the JAX test CLI's own result, copied, not
-recomputed."""
+recomputed.  `tools.batch_eval`'s one-process-a-card path runs here with
+`torch.cuda.device_count` patched to 2 and each shard's device given as
+`--device cpu`: its merged result equals `--inline`'s."""
 
 import contextlib
 import importlib.util
@@ -19,6 +21,7 @@ import io
 import json
 import os
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -201,6 +204,64 @@ def test_batch_eval_inline_matches_jax(dataset, jax_result, jax_noise,
     assert len(_metric_lines(got)) == 5
     assert _metric_lines(got) == _metric_lines(want)
     assert got.rstrip().endswith("All processes done")
+
+
+def _multi_process(monkeypatch, extra=()):
+    """`batch_eval`'s one-process-a-card path reached on the CPU: two
+    "cards", each shard's `tools.test` given `--device cpu` (and `extra`),
+    one torch thread a shard; returns the list of merged results."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    real_argv, real_merge = batch_eval.test_argv, batch_eval.merge_json
+    merged = []
+
+    def test_argv(*a, **kw):
+        assert kw.get("device") is None
+        return list(extra) + real_argv(*a, device="cpu")
+
+    def merge_json(files):
+        merged.append(real_merge(files))
+        return merged[-1]
+
+    monkeypatch.setattr(batch_eval, "test_argv", test_argv)
+    monkeypatch.setattr(batch_eval, "merge_json", merge_json)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    return merged
+
+
+def test_batch_eval_multi_process_matches_inline(dataset, tmp_path,
+                                                 monkeypatch):
+    """Two `tools.test` processes (images [0, 1) and [1, 3), each with
+    `--local_rank`), then the merge: the same merged result.json, bit for
+    bit, and the same metric lines as `--inline` (the shard from image 1
+    draws past image 0's noise, as the inline run has)."""
+    root, data = dataset
+    monkeypatch.chdir(tmp_path)
+    inline_merged = []
+    real_merge = batch_eval.merge_json
+    monkeypatch.setattr(batch_eval, "merge_json", lambda files: (
+        inline_merged.append(real_merge(files)) or inline_merged[-1]))
+    want = _printed(batch_eval.main, ["-c", CONFIG, "--inline", "--device",
+                                      "cpu"] + TINY + data)
+    merged = _multi_process(monkeypatch)
+    got = _printed(batch_eval.main, ["-c", CONFIG] + TINY + data)
+    assert "--local_rank 1" in got and "--start_idx 1" in got
+    assert not list(tmp_path.iterdir())      # temp files removed
+    assert merged[0] == inline_merged[0]
+    assert [r["image_id"] for r in merged[0]] == list(range(len(SIZES)))
+    assert sum(len(r["boxes"]) for r in merged[0]) > 0
+    assert len(_metric_lines(got)) == 5
+    assert _metric_lines(got) == _metric_lines(want)
+
+
+def test_batch_eval_fails_when_a_shard_fails(dataset, tmp_path,
+                                             monkeypatch):
+    """A shard that exits non-zero fails the run (the JAX tool would merge
+    what it finds)."""
+    root, data = dataset
+    monkeypatch.chdir(tmp_path)
+    _multi_process(monkeypatch, extra=["--mode", "not-a-mode"])
+    with pytest.raises(subprocess.CalledProcessError):
+        _printed(batch_eval.main, ["-c", CONFIG] + TINY + data)
 
 
 def test_crowdhuman2coco_cli_writes_the_converted_json(dataset, tmp_path):

@@ -794,3 +794,91 @@ def test_generate_batch_on_the_small_config(gen):
                 np.testing.assert_allclose(g["boxes"], w["boxes"], atol=0.5)
                 np.testing.assert_allclose(g["scores"], w["scores"],
                                            atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["prompts 16", "prompts 8",
+                                    "4 images x 8 prompts"])
+def test_decode_kernels_at_prompt_shard_counts(gen, layout):
+    """K5 and K6 at the prompt counts a rank of the prompt axis gives them
+    at M = 2 and 4 (32 / M prompts of one image, 8 prompts of each of a
+    composed rank's 4 images), at the main path's 4096 image rows."""
+    if layout.startswith("prompts"):
+        p = int(layout.split()[1])
+        shared, tokens, hyper = _decoder_operands(gen, 1024, p, 7, True)
+        img = None
+    else:
+        b, per = 4, 8
+        sam = sam_model_registry["vit_tiny"](image_size=1024).cuda()
+        init_random_(sam, torch.Generator(device="cuda").manual_seed(0))
+        cast_compute_params(sam, torch.bfloat16)
+        feats = torch.randn((b, 64, 64, 256), generator=gen,
+                            device="cuda").bfloat16()
+        shared = precompute_decode_shared(
+            sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight,
+            feats, sam.prompt_encoder.get_dense_pe())
+        tokens = torch.randn((b * per, 7, 256), generator=gen,
+                             device="cuda").bfloat16()
+        hyper = torch.randn((b * per, 4, 32), generator=gen,
+                            device="cuda").bfloat16()
+        img = torch.arange(b, dtype=torch.int32,
+                           device="cuda").repeat_interleave(per)
+    args = _tail_args(shared, tokens)
+    keys2, tok = decode_tail_kernel.twoway_tail(*args, img=img)
+    want_keys2, want_tok = decode_tail_kernel.twoway_tail_plain(*args,
+                                                                img=img)
+    _close(keys2, want_keys2, 2e-2)
+    _close(tok, want_tok, 2e-2)
+    w = shared["mask_head"]
+    got = mask_head_kernel.mask_head(want_keys2, hyper, w, emit_exp=True)
+    want = mask_head_kernel.mask_head_plain(want_keys2, hyper, w,
+                                            emit_exp=True)
+    atol = 0.03 * float(want[0].float().square().mean().sqrt())
+    _close(got[0], want[0], atol)
+    _close(got[1], want[1], 2e-2)
+    _close(got[2], want[2], atol)
+
+
+@pytest.mark.parametrize("mesh_shape,prompt_axis", [
+    ((1, 2), None), ((2, 1), None), ((2, 2), "model")],
+    ids=["prompt_shard", "data_shard", "composed"])
+def test_multi_device_on_the_small_config(gen, tmp_path, mesh_shape,
+                                          prompt_axis):
+    """Gloo ranks sharing the card (NCCL refuses two ranks on one device):
+    the prompt-sharded `generate`, the data axis and the composed layout
+    of `ShardedPipeline` (three images at batch 2: a partial chunk)
+    against the single process on the same noise: the same detection
+    counts, boxes within 0.5 px, scores within 1e-4; every rank the same
+    results, and K5 and K6 launched on every rank that ran an image."""
+    from torch_ranks import card_rank
+
+    from crowdsam_tpu_torch.config import load_config, modify_config
+    from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    model = CrowdSAM(modify_config(load_config(None), list(SMALL)),
+                     device="cuda")
+    frames = [crowd_scene(20 + i, 171, 256, people=(3, 6))[0]
+              for i in range(3)]
+    ng = torch.Generator().manual_seed(4)
+    noises = [torch.rand(48 * 48, generator=ng) for _ in frames]
+    if prompt_axis is None and mesh_shape[0] == 1:
+        want = [model.generate(f, noise=[n]) for f, n in zip(frames, noises)]
+    else:
+        want = ShardedPipeline(model, batch=2).generate_batch(frames,
+                                                              noise=noises)
+    assert sum(len(w["boxes"]) for w in want) > 0
+    world = mesh_shape[0] * mesh_shape[1]
+    ranks = run_ranks(card_rank, world, (SMALL, frames, noises, mesh_shape,
+                                         prompt_axis),
+                      join_timeout_s=300.0, threads=None,
+                      workdir=str(tmp_path))
+    for got, k5, k6 in ranks:
+        assert k5 > 0 and k6 > 0
+        for g, w, r0 in zip(got, want, ranks[0][0]):
+            assert len(g["boxes"]) == len(w["boxes"])
+            np.testing.assert_allclose(g["boxes"], w["boxes"], atol=0.5)
+            np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4)
+            np.testing.assert_array_equal(g["boxes"], r0["boxes"])
+            assert g["rles"] == r0["rles"]

@@ -1,9 +1,15 @@
-"""The port's batched pipeline (`parallel/eval_shard.ShardedPipeline` with
-no mesh) on the CPU: against the JAX package's `ShardedPipeline` on the
+"""The port's batched pipeline (`parallel/eval_shard.ShardedPipeline`) on
+the CPU: with no mesh against the JAX package's `ShardedPipeline` on the
 same weights with the noise JAX draws from its key, against the port's own
 `generate_many`, its refusals pinned beside the JAX path's, and the
 image-axis forms of K5's plain version, the pooled head and the encode
-against their per-image forms.
+against their per-image forms; with a mesh (ranks spawned with gloo,
+importing only the port) the data axis (2, 1) and the composed (2, 2)
+with the prompt axis, a partial chunk among them, against the JAX
+`ShardedPipeline` on the same layouts (its 8 virtual CPU devices) and
+against the port's `mesh=None` path, with the tolerances below (a rank
+encodes B/D images where the one-device path encodes B, and a composed
+rank decodes K/M prompts a batch: float32 products of other shapes).
 
 Tolerances.  Against JAX (the tiny configs of `test_torch_pipeline.py`,
 float32): the same detection count and categories, boxes within 0.5 px,
@@ -30,7 +36,10 @@ from test_torch_modes import build_pair
 from test_torch_pipeline import _one_torch_thread  # noqa: F401 (autouse fixture)
 from test_torch_pipeline import TINY, TINY_RLES, _image
 
+from torch_ranks import data_shard_rank, fake_group
+
 from crowdsam_tpu.parallel.eval_shard import ShardedPipeline as JaxPipeline
+from crowdsam_tpu.parallel.mesh import create_mesh as jax_create_mesh
 
 from crowdsam_tpu_torch.config import load_config, modify_config
 from crowdsam_tpu_torch.models import decode_tail_kernel
@@ -43,6 +52,8 @@ from crowdsam_tpu_torch.ops.connected import remove_small_regions
 from crowdsam_tpu_torch.ops.rle import coco_decode_rle
 from crowdsam_tpu_torch.ops.survivor_kernel import upsample_plain
 from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+from crowdsam_tpu_torch.parallel.launch import run_ranks
+from crowdsam_tpu_torch.parallel.mesh import create_mesh
 from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 from crowdsam_tpu_torch.pipeline.engine import survivor_core
 
@@ -235,13 +246,100 @@ def test_refusals_pinned_beside_jax(what):
 
 
 def test_multi_device_options_are_refused():
+    """What the data axis does not run: `spatial_axis` (the JAX package's
+    GSPMD encode partitioning, M15 part 3), a prompt axis without a mesh,
+    a mesh of another device type than the model's and a batch that does
+    not divide over `data` (the JAX package asserts it).  The last two on
+    a (2, 1) mesh over a two-rank process group formed in this process
+    (`torch_ranks.fake_group`): they read only the mesh's shape."""
     pm = CrowdSAM(modify_config(load_config(None), list(TINY)), device="cpu")
-    for kw in ({"mesh": object()}, {"spatial_axis": "model"},
-               {"prompt_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="M15 part 2"):
-            ShardedPipeline(pm, **kw)
+    with pytest.raises(NotImplementedError, match="M15 part 3"):
+        ShardedPipeline(pm, spatial_axis="model")
+    with pytest.raises(NotImplementedError, match="needs a mesh"):
+        ShardedPipeline(pm, prompt_axis="model")
     with pytest.raises(ValueError, match="batch"):
         ShardedPipeline(pm, batch=0)
+    with fake_group(2):
+        with pytest.raises(ValueError, match="mismatched device type"):
+            ShardedPipeline(pm, mesh=create_mesh((2, 1), device="cuda"))
+        with pytest.raises(ValueError, match="batch 3 .*data axis"):
+            ShardedPipeline(pm, mesh=create_mesh((2, 1), device="cpu"),
+                            batch=3)
+
+
+# ---------------------------------------------------------------------------
+# the data axis and the composed layout, ranks spawned with gloo
+# ---------------------------------------------------------------------------
+
+# (mesh shape, batch, prompt axis): three images at batch 2, so the second
+# chunk is partial and the rank at data coordinate 1 gets no image of it.
+LAYOUTS = [((2, 1), 2, None), ((2, 2), 2, "model")]
+
+
+@pytest.fixture(scope="module")
+def data_jax():
+    """The images, the noise JAX draws for them, the JAX `ShardedPipeline`
+    on the composed (2, 2) layout and the port's `mesh=None` path at batch
+    2.  The JAX run stands for both layouts: the JAX package's own tests
+    pin its meshes equal to its one-device path."""
+    jm, pm = build_pair(list(TINY_RLES))
+    images = _images(90)
+    noise = _jax_batch_noise(jm, len(images))
+    want = JaxPipeline(jm, mesh=jax_create_mesh((2, 2)), batch=2,
+                       prompt_axis="model").generate_batch(images)
+    one = ShardedPipeline(pm, batch=2).generate_batch(images, noise=noise)
+    return images, noise, want, one, pm.engine_cfg
+
+
+@pytest.fixture(scope="module")
+def data_ranks(data_jax, tmp_path_factory):
+    """Four ranks running each layout (ranks 2 and 3 outside the (2, 1)
+    mesh) with the noise JAX draws, and a generator-drawn run."""
+    images, noise = data_jax[:2]
+    return run_ranks(data_shard_rank, 4, (
+        list(TINY_RLES), images, noise, LAYOUTS, 6), join_timeout_s=240.0,
+        workdir=str(tmp_path_factory.mktemp("ranks")))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS,
+                         ids=lambda lay: "x".join(map(str, lay[0])))
+def test_data_axis_matches_jax_and_one_device(data_jax, data_ranks, layout):
+    """Every rank of the mesh returns every image's result in order, equal
+    to the JAX `ShardedPipeline`'s (its key's noise) and to the port's
+    `mesh=None` path.  On the last, partial chunk the ranks at data
+    coordinate 0 run the image and make one host sync a lockstep
+    iteration (and, composed, one all-reduce an iteration and two more);
+    those at coordinate 1 run no engine."""
+    shape, _, prompt_axis = layout
+    _, _, want, one, cfg = data_jax
+    members = data_ranks[:shape[0] * shape[1]]
+    got, _ = members[0][layout]
+    _assert_close(got, want)
+    _assert_close(got, one)
+    assert sum(len(g["boxes"]) for g in got) > 0
+    for r in members[1:]:
+        _assert_close(r[layout][0], got, exact=True)
+    for rank, r in enumerate(members):
+        loop = r[layout][1]
+        if rank // shape[1] == 1:     # no image of the partial chunk
+            assert loop is None
+            continue
+        assert loop["syncs"] == loop["iterations"] + (
+            loop["iterations"] < cfg.max_iters)
+        assert loop["collectives"] == (
+            loop["iterations"] + 2 if prompt_axis else 0)
+
+
+def test_data_axis_draws_noise_as_generate_many(data_ranks):
+    """Each rank draws every image's vector from the generator and uses its
+    own: the (2, 2) mesh at batch 2 equals `generate_many` on the same
+    seed."""
+    pm = CrowdSAM(modify_config(load_config(None), list(TINY_RLES)),
+                  device="cpu")
+    pm.generator.manual_seed(6)
+    want = pm.generate_many(_images(90))
+    for r in data_ranks:
+        _assert_close(r["generator"], want)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,210 @@
+"""Rank functions of the port's multi-process tests, run by
+`crowdsam_tpu_torch.parallel.launch.run_ranks` in fresh processes.
+
+They import only the port (never JAX or the JAX package), so a spawned
+rank loads no more than it runs.  Each returns plain picklable values:
+per-image results as dicts of numpy arrays and lists."""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+from crowdsam_tpu_torch.config import load_config, modify_config
+from crowdsam_tpu_torch.parallel import collectives
+from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+from crowdsam_tpu_torch.parallel.mesh import (
+    axis_group,
+    create_mesh,
+    data_sharded,
+    model_sharded,
+    replicated,
+    shard_batch,
+)
+from crowdsam_tpu_torch.parallel.prompt_shard import install_prompt_sharding
+from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+
+# Every dtype the engine's collectives carry.
+DTYPES = (torch.bool, torch.int32, torch.float32, torch.bfloat16)
+
+
+def plain(result) -> dict:
+    """A MaskData as a dict of its fields."""
+    return {k: result[k] for k in result.keys()}
+
+
+def _values(rank: int, shape, dtype, seed: int = 0) -> torch.Tensor:
+    """Rank `rank`'s seeded values: special floats (-0.0, inf, nan, the
+    smallest subnormal) among normal draws."""
+    g = torch.Generator().manual_seed(seed + rank)
+    x = torch.randn(shape, generator=g) * 1e3
+    if dtype == torch.bool:
+        return x > 0
+    if dtype == torch.int32:
+        return x.to(torch.int32)
+    flat = x.reshape(-1)
+    flat[:4] = torch.tensor([-0.0, float("inf"), float("nan"), 1e-45])
+    return x.to(dtype)
+
+
+def _collective_cases(mesh) -> dict:
+    """The three collectives over `model` on every dtype: (what they gave,
+    what this rank computes from every rank's seeded values)."""
+    _, mr, m = axis_group(mesh, "model")
+    cases = {}
+    for dtype in DTYPES:
+        shard = collectives.Shard(mesh.get_group("model"), mr, m)
+        mine = _values(mr, (3, 5), dtype)
+        every = torch.stack([_values(r, (3, 5), dtype) for r in range(m)])
+        owner = torch.arange(6) % m
+        rows = torch.stack([_values(r, (6, 4), dtype, seed=9)
+                            for r in range(m)])
+        case = {"gather": (collectives.gather_rows(mine, shard), every),
+                "masked": (collectives.masked_psum(rows[mr], owner == mr,
+                                                   shard),
+                           rows[owner, torch.arange(6)])}
+        if dtype == torch.bool:
+            case["or"] = (collectives.or_reduce(mine, shard),
+                          every.any(dim=0))
+        case["calls"] = shard.calls
+        cases[str(dtype)] = case
+    return cases
+
+
+def mesh_rank(rank: int, world: int, shapes):
+    """For each mesh shape: None outside the mesh, else what this rank
+    sees of it and the collectives over its `model` axis; under "too
+    large" what a mesh of world + 1 ranks raised."""
+    out = {}
+    for shape in shapes:
+        mesh = create_mesh(shape, device="cpu")
+        out[shape] = None if mesh is None else {
+            "coordinate": mesh.get_coordinate(),
+            "sizes": (mesh["data"].size(), mesh["model"].size()),
+            "device_type": mesh.device_type,
+            "placements": [str(p) for p in (
+                replicated(mesh), data_sharded(mesh), model_sharded(mesh))],
+            "batch_rows": shard_batch(torch.arange(4 * shape[0]),
+                                      mesh).tolist(),
+            "cases": _collective_cases(mesh),
+        }
+    out["default"] = create_mesh(device="cpu").get_coordinate()
+    try:
+        create_mesh((world + 1, 1), device="cpu")
+        out["too large"] = None
+    except ValueError as e:
+        out["too large"] = str(e)
+    return out
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A default process group of `world` ranks formed in this one process
+    as rank 0, on torch's testing backend (its collectives communicate
+    nothing): for checks that read only a mesh's shape."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def failing_rank(rank: int, world: int, how: str):
+    """Rank 1 raises or hangs in a collective; rank 0 returns."""
+    import time
+
+    import torch.distributed as dist
+
+    if rank == 1:
+        if how == "raise":
+            raise ValueError("rank 1 gives up")
+        time.sleep(600)
+    if how == "collective":
+        dist.all_reduce(torch.zeros(1))
+    return rank
+
+
+def _model(opts):
+    return CrowdSAM(modify_config(load_config(None), list(opts)),
+                    device="cpu")
+
+
+def prompt_shard_rank(rank: int, world: int, opts, images, noises,
+                      fused_cases):
+    """`install_prompt_sharding` over all `world` ranks, a (1, world) mesh,
+    for each fused_decode setting of `fused_cases`: `generate` on each
+    image with its noise vector.  Returns {fused: (results, loop
+    records)}."""
+    model = _model(opts)
+    base = model.engine_cfg
+    mesh = create_mesh((1, world), device="cpu")
+    out = {}
+    for fused in fused_cases:
+        model.engine_cfg = dataclasses.replace(base, fused_decode=fused)
+        install_prompt_sharding(model, mesh)
+        results, loops = [], []
+        for image, noise in zip(images, noises):
+            results.append(plain(model.generate(image, noise=[noise])))
+            loops.append(model.last_engine["loop"])
+        out[fused] = (results, loops)
+    return out
+
+
+def data_shard_rank(rank: int, world: int, opts, images, noises,
+                    layouts, seed: int):
+    """`ShardedPipeline` over the images with their noise vectors for each
+    (mesh shape, batch, prompt axis) of `layouts` (ranks outside a mesh
+    skip it): {layout: (results, this rank's last loop record)}; under
+    "generator" a (2, world / 2) mesh at batch 2 with the noise drawn from
+    the model's generator seeded with `seed`."""
+    model = _model(opts)
+    out = {}
+    for shape, batch, prompt_axis in layouts:
+        mesh = create_mesh(shape, device="cpu")
+        if mesh is None:
+            continue
+        pipe = ShardedPipeline(model, mesh=mesh, batch=batch,
+                               prompt_axis=prompt_axis)
+        got = pipe.generate_batch(images, noise=noises)
+        loop = pipe.last_engine[0]["loop"] if pipe.last_engine else None
+        out[(shape, batch, prompt_axis)] = ([plain(r) for r in got], loop)
+    model.generator.manual_seed(seed)
+    pipe = ShardedPipeline(
+        model, mesh=create_mesh((2, world // 2), device="cpu"), batch=2)
+    out["generator"] = [plain(r) for r in pipe.generate_batch(images)]
+    return out
+
+
+def card_rank(rank: int, world: int, opts, images, noises, mesh_shape,
+              prompt_axis):
+    """On cuda:0, gloo ranks sharing the card: with `mesh_shape` (1, M)
+    and no `prompt_axis`, `install_prompt_sharding` and `generate` on each
+    image with its noise; else `ShardedPipeline(mesh_shape, batch=2,
+    prompt_axis)` over the images with their noise.  Returns the results
+    and this rank's K5 and K6 launches."""
+    from crowdsam_tpu_torch.models import decode_tail_kernel, mask_head_kernel
+
+    torch.cuda.set_device(0)
+    model = CrowdSAM(modify_config(load_config(None), list(opts)),
+                     device="cuda")
+    mesh = create_mesh(mesh_shape, device="cuda")
+    k5 = decode_tail_kernel.twoway_tail.launches
+    k6 = mask_head_kernel.mask_head.launches
+    with torch.no_grad():
+        if mesh_shape[0] == 1 and prompt_axis is None:
+            install_prompt_sharding(model, mesh)
+            got = [model.generate(im, noise=[nz])
+                   for im, nz in zip(images, noises)]
+        else:
+            got = ShardedPipeline(model, mesh=mesh, batch=2,
+                                  prompt_axis=prompt_axis).generate_batch(
+                                      images, noise=noises)
+    return ([plain(r) for r in got],
+            decode_tail_kernel.twoway_tail.launches - k5,
+            mask_head_kernel.mask_head.launches - k6)

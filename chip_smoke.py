@@ -99,6 +99,14 @@ the gitignored `build/kernels/`), then:
    seeded scene; K4 48 launches a frame, the sim map against the CPU's
    float32) and `configs/crowdhuman_mc.yaml` (`crop_n_layers 1`: five
    crops, K4 120 launches);
+   the serving export (`utils/export.py`, phase `export`): the main
+   model's decoder exported with `torch.export` at 32 prompts and its
+   serving head at one image (683x1024 output, a mask input; single-mask
+   and with the extra metrics), each saved to bytes and loaded back, bit
+   for bit against the eager module on the card, one K1 launch a call for
+   each K1 node of the graph (10 / 12; K1 held at the serving head's
+   widths 4 and 16 in phase `K1 layer_norm`), and the same program moved to
+   the CPU within 5% relative L2; export, load and per-call times;
    the multi-device paths on `torch.distributed`, one process a rank
    (`parallel/launch.run_ranks`), gloo on this one card: K5 and K6 at a
    prompt shard's counts (16 and 8 prompts, 4 images x 8) against their
@@ -129,6 +137,7 @@ result, when CUDA is absent or any phase fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -369,16 +378,32 @@ def _relpos_extra(wrapper, sdpa, iters):
 # kernel phases
 # --------------------------------------------------------------------------
 
+def _k1_custom_op():
+    """K1's launch registered through `torch.library.custom_op`, the other
+    way to bind it, to time its dispatch beside the port's define + impl
+    op (phase `K1 layer_norm`)."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    @torch.library.custom_op("chip_smoke::k1_custom_op", mutates_args=())
+    def k1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           eps: float) -> torch.Tensor:
+        return ln._forward(x, weight, bias, eps, stats=False)[0]
+
+    return k1
+
+
 def phase_layernorm(gen):
+    from crowdsam_tpu_torch.ops import layernorm as ln
     from crowdsam_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 
     rows = []
     # SAM blocks, DINOv2 blocks, the neck, the decoder's norm4 on keys, the
     # decoder's upscaling ChannelLayerNorm; SAM ViT-H's blocks (phase `K1
-    # 1280`).
+    # 1280`); the serving head's mask downscaling (widths 4 and 16).
     for n, d, eps in ((4096, 1024, 1e-6), (5330, 1024, 1e-6),
                       (4096, 256, 1e-6), (131072, 256, 1e-5),
-                      (524288, 64, 1e-6), (4096, 1280, 1e-6)):
+                      (524288, 64, 1e-6), (4096, 1280, 1e-6),
+                      (16384, 4, 1e-6), (4096, 16, 1e-6)):
         x = torch.randn((n, d), generator=gen, device="cuda").to(
             torch.bfloat16)
         w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
@@ -402,6 +427,22 @@ def phase_layernorm(gen):
                          plain_ms=t_p, library_ms=t_l,
                          library_device_ms=d_l, bound_ms=b_ms,
                          bound_by=by))
+        if (n, d) == (5330, 1024):
+            # The wrapper's cost of the dispatcher: K1 launched through the
+            # op (`layer_norm`), the same launch called directly, and the
+            # same launch registered by `torch.library.custom_op` (the
+            # registration not chosen), in turns.
+            custom_op = _k1_custom_op()
+            fns = {"op": lambda: layer_norm(x, w, b, eps),
+                   "direct_launch": lambda: ln._forward(x, w, b, eps,
+                                                        stats=False),
+                   "custom_op": lambda: custom_op(x, w, b, eps)}
+            times = {k: [] for k in fns}
+            for _ in range(5):
+                for k, fn in fns.items():
+                    times[k].append(time_ms(fn, 50))
+            rows[-1].update({f"ms_{k}_median": float(np.median(t))
+                             for k, t in times.items()})
         name = "K1 1280" if d == 1280 else "K1 layer_norm"
         print(json.dumps({"phase": name, **rows[-1]}), flush=True)
     return rows
@@ -1101,6 +1142,143 @@ def _mask_head_images(model, shared, tail_out, dino):
                                            "neighbour image's DINO map",
                                            pooled_fault),)),
     }
+
+
+# Card against CPU for the exported programs: the smoke's unfused bf16
+# card-against-CPU tolerance (`_compare_small`), relative L2 per output.
+EXPORT_CPU_REL_L2 = 5e-2
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _median_ms_pair(fn_a, fn_b, reps=7, iters=3):
+    """Median CUDA-event ms per call of two functions over `reps` rounds
+    of `iters` calls each, taken in turns after a warm-up."""
+    ta, tb = [], []
+    for fn in (fn_a, fn_b):
+        fn()
+    for _ in range(reps):
+        ta.append(time_ms(fn_a, iters, warmup=0))
+        tb.append(time_ms(fn_b, iters, warmup=0))
+    return float(np.median(ta)), float(np.median(tb))
+
+
+def phase_export(model, img):
+    """The serving export (`utils/export.py`) on the main-path model (SAM
+    ViT-L's decoder at full width, bf16): `export_decoder` at 32 prompts on
+    the features and DINO projection of `img`, and `export_serving` (one
+    image, 2 prompts, a mask input with `has_mask_input` 1, output size
+    683x1024) single-mask and with the extra metrics.  Each program is
+    saved to bytes and loaded back; the loaded program must equal the eager
+    module bit for bit on the card, hold one K1 node a LayerNorm on the
+    path (10; the serving head 12, at widths 4 and 16 too), launch K1
+    exactly that many times a call, and agree with the same program moved
+    to the CPU (the plain LayerNorm, no launch) within EXPORT_CPU_REL_L2.
+    Returns the rows."""
+    import io
+
+    from torch.export.passes import move_to_device_pass
+
+    from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.utils import export as ex
+
+    sam = model.sam
+    h, w = img.shape[:2]
+    model.crop_image(img, [0, 0, w, h])
+    model.predictor.set_image_presized(model.image)
+    feats = model.predictor.get_image_embedding()
+    dino = model.predictor.dino_proj_256
+    ih, iw = model.image.shape[:2]
+    gen = torch.Generator().manual_seed(5)
+    scale = torch.tensor([iw, ih], dtype=torch.float32)
+    coords = (torch.rand((32, 1, 2), generator=gen) * scale).cuda()
+    labels = torch.ones((32, 1), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        low_res = ex.build_decoder_fn(sam)(feats, dino, coords, labels)[0]
+    mask_in = low_res[0, 1][None, :, :, None].float().contiguous()
+    has_mask = torch.ones((), dtype=torch.float32, device="cuda")
+    point = (torch.rand((1, 2, 2), generator=gen) * scale).cuda()
+    corners = torch.tensor([[[0.2 * iw, 0.2 * ih], [0.6 * iw, 0.9 * ih]]],
+                           device="cuda")
+    serve_kw = dict(batch=1, num_points=2, return_single_mask=True,
+                    orig_im_size=(h, w))
+    cases = (
+        ("decoder b32", ex.export_decoder, dict(batch=32),
+         ex.build_decoder_fn(sam), (feats, dino, coords, labels), 10),
+        ("serving single-mask", ex.export_serving, serve_kw,
+         ex.build_serving_fn(sam, True, orig_im_size=(h, w)),
+         (feats, point, torch.tensor([[1.0, 0.0]], device="cuda"), mask_in,
+          has_mask), 12),
+        ("serving extra metrics", ex.export_serving,
+         dict(serve_kw, return_extra_metrics=True),
+         ex.build_serving_fn(sam, True, return_extra_metrics=True,
+                             orig_im_size=(h, w)),
+         (feats, corners, torch.tensor([[2.0, 3.0]], device="cuda"),
+          mask_in, has_mask), 12),
+    )
+    rows = []
+    for label, export_fn, kw, eager, args, want_nodes in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = export_fn(sam, "", **kw)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = ex.load_exported(blob)
+        t_load = time.perf_counter() - t0
+        nodes = sum(1 for n in run.graph.nodes if n.target is ln.LAYER_NORM)
+        with torch.no_grad():
+            before = ln.layer_norm.launches
+            widths = collections.Counter(ln.layer_norm.launches_by_width)
+            got = run(*args)
+            torch.cuda.synchronize()
+            launches = ln.layer_norm.launches - before
+            by_width = dict(collections.Counter(
+                ln.layer_norm.launches_by_width) - widths)
+            want = eager(*args)
+            same = [bool(torch.equal(g, e)) for g, e in zip(got, want)]
+            ms_loaded, ms_eager = _median_ms_pair(lambda: run(*args),
+                                                  lambda: eager(*args))
+            # Device time a call (the kernels alone): the same kernels run,
+            # so a gap in ms is the host's.
+            dev_loaded = device_ms(lambda: run(*args), 3)
+            dev_eager = device_ms(lambda: eager(*args), 3)
+            t0 = time.perf_counter()
+            on_cpu = move_to_device_pass(torch.export.load(io.BytesIO(blob)),
+                                         "cpu").module()
+            before = ln.layer_norm.launches
+            cpu_out = on_cpu(*[a.cpu() for a in args])
+            cpu_launches = ln.layer_norm.launches - before
+            t_cpu = time.perf_counter() - t0
+        rel = [_rel_l2(g, c) for g, c in zip(got, cpu_out)]
+        row = dict(case=label, export_and_save_s=t_export, load_s=t_load,
+                   blob_bytes=len(blob), k1_nodes=nodes,
+                   k1_launches_per_call=launches,
+                   k1_launches_by_width=by_width,
+                   bit_for_bit_vs_eager=same,
+                   output_shapes=[list(g.shape) for g in got],
+                   ms_loaded=ms_loaded, ms_eager=ms_eager,
+                   device_ms_loaded=dev_loaded, device_ms_eager=dev_eager,
+                   graph_call_nodes=sum(1 for n in run.graph.nodes
+                                        if n.op == "call_function"),
+                   cpu_relative_l2=rel, cpu_tol=EXPORT_CPU_REL_L2,
+                   cpu_k1_launches=cpu_launches, cpu_load_and_run_s=t_cpu)
+        print(json.dumps({"phase": "export", **row}), flush=True)
+        if not all(same):
+            raise AssertionError(f"export {label}: the loaded program "
+                                 f"differs from the eager module: {row}")
+        if not nodes == launches == want_nodes or cpu_launches:
+            raise AssertionError(f"export {label}: K1 nodes / launches: "
+                                 f"{row}")
+        if want_nodes == 12 and not {4, 16} <= set(by_width):
+            raise AssertionError(f"export {label}: K1 widths {by_width}")
+        if not all(torch.isfinite(g.float()).all() for g in got) or not all(
+                r <= EXPORT_CPU_REL_L2 for r in rel):
+            raise AssertionError(f"export {label}: card against CPU: {row}")
+        rows.append(row)
+    return rows
 
 
 def phase_msgpack_adapter(img):
@@ -4135,6 +4313,9 @@ def main() -> int:
         k5_images = phase_twoway_tail_images(
             model, synthetic_images(20) + synthetic_images(21))
         torch.cuda.empty_cache()
+    export_rows = phase_export(model, frame)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
         k56_shards = phase_decode_prompt_shards(
             model, frame, synthetic_images(20), k6_probe)
         torch.cuda.empty_cache()
@@ -4188,7 +4369,12 @@ def main() -> int:
              launches=launches["layer_norm"],
              max_abs_err=max(r["max_abs_err"] for r in ln_rows),
              **{k: ln[k] for k in keys}, device_ms=ln["device_ms"],
-             library_device_ms=ln["library_device_ms"]),
+             library_device_ms=ln["library_device_ms"],
+             ms_op_median=ln["ms_op_median"],
+             ms_direct_launch_median=ln["ms_direct_launch_median"],
+             ms_custom_op_median=ln["ms_custom_op_median"],
+             launches_export={r["case"]: r["k1_launches_per_call"]
+                              for r in export_rows}),
     ]
     bw = next(r for r in ln_bwd_rows if r["shape"] == "245760x256")
     table.append(dict(
@@ -4245,6 +4431,21 @@ def main() -> int:
                       replaced_ms=k7["replaced_ms"],
                       interpolate_threshold_ms=k7[
                           "interpolate_threshold_ms"]))
+    # The serving head's mask downscaling (widths 4 and 16): launches in one
+    # call of the exported serving program.
+    serving = next(r for r in export_rows
+                   if r["case"] == "serving single-mask")
+    for shape, d in (("16384x4", 4), ("4096x16", 16)):
+        row = next(r for r in ln_rows if r["shape"] == shape)
+        table.append(dict(
+            name="layer_norm", route="cuda",
+            source="crowdsam_tpu_torch/csrc/layernorm.cu",
+            replaces="crowdsam_tpu/ops/layernorm.py:34",
+            launches=serving["k1_launches_by_width"].get(d, 0),
+            launches_in="export, serving single-mask, one call",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"]))
     # The head-dim-80 / width-1280 rows: launches on the vit_h path.
     ln80 = next(r for r in ln_rows if r["shape"] == "4096x1280")
     table.insert(1, dict(

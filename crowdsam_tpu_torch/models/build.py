@@ -112,14 +112,15 @@ sam_model_registry = {
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every parameter and buffer in place from `generator` (which must
-    live on the parameters' device)."""
+    """Fill every parameter and persistent buffer in place from `generator`
+    (which must live on the parameters' device)."""
     owners = {}
     for mname, m in model.named_modules():
         for pname, _ in m.named_parameters(recurse=False):
             owners[f"{mname}.{pname}" if mname else pname] = m
-    for name, t in list(model.named_parameters()) + list(
-            model.named_buffers()):
+    saved = model.state_dict(keep_vars=True).keys()
+    for name, t in list(model.named_parameters()) + [
+            (n, b) for n, b in model.named_buffers() if n in saved]:
         leaf = name.rsplit(".", 1)[-1]
         owner = owners.get(name)
         if leaf == "bias":

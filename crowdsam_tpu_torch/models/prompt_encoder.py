@@ -55,9 +55,22 @@ class PromptEncoder(nn.Module):
             nn.GELU(),
             Conv2d(mask_in_chans, embed_dim, 1),
         )
+        # (w, h) of the input frame, a buffer so that it moves with the
+        # module: a copy to the card on every prompt batch would be a host
+        # sync in the decode loop, and a tensor cached outside the module
+        # would keep whatever `torch.export` traced it as (a FakeTensor).
+        self.register_buffer(
+            "frame_wh", torch.tensor([input_image_size[1],
+                                      input_image_size[0]],
+                                     dtype=torch.float32), persistent=False)
 
     def _device(self) -> torch.device:
         return self.no_mask_embed.weight.device
+
+    def pe_encoding(self, coords: torch.Tensor) -> torch.Tensor:
+        """[0, 1]-normalized coords (..., 2) -> (..., embed_dim): the JAX
+        package's `_pe_encoding`."""
+        return self.pe_layer.encode(coords)
 
     def get_dense_pe(self) -> torch.Tensor:
         """(h, w, embed_dim) dense grid PE."""
@@ -68,18 +81,6 @@ class PromptEncoder(nn.Module):
         gy, gx = torch.meshgrid(y, x, indexing="ij")
         return self.pe_layer.encode(torch.stack([gx, gy], dim=-1))
 
-    def _frame(self) -> torch.Tensor:
-        """(w, h) of the input frame on the module's device, made once a
-        device: a copy to the card on every prompt batch would be a host
-        sync in the decode loop."""
-        dev = self._device()
-        cache = self.__dict__.setdefault("_frames", {})
-        if dev not in cache:
-            cache[dev] = torch.tensor([self.input_image_size[1],
-                                       self.input_image_size[0]],
-                                      dtype=torch.float32, device=dev)
-        return cache[dev]
-
     def _embed_points(self, points: torch.Tensor, labels: torch.Tensor,
                       pad: bool) -> torch.Tensor:
         """(B, N, 2), (B, N) -> (B, N[+1], embed_dim); labels 1 positive,
@@ -89,7 +90,7 @@ class PromptEncoder(nn.Module):
             b = points.shape[0]
             points = torch.cat([points, points.new_zeros(b, 1, 2)], dim=1)
             labels = torch.cat([labels, -labels.new_ones(b, 1)], dim=1)
-        pe = self.pe_layer.encode(points / self._frame())
+        pe = self.pe_layer.encode(points / self.frame_wh)
         lab = labels[..., None]
         zero = pe.new_zeros(())
         pe = torch.where(lab == -1, self.not_a_point_embed.weight[0], pe)
@@ -101,7 +102,7 @@ class PromptEncoder(nn.Module):
 
     def _embed_boxes(self, boxes: torch.Tensor) -> torch.Tensor:
         """(B, 4) xyxy -> (B, 2, embed_dim) corner embeddings."""
-        coords = (boxes.float() + 0.5).reshape(-1, 2, 2) / self._frame()
+        coords = (boxes.float() + 0.5).reshape(-1, 2, 2) / self.frame_wh
         pe = self.pe_layer.encode(coords)
         corner = torch.stack([self.point_embeddings[2].weight[0],
                               self.point_embeddings[3].weight[0]])

@@ -5,11 +5,15 @@ Replaces the JAX package's Pallas `layer_norm_2d`
 (crowdsam_tpu/ops/layernorm.py:34).  On a CUDA tensor every LayerNorm and
 ChannelLayerNorm of the port goes through the kernel, at any row count and
 any width up to `MAX_WIDTH` (1280, SAM ViT-H's, the port's widest); a CPU
-tensor takes the plain version.  Where autograd needs a gradient (the full-decoder
-training step), K1 runs as an autograd function whose backward is the
-kernel `ln_backward` of the same source, which takes widths up to
-`MAX_BWD_WIDTH` (1024: no training path is wider); its plain version is
-autograd of `layer_norm_plain` (`layer_norm_grads_plain`).
+tensor takes the plain version.  K1 is the op
+`torch.ops.crowdsam_tpu_torch.layer_norm` (`torch.library`, with a fake
+version), so `torch.export` traces a module that runs it and the exported
+program launches the kernel (`utils/export.py`).  Where autograd needs a
+gradient (the full-decoder training step), the op `layer_norm_stats` runs
+instead, whose backward is the kernel `ln_backward` of the same source,
+which takes widths up to `MAX_BWD_WIDTH` (1024: no training path is wider);
+its plain version is autograd of `layer_norm_plain`
+(`layer_norm_grads_plain`).
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ import collections
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from crowdsam_tpu_torch.kernels import _build
 
@@ -74,8 +77,8 @@ def _affine(fn: str, x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"{fn}: x must be contiguous")
     if weight.numel() != d or bias.numel() != d:
         raise ValueError(f"{fn}: affine size {weight.numel()} != {d}")
-    w = weight.detach().float().contiguous()
-    b = bias.detach().float().contiguous()
+    w = weight.float().contiguous()
+    b = bias.float().contiguous()
     if w.device != x.device or b.device != x.device:
         raise ValueError(f"{fn}: weights on another device")
     return w, b
@@ -89,7 +92,9 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     d = x.shape[-1]
     rows = x.numel() // d
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # The raw handle: a `torch.cuda.Stream` object a call is host time on
+    # every LayerNorm of the host-bound main path.
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     mean = rstd = None
     if stats:
         mean = torch.empty(rows, dtype=torch.float32, device=x.device)
@@ -142,41 +147,90 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor,
     return dx, dwb[0], dwb[1]
 
 
-class _KernelLayerNorm(torch.autograd.Function):
-    """K1 forward, K1 backward."""
+# K1 as an operator of the port's namespace, so that `torch.export` traces
+# through it (the fake version gives the output's shape and dtype) and an
+# exported program launches the kernel: `layer_norm` for inference,
+# `layer_norm_stats` (y and each row's f32 mean and rstd) where autograd
+# needs a gradient, its backward K1's backward kernel.  CUDA: the kernels;
+# CPU: the plain version; any other device has no implementation.
+_LIB = torch.library.Library("crowdsam_tpu_torch", "DEF")
+_LIB.define("layer_norm(Tensor x, Tensor weight, Tensor bias, float eps) "
+            "-> Tensor")
+_LIB.define("layer_norm_stats(Tensor x, Tensor weight, Tensor bias, "
+            "float eps) -> (Tensor, Tensor, Tensor)")
 
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        y, mean, rstd = _forward(x, weight, bias, eps, stats=True)
-        ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.bias_dtype = bias.dtype
-        return y
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dy):
-        x, weight, mean, rstd = ctx.saved_tensors
+def _plain_stats(x, weight, bias, eps):
+    xf = x.float()
+    mean = xf.mean(-1)
+    rstd = torch.rsqrt((xf - mean[..., None]).square().mean(-1) + eps)
+    return (layer_norm_plain(x, weight, bias, eps), mean.reshape(-1),
+            rstd.reshape(-1))
+
+
+def _fake_stats(x, weight, bias, eps):
+    rows = x.numel() // x.shape[-1]
+    return (torch.empty_like(x),
+            x.new_empty(rows, dtype=torch.float32),
+            x.new_empty(rows, dtype=torch.float32))
+
+
+_LIB.impl("layer_norm", lambda x, weight, bias, eps: _forward(
+    x, weight, bias, eps, stats=False)[0], "CUDA")
+_LIB.impl("layer_norm", layer_norm_plain, "CPU")
+_LIB.impl("layer_norm_stats", lambda x, weight, bias, eps: _forward(
+    x, weight, bias, eps, stats=True), "CUDA")
+_LIB.impl("layer_norm_stats", _plain_stats, "CPU")
+torch.library.register_fake("crowdsam_tpu_torch::layer_norm",
+                            lambda x, weight, bias, eps: torch.empty_like(x),
+                            lib=_LIB)
+torch.library.register_fake("crowdsam_tpu_torch::layer_norm_stats",
+                            _fake_stats, lib=_LIB)
+
+
+def _save_for_backward(ctx, inputs, output):
+    x, weight, bias, eps = inputs
+    _, mean, rstd = output
+    ctx.save_for_backward(x, weight, bias, mean, rstd)
+    ctx.eps = eps
+    ctx.mark_non_differentiable(mean, rstd)
+
+
+def _backward(ctx, dy, _dmean, _drstd):
+    """K1's backward kernel on CUDA; on the CPU the plain version
+    (autograd of `layer_norm_plain`, as if the op were not there)."""
+    x, weight, bias, mean, rstd = ctx.saved_tensors
+    if x.device.type == "cpu":
+        dx, dw, db = layer_norm_grads_plain(dy, x, weight, bias, ctx.eps)
+    else:
         dx, dw, db = layer_norm_backward(dy.contiguous(), x, weight, mean,
                                          rstd)
-        need = ctx.needs_input_grad
-        return (dx if need[0] else None,
-                dw.to(weight.dtype) if need[1] else None,
-                db.to(ctx.bias_dtype) if need[2] else None, None)
+        dw, db = dw.to(weight.dtype), db.to(bias.dtype)
+    need = ctx.needs_input_grad
+    return (dx if need[0] else None, dw if need[1] else None,
+            db if need[2] else None, None)
+
+
+torch.library.register_autograd("crowdsam_tpu_torch::layer_norm_stats",
+                                _backward, setup_context=_save_for_backward,
+                                lib=_LIB)
+LAYER_NORM = torch.ops.crowdsam_tpu_torch.layer_norm.default
+_LAYER_NORM_STATS = torch.ops.crowdsam_tpu_torch.layer_norm_stats.default
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis of a contiguous (..., D) tensor.
+    """LayerNorm over the last axis of a contiguous (..., D) tensor, through
+    the op `crowdsam_tpu_torch::layer_norm`.
 
-    CPU: the plain version.  CUDA: kernel K1, or an error; when autograd
-    needs a gradient of x, weight or bias, K1 as an autograd function whose
-    backward is K1's backward kernel (`layer_norm_backward`)."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, eps)
+    CPU: the plain version.  CUDA: kernel K1, or an error.  When autograd
+    needs a gradient of x, weight or bias, the op `layer_norm_stats`, whose
+    backward is K1's backward kernel on CUDA (`layer_norm_backward`) and
+    autograd of the plain version on the CPU."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
-        return _KernelLayerNorm.apply(x, weight, bias, eps)
-    return _forward(x, weight, bias, eps, stats=False)[0]
+        return _LAYER_NORM_STATS(x, weight, bias, eps)[0]
+    return LAYER_NORM(x, weight, bias, eps)
 
 
 layer_norm.launches = 0

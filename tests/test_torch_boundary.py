@@ -47,7 +47,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         " crowdsam_tpu_torch.models.decode_tail_kernel,"
         " crowdsam_tpu_torch.models.mask_head_kernel,"
         " crowdsam_tpu_torch.ops.rle, crowdsam_tpu_torch.ops.survivor_kernel,"
-        " crowdsam_tpu_torch.utils.msgpack_io"
+        " crowdsam_tpu_torch.utils.msgpack_io, crowdsam_tpu_torch.utils.export"
         "\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
@@ -107,6 +107,23 @@ def test_port_files_include_the_multi_device_slice():
             "collectives.py").read_text()
     calls = set(re.findall(r"dist\.(\w+)\(", text))
     assert calls == {"all_reduce"}, calls
+
+
+def test_port_files_include_the_serving_export():
+    """The serving export is the port's own module (covered by
+    `test_no_jax_imports`); importing it alone leaves JAX out of
+    `sys.modules` and registers K1's op, so a fresh process can load an
+    exported program without building a model."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert "crowdsam_tpu_torch/utils/export.py" in names
+    code = ("import sys, torch, crowdsam_tpu_torch.utils.export\n"
+            "torch.ops.crowdsam_tpu_torch.layer_norm.default\n"
+            "torch.ops.crowdsam_tpu_torch.layer_norm_stats.default\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
 
 
 def test_port_files_include_the_msgpack_reader():

@@ -57,7 +57,7 @@ def _close(got, want, atol, rtol=2.0 ** -7):
 
 
 @pytest.mark.parametrize("n,d", [(1, 64), (37, 256), (1000, 1024),
-                                 (1000, 1280)])
+                                 (1000, 1280), (1000, 4), (1000, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_kernel(gen, n, d, dtype):
     x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
@@ -882,3 +882,51 @@ def test_multi_device_on_the_small_config(gen, tmp_path, mesh_shape,
             np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4)
             np.testing.assert_array_equal(g["boxes"], r0["boxes"])
             assert g["rles"] == r0["rles"]
+
+
+@pytest.mark.parametrize("which", ["decoder", "serving"])
+def test_export_on_the_card(gen, which):
+    """`export_decoder` / `export_serving` of a small model (vit_tiny, bf16)
+    on the card: the loaded program equals the eager module bit for bit and
+    launches K1 once a LayerNorm on the path (10; the serving head 12, the
+    mask downscaling's widths 4 and 16 among them)."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.utils import export
+
+    sam = cast_compute_params(init_random_(
+        sam_model_registry["vit_tiny"](dino_dim=64).cuda(),
+        torch.Generator(device="cuda").manual_seed(1)),
+        torch.bfloat16).eval()
+    h, r = sam.img_size // 16, sam.img_size // 4
+    feats = torch.randn((1, h, h, 256), generator=gen,
+                        device="cuda").bfloat16()
+    coords = torch.rand((4, 2, 2), generator=gen, device="cuda") * 256
+    if which == "decoder":
+        run = export.load_exported(export.export_decoder(sam, "", batch=4,
+                                                         num_points=2))
+        eager = export.build_decoder_fn(sam)
+        dino = torch.randn((r, r, 256), generator=gen,
+                           device="cuda").bfloat16()
+        args = (feats, dino, coords,
+                torch.ones((4, 2), dtype=torch.int32, device="cuda"))
+        want = 10
+    else:
+        kw = dict(return_single_mask=True, orig_im_size=(171, 256))
+        run = export.load_exported(export.export_serving(
+            sam, batch=4, num_points=2, **kw))
+        eager = export.build_serving_fn(sam, **kw)
+        args = (feats, coords,
+                torch.tensor([[1.0, 0.0]] * 4, device="cuda"),
+                torch.randn((4, r, r, 1), generator=gen, device="cuda"),
+                torch.ones((), device="cuda"))
+        want = 12
+    nodes = sum(1 for n in run.graph.nodes if n.target is ln.LAYER_NORM)
+    before = layer_norm.launches
+    widths = dict(layer_norm.launches_by_width)
+    got = run(*args)
+    assert nodes == layer_norm.launches - before == want
+    if which == "serving":
+        for d in (4, 16):
+            assert layer_norm.launches_by_width[d] == widths.get(d, 0) + 1
+    for g, e in zip(got, eager(*args)):
+        assert g.is_cuda and torch.equal(g, e)

@@ -117,10 +117,22 @@ the gitignored `build/kernels/`), then:
    with the prompt axis (`data_shard`), each against this process's
    results on the same noise, every rank's equal to rank 0's, every
    kernel launched on every rank (counts set to 0 in the rank just before
-   its run); the collectives on a one-rank NCCL group and one try of two
-   NCCL ranks on the card, whose error is printed (`nccl_world1`); the
-   ranks build the model from the weights this process drew (saved under
-   a temporary directory) and load this process's kernel build;
+   its run); `ShardedPipeline` with the spatial axis (`spatial_shard`: a
+   (1, 2) mesh on the main path's frames and a loaded crowd scene, a (2, 2)
+   mesh with the prompt axis on 4 loaded scenes; each rank encodes a band
+   of token rows of SAM's ViT and DINOv2), against this process, every
+   rank bit for bit rank 0, K3 4 and K4 24 launches a rank an image on
+   band shapes, the features within 1e-2 relative L2 of this process's,
+   the axis's all-reduces, bytes and peak memory a rank; K3 and K4 on the
+   bands a rank holds at M = 2 are held against their plain versions
+   beforehand (phases `K3 band`: rows 0-42 and 42-64 of the 64x64 grid,
+   head dims 64 and 80, the folded form; `K4 band`: tokens 0-2702 and
+   2702-5330 of 5330), with a fault of the band (Rh from row 0 on) and
+   against the same rows of the whole launch; the collectives on a
+   one-rank NCCL group and one try of two NCCL ranks on the card, whose
+   error is printed (`nccl_world1`); the ranks build the model from the
+   weights this process drew (saved under a temporary directory) and load
+   this process's kernel build;
 3. checks the outputs: finite boxes and scores of the expected shapes inside
    the image, every RLE string's mask inside its detection's box, every
    AMG record's mask inside its bbox with its area, and, on a small
@@ -339,20 +351,22 @@ def _attention_plain(q, k, v, scale, bias=None, drop=None):
     return torch.softmax(logits, dim=-1) @ v.float()
 
 
-def _relpos_bias(q, rh, rw, hw, terms=None):
-    """The rel-pos bias (..., S, S) built from q and the gathered tables, in
-    q's dtype: the faults' bias (from float32 q) and the work a library
-    call needs beside SDPA (from bf16 q).  `terms(fh, fw)`, when given,
-    changes fh and fw first (a fault)."""
+def _relpos_bias(q, rh, rw, hw, terms=None, row0=0):
+    """The rel-pos bias (..., Sq, S) built from q and the gathered tables,
+    in q's dtype: the faults' bias (from float32 q) and the work a library
+    call needs beside SDPA (from bf16 q); q holds grid rows from `row0` on
+    (`relpos_attention_plain`).  `terms(fh, fw)`, when given, changes fh
+    and fw first (a fault)."""
     from crowdsam_tpu_torch.models.attention import _rel_bias_terms
 
     h, w = hw
-    fh, fw = _rel_bias_terms(q, rh, rw, hw)
+    hq = q.shape[-2] // w
+    fh, fw = _rel_bias_terms(q, rh, rw, hw, row0)
     if terms is not None:
         fh, fw = terms(fh, fw)
     lead = q.shape[:-2]
-    return (fh.reshape(*lead, h, w, h, 1)
-            + fw.reshape(*lead, h, w, 1, w)).reshape(*lead, h * w, h * w)
+    return (fh.reshape(*lead, hq, w, h, 1)
+            + fw.reshape(*lead, hq, w, 1, w)).reshape(*lead, hq * w, h * w)
 
 
 def _shift_last(x, by):
@@ -676,10 +690,13 @@ def phase_global(gen, hd=64, hw=(64, 64)):
     return row
 
 
-def _k4_case(gen, s, heads=16, hd=64):
+def _k4_case(gen, s, heads=16, hd=64, band=None):
     """K4 at (heads, s, hd) on strided views of one qkv buffer, as DINOv2
     hands them over: against the plain version, and the tolerance against
-    four faults of the kernel's own design (128-key tiles)."""
+    four faults of the kernel's own design (128-key tiles).  `band` (lo,
+    hi): the queries of tokens [lo, hi) only, against every key (a rank of
+    the spatial axis), also held against the same rows of the whole
+    launch."""
     from crowdsam_tpu_torch.models.attention import (
         TMA_KV_ROWS,
         flash_mha,
@@ -690,9 +707,15 @@ def _k4_case(gen, s, heads=16, hd=64):
     qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
         torch.bfloat16)
     q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    lo, hi = band or (0, s)
+    qb, sq = q[:, :, lo:hi], hi - lo
     scale = hd ** -0.5
-    want = flash_mha_plain(q, k, v, scale, s)
-    got = flash_mha(q, k, v, scale, valid_len=s)
+    want = flash_mha_plain(qb, k, v, scale, s)
+    got = flash_mha(qb, k, v, scale, valid_len=s)
+    same = {}
+    if band is not None:
+        same = _same_rows(got, flash_mha(q, k, v, scale,
+                                         valid_len=s)[:, :, lo:hi])
     n_tiles = -(-s // bk)
     tail, j = bk * (n_tiles - 1), (n_tiles - 1) // 2
     tile, nxt = slice(j * bk, (j + 1) * bk), slice((j + 1) * bk, (j + 2) * bk)
@@ -710,32 +733,37 @@ def _k4_case(gen, s, heads=16, hd=64):
     # and otherwise accumulates in f32: its error is a fraction of either.
     # One faulty tile among dozens moves every output a little: the mean
     # sees it.
-    cmp = compare(f"flash_mha s={s}", got, want, 0.09 * rms, faults=(
+    cmp = compare(f"flash_mha s={s} queries {lo}-{hi}", got, want,
+                  0.09 * rms, faults=(
         (f"last key tile (keys {tail}-{s - 1}) dropped",
-         _attention_plain(q, k, v, scale, drop=slice(tail, s))),
+         _attention_plain(qb, k, v, scale, drop=slice(tail, s))),
         (f"first key tile (keys 0-{bk - 1}) dropped",
-         _attention_plain(q, k, v, scale, drop=slice(0, bk))),
+         _attention_plain(qb, k, v, scale, drop=slice(0, bk))),
         (f"key tile {j}'s V read from tile {j + 1} (stage released early)",
-         _attention_plain(q, k, v_f, scale)),
+         _attention_plain(qb, k, v_f, scale)),
         (f"key tile {j}'s K dims permuted inside 16-byte chunks (swizzle "
-         f"mismatch)", _attention_plain(q, k_f, v, scale)),
+         f"mismatch)", _attention_plain(qb, k_f, v, scale)),
     ), mean_atol=0.01 * rms)
     del v_f, k_f
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # Kernel and SDPA in turns, twice; the faster run of each is kept.
     runs_k, runs_l = [], []
     for _ in range(2):
-        runs_k.append(time_ms(lambda: flash_mha(q, k, v, scale, valid_len=s),
-                              20))
-        runs_l.append(time_ms(lambda: sdpa(q, k, v, scale=scale), 20))
-    d_k = device_ms(lambda: flash_mha(q, k, v, scale, valid_len=s), 20,
+        runs_k.append(time_ms(lambda: flash_mha(qb, k, v, scale,
+                                                valid_len=s), 20))
+        runs_l.append(time_ms(lambda: sdpa(qb, k, v, scale=scale), 20))
+    d_k = device_ms(lambda: flash_mha(qb, k, v, scale, valid_len=s), 20,
                     "flash_attn_sm90")
-    d_l = device_ms(lambda: sdpa(q, k, v, scale=scale), 20)
-    t_p = time_ms(lambda: flash_mha_plain(q, k, v, scale, s), 3)
-    flops = heads * 4 * s * s * hd
-    b_ms, by = bound(qkv.numel() * 2 + s * dim * 2, flops, BF16_FLOP_PER_S)
+    d_l = device_ms(lambda: sdpa(qb, k, v, scale=scale), 20)
+    t_p = time_ms(lambda: flash_mha_plain(qb, k, v, scale, s), 3)
+    flops = heads * 4 * sq * s * hd
+    # q and o of the queries, k and v of every key.
+    b_ms, by = bound(2 * dim * (2 * sq + 2 * s), flops, BF16_FLOP_PER_S)
     t_k, t_l = min(runs_k), min(runs_l)
-    return dict(shape=f"{heads}x{s}x{hd}", **cmp, ms=t_k, ms_runs=runs_k,
+    return dict(shape=f"{heads}x{s}x{hd}" if band is None
+                else f"{heads}x{sq}x{hd} of {s} keys",
+                **({} if band is None else {"band": f"tokens {lo}-{hi}"}),
+                **cmp, **same, ms=t_k, ms_runs=runs_k,
                 device_ms=d_k, plain_ms=t_p, library_ms=t_l,
                 library_ms_runs=runs_l, library_device_ms=d_l,
                 library_covers="SDPA on the same strided views",
@@ -749,6 +777,112 @@ def phase_dino(gen):
     for s in (1 + 73 * 73, 4096, 1000):
         rows.append(_k4_case(gen, s))
         print(json.dumps({"phase": "K4 flash_mha", **rows[-1]}), flush=True)
+    return rows
+
+
+def _same_rows(band, full) -> dict:
+    """A band launch against the same rows of the whole launch: exact, or
+    their largest difference."""
+    diff = float((band.float() - full.float()).abs().max())
+    return dict(same_rows_of_whole_launch_exact=diff == 0.0,
+                same_rows_of_whole_launch_max_abs_diff=diff)
+
+
+def phase_global_band(gen, hd=64, band=(42, 64), fold=False):
+    """K3 on a query band, a rank's of the spatial axis at M = 2: grid rows
+    [band) of SAM's 64x64 grid against its 4096 keys (row 42 on: the
+    second rank's 22 rows, Rh from row 42 on), the bias in registers at
+    head dims 64 and 80, and the folded form (fh/fw cut to the band), under
+    `phase_global`'s bounds and faults, and a fault of the band: Rh taken
+    from row 0 on (the band's offset dropped); against the same rows of the
+    whole launch; timed beside SDPA on the same Sq x Sk with the bias built
+    beforehand."""
+    from crowdsam_tpu_torch.models.attention import (
+        flash_mha_decomposed_relpos,
+        relpos_attention_plain,
+        relpos_global_launch,
+    )
+    from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
+
+    g, heads = 64, 16
+    hw, (lo, hi) = (g, g), band
+    s, dim, sq = g * g, heads * hd, (hi - lo) * g
+    qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    qb = q[:, :, lo * g:hi * g]
+    rh, rw = (_rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
+                                               device="cuda"), g)
+              for _ in range(2))
+    scale = hd ** -0.5
+
+    def kernel():
+        if fold:
+            return relpos_global_launch(qb, k, v, scale, rh, rw, hw,
+                                        fold=True, row0=lo)
+        return flash_mha_decomposed_relpos(qb, k, v, scale, rh, rw, hw, lo)
+
+    want = relpos_attention_plain(qb, k, v, scale, rh, rw, hw, lo)
+    got = kernel()
+    whole = relpos_global_launch(q, k, v, scale, rh, rw, hw, fold=fold)
+    same = _same_rows(got, whole[:, :, lo * g:hi * g])
+    del whole
+    qf = qb.float()
+
+    def faulty(terms=None, drop=None):
+        return _attention_plain(qb, k, v, scale, _relpos_bias(
+            qf, rh, rw, hw, terms, row0=lo), drop)
+
+    rms = float(want.float().square().mean().sqrt())
+    faults = [(f"last key tile (keys {s - 128}-{s - 1}) dropped",
+               faulty(drop=slice(s - 128, s))),
+              ("fw taken from the neighbouring column (col(k) + 1)",
+               faulty(terms=lambda fh, fw: (fh, _shift_last(fw, 1))))]
+    if lo:
+        faults.append(("Rh from row 0 on (the band's offset dropped)",
+                       relpos_attention_plain(qb, k, v, scale, rh, rw, hw)))
+    cmp = compare(f"K3 band rows {lo}-{hi} hd {hd}"
+                  + (" folded" if fold else ""), got, want, 6e-3,
+                  faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
+    del faults
+    t_k = time_ms(kernel, 10)
+    d_k = device_ms(kernel, 10, "flash_attn_relpos")
+    t_p = time_ms(lambda: relpos_attention_plain(qb, k, v, scale, rh, rw, hw,
+                                                 lo), 3)
+    bias16 = _relpos_bias(qb, rh, rw, hw, row0=lo).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_l = time_ms(lambda: sdpa(qb, k, v, attn_mask=bias16, scale=scale), 10)
+    d_l = device_ms(lambda: sdpa(qb, k, v, attn_mask=bias16, scale=scale), 10)
+    del bias16
+    flops = heads * (4 * sq * s * hd + 2 * sq * 2 * g * hd)
+    # q of the band, k and v of the grid, o of the band, the tables.
+    nbytes = 2 * (sq * dim + 2 * s * dim + sq * dim) + (rh.numel()
+                                                        + rw.numel()) * 2
+    b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    row = dict(shape=f"{heads}x{sq}x{hd} of {s} keys",
+               band=f"rows {lo}-{hi} of {g}x{g}",
+               form="folded" if fold else "bias in registers", **cmp,
+               **same, ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=t_l,
+               library_device_ms=d_l,
+               library_covers="SDPA on the same Sq x Sk with the bias built "
+                              "beforehand",
+               bound_ms=b_ms, bound_by=by, bound_share=b_ms / d_k)
+    print(json.dumps({"phase": "K3 band", **row}), flush=True)
+    return row
+
+
+# DINOv2's token bands at M = 2: the cls token and patch rows 0-36, rows
+# 37-72 of the 73x73 grid.
+K4_BANDS = ((0, 1 + 73 * 37), (1 + 73 * 37, 1 + 73 * 73))
+
+
+def phase_dino_band(gen):
+    """K4 with fewer queries than keys: each rank's token band of DINOv2 at
+    M = 2 against all 5330 keys (`_k4_case`)."""
+    rows = []
+    for band in K4_BANDS:
+        rows.append(_k4_case(gen, K4_BANDS[-1][1], band=band))
+        print(json.dumps({"phase": "K4 band", **rows[-1]}), flush=True)
     return rows
 
 
@@ -3920,18 +4054,49 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
             install_prompt_sharding(model, mesh)
         else:
             pipe = ShardedPipeline(model, mesh=mesh, batch=task["batch"],
-                                   prompt_axis=task.get("prompt_axis"))
+                                   prompt_axis=task.get("prompt_axis"),
+                                   spatial_axis=task.get("spatial_axis"))
+        spatial = pipe.spatial if pipe is not None else None
+        encodes, spent = [], {"encode": 0.0, "all_reduce": 0.0}
+        if spatial is not None:
+            # Each encode's frames and features, and the host-clock seconds
+            # of the encodes and of the spatial axis's all-reduces (each
+            # synchronized around).
+            def synced(fn, key):
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    spent[key] += time.perf_counter() - t
+                    return out
+                return run
+
+            real_encode = synced(model.predictor.encode_batch, "encode")
+
+            def encode_batch(frames, in_hw, **kw):
+                enc = real_encode(frames, in_hw, **kw)
+                encodes.append((frames.cpu(), in_hw,
+                                enc["features"].cpu()))
+                return enc
+
+            model.predictor.encode_batch = encode_batch
+            spatial.all_reduce = synced(spatial.all_reduce, "all_reduce")
         out = dict(rank=rank, coordinate=coord, runs=[])
         for name, cfg, images, noises in task["runs"]:
             model.engine_cfg = cfg
             if task["kind"] == "prompt_shard":     # warm-up
                 model.generate(images[0], noise=[noises[0]])
             else:
-                model.generator.manual_seed(task["seed"])
+                model.generator.manual_seed(task.get("seed", 0))
                 pipe.generate_batch(images[:task["batch"]])
             model.generator.manual_seed(task.get("seed", 0))
             counters = _reset_counts()
             torch.cuda.reset_peak_memory_stats()
+            encodes.clear()
+            spent.update(encode=0.0, all_reduce=0.0)
+            if spatial is not None:
+                spatial.calls = spatial.bytes = 0
             results, loops, rows, checked = [], [], {}, []
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -3946,6 +4111,14 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
                 sync_checks=checked, ms_per_image=ms,
                 launches={k: fn.launches for k, fn in counters.items()},
                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+            if spatial is not None:
+                out["runs"][-1].update(
+                    launches_by_shape=_launches_by_shape(),
+                    encodes=len(encodes), first_encode=encodes[:1],
+                    spatial_all_reduces=spatial.calls,
+                    spatial_bytes=spatial.bytes,
+                    encode_s=spent["encode"],
+                    all_reduce_s=spent["all_reduce"])
     return out
 
 
@@ -3961,33 +4134,77 @@ def _rank_run(task, model, images, noises, mesh, pipe, coord, results,
         return
     per = task["batch"] // mesh["data"].size()
     for c0 in range(0, len(images), task["batch"]):
-        got = pipe.generate_batch(images[c0:c0 + task["batch"]])
+        got = pipe.generate_batch(
+            images[c0:c0 + task["batch"]], noise=None if noises is None
+            else noises[c0:c0 + task["batch"]])
         results += [_plain(r) for r in got]
         for j, res in enumerate(pipe.last_engine):
             loops.append(res["loop"])
             rows[c0 + coord[0] * per + j] = _kept_rows(res)
 
 
-def _compare_runs(label, got, want, got_rows, want_rows, cfg):
+# A box edge that a threshold tie moves: at most one cell of the 256^2
+# logit grid, 4 px of the 1024 frame.
+TIE_BOX_PX = 4.0
+
+
+def _encode_rounding_close(g, w) -> dict:
+    """Detections of two runs whose encodes differ by bf16 roundings (the
+    spatial axis against one process): counts and categories equal, scores
+    within 1e-4 + one bf16 ulp, boxes within 0.5 px or, on a detection
+    whose RLE string differs (a threshold tie, checked by
+    `_threshold_ties`), within `TIE_BOX_PX`.  Returns the largest
+    differences; raises past the bounds."""
+    if len(g["boxes"]) != len(w["boxes"]):
+        raise AssertionError(f"{len(g['boxes'])} detections against "
+                             f"{len(w['boxes'])}")
+    if not len(g["boxes"]):
+        return dict(max_score_diff=0.0, max_box_diff_px=0.0)
+    if not np.array_equal(g["categories"], w["categories"]):
+        raise AssertionError("other categories")
+    ds = np.abs(g["scores"] - w["scores"])
+    db = np.abs(g["boxes"] - w["boxes"]).max(axis=1)
+    tie = np.array([a != b for a, b in zip(g["rles"], w["rles"])])
+    if (ds > 1e-4 + BF16_ULP * np.abs(w["scores"])).any() or (
+            db > np.where(tie, TIE_BOX_PX, 0.5)).any():
+        raise AssertionError(f"scores {ds.max()} / boxes {db.max()} px "
+                             f"apart (ties {tie.tolist()})")
+    return dict(max_score_diff=float(ds.max()),
+                max_box_diff_px=float(db.max()))
+
+
+def _compare_runs(label, got, want, got_rows, want_rows, cfg,
+                  encode_roundings=False):
     """Item by item: counts, categories, boxes within 0.5 px, scores within
-    1e-4, RLE strings equal or differing only at threshold ties (counted);
-    whether every field is equal bit for bit."""
+    1e-4 (`encode_roundings`: `_encode_rounding_close`), RLE strings equal
+    or differing only at threshold ties (counted); whether every field is
+    equal bit for bit."""
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} results for "
                              f"{len(want)} images")
-    ties, exact = [], []
+    ties, exact, close = [], [], []
     for i, (g, w) in enumerate(zip(got, want)):
-        if not _same_detections(g, w, exact=False):
+        if encode_roundings:
+            try:
+                close.append(_encode_rounding_close(g, w))
+            except AssertionError as e:
+                raise AssertionError(f"{label} image {i}: {e}") from None
+        elif not _same_detections(g, w, exact=False):
             raise AssertionError(f"{label} image {i}: {len(g['boxes'])} "
                                  f"detections against {len(w['boxes'])}")
         exact.append(_same_detections(g, w, exact=True))
         ties.append((0, 0) if g["rles"] == w["rles"] else _threshold_ties(
             cfg, g, w, _on_card(got_rows[i]), _on_card(want_rows[i])))
-    return dict(bit_for_bit=all(exact), items_bit_for_bit=exact,
-                rle_tie_pixels=ties)
+    out = dict(bit_for_bit=all(exact), items_bit_for_bit=exact,
+               rle_tie_pixels=ties)
+    if encode_roundings:
+        out.update(max_score_diff=max(c["max_score_diff"] for c in close),
+                   max_box_diff_px=max(c["max_box_diff_px"] for c in close))
+    return out
 
 
-def _rank_summary(label, members, want, want_rows, cfg):
+def _rank_summary(label, members, want, want_rows, cfg,
+                  encode_roundings=False):
     """Each run of the ranks against the single-process results: rank 0's
     results against them (`_compare_runs`), every other rank's equal to
     rank 0's bit for bit, every kernel of the run launched on every rank
@@ -4000,7 +4217,7 @@ def _rank_summary(label, members, want, want_rows, cfg):
         for rk in members:
             rows.update(rk["runs"][r]["rows"])
         cmp = _compare_runs(f"{label} {name}", run["results"], want[name],
-                            rows, want_rows[name], cfg)
+                            rows, want_rows[name], cfg, encode_roundings)
         for other in members[1:]:
             o = other["runs"][r]
             if not all(_same_detections(a, b, exact=True)
@@ -4171,9 +4388,103 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
                 **_rank_summary(f"data_shard {key}", ranks, want,
                                 want_rows, reference_cfg))
         print(json.dumps(data), flush=True)
+        spatial = phase_spatial_shard(
+            model, weights, p_runs, _single_runs(model, p_runs),
+            [("loaded, 4 crowd scenes", loaded_cfg, scenes[:4], None)],
+            ({"loaded, 4 crowd scenes": want["loaded"][:4]},
+             {"loaded, 4 crowd scenes": want_rows["loaded"]}),
+            reference_cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(prompt_shard=prompt, data_shard=data, weights_save_s=save_s)
+    return dict(prompt_shard=prompt, data_shard=data, spatial_shard=spatial,
+                weights_save_s=save_s)
+
+
+def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
+                        reference_cfg):
+    """`ShardedPipeline(spatial_axis="model")` at full width, one process a
+    rank on this one card over gloo: a (1, 2) mesh at batch 1 on the main
+    path's frames (reference thresholds) and crowd_scene(0) loaded, with
+    the noise of `prompt_shard`; a (2, 2) mesh with `prompt_axis "model"`
+    at batch 2 on 4 crowd scenes loaded, the generator reset to the seed
+    of `data_shard`.  Each rank encodes its band of SAM's ViT ([0, 42) /
+    [42, 64) token rows) and of DINOv2 ([0, 37) / [37, 73) patch rows).
+
+    Required, besides what `_rank_summary` requires (detections equal to
+    this process's or differing only at threshold ties, scores by bf16
+    roundings of the encode, `_encode_rounding_close`; every rank bit for
+    bit rank 0, every kernel launched on every rank): K3 4 and K4 24
+    launches a rank an image, all on band shapes; the first frame's
+    features of rank 0 within 1e-2 relative L2 of this process's encode
+    of the same frame.  Reported: the launches by shape, the all-reduces
+    and bytes of the spatial axis an image, ms per image, the encode's and
+    the all-reduces' share of it (host clock, synchronized around each) and
+    peak memory by rank (ranks sharing one card: not multi-card
+    figures)."""
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+
+    card, smi = torch.cuda.get_device_name(0), _smi()
+    out = dict(phase="spatial_shard", nvidia_smi=smi)
+    for key, world, mesh, batch, extra, runs, (want, want_rows) in (
+            ("1x2 batch 1", 2, (1, 2), 1, {}, p_runs, p_want),
+            ("2x2 batch 2, prompt_axis model", 4, (2, 2), 2,
+             {"prompt_axis": "model", "seed": 123}, d_runs, d_want)):
+        t = time.perf_counter()
+        ranks = run_ranks(_rank_task, world, (weights, dict(
+            kind="data_shard", mesh=mesh, batch=batch, runs=runs,
+            spatial_axis="model", **extra)), join_timeout_s=300.0,
+            threads=None)
+        row = dict(ranks=world, wall_s=time.perf_counter() - t,
+                   label=SHARING.format(n=world, card=card),
+                   **_rank_summary(f"spatial_shard {key}", ranks, want,
+                                   want_rows, reference_cfg,
+                                   encode_roundings=True))
+        for r, (name, _, images, _) in enumerate(runs):
+            per_rank = [rk["runs"][r] for rk in ranks]
+            images_a_rank = len(images) // mesh[0]
+            for rk, run in zip(ranks, per_rank):
+                k3 = run["launches"]["flash_mha_decomposed_relpos"]
+                k4 = run["launches"]["flash_mha"]
+                shapes = run["launches_by_shape"]
+                if (k3 != 4 * images_a_rank or k4 != 24 * images_a_rank
+                        or any(" of " not in s for s in shapes[
+                            "flash_mha_decomposed_relpos_by_shape"])
+                        or any(" of " not in s for s in shapes[
+                            "flash_mha_by_shape"])):
+                    raise AssertionError(
+                        f"spatial_shard {key} {name} rank {rk['rank']}: K3 "
+                        f"{k3} / K4 {k4} launches for {images_a_rank} "
+                        f"images, shapes {shapes}")
+            frames, in_hw, feats = per_rank[0]["first_encode"][0]
+            with torch.no_grad():
+                whole = model.predictor.encode_batch(frames.cuda(), in_hw)[
+                    "features"].float().cpu()
+            rel = _rel_l2(feats.float(), whole)
+            if not rel <= 1e-2:
+                raise AssertionError(f"spatial_shard {key} {name}: features "
+                                     f"{rel} relative L2 from one process")
+            row[name].update(
+                features_rel_l2_first_frame=rel,
+                launches_by_shape_by_rank=[
+                    {k: v for k, v in run["launches_by_shape"].items()
+                     if k.endswith("_by_shape")} for run in per_rank],
+                spatial_all_reduces_per_image_by_rank=[
+                    run["spatial_all_reduces"] / images_a_rank
+                    for run in per_rank],
+                spatial_bytes_per_image_by_rank=[
+                    run["spatial_bytes"] / images_a_rank
+                    for run in per_rank],
+                # host clock, synchronized around each encode and each
+                # all-reduce of the spatial axis (inside the encode)
+                encode_ms_per_image_by_rank=[
+                    run["encode_s"] * 1e3 / images_a_rank
+                    for run in per_rank],
+                spatial_all_reduce_ms_per_image_by_rank=[
+                    run["all_reduce_s"] * 1e3 / images_a_rank
+                    for run in per_rank])
+        out[key] = row
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def _nccl_pair_rank(rank: int, world: int):
@@ -4287,6 +4598,13 @@ def main() -> int:
         for s in RECT_K4_TOKENS:
             k4_rect[s] = _k4_case(gen, s)
             print(json.dumps({"phase": "K4 rect", **k4_rect[s]}), flush=True)
+        torch.cuda.empty_cache()
+        # The spatial axis's query bands (M = 2).
+        k3_band = {b: phase_global_band(gen, band=b)
+                   for b in ((0, 42), (42, 64))}
+        k3_band80 = phase_global_band(gen, hd=80)
+        k3_band_fold = phase_global_band(gen, fold=True)
+        k4_band = phase_dino_band(gen)
         torch.cuda.empty_cache()
         phase_f32_refused()
     ln_bwd_rows = phase_layernorm_backward(gen)
@@ -4527,6 +4845,38 @@ def main() -> int:
             r["launches_multi_device_loaded_rank0"] = {
                 path: row["loaded"]["launches_by_rank"][0][r["name"]]
                 for path, row in multi_paths.items()}
+    # The spatial axis's query bands: launches by band shape on each rank
+    # of spatial_shard's (1, 2) mesh at the reference thresholds.
+    sp = multi["spatial_shard"]["1x2 batch 1"]["reference"]
+    sp_shapes = sp["launches_by_shape_by_rank"]
+    band_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "library_device_ms", "shape", "band",
+                 "max_abs_err", "same_rows_of_whole_launch_exact",
+                 "same_rows_of_whole_launch_max_abs_diff")
+    for rank, ((lo, hi), row) in enumerate(k3_band.items()):
+        table.append(dict(
+            name="flash_mha_decomposed_relpos", route="cuda",
+            source=src_attn, replaces="crowdsam_tpu/models/attention.py:126",
+            launches=sp_shapes[rank]["flash_mha_decomposed_relpos_by_shape"]
+            .get(f"{hi - lo}x64 of 64x64", 0),
+            launches_in=f"spatial_shard 1x2, rank {rank}, {N_IMAGES} frames",
+            **{k: row[k] for k in band_keys}))
+    for row, note in ((k3_band80, "head dim 80 (vit_h)"),
+                      (k3_band_fold, "folded form")):
+        table.append(dict(
+            name="flash_mha_decomposed_relpos", route="cuda",
+            source=src_attn, replaces="crowdsam_tpu/models/attention.py:126",
+            launches=0, launches_in=f"{note}: no run of this script reaches "
+                                    f"it under the spatial axis",
+            **{k: row[k] for k in band_keys}))
+    for rank, (row, (lo, hi)) in enumerate(zip(k4_band, K4_BANDS)):
+        table.append(dict(
+            name="flash_mha", route="cuda", source=src_k4,
+            replaces="crowdsam_tpu/models/attention.py:86",
+            launches=sp_shapes[rank]["flash_mha_by_shape"].get(
+                f"{hi - lo} of {K4_BANDS[-1][1]} tokens", 0),
+            launches_in=f"spatial_shard 1x2, rank {rank}, {N_IMAGES} frames",
+            **{k: row[k] for k in band_keys}))
     # K5 and K6 at a prompt shard's counts (32 / M prompts).
     for r in table:
         if r["name"] in ("twoway_tail", "mask_head") and r.get(

@@ -86,6 +86,14 @@
 //      one-hot columns shifted by one: chip_smoke.py's K2/K3 phases hold
 //      plain versions with each of those faults against the tolerance.
 //
+// Query bands (K3 on a rank of the spatial axis, which holds grid rows
+// [row0, row0 + q_rows) of the queries and every key): the block grid
+// spans the band's Sq = q_rows w queries, and a query's grid row is row0
+// plus its row in the band.  Only the queries' side changes: GRID64 loads
+// Rh[row0 + block] for fh; FOLD reads the band's fh/fw rows (the wrapper
+// cuts them); the key loop, the one-hot KA and the masking past S keep
+// the whole grid's S = h w keys.  The output has Sq rows.
+//
 // Head dim 80 (SAM ViT-H: width 1280, 16 heads; the template's HD).  A
 // token's 80 bf16 are 160 bytes: not one 128-byte swizzle atom, and TMA's
 // 128-byte swizzle takes an inner box of at most 128 bytes.  Each operand is
@@ -190,7 +198,8 @@ struct Params {
   long long fw_sc, fw_sbh, fw_sr;  // GRID64: strides of a column, a
                              // (batch, head) and a grid row (64 j a row)
   const __nv_bfloat16* qkv;  // K2: the projection (B, Hp, Wp, 3 dim)
-  int seq, heads;
+  int seq, heads;            // seq: keys (K3: the grid's h w; K2: a window)
+  int seq_q, row0;           // K3: queries (a band of grid rows from row0)
   int rel_h, rel_w;          // K3: the grid; K2: the window twice
   float scale_log2;          // softmax scale * log2(e)
   float inv_scale;           // the folded bias terms are divided by scale
@@ -336,12 +345,12 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
       load_bhsd(sq, &tm_q, q_full, p.pos[0], h, q0, b);
       if constexpr (WIDE) load_bhsd1(sq1, &m.a, q_full, p.pos[0], h, q0, b);
       if (MODE == GRID64) {
-        // The block's 64 queries are grid row blockIdx.x: Rh[row] (64 j
-        // x 64 dims, rows past the table's end zero).
+        // The block's 64 queries are grid row row0 + blockIdx.x: Rh[row]
+        // (64 j x 64 dims, rows past the table's end zero).
+        const int row = p.row0 + blockIdx.x;
         mbar_expect_tx(rh_full, Q_BYTES + (WIDE ? Q1_BYTES : 0));
-        tma_load_2d(sfh, &tm_rh, rh_full, 0, blockIdx.x * p.rel_h);
-        if constexpr (WIDE)
-          tma_load_2d(srh1, &m.d, rh_full, D, blockIdx.x * p.rel_h);
+        tma_load_2d(sfh, &tm_rh, rh_full, 0, row * p.rel_h);
+        if constexpr (WIDE) tma_load_2d(srh1, &m.d, rh_full, D, row * p.rel_h);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
@@ -440,8 +449,8 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < 2; ++c) {
           const int d = 64 * s + 8 * ch + 2 * u + c;
           v[c] = 0.f;
-          if (q < p.seq) {
-            const long long row = bh * p.seq + q;
+          if (q < p.seq_q) {
+            const long long row = bh * p.seq_q + q;
             if (d < rh) v[c] = __bfloat162float(p.fh[row * rh + d]);
             else if (d < rh + rw)
               v[c] = __bfloat162float(p.fw[row * rw + d - rh]);
@@ -514,7 +523,7 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
 
   auto dst = [&](int i) -> __nv_bfloat16* {
     const int q = q0 + i;
-    if (q >= p.seq) return nullptr;
+    if (q >= p.seq_q) return nullptr;
     return p.o + (long long)b * p.obs + (long long)h * p.ohs +
            (long long)q * p.old;
   };
@@ -791,7 +800,7 @@ int global_launch(const CUtensorMap* maps, const Params& p, int batch,
   SlabMaps<HD> m;
   if constexpr (HD == D_WIDE) m = {maps[4], maps[5], maps[6], maps[7]};
   if (batch > 0 && heads > 0) {
-    const dim3 grid((p.seq + BQ - 1) / BQ, heads, batch);
+    const dim3 grid((p.seq_q + BQ - 1) / BQ, heads, batch);
     if (mode == GRID64)
       flash_attn_relpos<GRID64, 1, HD><<<grid, THREADS, G::SMEM, st>>>(
           maps[0], maps[1], maps[2], maps[3], p, m);
@@ -834,20 +843,23 @@ int window_launch(const CUtensorMap* maps, const Params& p, int batch,
 
 }  // namespace
 
-// K3. q, k, v: (B, H, S, hd) bf16 operands, hd = head_dim (64 or 80), S =
-// rel_h * rel_w, with their tensor-map layouts (`layouts`: 3 x 14 int64, q
-// then k then v, each with dims[0] = hd and a box of 64 dims); rh_table:
-// the (rel_h, rel_h, hd) bf16 table, contiguous.  FOLD: fh/fw contiguous
-// (B, H, S, rel_h) / (B, H, S, rel_w) bf16.  GRID64: fh unused (formed in
-// the kernel); fw (64 j contiguous) at column c, (batch, head) bh and grid
-// row r at c fw_strides[0] + bh fw_strides[1] + r fw_strides[2]; o: the
-// output, strides `o_strides` (batch, head, token; elements).  `mode`: 0
-// (GRID64, a grid 64 wide only) or 1 (FOLD, any grid).  At head dim 80
-// fh/fw come already divided by `scale` (at 64 the kernel divides, x8
-// being exact).  Returns
-// cudaGetLastError(), or -1 when the CUDA driver has no
-// cuTensorMapEncodeTiled, -2 - i when operand i's tensor map is refused, -6
-// for a grid outside 1..64, a mode it does not take or another head dim.
+// K3. k, v: (B, H, S, hd) bf16 operands, hd = head_dim (64 or 80), S =
+// rel_h * rel_w; q: (B, H, Sq, hd), Sq = q_rows * rel_w, the queries of
+// grid rows [row0, row0 + q_rows) (a query band against every key; the
+// whole grid when q_rows = rel_h); each with its tensor-map layout
+// (`layouts`: 3 x 14 int64, q then k then v, each with dims[0] = hd and a
+// box of 64 dims); rh_table: the (rel_h, rel_h, hd) bf16 table, contiguous.
+// FOLD: fh/fw contiguous (B, H, Sq, rel_h) / (B, H, Sq, rel_w) bf16, the
+// band's rows.  GRID64: fh unused (formed in the kernel from Rh[row0 +
+// local row]); fw (64 j contiguous) at column c, (batch, head) bh and the
+// band's grid row r at c fw_strides[0] + bh fw_strides[1] + r
+// fw_strides[2]; o: the output, strides `o_strides` (batch, head, token;
+// elements).  `mode`: 0 (GRID64, a grid 64 wide only) or 1 (FOLD, any
+// grid).  At head dim 80 fh/fw come already divided by `scale` (at 64 the
+// kernel divides, x8 being exact).  Returns cudaGetLastError(), or -1 when
+// the CUDA driver has no cuTensorMapEncodeTiled, -2 - i when operand i's
+// tensor map is refused, -6 for a grid outside 1..64, a band outside it, a
+// mode it does not take or another head dim.
 extern "C" int relpos_global_forward(const void* q, const void* k,
                                      const void* v, void* o, const void* fh,
                                      const void* fw,
@@ -856,11 +868,12 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
                                      const long long* layouts,
                                      const long long* o_strides, int batch,
                                      int heads, int rel_h, int rel_w,
-                                     int head_dim, int mode, float scale,
-                                     void* stream) {
+                                     int q_rows, int row0, int head_dim,
+                                     int mode, float scale, void* stream) {
   if (encode_fn() == nullptr) return -1;
   if (rel_h < 1 || rel_w < 1 || rel_h > MAX_GRID || rel_w > MAX_GRID)
     return -6;
+  if (q_rows < 1 || row0 < 0 || row0 + q_rows > rel_h) return -6;
   if (mode != GRID64 && mode != FOLD) return -6;
   if (mode == GRID64 && rel_w != MAX_GRID) return -6;
   if (head_dim != D && head_dim != D_WIDE) return -6;
@@ -897,6 +910,8 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
   p.fw_sbh = fw_strides[1];
   p.fw_sr = fw_strides[2];
   p.seq = rel_h * rel_w;
+  p.seq_q = q_rows * rel_w;
+  p.row0 = row0;
   p.heads = heads;
   p.rel_h = rel_h;
   p.rel_w = rel_w;

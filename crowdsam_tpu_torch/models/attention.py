@@ -22,7 +22,9 @@ materialized: K3 and K4 through one map per (B, H, S, hd) operand, whose
 host-side layout `tma_layout` builds and checks; K2 through 5-d maps of the
 projection built in the kernel's entry point.  K2 and K3 take head dim 64
 (SAM ViT-B/L) and 80 (SAM ViT-H, its dims 64-79 as a second slab in the
-kernel); K4 takes 64 (every DINOv2 arch).
+kernel); K4 takes 64 (every DINOv2 arch).  K3 and K4 also take fewer
+queries than keys: a rank of the spatial axis (`parallel/spatial.py`)
+holds a band of the queries (K3: grid rows from `row0`) and every key.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
 launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
@@ -45,7 +47,7 @@ _GLOBAL_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 _WINDOW_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -93,30 +95,36 @@ def window_unpartition(x: torch.Tensor, ws: int, hp: int,
 
 
 def _rel_bias_terms(q: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
-                    hw: Tuple[int, int]):
+                    hw: Tuple[int, int], row0: int = 0):
     """fh[.., n, j] = q[n] . Rh[row(n), j];  fw[.., n, j] = q[n] . Rw[col(n), j].
 
-    q: (..., h*w, D); rel_h (h, h, D), rel_w (w, w, D)."""
+    q: (..., hq*w, D), the queries of grid rows [row0, row0 + hq) of the
+    h x w grid (all of it by default); rel_h (h, h, D), rel_w (w, w, D)."""
     h, w = hw
-    qr = q.reshape(*q.shape[:-2], h, w, q.shape[-1])
-    fh = torch.einsum("...rwc,rjc->...rwj", qr, rel_h.to(q.dtype))
+    hq = q.shape[-2] // w
+    qr = q.reshape(*q.shape[:-2], hq, w, q.shape[-1])
+    fh = torch.einsum("...rwc,rjc->...rwj", qr,
+                      rel_h[row0:row0 + hq].to(q.dtype))
     fw = torch.einsum("...rwc,wjc->...rwj", qr, rel_w.to(q.dtype))
     return (fh.reshape(*q.shape[:-1], h), fw.reshape(*q.shape[:-1], w))
 
 
-def relpos_attention_plain(q, k, v, sm_scale: float, rel_h, rel_w,
-                           hw) -> torch.Tensor:
-    """(..., S, D) attention with the decomposed rel-pos bias, S = h*w:
-    softmax(scale q.k + q.Rh[row(q), row(k)] + q.Rw[col(q), col(k)]) v."""
+def relpos_attention_plain(q, k, v, sm_scale: float, rel_h, rel_w, hw,
+                           row0: int = 0) -> torch.Tensor:
+    """(..., Sq, D) queries against (..., S, D) keys with the decomposed
+    rel-pos bias, S = h*w: softmax(scale q.k + q.Rh[row(q), row(k)] +
+    q.Rw[col(q), col(k)]) v.  The queries are grid rows [row0, row0 + Sq /
+    w) (a query band; the whole grid by default)."""
     h, w = hw
+    hq = q.shape[-2] // w
     qf, kf = q.float(), k.float()
-    fh, fw = _rel_bias_terms(qf, rel_h.float(), rel_w.float(), hw)
+    fh, fw = _rel_bias_terms(qf, rel_h.float(), rel_w.float(), hw, row0)
     logits = (qf * sm_scale) @ kf.transpose(-1, -2)
     lead = logits.shape[:-2]
-    logits = (logits.reshape(*lead, h, w, h, w)
-              + fh.reshape(*lead, h, w, h, 1)
-              + fw.reshape(*lead, h, w, 1, w))
-    out = _softmax_av(logits.reshape(*lead, h * w, h * w), v)
+    logits = (logits.reshape(*lead, hq, w, h, w)
+              + fh.reshape(*lead, hq, w, h, 1)
+              + fw.reshape(*lead, hq, w, 1, w))
+    out = _softmax_av(logits.reshape(*lead, hq * w, h * w), v)
     return out.to(q.dtype)
 
 
@@ -137,9 +145,10 @@ def window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads: int,
 
 def flash_mha_plain(q, k, v, sm_scale: float,
                     valid_len: Optional[int] = None) -> torch.Tensor:
-    """Plain version of `flash_mha`: (B, H, S, D) softmax((q.k) scale) v with
-    keys at or beyond valid_len masked."""
-    s = q.shape[-2]
+    """Plain version of `flash_mha`: (B, H, Sq, D) queries against (B, H,
+    S, D) keys, softmax((q.k) scale) v with keys at or beyond valid_len
+    masked."""
+    s = k.shape[-2]
     vlen = s if valid_len is None else valid_len
     logits = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
     if vlen < s:
@@ -301,42 +310,51 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
 
 
 def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
-                                hw) -> torch.Tensor:
+                                hw, row0: int = 0) -> torch.Tensor:
     """Global attention with the decomposed rel-pos bias (K3).
 
-    q, k, v: (B, H, S, D), D 64 or 80, with S = h*w (views with a contiguous
-    head dim and 16-byte aligned strides are read in place, `tma_layout`);
-    rel_h/rel_w:
-    (h, h, D)/(w, w, D) gathered tables.  Returns (B, H, S, D), a (B, S, H,
-    D) buffer seen as (B, H, S, D).  A grid 64 wide (SAM's) takes the
-    kernel's bias-in-registers form, any other the folded form."""
+    k, v: (B, H, S, D), D 64 or 80, with S = h*w; q: (B, H, Sq, D), the
+    queries of grid rows [row0, row0 + Sq / w) (a query band, as a rank of
+    the spatial axis holds them; the whole grid, Sq = S, by default).
+    Views with a contiguous head dim and 16-byte aligned strides are read
+    in place (`tma_layout`); rel_h/rel_w: (h, h, D)/(w, w, D) gathered
+    tables.  Returns (B, H, Sq, D), a (B, Sq, H, D) buffer seen as (B, H,
+    Sq, D).  A grid 64 wide (SAM's) takes the kernel's bias-in-registers
+    form, any other the folded form."""
     _build.refuse_grad("flash_mha_decomposed_relpos", q, k, v, rel_h, rel_w)
     if not _device_check(q, "flash_mha_decomposed_relpos"):
-        return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw)
+        return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw,
+                                      row0)
     out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw,
-                               fold=hw[1] != MAX_REL)
-    _count(flash_mha_decomposed_relpos, q.shape[-1], f"{hw[0]}x{hw[1]}")
+                               fold=hw[1] != MAX_REL, row0=row0)
+    hq = q.shape[2] // hw[1]
+    grid = f"{hw[0]}x{hw[1]}"
+    _count(flash_mha_decomposed_relpos, q.shape[-1],
+           grid if hq == hw[0] else f"{hq}x{hw[1]} of {grid}")
     return out
 
 
 def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
-                         fold: bool) -> torch.Tensor:
+                         fold: bool, row0: int = 0) -> torch.Tensor:
     """One launch of K3 on CUDA tensors: `fold` picks the folded form
     (QA KA^T in the product), else the bias in registers (grids 64 wide).
-    `flash_mha_decomposed_relpos` picks by the grid; `chip_smoke.py` times
-    both forms on SAM's grid."""
+    q holds grid rows [row0, row0 + Sq / w) (`flash_mha_decomposed_relpos`).
+    `flash_mha_decomposed_relpos` picks the form by the grid;
+    `chip_smoke.py` times both forms on SAM's grid."""
     fn_name = "flash_mha_decomposed_relpos"
     hh, ww = hw
-    b, nh, s, d = q.shape
-    if (d not in RELPOS_HEAD_DIMS or s != hh * ww
-            or not 0 < max(hh, ww) <= MAX_REL
-            or min(hh, ww) < 1 or not (fold or ww == MAX_REL)):
+    b, nh, sq, d = q.shape
+    hq = sq // max(ww, 1)
+    if (d not in RELPOS_HEAD_DIMS or not 0 < max(hh, ww) <= MAX_REL
+            or min(hh, ww) < 1 or not (fold or ww == MAX_REL)
+            or sq != hq * ww or not 0 <= row0 < row0 + hq <= hh):
         raise ValueError(f"{fn_name}: unsupported shape {tuple(q.shape)} "
-                         f"grid {hw}")
+                         f"grid {hw}, query rows from {row0}")
     for t, name in ((k, "k"), (v, "v")):
-        if t.shape != q.shape or t.device != q.device:
+        if t.shape != (b, nh, hh * ww, d) or t.device != q.device:
             raise ValueError(f"{fn_name}: {name} {tuple(t.shape)} on "
-                             f"{t.device}, q {tuple(q.shape)} on {q.device}")
+                             f"{t.device}, q {tuple(q.shape)} on {q.device}, "
+                             f"grid {hw}")
     if max(b, nh) > 65535:
         raise ValueError(f"{fn_name}: batch {b} or heads {nh} above 65535")
     layouts = (tma_layout(q, "q", TMA_Q_ROWS, fn_name, RELPOS_HEAD_DIMS),
@@ -357,18 +375,19 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
 
     if fold:
         fh, fw = (term(t).contiguous()
-                  for t in _rel_bias_terms(qt, rht, rwt, hw))
+                  for t in _rel_bias_terms(qt, rht, rwt, hw, row0))
         fw_strides = (0, 0, 0)
     else:
-        # fh is formed in the kernel (a block is one grid row); fw by one
-        # batched product over the grid's columns, read in its own layout
-        # (column c, then batch and head, then grid row).
+        # fh is formed in the kernel (a block is one grid row, its Rh row
+        # row0 + the block's); fw by one batched product over the grid's
+        # columns, read in its own layout (column c, then batch and head,
+        # then the band's grid row).
         fh = None
-        qc = qt.reshape(b, nh, hh, ww, d).permute(3, 0, 1, 2, 4)
-        fw = term(torch.bmm(qc.reshape(ww, b * nh * hh, d),
+        qc = qt.reshape(b, nh, hq, ww, d).permute(3, 0, 1, 2, 4)
+        fw = term(torch.bmm(qc.reshape(ww, b * nh * hq, d),
                             rwt.transpose(1, 2)))
-        fw_strides = (b * nh * hh * ww, hh * ww, ww)
-    out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
+        fw_strides = (b * nh * hq * ww, hq * ww, ww)
+    out = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
     lay = _int64_array(tuple(x for lt in layouts for x in lt.row()))
     ost = _int64_array(out.stride()[:3])
@@ -379,8 +398,8 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
                 None if fh is None else fh.data_ptr(), fw.data_ptr(),
                 ctypes.cast(fst, ctypes.c_void_p), rh.data_ptr(),
                 ctypes.cast(lay, ctypes.c_void_p),
-                ctypes.cast(ost, ctypes.c_void_p), b, nh, hh, ww, d,
-                int(fold), float(sm_scale),
+                ctypes.cast(ost, ctypes.c_void_p), b, nh, hh, ww, hq, row0,
+                d, int(fold), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernel_status(status, fn_name, ("q", "k", "v", "rel_h"))
     return out
@@ -395,18 +414,21 @@ def _int64_array(values: tuple):
 
 def flash_mha(q, k, v, sm_scale: float,
               valid_len: Optional[int] = None) -> torch.Tensor:
-    """Non-causal attention (K4): (B, H, S, D) -> (B, H, S, D), keys at or
-    beyond `valid_len` masked.  Views with a contiguous head dim and 16-byte
-    aligned strides are read in place (`tma_layout`); the output is a (B, S,
-    H, D) buffer seen as (B, H, S, D)."""
+    """Non-causal attention (K4): (B, H, Sq, D) queries against (B, H, S,
+    D) keys and values -> (B, H, Sq, D), keys at or beyond `valid_len`
+    masked.  Sq = S but for a rank of the spatial axis, which holds a band
+    of the queries and every key.  Views with a contiguous head dim and
+    16-byte aligned strides are read in place (`tma_layout`); the output
+    is a (B, Sq, H, D) buffer seen as (B, H, Sq, D)."""
     _build.refuse_grad("flash_mha", q, k, v)
     if not _device_check(q, "flash_mha"):
         return flash_mha_plain(q, k, v, sm_scale, valid_len)
-    b, nh, s, d = q.shape
+    b, nh, sq, d = q.shape
+    s = k.shape[2]
     if d != HEAD_DIM:
         raise ValueError(f"flash_mha: head dim {d} (only {HEAD_DIM})")
     for t, name in ((k, "k"), (v, "v")):
-        if t.shape != q.shape or t.device != q.device:
+        if t.shape != (b, nh, s, d) or t.device != q.device:
             raise ValueError(f"flash_mha: {name} {tuple(t.shape)} on "
                              f"{t.device}, q {tuple(q.shape)} on {q.device}")
     layouts = (tma_layout(q, "q", TMA_Q_ROWS), tma_layout(k, "k"),
@@ -416,19 +438,20 @@ def flash_mha(q, k, v, sm_scale: float,
         raise ValueError(f"flash_mha: valid_len {vlen} outside (0, {s}]")
     if max(b, nh) > 65535:
         raise ValueError(f"flash_mha: batch {b} or heads {nh} above 65535")
-    out = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
     lay = _int64_array(tuple(x for lt in layouts for x in lt.row()))
     ost = _int64_array(out.stride()[:3])
     fn = _build.function("flash_sm90", "flash_sm90_forward", _SM90_ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 ctypes.cast(lay, ctypes.c_void_p),
-                ctypes.cast(ost, ctypes.c_void_p), b, nh, s, vlen,
+                ctypes.cast(ost, ctypes.c_void_p), b, nh, sq, vlen,
                 float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernel_status(status, "flash_mha", ("q", "k", "v"))
     flash_mha.launches += 1
-    flash_mha.launches_by_shape[f"{s} tokens"] += 1
+    flash_mha.launches_by_shape[f"{s} tokens" if sq == s
+                                else f"{sq} of {s} tokens"] += 1
     return out
 
 

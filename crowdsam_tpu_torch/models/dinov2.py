@@ -4,7 +4,10 @@ Counterpart of the JAX package's `models/dinov2.py`: patch 14, LayerScale,
 LN eps 1e-6, a cls token and no register tokens; the pretrain 37x37
 positional grid is bicubic-interpolated to the call grid (73x73 for the
 1022^2 input).  facebookresearch/dinov2 state-dict keys.  Attention runs
-through `flash_mha` (K4) over the 1 + 73^2 = 5330 tokens.
+through `flash_mha` (K4) over the 1 + 73^2 = 5330 tokens.  `forward_band`
+is one rank's share of the spatial axis (`parallel/spatial.py`): a band of
+patch rows (the cls token with the first), K and V of every token gathered
+in each block, the normed tokens gathered at the end.
 """
 
 from __future__ import annotations
@@ -29,13 +32,19 @@ class DinoAttention(nn.Module):
         self.qkv = Linear(dim, dim * 3)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        """x: (B, n, C) tokens; with `band` (a rank of the spatial axis)
+        tokens [band.lo, band.hi), whose queries attend over every band's
+        keys."""
         b, n, c = x.shape
-        nh = self.num_heads
+        nh, hd = self.num_heads, c // self.num_heads
         qkv = self.qkv(x)
         require_bf16_on_cuda(qkv, "DINOv2 attention")
-        t = qkv.reshape(b, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
-        out = flash_mha(t[0], t[1], t[2], (c // nh) ** -0.5, valid_len=n)
+        q = qkv[..., :c].reshape(b, n, nh, hd).transpose(1, 2)
+        kv = qkv[..., c:] if band is None else band.gather(qkv[..., c:])
+        nk = kv.shape[1]
+        t = kv.reshape(b, nk, 2, nh, hd).permute(2, 0, 3, 1, 4)
+        out = flash_mha(q, t[0], t[1], hd ** -0.5, valid_len=nk)
         return self.proj(out.transpose(1, 2).reshape(b, n, c).to(x.dtype))
 
 
@@ -69,8 +78,8 @@ class DinoBlock(nn.Module):
         self.mlp = DinoMlp(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim, ls_init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x), band))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
@@ -108,21 +117,49 @@ class DinoVisionTransformer(nn.Module):
         Returns {"x_norm_clstoken": (B, C), "x_norm_patchtokens": (B, N, C)}."""
         b, h, w, _ = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
-        c = self.embed_dim
-        x = self.patch_embed.proj(x).reshape(b, gh * gw, c)
-        cls_pos = self.pos_embed[:, :1]
-        patch_pos = self.pos_embed[:, 1:].reshape(1, self.n_pre, self.n_pre, c)
-        ph, pw = pos_hw if pos_hw is not None else (gh, gw)
-        if (ph, pw) != (self.n_pre, self.n_pre):
-            patch_pos = resize_bicubic_torch(patch_pos, (ph, pw))
-        patch_pos = patch_pos[:, :gh, :gw]
-        x = x + patch_pos.reshape(1, gh * gw, c).to(x.dtype)
-        cls = (self.cls_token + cls_pos).expand(b, 1, c)
-        x = torch.cat([cls.to(x.dtype), x], dim=1)
+        x = self._tokens(x, self._patch_pos(pos_hw or (gh, gw))[:, :gh, :gw],
+                         cls=True)
         for blk in self.blocks:
             x = blk(x)
         x = self.norm(x)
         return {"x_norm_clstoken": x[:, 0], "x_norm_patchtokens": x[:, 1:]}
+
+    def forward_band(self, x: torch.Tensor, band) -> Dict[str, torch.Tensor]:
+        """One rank's share of the spatial axis: x (B, H, W, 3), the whole
+        normalized input; `band` (`parallel/spatial.Band`) this rank's patch
+        rows.  Returns `forward`'s dict, whole and the same on every rank
+        of the axis (the gathers are exact)."""
+        p = self.patch_size
+        gh, gw = x.shape[1] // p, x.shape[2] // p
+        x = self._tokens(x[:, band.lo * p:band.hi * p],
+                         self._patch_pos((gh, gw))[:, band.lo:band.hi],
+                         cls=band.lo == 0)
+        tokens = band.with_cls(gw)
+        for blk in self.blocks:
+            x = blk(x, tokens)
+        x = tokens.gather(self.norm(x))
+        return {"x_norm_clstoken": x[:, 0], "x_norm_patchtokens": x[:, 1:]}
+
+    def _patch_pos(self, pos_hw) -> torch.Tensor:
+        """The (1, H_pos, W_pos, C) positional grid, the pretrain grid
+        bicubic-interpolated to `pos_hw`."""
+        c = self.embed_dim
+        patch_pos = self.pos_embed[:, 1:].reshape(1, self.n_pre, self.n_pre, c)
+        if tuple(pos_hw) != (self.n_pre, self.n_pre):
+            patch_pos = resize_bicubic_torch(patch_pos, tuple(pos_hw))
+        return patch_pos
+
+    def _tokens(self, x: torch.Tensor, pos: torch.Tensor,
+                cls: bool) -> torch.Tensor:
+        """The patch tokens of x (B, H, W, 3) plus `pos` (1, H/p, W/p, C),
+        after the cls token when `cls`."""
+        b, c = x.shape[0], self.embed_dim
+        x = self.patch_embed.proj(x).reshape(b, -1, c)
+        x = x + pos.reshape(1, -1, c).to(x.dtype)
+        if not cls:
+            return x
+        cls_tok = (self.cls_token + self.pos_embed[:, :1]).expand(b, 1, c)
+        return torch.cat([cls_tok.to(x.dtype), x], dim=1)
 
 
 def dinov2_vitl14() -> DinoVisionTransformer:

@@ -7,6 +7,10 @@ Counterpart of the JAX package's `models/image_encoder.py` (ViT-L: embed
 throughout; the torch reference's state-dict keys.  The head dim is width /
 heads; `forward(x, return_interm=True)` also returns the first global
 block's output, the early feature the HQ decoder fuses.
+`forward_band(x, band)` is one rank's share of the spatial axis
+(`parallel/spatial.py`): a band of whole window rows, K and V of every band
+gathered in the global blocks, the neck's 3x3 convolution on the gathered
+map.
 
 Window blocks pad the normalized input to a multiple of the window BEFORE
 the qkv projection, so pad tokens carry the qkv bias and take part as keys,
@@ -70,7 +74,10 @@ class Attention(nn.Module):
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1,
                                                   head_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        """x: (B, h, w, C) tokens; with `band` (a global block on a rank of
+        the spatial axis) the rows [band.lo, band.hi) of the grid, whose
+        queries attend over every band's keys."""
         b, h, w, c = x.shape
         ws = self.window
         if ws > 0:
@@ -85,17 +92,22 @@ class Attention(nn.Module):
         else:
             qkv = self.qkv(x)
             require_bf16_on_cuda(qkv, "SAM global attention")
-            out = self._global(qkv, h, w)
+            out = self._global(qkv, h, w, band)
         return self.proj(out)
 
-    def _global(self, qkv: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def _global(self, qkv: torch.Tensor, h: int, w: int,
+                band=None) -> torch.Tensor:
         b, c = qkv.shape[0], qkv.shape[-1] // 3
-        nh = self.num_heads
-        qkv = qkv.reshape(b, h * w, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        nh, hd = self.num_heads, c // self.num_heads
+        q = qkv[..., :c].reshape(b, h * w, nh, hd).transpose(1, 2)
+        kv, row0 = qkv[..., c:], 0
+        if band is not None:
+            kv, row0 = band.gather(kv), band.lo
+        hk = kv.shape[1]
+        kv = kv.reshape(b, hk * w, 2, nh, hd).permute(2, 0, 3, 1, 4)
         out = flash_mha_decomposed_relpos(
-            qkv[0], qkv[1], qkv[2], self.scale,
-            _rel_pos_table(self.rel_pos_h, h),
-            _rel_pos_table(self.rel_pos_w, w), (h, w))
+            q, kv[0], kv[1], self.scale, _rel_pos_table(self.rel_pos_h, hk),
+            _rel_pos_table(self.rel_pos_w, w), (hk, w), row0)
         return out.transpose(1, 2).reshape(b, h, w, c)
 
 
@@ -113,8 +125,8 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), band)
         return x + self.mlp(self.norm2(x))
 
 
@@ -140,6 +152,7 @@ class ImageEncoderViT(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.depth = depth
+        self.window_size = window_size
         grid = img_size // patch_size
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
         self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
@@ -171,3 +184,17 @@ class ImageEncoderViT(nn.Module):
                 interm = x
         x = self.neck(x)
         return (x, interm) if return_interm else x
+
+    def forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
+        """One rank's share of the spatial axis: x (B, img_size, img_size,
+        3), the whole normalized frame; `band` (`parallel/spatial.Band`)
+        this rank's token rows, whole windows of the padded grid.  Returns
+        the whole (B, img/16, img/16, 256) features, the same on every
+        rank of the axis (the gathers are exact)."""
+        p = self.patch_size
+        x = self.patch_embed(x[:, band.lo * p:band.hi * p])
+        x = x + self.pos_embed[:, band.lo:band.hi, :x.shape[2]].to(x.dtype)
+        for blk in self.blocks:
+            x = blk(x, band)
+        x = band.gather(self.neck[1](self.neck[0](x)))
+        return self.neck[3](self.neck[2](x))

@@ -1,7 +1,9 @@
-"""The collectives of the prompt-sharded engine, all on `all_reduce`.
+"""The collectives of the prompt-sharded engine and the spatial encode, all
+on `all_reduce`.
 
 Counterparts of the JAX engine's `psum` OR, `all_gather` and masked `psum`
-(`crowdsam_tpu/pipeline/engine.py`).  Only `all_reduce` is used: NCCL
+(`crowdsam_tpu/pipeline/engine.py`), and of the gathers GSPMD inserts in
+the JAX package's spatially sharded encode (`gather_bands`).  Only `all_reduce` is used: NCCL
 serves it for several cards, and gloo serves it on CUDA tensors as well as
 CPU ones (gloo has no all-gather on CUDA tensors), so the same code runs
 ranks that share one card.  The gathers are sums in which exactly one rank
@@ -20,7 +22,7 @@ import torch.distributed as dist
 
 @dataclasses.dataclass
 class Shard:
-    """One rank's place on the prompt axis: the axis's process group, this
+    """One rank's place on a mesh axis: the axis's process group, this
     rank's index in it and its size M.  `calls` and `bytes` count the
     all-reduces made through it and the bytes they reduced."""
     group: object
@@ -57,6 +59,23 @@ def gather_rows(x: torch.Tensor, shard: Shard) -> torch.Tensor:
     buf = torch.zeros((shard.size,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
     buf[shard.rank] = x
+    return _sum_bytes(buf, shard)
+
+
+def gather_bands(x: torch.Tensor, bounds, shard: Shard,
+                 dim: int = 1) -> torch.Tensor:
+    """The whole of a tensor split along `dim` into one band a rank, rank r
+    holding [bounds[r][0], bounds[r][1]) as `x`; the bands may differ in
+    length.  A zero-filled buffer of the whole extent in which each rank
+    fills its own band, summed over the group."""
+    lo, hi = bounds[shard.rank]
+    if x.shape[dim] != hi - lo:
+        raise ValueError(f"rank {shard.rank}'s band [{lo}, {hi}) of "
+                         f"{x.shape[dim]} rows along dim {dim}")
+    shape = list(x.shape)
+    shape[dim] = bounds[-1][1]
+    buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    buf.narrow(dim, lo, hi - lo).copy_(x)
     return _sum_bytes(buf, shard)
 
 

@@ -16,7 +16,13 @@ stages, and the per-image results are gathered over `data`
 (`all_gather_object`), so every rank returns every image's result in
 order, as the JAX `generate_batch` does.  With `prompt_axis` the ranks of
 that axis also split each image's prompt batches (`pipeline/engine.py`,
-the composed layout).
+the composed layout).  With `spatial_axis` the ranks of that axis (of a
+data coordinate) split each encode by token rows (`parallel/spatial.py`):
+each computes a band of SAM's ViT and of DINOv2 and every one ends with
+the whole features; the engine and the survivor pass then run on every
+rank of the axis (each on its prompt share when `prompt_axis` is the same
+axis or another), as in the JAX package, whose engine runs under a
+`shard_map` over `data` only.  The spatial axis may be the prompt axis.
 
 The noise of each real image is drawn from the model's generator in order,
 as `CrowdSAM.generate_many` draws it, on every rank, and each rank uses
@@ -27,8 +33,8 @@ last image, for a static shape; the results are the same); a rank given
 no image of it skips the encode and the engine and joins the gather.
 What the JAX `ShardedPipeline` refuses or cannot run is refused here with
 the reason: crop layers, the train-free branch and the HQ decoder
-(`sam_hq`); and the spatial axis (GSPMD's automatic partitioning of the
-encode in the JAX package) is later work.
+(`sam_hq`); and the spatial axis without a mesh, or on TinyViT
+(`mobile_sam`), whose strided convolutions run through every stage.
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from crowdsam_tpu_torch.models.image_encoder import ImageEncoderViT
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.transforms import resize_image
+from crowdsam_tpu_torch.parallel.collectives import Shard
 from crowdsam_tpu_torch.parallel.mesh import axis_group, check_device
 from crowdsam_tpu_torch.parallel.prompt_shard import axis_shard
+from crowdsam_tpu_torch.parallel.spatial import dino_band, sam_band
 from crowdsam_tpu_torch.pipeline.crowdsam import _wrap_up
 from crowdsam_tpu_torch.pipeline.engine import (
     run_eps_engine_batch,
@@ -55,10 +64,13 @@ def refusal(model, mesh=None, spatial_axis=None, prompt_axis=None
             ) -> Optional[str]:
     """Why the batched path does not run `model` (or these mesh options),
     or None."""
-    if spatial_axis:
-        return ("spatial_axis: spatial encode sharding: M15 part 3 (halo "
-                "exchanges in the encoders' convolutions and resizes, K/V "
-                "gathers in their global blocks)")
+    if spatial_axis and not isinstance(model.sam.image_encoder,
+                                       ImageEncoderViT):
+        return ("spatial_axis on TinyViT (mobile_sam): its strided "
+                "convolutions run through every stage, so bands of rows "
+                "would need halo exchanges at each (not ported)")
+    if spatial_axis and mesh is None:
+        return "spatial_axis needs a mesh with that axis"
     if prompt_axis and mesh is None:
         return "prompt_axis needs a mesh with that axis"
     if model.crop_n_layers != 0:
@@ -77,7 +89,8 @@ def refusal(model, mesh=None, spatial_axis=None, prompt_axis=None
 class ShardedPipeline:
     """Wraps a `CrowdSAM` with a batched `generate_batch` of `batch` images
     a chunk, on the model's device; with `mesh`, a chunk's images split
-    over its `data` axis (and each image's prompts over `prompt_axis`)."""
+    over its `data` axis (each image's encode by rows over `spatial_axis`,
+    and its prompts over `prompt_axis`)."""
 
     def __init__(self, model, mesh=None, batch: int = 4,
                  spatial_axis: Optional[str] = None,
@@ -91,6 +104,7 @@ class ShardedPipeline:
         self.batch = batch
         self.data = None          # (group, this rank's index, size)
         self.shard = None         # this rank's prompt shard
+        self.spatial = None       # this rank's shard of the spatial axis
         if mesh is not None:
             check_device(mesh, model.device)
             self.data = axis_group(mesh, "data")
@@ -99,6 +113,12 @@ class ShardedPipeline:
                                  f"data axis ({self.data[2]} ranks)")
             if prompt_axis:
                 self.shard = axis_shard(model, mesh, prompt_axis)
+            if spatial_axis:
+                self.spatial = Shard(*axis_group(mesh, spatial_axis))
+                # The band layouts, checked now: every rank needs a band.
+                p = model.predictor
+                sam_band(p.model.image_encoder, self.spatial)
+                dino_band(p.dino_grid, self.spatial)
         self.last_engine = None
 
     @torch.no_grad()
@@ -166,7 +186,7 @@ class ShardedPipeline:
         in_hw = [m["in_hw"] for m in metas]
 
         enc = model.predictor.encode_batch(
-            torch.from_numpy(frames).to(dev), in_hw)
+            torch.from_numpy(frames).to(dev), in_hw, spatial=self.spatial)
         sims = torch.stack([model.sim_map(enc["fg_logits"][i:i + 1])
                             for i in range(n)])
         g = cfg.grid_size

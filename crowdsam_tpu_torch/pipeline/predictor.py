@@ -50,6 +50,7 @@ from crowdsam_tpu_torch.models.sam import (
 )
 from crowdsam_tpu_torch.ops.resize import resize_linear, resize_linear_band
 from crowdsam_tpu_torch.ops.transforms import ResizeLongestSide
+from crowdsam_tpu_torch.parallel.spatial import dino_band, sam_band
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -170,13 +171,17 @@ class SamPredictor:
         return out
 
     @torch.no_grad()
-    def encode_batch(self, frames: torch.Tensor, input_hw) -> dict:
+    def encode_batch(self, frames: torch.Tensor, input_hw,
+                     spatial=None) -> dict:
         """frames (B, S, S, 3) pixels in the square SAM frame, input_hw (B,
         2) each image's valid size.  Returns features (B, g, g, 256),
         dense_pe (g, g, 256), dino_feats (B, 73, 73, C), dino_proj_256 (B,
         256, 256, 256) bf16 and fg_logits (B, n_class, 256, 256): per image
         what `encode` and `predict_fg_map` give for it.  Not for the HQ
-        decoder (the JAX batched path fails on it too)."""
+        decoder (the JAX batched path fails on it too).  `spatial`: the
+        `Shard` of a spatial axis, whose every rank calls this on the same
+        frames; each computes its band of both encoders
+        (`parallel/spatial.py`) and gets the whole result."""
         if self.is_hq or self.dino_model is None:
             raise NotImplementedError(
                 "encode_batch: the crowdsam, sam and mobile_sam archs only")
@@ -191,11 +196,17 @@ class SamPredictor:
         inside = ((ar[None, :, None] < hw[:, 0, None, None])
                   & (ar[None, None, :] < hw[:, 1, None, None])).float()
         x = x * inside[..., None]
-        dec = self.model.mask_decoder
-        out = {"dense_pe": self.model.prompt_encoder.get_dense_pe(),
-               "features": self.model.image_encoder(x)}
+        dec, enc = self.model.mask_decoder, self.model.image_encoder
         d, g, r = self.dino_input, self.dino_grid, self.low_res
-        dino = self.dino_model(resize_linear(x, (d, d)))["x_norm_patchtokens"]
+        x_dino = resize_linear(x, (d, d))
+        out = {"dense_pe": self.model.prompt_encoder.get_dense_pe()}
+        if spatial is None:
+            out["features"] = enc(x)
+            dino = self.dino_model(x_dino)
+        else:
+            out["features"] = enc.forward_band(x, sam_band(enc, spatial))
+            dino = self.dino_model.forward_band(x_dino, dino_band(g, spatial))
+        dino = dino["x_norm_patchtokens"]
         out["dino_feats"] = dino.reshape(n, g, g, -1)
         proj = dec.project_dino(out["dino_feats"])
         out["dino_proj_256"] = torch.stack(

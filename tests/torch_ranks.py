@@ -182,12 +182,13 @@ def data_shard_rank(rank: int, world: int, opts, images, noises,
 
 
 def card_rank(rank: int, world: int, opts, images, noises, mesh_shape,
-              prompt_axis):
+              prompt_axis, spatial_axis=None):
     """On cuda:0, gloo ranks sharing the card: with `mesh_shape` (1, M)
-    and no `prompt_axis`, `install_prompt_sharding` and `generate` on each
-    image with its noise; else `ShardedPipeline(mesh_shape, batch=2,
-    prompt_axis)` over the images with their noise.  Returns the results
-    and this rank's K5 and K6 launches."""
+    and no `prompt_axis` or `spatial_axis`, `install_prompt_sharding` and
+    `generate` on each image with its noise; else `ShardedPipeline(
+    mesh_shape, batch=2, prompt_axis, spatial_axis)` over the images with
+    their noise.  Returns the results and this rank's K5 and K6
+    launches."""
     from crowdsam_tpu_torch.models import decode_tail_kernel, mask_head_kernel
 
     torch.cuda.set_device(0)
@@ -197,14 +198,67 @@ def card_rank(rank: int, world: int, opts, images, noises, mesh_shape,
     k5 = decode_tail_kernel.twoway_tail.launches
     k6 = mask_head_kernel.mask_head.launches
     with torch.no_grad():
-        if mesh_shape[0] == 1 and prompt_axis is None:
+        if mesh_shape[0] == 1 and prompt_axis is None and not spatial_axis:
             install_prompt_sharding(model, mesh)
             got = [model.generate(im, noise=[nz])
                    for im, nz in zip(images, noises)]
         else:
             got = ShardedPipeline(model, mesh=mesh, batch=2,
-                                  prompt_axis=prompt_axis).generate_batch(
+                                  prompt_axis=prompt_axis,
+                                  spatial_axis=spatial_axis).generate_batch(
                                       images, noise=noises)
     return ([plain(r) for r in got],
             decode_tail_kernel.twoway_tail.launches - k5,
             mask_head_kernel.mask_head.launches - k6)
+
+
+def _spatial_counts(pipe):
+    return (0, 0) if pipe.spatial is None else (pipe.spatial.calls,
+                                                pipe.spatial.bytes)
+
+
+def spatial_rank(rank: int, world: int, opts, images, noises, frames,
+                 in_hw, layouts):
+    """The spatial axis over `model`.  On a (1, 2) mesh (ranks 0 and 1)
+    `gather_bands` of unequal bands on every dtype (what it gave, what it
+    must give), and `encode_batch` of `frames` with the axis's shard: its
+    outputs as numpy and the all-reduces it made.  Then for each (mesh
+    shape, batch, prompt axis) of `layouts` (ranks outside a mesh skip it)
+    `ShardedPipeline(spatial_axis="model")` over the images with their
+    noise, a chunk a call: {layout: (results, [(all-reduces, bytes) of
+    the spatial axis a chunk])}."""
+    model = _model(opts)
+    out = {}
+    mesh = create_mesh((1, 2), device="cpu")
+    if mesh is not None:
+        shard = collectives.Shard(*axis_group(mesh, "model"))
+        bounds = ((0, 3), (3, 8))      # unequal bands of 8 rows
+        out["gather"] = {str(dtype): (
+            collectives.gather_bands(
+                _values(rank, (2, 8, 3), dtype)[:, slice(*bounds[rank])],
+                bounds, shard),
+            torch.cat([_values(r, (2, 8, 3), dtype)[:, slice(*bounds[r])]
+                       for r in range(2)], dim=1))
+            for dtype in DTYPES}
+        shard.calls = shard.bytes = 0
+        with torch.no_grad():
+            enc = model.predictor.encode_batch(torch.from_numpy(frames),
+                                               in_hw, spatial=shard)
+        out["encode"] = ({k: v.float().numpy() for k, v in enc.items()},
+                         (shard.calls, shard.bytes))
+    for shape, batch, prompt_axis in layouts:
+        mesh = create_mesh(shape, device="cpu")
+        if mesh is None:
+            continue
+        pipe = ShardedPipeline(model, mesh=mesh, batch=batch,
+                               spatial_axis="model", prompt_axis=prompt_axis)
+        results, counts = [], []
+        for c0 in range(0, len(images), batch):
+            before = _spatial_counts(pipe)
+            results += pipe.generate_batch(images[c0:c0 + batch],
+                                           noise=noises[c0:c0 + batch])
+            after = _spatial_counts(pipe)
+            counts.append((after[0] - before[0], after[1] - before[1]))
+        out[(shape, batch, prompt_axis)] = ([plain(r) for r in results],
+                                            counts)
+    return out

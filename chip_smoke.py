@@ -476,10 +476,10 @@ def _slab_faults(q, v, attend):
              attend(q, v_sw)))
 
 
-def phase_window(gen, hd=64, grid=(70, 70)):
+def phase_window(gen, hd=64, grid=(70, 70), label=None):
     """K2 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K2 hd80`), on
-    the main path's 70x70 padded grid or a rect encode's band (phase `K2
-    rect HpxWp`)."""
+    the main path's 70x70 padded grid, a rect encode's band (phase `K2
+    rect HpxWp`) or the windows a spatial band touches (`label`)."""
     from crowdsam_tpu_torch.models.attention import (
         window_attention,
         window_attention_plain,
@@ -569,8 +569,8 @@ def phase_window(gen, hd=64, grid=(70, 70)):
                whole_fn_covers="partition + bias from q and tables + SDPA + "
                                "unpartition (several PyTorch calls)",
                whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
-    name = ("K2 hd80" if hd == 80 else "K2 window_attention"
-            if grid == (70, 70) else f"K2 rect {gh}x{gw}")
+    name = label or ("K2 hd80" if hd == 80 else "K2 window_attention"
+                     if grid == (70, 70) else f"K2 rect {gh}x{gw}")
     print(json.dumps({"phase": name, **row}), flush=True)
     return row
 
@@ -876,14 +876,32 @@ def phase_global_band(gen, hd=64, band=(42, 64), fold=False):
 K4_BANDS = ((0, 1 + 73 * 37), (1 + 73 * 37, 1 + 73 * 73))
 
 
-def phase_dino_band(gen):
-    """K4 with fewer queries than keys: each rank's token band of DINOv2 at
-    M = 2 against all 5330 keys (`_k4_case`)."""
+def phase_dino_band(gen, bands=K4_BANDS):
+    """K4 with fewer queries than keys: token bands of DINOv2 (each rank's
+    at M = 2 by default) against all 5330 keys (`_k4_case`)."""
     rows = []
-    for band in K4_BANDS:
+    for band in bands:
         rows.append(_k4_case(gen, K4_BANDS[-1][1], band=band))
         print(json.dumps({"phase": "K4 band", **rows[-1]}), flush=True)
     return rows
+
+
+def _token_bands(parts: int, grid: int = 73):
+    """DINOv2's token bands at M = parts: `split_rows` of the patch rows,
+    the cls token with the first."""
+    from crowdsam_tpu_torch.parallel.spatial import Band, split_rows
+
+    return Band(None, split_rows(grid, parts)).with_cls(grid).bounds
+
+
+# The spatial axis past ViT-L's window rows (M = 6): the padded window grids
+# a rank's K2 sees (one or two window rows of the 70-wide grid), K3's query
+# bands of 11 and 10 rows (the first and the last), K4's token bands of 13
+# and 12 patch rows; TinyViT's DINOv2 bands at M = 3 (25 and 24 rows).
+HALO_K2_GRIDS = ((14, 70), (28, 70))
+HALO_K3_BANDS = ((0, 11), (54, 64))
+HALO_K4_BANDS = _token_bands(6)[:2]
+TINY_K4_BANDS = _token_bands(3)[:2]
 
 
 # --------------------------------------------------------------------------
@@ -2628,6 +2646,13 @@ def phase_fused_vs_unfused(model, img):
         raise AssertionError(f"fused and unfused decode disagree: {row}")
 
 
+SMALL_OVERRIDES = (
+    "model.sam_model", "vit_b", "model.image_size", "256",
+    "model.dino_model", "dinov2_vits14", "test.max_size", "256",
+    "test.grid_size", "48", "test.max_prompts", "64",
+    "test.pred_iou_thresh", "0.0", "test.stability_score_thresh", "0.0")
+
+
 def _small_config():
     """A small configuration with head dim 64 (SAM ViT-B at 256^2, DINOv2
     ViT-S/14; 256 image rows in the decoder), the IoU and stability filters
@@ -2635,12 +2660,7 @@ def _small_config():
     from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.utils.synthetic import full_width_config
 
-    return modify_config(full_width_config(), [
-        "model.sam_model", "vit_b", "model.image_size", "256",
-        "model.dino_model", "dinov2_vits14", "test.max_size", "256",
-        "test.grid_size", "48", "test.max_prompts", "64",
-        "test.pred_iou_thresh", "0.0", "test.stability_score_thresh", "0.0",
-    ])
+    return modify_config(full_width_config(), list(SMALL_OVERRIDES))
 
 
 def _small_image():
@@ -4000,10 +4020,11 @@ def _sync_counted_loop(real_loop, records: list):
     return loop
 
 
-def _rank_model(weights: str):
-    """The full-width model of `full_width_config()` on cuda:0 with the
-    weights the parent drew (`torch.save`d at `weights`), without drawing
-    them again."""
+def _rank_model(weights: str, overrides=()):
+    """The full-width model of `full_width_config()` (with `overrides`) on
+    cuda:0 with the weights the parent drew (`torch.save`d at `weights`),
+    without drawing them again."""
+    from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
     from crowdsam_tpu_torch.utils import init
     from crowdsam_tpu_torch.utils.synthetic import full_width_config
@@ -4012,7 +4033,18 @@ def _rank_model(weights: str):
     sd = torch.load(weights, weights_only=True)
     with patched(init, "sam_state_dict", lambda *a, **k: sd["sam"]), \
             patched(init, "dino_state_dict", lambda *a, **k: sd["dino"]):
-        return CrowdSAM(full_width_config(), device="cuda")
+        return CrowdSAM(modify_config(full_width_config(), list(overrides)),
+                        device="cuda")
+
+
+def _save_weights(model, path: str) -> float:
+    """`torch.save` of the model's SAM and DINOv2 weights (on the host) for
+    `_rank_model`; the seconds it took."""
+    t = time.perf_counter()
+    torch.save({k: {n: v.cpu() for n, v in m.state_dict().items()}
+                for k, m in (("sam", model.sam), ("dino", model.dino))},
+               path)
+    return time.perf_counter() - t
 
 
 def _kept_rows(res) -> dict:
@@ -4045,8 +4077,10 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
     )
     from crowdsam_tpu_torch.pipeline import engine
 
+    from crowdsam_tpu_torch.parallel import spatial as spatial_mod
+
     with torch.no_grad():
-        model = _rank_model(weights)
+        model = _rank_model(weights, task.get("overrides", ()))
         mesh = create_mesh(task["mesh"], device="cuda")
         coord = mesh.get_coordinate()
         pipe = None
@@ -4057,11 +4091,11 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
                                    prompt_axis=task.get("prompt_axis"),
                                    spatial_axis=task.get("spatial_axis"))
         spatial = pipe.spatial if pipe is not None else None
-        encodes, spent = [], {"encode": 0.0, "all_reduce": 0.0}
+        encodes, spent = [], {"encode": 0.0, "all_reduce": 0.0, "halo": 0.0}
         if spatial is not None:
             # Each encode's frames and features, and the host-clock seconds
-            # of the encodes and of the spatial axis's all-reduces (each
-            # synchronized around).
+            # of the encodes, of the spatial axis's all-reduces and of its
+            # row-halo exchanges (each synchronized around).
             def synced(fn, key):
                 def run(*a, **kw):
                     torch.cuda.synchronize()
@@ -4082,6 +4116,7 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
 
             model.predictor.encode_batch = encode_batch
             spatial.all_reduce = synced(spatial.all_reduce, "all_reduce")
+            spatial_mod.gather_halo = synced(spatial_mod.gather_halo, "halo")
         out = dict(rank=rank, coordinate=coord, runs=[])
         for name, cfg, images, noises in task["runs"]:
             model.engine_cfg = cfg
@@ -4094,7 +4129,7 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
             counters = _reset_counts()
             torch.cuda.reset_peak_memory_stats()
             encodes.clear()
-            spent.update(encode=0.0, all_reduce=0.0)
+            spent.update(encode=0.0, all_reduce=0.0, halo=0.0)
             if spatial is not None:
                 spatial.calls = spatial.bytes = 0
             results, loops, rows, checked = [], [], {}, []
@@ -4118,7 +4153,8 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
                     spatial_all_reduces=spatial.calls,
                     spatial_bytes=spatial.bytes,
                     encode_s=spent["encode"],
-                    all_reduce_s=spent["all_reduce"])
+                    all_reduce_s=spent["all_reduce"],
+                    halo_s=spent["halo"])
     return out
 
 
@@ -4203,12 +4239,17 @@ def _compare_runs(label, got, want, got_rows, want_rows, cfg,
     return out
 
 
+MAIN_KERNELS = ("layer_norm", "window_attention",
+                "flash_mha_decomposed_relpos", "flash_mha", "twoway_tail",
+                "mask_head")
+
+
 def _rank_summary(label, members, want, want_rows, cfg,
-                  encode_roundings=False):
+                  encode_roundings=False, kernels=MAIN_KERNELS):
     """Each run of the ranks against the single-process results: rank 0's
     results against them (`_compare_runs`), every other rank's equal to
-    rank 0's bit for bit, every kernel of the run launched on every rank
-    (K7 only where detections reach the survivor pass), host syncs a
+    rank 0's bit for bit, every kernel of `kernels` launched on every rank
+    (and K7 where detections reach the survivor pass), host syncs a
     lockstep iteration, collectives and bytes reduced."""
     out = {}
     for r, run in enumerate(members[0]["runs"]):
@@ -4229,10 +4270,7 @@ def _rank_summary(label, members, want, want_rows, cfg,
         dets = sum(len(g["boxes"]) for g in run["results"])
         for rk in members:
             launches = rk["runs"][r]["launches"]
-            need = [k for k in ("layer_norm", "window_attention",
-                                "flash_mha_decomposed_relpos", "flash_mha",
-                                "twoway_tail", "mask_head")
-                    if launches[k] == 0]
+            need = [k for k in kernels if launches[k] == 0]
             if dets and launches["survivor_rle"] == 0 and any(
                     len(rk["runs"][r]["rows"][i]["summary"])
                     for i in rk["runs"][r]["rows"]):
@@ -4334,11 +4372,7 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
     card, smi = torch.cuda.get_device_name(0), _smi()
     work = tempfile.mkdtemp(prefix="multi_device_")
     weights = os.path.join(work, "weights.pt")
-    t = time.perf_counter()
-    torch.save({k: {n: v.cpu() for n, v in m.state_dict().items()}
-                for k, m in (("sam", model.sam), ("dino", model.dino))},
-               weights)
-    save_s = time.perf_counter() - t
+    save_s = _save_weights(model, weights)
     try:
         frames = synthetic_images(0, N_IMAGES)
         scene = crowd_scene(0)[0]
@@ -4390,14 +4424,73 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
         print(json.dumps(data), flush=True)
         spatial = phase_spatial_shard(
             model, weights, p_runs, _single_runs(model, p_runs),
-            [("loaded, 4 crowd scenes", loaded_cfg, scenes[:4], None)],
-            ({"loaded, 4 crowd scenes": want["loaded"][:4]},
-             {"loaded, 4 crowd scenes": want_rows["loaded"]}),
+            [("loaded, 2 crowd scenes", loaded_cfg, scenes[:2], None)],
+            ({"loaded, 2 crowd scenes": want["loaded"][:2]},
+             {"loaded, 2 crowd scenes": want_rows["loaded"]}),
             reference_cfg)
+        halo = phase_spatial_halo(model, weights, frames[0], scene,
+                                  [noises[0], noises[N_IMAGES]],
+                                  reference_cfg, loaded_cfg)
+        train_mesh = phase_train_mesh(model, weights, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return dict(prompt_shard=prompt, data_shard=data, spatial_shard=spatial,
+                spatial_halo=halo, train_mesh=train_mesh,
                 weights_save_s=save_s)
+
+
+def _spatial_details(label, row, model, ranks, runs, mesh, per_image):
+    """The spatial runs' own checks and figures, added to `row[name]`:
+    each rank's launches of each kernel of `per_image` (its count an
+    image), those of K3 and K4 all on band shapes (" of " in their
+    shape); the first frame's
+    features of rank 0 within 1e-2 relative L2 of this process's encode of
+    the same frame; launches by shape, the spatial axis's all-reduces and
+    bytes an image, ms an image of the encode, of the all-reduces and of
+    the row-halo exchanges (host clock, synchronized around each)."""
+    for r, (name, _, images, _) in enumerate(runs):
+        per_rank = [rk["runs"][r] for rk in ranks]
+        images_a_rank = len(images) // mesh[0]
+        for rk, run in zip(ranks, per_rank):
+            shapes = run["launches_by_shape"]
+            bad = {k: run["launches"][k] for k, n in per_image.items()
+                   if run["launches"][k] != n * images_a_rank}
+            bad.update({k: v for k in ("flash_mha_decomposed_relpos",
+                                       "flash_mha")
+                        for sh, v in shapes[f"{k}_by_shape"].items()
+                        if " of " not in sh})
+            if bad:
+                raise AssertionError(
+                    f"{label} {name} rank {rk['rank']}: launches {bad} for "
+                    f"{images_a_rank} images, shapes {shapes}")
+        frames, in_hw, feats = per_rank[0]["first_encode"][0]
+        with torch.no_grad():
+            whole = model.predictor.encode_batch(frames.cuda(), in_hw)[
+                "features"].float().cpu()
+        rel = _rel_l2(feats.float(), whole)
+        if not rel <= 1e-2:
+            raise AssertionError(f"{label} {name}: features {rel} "
+                                 f"relative L2 from one process")
+        row[name].update(
+            features_rel_l2_first_frame=rel,
+            launches_by_shape_by_rank=[
+                {k: v for k, v in run["launches_by_shape"].items()
+                 if k.endswith("_by_shape")} for run in per_rank],
+            spatial_all_reduces_per_image_by_rank=[
+                run["spatial_all_reduces"] / images_a_rank
+                for run in per_rank],
+            spatial_bytes_per_image_by_rank=[
+                run["spatial_bytes"] / images_a_rank for run in per_rank],
+            # host clock, synchronized around each encode, each all-reduce
+            # of the spatial axis (inside the encode) and each row-halo
+            # exchange (its all-reduce among them)
+            encode_ms_per_image_by_rank=[
+                run["encode_s"] * 1e3 / images_a_rank for run in per_rank],
+            spatial_all_reduce_ms_per_image_by_rank=[
+                run["all_reduce_s"] * 1e3 / images_a_rank
+                for run in per_rank],
+            halo_ms_per_image_by_rank=[
+                run["halo_s"] * 1e3 / images_a_rank for run in per_rank])
 
 
 def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
@@ -4406,7 +4499,7 @@ def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
     rank on this one card over gloo: a (1, 2) mesh at batch 1 on the main
     path's frames (reference thresholds) and crowd_scene(0) loaded, with
     the noise of `prompt_shard`; a (2, 2) mesh with `prompt_axis "model"`
-    at batch 2 on 4 crowd scenes loaded, the generator reset to the seed
+    at batch 2 on 2 crowd scenes loaded, the generator reset to the seed
     of `data_shard`.  Each rank encodes its band of SAM's ViT ([0, 42) /
     [42, 64) token rows) and of DINOv2 ([0, 37) / [37, 73) patch rows).
 
@@ -4439,52 +4532,506 @@ def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
                    **_rank_summary(f"spatial_shard {key}", ranks, want,
                                    want_rows, reference_cfg,
                                    encode_roundings=True))
-        for r, (name, _, images, _) in enumerate(runs):
-            per_rank = [rk["runs"][r] for rk in ranks]
-            images_a_rank = len(images) // mesh[0]
-            for rk, run in zip(ranks, per_rank):
-                k3 = run["launches"]["flash_mha_decomposed_relpos"]
-                k4 = run["launches"]["flash_mha"]
-                shapes = run["launches_by_shape"]
-                if (k3 != 4 * images_a_rank or k4 != 24 * images_a_rank
-                        or any(" of " not in s for s in shapes[
-                            "flash_mha_decomposed_relpos_by_shape"])
-                        or any(" of " not in s for s in shapes[
-                            "flash_mha_by_shape"])):
-                    raise AssertionError(
-                        f"spatial_shard {key} {name} rank {rk['rank']}: K3 "
-                        f"{k3} / K4 {k4} launches for {images_a_rank} "
-                        f"images, shapes {shapes}")
-            frames, in_hw, feats = per_rank[0]["first_encode"][0]
-            with torch.no_grad():
-                whole = model.predictor.encode_batch(frames.cuda(), in_hw)[
-                    "features"].float().cpu()
-            rel = _rel_l2(feats.float(), whole)
-            if not rel <= 1e-2:
-                raise AssertionError(f"spatial_shard {key} {name}: features "
-                                     f"{rel} relative L2 from one process")
-            row[name].update(
-                features_rel_l2_first_frame=rel,
-                launches_by_shape_by_rank=[
-                    {k: v for k, v in run["launches_by_shape"].items()
-                     if k.endswith("_by_shape")} for run in per_rank],
-                spatial_all_reduces_per_image_by_rank=[
-                    run["spatial_all_reduces"] / images_a_rank
-                    for run in per_rank],
-                spatial_bytes_per_image_by_rank=[
-                    run["spatial_bytes"] / images_a_rank
-                    for run in per_rank],
-                # host clock, synchronized around each encode and each
-                # all-reduce of the spatial axis (inside the encode)
-                encode_ms_per_image_by_rank=[
-                    run["encode_s"] * 1e3 / images_a_rank
-                    for run in per_rank],
-                spatial_all_reduce_ms_per_image_by_rank=[
-                    run["all_reduce_s"] * 1e3 / images_a_rank
-                    for run in per_rank])
+        _spatial_details(f"spatial_shard {key}", row, model, ranks, runs,
+                         mesh, {"window_attention": 20,
+                                "flash_mha_decomposed_relpos": 4,
+                                "flash_mha": 24})
         out[key] = row
     print(json.dumps(out), flush=True)
     return out
+
+
+def _spatial_layouts(label, model, weights, layouts, runs, cfg,
+                     per_image, overrides=(), kernels=MAIN_KERNELS):
+    """`ShardedPipeline(spatial_axis="model")` at batch 1 on each (1, M) of
+    `layouts`, the ranks sharing this card over gloo and building the
+    model of `overrides` from `weights`: against this process's results
+    of `runs` (`_rank_summary` with the encode's bf16 roundings, every
+    rank bit for bit rank 0) and `_spatial_details`.  Returns the rows by
+    layout."""
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+
+    card = torch.cuda.get_device_name(0)
+    with torch.no_grad():
+        want, want_rows = _single_runs(model, runs)
+    out = {}
+    for m in layouts:
+        key = f"1x{m} batch 1"
+        t = time.perf_counter()
+        ranks = run_ranks(_rank_task, m, (weights, dict(
+            kind="data_shard", mesh=(1, m), batch=1, runs=runs,
+            spatial_axis="model", overrides=list(overrides))),
+            join_timeout_s=420.0, threads=None)
+        row = dict(ranks=m, wall_s=time.perf_counter() - t,
+                   label=SHARING.format(n=m, card=card),
+                   **_rank_summary(f"{label} {key}", ranks, want, want_rows,
+                                   cfg, encode_roundings=True,
+                                   kernels=kernels))
+        _spatial_details(f"{label} {key}", row, model, ranks, runs, (1, m),
+                         per_image)
+        out[key] = row
+    return out
+
+
+# The spatial axis past ViT-L's five window rows: the smallest M past them.
+HALO_M = 6
+
+
+def phase_spatial_halo(model, weights, frame, scene, noises, reference_cfg,
+                       loaded_cfg):
+    """`spatial_halo`: `ShardedPipeline(spatial_axis="model")` at (1, 6) on
+    SAM ViT-L at full width, past its five window rows: bands of 11 / 11 /
+    11 / 11 / 10 / 10 token rows, each window block first bringing the
+    rows of the windows its band touches from their owners; on the first
+    main-path frame at the reference thresholds and on crowd_scene(0)
+    loaded.  Checks and figures of `_spatial_layouts` (K2 20, K3 4 and K4
+    24 launches a rank an image, K3 and K4 on band shapes), and the halo
+    rows and bytes a window block from the band layout."""
+    from crowdsam_tpu_torch.parallel.spatial import Band, window_bands
+
+    enc = model.sam.image_encoder
+    grid = enc.img_size // enc.patch_size
+    bounds = window_bands(grid, enc.window_size, HALO_M)
+    need = Band(None, bounds).windows(enc.window_size)
+    rows = sorted({i for (a, b), (lo, hi) in zip(need, bounds)
+                   for i in range(a, b) if not lo <= i < hi})
+    runs = [("reference, first frame", reference_cfg, [frame], noises[:1]),
+            ("loaded", loaded_cfg, [scene], noises[1:2])]
+    out = dict(phase="spatial_halo", nvidia_smi=_smi(),
+               bands=[list(b) for b in bounds],
+               window_rows_by_rank=[list(n) for n in need],
+               halo_rows_per_window_block=len(rows),
+               halo_bytes_per_window_block_per_image=len(rows) * grid
+               * enc.embed_dim * 2,
+               **_spatial_layouts("spatial_halo", model, weights, [HALO_M],
+                                  runs, reference_cfg,
+                                  {"window_attention": 20,
+                                   "flash_mha_decomposed_relpos": 4,
+                                   "flash_mha": 24}))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+MOBILE_SAM = ["model.sam_arch", "mobile_sam", "model.sam_model", "vit_t"]
+
+
+def phase_spatial_tiny_vit():
+    """`spatial_tiny_vit`: `mobile_sam` (TinyViT-5M) under the spatial axis
+    at (1, 2) and (1, 3) on the first main-path frame at the reference
+    thresholds: bands of its final 64-row grid, x4 / x2 / x1 / x1 at its
+    stages, row halos at every 3x3 convolution and window attention.
+    Checks and figures of `_spatial_layouts` (K4 24 launches a rank an
+    image on band shapes, K2 and K3 none)."""
+    import tempfile
+
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    model, build_s = _arch_model(MOBILE_SAM)
+    work = tempfile.mkdtemp(prefix="spatial_tiny_vit_")
+    try:
+        weights = os.path.join(work, "weights.pt")
+        save_s = _save_weights(model, weights)
+        gen = torch.Generator().manual_seed(78)
+        noise = torch.rand(model.engine_cfg.grid_size ** 2, generator=gen)
+        runs = [("reference, first frame", model.engine_cfg,
+                 synthetic_images(0, 1), [noise])]
+        out = dict(phase="spatial_tiny_vit", nvidia_smi=_smi(),
+                   build_s=build_s, weights_save_s=save_s,
+                   **_spatial_layouts(
+                       "spatial_tiny_vit", model, weights, [2, 3], runs,
+                       model.engine_cfg, {"window_attention": 0,
+                                          "flash_mha_decomposed_relpos": 0,
+                                          "flash_mha": 24},
+                       overrides=MOBILE_SAM, kernels=(
+                           "layer_norm", "flash_mha", "twoway_tail",
+                           "mask_head")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ulps(d: torch.Tensor, w: torch.Tensor) -> float:
+    """The largest |d| in bf16 ulps of the reference w (floored at 2^-7 of
+    w's rms, so that values near zero do not blow the count up)."""
+    w = w.float().abs().clamp_min(BF16_ULP * float(
+        w.float().square().mean().sqrt()))
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return float((d.float().abs() / ulp).max())
+
+
+def _block_diffs(outs, whole, lo, hi) -> list:
+    """Per block: the largest difference of the band's output from the
+    same rows of the whole encode's, absolute and in bf16 ulps."""
+    return [dict(block=i, max_abs=float((o.float() - w[:, lo:hi].float())
+                                        .abs().max()),
+                 max_ulps=_ulps(o - w[:, lo:hi], w[:, lo:hi]))
+            for i, (o, w) in enumerate(zip(outs, whole))]
+
+
+def _band_blocks_rank(rank: int, world: int, weights: str, x):
+    """One rank of `band_blocks`: the small model's SAM ViT-B on the
+    normalized frame x, whole (each block's input and output kept), then
+    its band at M = 2 free-running and then teacher-forced (each block fed
+    the whole encode's input rows): per block the band output's largest
+    difference from the whole's rows."""
+    from crowdsam_tpu_torch.parallel.collectives import Shard
+    from crowdsam_tpu_torch.parallel.mesh import axis_group, create_mesh
+    from crowdsam_tpu_torch.parallel.spatial import sam_band
+
+    model = _rank_model(weights, SMALL_OVERRIDES)
+    enc = model.sam.image_encoder
+    mesh = create_mesh((1, 2), device="cuda")
+    band = sam_band(enc, Shard(*axis_group(mesh, "model")))
+    x = x.cuda()
+    ins, outs = [], []
+
+    def record(store):
+        return lambda mod, args, out: store.append(out)
+
+    with torch.no_grad():
+        hs = [b.register_forward_pre_hook(
+            lambda mod, args: ins.append(args[0])) for b in enc.blocks]
+        hs += [b.register_forward_hook(record(outs)) for b in enc.blocks]
+        whole = enc(x)
+        for h in hs:
+            h.remove()
+        free = []
+        hs = [b.register_forward_hook(record(free)) for b in enc.blocks]
+        got = enc.forward_band(x, band)
+        for h in hs:
+            h.remove()
+        forced = []
+        hs = [b.register_forward_pre_hook(
+            lambda mod, args, i=i: (ins[i][:, band.lo:band.hi], args[1]))
+            for i, b in enumerate(enc.blocks)]
+        hs += [b.register_forward_hook(record(forced)) for b in enc.blocks]
+        enc.forward_band(x, band)
+        for h in hs:
+            h.remove()
+    return dict(band=(band.lo, band.hi),
+                free=_block_diffs(free, outs, band.lo, band.hi),
+                forced=_block_diffs(forced, outs, band.lo, band.hi),
+                features_rel_l2=_rel_l2(got.float().cpu(),
+                                        whole.float().cpu()),
+                features_max_ulps=_ulps((got - whole).cpu(), whole.cpu()))
+
+
+# A block's own difference (teacher-forced) beyond this many bf16 ulps is
+# no rounding: a fault of the band.
+BAND_ROUNDING_ULPS = 16
+
+
+def phase_band_blocks(small):
+    """`band_blocks`: the open check of the small card config (a score
+    moved by 1.2e-4 under the spatial axis, SAM ViT-B at 256^2, whose
+    16-row grid splits into bands of 14 and 2 token rows at M = 2).  Two
+    gloo ranks sharing this card build the small model from this
+    process's weights and compare each block's band output with the same
+    rows of the whole encode, block by block: free-running (the band's
+    own chain) and teacher-forced (each block fed the whole encode's
+    input rows, so its difference is its own).  Reported: the first block
+    where the free-running band differs and by how much, each block's
+    difference in bf16 ulps, and the cause: "bf16 rounding" when every
+    block's own difference stays within a few ulps
+    (`BAND_ROUNDING_ULPS`), else "a fault in the band", which fails the
+    phase."""
+    import tempfile
+
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+    from crowdsam_tpu_torch.pipeline.predictor import PIXEL_MEAN, PIXEL_STD
+
+    work = tempfile.mkdtemp(prefix="band_blocks_")
+    try:
+        weights = os.path.join(work, "weights.pt")
+        _save_weights(small, weights)
+        img = _small_image()
+        s = small.sam.img_size
+        frame = np.zeros((1, s, s, 3), np.float32)
+        frame[0, :img.shape[0], :img.shape[1]] = img
+        x = (torch.from_numpy(frame) - torch.tensor(PIXEL_MEAN)) / \
+            torch.tensor(PIXEL_STD)
+        x[0, img.shape[0]:] = 0
+        t = time.perf_counter()
+        ranks = run_ranks(_band_blocks_rank, 2, (weights, x),
+                          join_timeout_s=300.0, threads=None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    row = dict(phase="band_blocks", nvidia_smi=_smi(),
+               wall_s=time.perf_counter() - t,
+               config="small: SAM ViT-B at 256^2, M = 2", ranks={})
+    worst = 0.0
+    for r in ranks:
+        first = next((d for d in r["free"] if d["max_abs"] > 0), None)
+        forced = max(d["max_ulps"] for d in r["forced"])
+        worst = max(worst, forced)
+        row["ranks"][str(r["band"])] = dict(
+            first_differing_block=first,
+            free_running_max_ulps_by_block=[d["max_ulps"] for d in r["free"]],
+            free_running_max_abs_by_block=[d["max_abs"] for d in r["free"]],
+            own_max_ulps_by_block=[d["max_ulps"] for d in r["forced"]],
+            own_max_abs_by_block=[d["max_abs"] for d in r["forced"]],
+            features_rel_l2=r["features_rel_l2"],
+            features_max_ulps=r["features_max_ulps"])
+    row["cause"] = ("bf16 rounding" if worst <= BAND_ROUNDING_ULPS
+                    else "a fault in the band")
+    row["own_max_ulps"] = worst
+    row["bound_ulps"] = BAND_ROUNDING_ULPS
+    print(json.dumps(row), flush=True)
+    if worst > BAND_ROUNDING_ULPS:
+        raise AssertionError(f"band_blocks: {row}")
+    return row
+
+
+# The trainer's mesh step on the card: (2, 2), 3 head-only and 3
+# full-decoder steps.  Bounds: the loss terms as tests/test_torch_train.py
+# holds bf16, the gradients as `phase_train` holds K1's against the plain
+# LayerNorm.  The leaves' gap is reported against the float32 bound of the
+# CPU tests (1e-2 lr steps) but not held to it: an Adam step moves a leaf by
+# about lr whatever its gradient's size, so a near-zero gradient component
+# that bf16 rounding of other product shapes turns over moves by up to 2 lr
+# (for any mesh step whose gradients are not bitwise the one process's).
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_STEPS = 3
+TRAIN_LOSS_TOL = 2e-2          # of the step's total loss
+TRAIN_GRAD_TOL = 2e-2          # of the global gradient norm
+TRAIN_LEAF_F32_TOL = 1e-2      # lr steps (the CPU tests' float32 bound)
+
+
+def _dice_on_every_rank(part, losses):
+    """Fault: the FG-map dice, computed alike on every rank, counted on
+    every data rank."""
+    return sum(losses.values()) / part.model.size
+
+
+def _no_gradient_sum(real):
+    """Fault: the gradient all-reduce left out (each rank keeps its own
+    share; the loss terms are still summed, so the collectives stay in
+    step)."""
+    def fn(part, grads, losses):
+        _, terms = real(part, {k: torch.zeros_like(v)
+                               for k, v in grads.items()}, losses)
+        return grads, terms
+    return fn
+
+
+def _sha256(tensors: dict) -> str:
+    """One digest of the tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_mesh_rank(rank: int, world: int, weights: str, task: dict):
+    """One rank of `train_mesh`: the full-width model, a (2, 2) mesh, then
+    for each run (name, trainer config, cache file, steps, fault) the
+    steps of `AdapterTrainer.loss_and_grads(..., mesh=...)` with AdamW,
+    from the model's own leaves and `trainer.draw(step)`.  Per run: each
+    step's loss terms, host-clock ms (synchronized), all-reduces and bytes
+    over `data` and `model`, K1 forward and backward launches; the first
+    step's gradients and the leaves after the steps (rank 0 returns them),
+    the leaves' SHA-256, peak memory."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.parallel.mesh import create_mesh
+    from crowdsam_tpu_torch.train import trainer as tr
+
+    model = _rank_model(weights)
+    mesh = create_mesh(task["mesh"], device="cuda")
+    out = dict(rank=rank, coordinate=mesh.get_coordinate(), runs=[])
+    for name, cfg, cache, steps, fault in task["runs"]:
+        trainer = tr.AdapterTrainer(cfg, model.predictor)
+        trainer.cache = torch.load(cache, map_location="cuda",
+                                   weights_only=False)
+        params = trainer.trainable_params()
+        opt = tr.AdamW(trainer.lr, trainer.weight_decay, trainer.clip_grad)
+        state = opt.init(params)
+        n_cached = len(trainer.cache["n_boxes"])
+        rows, first = [], None
+        torch.cuda.reset_peak_memory_stats()
+        with patched(tr, "_rank_loss", _dice_on_every_rank
+                     if fault == "dice on every rank" else tr._rank_loss), \
+                patched(tr, "_sum_step", _no_gradient_sum(tr._sum_step)
+                        if fault == "no gradient all-reduce"
+                        else tr._sum_step):
+            for step in range(steps):
+                fwd = ln.layer_norm.launches
+                bwd = ln.layer_norm_backward.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                total, terms, grads = trainer.loss_and_grads(
+                    params, step % n_cached, trainer.draw(step), mesh=mesh)
+                opt.step(params, grads, state)
+                torch.cuda.synchronize()
+                part = trainer.last_part
+                rows.append(dict(
+                    ms=(time.perf_counter() - t) * 1e3,
+                    total=float(total),
+                    terms={k: float(v) for k, v in terms.items()},
+                    prompts=part.prompts,
+                    all_reduces=[part.data.calls, part.model.calls],
+                    bytes=[part.data.bytes, part.model.bytes],
+                    k1_forward=ln.layer_norm.launches - fwd,
+                    k1_backward=ln.layer_norm_backward.launches - bwd))
+                if first is None:
+                    first = {k: v.cpu() for k, v in grads.items()}
+        leaves = {k: v.cpu() for k, v in params.items()}
+        out["runs"].append(dict(
+            name=name, steps=rows, peak_memory_gib=torch.cuda.
+            max_memory_allocated() / 2 ** 30,
+            grads=first if rank == 0 else None,
+            leaves=leaves if rank == 0 else None,
+            leaves_sha256=_sha256(leaves)))
+    return out
+
+
+def _train_gaps(one, run, lr: float) -> dict:
+    """A mesh run (rank 0) against the one-process steps: the loss terms'
+    largest gap over the step's total, the first step's gradients' over
+    the global norm, the leaves' in lr steps."""
+    loss = max(abs(r["terms"][k] - float(o[1][k])) / abs(float(o[0]))
+               for r, o in zip(run["steps"], one["steps"]) for k in r["terms"])
+    g_one = one["grads"]
+    norm = float(torch.sqrt(sum(g.double().square().sum()
+                                for g in g_one.values())))
+    grad = max(float((run["grads"][k] - g_one[k]).abs().max())
+               for k in g_one) / norm
+    steps = lr * len(run["steps"])
+    gaps = {k: (run["leaves"][k] - one["leaves"][k]).abs() / steps
+            for k in one["leaves"]}
+    leaf = max(float(v.max()) for v in gaps.values())
+    # Where the leaves part: the worst leaves with the first step's
+    # gradients at their worst component.
+    worst = sorted(gaps, key=lambda k: -float(gaps[k].max()))[:2]
+    where = {}
+    for k in worst:
+        i = int(gaps[k].argmax())
+        where[k] = dict(gap_lr_steps=float(gaps[k].max()),
+                        past_f32_bound=int((gaps[k] > TRAIN_LEAF_F32_TOL)
+                                           .sum()),
+                        components=gaps[k].numel(),
+                        grad_one=float(g_one[k].reshape(-1)[i]),
+                        grad_mesh=float(run["grads"][k].reshape(-1)[i]))
+    update = torch.sqrt(sum((one["leaves"][k] - one["start"][k]).double()
+                            .square().sum() for k in one["leaves"]))
+    diff = torch.sqrt(sum((run["leaves"][k] - one["leaves"][k]).double()
+                          .square().sum() for k in one["leaves"]))
+    return dict(loss_gap_over_total=loss, loss_bound=TRAIN_LOSS_TOL,
+                grad_gap_over_norm=grad, grad_bound=TRAIN_GRAD_TOL,
+                leaf_gap_lr_steps=leaf, leaf_f32_bound=TRAIN_LEAF_F32_TOL,
+                leaves_past_f32_bound=sum(
+                    int((v > TRAIN_LEAF_F32_TOL).sum())
+                    for v in gaps.values()),
+                leaf_components=sum(v.numel() for v in gaps.values()),
+                leaf_gap_over_update_l2=float(diff / update),
+                worst_leaves=where)
+
+
+def phase_train_mesh(model, weights: str, work: str):
+    """`train_mesh`: the trainer's mesh step at full width (SAM ViT-L,
+    DINOv2 ViT-L/14, PWD-Net, bf16) on the synthetic 10-shot set, on a
+    (2, 2) mesh of gloo ranks sharing this card: 3 head-only steps at the
+    config's lr and 3 full-decoder steps at the bench recipe's lr 2e-4,
+    each rank building the model from this process's weights, the cache
+    computed here once.  Held against this process's one-process steps on
+    the same draws (loss terms within 2e-2 of the step's total, first-step
+    gradients within 2e-2 of the global norm), every rank's leaves bit for
+    bit rank 0's; two faults, the FG dice counted on every rank and the
+    gradient all-reduce left out, must break those bounds.  The leaves'
+    gap from one process is reported beside the CPU tests' float32 bound
+    (see `TRAIN_LEAF_F32_TOL`).  Reported: ms a step a rank, all-reduces
+    and bytes a step, K1 forward and backward launches a step, peak memory
+    a rank (ranks sharing one card: not multi-card figures)."""
+    import copy
+
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.parallel.launch import run_ranks
+    from crowdsam_tpu_torch.train import trainer as tr
+    from crowdsam_tpu_torch.train.dataset import ArrayDataset
+    from crowdsam_tpu_torch.utils.fixtures import ten_shot_arrays
+
+    card, smi = torch.cuda.get_device_name(0), _smi()
+    data = ArrayDataset(*ten_shot_arrays(0))
+    head = modify_config(copy.deepcopy(model.config),
+                         ["train.steps", str(TRAIN_MESH_STEPS)])
+    full = modify_config(copy.deepcopy(head), ["train.full_decoder", "True",
+                                               "train.lr", "2e-4"])
+    runs, ones = [], {}
+    for mode, cfg in (("head-only", head), ("full decoder", full)):
+        trainer = tr.AdapterTrainer(cfg, model.predictor)
+        trainer.cache_features(data)
+        path = os.path.join(work, f"cache {mode}.pt")
+        torch.save(trainer.cache, path)
+        params = trainer.trainable_params()
+        start = {k: v.cpu() for k, v in params.items()}
+        opt = tr.AdamW(trainer.lr, trainer.weight_decay, trainer.clip_grad)
+        state = opt.init(params)
+        steps, first = [], None
+        n_cached = len(trainer.cache["n_boxes"])
+        for step in range(TRAIN_MESH_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            total, terms, grads = trainer.loss_and_grads(
+                params, step % n_cached, trainer.draw(step))
+            opt.step(params, grads, state)
+            torch.cuda.synchronize()
+            steps.append((total, terms, (time.perf_counter() - t) * 1e3))
+            first = first or {k: v.cpu() for k, v in grads.items()}
+        ones[mode] = dict(steps=steps, grads=first, lr=trainer.lr,
+                          start=start,
+                          leaves={k: v.cpu() for k, v in params.items()})
+        runs.append((mode, cfg, path, TRAIN_MESH_STEPS, None))
+        for fault in ("dice on every rank", "no gradient all-reduce"):
+            runs.append((f"{mode}, fault: {fault}", cfg, path,
+                         TRAIN_MESH_STEPS, fault))
+    world = TRAIN_MESH[0] * TRAIN_MESH[1]
+    t = time.perf_counter()
+    ranks = run_ranks(_train_mesh_rank, world, (weights, dict(
+        mesh=TRAIN_MESH, runs=runs)), join_timeout_s=420.0, threads=None)
+    row = dict(phase="train_mesh", mesh=list(TRAIN_MESH), ranks=world,
+               wall_s=time.perf_counter() - t, nvidia_smi=smi,
+               label=SHARING.format(n=world, card=card), runs={})
+    failed = []
+    for r, (name, _, _, _, fault) in enumerate(runs):
+        mode = name.split(",")[0]
+        one = ones[mode]
+        run = ranks[0]["runs"][r]
+        gaps = _train_gaps(one, run, one["lr"])
+        same = all(rk["runs"][r]["leaves_sha256"] == run["leaves_sha256"]
+                   for rk in ranks)
+        steps = run["steps"]
+        row["runs"][name] = dict(
+            **gaps, every_rank_leaves_equal_rank0=same,
+            ms_per_step_by_rank=[[st["ms"] for st in rk["runs"][r]["steps"]]
+                                 for rk in ranks],
+            one_process_ms_per_step=[st[2] for st in one["steps"]],
+            all_reduces_per_step=steps[0]["all_reduces"],
+            bytes_per_step=steps[0]["bytes"],
+            prompts_by_rank=[rk["runs"][r]["steps"][0]["prompts"]
+                             for rk in ranks],
+            k1_forward_per_step=[st["k1_forward"] for st in steps],
+            k1_backward_per_step=[st["k1_backward"] for st in steps],
+            peak_memory_gib_by_rank=[rk["runs"][r]["peak_memory_gib"]
+                                     for rk in ranks],
+            loss_terms_last_step=steps[-1]["terms"])
+        within = (gaps["loss_gap_over_total"] <= TRAIN_LOSS_TOL
+                  and gaps["grad_gap_over_norm"] <= TRAIN_GRAD_TOL)
+        if fault is None and not (within and same):
+            failed.append(f"{name}: off the one-process step")
+        if fault is not None and within:
+            failed.append(f"{name}: the fault does not break the bounds")
+        if fault is None and (steps[0]["k1_forward"] == 0 or (
+                mode == "full decoder" and steps[0]["k1_backward"] == 0)):
+            failed.append(f"{name}: K1 not launched")
+    print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError(f"train_mesh: {failed}")
+    return row
 
 
 def _nccl_pair_rank(rank: int, world: int):
@@ -4605,6 +5152,13 @@ def main() -> int:
         k3_band80 = phase_global_band(gen, hd=80)
         k3_band_fold = phase_global_band(gen, fold=True)
         k4_band = phase_dino_band(gen)
+        # Past the window rows (M = 6) and TinyViT's DINOv2 bands (M = 3).
+        k2_halo = {g: phase_window(gen, grid=g, label=f"K2 halo {g[0]}x"
+                                   f"{g[1]}") for g in HALO_K2_GRIDS}
+        k3_band6 = {b: phase_global_band(gen, band=b)
+                    for b in HALO_K3_BANDS}
+        k4_band6 = phase_dino_band(gen, HALO_K4_BANDS)
+        k4_band3 = phase_dino_band(gen, TINY_K4_BANDS)
         torch.cuda.empty_cache()
         phase_f32_refused()
     ln_bwd_rows = phase_layernorm_backward(gen)
@@ -4653,6 +5207,7 @@ def main() -> int:
         phase_modes(model, model.engine_cfg)
         rect = phase_rect(model, model.engine_cfg)
     phase_small_reference(small)
+    phase_band_blocks(small)
     del small
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -4673,6 +5228,7 @@ def main() -> int:
     phase_small_vit_h()
     phase_sam_hq()
     phase_mobile_sam()
+    tiny = phase_spatial_tiny_vit()
     with torch.no_grad():
         trainfree = phase_trainfree()
         phase_crop_layers()
@@ -4877,6 +5433,47 @@ def main() -> int:
                 f"{hi - lo} of {K4_BANDS[-1][1]} tokens", 0),
             launches_in=f"spatial_shard 1x2, rank {rank}, {N_IMAGES} frames",
             **{k: row[k] for k in band_keys}))
+    # Past the window rows: K2 on the windows a band touches, K3 and K4 on
+    # the bands of spatial_halo's (1, 6) mesh (launches over its six ranks
+    # on the first frame); K4 on TinyViT's DINOv2 bands at (1, 3).
+    halo = multi["spatial_halo"]["1x6 batch 1"]["reference, first frame"]
+    tiny3 = tiny["1x3 batch 1"]["reference, first frame"]
+
+    def by_rank(run, key, shape):
+        return [r[key].get(shape, 0) for r in run["launches_by_shape_by_rank"]]
+
+    for (gh, gw), row in k2_halo.items():
+        n = by_rank(halo, "window_attention_by_shape", f"{gh}x{gw}")
+        table.append(dict(
+            name="window_attention", route="cuda", source=src_attn,
+            replaces="crowdsam_tpu/models/attention.py:163", launches=sum(n),
+            launches_by_rank=n,
+            launches_in="spatial_halo 1x6, six ranks, first frame",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"], grid=f"{gh}x{gw}",
+            **{k: row[k] for k in ("wrapper_device_ms", "library_device_ms",
+                                   "whole_fn_ms")}))
+    for (lo, hi), row in k3_band6.items():
+        n = by_rank(halo, "flash_mha_decomposed_relpos_by_shape",
+                    f"{hi - lo}x64 of 64x64")
+        table.append(dict(
+            name="flash_mha_decomposed_relpos", route="cuda",
+            source=src_attn, replaces="crowdsam_tpu/models/attention.py:126",
+            launches=sum(n), launches_by_rank=n,
+            launches_in="spatial_halo 1x6, six ranks, first frame",
+            **{k: row[k] for k in band_keys}))
+    for bands, rows, run, label in (
+            (HALO_K4_BANDS, k4_band6, halo, "spatial_halo 1x6"),
+            (TINY_K4_BANDS, k4_band3, tiny3, "spatial_tiny_vit 1x3")):
+        for (lo, hi), row in zip(bands, rows):
+            n = by_rank(run, "flash_mha_by_shape",
+                        f"{hi - lo} of {K4_BANDS[-1][1]} tokens")
+            table.append(dict(
+                name="flash_mha", route="cuda", source=src_k4,
+                replaces="crowdsam_tpu/models/attention.py:86",
+                launches=sum(n), launches_by_rank=n,
+                launches_in=f"{label}, every rank, first frame",
+                **{k: row[k] for k in band_keys}))
     # K5 and K6 at a prompt shard's counts (32 / M prompts).
     for r in table:
         if r["name"] in ("twoway_tail", "mask_head") and r.get(
@@ -4897,6 +5494,26 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _wall_timed(fn):
+    """`fn` printing its wall time as a JSON line when it returns or
+    fails."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            print(json.dumps({"phase_wall_s": {
+                fn.__name__: time.perf_counter() - t}}), flush=True)
+    return run
+
+
+for _name in [n for n in list(globals()) if n.startswith("phase_")]:
+    globals()[_name] = _wall_timed(globals()[_name])
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ use, as flax does.  Tensors are NHWC / (..., C) at every public function.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -40,14 +42,36 @@ class Conv2d(nn.Conv2d):
     each image the features of its single encode."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._nhwc(x, self.padding)
+
+    def _nhwc(self, x: torch.Tensor, padding) -> torch.Tensor:
         x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
-        if x.shape[0] > 1:
-            y = torch.cat([self._conv_forward(x[i:i + 1], self.weight,
-                                              self.bias)
-                           for i in range(x.shape[0])])
-        else:
-            y = self._conv_forward(x, self.weight, self.bias)
+        y = [F.conv2d(x[i:i + 1], self.weight, self.bias, self.stride,
+                      padding, self.dilation, self.groups)
+             for i in range(x.shape[0])]
+        y = torch.cat(y) if len(y) > 1 else y[0]
         return y.permute(0, 2, 3, 1).contiguous()
+
+    def rows_read(self, lo: int, hi: int, h_in: int) -> Tuple[int, int]:
+        """The input rows that output rows [lo, hi) read, cut to the
+        input's h_in rows (past its edges lies the zero padding)."""
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        return max(lo * s - p, 0), min((hi - 1) * s - p + k, h_in)
+
+    def forward_rows(self, x: torch.Tensor, x0: int, h_in: int, lo: int,
+                     hi: int) -> torch.Tensor:
+        """Output rows [lo, hi) of this convolution of an input of h_in
+        rows, of which x (B, n, W, C) holds rows [x0, x0 + n), at least
+        those `rows_read` names: the same values as those rows of the whole
+        output, the zero padding added only past the input's edges."""
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        r0, r1 = lo * s - p, (hi - 1) * s - p + k
+        a, b = self.rows_read(lo, hi, h_in)
+        if a < x0 or b > x0 + x.shape[1]:
+            raise ValueError(f"rows [{lo}, {hi}) read input rows [{a}, {b})"
+                             f"; x holds [{x0}, {x0 + x.shape[1]})")
+        x = F.pad(x[:, a - x0:b - x0], (0, 0, 0, 0, a - r0, r1 - b))
+        return self._nhwc(x, (0, self.padding[1]))
 
 
 class ConvTranspose2x2(nn.ConvTranspose2d):

@@ -8,9 +8,10 @@ throughout; the torch reference's state-dict keys.  The head dim is width /
 heads; `forward(x, return_interm=True)` also returns the first global
 block's output, the early feature the HQ decoder fuses.
 `forward_band(x, band)` is one rank's share of the spatial axis
-(`parallel/spatial.py`): a band of whole window rows, K and V of every band
-gathered in the global blocks, the neck's 3x3 convolution on the gathered
-map.
+(`parallel/spatial.py`): a band of token rows, the rows of the windows it
+touches brought from their owners before each window block (none when the
+band is whole window rows), K and V of every band gathered in the global
+blocks, the neck's 3x3 convolution on the gathered map.
 
 Window blocks pad the normalized input to a multiple of the window BEFORE
 the qkv projection, so pad tokens carry the qkv bias and take part as keys,
@@ -75,20 +76,28 @@ class Attention(nn.Module):
                                                   head_dim))
 
     def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
-        """x: (B, h, w, C) tokens; with `band` (a global block on a rank of
-        the spatial axis) the rows [band.lo, band.hi) of the grid, whose
-        queries attend over every band's keys."""
+        """x: (B, h, w, C) tokens; with `band` (a rank of the spatial axis)
+        the rows [band.lo, band.hi) of the grid: a global block's queries
+        attend over every band's keys, a window block first gets the rows
+        of the windows the band touches (`Band.windows`)."""
         b, h, w, c = x.shape
         ws = self.window
         if ws > 0:
-            hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
-            x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+            top = 0
+            if band is not None:
+                need = band.windows(ws)
+                x = band.widen(x, need)
+                top = band.lo - need[band.shard.rank][0]
+            # A band's windows start at a window boundary and end at one
+            # or at the grid's end: the zero pad only past the grid's end.
+            hp, wp = -(-x.shape[1] // ws) * ws, -(-w // ws) * ws
+            x = F.pad(x, (0, 0, 0, wp - w, 0, hp - x.shape[1]))
             qkv = self.qkv(x)
             require_bf16_on_cuda(qkv, "SAM window attention")
             out = window_attention(
                 qkv, _rel_pos_table(self.rel_pos_h, ws),
                 _rel_pos_table(self.rel_pos_w, ws),
-                self.num_heads, self.scale, ws)[:, :h, :w]
+                self.num_heads, self.scale, ws)[:, top:top + h, :w]
         else:
             qkv = self.qkv(x)
             require_bf16_on_cuda(qkv, "SAM global attention")
@@ -188,7 +197,7 @@ class ImageEncoderViT(nn.Module):
     def forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
         """One rank's share of the spatial axis: x (B, img_size, img_size,
         3), the whole normalized frame; `band` (`parallel/spatial.Band`)
-        this rank's token rows, whole windows of the padded grid.  Returns
+        this rank's token rows (`spatial.window_bands`).  Returns
         the whole (B, img/16, img/16, 256) features, the same on every
         rank of the axis (the gathers are exact)."""
         p = self.patch_size

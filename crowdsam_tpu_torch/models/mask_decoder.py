@@ -24,6 +24,7 @@ from crowdsam_tpu_torch.models.common import (
     gelu,
 )
 from crowdsam_tpu_torch.models.transformer import TwoWayTransformer
+from crowdsam_tpu_torch.parallel.collectives import sum_partials
 
 
 class MaskDecoder(nn.Module):
@@ -67,14 +68,19 @@ class MaskDecoder(nn.Module):
                 sparse_prompt_embeddings: torch.Tensor,
                 dense_prompt_embeddings: torch.Tensor,
                 multimask_output: bool,
-                dino_feats_proj: Optional[torch.Tensor] = None
+                dino_feats_proj: Optional[torch.Tensor] = None,
+                dino_band=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """image_embeddings (1, h, w, C), or (P, h, w, C) one a prompt;
         image_pe (h, w, C); sparse (P, N, C); dense (P, h, w, C);
         dino_feats_proj (4h, 4w, C), or (G, 4h, 4w, C) one a group of P / G
         contiguous prompts.  Returns (masks (P, K, 4h, 4w), iou_pred (P, K),
         cls_scores (P, K, n_class)) in float32, K = 4 with multimask_output
-        else 1."""
+        else 1.  `dino_band` (a `parallel/spatial.Band` of the map's rows,
+        the trainer's mesh step): dino_feats_proj (hi - lo, 4w, C) holds
+        the rows [lo, hi) of the map; the masks' softmax weights over those
+        rows pool it, and the partial pools are summed in float32 over the
+        band's axis (`collectives.sum_partials`)."""
         p = sparse_prompt_embeddings.shape[0]
         d = self.transformer_dim
         dtype = self.dino_proj.weight.dtype
@@ -110,9 +116,20 @@ class MaskDecoder(nn.Module):
             weight = torch.softmax(masks.reshape(p, k_tok, hh * ww).float(),
                                    dim=-1)
             g = dino_feats_proj.shape[0] if dino_feats_proj.dim() == 4 else 1
-            pooled = (weight.to(dtype).reshape(g, -1, hh * ww)
-                      @ dino_feats_proj.reshape(g, hh * ww, -1).to(dtype)
-                      ).reshape(p, k_tok, -1)
+            if dino_band is None:
+                pooled = (weight.to(dtype).reshape(g, -1, hh * ww)
+                          @ dino_feats_proj.reshape(g, hh * ww, -1).to(dtype)
+                          ).reshape(p, k_tok, -1)
+            else:
+                # The partial pools in float32 (of the compute-dtype
+                # operands), summed, then rounded once, as the whole
+                # product rounds.
+                x0, x1 = dino_band.lo * ww, dino_band.hi * ww
+                part = (weight[..., x0:x1].to(dtype).float().reshape(
+                    g, -1, x1 - x0) @ dino_feats_proj.reshape(
+                        g, x1 - x0, -1).to(dtype).float())
+                pooled = sum_partials(part, dino_band.shard).to(
+                    dtype).reshape(p, k_tok, -1)
             cls_scores = self.point_classifier(pooled)
         fused = torch.cat([iou_token_out[:, None, :].expand(p, k_tok, d),
                            mask_tokens_out], dim=-1)

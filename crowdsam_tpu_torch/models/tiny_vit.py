@@ -19,12 +19,21 @@ an inference encoder): the reference's `*.c.weight` keys with the folded
 bias, and a reference checkpoint's `*.bn.*` entries fold into them at load.
 The attention is plain PyTorch, as in the JAX package (no Pallas kernel);
 its LayerNorms run K1 on CUDA.  NHWC throughout.
+
+`forward_band(x, band)` is one rank's share of the spatial axis
+(`parallel/spatial.py`): rows of the final grid, each stage's band that
+band at the stage's resolution; the patch embedding reads the rows it
+needs of the whole frame, every later 3x3 convolution first brings the
+input rows it reads past the band (`Conv2d.rows_read`) and every window
+attention the rows of the windows its band touches from their owners
+(`Band.widen`), the zero pad only past the grid's end as in the whole
+map; the neck's 3x3 convolution runs on the gathered map.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +110,19 @@ class ConvBN(nn.Module):
         return self.c(x)
 
 
+def _halo_conv(x: torch.Tensor, band, out_band, pre, conv: ConvBN
+               ) -> torch.Tensor:
+    """Rows `out_band` of conv(pre(whole input)) from this rank's band `x`
+    of the input (`band`): the input rows the convolution reads past the
+    band brought from their owners (`Band.widen`), `pre` (row-wise) on
+    them, then the convolution of those rows."""
+    need = tuple(conv.c.rows_read(lo, hi, band.grid)
+                 for lo, hi in out_band.bounds)
+    x = pre(band.widen(x, need))
+    return conv.c.forward_rows(x, need[band.shard.rank][0], band.grid,
+                               out_band.lo, out_band.hi)
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -109,6 +131,16 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.seq[2](gelu(self.seq[0](x)))
+
+    def forward_rows(self, x: torch.Tensor, lo: int, hi: int
+                     ) -> torch.Tensor:
+        """Output rows [lo, hi) from the whole frame x: the two stride-2
+        convolutions on the rows they read, no exchange."""
+        c1, c2 = self.seq[0].c, self.seq[2].c
+        h_mid = (x.shape[1] - 1) // 2 + 1
+        a, b = c2.rows_read(lo, hi, h_mid)
+        y = gelu(c1.forward_rows(x, 0, x.shape[1], a, b))
+        return c2.forward_rows(y, a, h_mid, lo, hi)
 
 
 class MBConv(nn.Module):
@@ -123,6 +155,14 @@ class MBConv(nn.Module):
         y = gelu(self.conv2(gelu(self.conv1(x))))
         return gelu(x + self.conv3(y))
 
+    def forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
+        """The rows of `band` (a `parallel/spatial.Band`) from x, those
+        rows of the input: the depthwise convolution's row on each side
+        brought as rows of x (fewer channels than the expansion)."""
+        y = gelu(_halo_conv(x, band, band, lambda t: gelu(self.conv1(t)),
+                            self.conv2))
+        return gelu(x + self.conv3(y))
+
 
 class PatchMerging(nn.Module):
     def __init__(self, dim: int, out_dim: int):
@@ -134,6 +174,15 @@ class PatchMerging(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv3(gelu(self.conv2(gelu(self.conv1(x)))))
+
+    def forward_band(self, x: torch.Tensor, band, out_band) -> torch.Tensor:
+        """The rows of `out_band` of the merged map from x, the rows of
+        `band` of the input: the rows the strided depthwise convolution
+        reads past the band (one above at stride 2, one on each side at
+        stride 1) brought as rows of x."""
+        y = _halo_conv(x, band, out_band, lambda t: gelu(self.conv1(t)),
+                       self.conv2)
+        return self.conv3(gelu(y))
 
 
 class TinyAttention(nn.Module):
@@ -191,6 +240,14 @@ class TinyViTBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.local_conv(x + self._windows(x))
+        return x + self.mlp(x)
+
+    def _windows(self, x: torch.Tensor, top: int = 0,
+                 rows: Optional[int] = None) -> torch.Tensor:
+        """The attention of x's windows (x starts at a window boundary;
+        zero-padded past its end and right edge), rows [top, top + rows)
+        of it."""
         b, h, w, c = x.shape
         ws = self.window
         hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
@@ -198,8 +255,19 @@ class TinyViTBlock(nn.Module):
         win = xp.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(
             0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
         y = self.attn(win).reshape(b, hp // ws, wp // ws, ws, ws, c)
-        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)[:, :h, :w]
-        x = self.local_conv(x + y)
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+        return y[:, top:top + (h if rows is None else rows), :w]
+
+    def forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
+        """The rows of `band` (a `parallel/spatial.Band`) from x, those
+        rows of the input: the rows of the windows the band touches
+        brought from their owners (the zero pad only past the grid's
+        end, as in the whole map), then the local convolution's row on
+        each side of x + attention."""
+        need = band.windows(self.window)
+        top = band.lo - need[band.shard.rank][0]
+        y = self._windows(band.widen(x, need), top, band.hi - band.lo)
+        x = _halo_conv(x + y, band, band, lambda t: t, self.local_conv)
         return x + self.mlp(x)
 
 
@@ -215,6 +283,14 @@ class Layer(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return x if self.downsample is None else self.downsample(x)
+
+    def forward_band(self, x: torch.Tensor, band, out_band) -> torch.Tensor:
+        """This stage on the rows of `band`; the rows of `out_band` (the
+        next stage's band) of its output."""
+        for blk in self.blocks:
+            x = blk.forward_band(x, band)
+        return x if self.downsample is None else \
+            self.downsample.forward_band(x, band, out_band)
 
 
 class TinyViT(nn.Module):
@@ -236,6 +312,10 @@ class TinyViT(nn.Module):
         self.embed_dim = embed_dims[-1]
         self.patch_embed = PatchEmbed(embed_dims[0])
         windows = stage_windows(img_size, embed_dims, window_sizes)
+        # Each stage's resolution over the final grid's.
+        strides = [1 if d in _STRIDE_ONE_DIMS else 2 for d in embed_dims[1:]]
+        self.stage_factors = [int(np.prod(strides[s:]))
+                              for s in range(len(embed_dims))]
         layers = []
         for s, dim in enumerate(embed_dims):
             if s == 0:
@@ -261,6 +341,19 @@ class TinyViT(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return self.neck(x)
+
+    def forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
+        """One rank's share of the spatial axis: x (B, img_size, img_size,
+        3), the whole normalized frame; `band` (`parallel/spatial.Band`)
+        this rank's rows of the final grid, each stage's band that band
+        at the stage's resolution.  Returns the whole (B, img/16, img/16,
+        256) features, the same on every rank of the axis."""
+        bands = [band.scaled(f) for f in self.stage_factors] + [band]
+        x = self.patch_embed.forward_rows(x, bands[0].lo, bands[0].hi)
+        for s, layer in enumerate(self.layers):
+            x = layer.forward_band(x, bands[s], bands[s + 1])
+        x = band.gather(self.neck[1](self.neck[0](x)))
+        return self.neck[3](self.neck[2](x))
 
 
 def tiny_vit_shapes(img_size: int) -> Tuple[Tuple[str, Tuple[int, int]], ...]:

@@ -1,9 +1,11 @@
-"""The collectives of the prompt-sharded engine and the spatial encode, all
-on `all_reduce`.
+"""The collectives of the prompt-sharded engine, the spatial encode and the
+trainer's mesh step, all on `all_reduce`.
 
 Counterparts of the JAX engine's `psum` OR, `all_gather` and masked `psum`
-(`crowdsam_tpu/pipeline/engine.py`), and of the gathers GSPMD inserts in
-the JAX package's spatially sharded encode (`gather_bands`).  Only `all_reduce` is used: NCCL
+(`crowdsam_tpu/pipeline/engine.py`), of the gathers and halo exchanges
+GSPMD inserts in the JAX package's spatially sharded encode
+(`gather_bands`, `gather_halo`), and of the psums XLA inserts in the JAX
+trainer's mesh step (`sum_partials`).  Only `all_reduce` is used: NCCL
 serves it for several cards, and gloo serves it on CUDA tensors as well as
 CPU ones (gloo has no all-gather on CUDA tensors), so the same code runs
 ranks that share one card.  The gathers are sums in which exactly one rank
@@ -89,3 +91,66 @@ def masked_psum(rows: torch.Tensor, mine: torch.Tensor,
     buf = torch.where(keep, rows, torch.zeros((), dtype=rows.dtype,
                                               device=rows.device))
     return _sum_bytes(buf.contiguous(), shard)
+
+
+def gather_halo(x: torch.Tensor, bounds, need, shard: Shard,
+                dim: int = 1) -> torch.Tensor:
+    """This rank's band of rows along `dim` widened to the rows it needs:
+    rank r holds [bounds[r][0], bounds[r][1]) as `x` and needs [need[r][0],
+    need[r][1]), a range around its band.  Only the halo is reduced: a
+    zero-filled buffer of the rows some rank needs and does not hold, in
+    row order, each filled by the rank that holds it.  No all-reduce when
+    no rank needs a row it does not hold (every rank computes the same
+    halo from `bounds` and `need`)."""
+    lo, hi = bounds[shard.rank]
+    if x.shape[dim] != hi - lo:
+        raise ValueError(f"rank {shard.rank}'s band [{lo}, {hi}) of "
+                         f"{x.shape[dim]} rows along dim {dim}")
+    halo = sorted({i for (a, b), (blo, bhi) in zip(need, bounds)
+                   for i in range(a, b) if not blo <= i < bhi})
+    if not halo:
+        return x
+    at = {row: j for j, row in enumerate(halo)}
+    shape = list(x.shape)
+    shape[dim] = len(halo)
+    buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    mine = [row for row in halo if lo <= row < hi]
+    if mine:
+        buf.index_copy_(dim, torch.tensor([at[r] for r in mine],
+                                          device=x.device),
+                        x.index_select(dim, torch.tensor(
+                            [r - lo for r in mine], device=x.device)))
+    _sum_bytes(buf, shard)
+    a, b = need[shard.rank]
+    parts = []
+    if a < lo:
+        parts.append(buf.narrow(dim, at[a], lo - a))
+    parts.append(x)
+    if hi < b:
+        parts.append(buf.narrow(dim, at[hi], b - hi))
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else x
+
+
+class _SumPartials(torch.autograd.Function):
+    """The sum over the group; the gradient of each rank's partial is the
+    sum's gradient times the group's size M (see `sum_partials`)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.size = shard.size
+        return shard.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.size, None
+
+
+def sum_partials(x: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """The sum over the group of each rank's partial `x` (each rank holds
+    the partial sum of its share of a contraction), for a step whose ranks
+    each scale their loss by 1/M: everything downstream of the sum is
+    computed alike on the M ranks, so each counts it 1/M times, while
+    each rank's partial, multiplied back by M, gets the whole gradient of
+    its own share.  Summing the ranks' parameter gradients then counts
+    every term once."""
+    return _SumPartials.apply(x, shard)

@@ -18,11 +18,14 @@ order, as the JAX `generate_batch` does.  With `prompt_axis` the ranks of
 that axis also split each image's prompt batches (`pipeline/engine.py`,
 the composed layout).  With `spatial_axis` the ranks of that axis (of a
 data coordinate) split each encode by token rows (`parallel/spatial.py`):
-each computes a band of SAM's ViT and of DINOv2 and every one ends with
-the whole features; the engine and the survivor pass then run on every
-rank of the axis (each on its prompt share when `prompt_axis` is the same
-axis or another), as in the JAX package, whose engine runs under a
-`shard_map` over `data` only.  The spatial axis may be the prompt axis.
+each computes a band of the image encoder (SAM ViT: whole window rows up
+to the grid's window rows, token rows with row halos past them; TinyViT:
+rows of its final grid with row halos at every stage) and of DINOv2, and
+every one ends with the whole features; the engine and the survivor pass
+then run on every rank of the axis (each on its prompt share when
+`prompt_axis` is the same axis or another), as in the JAX package, whose
+engine runs under a `shard_map` over `data` only.  The spatial axis may be
+the prompt axis.
 
 The noise of each real image is drawn from the model's generator in order,
 as `CrowdSAM.generate_many` draws it, on every rank, and each rank uses
@@ -33,8 +36,8 @@ last image, for a static shape; the results are the same); a rank given
 no image of it skips the encode and the engine and joins the gather.
 What the JAX `ShardedPipeline` refuses or cannot run is refused here with
 the reason: crop layers, the train-free branch and the HQ decoder
-(`sam_hq`); and the spatial axis without a mesh, or on TinyViT
-(`mobile_sam`), whose strided convolutions run through every stage.
+(`sam_hq`); and the spatial axis without a mesh, or wider than the
+encoder's token rows (a rank with no band).
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from crowdsam_tpu_torch.models.image_encoder import ImageEncoderViT
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.transforms import resize_image
 from crowdsam_tpu_torch.parallel.collectives import Shard
@@ -64,11 +66,6 @@ def refusal(model, mesh=None, spatial_axis=None, prompt_axis=None
             ) -> Optional[str]:
     """Why the batched path does not run `model` (or these mesh options),
     or None."""
-    if spatial_axis and not isinstance(model.sam.image_encoder,
-                                       ImageEncoderViT):
-        return ("spatial_axis on TinyViT (mobile_sam): its strided "
-                "convolutions run through every stage, so bands of rows "
-                "would need halo exchanges at each (not ported)")
     if spatial_axis and mesh is None:
         return "spatial_axis needs a mesh with that axis"
     if prompt_axis and mesh is None:

@@ -8,7 +8,7 @@ dice term of full-decoder training and the negative hinge.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,10 +17,8 @@ import torch.nn.functional as F
 def dice_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """inputs (B, K, ...) logits, targets (B, 1|K, ...) binary -> (B, K)
     per-pair losses over the flattened trailing dims."""
-    probs = torch.sigmoid(inputs)
-    b, k = probs.shape[0], probs.shape[1]
-    probs = probs.reshape(b, k, -1)
-    targets = targets.reshape(targets.shape[0], targets.shape[1], -1)
+    probs = torch.sigmoid(inputs).flatten(2)
+    targets = targets.flatten(2)
     numerator = 2 * (probs * targets).sum(-1)
     denominator = probs.sum(-1) + targets.sum(-1)
     return 1 - (numerator + 1) / (denominator + 1)
@@ -29,10 +27,8 @@ def dice_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def miou(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """inputs (B, K, H, W) logits, targets (B, 1, H, W) binary -> (B, K) IoU
     of the binarized inputs against the targets (no gradient)."""
-    mask_bin = (inputs > 0).float()
-    b, k = mask_bin.shape[0], mask_bin.shape[1]
-    mask_bin = mask_bin.reshape(b, k, -1)
-    targets = targets.reshape(targets.shape[0], targets.shape[1], -1).float()
+    mask_bin = (inputs > 0).float().flatten(2)
+    targets = targets.flatten(2).float()
     inter = (mask_bin * targets).sum(-1)
     union = mask_bin.sum(-1) + targets.sum(-1) - inter
     return inter / union.clamp_min(1e-9)
@@ -57,7 +53,9 @@ def adapter_loss(low_res_masks: torch.Tensor, fused_iou: torch.Tensor,
                  fg_mask: torch.Tensor, region_valid: torch.Tensor,
                  num_pos: int, mask_loss: bool = False,
                  neg_hinge_weight: float = 0.0,
-                 neg_hinge_margin: float = 0.05) -> Dict[str, torch.Tensor]:
+                 neg_hinge_margin: float = 0.05,
+                 totals: Optional[Tuple[int, int]] = None
+                 ) -> Dict[str, torch.Tensor]:
     """The composite adapter loss.
 
     low_res_masks (P, K, R, R) logits; fused_iou (P, K) = iou_pred *
@@ -67,7 +65,15 @@ def adapter_loss(low_res_masks: torch.Tensor, fused_iou: torch.Tensor,
     split positive/negative; the dice of the FG map against the union of
     the boxes over the valid region; with `mask_loss`, the best-of-K dice
     of the positives' masks; with `neg_hinge_weight`, a square hinge on the
-    negatives' fused scores above `neg_hinge_margin`."""
+    negatives' fused scores above `neg_hinge_margin`.
+
+    `totals` (positives, negatives): these prompts are one rank's share of
+    a step whose prompts are split over ranks (the trainer's mesh step);
+    each prompt term is then the share's sum over the step's count, so that
+    the sum over the ranks is the step's mean."""
+    def mean(x, which):
+        return x.mean() if totals is None else x.sum() / totals[which]
+
     pos_masks = low_res_masks[:num_pos]
     iou_true = miou(pos_masks, target_masks[:, None])
     iou_target = torch.cat([iou_true, torch.zeros_like(
@@ -77,16 +83,18 @@ def adapter_loss(low_res_masks: torch.Tensor, fused_iou: torch.Tensor,
     fg_dice = dice_loss((cls_logits * v - 1e4 * (1 - v))[None],
                         (fg_mask[None] * v)[None]).mean()
     out = {
-        "pos_cls_loss": cls_loss[:num_pos].mean(),
-        "neg_cls_loss": cls_loss[num_pos:].mean(),
+        "pos_cls_loss": mean(cls_loss[:num_pos], 0),
+        "neg_cls_loss": mean(cls_loss[num_pos:], 1),
         "dice_loss": fg_dice,
     }
     if mask_loss:
         # amin: the gradient shared among equal heads, as jnp.min shares it
         # (saturated heads tie).
         per_k = dice_loss(pos_masks, target_masks[:, None])
-        out["mask_dice_loss"] = per_k.amin(dim=1).mean()
+        out["mask_dice_loss"] = mean(per_k.amin(dim=1),
+                                     0)
     if neg_hinge_weight > 0.0:
         h = F.relu(fused_iou[num_pos:] - neg_hinge_margin)
-        out["neg_hinge_loss"] = neg_hinge_weight * h.square().sum(1).mean()
+        out["neg_hinge_loss"] = neg_hinge_weight * mean(
+            h.square().sum(1), 1)
     return out

@@ -27,6 +27,17 @@ Counterpart of the JAX package's `train/trainer.py` (reference
   weight_decay=wd))`.
 - dropout stays off, as in the reference, which never puts SAM in train
   mode.
+- on a (data, model) mesh (`loss_and_grads(..., mesh=...)`, the JAX
+  `_build_step(cache, mesh=mesh)`): the step's prompts split over `data`
+  (`split_rows`, uneven where they do not divide, as GSPMD pads) and
+  decoded against the replicated image embedding; the resized DINO
+  projection split by rows over `model`, each rank pooling its rows under
+  the softmax weights of the whole masks and the partial pools summed
+  over `model` (`collectives.sum_partials`); each rank's loss its share of
+  every prompt mean, the FG-map dice (computed whole on every rank) only
+  at data coordinate 0, all scaled by 1/M; the gradients then summed over
+  `model` and over `data`, so every rank holds the step's gradients and
+  updates its leaves alike.  Only `all_reduce` crosses ranks.
 
 The random draws of a step (`pos_idx`, the positives' and negatives'
 Gumbel noise) are an input: `jax.random` cannot be replayed here, so tests
@@ -39,6 +50,7 @@ mu, nu}}` with the decoder's state-dict names.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import math
 import os
@@ -52,6 +64,9 @@ from torch.func import functional_call
 
 from crowdsam_tpu_torch.config import refuse_float32_on_cuda
 from crowdsam_tpu_torch.models.common import compute_dtype
+from crowdsam_tpu_torch.parallel.collectives import Shard
+from crowdsam_tpu_torch.parallel.mesh import axis_group
+from crowdsam_tpu_torch.parallel.spatial import Band, split_rows
 from crowdsam_tpu_torch.ops.resize import resize_linear
 from crowdsam_tpu_torch.train.losses import adapter_loss
 from crowdsam_tpu_torch.utils import msgpack_io
@@ -135,6 +150,24 @@ def _no_param_grads(*modules: nn.Module):
             p.requires_grad_(flag)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshPart:
+    """One rank's share of a mesh step: its prompts [lo, hi) of the step's
+    positives-then-negatives, the `data` and `model` axes' shards, and its
+    band of the resized DINO projection's rows over `model`."""
+    prompts: Tuple[int, int]
+    data: Shard
+    model: Shard
+    pool: Band
+
+    @classmethod
+    def of(cls, mesh, n_prompts: int, rows: int) -> "MeshPart":
+        data = Shard(*axis_group(mesh, "data"))
+        model = Shard(*axis_group(mesh, "model"))
+        return cls(split_rows(n_prompts, data.size)[data.rank], data, model,
+                   Band(model, split_rows(rows, model.size)))
+
+
 class _Step(nn.Module):
     """The differentiable part of a training step, over the model's `sam`
     so that `functional_call` can give the decoder the trainer's
@@ -145,8 +178,36 @@ class _Step(nn.Module):
         self.sam = trainer.sam
         object.__setattr__(self, "trainer", trainer)
 
-    def forward(self, shot: int, draws: Draws):
-        return self.trainer._losses(self.sam, shot, draws)
+    def forward(self, shot: int, draws: Draws,
+                part: Optional[MeshPart] = None):
+        return self.trainer._losses(self.sam, shot, draws, part)
+
+
+def _rank_loss(part: MeshPart, losses: Dict[str, torch.Tensor]):
+    """A rank's loss in the mesh step: its shares of the prompt terms and,
+    at data coordinate 0 only, the FG-map dice (computed alike on every
+    rank), over M (each of the M ranks of `model` counts what it computes
+    alike, see `sum_partials`)."""
+    return sum(v for k, v in losses.items()
+               if k != "dice_loss" or not part.data.rank) / part.model.size
+
+
+def _sum_step(part: MeshPart, grads: Dict[str, torch.Tensor],
+              losses: Dict[str, torch.Tensor]):
+    """The step's gradients and loss terms from every rank's shares: the
+    gradients in one f32 buffer summed over `model`, then over `data`; the
+    loss terms (the dice only at data coordinate 0) summed over `data`."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    part.data.all_reduce(part.model.all_reduce(flat))
+    out = dict(zip(grads, (f.view_as(g).clone() for f, g in zip(
+        flat.split([g.numel() for g in grads.values()]), grads.values()))))
+    names = list(losses)
+    terms = torch.stack([
+        torch.zeros_like(v) if k == "dice_loss" and part.data.rank
+        else v.float() for k, v in losses.items()])
+    part.data.all_reduce(terms)
+    return out, {k: terms[i].to(losses[k].dtype)
+                 for i, k in enumerate(names)}
 
 
 class AdapterTrainer:
@@ -173,6 +234,7 @@ class AdapterTrainer:
         self.low_res = self.sam.img_size // 4
         self.cache: Optional[Dict[str, Any]] = None
         self.params: Dict[str, torch.Tensor] = {}
+        self.last_part: Optional[MeshPart] = None
         self._step_module = _Step(self)
 
     # ------------------------------------------------------------- cache
@@ -249,8 +311,10 @@ class AdapterTrainer:
         return pos_idx, gumbel((self.pos_sample, r2)), gumbel((r2,))
 
     # ------------------------------------------------------------- step
-    def _losses(self, sam, shot: int, draws: Draws) -> Dict[str, torch.Tensor]:
-        """The loss terms of one step on cached shot `shot`."""
+    def _losses(self, sam, shot: int, draws: Draws,
+                part: Optional[MeshPart] = None) -> Dict[str, torch.Tensor]:
+        """The loss terms of one step on cached shot `shot`; with `part`
+        this rank's shares of them (`MeshPart`, `loss_and_grads`)."""
         c, dev = self.cache, self.device
         dec = sam.mask_decoder
         r = self.low_res
@@ -292,18 +356,26 @@ class AdapterTrainer:
         new_h = torch.floor(h * in_scale + 0.5)
         new_w = torch.floor(w * in_scale + 0.5)
         pts = pts * torch.stack([new_w / w, new_h / h])
-        labels = torch.ones((pos_n + neg_n, 1), dtype=torch.int64, device=dev)
-        sparse, dense = sam.prompt_encoder(points=(pts[:, None, :], labels))
         proj_r = resize_linear(proj, (r, r))
+        num_pos, totals, band = pos_n, None, None
+        if part is not None:
+            lo, hi = part.prompts
+            pts = pts[lo:hi]
+            tmasks = tmasks[lo:min(hi, pos_n)]
+            num_pos, totals = max(min(hi, pos_n) - lo, 0), (pos_n, neg_n)
+            band = part.pool
+            proj_r = proj_r[band.lo:band.hi]
+        labels = torch.ones((len(pts), 1), dtype=torch.int64, device=dev)
+        sparse, dense = sam.prompt_encoder(points=(pts[:, None, :], labels))
         masks, iou_pred, cls_scores = dec(
             features, c["dense_pe"], sparse, dense, True,
-            dino_feats_proj=proj_r)
+            dino_feats_proj=proj_r, dino_band=band)
         fused_iou = iou_pred * torch.sigmoid(cls_scores[..., 0])
         return adapter_loss(
             masks, fused_iou, cls_map, tmasks.float(), fg.float(),
-            valid.float(), num_pos=pos_n, mask_loss=self.full_decoder,
+            valid.float(), num_pos=num_pos, mask_loss=self.full_decoder,
             neg_hinge_weight=self.neg_hinge_weight,
-            neg_hinge_margin=self.neg_hinge_margin)
+            neg_hinge_margin=self.neg_hinge_margin, totals=totals)
 
     def trainable_params(self) -> Dict[str, torch.Tensor]:
         """Float32 copies of the trainable decoder leaves."""
@@ -313,26 +385,41 @@ class AdapterTrainer:
         return {k: v.detach().float().clone() for k, v in adapter.items()}
 
     def loss_and_grads(self, params: Dict[str, torch.Tensor], shot: int,
-                       draws: Draws):
+                       draws: Draws, mesh=None):
         """(total, loss terms, {name: f32 gradient}) of one step, the
         decoder's trainable leaves taken from `params` (f32 masters, cast
-        to the leaves' compute dtype inside the graph)."""
+        to the leaves' compute dtype inside the graph).
+
+        `mesh` (`parallel/mesh.create_mesh`, axes `data` and `model`; every
+        rank of it calls this with the same arguments): the mesh step (see
+        the module's docstring).  Every rank returns the step's total, loss
+        terms and gradients, the same on each; `self.last_part` holds its
+        `MeshPart`, whose shards count the step's all-reduces and bytes."""
         dec = self.sam.mask_decoder
         dtypes = {k: v.dtype for k, v in dec.named_parameters()}
         masters = {k: v.detach().requires_grad_() for k, v in params.items()}
+        part = None
+        if mesh is not None:
+            part = MeshPart.of(mesh, self.pos_sample + self.neg_sample,
+                               self.low_res)
+            self.last_part = part
         with _no_param_grads(self.sam, self.predictor.dino_model), \
                 torch.enable_grad():
             losses = functional_call(
                 self._step_module,
                 {f"sam.mask_decoder.{k}": v.to(dtypes[k])
-                 for k, v in masters.items()}, (shot, draws))
-            total = sum(losses.values())
+                 for k, v in masters.items()}, (shot, draws, part))
+            total = (sum(losses.values()) if part is None
+                     else _rank_loss(part, losses))
             grads = torch.autograd.grad(total, list(masters.values()),
                                         allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g.float()
                  for (k, v), g in zip(masters.items(), grads)}
-        return total.detach(), {k: v.detach() for k, v in losses.items()}, \
-            grads
+        losses = {k: v.detach() for k, v in losses.items()}
+        if part is not None:
+            grads, losses = _sum_step(part, grads, losses)
+            total = sum(losses.values())
+        return total.detach(), losses, grads
 
     def decoder_tree(self) -> dict:
         """The decoder as the JAX package saves one: the trained leaves

@@ -247,12 +247,12 @@ def test_refusals_pinned_beside_jax(what):
 
 def test_multi_device_options_are_refused():
     """What the mesh options do not run: `spatial_axis` or a prompt axis
-    without a mesh, `spatial_axis` on TinyViT (`mobile_sam`, whose strided
-    convolutions would need halo exchanges at every stage), a mesh of
-    another device type than the model's and a batch that does not divide
-    over `data` (the JAX package asserts it).  The mesh checks on (2, 1)
-    and (1, 2) meshes over a two-rank process group formed in this process
-    (`torch_ranks.fake_group`): they read only the mesh's shape."""
+    without a mesh, a mesh of another device type than the model's and a
+    batch that does not divide over `data` (the JAX package asserts it);
+    `spatial_axis` on TinyViT (`mobile_sam`) runs, with row halos.  The
+    mesh checks on (2, 1) and (1, 2) meshes over a two-rank process group
+    formed in this process (`torch_ranks.fake_group`): they read only the
+    mesh's shape."""
     pm = CrowdSAM(modify_config(load_config(None), list(TINY)), device="cpu")
     mobile = CrowdSAM(modify_config(load_config(None), list(TINY) + [
         "model.sam_arch", "mobile_sam", "model.sam_model", "mobilevit_t",
@@ -270,9 +270,10 @@ def test_multi_device_options_are_refused():
         with pytest.raises(ValueError, match="batch 3 .*data axis"):
             ShardedPipeline(pm, mesh=create_mesh((2, 1), device="cpu"),
                             batch=3)
-        with pytest.raises(NotImplementedError, match="TinyViT"):
-            ShardedPipeline(mobile, mesh=create_mesh((1, 2), device="cpu"),
-                            spatial_axis="model")
+        pipe = ShardedPipeline(mobile, mesh=create_mesh((1, 2),
+                                                        device="cpu"),
+                               batch=2, spatial_axis="model")
+        assert pipe.spatial.size == 2
 
 
 # ---------------------------------------------------------------------------

@@ -218,7 +218,7 @@ def _spatial_counts(pipe):
 
 
 def spatial_rank(rank: int, world: int, opts, images, noises, frames,
-                 in_hw, layouts):
+                 in_hw, layouts, halo=None):
     """The spatial axis over `model`.  On a (1, 2) mesh (ranks 0 and 1)
     `gather_bands` of unequal bands on every dtype (what it gave, what it
     must give), and `encode_batch` of `frames` with the axis's shard: its
@@ -226,9 +226,12 @@ def spatial_rank(rank: int, world: int, opts, images, noises, frames,
     shape, batch, prompt axis) of `layouts` (ranks outside a mesh skip it)
     `ShardedPipeline(spatial_axis="model")` over the images with their
     noise, a chunk a call: {layout: (results, [(all-reduces, bytes) of
-    the spatial axis a chunk])}."""
+    the spatial axis a chunk])}.  With `halo` (a dict), the axis past the
+    window rows and on TinyViT too (`halo_cases`)."""
     model = _model(opts)
     out = {}
+    if halo is not None:
+        out["halo"] = halo_cases(rank, model, images, noises, **halo)
     mesh = create_mesh((1, 2), device="cpu")
     if mesh is not None:
         shard = collectives.Shard(*axis_group(mesh, "model"))
@@ -261,4 +264,138 @@ def spatial_rank(rank: int, world: int, opts, images, noises, frames,
             counts.append((after[0] - before[0], after[1] - before[1]))
         out[(shape, batch, prompt_axis)] = ([plain(r) for r in results],
                                             counts)
+    return out
+
+
+def train_mesh_rank(rank: int, world: int, sam_state, cases):
+    """The trainer's mesh step on each case of `cases` (ranks outside its
+    mesh skip it): a dict with the mesh shape, the trainer's config
+    overrides, the cache, the start leaves and each step's (shot, draws).
+    Per case, each step's total, loss terms, gradients and all-reduces
+    and bytes, and the leaves after the steps' AdamW updates."""
+    from crowdsam_tpu_torch.models.build import sam_model_registry
+    from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
+    from crowdsam_tpu_torch.pipeline.predictor import SamPredictor
+    from crowdsam_tpu_torch.train.trainer import AdamW, AdapterTrainer
+
+    sam = sam_model_registry["vit_tiny"](n_class=1, dino_dim=384)
+    sam.load_state_dict(sam_state)
+    predictor = SamPredictor(sam, dino_model_registry["dinov2_vits14"](),
+                             device="cpu")
+    out = []
+    for case in cases:
+        mesh = create_mesh(case["mesh"], device="cpu")
+        if mesh is None:
+            out.append(None)
+            continue
+        trainer = AdapterTrainer(
+            modify_config(load_config(None), list(case["opts"])), predictor)
+        trainer.cache = case["cache"]
+        params = {k: v.clone() for k, v in case["params"].items()}
+        opt = AdamW(trainer.lr, trainer.weight_decay, trainer.clip_grad)
+        state = opt.init(params)
+        steps = []
+        for shot, draws in case["steps"]:
+            total, terms, grads = trainer.loss_and_grads(params, shot, draws,
+                                                         mesh=mesh)
+            part = trainer.last_part
+            steps.append(dict(
+                total=float(total), terms={k: float(v)
+                                           for k, v in terms.items()},
+                grads=grads, prompts=part.prompts,
+                all_reduces=(part.data.calls, part.model.calls),
+                bytes=(part.data.bytes, part.model.bytes)))
+            opt.step(params, grads, state)
+        out.append(dict(steps=steps, params=params))
+    return out
+
+
+def _gather_halo_cases(rank: int) -> dict:
+    """`gather_halo` on a (1, 3) mesh on every dtype: bands of 3, 2 and 7
+    rows of 12, each rank needing the rows of the 8-row windows it
+    touches ([0, 8) spans all three ranks): (what it gave, what it must
+    give, the all-reduces and bytes)."""
+    mesh = create_mesh((1, 3), device="cpu")
+    if mesh is None:
+        return None
+    bounds = ((0, 3), (3, 5), (5, 12))
+    need = ((0, 8), (0, 8), (0, 12))
+    out = {}
+    for dtype in DTYPES:
+        shard = collectives.Shard(*axis_group(mesh, "model"))
+        whole = _values(0, (2, 12, 3), dtype)
+        lo, hi = bounds[rank]
+        got = collectives.gather_halo(whole[:, lo:hi], bounds, need, shard)
+        a, b = need[rank]
+        out[str(dtype)] = (got, whole[:, a:b], (shard.calls, shard.bytes))
+    return out
+
+
+def _row_hooks(enc) -> tuple:
+    """Forward pre-hooks that record the input shape of every window
+    attention's qkv (SAM ViT's window blocks, TinyViT's blocks) and of
+    the 1x1 convolution before each of TinyViT's strided or depthwise
+    3x3 ones (MBConv, PatchMerging), in call order: (records, handles)."""
+    from crowdsam_tpu_torch.models import image_encoder, tiny_vit
+
+    seen, handles = [], []
+
+    def hook(name):
+        return lambda mod, args: seen.append((name, tuple(args[0].shape)))
+
+    for name, mod in enc.named_modules():
+        if (isinstance(mod, image_encoder.Attention) and mod.window) or \
+                isinstance(mod, tiny_vit.TinyAttention):
+            handles.append(mod.qkv.register_forward_pre_hook(hook(name)))
+        elif isinstance(mod, (tiny_vit.MBConv, tiny_vit.PatchMerging)):
+            handles.append(mod.conv1.register_forward_pre_hook(hook(name)))
+    return seen, handles
+
+
+def halo_cases(rank: int, model, images, noises, mobile_opts,
+               mobile_noises, encodes, layouts) -> dict:
+    """The spatial axis past SAM ViT's window rows and on TinyViT:
+    `gather_halo` bit for bit (`_gather_halo_cases`); for each (arch, M)
+    of `encodes` the band encode of its frame on a (1, M) mesh (ranks
+    outside it skip): (features, all-reduces, bytes,
+    the input shapes of the window attentions' qkv and the 3x3
+    convolutions); for each (arch, mesh shape, batch) of `layouts`
+    `ShardedPipeline(spatial_axis="model")` over the images with their
+    noise: (results, [(all-reduces, bytes) a chunk]).  `arch` "vit"
+    is `model` (with `noises`), "mobile" the model of `mobile_opts` (with
+    `mobile_noises`)."""
+    from crowdsam_tpu_torch.parallel.spatial import sam_band
+
+    models = {"vit": model, "mobile": _model(mobile_opts)}
+    out = {"gather_halo": _gather_halo_cases(rank)}
+    for (arch, m), frame in encodes.items():
+        mesh = create_mesh((1, m), device="cpu")
+        if mesh is None:
+            continue
+        shard = collectives.Shard(*axis_group(mesh, "model"))
+        enc = models[arch].sam.image_encoder
+        seen, handles = _row_hooks(enc)
+        try:
+            with torch.no_grad():
+                got = enc.forward_band(torch.from_numpy(frame),
+                                       sam_band(enc, shard))
+        finally:
+            for h in handles:
+                h.remove()
+        out[(arch, m)] = (got.numpy(), shard.calls, shard.bytes, seen)
+    for arch, shape, batch in layouts:
+        mesh = create_mesh(shape, device="cpu")
+        if mesh is None:
+            continue
+        pipe = ShardedPipeline(models[arch], mesh=mesh, batch=batch,
+                               spatial_axis="model")
+        nz = noises if arch == "vit" else mobile_noises
+        results, counts = [], []
+        for c0 in range(0, len(images), batch):
+            before = _spatial_counts(pipe)
+            results += pipe.generate_batch(images[c0:c0 + batch],
+                                           noise=nz[c0:c0 + batch])
+            after = _spatial_counts(pipe)
+            counts.append((after[0] - before[0], after[1] - before[1]))
+        out[(arch, shape, batch)] = ([plain(r) for r in results], counts)
     return out

@@ -1445,8 +1445,9 @@ def phase_msgpack_adapter(img):
     from crowdsam_tpu_torch.utils.weights import mask_decoder_state_dict
 
     path = "./adapter_weights/10_shot.msgpack"
-    model = CrowdSAM(modify_config(full_width_config(), [
-        "model.sam_adapter_checkpoint", path]), device="cuda")
+    with _no_default_init():
+        model = CrowdSAM(modify_config(full_width_config(), [
+            "model.sam_adapter_checkpoint", path]), device="cuda")
     want = mask_decoder_state_dict(msgpack_io.load(path))
     got = model.sam.mask_decoder.state_dict()
     bad = [k for k, v in want.items()
@@ -2434,8 +2435,8 @@ def phase_generate_batch(model, reference_cfg, loaded_cfg, n=8):
     the loaded runs every kernel launched (the counts set to 0 just before
     the batched run and read just after), K5 and K6 once a lockstep
     iteration; the loop at most one host sync an iteration.  Reported a B:
-    ms per image of both from the host clock (synchronized) over repeated
-    pairs (batch, many, many, batch), the host syncs an iteration (the
+    ms per image of both from the host clock (synchronized) in turns
+    (batch, many, batch; the first is the checked run), the host syncs an iteration (the
     engine's count and torch's sync-debug warnings inside the loop), K5, K6
     and K7 launches per image, the device busy and idle share of one
     profiled call of B images, and the peak device memory at B = 8."""
@@ -2522,7 +2523,7 @@ def phase_generate_batch(model, reference_cfg, loaded_cfg, n=8):
                 ok.append(bool(same))
             # Repeated pairs against generate_many on the host clock.
             batch_ms, many_ms = [first_ms], []
-            for order in ("many", "batch", "batch", "many") * 1:
+            for order in ("many", "batch"):
                 if order == "many":
                     many_ms.append(timed_many())
                 else:
@@ -2688,7 +2689,8 @@ def _compare_small(gpu, cfg, label):
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 
     cpu_cfg = modify_config(cfg, ["tpu.compute_dtype", "float32"])
-    cpu = CrowdSAM(cpu_cfg, device="cpu")
+    with _no_default_init():
+        cpu = CrowdSAM(cpu_cfg, device="cpu")
     cpu.sam.load_state_dict({k: v.float().cpu() for k, v in
                              gpu.sam.state_dict().items()})
     cpu.dino.load_state_dict({k: v.float().cpu() for k, v in
@@ -2874,18 +2876,70 @@ def phase_layernorm_backward(gen):
     return rows
 
 
-def phase_numpy_init():
-    """The full-width model's weights, drawn on the host as the JAX package
-    draws them (SAM ViT-L from seed 0, DINOv2 ViT-L/14 from environ.seed
-    42): the draw's time, and each module's elements, sum and sum of squares
-    against the manifest's checksums (numpy's draws are the same on any
-    machine).  The draws stay cached for the models built after."""
+# The keys of `init.sam_state_dict` / `dino_state_dict` as `build_models`
+# calls them for the full-width model and for SAM ViT-H.
+MAIN_SAM_KEY = ("vit_l", 0, None, 1, 1024, False)
+MAIN_DINO_KEY = ("dinov2_vitl14", 42)
+VIT_H_KEY = ("vit_h", 0, None, 1, 1024, False)
+
+
+class HostDraw:
+    """A host draw of random weights in a thread of its own, started while
+    the card works (numpy's generator and its casts let go of the GIL):
+    `get()` waits for it; `seconds` is its time in that thread, beside the
+    kernel build and the phases it overlapped."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.result = self.error = self.seconds = None
+        self._fn = fn
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        t = time.perf_counter()
+        try:
+            self.result = self._fn()
+        except BaseException as e:           # re-raised by get()
+            self.error = e
+        self.seconds = time.perf_counter() - t
+
+    def get(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def start_draws() -> dict:
+    """The full-width model's draws and SAM ViT-H's, each in a thread."""
     from crowdsam_tpu_torch.utils import init
 
-    t = time.perf_counter()
-    sam = init.sam_state_dict("vit_l", 0, None, 1, 1024)
-    dino = init.dino_state_dict("dinov2_vitl14", 42)
-    draw_s = time.perf_counter() - t
+    return {"main": HostDraw(lambda: (init.sam_state_dict(*MAIN_SAM_KEY),
+                                      init.dino_state_dict(*MAIN_DINO_KEY))),
+            "vit_h": HostDraw(lambda: init.sam_state_dict(*VIT_H_KEY))}
+
+
+def _held(real, held: dict):
+    """`init.sam_state_dict` that answers the keys of `held` from it."""
+    def fn(*key):
+        return held[key] if key in held else real(*key)
+    return fn
+
+
+def phase_numpy_init(draw: HostDraw):
+    """The full-width model's weights, drawn on the host as the JAX package
+    draws them (SAM ViT-L from seed 0, DINOv2 ViT-L/14 from environ.seed
+    42; `draw`, made in a thread during the kernel build and the kernel
+    phases): the draw's time in its thread, and each module's elements,
+    sum and sum of squares against the manifest's checksums (numpy's draws
+    are the same on any machine).  The draws stay cached for the models
+    built after."""
+    from crowdsam_tpu_torch.utils import init
+
+    sam, dino = draw.get()
+    draw_s = draw.seconds
     want = init.manifest()["checksums"]
     got = {f"sam/vit_l/0/{k}": v for k, v in init.sam_checksums(sam).items()}
     got["dino/dinov2_vitl14/42"] = init.checksum(dino.values())
@@ -2898,6 +2952,7 @@ def phase_numpy_init():
         rel[key] = max(abs(total - total_want) / abs(total_want),
                        abs(sq - sq_want) / abs(sq_want))
     row = {"phase": "numpy init", "draw_s": draw_s,
+           "draw_in": "a thread, beside the kernel build and phases",
            "elements": {k: v[0] for k, v in got.items()},
            "leaves_in_manifest": {k: want[k][0] for k in got},
            "sum_sumsq_rel_diff": rel, "tol": 1e-9}
@@ -3130,7 +3185,9 @@ def phase_amg(sam):
     in coco_rle on crowd_scene(0), once at the generator's default filters
     (after a warm-up call) and once loaded: the pred-IoU and stability
     filters off and min_mask_region_area 100, so that records reach the
-    NMS, the small-region cleanup and the RLE.  The counts are set to 0
+    NMS, the small-region cleanup and the RLE, on 16 points a side (the
+    host's cleanup takes ~18 ms a mask: ~840 records at 32 a side took
+    15 s of it).  The counts are set to 0
     just before each call and read just after; K1, K2 and K3 must launch,
     the loaded call must give a record, and every record's mask lies
     inside its bbox with its area's pixel count.  Prints records, ms per
@@ -3144,15 +3201,15 @@ def phase_amg(sam):
     row = {"phase": "amg", "frame": "crowd_scene(0)",
            "model": "SAM ViT-L (JAX-drawn encoder) + "
                     "adapter_weights/10_shot.msgpack decoder, bf16",
-           "points_per_side": 32, "points_per_batch": 64,
-           "output_mode": "coco_rle"}
-    runs = (("default_filters", {}),
-            ("loaded", dict(pred_iou_thresh=0.0, stability_score_thresh=0.0,
+           "points_per_batch": 64, "output_mode": "coco_rle"}
+    runs = (("default_filters", dict(points_per_side=32)),
+            ("loaded", dict(points_per_side=16, pred_iou_thresh=0.0,
+                            stability_score_thresh=0.0,
                             min_mask_region_area=100)))
     for name, kw in runs:
         gen = SamAutomaticMaskGenerator(
-            sam, points_per_side=32, points_per_batch=64,
-            output_mode="coco_rle", device="cuda", **kw)
+            sam, points_per_batch=64, output_mode="coco_rle",
+            device="cuda", **kw)
         cleanup = [0.0]
         real = gen.postprocess_small_regions
 
@@ -3357,8 +3414,9 @@ def _arch_model(overrides):
     from crowdsam_tpu_torch.utils.synthetic import full_width_config
 
     t = time.time()
-    model = CrowdSAM(modify_config(full_width_config(), overrides),
-                     device="cuda")
+    with _no_default_init():
+        model = CrowdSAM(modify_config(full_width_config(), overrides),
+                         device="cuda")
     torch.cuda.synchronize()
     return model, time.time() - t
 
@@ -3372,7 +3430,7 @@ def _require_launches(label, launches, required, absent=()):
                              f"{launches}")
 
 
-def phase_vit_h():
+def phase_vit_h(draw: HostDraw):
     """SAM ViT-H (width 1280, head dim 80) at full width and depth with
     DINOv2 ViT-L/14 and the shipped adapter, `configs/crowdhuman.yaml`'s
     defaults (fused decode, RLEs): the three synthetic frames, then one
@@ -3381,10 +3439,14 @@ def phase_vit_h():
     K1 must have launched at width 1280 and K2/K3 at head dim 80 (and at
     no other head dim).  Also the encode's ms, the device's idle share and
     peak memory.  Returns the launches by shape."""
+    from crowdsam_tpu_torch.utils import init
     from crowdsam_tpu_torch.utils.synthetic import crowd_scene, synthetic_images
 
-    model, build_s = _arch_model(["model.sam_model", "vit_h",
-                                  "model.sam_adapter_checkpoint", ADAPTER])
+    held = {VIT_H_KEY: draw.get()}
+    with patched(init, "sam_state_dict", _held(init.sam_state_dict, held)):
+        model, build_s = _arch_model(["model.sam_model", "vit_h",
+                                      "model.sam_adapter_checkpoint",
+                                      ADAPTER])
     assert model.sam.image_encoder.embed_dim == 1280
     images = synthetic_images(0, N_IMAGES + 1)
     model.generate(images[-1])               # warm-up
@@ -3412,7 +3474,8 @@ def phase_vit_h():
         "config": "vit_h (1280 wide, 32 blocks, head dim 80) + dinov2_vitl14 "
                   "+ the shipped adapter, bf16, configs/crowdhuman.yaml "
                   "defaults (fused decode, RLEs)",
-        "build_s": build_s,
+        "build_s": build_s, "host_draw_s": draw.seconds,
+        "host_draw_in": "a thread, beside the phases before this one",
         "image_hw": [list(i.shape[:2]) for i in images[:N_IMAGES]],
         "ms_per_image": [ms for _, ms in runs],
         "ms_per_image_mean": float(np.mean([ms for _, ms in runs])),
@@ -3443,18 +3506,44 @@ def phase_vit_h():
     return by_shape
 
 
-def phase_small_vit_h():
+def _cropped(full: dict):
+    """A stand-in for `init.sam_state_dict` at a smaller size: `full`, a
+    draw of the same arch at its default size, each tensor cut to the
+    leading block of the shape the smaller model's parameter has (the
+    positional embedding, the global blocks' rel-pos tables, the DINOv2
+    projection).  Random weights either way; the comparison that uses them
+    holds the card and the CPU to the same ones, and no draw of 637 M
+    normals is made again."""
+    from crowdsam_tpu_torch.models.build import sam_model_registry
+
+    def fn(arch, seed=0, image_size=None, n_class=1, dino_dim=1024,
+           hq=False):
+        kw = dict(n_class=n_class, dino_dim=dino_dim, hq=hq)
+        if image_size:
+            kw["image_size"] = int(image_size)
+        with torch.device("meta"):
+            shapes = {k: v.shape for k, v in
+                      sam_model_registry[arch](**kw).state_dict().items()}
+        return {k: v[tuple(slice(0, n) for n in shapes[k])].contiguous()
+                for k, v in full.items()}
+    return fn
+
+
+def phase_small_vit_h(draw: HostDraw):
     """A small head-dim-80 configuration (SAM ViT-H at 256^2, DINOv2
     ViT-S/14): the card's bf16 kernel path (K1 at 1280, K2/K3 at head dim
     80, fused decode through K5/K6) against the plain float32 path on the
-    CPU, same weights, with the bounds of `small_reference`."""
+    CPU, same weights (`_cropped` from `phase_vit_h`'s draw), with the
+    bounds of `small_reference`."""
     from crowdsam_tpu_torch.config import modify_config
-
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils import init
 
     cfg = modify_config(_small_config(), ["model.sam_model", "vit_h"])
-    gpu = CrowdSAM(cfg, device="cuda")
-    _compare_small(gpu, cfg, "small_reference hd80")
+    with patched(init, "sam_state_dict", _cropped(draw.get())):
+        with _no_default_init():
+            gpu = CrowdSAM(cfg, device="cuda")
+        _compare_small(gpu, cfg, "small_reference hd80")
     del gpu
     torch.cuda.empty_cache()
 
@@ -3623,12 +3712,17 @@ def phase_trainfree():
     frame runs after a warm-up, the counts set to 0 just before it: ms,
     detections, K4's launches (the encode's DINOv2 and the sim map's, 24
     each), every kernel but K7 (box-only output) launched.  The frame's sim
-    map against the same function on the CPU in float32 (DINOv2 ViT-L on
-    the CPU, same weights): relative L2 within 5%."""
+    map against the same function in float32 (DINOv2 ViT-L, same weights,
+    on the card through the plain versions of K1 and K4 with TF32 off):
+    relative L2 within 5%."""
     import logging
 
     from crowdsam_tpu_torch.config import load_config
+    from crowdsam_tpu_torch.models import common as common_mod
+    from crowdsam_tpu_torch.models import dinov2 as dinov2_mod
+    from crowdsam_tpu_torch.models.attention import flash_mha_plain
     from crowdsam_tpu_torch.models.dinov2 import dino_model_registry
+    from crowdsam_tpu_torch.ops.layernorm import layer_norm_plain
     from crowdsam_tpu_torch.ops.transforms import stretch_bilinear
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
     from crowdsam_tpu_torch.pipeline.predictor import (
@@ -3647,7 +3741,8 @@ def phase_trainfree():
     logger.addHandler(Keep(level=logging.WARNING))
     cfg = load_config(TRAINFREE_CONFIG)
     t = time.time()
-    model = CrowdSAM(cfg, device="cuda", logger=logger)
+    with _no_default_init():
+        model = CrowdSAM(cfg, device="cuda", logger=logger)
     torch.cuda.synchronize()
     build_s = time.time() - t
     p, ecfg = model.predictor, model.engine_cfg
@@ -3668,14 +3763,23 @@ def phase_trainfree():
     d = p.dino_input
     sq = stretch_bilinear(model.image, (d, d))
     sim = p.trainfree_sim(sq, model.ref_feature).cpu()
-    cpu_dino = dino_model_registry[cfg["model"]["dino_model"]]()
-    cpu_dino.load_state_dict({k: v.float().cpu() for k, v in
+    with _no_default_init():
+        f32_dino = dino_model_registry[cfg["model"]["dino_model"]]()
+    f32_dino.load_state_dict({k: v.float() for k, v in
                               model.dino.state_dict().items()})
+    f32_dino = f32_dino.cuda().eval()
+    torch.cuda.synchronize()
     t = time.time()
-    sim_cpu = cosine_map(imagenet_tokens(cpu_dino.eval(), sq),
-                         model.ref_feature.cpu())
-    cpu_s = time.time() - t
-    rel = float((sim - sim_cpu).norm() / sim_cpu.norm())
+    # The same function in float32 through the plain versions of K1 and
+    # K4 (TF32 is off): the reference, not the path under test.
+    with patched(dinov2_mod, "flash_mha", flash_mha_plain), \
+            patched(dinov2_mod, "require_bf16_on_cuda", lambda *a: None), \
+            patched(common_mod, "layer_norm", layer_norm_plain):
+        sim_f32 = cosine_map(imagenet_tokens(f32_dino, sq),
+                             model.ref_feature.float()).cpu()
+    torch.cuda.synchronize()
+    f32_s = time.time() - t
+    rel = float((sim - sim_f32).norm() / sim_f32.norm())
     depth = len(model.dino.blocks)
     row = {
         "phase": "trainfree", "config": TRAINFREE_CONFIG + " as shipped "
@@ -3690,8 +3794,10 @@ def phase_trainfree():
         "candidates": int((model.fg_sim > ecfg.pos_sim_thresh).sum()),
         "sim_quantiles": np.quantile(sim.numpy(), [0.0, 0.5, 0.9, 1.0])
         .tolist(),
-        "sim_relative_l2_vs_cpu_f32": rel, "sim_tol": 5e-2,
-        "cpu_f32_sim_s": cpu_s,
+        "sim_relative_l2_vs_f32": rel, "sim_tol": 5e-2,
+        "f32_reference": "DINOv2 in float32 on the card through the plain "
+                         "versions of K1 and K4, TF32 off",
+        "f32_sim_s": f32_s,
         "launches_per_image": launches, "launches_by_shape": by_shape,
     }
     print(json.dumps(row), flush=True)
@@ -3703,10 +3809,10 @@ def phase_trainfree():
                       [k for k in launches if k != "survivor_rle"],
                       ["survivor_rle"])
     if not rel < 5e-2:
-        raise AssertionError(f"trainfree: sim map {rel} from the CPU's")
+        raise AssertionError(f"trainfree: sim map {rel} from float32's")
     if set(row["categories"]) - {0}:
         raise AssertionError(f"trainfree: categories {row['categories']}")
-    del model, cpu_dino
+    del model, f32_dino
     torch.cuda.empty_cache()
     return row
 
@@ -3853,7 +3959,8 @@ def phase_crop_layers():
     from crowdsam_tpu_torch.utils.synthetic import crowd_scene
 
     t = time.time()
-    model = CrowdSAM(load_config(MC_CONFIG), device="cuda")
+    with _no_default_init():
+        model = CrowdSAM(load_config(MC_CONFIG), device="cuda")
     torch.cuda.synchronize()
     build_s = time.time() - t
     assert model.crop_n_layers == 1
@@ -3886,8 +3993,9 @@ def phase_small_cases():
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 
     for label, opts in SMALL_CASES:
-        gpu = CrowdSAM(modify_config(_small_config(), list(opts)),
-                       device="cuda")
+        with _no_default_init():
+            gpu = CrowdSAM(modify_config(_small_config(), list(opts)),
+                           device="cuda")
         _compare_small(gpu, modify_config(_small_config(), list(opts)),
                        label)
         del gpu
@@ -4020,19 +4128,39 @@ def _sync_counted_loop(real_loop, records: list):
     return loop
 
 
+@contextlib.contextmanager
+def _no_default_init():
+    """Module construction without torch's default parameter fills: every
+    parameter of a `CrowdSAM` is overwritten by the drawn (or saved) state
+    dict, whose loader refuses a missing key, so the fills are wasted host
+    time (seconds a full-width model, more with ranks sharing the host)."""
+    names = ("kaiming_uniform_", "kaiming_normal_", "uniform_", "normal_",
+             "trunc_normal_", "xavier_uniform_", "xavier_normal_",
+             "constant_", "zeros_", "ones_")
+    real = {n: getattr(torch.nn.init, n) for n in names}
+    try:
+        for n in names:
+            setattr(torch.nn.init, n, lambda t, *a, **k: t)
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(torch.nn.init, n, fn)
+
+
 def _rank_model(weights: str, overrides=()):
     """The full-width model of `full_width_config()` (with `overrides`) on
-    cuda:0 with the weights the parent drew (`torch.save`d at `weights`),
-    without drawing them again."""
+    cuda:0 with the weights the parent drew (`torch.save`d at `weights`,
+    read through a memory map), without drawing them again."""
     from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
     from crowdsam_tpu_torch.utils import init
     from crowdsam_tpu_torch.utils.synthetic import full_width_config
 
     torch.cuda.set_device(0)
-    sd = torch.load(weights, weights_only=True)
+    sd = torch.load(weights, weights_only=True, mmap=True)
     with patched(init, "sam_state_dict", lambda *a, **k: sd["sam"]), \
-            patched(init, "dino_state_dict", lambda *a, **k: sd["dino"]):
+            patched(init, "dino_state_dict", lambda *a, **k: sd["dino"]), \
+            _no_default_init():
         return CrowdSAM(modify_config(full_width_config(), list(overrides)),
                         device="cuda")
 
@@ -4069,7 +4197,9 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
     0 just before and read just after; per run its results, host-clock ms
     per image, loop records, kernel launches, peak device memory, and the
     host syncs of each engine loop as torch's sync-debug mode sees them
-    (`_sync_counted_loop`; the timed run carries that mode's cost)."""
+    (`_sync_counted_loop`; the timed run carries that mode's cost); the
+    seconds from entry to the model, the mesh and each warm-up and run
+    (`timeline_s`) and to the last (`task_s`)."""
     from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
     from crowdsam_tpu_torch.parallel.mesh import create_mesh
     from crowdsam_tpu_torch.parallel.prompt_shard import (
@@ -4079,8 +4209,11 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
 
     from crowdsam_tpu_torch.parallel import spatial as spatial_mod
 
+    marks = [("enter", time.time())]
+    real_halo = spatial_mod.gather_halo
     with torch.no_grad():
         model = _rank_model(weights, task.get("overrides", ()))
+        marks.append(("model", time.time()))
         mesh = create_mesh(task["mesh"], device="cuda")
         coord = mesh.get_coordinate()
         pipe = None
@@ -4117,6 +4250,7 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
             model.predictor.encode_batch = encode_batch
             spatial.all_reduce = synced(spatial.all_reduce, "all_reduce")
             spatial_mod.gather_halo = synced(spatial_mod.gather_halo, "halo")
+        marks.append(("mesh", time.time()))
         out = dict(rank=rank, coordinate=coord, runs=[])
         for name, cfg, images, noises in task["runs"]:
             model.engine_cfg = cfg
@@ -4125,6 +4259,7 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
             else:
                 model.generator.manual_seed(task.get("seed", 0))
                 pipe.generate_batch(images[:task["batch"]])
+            marks.append((f"{name} warm-up", time.time()))
             model.generator.manual_seed(task.get("seed", 0))
             counters = _reset_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -4155,7 +4290,24 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
                     encode_s=spent["encode"],
                     all_reduce_s=spent["all_reduce"],
                     halo_s=spent["halo"])
+            marks.append((name, time.time()))
+    spatial_mod.gather_halo = real_halo
+    out["task_s"] = marks[-1][1] - marks[0][1]
+    out["timeline_s"] = {k: t - marks[0][1] for k, t in marks[1:]}
     return out
+
+
+def _rank_tasks(rank: int, world: int, weights: str, tasks: list):
+    """`_rank_task` for each of `tasks`, one after another in one spawn
+    (each with a model and a mesh of its own); their outputs in order."""
+    import gc
+
+    outs = []
+    for task in tasks:
+        outs.append(_rank_task(rank, world, weights, task))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
 
 
 def _rank_run(task, model, images, noises, mesh, pipe, coord, results,
@@ -4346,7 +4498,15 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
       generator reset to one seed, against this process's `generate_many`:
       the data axis (2, 1) at batch 4 with 2 ranks (and loaded on the
       first 7 scenes, a partial chunk), and the composed (2, 2) with
-      `prompt_axis "model"` and 4 ranks.
+      `prompt_axis "model"` and 4 ranks;
+    - `spatial_shard` (`phase_spatial_shard`), `spatial_halo` and
+      `train_mesh`.
+
+    The 2-rank paths (`prompt_shard`, `data_shard` (2, 1), `spatial_shard`
+    (1, 2)) run in one spawn of 2 ranks, one after another, each with a
+    model and a mesh of its own; the 4-rank ones (`data_shard` (2, 2),
+    `spatial_shard` (2, 2)) likewise in one spawn of 4 (`_rank_tasks`):
+    a spawn's start-up (~10 s) is paid once.
 
     Required: counts and categories equal, boxes within 0.5 px, scores
     within 1e-4, RLE strings equal or differing only at threshold ties
@@ -4358,7 +4518,8 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
     iteration (the engine's explicit count and torch's sync-debug
     warnings), collectives per lockstep iteration, bytes
     reduced a lockstep iteration and after the loop of an engine call,
-    peak memory by rank.  A rank
+    peak memory by rank, and each task's seconds in its rank (rank 0's,
+    from its model build to its last run).  A rank
     that fails or outlives its time limit fails the phase."""
     import tempfile
 
@@ -4383,50 +4544,67 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
                   ("loaded", loaded_cfg, [scene], noises[N_IMAGES:])]
         with torch.no_grad():
             t = time.perf_counter()
-            want, want_rows = _single_runs(model, p_runs)
+            p_want = _single_runs(model, p_runs)
             single_ms = (time.perf_counter() - t) * 1e3 / (N_IMAGES + 1)
-        t = time.perf_counter()
-        ranks = run_ranks(_rank_task, 2, (weights, dict(
-            kind="prompt_shard", mesh=(1, 2), runs=p_runs)),
-            join_timeout_s=300.0, threads=None)
-        prompt = dict(phase="prompt_shard", ranks=2, mesh=[1, 2],
-                      wall_s=time.perf_counter() - t,
-                      label=SHARING.format(n=2, card=card), nvidia_smi=smi,
-                      single_process_ms_per_image=single_ms,
-                      **_rank_summary("prompt_shard", ranks, want, want_rows,
-                                      reference_cfg))
-        print(json.dumps(prompt), flush=True)
-
         scenes = [crowd_scene(40 + i, *FRAME_SIZES[i % len(FRAME_SIZES)])[0]
                   for i in range(8)]
         d_runs = [("reference", reference_cfg, scenes, None),
                   ("loaded", loaded_cfg, scenes, None)]
         with torch.no_grad():
             want, want_rows = _single_runs(model, d_runs, seed=123)
-        data = dict(phase="data_shard", nvidia_smi=smi)
         partial = "loaded, 7 images (partial chunk)"
         want[partial], want_rows[partial] = want["loaded"][:7], want_rows[
             "loaded"]
-        for key, world, mesh, extra, runs in (
-                ("2x1 batch 4", 2, (2, 1), {},
-                 d_runs + [(partial, loaded_cfg, scenes[:7], None)]),
-                ("2x2 batch 4, prompt_axis model", 4, (2, 2),
-                 {"prompt_axis": "model"}, d_runs)):
+        s_runs = [("loaded, 2 crowd scenes", loaded_cfg, scenes[:2], None)]
+        s_want = ({"loaded, 2 crowd scenes": want["loaded"][:2]},
+                  {"loaded, 2 crowd scenes": want_rows["loaded"]})
+        tasks = {
+            2: [dict(kind="prompt_shard", mesh=(1, 2), runs=p_runs),
+                dict(kind="data_shard", mesh=(2, 1), batch=4, seed=123,
+                     runs=d_runs + [(partial, loaded_cfg, scenes[:7],
+                                     None)]),
+                dict(kind="data_shard", mesh=(1, 2), batch=1, runs=p_runs,
+                     spatial_axis="model")],
+            4: [dict(kind="data_shard", mesh=(2, 2), batch=4, seed=123,
+                     runs=d_runs, prompt_axis="model"),
+                dict(kind="data_shard", mesh=(2, 2), batch=2, runs=s_runs,
+                     spatial_axis="model", prompt_axis="model", seed=123)]}
+        spawned = {}
+        for world, ts in tasks.items():
             t = time.perf_counter()
-            ranks = run_ranks(_rank_task, world, (weights, dict(
-                kind="data_shard", mesh=mesh, batch=4, seed=123, runs=runs,
-                **extra)), join_timeout_s=420.0, threads=None)
+            ranks = run_ranks(_rank_tasks, world, (weights, ts),
+                              join_timeout_s=600.0, threads=None)
+            wall = time.perf_counter() - t
+            spawned[world] = [dict(
+                ranks=[rk[i] for rk in ranks], spawn_wall_s=wall,
+                task_s=ranks[0][i]["task_s"]) for i in range(len(ts))]
+        one, two = spawned[2], spawned[4]
+
+        def timing(run):
+            return dict(spawn_wall_s=run["spawn_wall_s"],
+                        task_s=run["task_s"])
+
+        prompt = dict(phase="prompt_shard", ranks=2, mesh=[1, 2],
+                      **timing(one[0]),
+                      label=SHARING.format(n=2, card=card), nvidia_smi=smi,
+                      single_process_ms_per_image=single_ms,
+                      **_rank_summary("prompt_shard", one[0]["ranks"],
+                                      *p_want, reference_cfg))
+        print(json.dumps(prompt), flush=True)
+        data = dict(phase="data_shard", nvidia_smi=smi)
+        for key, world, run in (
+                ("2x1 batch 4", 2, one[1]),
+                ("2x2 batch 4, prompt_axis model", 4, two[0])):
             data[key] = dict(
-                ranks=world, wall_s=time.perf_counter() - t,
+                ranks=world, **timing(run),
                 label=SHARING.format(n=world, card=card),
-                **_rank_summary(f"data_shard {key}", ranks, want,
+                **_rank_summary(f"data_shard {key}", run["ranks"], want,
                                 want_rows, reference_cfg))
         print(json.dumps(data), flush=True)
         spatial = phase_spatial_shard(
-            model, weights, p_runs, _single_runs(model, p_runs),
-            [("loaded, 2 crowd scenes", loaded_cfg, scenes[:2], None)],
-            ({"loaded, 2 crowd scenes": want["loaded"][:2]},
-             {"loaded, 2 crowd scenes": want_rows["loaded"]}),
+            model, {"1x2 batch 1": (one[2], p_runs, p_want),
+                    "2x2 batch 2, prompt_axis model": (two[1], s_runs,
+                                                       s_want)},
             reference_cfg)
         halo = phase_spatial_halo(model, weights, frames[0], scene,
                                   [noises[0], noises[N_IMAGES]],
@@ -4493,8 +4671,7 @@ def _spatial_details(label, row, model, ranks, runs, mesh, per_image):
                 run["halo_s"] * 1e3 / images_a_rank for run in per_rank])
 
 
-def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
-                        reference_cfg):
+def phase_spatial_shard(model, spawned, reference_cfg):
     """`ShardedPipeline(spatial_axis="model")` at full width, one process a
     rank on this one card over gloo: a (1, 2) mesh at batch 1 on the main
     path's frames (reference thresholds) and crowd_scene(0) loaded, with
@@ -4502,6 +4679,8 @@ def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
     at batch 2 on 2 crowd scenes loaded, the generator reset to the seed
     of `data_shard`.  Each rank encodes its band of SAM's ViT ([0, 42) /
     [42, 64) token rows) and of DINOv2 ([0, 37) / [37, 73) patch rows).
+    The ranks ran in `phase_multi_device`'s spawns (`spawned`: by layout,
+    the ranks' results, the runs and this process's results of them).
 
     Required, besides what `_rank_summary` requires (detections equal to
     this process's or differing only at threshold ties, scores by bf16
@@ -4514,28 +4693,21 @@ def phase_spatial_shard(model, weights, p_runs, p_want, d_runs, d_want,
     the all-reduces' share of it (host clock, synchronized around each) and
     peak memory by rank (ranks sharing one card: not multi-card
     figures)."""
-    from crowdsam_tpu_torch.parallel.launch import run_ranks
-
     card, smi = torch.cuda.get_device_name(0), _smi()
     out = dict(phase="spatial_shard", nvidia_smi=smi)
-    for key, world, mesh, batch, extra, runs, (want, want_rows) in (
-            ("1x2 batch 1", 2, (1, 2), 1, {}, p_runs, p_want),
-            ("2x2 batch 2, prompt_axis model", 4, (2, 2), 2,
-             {"prompt_axis": "model", "seed": 123}, d_runs, d_want)):
-        t = time.perf_counter()
-        ranks = run_ranks(_rank_task, world, (weights, dict(
-            kind="data_shard", mesh=mesh, batch=batch, runs=runs,
-            spatial_axis="model", **extra)), join_timeout_s=300.0,
-            threads=None)
-        row = dict(ranks=world, wall_s=time.perf_counter() - t,
+    for key, world, mesh in (("1x2 batch 1", 2, (1, 2)),
+                             ("2x2 batch 2, prompt_axis model", 4, (2, 2))):
+        run, runs, (want, want_rows) = spawned[key]
+        row = dict(ranks=world, spawn_wall_s=run["spawn_wall_s"],
+                   task_s=run["task_s"],
                    label=SHARING.format(n=world, card=card),
-                   **_rank_summary(f"spatial_shard {key}", ranks, want,
-                                   want_rows, reference_cfg,
+                   **_rank_summary(f"spatial_shard {key}", run["ranks"],
+                                   want, want_rows, reference_cfg,
                                    encode_roundings=True))
-        _spatial_details(f"spatial_shard {key}", row, model, ranks, runs,
-                         mesh, {"window_attention": 20,
-                                "flash_mha_decomposed_relpos": 4,
-                                "flash_mha": 24})
+        _spatial_details(f"spatial_shard {key}", row, model, run["ranks"],
+                         runs, mesh, {"window_attention": 20,
+                                      "flash_mha_decomposed_relpos": 4,
+                                      "flash_mha": 24})
         out[key] = row
     print(json.dumps(out), flush=True)
     return out
@@ -5118,6 +5290,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
+    draws = start_draws()
     k6_job = start_gelu_probe()
     _build.build_all(ptxas_verbose=True)
     k6_probe = finish_gelu_probe(k6_job)
@@ -5170,10 +5343,11 @@ def main() -> int:
         synthetic_images,
     )
 
-    phase_numpy_init()
+    phase_numpy_init(draws["main"])
     t0 = time.time()
-    model = CrowdSAM(full_width_config(), device="cuda")
-    small = CrowdSAM(_small_config(), device="cuda")
+    with _no_default_init():
+        model = CrowdSAM(full_width_config(), device="cuda")
+        small = CrowdSAM(_small_config(), device="cuda")
     torch.cuda.synchronize()
     log(f"models built in {time.time() - t0:.1f} s")
     frame = synthetic_images(3, 1)[0]
@@ -5223,9 +5397,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli()
     torch.cuda.empty_cache()
-    vit_h_shapes = phase_vit_h()
+    vit_h_shapes = phase_vit_h(draws["vit_h"])
     torch.cuda.empty_cache()
-    phase_small_vit_h()
+    phase_small_vit_h(draws["vit_h"])
+    del draws
     phase_sam_hq()
     phase_mobile_sam()
     tiny = phase_spatial_tiny_vit()

@@ -6,7 +6,11 @@ The single-host counterpart of `torchrun --nproc_per_node N`, on
 `torch.multiprocessing.start_processes` (the `spawn` start method): each
 rank forms the default process group over a file store with the groups'
 timeout (`mesh.GROUP_TIMEOUT_S`), calls `fn(rank, world, *args)` and
-hands back what it returns (pickled).  The caller waits with a time limit
+hands back what it returns (pickled).  The arguments reach the ranks
+through a file in the work directory, not through the spawn pipe: a write
+to that pipe larger than its buffer waits until the child has imported its
+main module, so large arguments would start the ranks one after another.
+The caller waits with a time limit
 of its own: a rank that raises, exits or outlives the limit fails the run,
 and every rank still running is killed.  `fn` must be importable by name
 in a fresh process (a module-level function).
@@ -28,11 +32,13 @@ from torch.multiprocessing.spawn import ProcessException
 from crowdsam_tpu_torch.parallel.mesh import GROUP_TIMEOUT_S
 
 
-def _rank_main(rank: int, fn, world: int, args, backend: str, workdir: str,
+def _rank_main(rank: int, fn, world: int, backend: str, workdir: str,
                threads: Optional[int]):
     import torch
     import torch.distributed as dist
 
+    with open(os.path.join(workdir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     if threads is not None:
         torch.set_num_threads(threads)
     dist.init_process_group(
@@ -60,8 +66,10 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), *,
     when None)."""
     own = workdir is None
     work = tempfile.mkdtemp(prefix="ranks_", dir=workdir)
+    with open(os.path.join(work, "args.pkl"), "wb") as f:
+        pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
     ctx = mp.start_processes(
-        _rank_main, args=(fn, world, tuple(args), backend, work, threads),
+        _rank_main, args=(fn, world, backend, work, threads),
         nprocs=world, join=False, start_method="spawn")
     try:
         deadline = time.monotonic() + join_timeout_s

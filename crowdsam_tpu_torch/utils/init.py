@@ -82,6 +82,15 @@ def draw(entries: Entries, seed: int, scale: float = 0.02
     return out
 
 
+@functools.lru_cache(maxsize=16)
+def _drawn(entries: Tuple[Tuple[str, Tuple[int, ...]], ...], seed: int
+           ) -> Dict[str, np.ndarray]:
+    """`draw` of one module, kept for the process's next tree that holds
+    the same module from the same seed (the HQ decoder's or another class
+    count's SAM shares its image encoder's draw).  Read only."""
+    return draw(list(entries), seed)
+
+
 def unflatten(flat: Dict[str, np.ndarray]) -> dict:
     tree: dict = {}
     for path, leaf in flat.items():
@@ -143,7 +152,7 @@ def sam_params(arch: str, seed: int = 0, image_size: Optional[int] = None,
     whose tree holds it) `dino_proj` `seed + 3` (N(0, 0.02) kernel, zero
     bias)."""
     entries = sam_entries(arch, image_size, n_class, hq, dino_dim)
-    tree = {name: unflatten(draw(entries[name], seed + k))
+    tree = {name: unflatten(_drawn(tuple(entries[name]), seed + k))
             for k, name in enumerate(("image_encoder", "prompt_encoder",
                                       "mask_decoder"))}
     if hq and has_hq(arch):

@@ -90,10 +90,14 @@ the gitignored `build/kernels/`), then:
    max_area / min_area, accumulate_occupy, fuse_simmap, fullres_cleanup,
    under which K7 must not launch); `tpu.rect_encode` against the square
    encode on the three frames (`rect_encode`: the encode's device and
-   host ms, ms per image, launches by shape; the kernels K2 on the bands'
-   56x70 / 70x56 grids, K3 at 44x64 / 48x64 (bias in registers) and 64x48
-   / 64x44 (folded), K4 at 3724 and 4016 tokens held against their plain
-   versions beforehand, phases `K2 rect`, `K3 rect`, `K4 rect`);
+   host ms, ms per image, launches by shape and by K3's form; the kernels
+   K2 on the bands' 56x70 / 70x56 grids, K3 at 44x64 / 48x64 (bias in
+   registers) and 64x48 / 64x44 (bias in registers on the exchanged grid,
+   read column by column, with faults of the exchange; the folded form
+   timed beside), K4 at 3724 and 4016 tokens held against their plain
+   versions beforehand, phases `K2 rect`, `K3 rect`, `K4 rect`; K2 and K3
+   print each instantiation's shared memory, blocks an SM and spilled
+   bytes);
    `configs/crowdhuman_trainfree.yaml` as shipped (`trainfree`: its
    missing reference feature's warning, then a template feature from a
    seeded scene; K4 48 launches a frame, the sim map against the CPU's
@@ -388,9 +392,67 @@ def _relpos_extra(wrapper, sdpa, iters):
                 library_device_ms=device_ms(sdpa, iters))
 
 
+def _ptxas_spills(lib: str = "attention") -> dict:
+    """Spilled bytes (stores, loads) by kernel instantiation, from ptxas's
+    report of the last verbose build of `csrc/<lib>.cu`: keys
+    `flash_attn_relpos<MODE,NSLAB,HD,COLS>` and `window_attn_relpos<TK,HD>`
+    from the mangled names' template arguments."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    out, name = {}, None
+    for line in _build.BUILD_LOGS.get(lib, "").splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?"
+                      r"(flash_attn_relpos|window_attn_relpos)I(\w+?)EEv",
+                      line)
+        if m:
+            name = f"{m.group(1)}<" + ",".join(
+                re.findall(r"L[ib](\d+)E", m.group(2) + "E")) + ">"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name] = [int(m.group(1)), int(m.group(2))]
+            name = None
+    return out
+
+
+def _instantiation(head_dim: int, form: str, arg: int) -> dict:
+    """One K2/K3 kernel instantiation's dynamic shared memory, blocks an SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`, through the source's
+    `relpos_occupancy`) and the bytes ptxas reported spilled: K3 in `form`
+    (`arg`: FOLD's 64-dim slabs of the bias terms, else 1), K2 (`form`
+    "window") for windows of `arg` x `arg`."""
+    from crowdsam_tpu_torch.kernels import _build
+    from crowdsam_tpu_torch.models.attention import _FORM_MODES
+
+    fn = _build.function("attention", "relpos_occupancy",
+                         (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p))
+    out = (ctypes.c_int * 2)()
+    window = form == "window"
+    _build.check(fn(head_dim, 3 if window else _FORM_MODES[form], arg,
+                    ctypes.cast(out, ctypes.c_void_p)),
+                 f"relpos_occupancy {form} {arg}")
+    if window:
+        name = f"window_attn_relpos<{112 if arg * arg <= 224 else 128}," \
+               f"{head_dim}>"
+    else:
+        name = (f"flash_attn_relpos<{0 if form != 'fold' else 1},"
+                f"{arg if form == 'fold' else 1},{head_dim},"
+                f"{int(form == 'columns')}>")
+    spills = _ptxas_spills().get(name)
+    return dict(kernel=name, smem_bytes=out[0], blocks_per_sm=out[1],
+                spill_store_bytes=None if spills is None else spills[0],
+                spill_load_bytes=None if spills is None else spills[1])
+
+
 # --------------------------------------------------------------------------
 # kernel phases
 # --------------------------------------------------------------------------
+
+# The K2/K3 figures each row of the kernel table carries beside the contract's.
+RELPOS_EXTRA = ("wrapper_device_ms", "library_device_ms",
+                "kernel_over_library_device", "whole_fn_ms", "instantiations")
 
 def _k1_custom_op():
     """K1's launch registered through `torch.library.custom_op`, the other
@@ -530,6 +592,13 @@ def phase_window(gen, hd=64, grid=(70, 70), label=None):
     )
     if hd == 80:
         faults += _slab_faults(q, v, lambda qq, vv: faulty(qq=qq, vv=vv))
+        # Head dim 80 lays Rh's slab over QA: QA written before every warp's
+        # G = Q Rh^T has read it leaves fh without dims 64-79 of Rh.
+        rh_cut = rh.clone()
+        rh_cut[..., 64:] = 0
+        faults += (("Rh's 16-dim slab overwritten before G = Q Rh^T read it "
+                    "(fh from dims 0-63 of Rh)",
+                    faulty(tables=(rh_cut, rw))),)
     cmp = compare(f"window_attention hd {hd}", got, want, 1.5e-2,
                   faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
     del faults
@@ -563,6 +632,8 @@ def phase_window(gen, hd=64, grid=(70, 70), label=None):
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
     row = dict(shape=f"{nw}x{heads}x{n}x{hd}", **cmp, ms=t_k, device_ms=d_k,
                **extra, plain_ms=t_p, library_ms=t_l,
+               kernel_over_library_device=d_k / extra["library_device_ms"],
+               instantiations=[_instantiation(hd, "window", ws)],
                library_covers="SDPA on the partitioned windows with the bias "
                               "built beforehand",
                whole_fn_ms=t_w,
@@ -577,13 +648,18 @@ def phase_window(gen, hd=64, grid=(70, 70), label=None):
 
 def phase_global(gen, hd=64, hw=(64, 64)):
     """K3 at SAM ViT-B/L's head dim 64, or ViT-H's 80 (phase `K3 hd80`), on
-    SAM's 64x64 grid or a rect encode's (phase `K3 rect HxW`: the bias in
-    registers when 64 wide, else the folded form), its tables those of the
-    64-wide model resized to the grid as the encoder resizes them."""
+    SAM's 64x64 grid or a rect encode's (phase `K3 rect HxW`), in the form
+    `relpos_form` picks (the bias in registers on a grid 64 wide or on the
+    exchange of one 64 tall; else folded), the folded form timed beside it;
+    its tables those of the 64-wide model resized to the grid as the
+    encoder resizes them."""
     from crowdsam_tpu_torch.models.attention import (
         flash_mha_decomposed_relpos,
+        relpos_attention_columns,
         relpos_attention_plain,
+        relpos_form,
         relpos_global_launch,
+        to_columns,
     )
     from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 
@@ -593,11 +669,11 @@ def phase_global(gen, hd=64, hw=(64, 64)):
     qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
         torch.bfloat16)
     q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    rh = _rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
-                                          device="cuda"), hh)
-    rw = _rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
-                                          device="cuda"), ww)
+    p_h, p_w = (0.1 * torch.randn((2 * g - 1, hd), generator=gen,
+                                  device="cuda") for _ in range(2))
+    rh, rw = _rel_pos_table(p_h, hh), _rel_pos_table(p_w, ww)
     scale = hd ** -0.5
+    form = relpos_form(hh, ww, s)
     want = relpos_attention_plain(q, k, v, scale, rh, rw, hw)
     got = flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, hw)
     qf = q.float()
@@ -631,27 +707,56 @@ def phase_global(gen, hd=64, hw=(64, 64)):
         ("a 128-key tile's second half given its first half's grid row",
          faulty(terms=second_half_as_first)),
     )
+    if form == "columns":
+        # The exchange's own faults: the grid exchanged but each axis's
+        # table built from the other axis's parameters (Rh and Rw not
+        # exchanged), and the output rows left in column order (stored in
+        # the exchanged grid's order); on the exchanged grid a key tile is
+        # two grid columns, and the folded term is fh.
+        def second_column_as_first(fh, fw):
+            fw = fw.clone()
+            fw[..., 1::2] = fw[..., 0::2]
+            return fh, fw
+
+        faults += (
+            ("Rh and Rw not exchanged",
+             relpos_attention_columns(q, k, v, scale, _rel_pos_table(p_w, hh),
+                                      _rel_pos_table(p_h, ww), hw)),
+            ("output rows stored in grid order (not exchanged back)",
+             to_columns(want, hw)),
+            ("fh taken from the neighbouring row (row(k) + 1)",
+             faulty(terms=lambda fh, fw: (_shift_last(fh, 1), fw))),
+            ("a 128-key tile's second half given its first half's grid "
+             "column", faulty(terms=second_column_as_first)),
+        )
     if hd == 80:
         faults += _slab_faults(q, v, lambda qq, vv: faulty(qq=qq, vv=vv))
     cmp = compare(f"flash_mha_decomposed_relpos hd {hd} {hh}x{ww}", got, want,
                   6e-3, faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
-    form = "bias in registers" if ww == g else "folded"
+    forms = {"grid64": "bias in registers",
+             "columns": "bias in registers on the exchanged grid, read "
+                        "column by column",
+             "fold": "folded"}
+    nslab = 1 if hh + ww <= 64 else 2
+    instantiations = [_instantiation(hd, form, nslab if form == "fold"
+                                     else 1)]
     folded = {}
-    if ww == g:
-        # The folded form (the kernel's path for grids not 64 wide) on the
-        # same inputs: held to the same bound, and timed beside the main
-        # form.
-        fold = relpos_global_launch(q, k, v, scale, rh, rw, hw, fold=True)
+    if form != "fold":
+        # The folded form (the kernel's path for grids neither 64 wide nor
+        # 64 tall) on the same inputs: held to the same bound, and timed
+        # beside the main form.
+        fold = relpos_global_launch(q, k, v, scale, rh, rw, hw, "fold")
         cmp_fold = compare("flash_mha_decomposed_relpos (folded form)", fold,
                            want, 6e-3, faults=faults, mean_atol=0.015 * rms,
                            min_fault=8.0)
         del fold
         folded = dict(folded_form=dict(
             device_ms=device_ms(lambda: relpos_global_launch(
-                q, k, v, scale, rh, rw, hw, fold=True), 10,
+                q, k, v, scale, rh, rw, hw, "fold"), 10,
                 "flash_attn_relpos"),
             err_over_tol=cmp_fold["err_over_tol"],
             max_abs_err=cmp_fold["max_abs_err"]))
+        instantiations.append(_instantiation(hd, "fold", nslab))
     del faults
     t_k = time_ms(lambda: flash_mha_decomposed_relpos(q, k, v, scale, rh, rw,
                                                       hw), 10)
@@ -675,17 +780,19 @@ def phase_global(gen, hd=64, hw=(64, 64)):
     flops = heads * (4 * s * s * hd + 2 * s * (hh + ww) * hd)
     nbytes = qkv.numel() * 2 + s * dim * 2 + (rh.numel() + rw.numel()) * 4
     b_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    row = dict(shape=f"{heads}x{s}x{hd}", grid=f"{hh}x{ww}", form=form,
-               **cmp, ms=t_k, device_ms=d_k,
+    row = dict(shape=f"{heads}x{s}x{hd}", grid=f"{hh}x{ww}",
+               form=forms[form], **cmp, ms=t_k, device_ms=d_k,
                **extra, plain_ms=t_p, library_ms=t_l,
+               kernel_over_library_device=d_k / extra["library_device_ms"],
                library_covers="SDPA with the bias built beforehand",
-               **folded,
+               **folded, instantiations=instantiations,
                whole_fn_ms=t_w,
                whole_fn_covers="bias from q and tables + SDPA (several "
                                "PyTorch calls)",
                whole_fn_max_abs_err=whole_err, bound_ms=b_ms, bound_by=by)
-    name = ("K3 hd80" if hd == 80 else "K3 flash_mha_decomposed_relpos"
-            if hw == (g, g) else f"K3 rect {hh}x{ww}")
+    name = ("K3 hd80" if hd == 80 and hw == (g, g)
+            else "K3 flash_mha_decomposed_relpos" if hw == (g, g)
+            else f"K3 rect {hh}x{ww}" + (f" hd{hd}" if hd == 80 else ""))
     print(json.dumps({"phase": name, **row}), flush=True)
     return row
 
@@ -818,13 +925,14 @@ def phase_global_band(gen, hd=64, band=(42, 64), fold=False):
 
     def kernel():
         if fold:
-            return relpos_global_launch(qb, k, v, scale, rh, rw, hw,
-                                        fold=True, row0=lo)
+            return relpos_global_launch(qb, k, v, scale, rh, rw, hw, "fold",
+                                        row0=lo)
         return flash_mha_decomposed_relpos(qb, k, v, scale, rh, rw, hw, lo)
 
     want = relpos_attention_plain(qb, k, v, scale, rh, rw, hw, lo)
     got = kernel()
-    whole = relpos_global_launch(q, k, v, scale, rh, rw, hw, fold=fold)
+    whole = relpos_global_launch(q, k, v, scale, rh, rw, hw,
+                                 "fold" if fold else "grid64")
     same = _same_rows(got, whole[:, :, lo * g:hi * g])
     del whole
     qf = qb.float()
@@ -866,6 +974,8 @@ def phase_global_band(gen, hd=64, band=(42, 64), fold=False):
                library_device_ms=d_l,
                library_covers="SDPA on the same Sq x Sk with the bias built "
                               "beforehand",
+               instantiations=[_instantiation(hd, "fold" if fold else "grid64",
+                                              2 if fold else 1)],
                bound_ms=b_ms, bound_by=by, bound_share=b_ms / d_k)
     print(json.dumps({"phase": "K3 band", **row}), flush=True)
     return row
@@ -1989,19 +2099,21 @@ def _reset_counts():
     for fn in counters.values():
         fn.launches = 0
         for tally in ("launches_by_width", "launches_by_head_dim",
-                      "launches_by_shape"):
+                      "launches_by_shape", "launches_by_form"):
             if hasattr(fn, tally):
                 getattr(fn, tally).clear()
     return counters
 
 
 def _launches_by_shape():
-    """K1's launches by row width, K2's and K3's by head dim, and K2's,
-    K3's and K4's by token grid (K2: its windows' padded grid), since the
-    counts were last set to 0."""
+    """K1's launches by row width, K2's and K3's by head dim, K2's, K3's
+    and K4's by token grid (K2: its windows' padded grid) and K3's by form,
+    since the counts were last set to 0."""
     c = _counters()
     attn = ("window_attention", "flash_mha_decomposed_relpos")
+    k3 = c["flash_mha_decomposed_relpos"]
     return {"layer_norm_by_width": dict(c["layer_norm"].launches_by_width),
+            "flash_mha_decomposed_relpos_by_form": dict(k3.launches_by_form),
             **{f"{k}_by_head_dim": dict(c[k].launches_by_head_dim)
                for k in attn},
             **{f"{k}_by_shape": dict(c[k].launches_by_shape)
@@ -3944,6 +4056,15 @@ def phase_rect(model, reference_cfg):
     if any(unheld.values()):
         raise AssertionError(f"rect_encode: shapes no kernel phase held: "
                              f"{unheld}")
+    # K3 on the grids 64 tall in the columns form, the others 64 wide in
+    # GRID64's: none folded.
+    k3_shapes = by_shape["flash_mha_decomposed_relpos_by_shape"]
+    tall = sum(n for g, n in k3_shapes.items() if g.startswith("64x")
+               and g != "64x64")
+    forms = by_shape["flash_mha_decomposed_relpos_by_form"]
+    if tall == 0 or forms.get("columns", 0) != tall or forms.get("fold"):
+        raise AssertionError(f"rect_encode: K3 on the grids 64 tall not in "
+                             f"the columns form alone: {k3_shapes}, {forms}")
     return row
 
 
@@ -5440,12 +5561,10 @@ def main() -> int:
         library_device_ms=bw["library_device_ms"]))
     for name, src, rep, row, extra in (
             ("window_attention", src_attn,
-             "crowdsam_tpu/models/attention.py:163", k2,
-             ("wrapper_device_ms", "library_device_ms", "whole_fn_ms")),
+             "crowdsam_tpu/models/attention.py:163", k2, RELPOS_EXTRA),
             ("flash_mha_decomposed_relpos", src_attn,
              "crowdsam_tpu/models/attention.py:126", k3,
-             ("wrapper_device_ms", "library_device_ms", "folded_form",
-              "whole_fn_ms")),
+             RELPOS_EXTRA + ("folded_form",)),
             ("flash_mha", "crowdsam_tpu_torch/csrc/flash_sm90.cu",
              "crowdsam_tpu/models/attention.py:86", k4,
              ("library_device_ms", "kernel_over_library"))):
@@ -5508,12 +5627,10 @@ def main() -> int:
         library_device_ms=ln80["library_device_ms"]))
     for name, rep, row, extra in (
             ("window_attention", "crowdsam_tpu/models/attention.py:163",
-             k2_80, ("wrapper_device_ms", "library_device_ms",
-                     "whole_fn_ms")),
+             k2_80, RELPOS_EXTRA),
             ("flash_mha_decomposed_relpos",
              "crowdsam_tpu/models/attention.py:126", k3_80,
-             ("wrapper_device_ms", "library_device_ms", "folded_form",
-              "whole_fn_ms"))):
+             RELPOS_EXTRA + ("folded_form",))):
         at = next(i for i, r in enumerate(table) if r["name"] == name)
         table.insert(at + 1, dict(
             name=name, route="cuda", source=src_attn, replaces=rep,
@@ -5526,13 +5643,11 @@ def main() -> int:
     rect_shapes = rect["launches_by_shape_rect"]
     for name, rep, rows, key, extra in (
             ("window_attention", "crowdsam_tpu/models/attention.py:163",
-             k2_rect, "window_attention_by_shape",
-             ("wrapper_device_ms", "library_device_ms", "whole_fn_ms")),
+             k2_rect, "window_attention_by_shape", RELPOS_EXTRA),
             ("flash_mha_decomposed_relpos",
              "crowdsam_tpu/models/attention.py:126", k3_rect,
              "flash_mha_decomposed_relpos_by_shape",
-             ("wrapper_device_ms", "library_device_ms", "whole_fn_ms",
-              "form"))):
+             RELPOS_EXTRA + ("form", "folded_form"))):
         for (h, w), row in rows.items():
             table.append(dict(
                 name=name, route="cuda", source=src_attn, replaces=rep,
@@ -5540,7 +5655,7 @@ def main() -> int:
                 launches_in=f"rect_encode, {N_IMAGES} frames, grid {h}x{w}",
                 max_abs_err=row["max_abs_err"],
                 **{k: row[k] for k in keys}, device_ms=row["device_ms"],
-                **{k: row[k] for k in extra}))
+                **{k: row.get(k) for k in extra}))
     src_k4 = "crowdsam_tpu_torch/csrc/flash_sm90.cu"
     for s_tok, row in k4_rect.items():
         table.append(dict(
@@ -5626,8 +5741,7 @@ def main() -> int:
             launches_in="spatial_halo 1x6, six ranks, first frame",
             max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
             device_ms=row["device_ms"], grid=f"{gh}x{gw}",
-            **{k: row[k] for k in ("wrapper_device_ms", "library_device_ms",
-                                   "whole_fn_ms")}))
+            **{k: row[k] for k in RELPOS_EXTRA}))
     for (lo, hi), row in k3_band6.items():
         n = by_rank(halo, "flash_mha_decomposed_relpos_by_shape",
                     f"{hi - lo}x64 of 64x64")

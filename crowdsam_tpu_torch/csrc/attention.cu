@@ -25,7 +25,8 @@
 // wgmma.m64n128k16 from shared memory, the online softmax in f32 registers
 // (log2 domain), O += P V by wgmma.m64n64k16 with P packed from S's
 // accumulators.  The bias costs no shared-memory lookup per score; it
-// reaches the scores in one of three ways (the template's MODE):
+// reaches the scores in one of three ways (the template's MODE; K3's form
+// is picked by `models/attention.relpos_form`):
 //
 //   GRID64 (K3 on a grid 64 wide: SAM's 64x64, the main path).  A block's
 //     64 queries are one grid row r and a 128-key tile is two grid rows
@@ -38,7 +39,21 @@
 //     TMA), kept in shared memory, and the softmax adds fh[q, 2t] and
 //     fh[q, 2t + 1] to the row maxima and exponents of its two halves
 //     (two loads a row a tile).  Per score the SIMT work is K4's.
-//   FOLD (K3 on any other grid up to 64x64).  The TPU kernels' fold, in
+//     COLUMNS (the template's COLS): GRID64 on the whole of a grid 64
+//     tall and narrower (a portrait frame's 64x48, SAM's rect encode).
+//     Attention does not change when the keys are permuted, and permuting
+//     the queries permutes the output rows alike; exchanging rows and
+//     columns makes a (64, w) grid a (w, 64) one, 64 wide, with Rh and Rw
+//     trading places.  So q, k and v are read column by column through
+//     5-d tensor maps (the token axis split into {column, row}, a box one
+//     grid column of 64 tokens: a query block is one column, a key tile
+//     two loads of one), the term formed in the kernel is q.Rw[col(q)]
+//     (Rw as the kernel's Rh table), the folded 64-wide term q.Rh[row(q)]
+//     comes from the wrapper's batched product over the grid's rows, and
+//     a block's output row i is stored at grid token i w + column.
+//   FOLD (K3 on any other grid up to 64x64: under 64 both ways, a query
+//     band of a grid 64 tall, K2's windows above 16).  The TPU kernels'
+//     fold, in
 //     shared memory: QA = [fh | fw | 0] / scale in one or two 64-dim slabs,
 //     built once per block from the wrapper's fh/fw; KA = [onehot(row(k)) |
 //     onehot(col(k))], built by the consumer for each key tile; S = Q K^T +
@@ -83,8 +98,10 @@
 //      zero in shared memory (P is 0 there, and 0 x NaN would not be);
 //      query rows past the end are not stored.
 //   6. A wrong grid row for the second half of a tile, fw one column off or
-//      one-hot columns shifted by one: chip_smoke.py's K2/K3 phases hold
-//      plain versions with each of those faults against the tolerance.
+//      one-hot columns shifted by one; COLUMNS' tables not exchanged or its
+//      rows stored in grid order; K2's Rh slab overwritten (at head dim 80)
+//      before G has read it: chip_smoke.py's K2/K3 phases hold plain
+//      versions with each of those faults against the tolerance.
 //
 // Query bands (K3 on a rank of the spatial axis, which holds grid rows
 // [row0, row0 + q_rows) of the queries and every key): the block grid
@@ -109,15 +126,24 @@
 // tiles, of which 48 of 64 dims zeros, and 3 more k-steps of zeros a tile).
 // Both head dims are instantiations of the same templates; the slab code is
 // `if constexpr (HD == 80)`, so that the head-dim-64 kernels keep their
-// code and layout.  With the slab the head-dim-80 blocks need more than
-// half of the SM's shared memory, so one block runs a SM (two at 64).
+// code and layout.  With the slab K3's head-dim-80 blocks need more than
+// half of the SM's shared memory, so one block runs a SM (two at 64).  K2's
+// head-dim-80 layout is its own (`win_layout`), cut to two blocks an SM
+// (115,496 of the 115,712 bytes two blocks may take, against 134,184 for
+// the head-dim-64 order with the slabs): KA and V span the 224 rows that
+// two 112-key tiles read, not 256; K and K1 the window's 196 rows, not
+// 200 rounded to 1 KB; Rh's slab lies over QA, which is written only once
+// G = Q Rh^T has read it; the 32-byte swizzled slabs sit together at the
+// end, 256-byte aligned.
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
 
-enum Mode { GRID64 = 0, FOLD = 1 };   // K3's forms; K2 has its own kernel
+// K3's forms as the entry point takes them; K2 has its own kernel.  COLUMNS
+// is GRID64's kernel with its template flag COLS set.
+enum Mode { GRID64 = 0, FOLD = 1, COLUMNS = 2 };
 
 constexpr int THREADS = 256;       // consumer warpgroup + producer warpgroup
 constexpr int CONSUMER_WARPS = 4;
@@ -128,7 +154,6 @@ constexpr int MAX_WINDOW = 16;     // K2: ws^2 <= 256 keys (two tiles)
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int Q1_BYTES = BQ * ROW1_BYTES;    // 2 KB: the slab of 64 rows
 constexpr int TILE1_BYTES = BK * ROW1_BYTES; // 4 KB: the slab of 128 rows
-constexpr int TABLE1_BYTES = MAX_WINDOW * 16 * ROW1_BYTES;  // K2's Rh slab
 
 // The tensor maps of the second slab (head dim 80), a kernel's last
 // argument; an empty struct at head dim 64.
@@ -145,9 +170,7 @@ struct SlabMaps<64> {};
 //           K ring | [K1 ring] | V ring | [V1 ring] | barriers
 //   FOLD:   Q | [Q1] | QA (2 slabs) | KA (2 slabs) | K ring | [K1 ring] |
 //           V ring | [V1 ring] | barriers
-//   WINDOW: Q | [Q1] | QA | KA (256 rows; holds Rh first) | K (the window's
-//           rows, rounded to 8) | [K1] | V (256 rows; holds Rw first) |
-//           [V1 (256 rows; holds Rw's slab first)] | [Rh1] | barriers
+//   WINDOW: `win_layout` (its own order at head dim 80).
 // A product over a window's second tile reads TK rows of K and KA: the
 // rows past the window's keys are masked, whatever buffer they fall in.
 template <int MODE, int HD>
@@ -168,24 +191,53 @@ struct Ring {                      // K3: GRID64, FOLD
   static constexpr int SMEM = BAR + 8 * N_BARS + 1024;
 };
 
-// WINDOW layout for a window of `n` tokens.
+// WINDOW layout for a window of ws x ws tokens.
 struct WinLayout {
   int q1, qa, ka, k, k1, v, v1, rh1, bar, smem;
 };
 template <int HD>
-__host__ __device__ inline WinLayout win_layout(int n) {
+__host__ __device__ inline WinLayout win_layout(int ws) {
   constexpr bool WIDE = HD == D_WIDE;
-  const int rows = ((n + 7) / 8) * 8;
+  const int n = ws * ws;
   WinLayout w;
-  w.q1 = Q_BYTES;
-  w.qa = w.q1 + (WIDE ? Q1_BYTES : 0);
+  if constexpr (WIDE) {
+    // Head dim 80, cut to two blocks an SM (at most 115,712 bytes): the
+    // 128-byte swizzled tiles first, each a multiple of 1 KB, then the
+    // 32-byte swizzled slabs (256-byte aligned):
+    //   Q | QA (holds Rh's slab first) | KA (holds Rh first) | V (holds Rw
+    //   first) | K (n rows) | K1 (n rows) | V1 (holds Rw's slab first) |
+    //   Q1 | barriers
+    // KA and V span the rows that the two score tiles read (2 TK) or the
+    // table (16 ws), whichever is more; K and K1 the window's n rows (the
+    // second tile's rows past them fall in the next buffer: masked keys).
+    const int tk = n <= 2 * 112 ? 112 : BK;
+    const int span = 2 * tk > 16 * ws ? 2 * tk : 16 * ws;
+    w.qa = Q_BYTES;
+    w.rh1 = w.qa;
+    w.ka = w.qa + Q_BYTES;
+    w.v = w.ka + span * ROW_BYTES;
+    w.k = w.v + span * ROW_BYTES;
+    w.k1 = (w.k + n * ROW_BYTES + 255) / 256 * 256;
+    w.v1 = (w.k1 + n * ROW1_BYTES + 255) / 256 * 256;
+    w.q1 = w.v1 + span * ROW1_BYTES;
+    w.bar = w.q1 + Q1_BYTES;
+    // The second tile's reads of K and K1 stay inside the block's memory
+    // also for a small window, whose buffers after K are small.
+    int end = w.bar + 8 * 5;
+    end = end > w.k + 2 * tk * ROW_BYTES ? end : w.k + 2 * tk * ROW_BYTES;
+    end = end > w.k1 + 2 * tk * ROW1_BYTES ? end : w.k1 + 2 * tk * ROW1_BYTES;
+    w.smem = end + 1024;
+    return w;
+  }
+  // Head dim 64: Q | QA | KA (256 rows; holds Rh first) | K (the window's
+  // rows, rounded to 8) | V (256 rows; holds Rw first) | barriers.
+  const int rows = ((n + 7) / 8) * 8;
+  w.q1 = w.k1 = w.v1 = w.rh1 = 0;    // no second slab
+  w.qa = Q_BYTES;
   w.ka = w.qa + Q_BYTES;
   w.k = w.ka + 2 * TILE_BYTES;
-  w.k1 = w.k + rows * ROW_BYTES;
-  w.v = w.k1 + (WIDE ? (rows * ROW1_BYTES + 1023) / 1024 * 1024 : 0);
-  w.v1 = w.v + 2 * TILE_BYTES;
-  w.rh1 = w.v1 + (WIDE ? 2 * TILE1_BYTES : 0);
-  w.bar = w.rh1 + (WIDE ? TABLE1_BYTES : 0);
+  w.v = w.k + rows * ROW_BYTES;
+  w.bar = w.v + 2 * TILE_BYTES;
   w.smem = w.bar + 8 * 5 + 1024;   // k_full, v_full, rh_full, rw_full, v_free
   return w;
 }
@@ -204,8 +256,63 @@ struct Params {
   float scale_log2;          // softmax scale * log2(e)
   float inv_scale;           // the folded bias terms are divided by scale
   int pos[3][3];             // K3: q/k/v map dims of (head, token, batch)
+  int pos5[3][4];            // K3 COLUMNS: q/k/v map dims of (head, column,
+                             // row, batch)
   int hp, wp, dim, nwh, nww; // K2: padded grid, channels of q, windows
 };
+
+// K3 COLUMNS: a 5-d map of one slab of a (B, H, S, hd) operand of a grid
+// whose S tokens are rows of `cols` columns, read column by column: the
+// token axis of the layout row (`models/attention.tma_layout`) split into
+// (column: stride t, row: stride cols t), a box of one column of BQ rows
+// (64 dims, or dims 64-79 under the 32-byte swizzle for slab 1).  pos5:
+// the map dims (1-4) of (head, column, row, batch).  The dims keep the
+// layout row's order of strides.
+inline bool encode_cols_slab(CUtensorMap* map, const void* ptr,
+                             const long long* lay, int* pos5, int cols,
+                             int slab) {
+  int pos[3];
+  for (int i = 0; i < 3; ++i) {
+    pos[i] = (int)lay[11 + i];
+    if (pos[i] < 1 || pos[i] > 3) return false;
+  }
+  if ((lay[0] != D && lay[0] != D_WIDE) || (slab && lay[0] != D_WIDE) ||
+      lay[pos[1]] != (long long)cols * BQ)
+    return false;
+  cuuint64_t dims[5] = {(cuuint64_t)lay[0]}, strides[4];
+  cuuint32_t box[5] = {(cuuint32_t)(slab ? D1 : D)};
+  int out = 1;
+  for (int i = 1; i < 4; ++i) {
+    const cuuint64_t st = (cuuint64_t)lay[3 + i];
+    if (i == pos[1]) {
+      pos5[1] = out;
+      dims[out] = cols, strides[out - 1] = st, box[out++] = 1;
+      pos5[2] = out;
+      dims[out] = BQ, strides[out - 1] = st * cols, box[out++] = BQ;
+    } else {
+      pos5[i == pos[0] ? 0 : 3] = out;
+      dims[out] = (cuuint64_t)lay[i], strides[out - 1] = st, box[out++] = 1;
+    }
+  }
+  return encode_bf16(map, ptr, 5, dims, strides, box,
+                     slab ? CU_TENSOR_MAP_SWIZZLE_32B
+                          : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// One grid column (BQ tokens) of head h, batch b through a column map, from
+// dim d0 (0, or D for the second slab).
+__device__ __forceinline__ void load_col(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, const int* pos5, int h,
+                                         int col, int b, int d0) {
+  int c[4];
+#pragma unroll
+  for (int slot = 1; slot <= 4; ++slot)
+    c[slot - 1] = pos5[0] == slot ? h
+                  : pos5[1] == slot ? col
+                  : pos5[2] == slot ? 0
+                                    : b;
+  tma_load_5d(dst, map, bar, d0, c[0], c[1], c[2], c[3]);
+}
 
 // A 16-byte chunk of 8 bf16, element i = 1 where 8 * chunk + i is `a` or
 // `b`, else 0.
@@ -295,7 +402,10 @@ __device__ __forceinline__ void store_rows_wide(const float (&o)[32],
 
 // NSLAB: FOLD's 64-dim slabs of [fh | fw] (h + w <= 64 * NSLAB).  HD: the
 // head dim, 64 or 80 (`m`: the maps of dims 64-79 of q, k, v and Rh).
-template <int MODE, int NSLAB, int HD>
+// COLS (GRID64 only): the grid is the exchange of a grid 64 tall, read
+// column by column (`tm_q/k/v` and `m.a-c` are column maps, `load_col`),
+// and a block's query row i is stored at token i * w + blockIdx.x.
+template <int MODE, int NSLAB, int HD, bool COLS = false>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -342,8 +452,14 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
       prefetch_map(&tm_k);
       prefetch_map(&tm_v);
       mbar_expect_tx(q_full, Q_BYTES + (WIDE ? Q1_BYTES : 0));
-      load_bhsd(sq, &tm_q, q_full, p.pos[0], h, q0, b);
-      if constexpr (WIDE) load_bhsd1(sq1, &m.a, q_full, p.pos[0], h, q0, b);
+      if constexpr (COLS) {          // the block's 64 queries: grid column
+        load_col(sq, &tm_q, q_full, p.pos5[0], h, blockIdx.x, b, 0);
+        if constexpr (WIDE)
+          load_col(sq1, &m.a, q_full, p.pos5[0], h, blockIdx.x, b, D);
+      } else {
+        load_bhsd(sq, &tm_q, q_full, p.pos[0], h, q0, b);
+        if constexpr (WIDE) load_bhsd1(sq1, &m.a, q_full, p.pos[0], h, q0, b);
+      }
       if (MODE == GRID64) {
         // The block's 64 queries are grid row row0 + blockIdx.x: Rh[row]
         // (64 j x 64 dims, rows past the table's end zero).
@@ -356,17 +472,37 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % STAGES;
         mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(full_k + 8 * s, TILE_BYTES + (WIDE ? TILE1_BYTES : 0));
-        load_bhsd(sk + s * TILE_BYTES, &tm_k, full_k + 8 * s, p.pos[1], h,
-                  it * BK, b);
-        if constexpr (WIDE)
-          load_bhsd1(sk1 + s * TILE1_BYTES, &m.b, full_k + 8 * s, p.pos[1],
-                     h, it * BK, b);
+        if constexpr (COLS) {        // the tile's two grid columns
+          for (int c = 0; c < 2; ++c) {
+            load_col(sk + s * TILE_BYTES + c * Q_BYTES, &tm_k, full_k + 8 * s,
+                     p.pos5[1], h, 2 * it + c, b, 0);
+            if constexpr (WIDE)
+              load_col(sk1 + s * TILE1_BYTES + c * Q1_BYTES, &m.b,
+                       full_k + 8 * s, p.pos5[1], h, 2 * it + c, b, D);
+          }
+        } else {
+          load_bhsd(sk + s * TILE_BYTES, &tm_k, full_k + 8 * s, p.pos[1], h,
+                    it * BK, b);
+          if constexpr (WIDE)
+            load_bhsd1(sk1 + s * TILE1_BYTES, &m.b, full_k + 8 * s, p.pos[1],
+                       h, it * BK, b);
+        }
         mbar_expect_tx(full_v + 8 * s, TILE_BYTES + (WIDE ? TILE1_BYTES : 0));
-        load_bhsd(sv + s * TILE_BYTES, &tm_v, full_v + 8 * s, p.pos[2], h,
-                  it * BK, b);
-        if constexpr (WIDE)
-          load_bhsd1(sv1 + s * TILE1_BYTES, &m.c, full_v + 8 * s, p.pos[2],
-                     h, it * BK, b);
+        if constexpr (COLS) {
+          for (int c = 0; c < 2; ++c) {
+            load_col(sv + s * TILE_BYTES + c * Q_BYTES, &tm_v, full_v + 8 * s,
+                     p.pos5[2], h, 2 * it + c, b, 0);
+            if constexpr (WIDE)
+              load_col(sv1 + s * TILE1_BYTES + c * Q1_BYTES, &m.c,
+                       full_v + 8 * s, p.pos5[2], h, 2 * it + c, b, D);
+          }
+        } else {
+          load_bhsd(sv + s * TILE_BYTES, &tm_v, full_v + 8 * s, p.pos[2], h,
+                    it * BK, b);
+          if constexpr (WIDE)
+            load_bhsd1(sv1 + s * TILE1_BYTES, &m.c, full_v + 8 * s, p.pos[2],
+                       h, it * BK, b);
+        }
       }
     }
     return;
@@ -522,8 +658,9 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
   }
 
   auto dst = [&](int i) -> __nv_bfloat16* {
-    const int q = q0 + i;
-    if (q >= p.seq_q) return nullptr;
+    // COLUMNS: the exchanged grid's rel_h rows are the grid's w columns.
+    const int q = COLS ? i * p.rel_h + blockIdx.x : q0 + i;   // grid token
+    if (q0 + i >= p.seq_q) return nullptr;
     return p.o + (long long)b * p.obs + (long long)h * p.ohs +
            (long long)q * p.old;
   };
@@ -548,7 +685,7 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   constexpr bool WIDE = HD == D_WIDE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int ws = p.rel_w, n = ws * ws;
-  const WinLayout lay = win_layout<HD>(n);
+  const WinLayout lay = win_layout<HD>(ws);
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sqa = base + lay.qa, ska = base + lay.ka;
   const uint32_t sk = base + lay.k, sv = base + lay.v;
@@ -642,6 +779,7 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   // QA = [fh | 0 | fw | 0] / scale, fh at dims 0-15 and fw at 16-31.
   constexpr int GB = 7;
   constexpr int TABLE_TILES = 2 * BK / 16;   // 16-row tiles a buffer holds
+                                             // (head dim 64)
   float qa_h[2][4], qa_w[2][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -665,8 +803,10 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
     const uint32_t table1 = tab == 0 ? sv1 : srh1;   // dims 64-79 (HD 80)
     for (int x0 = lo; x0 <= hi; x0 += GB) {
       // The last batch of a large window starts early so as to stay in
-      // the buffer (tiles past the table are never kept).
-      const int xs = min(x0, TABLE_TILES - GB);
+      // the buffer (tiles past the table are never kept); at head dim 80,
+      // whose buffers end with the table, inside the table.
+      const int xs = WIDE ? max(min(x0, ws - GB), 0)
+                          : min(x0, TABLE_TILES - GB);
       float g[GB * 8];
       wgmma_fence();
 #pragma unroll
@@ -700,6 +840,9 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
       if (lane == 0) mbar_arrive(v_free);   // Rw read: V may load over it
     }
   }
+  // Head dim 80: QA is written over Rh's slab, once every warp's G = Q
+  // Rh^T has read it.
+  if constexpr (WIDE) named_bar(1, 128);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = warp * 16 + (lane >> 2) + 8 * r;
@@ -716,12 +859,14 @@ window_attn_relpos(const __grid_constant__ CUtensorMap tm_k,
   }
 
   // KA: the one-hot rows and columns of the window's keys (over Rh), and
-  // V's rows past the window zeroed (over Rw; V loads into the rows before).
+  // V's rows past the window zeroed up to those the two tiles read (over
+  // Rw; V loads into the rows before).
+  constexpr int V_ROWS = WIDE ? 2 * TK : 2 * BK;
   named_bar(1, 128);
-  for (int e = n * 8 + tid; e < 2 * BK * 8; e += 128)
+  for (int e = n * 8 + tid; e < V_ROWS * 8; e += 128)
     st_shared_v4(sv + (e >> 3) * ROW_BYTES + ((e & 7) << 4), 0u, 0u, 0u, 0u);
   if constexpr (WIDE)
-    for (int e = n * 2 + tid; e < 2 * BK * 2; e += 128)
+    for (int e = n * 2 + tid; e < V_ROWS * 2; e += 128)
       st_shared_v4(sv1 + (e >> 1) * ROW1_BYTES + ((e & 1) << 4), 0u, 0u, 0u,
                    0u);
   for (int e = tid; e < n * 4; e += 128) {    // dims 0-31: two k-steps
@@ -785,24 +930,40 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// K3's kernels at head dim HD allowed their shared memory (once).
+template <int HD>
+cudaError_t global_attrs() {
+  static const cudaError_t err = [] {
+    const int g = Ring<GRID64, HD>::SMEM, f = Ring<FOLD, HD>::SMEM;
+    const cudaError_t errs[4] = {
+        allow_smem(flash_attn_relpos<GRID64, 1, HD>, g),
+        allow_smem(flash_attn_relpos<GRID64, 1, HD, true>, g),
+        allow_smem(flash_attn_relpos<FOLD, 1, HD>, f),
+        allow_smem(flash_attn_relpos<FOLD, 2, HD>, f)};
+    for (const cudaError_t e : errs)
+      if (e != cudaSuccess) return e;
+    return cudaSuccess;
+  }();
+  return err;
+}
+
 // K3's launch at head dim HD; maps[4..7] are the second slab's (HD 80).
 template <int HD>
 int global_launch(const CUtensorMap* maps, const Params& p, int batch,
                   int heads, int mode, cudaStream_t st) {
   using G = Ring<GRID64, HD>;
   using F = Ring<FOLD, HD>;
-  static const cudaError_t attr[3] = {
-      allow_smem(flash_attn_relpos<GRID64, 1, HD>, G::SMEM),
-      allow_smem(flash_attn_relpos<FOLD, 1, HD>, F::SMEM),
-      allow_smem(flash_attn_relpos<FOLD, 2, HD>, F::SMEM)};
-  for (cudaError_t e : attr)
-    if (e != cudaSuccess) return (int)e;
+  if (const cudaError_t e = global_attrs<HD>(); e != cudaSuccess)
+    return (int)e;
   SlabMaps<HD> m;
   if constexpr (HD == D_WIDE) m = {maps[4], maps[5], maps[6], maps[7]};
   if (batch > 0 && heads > 0) {
     const dim3 grid((p.seq_q + BQ - 1) / BQ, heads, batch);
     if (mode == GRID64)
       flash_attn_relpos<GRID64, 1, HD><<<grid, THREADS, G::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+    else if (mode == COLUMNS)
+      flash_attn_relpos<GRID64, 1, HD, true><<<grid, THREADS, G::SMEM, st>>>(
           maps[0], maps[1], maps[2], maps[3], p, m);
     else if (p.rel_h + p.rel_w <= D)
       flash_attn_relpos<FOLD, 1, HD><<<grid, THREADS, F::SMEM, st>>>(
@@ -814,31 +975,70 @@ int global_launch(const CUtensorMap* maps, const Params& p, int batch,
   return (int)cudaGetLastError();
 }
 
+// K2's kernels at head dim HD allowed the shared memory of the largest
+// window (once).
+template <int HD>
+cudaError_t window_attrs() {
+  static const cudaError_t err = [] {
+    const int smem = win_layout<HD>(MAX_WINDOW).smem;
+    const cudaError_t e = allow_smem(window_attn_relpos<112, HD>, smem);
+    return e != cudaSuccess ? e : allow_smem(window_attn_relpos<BK, HD>, smem);
+  }();
+  return err;
+}
+
 // K2's launch at head dim HD; maps[4..7] are the second slab's (HD 80).
 template <int HD>
 int window_launch(const CUtensorMap* maps, const Params& p, int batch,
                   int heads, cudaStream_t st) {
-  const int smem = win_layout<HD>(MAX_WINDOW * MAX_WINDOW).smem;
-  static const cudaError_t attr[2] = {
-      allow_smem(window_attn_relpos<112, HD>, smem),
-      allow_smem(window_attn_relpos<BK, HD>, smem)};
-  for (cudaError_t e : attr)
-    if (e != cudaSuccess) return (int)e;
+  if (const cudaError_t e = window_attrs<HD>(); e != cudaSuccess)
+    return (int)e;
   SlabMaps<HD> m;
   if constexpr (HD == D_WIDE) m = {maps[4], maps[5], maps[6], maps[7]};
-  const int n = p.seq;
+  const int n = p.seq, smem = win_layout<HD>(p.rel_w).smem;
   if (batch > 0 && heads > 0) {
     const dim3 grid((n + BQ - 1) / BQ, heads, batch * p.nwh * p.nww);
     if (n <= 2 * 112)
-      window_attn_relpos<112, HD><<<grid, THREADS, win_layout<HD>(n).smem,
-                                    st>>>(maps[0], maps[1], maps[2], maps[3],
-                                          p, m);
+      window_attn_relpos<112, HD><<<grid, THREADS, smem, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
     else
-      window_attn_relpos<BK, HD><<<grid, THREADS, win_layout<HD>(n).smem,
-                                   st>>>(maps[0], maps[1], maps[2], maps[3],
-                                         p, m);
+      window_attn_relpos<BK, HD><<<grid, THREADS, smem, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
   }
   return (int)cudaGetLastError();
+}
+
+// `out` = {dynamic shared memory, blocks an SM} of `kernel` at `smem` bytes.
+template <typename K>
+int occupancy(K kernel, int smem, int* out) {
+  out[0] = smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
+                                                            THREADS, smem);
+}
+
+template <int HD>
+int relpos_occupancy_at(int kind, int arg, int* out) {
+  if (kind == 3) {
+    if (arg < 1 || arg > MAX_WINDOW) return -6;
+    if (const cudaError_t e = window_attrs<HD>(); e != cudaSuccess)
+      return (int)e;
+    const int smem = win_layout<HD>(arg).smem;
+    return arg * arg <= 2 * 112
+               ? occupancy(window_attn_relpos<112, HD>, smem, out)
+               : occupancy(window_attn_relpos<BK, HD>, smem, out);
+  }
+  if (const cudaError_t e = global_attrs<HD>(); e != cudaSuccess)
+    return (int)e;
+  const int g = Ring<GRID64, HD>::SMEM, f = Ring<FOLD, HD>::SMEM;
+  if (kind == GRID64)
+    return occupancy(flash_attn_relpos<GRID64, 1, HD>, g, out);
+  if (kind == COLUMNS)
+    return occupancy(flash_attn_relpos<GRID64, 1, HD, true>, g, out);
+  if (kind == FOLD && arg == 1)
+    return occupancy(flash_attn_relpos<FOLD, 1, HD>, f, out);
+  if (kind == FOLD && arg == 2)
+    return occupancy(flash_attn_relpos<FOLD, 2, HD>, f, out);
+  return -6;
 }
 
 }  // namespace
@@ -848,15 +1048,20 @@ int window_launch(const CUtensorMap* maps, const Params& p, int batch,
 // grid rows [row0, row0 + q_rows) (a query band against every key; the
 // whole grid when q_rows = rel_h); each with its tensor-map layout
 // (`layouts`: 3 x 14 int64, q then k then v, each with dims[0] = hd and a
-// box of 64 dims); rh_table: the (rel_h, rel_h, hd) bf16 table, contiguous.
-// FOLD: fh/fw contiguous (B, H, Sq, rel_h) / (B, H, Sq, rel_w) bf16, the
-// band's rows.  GRID64: fh unused (formed in the kernel from Rh[row0 +
-// local row]); fw (64 j contiguous) at column c, (batch, head) bh and the
-// band's grid row r at c fw_strides[0] + bh fw_strides[1] + r
-// fw_strides[2]; o: the output, strides `o_strides` (batch, head, token;
-// elements).  `mode`: 0 (GRID64, a grid 64 wide only) or 1 (FOLD, any
-// grid).  At head dim 80 fh/fw come already divided by `scale` (at 64 the
-// kernel divides, x8 being exact).  Returns cudaGetLastError(), or -1 when
+// box of 64 dims); rh_table: the (rel_h, rel_h, hd) bf16 table, contiguous
+// (COLUMNS: the (rel_w, rel_w, hd) table).  FOLD: fh/fw contiguous (B, H,
+// Sq, rel_h) / (B, H, Sq, rel_w) bf16, the band's rows.  GRID64: fh unused
+// (formed in the kernel from Rh[row0 + local row]); fw (64 j contiguous) at
+// column c, (batch, head) bh and the band's grid row r at c fw_strides[0]
+// + bh fw_strides[1] + r fw_strides[2].  COLUMNS (the whole of a grid 64
+// tall, GRID64 on its exchange): the term formed in the kernel is q.Rw[
+// col(q)] from rh_table, and `fw` is q.Rh[row(q)] (64 j contiguous) at grid
+// row r, bh and grid column c at r fw_strides[0] + bh fw_strides[1] + c
+// fw_strides[2].  o: the output, strides `o_strides` (batch, head, token;
+// elements).  `mode`: 0 (GRID64, a grid 64 wide only), 1 (FOLD, any grid)
+// or 2 (COLUMNS, the whole of a grid 64 tall).  At head dim 80 fh/fw come
+// already divided by `scale` (at 64 the kernel divides, x8 being exact).
+// Returns cudaGetLastError(), or -1 when
 // the CUDA driver has no cuTensorMapEncodeTiled, -2 - i when operand i's
 // tensor map is refused, -6 for a grid outside 1..64, a band outside it, a
 // mode it does not take or another head dim.
@@ -874,8 +1079,9 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
   if (rel_h < 1 || rel_w < 1 || rel_h > MAX_GRID || rel_w > MAX_GRID)
     return -6;
   if (q_rows < 1 || row0 < 0 || row0 + q_rows > rel_h) return -6;
-  if (mode != GRID64 && mode != FOLD) return -6;
+  if (mode != GRID64 && mode != FOLD && mode != COLUMNS) return -6;
   if (mode == GRID64 && rel_w != MAX_GRID) return -6;
+  if (mode == COLUMNS && (rel_h != MAX_GRID || q_rows != rel_h)) return -6;
   if (head_dim != D && head_dim != D_WIDE) return -6;
   const bool wide = head_dim == D_WIDE;
   alignas(64) CUtensorMap maps[8];
@@ -884,10 +1090,20 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
   for (int i = 0; i < 3; ++i) {
     const long long* lay = layouts + 14 * i;
     if (lay[0] != head_dim) return -2 - i;
-    for (int slab = 0; slab < (wide ? 2 : 1); ++slab)
-      if (!encode_bhsd_slab(&maps[slab ? 4 + i : i], ptrs[i], lay,
-                            p.pos[i], i == 0 ? BQ : BK, slab))
+    for (int slab = 0; slab < (wide ? 2 : 1); ++slab) {
+      CUtensorMap* map = &maps[slab ? 4 + i : i];
+      if (mode == COLUMNS
+              ? !encode_cols_slab(map, ptrs[i], lay, p.pos5[i], rel_w, slab)
+              : !encode_bhsd_slab(map, ptrs[i], lay, p.pos[i],
+                                  i == 0 ? BQ : BK, slab))
         return -2 - i;
+    }
+  }
+  // COLUMNS runs GRID64 on the exchanged grid: rel_w rows of 64 tokens
+  // (its in-kernel term from the (rel_w, rel_w) table given as rh_table).
+  if (mode == COLUMNS) {
+    rel_h = q_rows = rel_w;
+    rel_w = MAX_GRID;
   }
   // Rh: {hd, h^2} rows of the (h, h, hd) table, a box of 64 rows (of 64
   // dims; of 16 dims from dim 64 on for the second slab).
@@ -990,4 +1206,15 @@ extern "C" int relpos_window_forward(const void* qkv, void* o, const void* rh,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return wide ? window_launch<D_WIDE>(maps, p, batch, heads, st)
               : window_launch<D>(maps, p, batch, heads, st);
+}
+
+// The dynamic shared memory (out[0], bytes) and the blocks an SM (out[1],
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor) of one instantiation at
+// head dim `head_dim`: K3's `kind` 0 (GRID64), 1 (FOLD, `arg` 64-dim slabs
+// of the bias terms) or 2 (COLUMNS); K2's (`kind` 3) for windows of `arg`
+// x `arg`.  Returns a cudaError_t, or -6 for what no kernel takes.
+extern "C" int relpos_occupancy(int head_dim, int kind, int arg, int* out) {
+  if (head_dim == D) return relpos_occupancy_at<D>(kind, arg, out);
+  if (head_dim == D_WIDE) return relpos_occupancy_at<D_WIDE>(kind, arg, out);
+  return -6;
 }

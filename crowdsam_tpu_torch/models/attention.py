@@ -13,16 +13,20 @@ Counterparts of the JAX package's `models/attention.py`:
 
 The rel-pos bias is bias[q, k] = fh[q, row(k)] + fw[q, col(k)] with fh =
 q.Rh[row(q)] and fw = q.Rw[col(q)].  K2 computes fh and fw inside the kernel
-from the tables; K3 on SAM's 64-wide grid computes fh inside and takes fw from
-one batched product here (a block's queries share their grid row, not their
-column), and on other grids takes both from here (two einsums, as the JAX code
-computes them).  The kernels read q/k/v straight out of the qkv projection
-through TMA tensor maps, so no head transpose or window partition is
-materialized: K3 and K4 through one map per (B, H, S, hd) operand, whose
-host-side layout `tma_layout` builds and checks; K2 through 5-d maps of the
-projection built in the kernel's entry point.  K2 and K3 take head dim 64
-(SAM ViT-B/L) and 80 (SAM ViT-H, its dims 64-79 as a second slab in the
-kernel); K4 takes 64 (every DINOv2 arch).  K3 and K4 also take fewer
+from the tables; K3 (`relpos_form`) on a grid 64 wide (SAM's) computes fh
+inside and takes fw from one batched product here (a block's queries share
+their grid row, not their column); on the whole of a grid 64 tall (a
+portrait frame's rect encode) it does the same on the exchanged grid, read
+column by column (`relpos_attention_columns`): fw inside, fh from one
+batched product here; on other grids it takes both from here (two einsums,
+as the JAX code computes them).  The kernels read q/k/v straight out of the
+qkv projection through TMA tensor maps, so no head transpose or window
+partition is materialized: K3 and K4 through one map per (B, H, S, hd)
+operand, whose host-side layout `tma_layout` builds and checks (K3's
+columns form splits its token axis in the entry point); K2 through 5-d
+maps of the projection built in the kernel's entry point.  K2 and K3 take
+head dim 64 (SAM ViT-B/L) and 80 (SAM ViT-H, its dims 64-79 as a second
+slab in the kernel); K4 takes 64 (every DINOv2 arch).  K3 and K4 also take fewer
 queries than keys: a rank of the spatial axis (`parallel/spatial.py`)
 holds a band of the queries (K3: grid rows from `row0`) and every key.
 
@@ -126,6 +130,28 @@ def relpos_attention_plain(q, k, v, sm_scale: float, rel_h, rel_w, hw,
               + fw.reshape(*lead, hq, w, 1, w))
     out = _softmax_av(logits.reshape(*lead, hq * w, h * w), v)
     return out.to(q.dtype)
+
+
+def to_columns(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., h*w, D) tokens of an h x w grid in column order: token (r, c)
+    moves to c*h + r, the grid's exchange (w x h, row-major)."""
+    h, w = hw
+    lead, d = x.shape[:-2], x.shape[-1]
+    return x.reshape(*lead, h, w, d).transpose(-3, -2).reshape(*lead,
+                                                               h * w, d)
+
+
+def relpos_attention_columns(q, k, v, sm_scale: float, rel_h, rel_w,
+                             hw) -> torch.Tensor:
+    """`relpos_attention_plain` over the whole grid as K3's columns form
+    computes it: q, k and v read in column order, the tables exchanged,
+    attention on the w x h grid, the output rows stored back in grid
+    order.  Attention does not change when the keys are permuted, and
+    permuting the queries permutes its rows alike: the same function."""
+    h, w = hw
+    out = relpos_attention_plain(*(to_columns(t, hw) for t in (q, k, v)),
+                                 sm_scale, rel_w, rel_h, (w, h))
+    return to_columns(out, (w, h))
 
 
 def window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads: int,
@@ -286,7 +312,8 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
         win = window_partition(qkv, window).reshape(-1, n, 3, num_heads, hd)
         q, k, v = win.permute(2, 0, 3, 1, 4)
         o = relpos_global_launch(q, k, v, scale, rel_h_tab, rel_w_tab,
-                                 (window, window), fold=window != MAX_REL)
+                                 (window, window),
+                                 relpos_form(window, window, n))
         _count(window_attention, hd, f"{hp}x{wp}")
         return window_unpartition(o.transpose(1, 2).reshape(-1, n, dim),
                                   window, hp, wp)
@@ -309,6 +336,23 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
     return out
 
 
+def relpos_form(h: int, w: int, sq: int, row0: int = 0) -> str:
+    """K3's form for `sq` queries from grid row `row0` of an h x w grid:
+    "grid64" on a grid 64 wide (the bias in registers: a block's 64
+    queries are one grid row), "columns" on the whole of a grid 64 tall and
+    narrower (the same on the exchanged grid, read column by column),
+    "fold" otherwise (grids under 64 both ways, a query band of a grid 64
+    tall; the bias folded into the product)."""
+    if w == MAX_REL:
+        return "grid64"
+    if h == MAX_REL and sq == h * w and row0 == 0:
+        return "columns"
+    return "fold"
+
+
+_FORM_MODES = {"grid64": 0, "fold": 1, "columns": 2}   # csrc/attention.cu
+
+
 def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
                                 hw, row0: int = 0) -> torch.Tensor:
     """Global attention with the decomposed rel-pos bias (K3).
@@ -319,37 +363,80 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
     Views with a contiguous head dim and 16-byte aligned strides are read
     in place (`tma_layout`); rel_h/rel_w: (h, h, D)/(w, w, D) gathered
     tables.  Returns (B, H, Sq, D), a (B, Sq, H, D) buffer seen as (B, H,
-    Sq, D).  A grid 64 wide (SAM's) takes the kernel's bias-in-registers
-    form, any other the folded form."""
+    Sq, D).  The kernel's form is `relpos_form`'s: the bias in registers on
+    a grid 64 wide, on the exchange of a grid 64 tall, else folded."""
     _build.refuse_grad("flash_mha_decomposed_relpos", q, k, v, rel_h, rel_w)
     if not _device_check(q, "flash_mha_decomposed_relpos"):
         return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw,
                                       row0)
-    out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw,
-                               fold=hw[1] != MAX_REL, row0=row0)
+    form = relpos_form(hw[0], hw[1], q.shape[2], row0)
+    out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw, form,
+                               row0)
     hq = q.shape[2] // hw[1]
     grid = f"{hw[0]}x{hw[1]}"
     _count(flash_mha_decomposed_relpos, q.shape[-1],
            grid if hq == hw[0] else f"{hq}x{hw[1]} of {grid}")
+    flash_mha_decomposed_relpos.launches_by_form[form] += 1
     return out
 
 
+def _kernel_terms(q, rh, rw, sm_scale: float, hw, form: str, row0: int = 0):
+    """What K3's entry point takes besides q, k, v in `form`: (fh, fw,
+    fw_strides, table).  fold: fh/fw of the band's queries, contiguous.
+    grid64: fw by one batched product over the grid's columns, read at
+    column c, (batch, head) bh and the band's grid row r at c
+    fw_strides[0] + bh fw_strides[1] + r fw_strides[2]; fh is formed in the
+    kernel from `table` = rh.  columns: the 64-wide term q.Rh[row(q)] by
+    one batched product over the grid's rows (r, bh, c by the same
+    strides) and the term formed in the kernel from `table` = rw.  The
+    kernel folds the terms into the product divided by the scale: at head
+    dim 64 that is an exact x8 in the kernel; at 80 (x8.94) the terms come
+    divided here, in f32, and are rounded to bf16 once (the entry point
+    then divides by 1)."""
+    hh, ww = hw
+    b, nh, sq, d = q.shape
+    hq = sq // ww
+    prescale = d != HEAD_DIM
+    qt, rht, rwt = (t.float() for t in (q, rh, rw)) if prescale else (q, rh,
+                                                                      rw)
+
+    def term(t):
+        return (t / sm_scale).to(q.dtype) if prescale else t
+
+    if form == "fold":
+        fh, fw = (term(t).contiguous()
+                  for t in _rel_bias_terms(qt, rht, rwt, hw, row0))
+        return fh, fw, (0, 0, 0), rh
+    qg = qt.reshape(b, nh, hq, ww, d)
+    if form == "grid64":
+        # one (b nh hq, d) x (d, 64) product for each grid column
+        qc = qg.permute(3, 0, 1, 2, 4).reshape(ww, b * nh * hq, d)
+        fw = term(torch.bmm(qc, rwt.transpose(1, 2)))
+        return None, fw, (b * nh * hq * ww, hq * ww, ww), rh
+    # columns: one (b nh w, d) x (d, 64) product for each grid row
+    qr = qg.permute(2, 0, 1, 3, 4).reshape(hh, b * nh * ww, d)
+    fh = term(torch.bmm(qr, rht.transpose(1, 2)))
+    return None, fh, (b * nh * ww * hh, ww * hh, hh), rw
+
+
 def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
-                         fold: bool, row0: int = 0) -> torch.Tensor:
-    """One launch of K3 on CUDA tensors: `fold` picks the folded form
-    (QA KA^T in the product), else the bias in registers (grids 64 wide).
-    q holds grid rows [row0, row0 + Sq / w) (`flash_mha_decomposed_relpos`).
-    `flash_mha_decomposed_relpos` picks the form by the grid;
-    `chip_smoke.py` times both forms on SAM's grid."""
+                         form: str, row0: int = 0) -> torch.Tensor:
+    """One launch of K3 on CUDA tensors in `form` ("grid64", "columns" or
+    "fold", `relpos_form`).  q holds grid rows [row0, row0 + Sq / w)
+    (`flash_mha_decomposed_relpos`, which picks the form by the grid;
+    `chip_smoke.py` also times the folded form beside the others)."""
     fn_name = "flash_mha_decomposed_relpos"
     hh, ww = hw
     b, nh, sq, d = q.shape
     hq = sq // max(ww, 1)
     if (d not in RELPOS_HEAD_DIMS or not 0 < max(hh, ww) <= MAX_REL
-            or min(hh, ww) < 1 or not (fold or ww == MAX_REL)
+            or min(hh, ww) < 1 or form not in _FORM_MODES
+            or (form == "grid64" and ww != MAX_REL)
+            or (form == "columns" and relpos_form(hh, ww, sq, row0)
+                != "columns")
             or sq != hq * ww or not 0 <= row0 < row0 + hq <= hh):
         raise ValueError(f"{fn_name}: unsupported shape {tuple(q.shape)} "
-                         f"grid {hw}, query rows from {row0}")
+                         f"grid {hw}, query rows from {row0}, form {form}")
     for t, name in ((k, "k"), (v, "v")):
         if t.shape != (b, nh, hh * ww, d) or t.device != q.device:
             raise ValueError(f"{fn_name}: {name} {tuple(t.shape)} on "
@@ -362,31 +449,8 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
                tma_layout(v, "v", TMA_KV_ROWS, fn_name, RELPOS_HEAD_DIMS))
     rh = rel_h.to(device=q.device, dtype=q.dtype).contiguous()
     rw = rel_w.to(device=q.device, dtype=q.dtype).contiguous()
-    # The kernel folds the terms into the product divided by the scale.  At
-    # head dim 64 that is an exact x8 in the kernel; at 80 (x8.94) the terms
-    # come divided here, in f32, and are rounded to bf16 once (the entry
-    # point then divides by 1).
-    prescale = d != HEAD_DIM
-    qt, rht, rwt = (t.float() for t in (q, rh, rw)) if prescale else (q, rh,
-                                                                      rw)
-
-    def term(t):
-        return (t / sm_scale).to(q.dtype) if prescale else t
-
-    if fold:
-        fh, fw = (term(t).contiguous()
-                  for t in _rel_bias_terms(qt, rht, rwt, hw, row0))
-        fw_strides = (0, 0, 0)
-    else:
-        # fh is formed in the kernel (a block is one grid row, its Rh row
-        # row0 + the block's); fw by one batched product over the grid's
-        # columns, read in its own layout (column c, then batch and head,
-        # then the band's grid row).
-        fh = None
-        qc = qt.reshape(b, nh, hq, ww, d).permute(3, 0, 1, 2, 4)
-        fw = term(torch.bmm(qc.reshape(ww, b * nh * hq, d),
-                            rwt.transpose(1, 2)))
-        fw_strides = (b * nh * hq * ww, hq * ww, ww)
+    fh, fw, fw_strides, table = _kernel_terms(q, rh, rw, sm_scale, hw, form,
+                                              row0)
     out = torch.empty((b, sq, nh, d), dtype=q.dtype, device=q.device)
     out = out.permute(0, 2, 1, 3)
     lay = _int64_array(tuple(x for lt in layouts for x in lt.row()))
@@ -396,10 +460,10 @@ def relpos_global_launch(q, k, v, sm_scale: float, rel_h, rel_w, hw,
                          _GLOBAL_ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if fh is None else fh.data_ptr(), fw.data_ptr(),
-                ctypes.cast(fst, ctypes.c_void_p), rh.data_ptr(),
+                ctypes.cast(fst, ctypes.c_void_p), table.data_ptr(),
                 ctypes.cast(lay, ctypes.c_void_p),
                 ctypes.cast(ost, ctypes.c_void_p), b, nh, hh, ww, hq, row0,
-                d, int(fold), float(sm_scale),
+                d, _FORM_MODES[form], float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernel_status(status, fn_name, ("q", "k", "v", "rel_h"))
     return out
@@ -471,5 +535,7 @@ flash_mha.launches = 0
 # `launches`.
 window_attention.launches_by_head_dim = collections.Counter()
 flash_mha_decomposed_relpos.launches_by_head_dim = collections.Counter()
+# K3's launches by form (`relpos_form`), counted with `launches`.
+flash_mha_decomposed_relpos.launches_by_form = collections.Counter()
 for _wrapper in (window_attention, flash_mha_decomposed_relpos, flash_mha):
     _wrapper.launches_by_shape = collections.Counter()

@@ -1,7 +1,7 @@
-"""Import boundary of the PyTorch port: `crowdsam_tpu_torch` and
-`chip_smoke.py` import neither JAX, flax, msgpack nor the JAX package
-(flax msgpack checkpoints go through the port's own reader), and the entry
-points refuse to fall back to the CPU silently."""
+"""Import boundary of the PyTorch port: `crowdsam_tpu_torch`,
+`chip_smoke.py` and `chip_ab_relpos.py` import neither JAX, flax, msgpack
+nor the JAX package (flax msgpack checkpoints go through the port's own
+reader), and the entry points refuse to fall back to the CPU silently."""
 
 import ast
 import re
@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "crowdsam_tpu")
 
 def _port_files():
     return sorted((ROOT / "crowdsam_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "chip_ab_relpos.py"]
 
 
 def _imported_roots(path: Path):

@@ -116,19 +116,23 @@ def test_relpos_kernel(gen, hw):
     """K3 (TMA + wgmma) against its plain version on strided views of one
     qkv buffer, distinct rel_h/rel_w tables: the main path's 64x64 grid and
     one 64 wide with a half tile at the end (the bias in registers), grids
-    whose h is not w and the 20x20 grid (the bias folded into the product,
-    one or two 64-dim slabs); the rect encode's grids of the 683x1024,
-    768x1024 and 1024x768 frames (44x64, 48x64: registers; 64x48: folded)
-    and 64x44.  atol 12% of the output's rms."""
+    64 tall (64x20, the rect encode's 64x48 of a 1024x768 frame and 64x44:
+    the bias in registers on the exchanged grid, read column by column),
+    grids under 64 both ways (the bias folded into the product, one or two
+    64-dim slabs); the rect encode's 44x64 and 48x64 (registers).  atol 12%
+    of the output's rms."""
     h, w = hw
     heads, hd, s = 2, 64, h * w
     qkv = torch.randn((1, s, 3 * heads * hd), generator=gen,
                       device="cuda").bfloat16()
     q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
     rh, rw = _tables(gen, h, w)
-    before = attention.flash_mha_decomposed_relpos.launches
+    k3 = attention.flash_mha_decomposed_relpos
+    form = attention.relpos_form(h, w, s)
+    before, by_form = k3.launches, k3.launches_by_form[form]
     got = attention.flash_mha_decomposed_relpos(q, k, v, 0.125, rh, rw, hw)
-    assert attention.flash_mha_decomposed_relpos.launches == before + 1
+    assert k3.launches == before + 1
+    assert k3.launches_by_form[form] == by_form + 1
     want = attention.relpos_attention_plain(q, k, v, 0.125, rh, rw, hw)
     rms = float(want.float().square().mean().sqrt())
     _close(got, want, 0.12 * rms)
@@ -142,13 +146,15 @@ def test_relpos_kernel(gen, hw):
 
 
 @pytest.mark.parametrize("b,grid,ws,heads", [
-    (1, 28, 14, 2), (1, 70, 14, 16), (2, 28, 14, 3), (1, 32, 16, 2),
-    (1, 24, 8, 2), (1, 40, 20, 2)])
+    (1, 28, 14, 2), (1, 70, 14, 16), (2, 28, 14, 3), (2, 70, 14, 16),
+    (1, 32, 16, 2), (1, 24, 8, 2), (1, 15, 5, 2), (1, 40, 20, 2)])
 def test_window_attention_kernel_head_dim_80(gen, b, grid, ws, heads):
     """K2 at SAM ViT-H's head dim 80 (dims 64-79 as a second slab in the
-    kernel): the main path's 70x70 grid with 16 heads, two images, windows
-    of one and of two key tiles, and 20x20 windows through K3's kernel;
-    atol 8% of the output's rms, as at 64."""
+    kernel, its own layout of two blocks an SM): the main path's 70x70 grid
+    with 16 heads at one and two images, windows of one and of two key
+    tiles (5x5 and 8x8 ones smaller than a batch of seven table tiles), and
+    20x20 windows through K3's kernel; atol 8% of the output's rms, as at
+    64."""
     hd = 80
     qkv = torch.randn((b, grid, grid, 3 * heads * hd), generator=gen,
                       device="cuda").bfloat16()
@@ -162,11 +168,13 @@ def test_window_attention_kernel_head_dim_80(gen, b, grid, ws, heads):
     _close(got, want, 0.08 * rms)
 
 
-@pytest.mark.parametrize("hw", [(64, 64), (20, 24), (17, 64), (7, 9)])
+@pytest.mark.parametrize("hw", [(64, 64), (20, 24), (17, 64), (7, 9),
+                                (64, 48), (64, 44)])
 def test_relpos_kernel_head_dim_80(gen, hw):
     """K3 at head dim 80 on strided views of one qkv buffer: SAM ViT-H's
-    64x64 grid (the bias in registers) and other grids (the bias folded);
-    atol 12% of the output's rms, as at 64."""
+    64x64 grid (the bias in registers), grids 64 tall (on the exchanged
+    grid) and other grids (the bias folded); atol 12% of the output's rms,
+    as at 64."""
     h, w = hw
     heads, hd, s = 2, 80, h * w
     qkv = torch.randn((1, s, 3 * heads * hd), generator=gen,

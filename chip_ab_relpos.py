@@ -4,27 +4,30 @@ source, on one card.
 
     python3 chip_ab_relpos.py PARENT_DIR
 
-PARENT_DIR holds the parent commit's `crowdsam_tpu_torch/csrc/` (for
-example `git archive <rev> crowdsam_tpu_torch/csrc | tar -x -C PARENT_DIR`
-into a directory that `.gitignore` lists).  Builds that source with nvcc
-beside this checkout's, then times, in turns (parent, change, change,
-parent), the device time torch.profiler reads:
+PARENT_DIR holds the parent commit's `crowdsam_tpu_torch/csrc/` and, where
+the kernels' entry point took other terms, its
+`crowdsam_tpu_torch/models/attention.py` (for example `git archive <rev>
+crowdsam_tpu_torch/csrc crowdsam_tpu_torch/models/attention.py | tar -x -C
+PARENT_DIR` into a directory that `.gitignore` lists).  Builds that source
+with nvcc beside this checkout's, then times, in turns (parent, change,
+change, parent), the device time torch.profiler reads:
 
 1. the kernels alone at the main path's shapes: K2 at head dims 80 and 64
-   on the 70x70 grid, K3 on SAM's 64x64 grid and on the grids 64 tall of a
-   portrait frame's rect encode (64x48, 64x44; 64x48 at head dim 80), with
-   SDPA on a prebuilt bias in the same turns, and the largest difference
-   between the two arms' outputs;
+   on the 70x70 grid, K3 on SAM's 64x64 grid at head dims 64 and 80, on
+   the grids 64 tall of a portrait frame's rect encode (64x48, 64x44;
+   64x48 at head dim 80) and on a band of 21 rows from row 21 at head dim
+   80, with SDPA on a prebuilt bias in the same turns, and the largest
+   difference between the two arms' outputs;
 2. the encodes they run in: the main model's square and rect encodes of
    the three synthetic frames (device span of one encode, and the host ms
    of `generate` in the same turns), and SAM ViT-H's encode (with K2's and
    K3's device ms on its first frame).
 
-The parent arm calls the parent library through the same wrappers; where
-the parent had no columns form (a grid 64 tall), it launches the folded
-form, as the parent's wrapper did.  Prints one JSON line a comparison, then
-the card's name and power limit.  Needs one card; the weights are drawn
-from their seeds (`chip_smoke.start_draws`).
+The parent arm calls the parent library through the same wrappers, with
+the parent's `_kernel_terms` (the terms K3's entry point takes besides q,
+k and v) where PARENT_DIR holds its `models/attention.py`.  Prints one JSON
+line a comparison, then the card's name and power limit.  Needs one card;
+the weights are drawn from their seeds (`chip_smoke.start_draws`).
 """
 
 from __future__ import annotations
@@ -45,10 +48,10 @@ TURNS = ("parent", "change", "change", "parent")
 
 
 class Arms:
-    """Switches K2's and K3's wrappers between the parent library and this
-    checkout's."""
+    """Switches K2's and K3's wrappers between the parent library (and the
+    parent's K3 terms, `parent_terms`) and this checkout's."""
 
-    def __init__(self, parent_lib: str):
+    def __init__(self, parent_lib: str, parent_terms=None):
         from crowdsam_tpu_torch.kernels import _build
         from crowdsam_tpu_torch.models import attention
 
@@ -63,17 +66,29 @@ class Arms:
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             self.fns[name] = {"parent": fn, "change": _build.function(
                 "attention", name, argtypes)}
-        self.form = attention.relpos_form
-
-    def parent_form(self, h, w, sq, row0=0):
-        form = self.form(h, w, sq, row0)
-        return "fold" if form == "columns" else form
+        self.terms = {"parent": parent_terms or attention._kernel_terms,
+                      "change": attention._kernel_terms}
 
     def use(self, arm: str) -> None:
         for name, fns in self.fns.items():
             self._build._FUNCS[("attention", name)] = fns[arm]
-        self._attn.relpos_form = (self.parent_form if arm == "parent"
-                                  else self.form)
+        self._attn._kernel_terms = self.terms[arm]
+
+
+def parent_terms(parent_dir: str):
+    """The parent's `_kernel_terms`, from PARENT_DIR's
+    `crowdsam_tpu_torch/models/attention.py` (None where it has none)."""
+    import importlib.util
+
+    path = (Path(parent_dir) / "crowdsam_tpu_torch" / "models"
+            / "attention.py")
+    if not path.exists():
+        return None
+    spec = importlib.util.spec_from_file_location("parent_attention", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module     # its dataclasses look it up
+    spec.loader.exec_module(module)
+    return module._kernel_terms
 
 
 def build_parent(parent_dir: str) -> str:
@@ -127,24 +142,29 @@ def window_case(gen, hd):
             lambda: sdpa(q, k, v, attn_mask=bias, scale=scale))
 
 
-def global_case(gen, hd, hw):
+def global_case(gen, hd, hw, band=None):
+    """K3 and SDPA on a prebuilt bias at head dim `hd` on an hh x ww grid;
+    `band` (lo, hi): the queries of grid rows [lo, hi) only."""
     from crowdsam_tpu_torch.models import attention as A
     from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
 
     g, heads = 64, 16
     hh, ww = hw
     s, dim = hh * ww, heads * hd
+    lo, hi = band or (0, hh)
     qkv = torch.randn((1, s, 3 * dim), generator=gen, device="cuda").to(
         torch.bfloat16)
     q, k, v = qkv.reshape(1, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q = q[:, :, lo * ww:hi * ww]
     rh = _rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
                                           device="cuda"), hh)
     rw = _rel_pos_table(0.1 * torch.randn((2 * g - 1, hd), generator=gen,
                                           device="cuda"), ww)
     scale = hd ** -0.5
-    bias = cs._relpos_bias(q.float(), rh, rw, hw).to(torch.bfloat16)
+    bias = cs._relpos_bias(q.float(), rh, rw, hw, row0=lo).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return (lambda: A.flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, hw),
+    return (lambda: A.flash_mha_decomposed_relpos(q, k, v, scale, rh, rw, hw,
+                                                  lo),
             lambda: sdpa(q, k, v, attn_mask=bias, scale=scale))
 
 
@@ -192,16 +212,19 @@ def main() -> int:
     draws = cs.start_draws()
     parent_lib = build_parent(sys.argv[1])
     _build.build_all()
-    arms = Arms(parent_lib)
+    arms = Arms(parent_lib, parent_terms(sys.argv[1]))
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         for hd in (80, 64):
             kernel_turns(arms, f"K2 hd{hd} 25x16x196", *window_case(gen, hd),
                          "window_attn_relpos")
         for hd, hw in ((64, (64, 64)), (64, (64, 48)), (64, (64, 44)),
-                       (80, (64, 48))):
+                       (80, (64, 64)), (80, (64, 48))):
             kernel_turns(arms, f"K3 hd{hd} {hw[0]}x{hw[1]}",
                          *global_case(gen, hd, hw), "flash_attn_relpos")
+        kernel_turns(arms, f"K3 hd80 rows {cs.ODD_K3_BAND} of 64x64",
+                     *global_case(gen, 80, (64, 64), cs.ODD_K3_BAND),
+                     "flash_attn_relpos")
         frames = synthetic_images(0, cs.N_IMAGES)
         draws["main"].get()
         with cs._no_default_init():

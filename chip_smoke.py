@@ -76,12 +76,18 @@ the gitignored `build/kernels/`), then:
    (phase `cli`);
    The other archs, each with the counts set to 0 just before and read
    just after: SAM ViT-H (width 1280, head dim 80) at full width and depth
-   with the shipped adapter on the three frames and a loaded crowd scene
-   (phase `vit_h`: K1 must launch at width 1280 and K2/K3 at head dim 80
-   only; the kernels K1 at 4096x1280 and K2/K3 at head dim 80 are held
-   against their plain versions beforehand, phases `K1 1280`, `K2 hd80`
-   and `K3 hd80`, with two faults of the head's 16-dim slab besides those
-   of their design), `sam_hq` on ViT-L (K5/K6 must not launch: the HQ
+   with the shipped adapter on the three frames, a loaded crowd scene and
+   the rect encode of two frames 64 tall (phase `vit_h`: K1 must launch at
+   width 1280 and K2/K3 at head dim 80 only, K3 in the columns form on
+   64x48 and 64x44; the kernels K1 at 4096x1280 and K2/K3 at head dim 80
+   are held against their plain versions beforehand, phases `K1 1280`,
+   `K2 hd80`, `K3 hd80` and `K3 rect 64x48 hd80` / `64x44 hd80`, with two
+   faults of the head's 16-dim slab besides those of their design; K3's
+   also with four of its blocks of two consumers: the second consumer's
+   fh from the first's Rh row, its QA from the first's, its rows stored
+   at the first's tokens, a ring stage released after one consumer only;
+   a head-dim-80 K3 kernel that ptxas reports spilling fails the phase),
+   `sam_hq` on ViT-L (K5/K6 must not launch: the HQ
    decoder decodes unfused) and `mobile_sam` (K2/K3 must not);
    the opt-in modes and the train-free branch, each with the counts set to
    0 just before and read just after: `tpu.compute_dtype float32` refused
@@ -130,7 +136,8 @@ the gitignored `build/kernels/`), then:
    the axis's all-reduces, bytes and peak memory a rank; K3 and K4 on the
    bands a rank holds at M = 2 are held against their plain versions
    beforehand (phases `K3 band`: rows 0-42 and 42-64 of the 64x64 grid,
-   head dims 64 and 80, the folded form; `K4 band`: tokens 0-2702 and
+   head dims 64 and 80, the folded form, and rows 21-42 at head dim 80, an
+   odd band from an odd row; `K4 band`: tokens 0-2702 and
    2702-5330 of 5330), with a fault of the band (Rh from row 0 on) and
    against the same rows of the whole launch; the collectives on a
    one-rank NCCL group and one try of two NCCL ranks on the card, whose
@@ -395,15 +402,16 @@ def _relpos_extra(wrapper, sdpa, iters):
 def _ptxas_spills(lib: str = "attention") -> dict:
     """Spilled bytes (stores, loads) by kernel instantiation, from ptxas's
     report of the last verbose build of `csrc/<lib>.cu`: keys
-    `flash_attn_relpos<MODE,NSLAB,HD,COLS>` and `window_attn_relpos<TK,HD>`
-    from the mangled names' template arguments."""
+    `flash_attn_relpos<MODE,NSLAB,HD,COLS>`, `flash_attn_relpos_wide<MODE>`
+    and `window_attn_relpos<TK,HD>` from the mangled names' template
+    arguments."""
     from crowdsam_tpu_torch.kernels import _build
 
     out, name = {}, None
     for line in _build.BUILD_LOGS.get(lib, "").splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?"
-                      r"(flash_attn_relpos|window_attn_relpos)I(\w+?)EEv",
-                      line)
+        m = re.search(r"Compiling entry function '_Z\w*?\d"
+                      r"(flash_attn_relpos(?:_wide)?|window_attn_relpos)"
+                      r"I(\w+?)EEv", line)
         if m:
             name = f"{m.group(1)}<" + ",".join(
                 re.findall(r"L[ib](\d+)E", m.group(2) + "E")) + ">"
@@ -436,11 +444,16 @@ def _instantiation(head_dim: int, form: str, arg: int) -> dict:
     if window:
         name = f"window_attn_relpos<{112 if arg * arg <= 224 else 128}," \
                f"{head_dim}>"
+    elif head_dim == 80 and form != "fold":
+        name = f"flash_attn_relpos_wide<{_FORM_MODES[form]}>"
     else:
         name = (f"flash_attn_relpos<{0 if form != 'fold' else 1},"
                 f"{arg if form == 'fold' else 1},{head_dim},"
                 f"{int(form == 'columns')}>")
     spills = _ptxas_spills().get(name)
+    if head_dim == 80 and not window and spills and any(spills):
+        raise AssertionError(f"{name}: ptxas spilled {spills} bytes (stores, "
+                             f"loads); K3's head-dim-80 kernels spill none")
     return dict(kernel=name, smem_bytes=out[0], blocks_per_sm=out[1],
                 spill_store_bytes=None if spills is None else spills[0],
                 spill_load_bytes=None if spills is None else spills[1])
@@ -536,6 +549,82 @@ def _slab_faults(q, v, attend):
     return (("the 16-dim slab left out of Q K^T", attend(q_cut, v)),
             ("V's 16-dim slab misaligned (its 16-byte chunks swapped)",
              attend(q, v_sw)))
+
+
+def _pair_faults(q, k, v, scale, rh, rw, hw, form, want, row0=0):
+    """Faults of K3's head-dim-80 blocks (`flash_attn_relpos_wide`), whose
+    two consumers hold the exchanged grid's rows 2x and 2x + 1 (grid rows
+    from `row0` on; the columns form: grid columns) and share the K/V
+    ring: the second consumer's fh from the first's Rh row, or its QA (the
+    folded term) from the first's; the second's output rows stored at the
+    first's tokens (its own never written); a ring stage released after
+    one consumer only (the second's V of every key tile from the tile three
+    on, the stage's next occupant)."""
+    h, w = hw
+    lead, d = q.shape[:-2], q.shape[-1]
+    cols = form == "columns"
+    hq = q.shape[-2] // w
+    # The exchanged rows' axis of a (..., hq, w, x) view of the queries.
+    axis = -2 if cols else -3
+    qf = q.float()
+
+    def from_first(x, ax):
+        """x with each odd entry along `ax` replaced by the one before."""
+        odd = torch.arange(1, x.shape[ax], 2, device=x.device)
+        return x.index_copy(ax % x.dim(), odd,
+                            x.index_select(ax % x.dim(), odd - 1))
+
+    def attend(rh_=rh, rw_=rw, terms=None, vv=v):
+        bias = _relpos_bias(qf, rh_, rw_, hw, terms, row0)
+        out = _attention_plain(q, k, vv, scale, bias)
+        del bias
+        return out
+
+    def second(x):                # the second consumers' rows of x
+        odd = torch.zeros(hq, w, 1, dtype=torch.bool, device=x.device)
+        if cols:
+            odd[:, 1::2] = True
+        else:
+            odd[1::2] = True
+        return odd.reshape(hq * w, 1)
+
+    # Rh[row] (columns: Rw[column]) of the first consumer's row.
+    if cols:
+        table_fault = attend(rw_=from_first(rw, 0))
+    else:
+        rows = torch.arange(row0 + 1, row0 + hq, 2, device=rh.device)
+        rh_f = rh.clone()
+        rh_f[rows] = rh[rows - 1]
+        table_fault = attend(rh_=rh_f)
+
+    def qa_from_first(fh, fw):    # the folded term: fw (columns: fh)
+        t = fh if cols else fw
+        t = from_first(t.reshape(*lead, hq, w, t.shape[-1]), axis).reshape(
+            t.shape)
+        return (t, fw) if cols else (fh, t)
+
+    grid = want.float().reshape(*lead, hq, w, d)
+    odd = torch.arange(1, grid.shape[axis], 2, device=grid.device)
+    stored = grid.index_copy(axis % grid.dim(), odd - 1,
+                             grid.index_select(axis % grid.dim(), odd))
+    stored = stored.index_fill(axis % grid.dim(), odd, 0.0)
+    # The stage's next occupant: key tile j + 3 (128 tokens a tile;
+    # columns: two grid columns a tile).
+    v_next = v.clone()
+    if cols:
+        vg, vn = v.reshape(*lead, h, w, d), v_next.reshape(*lead, h, w, d)
+        vn[..., :, :w - 6, :] = vg[..., :, 6:, :]
+    else:
+        v_next[..., :-384, :] = v[..., 384:, :]
+    early = torch.where(second(want), attend(vv=v_next), want.float())
+    return (("the second consumer's fh from the first's Rh row",
+             table_fault),
+            ("the second consumer's QA from the first's",
+             attend(terms=qa_from_first)),
+            ("the second consumer's rows stored at the first's tokens",
+             stored.reshape(want.shape)),
+            ("a ring stage released after one consumer only (the second's "
+             "V of each key tile from the tile 3 on)", early))
 
 
 def phase_window(gen, hd=64, grid=(70, 70), label=None):
@@ -731,6 +820,8 @@ def phase_global(gen, hd=64, hw=(64, 64)):
         )
     if hd == 80:
         faults += _slab_faults(q, v, lambda qq, vv: faulty(qq=qq, vv=vv))
+        if form != "fold":
+            faults += _pair_faults(q, k, v, scale, rh, rw, hw, form, want)
     cmp = compare(f"flash_mha_decomposed_relpos hd {hd} {hh}x{ww}", got, want,
                   6e-3, faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
     forms = {"grid64": "bias in registers",
@@ -949,6 +1040,9 @@ def phase_global_band(gen, hd=64, band=(42, 64), fold=False):
     if lo:
         faults.append(("Rh from row 0 on (the band's offset dropped)",
                        relpos_attention_plain(qb, k, v, scale, rh, rw, hw)))
+    if hd == 80 and not fold:
+        faults += _pair_faults(qb, k, v, scale, rh, rw, hw, "grid64", want,
+                               row0=lo)
     cmp = compare(f"K3 band rows {lo}-{hi} hd {hd}"
                   + (" folded" if fold else ""), got, want, 6e-3,
                   faults=faults, mean_atol=0.015 * rms, min_fault=8.0)
@@ -3581,6 +3675,18 @@ def phase_vit_h(draw: HostDraw):
     loaded_launches = {k: fn.launches for k, fn in counters.items()}
     nonempty = _check_rles(loaded, scene)
     model.engine_cfg = reference_cfg
+    # The rect encode of frames 64 tall: K3 at head dim 80 in the columns
+    # form on the portrait frame's 64x48 grid and on the first frame turned
+    # on its side (64x44).
+    tall = [images[1], np.ascontiguousarray(images[0].transpose(1, 0, 2))]
+    model.predictor.rect_encode = True
+    for img in tall:                          # warm-up
+        model.generate(img)
+    counters = _reset_counts()
+    rect_runs = [_timed_generate(model, img) for img in tall]
+    rect_launches = {k: fn.launches for k, fn in counters.items()}
+    rect_shapes = _launches_by_shape()
+    model.predictor.rect_encode = False
     row = {
         "phase": "vit_h",
         "config": "vit_h (1280 wide, 32 blocks, head dim 80) + dinov2_vitl14 "
@@ -3604,18 +3710,34 @@ def phase_vit_h(draw: HostDraw):
                    "ms": loaded_ms, "detections": len(loaded["boxes"]),
                    "nonempty_masks": nonempty,
                    "launches": loaded_launches},
+        "rect_encode": {"image_hw": [list(i.shape[:2]) for i in tall],
+                        "ms_per_image": [ms for _, ms in rect_runs],
+                        "detections_per_image": [len(d["boxes"])
+                                                 for d, _ in rect_runs],
+                        "launches": rect_launches,
+                        "launches_by_shape": rect_shapes},
     }
     print(json.dumps(row), flush=True)
     _require_launches("vit_h", launches,
                       [k for k in launches if k != "survivor_rle"])
     _require_launches("vit_h loaded", loaded_launches, list(loaded_launches))
-    if (by_shape["layer_norm_by_width"].get(1280, 0) == 0
-            or set(by_shape["window_attention_by_head_dim"]) != {80}
-            or set(by_shape["flash_mha_decomposed_relpos_by_head_dim"])
-            != {80}):
-        raise AssertionError(f"vit_h: K1 not at width 1280 or K2/K3 not "
-                             f"at head dim 80 alone: {by_shape}")
-    return by_shape
+    _require_launches("vit_h rect_encode", rect_launches,
+                      [k for k in rect_launches if k != "survivor_rle"])
+    for shapes in (by_shape, rect_shapes):
+        if (shapes["layer_norm_by_width"].get(1280, 0) == 0
+                or set(shapes["window_attention_by_head_dim"]) != {80}
+                or set(shapes["flash_mha_decomposed_relpos_by_head_dim"])
+                != {80}):
+            raise AssertionError(f"vit_h: K1 not at width 1280 or K2/K3 "
+                                 f"not at head dim 80 alone: {shapes}")
+    k3_rect = rect_shapes["flash_mha_decomposed_relpos_by_shape"]
+    if (any(k3_rect.get(f"{h}x{w}", 0) == 0 for h, w in RECT_K3_GRIDS_80)
+            or rect_shapes["flash_mha_decomposed_relpos_by_form"].get(
+                "columns", 0) != sum(k3_rect.get(f"{h}x{w}", 0)
+                                     for h, w in RECT_K3_GRIDS_80)):
+        raise AssertionError(f"vit_h rect_encode: K3 not in the columns "
+                             f"form on {RECT_K3_GRIDS_80}: {rect_shapes}")
+    return dict(by_shape, rect=rect_shapes)
 
 
 def _cropped(full: dict):
@@ -3717,6 +3839,12 @@ MC_CONFIG = "configs/crowdhuman_mc.yaml"
 # 64x44 as well, a 1024x683 frame's), K4's truncated DINOv2 grids + 1.
 RECT_K2_GRIDS = ((56, 70), (70, 56))
 RECT_K3_GRIDS = ((44, 64), (48, 64), (64, 48), (64, 44))
+# Grids 64 tall of ViT-H's rect encode (head dim 80): a portrait frame's and
+# the first frame turned on its side (phase `vit_h`).
+RECT_K3_GRIDS_80 = ((64, 48), (64, 44))
+# A band of an odd row count from an odd row (head dim 80: the last block of
+# two consumers holds one row).
+ODD_K3_BAND = (21, 42)
 RECT_K4_TOKENS = (51 * 73 + 1, 55 * 73 + 1)
 # The opt-in modes, each alone on the loaded configuration.
 MODES = (("mask_selection max_area", dict(mask_selection="max_area")),
@@ -5435,6 +5563,9 @@ def main() -> int:
         # The rect encode's shapes.
         k2_rect = {g: phase_window(gen, grid=g) for g in RECT_K2_GRIDS}
         k3_rect = {g: phase_global(gen, hw=g) for g in RECT_K3_GRIDS}
+        # ViT-H's rect encode of a grid 64 tall (phase `vit_h`).
+        k3_rect80 = {g: phase_global(gen, hd=80, hw=g)
+                     for g in RECT_K3_GRIDS_80}
         k4_rect = {}
         for s in RECT_K4_TOKENS:
             k4_rect[s] = _k4_case(gen, s)
@@ -5444,6 +5575,7 @@ def main() -> int:
         k3_band = {b: phase_global_band(gen, band=b)
                    for b in ((0, 42), (42, 64))}
         k3_band80 = phase_global_band(gen, hd=80)
+        k3_band80_odd = phase_global_band(gen, hd=80, band=ODD_K3_BAND)
         k3_band_fold = phase_global_band(gen, fold=True)
         k4_band = phase_dino_band(gen)
         # Past the window rows (M = 6) and TinyViT's DINOv2 bands (M = 3).
@@ -5656,6 +5788,18 @@ def main() -> int:
                 max_abs_err=row["max_abs_err"],
                 **{k: row[k] for k in keys}, device_ms=row["device_ms"],
                 **{k: row.get(k) for k in extra}))
+    # ViT-H's rect encode of the frames 64 tall (phase vit_h): K3 at head
+    # dim 80 in the columns form.
+    vit_h_rect = vit_h_shapes["rect"]["flash_mha_decomposed_relpos_by_shape"]
+    for (h, w), row in k3_rect80.items():
+        table.append(dict(
+            name="flash_mha_decomposed_relpos", route="cuda",
+            source=src_attn, replaces="crowdsam_tpu/models/attention.py:126",
+            launches=vit_h_rect.get(f"{h}x{w}", 0),
+            launches_in=f"vit_h rect_encode, frames 64 tall, grid {h}x{w}",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"],
+            **{k: row.get(k) for k in RELPOS_EXTRA + ("form", "folded_form")}))
     src_k4 = "crowdsam_tpu_torch/csrc/flash_sm90.cu"
     for s_tok, row in k4_rect.items():
         table.append(dict(
@@ -5708,6 +5852,7 @@ def main() -> int:
             launches_in=f"spatial_shard 1x2, rank {rank}, {N_IMAGES} frames",
             **{k: row[k] for k in band_keys}))
     for row, note in ((k3_band80, "head dim 80 (vit_h)"),
+                      (k3_band80_odd, "head dim 80 (vit_h), an odd band"),
                       (k3_band_fold, "folded form")):
         table.append(dict(
             name="flash_mha_decomposed_relpos", route="cuda",

@@ -87,7 +87,8 @@
 //      (`v_free`), which therefore comes before G = Q Rh^T.  A wait that
 //      never completes traps.
 //   4. Registers: `__launch_bounds__(256, 2)` caps a thread at 128, where
-//      K4 already sits; fw kept in registers (32 f32 a thread) spilled and
+//      K4 already sits (ptxas allots no more to the consumer after
+//      setmaxnreg.inc); fw kept in registers (32 f32 a thread) spilled and
 //      made ptxas serialize the products, hence GRID64's fw in the product.
 //      A wgmma issued under a runtime condition also serializes every
 //      product of the kernel (ptxas C7520): the k-step counts and the
@@ -124,17 +125,37 @@
 // the head dim.  The split costs 25% more shared memory for Q, K, V and the
 // tables, where the zero pad would cost 100% (every K/V stage two 16 KB
 // tiles, of which 48 of 64 dims zeros, and 3 more k-steps of zeros a tile).
-// Both head dims are instantiations of the same templates; the slab code is
-// `if constexpr (HD == 80)`, so that the head-dim-64 kernels keep their
-// code and layout.  With the slab K3's head-dim-80 blocks need more than
-// half of the SM's shared memory, so one block runs a SM (two at 64).  K2's
-// head-dim-80 layout is its own (`win_layout`), cut to two blocks an SM
-// (115,496 of the 115,712 bytes two blocks may take, against 134,184 for
-// the head-dim-64 order with the slabs): KA and V span the 224 rows that
-// two 112-key tiles read, not 256; K and K1 the window's 196 rows, not
-// 200 rounded to 1 KB; Rh's slab lies over QA, which is written only once
-// G = Q Rh^T has read it; the 32-byte swizzled slabs sit together at the
-// end, 256-byte aligned.
+// The slab code is `if constexpr (HD == 80)` or a kernel of its own, so
+// that the head-dim-64 kernels keep their code and layout.
+//   K3 GRID64 and COLUMNS at head dim 80 (`flash_attn_relpos_wide`).  With
+//   the slabs a block of one consumer needed 128,064 bytes, over half the
+//   SM's shared memory: one block ran an SM, so nothing hid its softmax
+//   behind products (at 64 the second block does), and its two-block
+//   register bound (128) spilled and serialized the products.  Instead, one
+//   block an SM of three warpgroups (`__launch_bounds__(384, 1)`: ptxas
+//   allots 168 registers a thread): a producer whose one thread keeps a
+//   ring of three K/V stages full, and two consumers of 64 queries each,
+//   the exchanged grid's rows 2x and 2x + 1 (a band's rows; COLUMNS: grid
+//   columns).  Each consumer has its own Q, QA and fh (its own Rh row by
+//   TMA); the one-hot KA and every K/V stage are shared, so a stage comes
+//   from L2 once for 128 queries.  Each step a consumer issues the last
+//   tile's P V and this tile's scores as one batch, waits, and runs the
+//   softmax; named barriers make the two consumers issue in turns, so that
+//   one's softmax runs while the other's products do (FA3's ping-pong).  A
+//   stage is released once both consumers' P V products that read it have
+//   retired (eight warp arrivals).  QA comes from the wrapper's f32 product,
+//   divided by the scale and rounded to bf16 once, here.  A last block
+//   whose second row is past the grid or band repeats the first's (every
+//   load in bounds) and stores nothing.  210,024 bytes (`Wide`).
+//   K3 FOLD at head dim 80 keeps the one-consumer kernel, one block an SM
+//   by its shared memory and so bounded.
+//   K2's head-dim-80 layout is its own (`win_layout`), cut to two blocks
+//   an SM (115,496 of the 115,712 bytes two blocks may take, against
+//   134,184 for the head-dim-64 order with the slabs): KA and V span the
+//   224 rows that two 112-key tiles read, not 256; K and K1 the window's
+//   196 rows, not 200 rounded to 1 KB; Rh's slab lies over QA, which is
+//   written only once G = Q Rh^T has read it; the 32-byte swizzled slabs
+//   sit together at the end, 256-byte aligned.
 #include "sm90.cuh"
 
 namespace {
@@ -142,7 +163,8 @@ namespace {
 using namespace sm90;
 
 // K3's forms as the entry point takes them; K2 has its own kernel.  COLUMNS
-// is GRID64's kernel with its template flag COLS set.
+// is GRID64's kernel with its template flag COLS set (at head dim 80 both
+// are `flash_attn_relpos_wide<MODE>`).
 enum Mode { GRID64 = 0, FOLD = 1, COLUMNS = 2 };
 
 constexpr int THREADS = 256;       // consumer warpgroup + producer warpgroup
@@ -166,28 +188,53 @@ struct SlabMaps<64> {};
 
 // Shared memory (bytes from the 1024-byte aligned base); the [slabs] of
 // dims 64-79 exist at head dim 80 only.
-//   GRID64: Q | [Q1] | QA (fw) | KA (128 keys) | fh (64 x 64 bf16) | [Rh1] |
-//           K ring | [K1 ring] | V ring | [V1 ring] | barriers
+//   GRID64: Q | QA (fw) | KA (128 keys) | fh (64 x 64 bf16) | K ring |
+//           V ring | barriers (head dim 64; at 80 `Wide`)
 //   FOLD:   Q | [Q1] | QA (2 slabs) | KA (2 slabs) | K ring | [K1 ring] |
 //           V ring | [V1 ring] | barriers
 //   WINDOW: `win_layout` (its own order at head dim 80).
 // A product over a window's second tile reads TK rows of K and KA: the
 // rows past the window's keys are masked, whatever buffer they fall in.
 template <int MODE, int HD>
-struct Ring {                      // K3: GRID64, FOLD
+struct Ring {                      // K3: GRID64 (head dim 64), FOLD
   static constexpr bool WIDE = HD == D_WIDE;
+  static_assert(!(WIDE && MODE == GRID64), "GRID64 at 80 is `Wide`");
   static constexpr int STAGES = 2;
   static constexpr int Q1 = Q_BYTES;
   static constexpr int QA = Q1 + (WIDE ? Q1_BYTES : 0);
   static constexpr int KA = QA + (MODE == FOLD ? 2 : 1) * Q_BYTES;
   static constexpr int FH = KA + (MODE == GRID64 ? 1 : 2) * TILE_BYTES;
-  static constexpr int RH1 = FH + (MODE == GRID64 ? Q_BYTES : 0);
-  static constexpr int K = RH1 + (MODE == GRID64 && WIDE ? Q1_BYTES : 0);
+  static constexpr int K = FH + (MODE == GRID64 ? Q_BYTES : 0);
   static constexpr int K1 = K + STAGES * TILE_BYTES;
   static constexpr int V = K1 + (WIDE ? STAGES * TILE1_BYTES : 0);
   static constexpr int V1 = V + STAGES * TILE_BYTES;
   static constexpr int BAR = V1 + (WIDE ? STAGES * TILE1_BYTES : 0);
   static constexpr int N_BARS = 2 + 3 * STAGES;  // q, rh, full_k/v, empty
+  static constexpr int SMEM = BAR + 8 * N_BARS + 1024;
+};
+
+// K3 GRID64 and COLUMNS at head dim 80 (`flash_attn_relpos_wide`): two
+// consumers' Q, QA and fh (64 x 64 f32, over Rh[row], which lands in its
+// first 8 KB), the one-hot KA they share, a ring of three K and V stages;
+// then the 32-byte swizzled slabs (256-byte aligned) and the barriers:
+//   Q[2] | QA[2] | KA | fh[2] | K ring | V ring | Q1[2] | Rh1[2] |
+//   K1 ring | V1 ring | barriers
+// 210,024 bytes of the 232,448 a block may take; a fourth stage (+40 KB)
+// does not fit.
+struct Wide {
+  static constexpr int STAGES = 3;
+  static constexpr int FH_BYTES = BQ * MAX_GRID * 4;
+  static constexpr int QA = 2 * Q_BYTES;
+  static constexpr int KA = QA + 2 * Q_BYTES;
+  static constexpr int FH = KA + TILE_BYTES;
+  static constexpr int K = FH + 2 * FH_BYTES;
+  static constexpr int V = K + STAGES * TILE_BYTES;
+  static constexpr int Q1 = V + STAGES * TILE_BYTES;
+  static constexpr int RH1 = Q1 + 2 * Q1_BYTES;
+  static constexpr int K1 = RH1 + 2 * Q1_BYTES;
+  static constexpr int V1 = K1 + STAGES * TILE1_BYTES;
+  static constexpr int BAR = V1 + STAGES * TILE1_BYTES;
+  static constexpr int N_BARS = 4 + 3 * STAGES;  // q[2], rh[2], full_k/v, empty
   static constexpr int SMEM = BAR + 8 * N_BARS + 1024;
 };
 
@@ -248,13 +295,14 @@ struct Params {
   const __nv_bfloat16* fh;   // K3 FOLD: (B, H, S, rel_h), bf16, contiguous
   const __nv_bfloat16* fw;   // K3: FOLD (B, H, S, rel_w), contiguous;
   long long fw_sc, fw_sbh, fw_sr;  // GRID64: strides of a column, a
-                             // (batch, head) and a grid row (64 j a row)
+                             // (batch, head) and a grid row (64 j a row);
+                             // GRID64 / COLUMNS at head dim 80: f32 terms
   const __nv_bfloat16* qkv;  // K2: the projection (B, Hp, Wp, 3 dim)
   int seq, heads;            // seq: keys (K3: the grid's h w; K2: a window)
   int seq_q, row0;           // K3: queries (a band of grid rows from row0)
   int rel_h, rel_w;          // K3: the grid; K2: the window twice
   float scale_log2;          // softmax scale * log2(e)
-  float inv_scale;           // the folded bias terms are divided by scale
+  float inv_scale;           // the folded bias terms are multiplied by it
   int pos[3][3];             // K3: q/k/v map dims of (head, token, batch)
   int pos5[3][4];            // K3 COLUMNS: q/k/v map dims of (head, column,
                              // row, batch)
@@ -396,17 +444,112 @@ __device__ __forceinline__ void store_rows_wide(const float (&o)[32],
   }
 }
 
+// Arrive at named barrier `id` of `threads` threads without waiting.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// K3's key tile `it` (128 keys) of K or V into a ring stage: COLS two grid
+// columns of 64 through column maps, else 128 tokens; at head dim HD = 80
+// also its dims 64-79 (`map1`, into `dst1`).
+template <int HD, bool COLS>
+__device__ __forceinline__ void load_tile(uint32_t dst, uint32_t dst1,
+                                          const CUtensorMap* map,
+                                          const CUtensorMap* map1,
+                                          uint32_t bar, const int* pos,
+                                          const int* pos5, int h, int it,
+                                          int b) {
+  if constexpr (COLS) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      load_col(dst + c * Q_BYTES, map, bar, pos5, h, 2 * it + c, b, 0);
+      if constexpr (HD == D_WIDE)
+        load_col(dst1 + c * Q1_BYTES, map1, bar, pos5, h, 2 * it + c, b, D);
+    }
+  } else {
+    load_bhsd(dst, map, bar, pos, h, it * BK, b);
+    if constexpr (HD == D_WIDE)
+      load_bhsd1(dst1, map1, bar, pos, h, it * BK, b);
+  }
+}
+
+// GRID64: fh = Q Rh[row]^T of a warpgroup's 64 query rows (Rh[row] at
+// `sfh`, at head dim 80 its dims 64-79 at `srh1`, both landed), written
+// over Rh[row] once every warp's product has read it (named barrier `bar`)
+// as row-major bf16 pairs, (i, 2 jp) at i * 128 + 4 jp, 0 past the grid's
+// `rh` rows; at head dim 80 as f32, (i, j) at i * 256 + 4 j (the bf16 fh
+// took a third of the kernel's mean error there, and its largest error
+// near the smoke's bound).  The caller's barrier makes the rows visible to
+// the loop.
+template <int HD>
+__device__ __forceinline__ void form_fh(uint32_t sq, uint32_t sfh,
+                                        uint32_t sq1, uint32_t srh1, int rh,
+                                        int warp, int lane, int bar) {
+  float fh[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_ss(fh, kmajor_desc(sq + kk * 32),
+                       kmajor_desc(sfh + kk * 32), kk > 0 ? 1 : 0);
+  if constexpr (HD == D_WIDE)
+    wgmma_m64n64k16_ss(fh, kmajor32_desc(sq1), kmajor32_desc(srh1), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(fh);
+  named_bar(bar, 128);
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = warp * 16 + (lane >> 2) + 8 * r;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * jj + 2 * t4;
+      const float lo = j < rh ? fh[4 * jj + 2 * r] : 0.f;
+      const float hi = j < rh ? fh[4 * jj + 2 * r + 1] : 0.f;
+      if constexpr (HD == D_WIDE) {
+        st_shared_u32(sfh + i * 256 + 4 * j, __float_as_uint(lo));
+        st_shared_u32(sfh + i * 256 + 4 * j + 4, __float_as_uint(hi));
+      } else {
+        st_shared_u32(sfh + i * ROW_BYTES + 2 * j, pack_bf16(lo, hi));
+      }
+    }
+  }
+}
+
+// GRID64: the logit offsets of key tile `it` for a thread's two rows: fh at
+// the tile's grid rows 2 it and 2 it + 1, one a tile half (log2 domain),
+// from `form_fh`'s rows at head dim HD.
+template <int HD>
+__device__ __forceinline__ void fh_offsets(float (&off)[2][2], uint32_t sfh,
+                                           int it, int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = warp * 16 + (lane >> 2) + 8 * r;
+    if constexpr (HD == D_WIDE) {
+      const uint32_t at = sfh + i * 256 + 8 * it;
+      off[r][0] = LOG2E * __uint_as_float(ld_shared_u32(at));
+      off[r][1] = LOG2E * __uint_as_float(ld_shared_u32(at + 4));
+    } else {
+      const uint32_t pair = ld_shared_u32(sfh + i * ROW_BYTES + 4 * it);
+      off[r][0] = LOG2E * bf16_half(pair, 0);
+      off[r][1] = LOG2E * bf16_half(pair, 1);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// K3: GRID64 and FOLD
+// K3: GRID64 (head dim 64) and FOLD
 // ---------------------------------------------------------------------------
 
 // NSLAB: FOLD's 64-dim slabs of [fh | fw] (h + w <= 64 * NSLAB).  HD: the
-// head dim, 64 or 80 (`m`: the maps of dims 64-79 of q, k, v and Rh).
-// COLS (GRID64 only): the grid is the exchange of a grid 64 tall, read
-// column by column (`tm_q/k/v` and `m.a-c` are column maps, `load_col`),
-// and a block's query row i is stored at token i * w + blockIdx.x.
+// head dim, 64 or 80 (FOLD only; `m`: the maps of dims 64-79 of q, k and
+// v).  COLS (GRID64 only): the grid is the exchange of a grid 64 tall, read
+// column by column (`tm_q/k/v` are column maps, `load_col`), and a block's
+// query row i is stored at token i * w + blockIdx.x.  FOLD at head dim 80
+// runs one block an SM (its shared memory): bounded so, ptxas gives a
+// thread up to 232 registers (128 for two blocks, where it spilled).
 template <int MODE, int NSLAB, int HD, bool COLS = false>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, HD == D_WIDE ? 1 : BLOCKS_PER_SM)
 flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
@@ -419,7 +562,7 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sqa = base + L::QA, ska = base + L::KA;
   const uint32_t sfh = base + L::FH, sk = base + L::K, sv = base + L::V;
-  const uint32_t sq1 = base + L::Q1, srh1 = base + L::RH1;
+  const uint32_t sq1 = base + L::Q1;
   const uint32_t sk1 = base + L::K1, sv1 = base + L::V1;
   const uint32_t q_full = base + L::BAR, rh_full = q_full + 8;
   const uint32_t full_k = rh_full + 8;                // [STAGES]
@@ -454,8 +597,6 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(q_full, Q_BYTES + (WIDE ? Q1_BYTES : 0));
       if constexpr (COLS) {          // the block's 64 queries: grid column
         load_col(sq, &tm_q, q_full, p.pos5[0], h, blockIdx.x, b, 0);
-        if constexpr (WIDE)
-          load_col(sq1, &m.a, q_full, p.pos5[0], h, blockIdx.x, b, D);
       } else {
         load_bhsd(sq, &tm_q, q_full, p.pos[0], h, q0, b);
         if constexpr (WIDE) load_bhsd1(sq1, &m.a, q_full, p.pos[0], h, q0, b);
@@ -464,45 +605,22 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
         // The block's 64 queries are grid row row0 + blockIdx.x: Rh[row]
         // (64 j x 64 dims, rows past the table's end zero).
         const int row = p.row0 + blockIdx.x;
-        mbar_expect_tx(rh_full, Q_BYTES + (WIDE ? Q1_BYTES : 0));
+        mbar_expect_tx(rh_full, Q_BYTES);
         tma_load_2d(sfh, &tm_rh, rh_full, 0, row * p.rel_h);
-        if constexpr (WIDE) tma_load_2d(srh1, &m.d, rh_full, D, row * p.rel_h);
       }
+      const CUtensorMap *k1 = nullptr, *v1 = nullptr;   // head dim 80
+      if constexpr (WIDE) k1 = &m.b, v1 = &m.c;
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(full_k + 8 * s, TILE_BYTES + (WIDE ? TILE1_BYTES : 0));
-        if constexpr (COLS) {        // the tile's two grid columns
-          for (int c = 0; c < 2; ++c) {
-            load_col(sk + s * TILE_BYTES + c * Q_BYTES, &tm_k, full_k + 8 * s,
-                     p.pos5[1], h, 2 * it + c, b, 0);
-            if constexpr (WIDE)
-              load_col(sk1 + s * TILE1_BYTES + c * Q1_BYTES, &m.b,
-                       full_k + 8 * s, p.pos5[1], h, 2 * it + c, b, D);
-          }
-        } else {
-          load_bhsd(sk + s * TILE_BYTES, &tm_k, full_k + 8 * s, p.pos[1], h,
-                    it * BK, b);
-          if constexpr (WIDE)
-            load_bhsd1(sk1 + s * TILE1_BYTES, &m.b, full_k + 8 * s, p.pos[1],
-                       h, it * BK, b);
-        }
+        load_tile<HD, COLS>(sk + s * TILE_BYTES, sk1 + s * TILE1_BYTES,
+                            &tm_k, k1, full_k + 8 * s, p.pos[1],
+                            p.pos5[1], h, it, b);
         mbar_expect_tx(full_v + 8 * s, TILE_BYTES + (WIDE ? TILE1_BYTES : 0));
-        if constexpr (COLS) {
-          for (int c = 0; c < 2; ++c) {
-            load_col(sv + s * TILE_BYTES + c * Q_BYTES, &tm_v, full_v + 8 * s,
-                     p.pos5[2], h, 2 * it + c, b, 0);
-            if constexpr (WIDE)
-              load_col(sv1 + s * TILE1_BYTES + c * Q1_BYTES, &m.c,
-                       full_v + 8 * s, p.pos5[2], h, 2 * it + c, b, D);
-          }
-        } else {
-          load_bhsd(sv + s * TILE_BYTES, &tm_v, full_v + 8 * s, p.pos[2], h,
-                    it * BK, b);
-          if constexpr (WIDE)
-            load_bhsd1(sv1 + s * TILE1_BYTES, &m.c, full_v + 8 * s, p.pos[2],
-                       h, it * BK, b);
-        }
+        load_tile<HD, COLS>(sv + s * TILE_BYTES, sv1 + s * TILE1_BYTES,
+                            &tm_v, v1, full_v + 8 * s, p.pos[2],
+                            p.pos5[2], h, it, b);
       }
     }
     return;
@@ -543,33 +661,9 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
     for (int e = tid; e < BK * 8; e += 128)
       onehot_chunk(ska + sw128(e >> 3, e & 7), e & 7, (e >> 3) % MAX_GRID, -1);
     fence_proxy_async();
-    float fh[32];
     mbar_wait(q_full, 0);
     mbar_wait(rh_full, 0);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n64k16_ss(fh, kmajor_desc(sq + kk * 32),
-                         kmajor_desc(sfh + kk * 32), kk > 0 ? 1 : 0);
-    if constexpr (WIDE)
-      wgmma_m64n64k16_ss(fh, kmajor32_desc(sq1), kmajor32_desc(srh1), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(fh);
-    named_bar(1, 128);     // every warp's product has read Rh[row]
-    // fh over Rh[row], row-major bf16 pairs: (i, 2 jp) at i * 128 + 4 jp.
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = warp * 16 + (lane >> 2) + 8 * r;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = 8 * jj + 2 * t4;
-        st_shared_u32(sfh + i * ROW_BYTES + 2 * j,
-                      j < rh ? pack_bf16(fh[4 * jj + 2 * r],
-                                         fh[4 * jj + 2 * r + 1])
-                             : 0u);
-      }
-    }
+    form_fh<D>(sq, sfh, 0, 0, rh, warp, lane, 1);
     named_bar(1, 128);
   }
   // FOLD: QA = [fh | fw | 0] / scale, NSLAB 64-dim slabs.
@@ -605,15 +699,7 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
     // GRID64: the tile's two grid rows 2 it and 2 it + 1 give each query
     // row one fh a tile half (two loads a row a tile, none a score).
     float off[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    if constexpr (MODE == GRID64) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = warp * 16 + (lane >> 2) + 8 * r;
-        const uint32_t pair = ld_shared_u32(sfh + i * ROW_BYTES + 4 * it);
-        off[r][0] = LOG2E * bf16_half(pair, 0);
-        off[r][1] = LOG2E * bf16_half(pair, 1);
-      }
-    }
+    if constexpr (MODE == GRID64) fh_offsets<D>(off, sfh, it, warp, lane);
     if constexpr (MODE == FOLD) {
       // KA for this tile's keys, once the last tile's product has read it:
       // a thread a key row.
@@ -666,6 +752,251 @@ flash_attn_relpos(const __grid_constant__ CUtensorMap tm_q,
   };
   if constexpr (WIDE) store_rows_wide(o, o1, l, warp, lane, dst);
   else store_rows(o, l, warp, lane, dst);
+}
+
+// ---------------------------------------------------------------------------
+// K3 at head dim 80: GRID64 and COLUMNS, two consumer warpgroups a block
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_CONSUMERS = 2;
+constexpr int WIDE_THREADS = 128 * (WIDE_CONSUMERS + 1);
+// Named barriers of `flash_attn_relpos_wide` (0 is __syncthreads): both
+// consumers; consumer c's own warpgroup (+ c); "consumer c issues its
+// products next" (+ c), which orders the two consumers' products.
+constexpr int BAR_CONSUMERS = 1;
+constexpr int BAR_OWN = 2;
+constexpr int BAR_TURN = 4;
+
+// Consumer c's grid row of a block (the band's; COLUMNS: the grid column):
+// 2 blockIdx.x + c.  The second of a last block past the `rows` rows
+// repeats the first's (so that every product and load stays in the
+// tensors) and stores nothing.
+__device__ __forceinline__ int wide_row(int c, int rows) {
+  return min(2 * (int)blockIdx.x + c, rows - 1);
+}
+
+// S = Q K^T + QA KA^T of one key tile at head dim 80: 4 + 1 + 4 k-steps.
+__device__ __forceinline__ void wide_scores(float (&sc)[NS], uint32_t sq,
+                                            uint32_t sq1, uint32_t sqa,
+                                            uint32_t ska, uint32_t k,
+                                            uint32_t k1) {
+  issue_qk(sc, sq, k, false);
+  issue_qk_slab1(sc, sq1, k1);
+  issue_fold<4>(sc, sqa, ska, 0);
+}
+
+// O += P V of one key tile at head dim 80 (dims 0-63 and 64-79).
+__device__ __forceinline__ void wide_values(float (&o)[32], float (&o1)[8],
+                                            const uint32_t (&pa)[NP][4],
+                                            uint32_t v, uint32_t v1) {
+  issue_pv(o, pa, v);
+  issue_pv_slab1(o1, pa, v1);
+}
+
+// A block of three warpgroups: a producer (one thread keeps a ring of
+// three K/V stages full) and two consumers of 64 queries each, grid rows
+// (MODE COLUMNS: grid columns) 2 blockIdx.x and 2 blockIdx.x + 1, which share
+// every K/V stage and the one-hot KA.  Each consumer forms its QA from the
+// wrapper's f32 product (divided by the scale and rounded to bf16 here,
+// once) and its fh from its own Rh row.  Each step a consumer issues the
+// last tile's P V and this tile's scores together, then runs the softmax
+// while the other consumer's products run: the named barriers BAR_TURN + c
+// let the consumers issue in turns.  A stage is released when both
+// consumers' P V products that read it have retired.
+template <int MODE>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_attn_relpos_wide(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_rh,
+                       const Params p,
+                       const __grid_constant__ SlabMaps<D_WIDE> m) {
+  using L = Wide;
+  constexpr bool COLS = MODE == COLUMNS;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ska = base + L::KA, sk = base + L::K, sv = base + L::V;
+  const uint32_t sk1 = base + L::K1, sv1 = base + L::V1;
+  const uint32_t q_full = base + L::BAR;                   // [2]
+  const uint32_t rh_full = q_full + 8 * WIDE_CONSUMERS;    // [2]
+  const uint32_t full_k = rh_full + 8 * WIDE_CONSUMERS;    // [STAGES]
+  const uint32_t full_v = full_k + 8 * STAGES;             // [STAGES]
+  const uint32_t empty = full_v + 8 * STAGES;              // [STAGES]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int n_tiles = (p.seq + BK - 1) / BK;
+  const int rows = p.seq_q / MAX_GRID;   // the launch's query rows
+
+  if (tid == 0) {
+    for (int c = 0; c < WIDE_CONSUMERS; ++c) {
+      mbar_init(q_full + 8 * c, 1);
+      mbar_init(rh_full + 8 * c, 1);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, WIDE_CONSUMERS * CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= WIDE_CONSUMERS * CONSUMER_WARPS) {
+    // ---- producer warpgroup: each consumer's Q and Rh row, then the ring --
+    // (72 registers: at 40-56 the columns form's 5-d coordinates spilled)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+    if (warp == WIDE_CONSUMERS * CONSUMER_WARPS && lane == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      for (int c = 0; c < WIDE_CONSUMERS; ++c) {
+        const int r = wide_row(c, rows);
+        const uint32_t sq = base + c * Q_BYTES;
+        const uint32_t sq1 = base + L::Q1 + c * Q1_BYTES;
+        const uint32_t bar = q_full + 8 * c;
+        mbar_expect_tx(bar, Q_BYTES + Q1_BYTES);
+        if constexpr (COLS) {
+          load_col(sq, &tm_q, bar, p.pos5[0], h, r, b, 0);
+          load_col(sq1, &m.a, bar, p.pos5[0], h, r, b, D);
+        } else {
+          load_bhsd(sq, &tm_q, bar, p.pos[0], h, r * BQ, b);
+          load_bhsd1(sq1, &m.a, bar, p.pos[0], h, r * BQ, b);
+        }
+        // Rh[row0 + r] (COLS: Rw[r]): 64 j x 80 dims, the rows past the
+        // table's end zero.
+        const int row = (p.row0 + r) * p.rel_h;
+        mbar_expect_tx(rh_full + 8 * c, Q_BYTES + Q1_BYTES);
+        tma_load_2d(base + L::FH + c * L::FH_BYTES, &tm_rh, rh_full + 8 * c,
+                    0, row);
+        tma_load_2d(base + L::RH1 + c * Q1_BYTES, &m.d, rh_full + 8 * c, D,
+                    row);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full_k + 8 * s, TILE_BYTES + TILE1_BYTES);
+        load_tile<D_WIDE, COLS>(sk + s * TILE_BYTES, sk1 + s * TILE1_BYTES,
+                                &tm_k, &m.b, full_k + 8 * s, p.pos[1],
+                                p.pos5[1], h, it, b);
+        mbar_expect_tx(full_v + 8 * s, TILE_BYTES + TILE1_BYTES);
+        load_tile<D_WIDE, COLS>(sv + s * TILE_BYTES, sv1 + s * TILE1_BYTES,
+                                &tm_v, &m.c, full_v + 8 * s, p.pos[2],
+                                p.pos5[2], h, it, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup c: 64 query rows ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+  const int c = warp / CONSUMER_WARPS, cw = warp % CONSUMER_WARPS;
+  const int r = wide_row(c, rows);
+  const uint32_t sq = base + c * Q_BYTES, sqa = base + L::QA + c * Q_BYTES;
+  const uint32_t sfh = base + L::FH + c * L::FH_BYTES;
+  const uint32_t sq1 = base + L::Q1 + c * Q1_BYTES;
+  const uint32_t srh1 = base + L::RH1 + c * Q1_BYTES;
+  const int t4 = lane & 3;
+  const long long bh = (long long)b * p.heads + h;
+
+  // QA = fw / scale of the consumer's 64 queries, from the f32 product
+  // (rounded to bf16 once, here); KA = onehot(k % 64), built by both.
+  const float* fw_row = reinterpret_cast<const float*>(p.fw) +
+                       bh * p.fw_sbh + (long long)r * p.fw_sr;
+  for (int e = tid % 128; e < BQ * 8; e += 128) {
+    const int i = e >> 3, ch = e & 7;
+    const float4* src =
+        reinterpret_cast<const float4*>(fw_row + i * p.fw_sc + ch * 8);
+    const float4 lo = src[0], hi = src[1];
+    const float s = p.inv_scale;
+    st_shared_v4(sqa + sw128(i, ch), pack_bf16(lo.x * s, lo.y * s),
+                 pack_bf16(lo.z * s, lo.w * s), pack_bf16(hi.x * s, hi.y * s),
+                 pack_bf16(hi.z * s, hi.w * s));
+  }
+  for (int e = tid; e < BK * 8; e += 128 * WIDE_CONSUMERS)
+    onehot_chunk(ska + sw128(e >> 3, e & 7), e & 7, (e >> 3) % MAX_GRID, -1);
+  fence_proxy_async();
+  mbar_wait(q_full + 8 * c, 0);
+  mbar_wait(rh_full + 8 * c, 0);
+  form_fh<D_WIDE>(sq, sfh, sq1, srh1, p.rel_h, cw, lane, BAR_OWN + c);
+  named_bar(BAR_CONSUMERS, 128 * WIDE_CONSUMERS);   // QA, KA and fh written
+
+  float o[32], o1[8], sc[NS], alpha[2];
+  uint32_t pa[NP][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o1[i] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  auto softmax = [&](int it) {
+    float off[2][2];
+    fh_offsets<D_WIDE>(off, sfh, it, cw, lane);
+    softmax_tile(sc, pa, mx, l, alpha, p.seq - it * BK, t4, p.scale_log2,
+                 off);
+    rescale(o, alpha);
+    rescale8(o1, alpha);
+  };
+  // Consumer 0 issues first; then each issues once the other has issued.
+  // Step 0 issues the first tile's scores, step it (1 .. n_tiles - 1) the
+  // last tile's P V and this tile's scores, the last step the last tile's
+  // P V: every product unconditional within its step.  Consumer 1 leaves
+  // out its last arrival, which nothing would wait for.
+  const int turn = BAR_TURN + c, other = BAR_TURN + 1 - c;
+  constexpr int PAIR = 128 * WIDE_CONSUMERS;
+  if (c == 1) named_bar_arrive(BAR_TURN, PAIR);
+  mbar_wait(full_k, 0);
+  named_bar(turn, PAIR);
+  wgmma_fence();
+  wide_scores(sc, sq, sq1, sqa, ska, sk, sk1);
+  wgmma_commit();
+  named_bar_arrive(other, PAIR);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);
+  for (int it = 1; it < n_tiles; ++it) {
+    const int s = it % STAGES, sp = (it - 1) % STAGES;
+    mbar_wait(full_v + 8 * sp, ((it - 1) / STAGES) & 1);
+    mbar_wait(full_k + 8 * s, (it / STAGES) & 1);
+    named_bar(turn, PAIR);
+    wgmma_fence();
+    wide_values(o, o1, pa, sv + sp * TILE_BYTES, sv1 + sp * TILE1_BYTES);
+    wide_scores(sc, sq, sq1, sqa, ska, sk + s * TILE_BYTES,
+                sk1 + s * TILE1_BYTES);
+    wgmma_commit();
+    named_bar_arrive(other, PAIR);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(o1);
+    fence_regs(pa);
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * sp);
+    softmax(it);
+  }
+  const int sp = (n_tiles - 1) % STAGES;
+  mbar_wait(full_v + 8 * sp, ((n_tiles - 1) / STAGES) & 1);
+  named_bar(turn, PAIR);
+  wgmma_fence();
+  wide_values(o, o1, pa, sv + sp * TILE_BYTES, sv1 + sp * TILE1_BYTES);
+  wgmma_commit();
+  if (c == 0) named_bar_arrive(other, PAIR);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(o1);
+  fence_regs(pa);
+
+  const bool stored = 2 * (int)blockIdx.x + c < rows;
+  auto dst = [&](int i) -> __nv_bfloat16* {
+    if (!stored) return nullptr;
+    // COLUMNS: the exchanged grid's rel_h rows are the grid's w columns.
+    const int q = COLS ? i * p.rel_h + r : r * BQ + i;   // token of the band
+    return p.o + (long long)b * p.obs + (long long)h * p.ohs +
+           (long long)q * p.old;
+  };
+  store_rows_wide(o, o1, l, cw, lane, dst);
 }
 
 // ---------------------------------------------------------------------------
@@ -934,12 +1265,18 @@ cudaError_t allow_smem(K kernel, int bytes) {
 template <int HD>
 cudaError_t global_attrs() {
   static const cudaError_t err = [] {
-    const int g = Ring<GRID64, HD>::SMEM, f = Ring<FOLD, HD>::SMEM;
-    const cudaError_t errs[4] = {
-        allow_smem(flash_attn_relpos<GRID64, 1, HD>, g),
-        allow_smem(flash_attn_relpos<GRID64, 1, HD, true>, g),
-        allow_smem(flash_attn_relpos<FOLD, 1, HD>, f),
-        allow_smem(flash_attn_relpos<FOLD, 2, HD>, f)};
+    const int f = Ring<FOLD, HD>::SMEM;
+    cudaError_t errs[4];
+    if constexpr (HD == D_WIDE) {
+      errs[0] = allow_smem(flash_attn_relpos_wide<GRID64>, Wide::SMEM);
+      errs[1] = allow_smem(flash_attn_relpos_wide<COLUMNS>, Wide::SMEM);
+    } else {
+      const int g = Ring<GRID64, HD>::SMEM;
+      errs[0] = allow_smem(flash_attn_relpos<GRID64, 1, HD>, g);
+      errs[1] = allow_smem(flash_attn_relpos<GRID64, 1, HD, true>, g);
+    }
+    errs[2] = allow_smem(flash_attn_relpos<FOLD, 1, HD>, f);
+    errs[3] = allow_smem(flash_attn_relpos<FOLD, 2, HD>, f);
     for (const cudaError_t e : errs)
       if (e != cudaSuccess) return e;
     return cudaSuccess;
@@ -948,28 +1285,40 @@ cudaError_t global_attrs() {
 }
 
 // K3's launch at head dim HD; maps[4..7] are the second slab's (HD 80).
+// GRID64 and COLUMNS at head dim 80: a block of two consumers a pair of
+// the launch's grid rows (`flash_attn_relpos_wide`).
 template <int HD>
 int global_launch(const CUtensorMap* maps, const Params& p, int batch,
                   int heads, int mode, cudaStream_t st) {
-  using G = Ring<GRID64, HD>;
   using F = Ring<FOLD, HD>;
   if (const cudaError_t e = global_attrs<HD>(); e != cudaSuccess)
     return (int)e;
   SlabMaps<HD> m;
   if constexpr (HD == D_WIDE) m = {maps[4], maps[5], maps[6], maps[7]};
-  if (batch > 0 && heads > 0) {
-    const dim3 grid((p.seq_q + BQ - 1) / BQ, heads, batch);
-    if (mode == GRID64)
-      flash_attn_relpos<GRID64, 1, HD><<<grid, THREADS, G::SMEM, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p, m);
-    else if (mode == COLUMNS)
-      flash_attn_relpos<GRID64, 1, HD, true><<<grid, THREADS, G::SMEM, st>>>(
-          maps[0], maps[1], maps[2], maps[3], p, m);
-    else if (p.rel_h + p.rel_w <= D)
+  if (batch <= 0 || heads <= 0) return (int)cudaGetLastError();
+  const dim3 grid((p.seq_q + BQ - 1) / BQ, heads, batch);
+  if (mode == FOLD) {
+    if (p.rel_h + p.rel_w <= D)
       flash_attn_relpos<FOLD, 1, HD><<<grid, THREADS, F::SMEM, st>>>(
           maps[0], maps[1], maps[2], maps[3], p, m);
     else
       flash_attn_relpos<FOLD, 2, HD><<<grid, THREADS, F::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+  } else if constexpr (HD == D_WIDE) {
+    const dim3 pairs((p.seq_q / MAX_GRID + 1) / 2, heads, batch);
+    if (mode == GRID64)
+      flash_attn_relpos_wide<GRID64><<<pairs, WIDE_THREADS, Wide::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+    else
+      flash_attn_relpos_wide<COLUMNS><<<pairs, WIDE_THREADS, Wide::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+  } else {
+    using G = Ring<GRID64, HD>;
+    if (mode == GRID64)
+      flash_attn_relpos<GRID64, 1, HD><<<grid, THREADS, G::SMEM, st>>>(
+          maps[0], maps[1], maps[2], maps[3], p, m);
+    else
+      flash_attn_relpos<GRID64, 1, HD, true><<<grid, THREADS, G::SMEM, st>>>(
           maps[0], maps[1], maps[2], maps[3], p, m);
   }
   return (int)cudaGetLastError();
@@ -1008,12 +1357,13 @@ int window_launch(const CUtensorMap* maps, const Params& p, int batch,
   return (int)cudaGetLastError();
 }
 
-// `out` = {dynamic shared memory, blocks an SM} of `kernel` at `smem` bytes.
+// `out` = {dynamic shared memory, blocks an SM} of `kernel` at `smem` bytes
+// and `threads` threads a block.
 template <typename K>
-int occupancy(K kernel, int smem, int* out) {
+int occupancy(K kernel, int smem, int* out, int threads = THREADS) {
   out[0] = smem;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
-                                                            THREADS, smem);
+                                                            threads, smem);
 }
 
 template <int HD>
@@ -1029,11 +1379,21 @@ int relpos_occupancy_at(int kind, int arg, int* out) {
   }
   if (const cudaError_t e = global_attrs<HD>(); e != cudaSuccess)
     return (int)e;
-  const int g = Ring<GRID64, HD>::SMEM, f = Ring<FOLD, HD>::SMEM;
-  if (kind == GRID64)
-    return occupancy(flash_attn_relpos<GRID64, 1, HD>, g, out);
-  if (kind == COLUMNS)
-    return occupancy(flash_attn_relpos<GRID64, 1, HD, true>, g, out);
+  const int f = Ring<FOLD, HD>::SMEM;
+  if constexpr (HD == D_WIDE) {
+    if (kind == GRID64)
+      return occupancy(flash_attn_relpos_wide<GRID64>, Wide::SMEM, out,
+                       WIDE_THREADS);
+    if (kind == COLUMNS)
+      return occupancy(flash_attn_relpos_wide<COLUMNS>, Wide::SMEM, out,
+                       WIDE_THREADS);
+  } else {
+    const int g = Ring<GRID64, HD>::SMEM;
+    if (kind == GRID64)
+      return occupancy(flash_attn_relpos<GRID64, 1, HD>, g, out);
+    if (kind == COLUMNS)
+      return occupancy(flash_attn_relpos<GRID64, 1, HD, true>, g, out);
+  }
   if (kind == FOLD && arg == 1)
     return occupancy(flash_attn_relpos<FOLD, 1, HD>, f, out);
   if (kind == FOLD && arg == 2)
@@ -1059,8 +1419,10 @@ int relpos_occupancy_at(int kind, int arg, int* out) {
 // row r, bh and grid column c at r fw_strides[0] + bh fw_strides[1] + c
 // fw_strides[2].  o: the output, strides `o_strides` (batch, head, token;
 // elements).  `mode`: 0 (GRID64, a grid 64 wide only), 1 (FOLD, any grid)
-// or 2 (COLUMNS, the whole of a grid 64 tall).  At head dim 80 fh/fw come
-// already divided by `scale` (at 64 the kernel divides, x8 being exact).
+// or 2 (COLUMNS, the whole of a grid 64 tall).  At head dim 80 FOLD's fh/fw
+// come already divided by `scale`, and GRID64's and COLUMNS' `fw` is the
+// f32 product (the kernel divides and rounds to bf16 once); at 64 the
+// kernel divides a bf16 term, x8 being exact.
 // Returns cudaGetLastError(), or -1 when
 // the CUDA driver has no cuTensorMapEncodeTiled, -2 - i when operand i's
 // tensor map is refused, -6 for a grid outside 1..64, a band outside it, a
@@ -1132,7 +1494,7 @@ extern "C" int relpos_global_forward(const void* q, const void* k,
   p.rel_h = rel_h;
   p.rel_w = rel_w;
   p.scale_log2 = scale * LOG2E;
-  p.inv_scale = wide ? 1.f : 1.f / scale;
+  p.inv_scale = wide && mode == FOLD ? 1.f : 1.f / scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return wide ? global_launch<D_WIDE>(maps, p, batch, heads, mode, st)
               : global_launch<D>(maps, p, batch, heads, mode, st);

@@ -380,6 +380,15 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
     return out
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched product a @ b in float32, not rounded to a's dtype: on
+    the card one bmm of the bf16 operands with a float32 output (on the
+    tensor cores), on the CPU the operands cast to float32."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _kernel_terms(q, rh, rw, sm_scale: float, hw, form: str, row0: int = 0):
     """What K3's entry point takes besides q, k, v in `form`: (fh, fw,
     fw_strides, table).  fold: fh/fw of the band's queries, contiguous.
@@ -390,32 +399,35 @@ def _kernel_terms(q, rh, rw, sm_scale: float, hw, form: str, row0: int = 0):
     one batched product over the grid's rows (r, bh, c by the same
     strides) and the term formed in the kernel from `table` = rw.  The
     kernel folds the terms into the product divided by the scale: at head
-    dim 64 that is an exact x8 in the kernel; at 80 (x8.94) the terms come
-    divided here, in f32, and are rounded to bf16 once (the entry point
-    then divides by 1)."""
+    dim 64 that is an exact x8 in the kernel on the bf16 term.  At 80 (x8.94)
+    the term is rounded to bf16 once, after the division: grid64 and
+    columns hand the kernel the float32 product (`_f32_product`), which it
+    divides and rounds; fold divides here, in f32, and rounds (the entry
+    point then divides by 1)."""
     hh, ww = hw
     b, nh, sq, d = q.shape
     hq = sq // ww
-    prescale = d != HEAD_DIM
-    qt, rht, rwt = (t.float() for t in (q, rh, rw)) if prescale else (q, rh,
-                                                                      rw)
-
-    def term(t):
-        return (t / sm_scale).to(q.dtype) if prescale else t
-
+    wide = d != HEAD_DIM
     if form == "fold":
-        fh, fw = (term(t).contiguous()
-                  for t in _rel_bias_terms(qt, rht, rwt, hw, row0))
+        if not wide:
+            fh, fw = (t.contiguous() for t in _rel_bias_terms(q, rh, rw, hw,
+                                                              row0))
+            return fh, fw, (0, 0, 0), rh
+        fh, fw = (
+            (t / sm_scale).to(q.dtype).contiguous()
+            for t in _rel_bias_terms(q.float(), rh.float(), rw.float(), hw,
+                                     row0))
         return fh, fw, (0, 0, 0), rh
-    qg = qt.reshape(b, nh, hq, ww, d)
+    product = _f32_product if wide else torch.bmm
+    qg = q.reshape(b, nh, hq, ww, d)
     if form == "grid64":
         # one (b nh hq, d) x (d, 64) product for each grid column
         qc = qg.permute(3, 0, 1, 2, 4).reshape(ww, b * nh * hq, d)
-        fw = term(torch.bmm(qc, rwt.transpose(1, 2)))
+        fw = product(qc, rw.transpose(1, 2))
         return None, fw, (b * nh * hq * ww, hq * ww, ww), rh
     # columns: one (b nh w, d) x (d, 64) product for each grid row
     qr = qg.permute(2, 0, 1, 3, 4).reshape(hh, b * nh * ww, d)
-    fh = term(torch.bmm(qr, rht.transpose(1, 2)))
+    fh = product(qr, rh.transpose(1, 2))
     return None, fh, (b * nh * ww * hh, ww * hh, hh), rw
 
 

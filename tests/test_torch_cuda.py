@@ -169,11 +169,13 @@ def test_window_attention_kernel_head_dim_80(gen, b, grid, ws, heads):
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (20, 24), (17, 64), (7, 9),
-                                (64, 48), (64, 44)])
+                                (64, 48), (64, 44), (64, 45)])
 def test_relpos_kernel_head_dim_80(gen, hw):
     """K3 at head dim 80 on strided views of one qkv buffer: SAM ViT-H's
-    64x64 grid (the bias in registers), grids 64 tall (on the exchanged
-    grid) and other grids (the bias folded); atol 12% of the output's rms,
+    64x64 grid (the bias in registers, a block of two consumers two grid
+    rows; 17 rows leave the last block one), grids 64 tall (on the
+    exchanged grid, a block two grid columns; 45 wide leaves the last block
+    one) and other grids (the bias folded); atol 12% of the output's rms,
     as at 64."""
     h, w = hw
     heads, hd, s = 2, 80, h * w
@@ -196,13 +198,18 @@ def test_relpos_kernel_head_dim_80(gen, hw):
 
 
 @pytest.mark.parametrize("hw,hd,parts", [((64, 64), 64, 2), ((64, 64), 80, 4),
-                                         ((16, 16), 64, 2), ((20, 24), 64, 2)])
+                                         ((16, 16), 64, 2), ((20, 24), 64, 2),
+                                         ((64, 64), 80, ((0, 21), (21, 42),
+                                                         (42, 64)))])
 def test_relpos_kernel_query_bands(gen, hw, hd, parts):
     """K3 on query bands, a rank's of the spatial axis: window-aligned grid
-    rows against every key of the grid (64 wide: the bias in registers,
-    Rh from the band's first row on; else folded, fh/fw cut to the band),
-    each band against the plain version's band; atol 12% of the output's
-    rms, as for the whole grid."""
+    rows (`parts` ranks' `window_bands`, or the bands given) against every
+    key of the grid (64 wide: the bias in registers, Rh from the band's
+    first row on; else folded, fh/fw cut to the band), each band against
+    the plain version's band; atol 12% of the output's rms, as for the
+    whole grid.  At head dim 80 also bands of an odd row count (the last
+    block of two consumers holds one row) and from an odd row, through
+    `relpos_global_launch` in the form the grid takes."""
     from crowdsam_tpu_torch.parallel.spatial import window_bands
 
     h, w = hw
@@ -214,10 +221,17 @@ def test_relpos_kernel_query_bands(gen, hw, hd, parts):
     scale = hd ** -0.5
     want = attention.relpos_attention_plain(q, k, v, scale, rh, rw, hw)
     rms = float(want.float().square().mean().sqrt())
-    for lo, hi in window_bands(h, 14 if h > 16 else 8, parts):
+    given = not isinstance(parts, int)
+    bands = parts if given else window_bands(h, 14 if h > 16 else 8, parts)
+    for lo, hi in bands:
         rows = slice(lo * w, hi * w)
-        got = attention.flash_mha_decomposed_relpos(q[:, :, rows], k, v,
-                                                    scale, rh, rw, hw, lo)
+        if given:
+            form = attention.relpos_form(h, w, (hi - lo) * w, lo)
+            got = attention.relpos_global_launch(q[:, :, rows], k, v, scale,
+                                                 rh, rw, hw, form, lo)
+        else:
+            got = attention.flash_mha_decomposed_relpos(
+                q[:, :, rows], k, v, scale, rh, rw, hw, lo)
         assert got.shape == (1, heads, (hi - lo) * w, hd)
         band = attention.relpos_attention_plain(q[:, :, rows], k, v, scale,
                                                 rh, rw, hw, lo)

@@ -84,35 +84,51 @@ def test_to_columns_is_the_grid_exchange():
 
 @pytest.mark.parametrize("form,hw,hd,row0,hq", [
     ("grid64", (20, 64), 64, 0, 20), ("grid64", (20, 64), 80, 6, 8),
-    ("columns", (64, 20), 64, 0, 64), ("columns", (64, 20), 80, 0, 64)])
+    ("columns", (64, 20), 64, 0, 64), ("columns", (64, 20), 80, 0, 64),
+    ("grid64", (21, 64), 80, 7, 9), ("columns", (64, 21), 80, 0, 64)])
 def test_kernel_terms_as_the_kernel_reads_them(form, hw, hd, row0, hq):
     """The folded 64-wide term read as GRID64's kernel reads it: block x's
     query i, 64 values from x fw_strides[2] + bh fw_strides[1] + i
     fw_strides[0].  grid64 (block x is grid row row0 + x, query i its
     column): q.Rw[col(q)], the kernel's own term from Rh; columns (block x
     is grid column x, query i its row): q.Rh[row(q)], the kernel's own term
-    from Rw.  At head dim 80 the terms come divided by the scale."""
+    from Rw.  At head dim 80 (the grid's rows or columns an odd count in the
+    last two cases, as a block of two consumers reads them) the term is the
+    float32 product, also from bf16 operands, which the kernel divides by
+    the scale and rounds to bf16 once: within one bf16 rounding of the
+    float32 term divided by the scale."""
     h, w = hw
     b, heads, scale = 2, 3, hd ** -0.5
     gen = torch.Generator().manual_seed(hd + row0)
     q = torch.randn((b, heads, hq * w, hd), generator=gen)
     rh = torch.randn((h, h, hd), generator=gen)
     rw = torch.randn((w, w, hd), generator=gen)
-    fh, fw, strides, table = attention._kernel_terms(q, rh, rw, scale, hw,
-                                                     form, row0)
-    assert fh is None
-    assert table is (rh if form == "grid64" else rw)
-    want_h, want_w = attention._rel_bias_terms(q, rh, rw, hw, row0)
-    want = (want_w if form == "grid64" else want_h).reshape(
-        b * heads, hq, w, 64)
-    if hd != attention.HEAD_DIM:
-        want = want / scale
-    flat = fw.reshape(-1)
     blocks, rows = (hq, w) if form == "grid64" else (w, hq)
-    for bh in range(b * heads):
-        for x in range(blocks):
-            base = x * strides[2] + bh * strides[1]
-            got = torch.stack([flat[base + i * strides[0]:][:64]
-                               for i in range(rows)])
-            ref = want[bh, x] if form == "grid64" else want[bh, :, x]
-            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    dtypes = (torch.float32,) if hd == attention.HEAD_DIM else (
+        torch.float32, torch.bfloat16)
+    for dtype in dtypes:
+        qd, rhd, rwd = (t.to(dtype) for t in (q, rh, rw))
+        fh, fw, strides, table = attention._kernel_terms(qd, rhd, rwd, scale,
+                                                         hw, form, row0)
+        assert fh is None
+        assert table is (rhd if form == "grid64" else rwd)
+        assert fw.dtype == (dtype if hd == attention.HEAD_DIM
+                            else torch.float32)
+        want_h, want_w = attention._rel_bias_terms(
+            qd.float(), rhd.float(), rwd.float(), hw, row0)
+        want = (want_w if form == "grid64" else want_h).reshape(
+            b * heads, hq, w, 64)
+        flat = fw.reshape(-1)
+        for bh in range(b * heads):
+            for x in range(blocks):
+                base = x * strides[2] + bh * strides[1]
+                got = torch.stack([flat[base + i * strides[0]:][:64]
+                                   for i in range(rows)])
+                ref = want[bh, x] if form == "grid64" else want[bh, :, x]
+                torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+                if hd != attention.HEAD_DIM:
+                    # QA as the kernel forms it: x (1 / scale), one rounding
+                    qa = (got * (1.0 / scale)).to(torch.bfloat16).float()
+                    once = (ref / scale).to(torch.bfloat16).float()
+                    torch.testing.assert_close(qa, once, rtol=2.0 ** -7,
+                                               atol=1e-6)

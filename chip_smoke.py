@@ -49,6 +49,12 @@ the gitignored `build/kernels/`), then:
    same frames and noise; last, the model built with the shipped msgpack
    adapter (`adapter_weights/10_shot.msgpack`, read by the port's own
    reader) runs one `generate`;
+   K1's forward (phases `K1 layer_norm`, `K1 1280`) is held with a max and
+   a mean bound and faults of its design (a lane segment with the
+   neighbouring row's statistics, w and b of another segment's columns,
+   the last chunk or row group left unwritten), its layout (`ln_plan`)
+   against the Python description the CPU tests check, and every K1
+   instantiation's registers and spilled bytes (none may spill);
    K1's backward kernel is held against autograd of the plain LayerNorm
    at the training step's shapes (dx, dw, db with max and mean bounds;
    faults: the mean(g w xhat) term dropped, one block's dw/db partial left
@@ -399,29 +405,48 @@ def _relpos_extra(wrapper, sdpa, iters):
                 library_device_ms=device_ms(sdpa, iters))
 
 
-def _ptxas_spills(lib: str = "attention") -> dict:
-    """Spilled bytes (stores, loads) by kernel instantiation, from ptxas's
+def _ptxas_report(lib: str = "attention") -> dict:
+    """Registers and spilled bytes by kernel instantiation, from ptxas's
     report of the last verbose build of `csrc/<lib>.cu`: keys
     `flash_attn_relpos<MODE,NSLAB,HD,COLS>`, `flash_attn_relpos_wide<MODE>`
     and `window_attn_relpos<TK,HD>` from the mangled names' template
-    arguments."""
+    arguments; K1's `ln_fwd_vec<T,L,VPL>`, `ln_fwd_direct<T,L,VPL>`,
+    `ln_bwd_vec<T,L,VPL>`, `ln_rows<T,VPT>` and `ln_bwd_rows<T,VPT>` with
+    T bf16 or f32."""
     from crowdsam_tpu_torch.kernels import _build
 
     out, name = {}, None
     for line in _build.BUILD_LOGS.get(lib, "").splitlines():
         m = re.search(r"Compiling entry function '_Z\w*?\d"
-                      r"(flash_attn_relpos(?:_wide)?|window_attn_relpos)"
+                      r"(flash_attn_relpos(?:_wide)?|window_attn_relpos"
+                      r"|ln_fwd_vec|ln_fwd_direct|ln_bwd_vec|ln_bwd_rows"
+                      r"|ln_rows)"
                       r"I(\w+?)EEv", line)
         if m:
-            name = f"{m.group(1)}<" + ",".join(
-                re.findall(r"L[ib](\d+)E", m.group(2) + "E")) + ">"
+            args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+            if m.group(1).startswith("ln_"):
+                args.insert(0, "bf16" if m.group(2).startswith(
+                    "13__nv_bfloat16") else "f32")
+            name = f"{m.group(1)}<" + ",".join(args) + ">"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name is not None:
-            out[name] = [int(m.group(1)), int(m.group(2))]
+            out[name] = dict(spill_store_bytes=int(m.group(1)),
+                             spill_load_bytes=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
             name = None
     return out
+
+
+def _ptxas_spills(lib: str = "attention") -> dict:
+    """Spilled bytes (stores, loads) by kernel instantiation
+    (`_ptxas_report`)."""
+    return {k: [v["spill_store_bytes"], v["spill_load_bytes"]]
+            for k, v in _ptxas_report(lib).items()}
 
 
 def _instantiation(head_dim: int, form: str, arg: int) -> dict:
@@ -467,6 +492,127 @@ def _instantiation(head_dim: int, form: str, arg: int) -> dict:
 RELPOS_EXTRA = ("wrapper_device_ms", "library_device_ms",
                 "kernel_over_library_device", "whole_fn_ms", "instantiations")
 
+K1_PLAN_KEYS = ("lanes", "vectors_per_lane", "warps", "rows_per_group",
+                "chunk_rows", "blocks", "spread", "smem_bytes",
+                "blocks_per_sm", "sms", "direct")
+
+
+def _k1_plan(backward: bool, n: int, d: int, dtype) -> dict:
+    """How K1's forward (or backward) lays out n x d rows on this card (the
+    source's `ln_plan`; `spread`: the forward's chunks, the backward's rows
+    a block), held against the Python description the CPU tests check
+    (`ops.layernorm.forward_plan` / `backward_plan`)."""
+    from crowdsam_tpu_torch.kernels import _build
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    fn = _build.function("layernorm", "ln_plan",
+                         (ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p))
+    out = (ctypes.c_longlong * len(K1_PLAN_KEYS))()
+    _build.check(fn(int(backward), n, d, ln._DTYPES[dtype],
+                    ctypes.cast(out, ctypes.c_void_p)), "ln_plan")
+    plan = dict(zip(K1_PLAN_KEYS, (int(v) for v in out)))
+    want = (ln.backward_plan(n, d, dtype, plan["sms"]) if backward else
+            ln.forward_plan(n, d, dtype, plan["sms"], plan["blocks_per_sm"]))
+    got = dict(arm=(plan["lanes"], plan["vectors_per_lane"])
+               if plan["lanes"] else None,
+               rows_per_group=plan["rows_per_group"],
+               chunk_rows=plan["chunk_rows"], grid=plan["blocks"],
+               direct=bool(plan["direct"]),
+               **{("rows_per_block" if backward else "chunks"):
+                  plan["spread"]})
+    if got != want:
+        raise AssertionError(f"K1 plan {n}x{d}: the source's {got}, the "
+                             f"Python description's {want}")
+    return plan
+
+
+def _k1_kernel(backward: bool, d: int, dtype, plan: dict) -> str:
+    """The name of the K1 instantiation a call launches (as
+    `_ptxas_report` names it)."""
+    t = "bf16" if dtype == torch.bfloat16 else "f32"
+    if plan["lanes"]:
+        kind = "bwd_vec" if backward else (
+            "fwd_direct" if plan["direct"] else "fwd_vec")
+        return (f"ln_{kind}<{t},{plan['lanes']},"
+                f"{plan['vectors_per_lane']}>")
+    vpt = next(v for v, top in ((2, 64), (4, 128), (8, 256), (16, 512),
+                                (32, 1024), (40, 1280)) if d <= top)
+    return f"ln_{'bwd_rows' if backward else 'rows'}<{t},{vpt}>"
+
+
+def _k1_instantiations(backward: bool, n: int, d: int, dtype):
+    """The layout of one K1 call and its instantiation's registers and
+    spilled bytes; and every K1 instantiation's from the build's ptxas
+    report.  A K1 instantiation that spills fails the phase."""
+    report = _ptxas_report("layernorm")
+    spilled = {k: v for k, v in report.items()
+               if v["spill_store_bytes"] or v["spill_load_bytes"]}
+    if not report or spilled:
+        raise AssertionError(f"K1: ptxas report {report or 'missing'}; "
+                             f"spilled: {spilled}")
+    plan = _k1_plan(backward, n, d, dtype)
+    kernel = _k1_kernel(backward, d, dtype, plan)
+    return dict(kernel=kernel, **plan, **report.get(kernel, {})), report
+
+
+def _ln_forward_faults(x, w, b, eps, plan):
+    """The plain forward with a known fault of K1's design each: a lane
+    segment that takes the neighbouring row's statistics (every odd row the
+    row before's); w and b of another segment's columns (the next 16-byte
+    vector's, the next column's on the scalar arm); the last chunk of the
+    grid left unwritten (zeros from its first row); the last row group
+    left unwritten."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mu).square().mean(-1, keepdim=True) + eps)
+    n = x.shape[0]
+
+    def y_of(m, r, w_=w, b_=b):
+        return ((xf - m) * r * w_ + b_).to(x.dtype)
+
+    prev = torch.arange(n, device=x.device)
+    prev[1::2] -= 1
+    vec = 16 // x.element_size() if plan["lanes"] else 1
+    good = y_of(mu, rstd)
+    chunk = good.clone()
+    chunk[(n - 1) // plan["chunk_rows"] * plan["chunk_rows"]:] = 0
+    group = good.clone()
+    group[(n - 1) // plan["rows_per_group"] * plan["rows_per_group"]:] = 0
+    return (("a segment takes the neighbouring row's statistics",
+             y_of(mu[prev], rstd[prev])),
+            ("w and b of another segment's columns",
+             y_of(mu, rstd, torch.roll(w, -vec), torch.roll(b, -vec))),
+            ("the last chunk left unwritten", chunk),
+            ("the last row group left unwritten", group))
+
+
+# K1's forward launches by shape (rows x width) of the runs named by key,
+# filled by `end_to_end` (the main path) and `fused_vs_unfused` (the
+# unfused decode), read by the kernel table.
+K1_SHAPES = {}
+
+
+@contextlib.contextmanager
+def k1_by_shape(key: str):
+    """K1's forward launches by shape inside the block, into
+    `K1_SHAPES[key]`: the op's launch `ops.layernorm._forward` wrapped for
+    the block alone (the port counts K1 by width; a count by shape would
+    be host work on every call of the main path)."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    seen = K1_SHAPES.setdefault(key, collections.Counter())
+    real = ln._forward
+
+    def counted(x, weight, bias, eps, stats):
+        d = x.shape[-1]
+        seen[f"{x.numel() // d}x{d}"] += 1
+        return real(x, weight, bias, eps, stats)
+
+    with patched(ln, "_forward", counted):
+        yield seen
+
+
 def _k1_custom_op():
     """K1's launch registered through `torch.library.custom_op`, the other
     way to bind it, to time its dispatch beside the port's define + impl
@@ -486,6 +632,7 @@ def phase_layernorm(gen):
     from crowdsam_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 
     rows = []
+    report = None
     # SAM blocks, DINOv2 blocks, the neck, the decoder's norm4 on keys, the
     # decoder's upscaling ChannelLayerNorm; SAM ViT-H's blocks (phase `K1
     # 1280`); the serving head's mask downscaling (widths 4 and 16).
@@ -499,15 +646,20 @@ def phase_layernorm(gen):
         b = 0.1 * torch.randn(d, generator=gen, device="cuda")
         want = layer_norm_plain(x, w, b, eps)
         got = layer_norm(x, w, b, eps)
+        inst, report = _k1_instantiations(False, n, d, x.dtype)
         # Outputs of rms ~1: both sides round f32 values that differ in the
-        # last bits to bf16, one ulp apart at most.
-        cmp = compare(f"layer_norm {n}x{d}", got, want, 1e-2)
+        # last bits to bf16, one ulp apart at most, and few of them: a
+        # mean error of 2e-4 is ~50 such ulps in 10^4 elements.  The faults
+        # of the kernel's design must break the bound.
+        cmp = compare(f"layer_norm {n}x{d}", got, want, 1e-2,
+                      _ln_forward_faults(x, w, b, eps, inst),
+                      mean_atol=2e-4)
         wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
         t_k = time_ms(lambda: layer_norm(x, w, b, eps), 50)
         t_p = time_ms(lambda: layer_norm_plain(x, w, b, eps), 10)
         t_l = time_ms(lambda: torch.nn.functional.layer_norm(
             x, (d,), wb, bb, eps), 50)
-        d_k = device_ms(lambda: layer_norm(x, w, b, eps), 50, "ln_rows")
+        d_k = device_ms(lambda: layer_norm(x, w, b, eps), 50, "ln_")
         d_l = device_ms(lambda: torch.nn.functional.layer_norm(
             x, (d,), wb, bb, eps), 50)
         b_ms, by = bound(2 * n * d * 2 + 2 * d * 4, 8.0 * n * d,
@@ -515,7 +667,7 @@ def phase_layernorm(gen):
         rows.append(dict(shape=f"{n}x{d}", **cmp, ms=t_k, device_ms=d_k,
                          plain_ms=t_p, library_ms=t_l,
                          library_device_ms=d_l, bound_ms=b_ms,
-                         bound_by=by))
+                         bound_by=by, instantiation=inst))
         if (n, d) == (5330, 1024):
             # The wrapper's cost of the dispatcher: K1 launched through the
             # op (`layer_norm`), the same launch called directly, and the
@@ -534,6 +686,8 @@ def phase_layernorm(gen):
                              for k, t in times.items()})
         name = "K1 1280" if d == 1280 else "K1 layer_norm"
         print(json.dumps({"phase": name, **rows[-1]}), flush=True)
+    print(json.dumps({"phase": "K1 instantiations",
+                      "instantiations": report}), flush=True)
     return rows
 
 
@@ -2314,7 +2468,8 @@ def phase_end_to_end(model):
     torch.cuda.synchronize()
     counters = _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    runs = [_timed_generate(model, img) for img in images[:N_IMAGES]]
+    with k1_by_shape("main path"):
+        runs = [_timed_generate(model, img) for img in images[:N_IMAGES]]
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     times = [ms for _, ms in runs]
@@ -2333,6 +2488,7 @@ def phase_end_to_end(model):
         "peak_memory_gib": peak,
         "launches": launches,
         "launches_per_image": {k: v / N_IMAGES for k, v in launches.items()},
+        "k1_launches_by_shape": dict(K1_SHAPES["main path"]),
     }), flush=True)
     print(json.dumps({
         "phase": "device_profile", "image_hw": list(images[0].shape[:2]),
@@ -2814,7 +2970,8 @@ def phase_fused_vs_unfused(model, img):
         model.engine_cfg = dataclasses.replace(model.engine_cfg,
                                                fused_decode=fused)
         _timed_generate(model, img, noise)           # warm-up
-        data, ms = _timed_generate(model, img, noise)
+        with k1_by_shape(f"{name} decode"):
+            data, ms = _timed_generate(model, img, noise)
         res = model.last_engine
         out[name] = dict(data=data, ms=ms, consumed=int(res["num_consumed"]),
                          **{k: v.float().cpu() for k, v in
@@ -2842,6 +2999,8 @@ def phase_fused_vs_unfused(model, img):
         "box_within_4px_share": float((d_box <= 4.0).float().mean()),
         "detections": [n_f, n_u], "detection_box_max_abs_diff_px": det_box,
         "ms_per_image": [f["ms"], u["ms"]],
+        "k1_launches_by_shape": {k: dict(K1_SHAPES[f"{k} decode"])
+                                 for k in ("fused", "unfused")},
     }
     print(json.dumps(row), flush=True)
     ok = (f["consumed"] == u["consumed"] and int(both.sum()) > 0
@@ -2979,8 +3138,9 @@ def phase_small_amg(gpu, cpu, img):
 def _ln_backward_faults(x, g, w, eps, blocks):
     """The plain backward with a known fault each: (label, dx, dw, db).
     The mean(g w xhat) term of dx dropped; one block's rows left out of the
-    dw/db sums (the kernel's own block of rows, `blocks` of them); the rstd
-    of the neighbouring row."""
+    dw/db sums (the kernel's own contiguous range of rows, block blocks // 2
+    of the `blocks` that `ln_backward_blocks` describes); the rstd of the
+    neighbouring row."""
     xf, gf = x.float(), g.float()
     mu = xf.mean(-1, keepdim=True)
     rstd = torch.rsqrt((xf - mu).square().mean(-1, keepdim=True) + eps)
@@ -3030,6 +3190,10 @@ def phase_layernorm_backward(gen):
         want = ln.layer_norm_grads_plain(g, x, w, b, eps)
         blocks = _build.function("layernorm", "ln_backward_blocks",
                                  (ctypes.c_longlong,))(n)
+        inst, _ = _k1_instantiations(True, n, d, dtype)
+        if inst["blocks"] != blocks:
+            raise AssertionError(f"ln_backward {n}x{d}: {blocks} blocks "
+                                 f"described, {inst['blocks']} launched")
         faults = _ln_backward_faults(x, g, w, eps, blocks)
         bf16 = dtype == torch.bfloat16
         # dx: both sides round one f32 value to x's dtype (one ulp apart at
@@ -3074,7 +3238,8 @@ def phase_layernorm_backward(gen):
                    tol={k: o["tol"] for k, o in out.items()},
                    deterministic=True, ms=t_k, device_ms=d_k, plain_ms=t_p,
                    library_ms=t_l, library_device_ms=d_l, bound_ms=b_ms,
-                   bound_by=by, partial_blocks=blocks)
+                   bound_by=by, partial_blocks=blocks,
+                   instantiation=inst)
         rows.append(row)
         print(json.dumps({"phase": "K1 backward", **row}), flush=True)
         del x, g, got, want, faults
@@ -5538,7 +5703,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.time()
+    t0 = t_start = time.time()
     draws = start_draws()
     k6_job = start_gelu_probe()
     _build.build_all(ptxas_verbose=True)
@@ -5676,7 +5841,8 @@ def main() -> int:
              ms_direct_launch_median=ln["ms_direct_launch_median"],
              ms_custom_op_median=ln["ms_custom_op_median"],
              launches_export={r["case"]: r["k1_launches_per_call"]
-                              for r in export_rows}),
+                              for r in export_rows},
+             launches_by_shape=dict(K1_SHAPES["main path"])),
     ]
     bw = next(r for r in ln_bwd_rows if r["shape"] == "245760x256")
     table.append(dict(
@@ -5743,6 +5909,25 @@ def main() -> int:
             replaces="crowdsam_tpu/ops/layernorm.py:34",
             launches=serving["k1_launches_by_width"].get(d, 0),
             launches_in="export, serving single-mask, one call",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"]))
+    # K1 at SAM's blocks (4096x1024) on the main path; the decoder's norm4
+    # on keys and its upscaling LayerNorm in the unfused decode of one
+    # crowd scene (the fused decode runs neither).
+    for shape, key, note in (
+            ("4096x1024", "main path",
+             f"end_to_end, {N_IMAGES} frames, at 4096x1024"),
+            ("131072x256", "unfused decode",
+             "fused_vs_unfused, the unfused decode of one crowd scene"),
+            ("524288x64", "unfused decode",
+             "fused_vs_unfused, the unfused decode of one crowd scene")):
+        row = next(r for r in ln_rows if r["shape"] == shape)
+        table.append(dict(
+            name="layer_norm", route="cuda",
+            source="crowdsam_tpu_torch/csrc/layernorm.cu",
+            replaces="crowdsam_tpu/ops/layernorm.py:34",
+            launches=K1_SHAPES[key].get(shape, 0), launches_in=note,
             max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
             device_ms=row["device_ms"],
             library_device_ms=row["library_device_ms"]))
@@ -5918,6 +6103,7 @@ def main() -> int:
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err")}
                 for p, row in k56_shards.items()}
+    print(json.dumps({"smoke_wall_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

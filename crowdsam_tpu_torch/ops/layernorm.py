@@ -14,6 +14,10 @@ instead, whose backward is the kernel `ln_backward` of the same source,
 which takes widths up to `MAX_BWD_WIDTH` (1024: no training path is wider);
 its plain version is autograd of `layer_norm_plain`
 (`layer_norm_grads_plain`).
+
+`vector_arm`, `forward_plan` and `backward_plan` say how the kernels lay a
+call's rows out (the source's `ln_plan` gives the same on the card): which
+arm takes a width, the rows a chunk of the ring and the blocks.
 """
 
 from __future__ import annotations
@@ -31,11 +35,21 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _STATS_ARGTYPES = (ctypes.c_void_p,) * 6 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p)
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + (
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 9 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_WIDTH = 1280        # a lane keeps its D/32 values of the row in registers
-MAX_BWD_WIDTH = 1024    # the backward kernel's register ladder ends here
+MAX_WIDTH = 1280        # the forward's widest vector arm: 5 / 10 a lane
+MAX_BWD_WIDTH = 1024    # the backward's: 4 / 8 vectors a lane
+
+# The kernels' layout constants (`csrc/layernorm.cu`).
+STAGES = 3              # chunks in a block's ring
+WARPS = 8               # warps a block (the backward at 8 vectors a lane: 4)
+BWD_MIN_ROWS = 32       # rows a backward block, at least
+BWD_BLOCKS_PER_SM = 2
+DIRECT_BLOCKS_PER_SM = 2  # the direct forward's grid, and
+DIRECT_GROUPS = 2         # its row groups a warp at most
+GROUP = 16              # backward blocks a ticket group
+MAX_GROUPS = 64
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -84,6 +98,116 @@ def _affine(fn: str, x: torch.Tensor, weight: torch.Tensor,
     return w, b
 
 
+def _raw_stream(device: torch.device) -> int:
+    """The current stream's raw handle: a `torch.cuda.Stream` object a
+    call is host time on every LayerNorm of the host-bound main path."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+# The backward's scratch by (device index, stream): the blocks' partials
+# and the ticket words, which the kernel leaves zero after each call.  One
+# a stream, so that calls on two streams never share the tickets.
+_SCRATCH = {}
+
+
+def _backward_scratch(device: torch.device) -> torch.Tensor:
+    floats = _build.function("layernorm", "ln_backward_scratch_floats", (),
+                             ctypes.c_longlong)()
+    return torch.zeros(floats, dtype=torch.float32, device=device)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def vector_arm(d: int, dtype: torch.dtype):
+    """(lanes a row, 16-byte vectors a lane) of the kernels' vector arm at
+    width d, or None where the scalar arm takes it (d not a multiple of
+    one vector: 8 bf16, 4 f32).  A row of up to 16 vectors spans the power
+    of two of lanes that covers them (32 / lanes rows a warp); wider rows
+    one warp, with 2, 4, 5 (bf16) or 8, 10 (f32) vectors a lane."""
+    vec = 16 // dtype.itemsize
+    if d % vec:
+        return None
+    nv = d // vec
+    if nv <= 16:
+        return 1 << (nv - 1).bit_length(), 1
+    need = _cdiv(nv, 32)
+    for vpl in (1, 2, 4) + ((5,) if vec == 8 else (8, 10)):
+        if need <= vpl:
+            return 32, vpl
+    raise ValueError(f"width {d} past the widest arm")
+
+
+def _arm_config(lanes: int, vpl: int, backward: bool):
+    """(warps a block, row groups a warp a chunk, rows a warp at once) of
+    a vector-arm instantiation (`Cfg` in the source)."""
+    warps = 4 if backward and vpl >= 8 else WARPS
+    return warps, max(1, (2 if backward else 4) // vpl), 32 // lanes
+
+
+def forward_plan(rows: int, d: int, dtype: torch.dtype, sms: int,
+                 blocks_per_sm: int) -> dict:
+    """How K1's forward lays out `rows` rows of width d (the source's
+    `forward_plan`): blocks walk the chunks b, b + grid, ... of `chunk_rows`
+    contiguous rows through the ring of shared memory; where no block
+    would walk more than two chunks, the direct kernel takes one row group
+    a warp, or two where a lane holds two vectors or fewer and one would
+    launch more than two blocks an SM (`direct`: a chunk is a block's
+    rows, one a block).  `blocks_per_sm`: the instantiation's resident
+    blocks (the card's occupancy; the scalar arm ignores it)."""
+    arm = vector_arm(d, dtype)
+    if arm is None:
+        grid = _cdiv(rows, WARPS)
+        return dict(arm=None, rows_per_group=1, chunk_rows=WARPS, grid=grid,
+                    chunks=grid, direct=True)
+    warps, gpw, rpw = _arm_config(*arm, backward=False)
+    want = sms * blocks_per_sm
+    groups = _cdiv(_cdiv(rows, rpw), want)
+    if groups > warps:
+        groups = min(_cdiv(groups, warps) * warps, warps * gpw)
+    ch = groups * rpw
+    chunks = _cdiv(rows, ch)
+    if chunks <= 2 * want:
+        # The direct kernel: G row groups a warp, a block of them a chunk.
+        g = _cdiv(_cdiv(rows, warps * rpw), DIRECT_BLOCKS_PER_SM * sms)
+        ch = min(g, DIRECT_GROUPS if arm[1] <= 2 else 1) * warps * rpw
+        chunks = _cdiv(rows, ch)
+        return dict(arm=arm, rows_per_group=rpw, chunk_rows=ch,
+                    grid=chunks, chunks=chunks, direct=True)
+    return dict(arm=arm, rows_per_group=rpw, chunk_rows=ch,
+                grid=want, chunks=chunks, direct=False)
+
+
+def backward_blocks(rows: int, sms: int) -> int:
+    """The backward's blocks for `rows` rows on a card of `sms` SMs (the
+    source's `ln_backward_blocks`): block k takes rows [k per, (k + 1) per)
+    of per = ceil(rows / blocks)."""
+    if rows <= 0:
+        return 0
+    return min(_cdiv(rows, BWD_MIN_ROWS), BWD_BLOCKS_PER_SM * sms,
+               GROUP * MAX_GROUPS)
+
+
+def backward_plan(rows: int, d: int, dtype: torch.dtype, sms: int) -> dict:
+    """How K1's backward lays out `rows` rows of width d: `backward_blocks`
+    contiguous ranges of `rows_per_block`, each read in chunks of
+    `chunk_rows` through the ring (`direct` False: the forward's key)."""
+    blocks = backward_blocks(rows, sms)
+    per = _cdiv(rows, blocks) if blocks else 0
+    arm = vector_arm(d, dtype)
+    if arm is None:
+        return dict(arm=None, rows_per_group=1, chunk_rows=WARPS,
+                    grid=blocks, rows_per_block=per, direct=True)
+    warps, gpw, rpw = _arm_config(*arm, backward=True)
+    groups = _cdiv(max(per, 1), rpw)
+    if groups > warps:
+        groups = min(_cdiv(groups, warps) * warps, warps * gpw)
+    ch = groups * rpw
+    return dict(arm=arm, rows_per_group=rpw, chunk_rows=ch, grid=blocks,
+                rows_per_block=per, direct=False)
+
+
 def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              eps: float, stats: bool):
     """Launch K1.  Returns y and, with `stats`, each row's f32 mean and
@@ -92,9 +216,7 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     d = x.shape[-1]
     rows = x.numel() // d
     y = torch.empty_like(x)
-    # The raw handle: a `torch.cuda.Stream` object a call is host time on
-    # every LayerNorm of the host-bound main path.
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    stream = _raw_stream(x.device)
     mean = rstd = None
     if stats:
         mean = torch.empty(rows, dtype=torch.float32, device=x.device)
@@ -130,18 +252,17 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor,
                                   ("rstd", rstd, (rows,), torch.float32)):
         _build.require_operand("layer_norm_backward", t, name, shape, dtype,
                                dev)
-    blocks = _build.function("layernorm", "ln_backward_blocks",
-                             (ctypes.c_longlong,))(rows)
-    parts = torch.empty((2, max(blocks, 1), d), dtype=torch.float32,
-                        device=dev)
+    stream = _raw_stream(dev)
+    scratch = _SCRATCH.get((dev.index, stream))
+    if scratch is None:
+        scratch = _SCRATCH[dev.index, stream] = _backward_scratch(dev)
     dx = torch.empty_like(x)
     dwb = torch.empty((2, d), dtype=torch.float32, device=dev)
     fn = _build.function("layernorm", "ln_backward", _BWD_ARGTYPES)
     status = fn(x.data_ptr(), dy.data_ptr(), w.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-                parts[1].data_ptr(), dwb[0].data_ptr(), dwb[1].data_ptr(),
-                rows, d, _DTYPES[x.dtype],
-                torch.cuda.current_stream(dev).cuda_stream)
+                rstd.data_ptr(), dx.data_ptr(), dwb[0].data_ptr(),
+                dwb[1].data_ptr(), scratch.data_ptr(), rows, d,
+                _DTYPES[x.dtype], stream)
     _build.check(status, "layer_norm_backward")
     layer_norm_backward.launches += 1
     return dx, dwb[0], dwb[1]

@@ -1,7 +1,8 @@
 """Import boundary of the PyTorch port: `crowdsam_tpu_torch`,
-`chip_smoke.py` and `chip_ab_relpos.py` import neither JAX, flax, msgpack
-nor the JAX package (flax msgpack checkpoints go through the port's own
-reader), and the entry points refuse to fall back to the CPU silently."""
+`chip_smoke.py`, `chip_ab_relpos.py` and `chip_ab_layernorm.py` import
+neither JAX, flax, msgpack nor the JAX package (flax msgpack checkpoints go
+through the port's own reader), and the entry points refuse to fall back to
+the CPU silently."""
 
 import ast
 import re
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "crowdsam_tpu")
 
 def _port_files():
     return sorted((ROOT / "crowdsam_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "chip_ab_relpos.py"]
+        ROOT / "chip_smoke.py", ROOT / "chip_ab_relpos.py",
+        ROOT / "chip_ab_layernorm.py"]
 
 
 def _imported_roots(path: Path):
@@ -418,16 +420,29 @@ def test_user_facing_surface_leaves_jax_out_of_sys_modules():
 
 
 def test_layernorm_source_holds_its_backward_without_library_calls():
+    """K1's backward is in its source (the vector and scalar arms, and the
+    last block's sum of the partials that replaced a second launch), calls
+    no library, and takes no atomic on a sum: its only atomics count the
+    blocks' tickets, so dw and db are the same bit for bit from call to
+    call."""
     src = (ROOT / "crowdsam_tpu_torch" / "csrc" / "layernorm.cu").read_text()
-    for name in ("ln_bwd_rows", "ln_bwd_reduce", "ln_backward",
-                 "ln_forward_stats"):
+    for name in ("ln_bwd_rows", "ln_bwd_vec", "finish_partials",
+                 "ln_backward", "ln_forward_stats"):
         assert name in src, name
     code = re.sub(r"//[^\n]*", "", src)
     includes = set(re.findall(r"#include\s*<([^>]+)>", code))
-    assert includes <= {"cuda_runtime.h", "cuda_bf16.h"}, includes
-    for lib in ("cublas", "cub::", "DeviceReduce", "thrust", "atomicAdd",
-                "cudnn"):
+    assert includes <= {"cuda_runtime.h", "cuda_bf16.h", "stdint.h",
+                        "string.h"}, includes
+    assert set(re.findall(r'#include\s*"([^"]+)"', code)) <= {"sm90.cuh"}
+    for lib in ("cublas", "cub::", "DeviceReduce", "thrust", "cudnn"):
         assert lib not in code, lib
+    assert not re.findall(r"\batomic\w*\s*\(", code)
+    ptx = re.findall(r'"\s*((?:atom|red)\.[\w.]+)', code)
+    assert ptx == ["atom.acq_rel.gpu.global.add.u32"], ptx
+    tickets = re.findall(r"take_ticket\(([^)]*)\)", code)
+    assert tickets[0] == "unsigned* word", tickets
+    assert len(tickets) > 1 and all(
+        t.startswith("&a.tickets[") for t in tickets[1:]), tickets
 
 
 def _guard_cases():

@@ -56,8 +56,15 @@ def _close(got, want, atol, rtol=2.0 ** -7):
     assert ((got - want).abs() <= atol + rtol * want.abs()).all()
 
 
+# K1's arms: widths 4 and 100 (bf16) take the scalar arm, 16-256 the row
+# groups of 2-32 lanes, 1024 and 1280 one warp a row; row counts below one
+# block, ragged against a chunk (128 rows at width 64) and against a row
+# group (4 rows a warp at width 64, 16 at width 16 bf16).
 @pytest.mark.parametrize("n,d", [(1, 64), (37, 256), (1000, 1024),
-                                 (1000, 1280), (1000, 4), (1000, 16)])
+                                 (1000, 1280), (1000, 4), (1000, 16),
+                                 (5, 16), (33, 4), (3, 72), (1001, 72),
+                                 (777, 100), (70001, 64), (9999, 256),
+                                 (130, 1024), (2, 1280)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_kernel(gen, n, d, dtype):
     x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
@@ -70,6 +77,65 @@ def test_layer_norm_kernel(gen, n, d, dtype):
         _close(got, layer_norm_plain(x, w, b, 1e-5), 1e-2)
     else:
         _close(got, layer_norm_plain(x, w, b, 1e-5), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 256, 1024])
+def test_layer_norm_kernel_unaligned_rows(gen, d):
+    """x and y 2 bytes off a 16-byte boundary: the scalar arm takes them
+    (the vector arm's bulk copies need 16-byte aligned rows); forward with
+    statistics and backward against the plain version."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    n = 301
+    buf = torch.randn(n * d + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = buf[1:].view(n, d)
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    dy = torch.randn(n * d + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)[1:].view(n, d)
+    y, mean, rstd = ln._forward(x, w, b, 1e-5, stats=True)
+    _close(y, layer_norm_plain(x, w, b, 1e-5), 1e-2)
+    dx, dw, db = ln.layer_norm_backward(dy, x, w, mean, rstd)
+    want = ln.layer_norm_grads_plain(dy, x, w, b, 1e-5)
+    _close(dx, want[0], 1e-2)
+    for got, ref in ((dw, want[1]), (db, want[2])):
+        _close(got, ref, 1e-4 * float(ref.abs().max()), 0.0)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_layer_norm_plan_matches_the_source(gen, backward):
+    """The source's `ln_plan` lays the rows out as the Python description
+    (`forward_plan`, `backward_plan`) says, at every arm's widths."""
+    import ctypes
+
+    from crowdsam_tpu_torch.kernels import _build
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    fn = _build.function("layernorm", "ln_plan",
+                         (ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p))
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (4, 8, 16, 32, 64, 72, 100, 128, 256, 512, 1024, 1280):
+            if backward and d > ln.MAX_BWD_WIDTH:
+                continue
+            for rows in (1, 33, 420, 4096, 5330, 524288, 983040):
+                out = (ctypes.c_longlong * 11)()
+                _build.check(fn(int(backward), rows, d, ln._DTYPES[dtype],
+                                ctypes.cast(out, ctypes.c_void_p)), "ln_plan")
+                got = list(out)
+                sms, occ = got[9], got[8]
+                want = (ln.backward_plan(rows, d, dtype, sms) if backward
+                        else ln.forward_plan(rows, d, dtype, sms, occ))
+                arm = want["arm"] or (0, 0)
+                assert got[:2] == list(arm), (d, dtype, rows, got, want)
+                assert got[3:6] == [want["rows_per_group"],
+                                    want["chunk_rows"], want["grid"]]
+                assert got[6] == (want["rows_per_block"] if backward
+                                  else want["chunks"])
+                assert got[10] == int(want["direct"])
+                if backward:
+                    assert got[5] == ln.backward_blocks(rows, sms)
 
 
 def _tables(gen, h, w, hd=64):
@@ -546,7 +612,9 @@ def test_survivor_kernel_clamps_in_hw_as_the_plain_version(gen):
 
 
 @pytest.mark.parametrize("n,d", [(1001, 64), (333, 256), (77, 1024),
-                                 (7, 100)])
+                                 (7, 100), (1, 4), (33, 16), (4097, 72),
+                                 (5, 256), (20000, 64), (1500, 1024),
+                                 (100003, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_backward_kernel(gen, n, d, dtype):
     """K1 forward with statistics and K1's backward against autograd of

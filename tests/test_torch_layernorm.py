@@ -185,3 +185,146 @@ def test_backward_refuses_rows_wider_than_its_kernel():
     with pytest.raises(ValueError, match=r"layer_norm: width 1281"):
         ln._forward(torch.zeros((4, 1281)), torch.ones(1281),
                     torch.zeros(1281), 1e-6, stats=False)
+
+
+# How K1's kernels lay rows out (`forward_plan`, `backward_plan`: the
+# source's `ln_plan` gives the same on the card, `tests/test_torch_cuda.py`
+# holds the two together).  H100 figures: 132 SMs, 2-4 resident blocks.
+
+@pytest.mark.parametrize("d,dtype,arm", [
+    (4, torch.bfloat16, None), (4, torch.float32, (1, 1)),
+    (8, torch.bfloat16, (1, 1)), (16, torch.bfloat16, (2, 1)),
+    (16, torch.float32, (4, 1)), (64, torch.bfloat16, (8, 1)),
+    (64, torch.float32, (16, 1)), (72, torch.bfloat16, (16, 1)),
+    (72, torch.float32, (32, 1)), (100, torch.bfloat16, None),
+    (100, torch.float32, (32, 1)), (256, torch.bfloat16, (32, 1)),
+    (256, torch.float32, (32, 2)), (512, torch.bfloat16, (32, 2)),
+    (1024, torch.bfloat16, (32, 4)), (1024, torch.float32, (32, 8)),
+    (1280, torch.bfloat16, (32, 5)), (1280, torch.float32, (32, 10))])
+def test_vector_arm_by_width(d, dtype, arm):
+    """Widths that are a multiple of a 16-byte vector take the vector arm:
+    up to 16 vectors a row on a power of two of lanes, wider rows one warp
+    with 2-10 vectors a lane; the others (the serving head's width 4 in
+    bf16) the scalar arm."""
+    from crowdsam_tpu_torch.ops.layernorm import vector_arm
+
+    assert vector_arm(d, dtype) == arm
+    if arm is not None:
+        lanes, vpl = arm
+        vec = 16 // dtype.itemsize
+        assert d // vec <= lanes * vpl            # every vector has a lane
+        assert lanes == 32 or d // vec > lanes // 2
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 33, 420, 2111, 5330, 245760,
+                                  983040, 10 ** 7 + 3])
+def test_backward_blocks_take_every_row_once(rows, sms):
+    """`backward_blocks` splits the rows into contiguous ranges of
+    ceil(rows / blocks): every row lands in exactly one block, no block
+    holds more than its share, and the grid stays within two blocks an SM
+    (all resident at once: the last block's tickets never wait)."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    blocks = ln.backward_blocks(rows, sms)
+    assert 1 <= blocks <= min(ln.BWD_BLOCKS_PER_SM * sms,
+                              ln.GROUP * ln.MAX_GROUPS)
+    per = -(-rows // blocks)
+    seen = np.zeros(rows, dtype=np.int64)
+    for k in range(blocks):
+        lo, hi = k * per, min((k + 1) * per, rows)
+        if hi > lo:
+            seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert ln.backward_blocks(0, sms) == 0
+
+
+@pytest.mark.parametrize("occ", [1, 3, 4])
+@pytest.mark.parametrize("rows,d,dtype", [
+    (1, 64, torch.bfloat16), (37, 256, torch.bfloat16),
+    (4096, 16, torch.bfloat16), (4096, 256, torch.bfloat16),
+    (5330, 1024, torch.bfloat16), (4096, 1280, torch.bfloat16),
+    (131072, 256, torch.bfloat16), (524288, 64, torch.bfloat16),
+    (70001, 64, torch.float32), (1000, 1280, torch.float32),
+    (16384, 4, torch.bfloat16)])
+def test_forward_plan_takes_every_row_once(rows, d, dtype, occ):
+    """The forward's chunks tile the rows (the last one ragged), the
+    blocks walk chunks b, b + grid, ... so each chunk has one block; the
+    ring's chunk is whole row groups of every warp at most GPW deep and
+    fits (3 stages in 227 KB), its grid the resident blocks, each with
+    more than two chunks; else the direct kernel, a row group a warp."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    sms = 132
+    plan = ln.forward_plan(rows, d, dtype, sms, occ)
+    ch, chunks, grid = plan["chunk_rows"], plan["chunks"], plan["grid"]
+    assert (chunks - 1) * ch < rows <= chunks * ch
+    owner = np.full(chunks, -1)
+    for b in range(grid):
+        assert (owner[b::grid] == -1).all()
+        owner[b::grid] = b
+    assert (owner >= 0).all()
+    if plan["arm"] is None:
+        assert grid == chunks == -(-rows // ln.WARPS)
+        return
+    lanes, vpl = plan["arm"]
+    assert plan["rows_per_group"] == 32 // lanes
+    groups = ch // plan["rows_per_group"]
+    assert groups * plan["rows_per_group"] == ch
+    if plan["direct"]:          # G row groups a warp, a chunk a block
+        g = groups // ln.WARPS
+        assert g * ln.WARPS == groups and grid == chunks
+        assert 1 <= g <= (ln.DIRECT_GROUPS if vpl <= 2 else 1)
+        assert g == 1 or (-(-rows // (ln.WARPS * plan["rows_per_group"]))
+                          > ln.DIRECT_BLOCKS_PER_SM * sms)
+        return
+    assert grid == sms * occ < chunks / 2
+    assert groups <= ln.WARPS * max(1, 4 // vpl)
+    assert groups <= ln.WARPS or groups % ln.WARPS == 0
+    ring = ln.STAGES * ch * d * dtype.itemsize + 8 * d + 8 * ln.STAGES
+    assert ring <= 227 * 1024
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (983040, 64, torch.bfloat16), (245760, 256, torch.bfloat16),
+    (420, 256, torch.bfloat16), (5330, 1024, torch.float32),
+    (1, 4, torch.bfloat16), (100003, 64, torch.float32),
+    (1500, 1024, torch.bfloat16), (7, 100, torch.float32)])
+def test_backward_plan_chunks_fit_a_block(rows, d, dtype):
+    """A backward block reads its range in chunks of whole row groups (at
+    most 2 / VPL deep a warp; 4 warps a block at 8 vectors a lane), the
+    three stages of x and dy in 96 KB or less (two blocks an SM); the
+    main path's shapes take the vector arm."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    plan = ln.backward_plan(rows, d, dtype, 132)
+    assert plan["grid"] == ln.backward_blocks(rows, 132)
+    assert plan["rows_per_block"] == -(-rows // plan["grid"])
+    if plan["arm"] is None:
+        assert (d * dtype.itemsize) % 16 != 0
+        return
+    lanes, vpl = plan["arm"]
+    warps = 4 if vpl >= 8 else ln.WARPS
+    groups = plan["chunk_rows"] // plan["rows_per_group"]
+    assert groups <= warps * max(1, 2 // vpl)
+    assert ln.STAGES * 2 * plan["chunk_rows"] * d * dtype.itemsize \
+        <= 96 * 1024
+    assert not plan["direct"]
+
+
+def test_plans_at_the_main_paths_shapes():
+    """The unfused decoder's upscaling LayerNorm runs the 8-lane arm over
+    a ring of 128-row chunks on every resident block; DINOv2's blocks the
+    direct kernel, a row a warp (two ring chunks a block or fewer); the
+    training step's backward 264 blocks of 3724 rows."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    up = ln.forward_plan(524288, 64, torch.bfloat16, 132, 4)
+    assert (up["arm"], up["rows_per_group"], up["chunk_rows"], up["grid"],
+            up["chunks"], up["direct"]) == ((8, 1), 4, 128, 528, 4096, False)
+    enc = ln.forward_plan(5330, 1024, torch.bfloat16, 132, 3)
+    assert (enc["arm"], enc["chunk_rows"], enc["grid"], enc["direct"]) == (
+        (32, 4), 8, 667, True)
+    bwd = ln.backward_plan(983040, 64, torch.bfloat16, 132)
+    assert (bwd["grid"], bwd["rows_per_block"], bwd["chunk_rows"]) == (
+        264, 3724, 64)

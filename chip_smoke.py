@@ -95,9 +95,20 @@ the gitignored `build/kernels/`), then:
    a head-dim-80 K3 kernel that ptxas reports spilling fails the phase),
    `sam_hq` on ViT-L (K5/K6 must not launch: the HQ
    decoder decodes unfused) and `mobile_sam` (K2/K3 must not);
+   float32 on the card (`tpu.compute_dtype float32`): each float32 arm of
+   K2-K4 (`csrc/attention_f32.cu`) at the float32 path's shapes against a
+   float64 evaluation of the same function on the card, its max and mean
+   error at most 2x the plain float32 version's and the faults of its
+   design 8-fold over that (phases `K2 float32`, `K3 float32`, `K4
+   float32`), K1's float32 forward (`K1 float32`); the float32 path with
+   the unfused decode and the shipped adapter against the same run with
+   the plain versions of K1-K4 patched in, a TF32 tripwire and the bf16
+   main path's distance from it (`float32 path`); 3 float32 full-decoder
+   steps against the CPU's (`train float32`); the AMG in float32 (`amg
+   float32`); float32 with the fused decode refused with its reason
+   (`f32_refused`);
    the opt-in modes and the train-free branch, each with the counts set to
-   0 just before and read just after: `tpu.compute_dtype float32` refused
-   on the card with its reason (phase `f32_refused`); each mode alone on
+   0 just before and read just after: each mode alone on
    the main model, filters off, one crowd scene (`modes`: mask_selection
    max_area / min_area, accumulate_occupy, fuse_simmap, fullres_cleanup,
    under which K7 must not launch); `tpu.rect_encode` against the square
@@ -170,6 +181,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -412,7 +424,7 @@ def _ptxas_report(lib: str = "attention") -> dict:
     and `window_attn_relpos<TK,HD>` from the mangled names' template
     arguments; K1's `ln_fwd_vec<T,L,VPL>`, `ln_fwd_direct<T,L,VPL>`,
     `ln_bwd_vec<T,L,VPL>`, `ln_rows<T,VPT>` and `ln_bwd_rows<T,VPT>` with
-    T bf16 or f32."""
+    T bf16 or f32; the float32 arms' `attn_f32<HD,RELPOS>`."""
     from crowdsam_tpu_torch.kernels import _build
 
     out, name = {}, None
@@ -420,7 +432,7 @@ def _ptxas_report(lib: str = "attention") -> dict:
         m = re.search(r"Compiling entry function '_Z\w*?\d"
                       r"(flash_attn_relpos(?:_wide)?|window_attn_relpos"
                       r"|ln_fwd_vec|ln_fwd_direct|ln_bwd_vec|ln_bwd_rows"
-                      r"|ln_rows)"
+                      r"|ln_rows|attn_f32)"
                       r"I(\w+?)EEv", line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
@@ -2347,7 +2359,8 @@ def _reset_counts():
     for fn in counters.values():
         fn.launches = 0
         for tally in ("launches_by_width", "launches_by_head_dim",
-                      "launches_by_shape", "launches_by_form"):
+                      "launches_by_shape", "launches_by_form",
+                      "launches_by_dtype"):
             if hasattr(fn, tally):
                 getattr(fn, tally).clear()
     return counters
@@ -3333,6 +3346,15 @@ def phase_numpy_init(draw: HostDraw):
     return row
 
 
+@functools.lru_cache(maxsize=1)
+def _ten_shot():
+    """The synthetic 10-shot set (`utils.fixtures.ten_shot_arrays(0)`),
+    drawn once for the three trainer phases (~10 s of host time a draw)."""
+    from crowdsam_tpu_torch.utils.fixtures import ten_shot_arrays
+
+    return ten_shot_arrays(0)
+
+
 def _train_run(model, cfg, label, data, plain_check=False):
     """One `AdapterTrainer.train` run of cfg's steps on `model` (whose
     decoder it trains in place), timed per step, with K1's launches."""
@@ -3430,9 +3452,8 @@ def phase_train(model):
 
     from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.train.dataset import ArrayDataset
-    from crowdsam_tpu_torch.utils.fixtures import ten_shot_arrays
 
-    data = ArrayDataset(*ten_shot_arrays(0))
+    data = ArrayDataset(*_ten_shot())
     head = modify_config(copy.deepcopy(model.config), ["train.steps", "20"])
     rows = {"head_only": _train_run(model, head, "head-only", data)}
     full = modify_config(copy.deepcopy(head), ["train.full_decoder", "True",
@@ -4047,10 +4068,10 @@ def _sync_timed(fn, acc):
 
 
 def phase_f32_refused():
-    """`tpu.compute_dtype float32` on the card: `CrowdSAM` and the AMG
-    refuse it at construction with the reason (the kernels take bf16
-    operands), and a float32 qkv in the encoder raises TypeError rather
-    than being cast to bf16."""
+    """`tpu.compute_dtype float32` on the card where it is still refused:
+    `CrowdSAM` with the fused decode (K5 and K6 take bf16) refuses it at
+    construction, naming their float32 arms as the next slice; the AMG is
+    no longer refused (phase `amg float32` runs it)."""
     from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.models.build import sam_model_registry
     from crowdsam_tpu_torch.pipeline.amg_generator import (
@@ -4058,31 +4079,681 @@ def phase_f32_refused():
     )
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 
-    cfg = modify_config(_small_config(), ["tpu.compute_dtype", "float32"])
+    cfg = modify_config(_small_config(), ["tpu.compute_dtype", "float32",
+                                          "tpu.fused_decode", "true"])
+    try:
+        CrowdSAM(cfg, device="cuda")
+    except NotImplementedError as e:
+        refusal = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError("f32_refused: CrowdSAM ran float32 with the "
+                             "fused decode on CUDA")
     sam = sam_model_registry["vit_tiny"]().cuda()      # float32 weights
-    x = torch.zeros((1, 256, 256, 3), device="cuda")
-    refusals = {}
-    for what, fn, exc in (
-            ("CrowdSAM", lambda: CrowdSAM(cfg, device="cuda"),
-             NotImplementedError),
-            ("SamAutomaticMaskGenerator",
-             lambda: SamAutomaticMaskGenerator(sam, device="cuda"),
-             NotImplementedError),
-            ("image encoder, float32 qkv", lambda: sam.image_encoder(x),
-             TypeError)):
-        try:
-            fn()
-        except exc as e:
-            refusals[what] = f"{type(e).__name__}: {e}"
-        else:
-            raise AssertionError(f"f32_refused: {what} ran float32 on CUDA")
-    print(json.dumps({"phase": "f32_refused", "refusals": refusals}),
-          flush=True)
-    if not all("bf16 operands" in m for m in refusals.values()):
-        raise AssertionError(f"f32_refused: a refusal without its reason: "
-                             f"{refusals}")
+    SamAutomaticMaskGenerator(sam, device="cuda")
+    print(json.dumps({"phase": "f32_refused", "refusal": refusal,
+                      "amg_constructed": True}), flush=True)
+    if "K5 and K6" not in refusal or "next slice" not in refusal:
+        raise AssertionError(f"f32_refused: {refusal}")
     del sam
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# float32 on the card: the float32 arms of K2-K4, K1's float32 forward, and
+# the paths that run them
+# --------------------------------------------------------------------------
+
+# The float32 arms' shapes: K2 (padded grid, head dim), K3 (grid, head dim,
+# query rows), K4 (tokens, query tokens).
+F32_K2 = (((70, 70), 64), ((70, 70), 80), ((28, 70), 64))
+F32_K3 = (((64, 64), 64, (0, 64)), ((64, 48), 64, (0, 64)),
+          ((44, 64), 64, (0, 44)), ((64, 64), 80, (0, 64)),
+          ((64, 64), 64, (42, 64)))
+F32_K4 = ((5330, (0, 5330)), (4096, (0, 4096)), (5330, (2628, 5330)),
+          (1000, (0, 1000)))
+# K1's float32 forward at the float32 path's shapes: DINOv2's and SAM's
+# blocks, the neck, SAM ViT-H's blocks.
+F32_K1 = ((5330, 1024), (4096, 1024), (4096, 256), (4096, 1280))
+
+
+def _f32_arm_inputs(gen, arm, case):
+    """(F32Attention, the wrapper call, its shape, K2's padded grid) of one
+    case on float32 CUDA tensors laid out as the encoders hand them over: K2
+    on the qkv projection of a padded grid of 14x14 windows, K3 and K4 on
+    strided views of one qkv buffer, 16 heads."""
+    from crowdsam_tpu_torch.models import attention as att
+    from crowdsam_tpu_torch.models.image_encoder import _rel_pos_table
+
+    heads = 16
+    if arm == "K2":
+        (gh, gw), hd = case
+        qkv = torch.randn((1, gh, gw, 3 * heads * hd), generator=gen,
+                          device="cuda")
+        tabs = [_rel_pos_table(0.1 * torch.randn((27, hd), generator=gen,
+                                                 device="cuda"), 14)
+                for _ in range(2)]
+        a = att.window_f32_attention(qkv, *tabs, heads, hd ** -0.5, 14)
+        nw = (gh // 14) * (gw // 14)
+        return (a, lambda: att.window_attention(qkv, *tabs, heads,
+                                                hd ** -0.5, 14),
+                f"{nw}x{heads}x196x{hd}", (gh, gw))
+    if arm == "K3":
+        (hh, ww), hd, (lo, hi) = case
+        qkv = torch.randn((1, hh * ww, 3, heads, hd), generator=gen,
+                          device="cuda")
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        q = q[:, :, lo * ww:hi * ww]
+        rh, rw = (_rel_pos_table(0.1 * torch.randn(
+            (127, hd), generator=gen, device="cuda"), n) for n in (hh, ww))
+        a = att.relpos_f32_attention(q, k, v, hd ** -0.5, rh, rw, (hh, ww),
+                                     lo)
+        shape = (f"{heads}x{hh * ww}x{hd}" if (lo, hi) == (0, hh) else
+                 f"{heads}x{(hi - lo) * ww}x{hd} of {hh * ww} keys")
+        return (a, lambda: att.flash_mha_decomposed_relpos(
+            q, k, v, hd ** -0.5, rh, rw, (hh, ww), lo), shape, (hh, ww))
+    s, (lo, hi) = case
+    qkv = torch.randn((1, s, 3, heads, 64), generator=gen, device="cuda")
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    q = q[:, :, lo:hi]
+    a = att.flash_f32_attention(q, k, v, 0.125, s)
+    shape = (f"{heads}x{s}x64" if (lo, hi) == (0, s)
+             else f"{heads}x{hi - lo}x64 of {s} keys")
+    return (a, lambda: att.flash_mha(q, k, v, 0.125, valid_len=s), shape,
+            None)
+
+
+def _f32_faults(a, arm):
+    """The plain function with the faults of the float32 arm's design: the
+    last 64-key tile dropped, valid_len one short, fh from the next grid
+    row (row(k) + 1) and fw one column off (col(k) + 1) for K2 and K3, and
+    where the keys do not fill the last tile (K2's 196 keys, K4 at 5330 and
+    1000), one of its pad keys unmasked: K and V are zero-filled there, so
+    a key of logit 0 and value 0."""
+    from crowdsam_tpu_torch.models.attention import (
+        f32_attention_logits,
+        f32_attention_plain,
+    )
+
+    s = a.k.shape[-2]
+    tail = 64 * ((a.valid - 1) // 64)
+    faults = [(f"last key tile (keys {tail}-{a.valid - 1}) dropped",
+               dataclasses.replace(a, valid=tail)),
+              (f"valid_len off by one ({a.valid - 1})",
+               dataclasses.replace(a, valid=a.valid - 1))]
+    if a.fh is not None:
+        faults += [("fh from the next grid row (row(k) + 1)",
+                    dataclasses.replace(a, fh=_shift_last(a.fh, 1))),
+                   ("fw one column off (col(k) + 1)",
+                    dataclasses.replace(a, fw=_shift_last(a.fw, 1)))]
+    out = [(label, f32_attention_plain(f)) for label, f in faults]
+    if s % 64:
+        logits = f32_attention_logits(a)
+        logits = torch.cat([logits, torch.zeros_like(logits[..., :1])], -1)
+        probs = torch.softmax(logits, -1)[..., :-1]
+        out.append((("a window's pad key" if arm == "K2" else
+                     "a pad key of the last tile")
+                    + f" unmasked (key {s}: logit 0, value 0)",
+                    probs @ a.v))
+    return out
+
+
+def _as_float64(a):
+    return dataclasses.replace(a, **{
+        k: getattr(a, k).double() for k in ("q", "k", "v", "fh", "fw")
+        if getattr(a, k) is not None})
+
+
+def _sdpa_backend(fn) -> dict:
+    """The kernels one call of `fn` (an SDPA call) launches, and the
+    backend their names show: memory-efficient (`fmha` / `efficient`),
+    flash, cuDNN, or the math path (products and a softmax)."""
+    names = sorted({_kernel_name(ev.name)[:60]
+                    for ev in _cuda_events(fn, 1)})
+    text = " ".join(names).lower()
+    backend = ("EFFICIENT_ATTENTION" if "fmha" in text or "efficient" in text
+               else "FLASH_ATTENTION" if "flash" in text
+               else "CUDNN_ATTENTION" if "cudnn" in text else "MATH")
+    return dict(sdpa_backend=backend, sdpa_kernels=names)
+
+
+def _f32_instantiation(hd: int, relpos: bool, grid) -> dict:
+    """The float32 arm's kernel at one call's shape: its dynamic shared
+    memory and blocks an SM (`attention_f32_occupancy`), and ptxas's
+    registers and spilled bytes."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    fn = _build.function("attention_f32", "attention_f32_occupancy",
+                         (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p))
+    out = (ctypes.c_int * 2)()
+    gh, gw = grid
+    _build.check(fn(hd, int(relpos), gh, gw, ctypes.cast(out,
+                                                          ctypes.c_void_p)),
+                 "attention_f32_occupancy")
+    name = f"attn_f32<{hd},{int(relpos)}>"
+    rep = _ptxas_report("attention_f32").get(name, {})
+    if rep.get("spill_store_bytes") or rep.get("spill_load_bytes"):
+        raise AssertionError(f"{name}: ptxas spilled {rep}")
+    return dict(kernel=name, smem_bytes=out[0], blocks_per_sm=out[1], **rep)
+
+
+def phase_f32_arm(gen, arm, case):
+    """One float32 arm (K2, K3 or K4 on float32 CUDA tensors) at one of the
+    float32 path's shapes, against a float64 evaluation of the same
+    function on the card and the plain float32 version (TF32 off): its max
+    and mean absolute error from float64 each at most 2x the plain float32
+    version's, with a floor of 1e-7 of max |out|; the faults of its design
+    (`_f32_faults`) must break that bound 8-fold.  Times the wrapper (CUDA
+    events), the kernel alone (torch.profiler), the plain version and SDPA
+    in float32 on the same prebuilt bias (its backend named), beside the
+    bound (4 Sq S hd FLOP a head at 67 TFLOP/s, or the bytes)."""
+    from crowdsam_tpu_torch.models import attention as att
+
+    a, call, shape, grid = _f32_arm_inputs(gen, arm, case)
+    wrapper = {"K2": att.window_attention,
+               "K3": att.flash_mha_decomposed_relpos,
+               "K4": att.flash_mha}[arm]
+    n0 = wrapper.launches_by_dtype["float32"]
+    got = call()
+    torch.cuda.synchronize()
+    if wrapper.launches_by_dtype["float32"] != n0 + 1:
+        raise AssertionError(f"{arm} float32 {shape}: the arm did not launch")
+
+    def as_out(o):
+        return (att.window_f32_output(o, 14, *grid) if arm == "K2" else o)
+
+    want = as_out(att.f32_attention_plain(_as_float64(a)))
+    plain = as_out(att.f32_attention_plain(a))
+    floor = 1e-7 * float(want.abs().max())
+
+    def errs(x):
+        d = (x.double() - want).abs()
+        return float(d.max()), float(d.mean())
+
+    got_max, got_mean = errs(got)
+    pl_max, pl_mean = errs(plain)
+    tol_max, tol_mean = max(2 * pl_max, floor), max(2 * pl_mean, floor)
+
+    def over(x):
+        mx, mn = errs(x)
+        return max(mx / tol_max, mn / tol_mean)
+
+    faults = {label: over(as_out(f)) for label, f in _f32_faults(a, arm)}
+    row = dict(shape=shape, max_abs_err=got_max, mean_abs_err=got_mean,
+               plain_max_abs_err=pl_max, plain_mean_abs_err=pl_mean,
+               out_max_abs=float(want.abs().max()),
+               tol="max and mean |err| from float64 <= 2x the plain "
+                   "float32 version's, floor 1e-7 max|out|",
+               err_over_tol=over(got), fault_err_over_tol=faults)
+    del want, plain
+    bad = [k for k, r in faults.items() if r <= 8.0]
+    if not bool(torch.isfinite(got).all()) or row["err_over_tol"] > 1.0 \
+            or bad:
+        raise AssertionError(f"{arm} float32 {shape}: {row} (faults within "
+                             f"8x the bound: {bad})")
+    del got
+    b, nh, sq, hd = a.q.shape
+    s = a.k.shape[2]
+    iters = 10 if arm != "K2" else 20
+    t_k = time_ms(call, iters)
+    d_k = device_ms(call, iters, "attn_f32")
+    t_p = time_ms(lambda: att.f32_attention_plain(a), 3)
+    gh, gw = a.grid
+    bias = None if a.fh is None else (
+        a.fh.reshape(b, nh, sq, gh, 1) + a.fw.reshape(b, nh, sq, 1, gw)
+    ).reshape(b, nh, sq, s)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib():
+        return sdpa(a.q, a.k, a.v, attn_mask=bias, scale=a.scale)
+    t_l = time_ms(lib, iters)
+    d_l = device_ms(lib, iters)
+    backend = _sdpa_backend(lib)
+    del bias
+    flops = 4.0 * b * nh * sq * a.valid * hd
+    nbytes = 4 * (b * nh * (2 * sq + 2 * s) * hd
+                  + (0 if a.fh is None else a.fh.numel() + a.fw.numel()))
+    b_ms, by = bound(nbytes, flops, F32_FLOP_PER_S)
+    row.update(ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=t_l,
+               library_device_ms=d_l, **backend,
+               library_covers="SDPA in float32 on the same q, k, v with the "
+                              "bias built beforehand" if a.fh is not None
+               else "SDPA in float32 on the same strided views",
+               bound_ms=b_ms, bound_by=by, bound_share=b_ms / d_k,
+               tflops=flops / d_k / 1e9,
+               instantiation=_f32_instantiation(hd, a.fh is not None,
+                                                a.grid))
+    print(json.dumps({"phase": f"{arm} float32", **row}), flush=True)
+    return row
+
+
+def phase_f32_arms(gen):
+    """Every float32 arm at the float32 path's shapes (`phase_f32_arm`)."""
+    rows = {"K2": [phase_f32_arm(gen, "K2", c) for c in F32_K2]}
+    torch.cuda.empty_cache()
+    rows["K3"] = [phase_f32_arm(gen, "K3", c) for c in F32_K3]
+    torch.cuda.empty_cache()
+    rows["K4"] = [phase_f32_arm(gen, "K4", c) for c in F32_K4]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_layernorm_f32(gen):
+    """K1's float32 forward at the float32 path's shapes against its plain
+    version (1e-5 + 1e-5 |y|, mean 1e-6: float32 on both sides), with its
+    bound and `F.layer_norm`'s time."""
+    from crowdsam_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
+
+    rows = []
+    for n, d in F32_K1:
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        cmp = compare(f"layer_norm float32 {n}x{d}", layer_norm(x, w, b, 1e-6),
+                      layer_norm_plain(x, w, b, 1e-6), 1e-5,
+                      require_faults=False, mean_atol=1e-6, rtol=1e-5)
+        t_k = time_ms(lambda: layer_norm(x, w, b, 1e-6), 50)
+        d_k = device_ms(lambda: layer_norm(x, w, b, 1e-6), 50, "ln_")
+        t_p = time_ms(lambda: layer_norm_plain(x, w, b, 1e-6), 10)
+        lib = (lambda: torch.nn.functional.layer_norm(x, (d,), w, b, 1e-6))
+        t_l, d_l = time_ms(lib, 50), device_ms(lib, 50)
+        b_ms, by = bound(2 * n * d * 4 + 2 * d * 4, 8.0 * n * d,
+                         F32_FLOP_PER_S)
+        rows.append(dict(shape=f"{n}x{d}", **cmp, ms=t_k, device_ms=d_k,
+                         plain_ms=t_p, library_ms=t_l, library_device_ms=d_l,
+                         bound_ms=b_ms, bound_by=by))
+        print(json.dumps({"phase": "K1 float32", **rows[-1]}), flush=True)
+    return rows
+
+
+F32_PATH = ["model.sam_adapter_checkpoint", ADAPTER,
+            "tpu.compute_dtype", "float32", "tpu.fused_decode", "false"]
+
+
+@contextlib.contextmanager
+def _counted_by_dtype_shape():
+    """K1-K4's launches inside the block by dtype and shape: K1 through its
+    launch `ops.layernorm._forward`, K2-K4 from their wrappers' counts."""
+    from crowdsam_tpu_torch.ops import layernorm as ln
+
+    counters = _reset_counts()
+    k1 = collections.Counter()
+    real = ln._forward
+
+    def counted(x, weight, bias, eps, stats):
+        d = x.shape[-1]
+        k1[f"{str(x.dtype).replace('torch.', '')} {x.numel() // d}x{d}"] += 1
+        return real(x, weight, bias, eps, stats)
+
+    out = {}
+    with patched(ln, "_forward", counted):
+        yield out
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["layer_norm_by_dtype_shape"] = dict(k1)
+    for k in ("window_attention", "flash_mha_decomposed_relpos",
+              "flash_mha"):
+        fn = counters[k]
+        out[f"{k}_by_dtype"] = dict(fn.launches_by_dtype)
+        out[f"{k}_by_shape"] = dict(fn.launches_by_shape)
+
+
+def _f32_run(model, frames, noises):
+    """`generate` on each frame (after a warm-up), with the frame's SAM and
+    DINOv2 features (on the host) and the host-clock ms."""
+    out = []
+    for img, nz in zip(frames, noises):
+        data, ms = _timed_generate(model, img, nz)
+        p = model.predictor
+        out.append(dict(data=data, ms=ms, sam=p.features.float().cpu(),
+                        dino=p.dino_feats.float().cpu(),
+                        engine=model.last_engine))
+    return out
+
+
+def _match_iou(got, want, thr=0.5):
+    """Detections of `want` matched greedily (by score) to those of `got`
+    at box IoU >= thr: (matched share, score gaps of the matches)."""
+    gb, wb = np.asarray(got["boxes"], float), np.asarray(want["boxes"], float)
+    if len(wb) == 0:
+        return None, []
+    used, gaps = set(), []
+    for i in np.argsort(-np.asarray(want["scores"])):
+        if len(gb) == 0:
+            break
+        lt = np.maximum(gb[:, :2], wb[i, :2])
+        rb = np.minimum(gb[:, 2:], wb[i, 2:])
+        inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+        area = lambda b: (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+        iou = inter / (area(gb) + area(wb[i]) - inter + 1e-9)
+        iou[list(used)] = -1
+        j = int(np.argmax(iou))
+        if iou[j] >= thr:
+            used.add(j)
+            gaps.append(float(abs(got["scores"][j] - want["scores"][i])))
+    return len(gaps) / len(wb), gaps
+
+
+def phase_f32_path(bf16_model):
+    """`configs/crowdhuman.yaml` with `tpu.compute_dtype float32` and
+    `tpu.fused_decode false` at full width and depth (SAM ViT-L, DINOv2
+    ViT-L/14, the shipped adapter, which keeps detections there; random
+    encoders) on the main path's three frames at the reference
+    thresholds: ms/image, the encode's device ms, the
+    device idle share, peak memory, and K1-K4's launches by dtype and shape
+    (every one float32; K5 and K6 none).
+
+    Held against the same run with the plain versions of K1-K4 patched in
+    (an explicit call; TF32 off): SAM and DINOv2 features within 1e-4
+    relative L2, equal detection counts, boxes within 0.5 px and scores
+    within 1e-4, RLE strings equal or differing only at threshold ties
+    (`_threshold_ties`, their pixels named).  TF32 tripwire: the first frame run
+    again after this script sets `torch.backends.cudnn.allow_tf32 = True`
+    and `torch.set_float32_matmul_precision("high")` gives features bit for
+    bit those of the first run.  Last, the bf16 main path's distance from
+    this run (`bf16_model`: the same config in bf16 with the fused decode):
+    the features' relative L2, and detections matched at IoU 0.5 with their
+    score gaps.  Returns (the float32 model, its row)."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.models import common as common_mod
+    from crowdsam_tpu_torch.models import dinov2 as dinov2_mod
+    from crowdsam_tpu_torch.models import image_encoder as encoder_mod
+    from crowdsam_tpu_torch.models.attention import (
+        flash_mha_plain,
+        relpos_attention_plain,
+        window_attention_plain,
+    )
+    from crowdsam_tpu_torch.ops.layernorm import layer_norm_plain
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import (
+        full_width_config,
+        synthetic_images,
+    )
+
+    t = time.time()
+    with _no_default_init():
+        model = CrowdSAM(modify_config(full_width_config(), F32_PATH),
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    frames = synthetic_images(0, N_IMAGES)
+    noises = [torch.rand(model.engine_cfg.grid_size ** 2,
+                         generator=torch.Generator().manual_seed(40 + i))
+              for i in range(len(frames))]
+    _timed_generate(model, frames[0], noises[0])        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with _counted_by_dtype_shape() as counts:
+        runs = _f32_run(model, frames, noises)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    encode_dev = [_encode_device_ms(model, img) for img in frames[:N_IMAGES]]
+    wall, busy, top = _device_busy(model, frames[0])
+    with patched(encoder_mod, "window_attention", window_attention_plain), \
+            patched(encoder_mod, "flash_mha_decomposed_relpos",
+                    relpos_attention_plain), \
+            patched(dinov2_mod, "flash_mha", flash_mha_plain), \
+            patched(common_mod, "layer_norm", layer_norm_plain):
+        plain = _f32_run(model, frames, noises)
+    rel = {k: [_rel_l2(r[k], p[k]) for r, p in zip(runs, plain)]
+           for k in ("sam", "dino")}
+    same, ties = [], {}
+    for i, (r, p) in enumerate(zip(runs, plain)):
+        same.append(_same_detections(r["data"], p["data"], exact=False))
+        if same[-1] and len(r["data"]["boxes"]) and any(
+                x != y for x, y in zip(r["data"]["rles"], p["data"]["rles"])):
+            # Mask pixels that differ: each must be a threshold tie.
+            ties[i] = _threshold_ties(model.engine_cfg, r["data"], p["data"],
+                                      r["engine"], p["engine"])
+    # The tripwire: TF32 switched on by the caller, restored after.
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        wire = _f32_run(model, frames[:1], noises[:1])[0]
+        flags_after = (torch.backends.cudnn.allow_tf32,
+                       torch.get_float32_matmul_precision())
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    tripwire = {k: bool(torch.equal(wire[k], runs[0][k]))
+                for k in ("sam", "dino")}
+    bf16 = _f32_run(bf16_model, frames, noises)
+    vs_bf16 = []
+    for r, q in zip(runs, bf16):
+        share, gaps = _match_iou(q["data"], r["data"])
+        vs_bf16.append(dict(
+            sam_rel_l2=_rel_l2(q["sam"], r["sam"]),
+            dino_rel_l2=_rel_l2(q["dino"], r["dino"]),
+            detections=[len(r["data"]["boxes"]), len(q["data"]["boxes"])],
+            matched_share_iou_0_5=share,
+            score_gap_max=max(gaps) if gaps else None,
+            score_gap_median=float(np.median(gaps)) if gaps else None))
+    row = {
+        "phase": "float32 path",
+        "config": "configs/crowdhuman.yaml + tpu.compute_dtype float32 "
+                  "tpu.fused_decode false, SAM ViT-L + DINOv2 ViT-L/14 + "
+                  f"{ADAPTER}, random encoders",
+        "build_s": build_s,
+        "image_hw": [list(f.shape[:2]) for f in frames],
+        "ms_per_image": [r["ms"] for r in runs],
+        "encode_device_ms": encode_dev,
+        "device_profile": {"wall_ms": wall, "device_busy_ms": busy,
+                           "device_idle_share": 1.0 - busy / wall,
+                           "kernels_ms": top},
+        "peak_memory_gib": peak,
+        "detections_per_image": [len(r["data"]["boxes"]) for r in runs],
+        **counts,
+        "vs_plain": {"sam_rel_l2": rel["sam"], "dino_rel_l2": rel["dino"],
+                     "tol": 1e-4, "same_detections": same,
+                     "rle_threshold_tie_pixels": {
+                         str(i): list(t) for i, t in ties.items()},
+                     "detections": [len(p["data"]["boxes"]) for p in plain],
+                     "plain_ms_per_image": [p["ms"] for p in plain]},
+        "tf32_tripwire": {"bit_for_bit": tripwire,
+                          "caller_flags_inside_and_after": list(flags_after)},
+        "bf16_main_path_vs_float32": vs_bf16,
+    }
+    print(json.dumps(row), flush=True)
+    launches = counts["launches"]
+    _require_launches("float32 path", launches,
+                      ["layer_norm", "window_attention",
+                       "flash_mha_decomposed_relpos", "flash_mha"],
+                      ["twoway_tail", "mask_head"])
+    not_f32 = {k: v for k in ("window_attention",
+                              "flash_mha_decomposed_relpos", "flash_mha")
+               for v in [counts[f"{k}_by_dtype"]] if set(v) != {"float32"}}
+    not_f32.update({k: v for k, v in counts[
+        "layer_norm_by_dtype_shape"].items() if not k.startswith("float32")})
+    if not_f32:
+        raise AssertionError(f"float32 path: launches not float32 {not_f32}")
+    if max(rel["sam"] + rel["dino"]) > 1e-4:
+        raise AssertionError(f"float32 path: features from the plain run "
+                             f"{rel}")
+    if not all(same):
+        raise AssertionError(f"float32 path: detections differ from the "
+                             f"plain run: {row['vs_plain']}")
+    if not all(tripwire.values()) or flags_after != (True, "high"):
+        raise AssertionError(f"float32 path: TF32 tripwire {tripwire}, "
+                             f"flags {flags_after}")
+    return model, row
+
+
+TRAIN_F32_REFERENCE = "--train-f32-reference"
+TRAIN_F32_THREADS = 3         # the CPU reference process's torch threads
+
+
+def phase_train_f32(model):
+    """`cache_features` of 3 shots and 3 full-decoder steps (one a shot) in
+    float32 on the card (the float32 path's model; its decoder is not
+    changed: the steps run on master copies): ms/step, peak memory, K1's
+    float32 launches.  The same steps on the CPU, from the card's cached
+    features, each from the card step's parameters and draws, run in a
+    process of their own (`_train_f32_reference`, 3 torch threads: a
+    full-width decoder step takes 13-17 s of CPU) while the rest of the
+    script goes on; `finish_train_f32` holds the card against them.
+    Returns the job."""
+    import atexit
+    import copy
+    import tempfile
+
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.train.dataset import ArrayDataset
+    from crowdsam_tpu_torch.train.trainer import AdamW, AdapterTrainer
+
+    cfg = modify_config(copy.deepcopy(model.config), [
+        "train.n_shot", "3", "train.steps", "3", "train.full_decoder", "True",
+        "train.lr", "2e-4"])
+    data = ArrayDataset(*_ten_shot())
+    trainer = AdapterTrainer(cfg, model.predictor)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.cache_features(data)
+    torch.cuda.synchronize()
+    cache_ms = (time.perf_counter() - t) * 1e3
+    params = trainer.trainable_params()
+    opt = AdamW(trainer.lr, trainer.weight_decay, trainer.clip_grad)
+    state = opt.init(params)
+    n_cached = len(trainer.cache["n_boxes"])
+    ln0, bw0 = ln.layer_norm.launches, ln.layer_norm_backward.launches
+    torch.cuda.reset_peak_memory_stats()
+    steps, ms = [], []
+    for step in range(trainer.steps):
+        draws = trainer.draw(step)
+        before = {k: v.cpu().clone() for k, v in params.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, losses, grads = trainer.loss_and_grads(params, step % n_cached,
+                                                  draws)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        steps.append(dict(shot=step % n_cached, params=before, draws=draws,
+                          losses={k: float(v) for k, v in losses.items()},
+                          grads={k: v.cpu().clone()
+                                 for k, v in grads.items()}))
+        opt.step(params, grads, state)
+    row = {"phase": "train float32", "steps": len(steps),
+           "cache_features_ms": cache_ms, "ms_per_step": ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "layer_norm_launches": ln.layer_norm.launches - ln0,
+           "layer_norm_backward_launches":
+               ln.layer_norm_backward.launches - bw0}
+    # The CPU side: the prompt encoder and the decoder, copied, over the
+    # card's cache.
+    sam_cpu = torch.nn.Module()
+    sam_cpu.prompt_encoder = copy.deepcopy(model.sam.prompt_encoder).cpu()
+    sam_cpu.mask_decoder = copy.deepcopy(model.sam.mask_decoder).cpu()
+    sam_cpu.img_size = model.sam.img_size
+    sam_cpu.mask_threshold = model.sam.mask_threshold
+    work = tempfile.mkdtemp(prefix="train_f32_")
+    path = os.path.join(work, "steps.pt")
+    torch.save({"config": cfg, "sam": sam_cpu, "steps": steps,
+                "cache": {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in trainer.cache.items()}}, path)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             TRAIN_F32_REFERENCE, path])
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return dict(row=row, proc=proc, work=work, path=path)
+
+
+def _train_f32_reference(path: str) -> int:
+    """The CPU side of `phase_train_f32`, in a process of its own: each
+    step's loss terms and gradients from that step's parameters and draws
+    over the card's cache, held against the card's; writes the figures
+    beside `path`."""
+    import types
+
+    from crowdsam_tpu_torch.train.trainer import AdapterTrainer
+
+    torch.set_num_threads(TRAIN_F32_THREADS)
+    job = torch.load(path, weights_only=False)
+    cpu = AdapterTrainer(job["config"], types.SimpleNamespace(
+        model=job["sam"], device=torch.device("cpu"),
+        dino_model=torch.nn.Module()))
+    cpu.cache = job["cache"]
+    out = []
+    for st in job["steps"]:
+        t = time.perf_counter()
+        _, l_c, g_c = cpu.loss_and_grads(st["params"], st["shot"],
+                                         st["draws"])
+        norm = float(torch.sqrt(sum(g.double().square().sum()
+                                    for g in g_c.values())))
+        out.append(dict(
+            loss_rel_diff={k: abs(st["losses"][k] - float(v))
+                           / max(abs(float(v)), 1e-30)
+                           for k, v in l_c.items()},
+            grad_max_diff_over_norm=max(
+                float((st["grads"][k] - g_c[k]).abs().max()) for k in g_c)
+            / norm, global_norm=norm, loss=st["losses"],
+            cpu_step_s=time.perf_counter() - t))
+    with open(path + ".json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def finish_train_f32(job, timeout_s: float = 300.0):
+    """Wait for `phase_train_f32`'s CPU reference and hold the card's steps
+    against it: loss terms within 1e-5 relative, gradients within 1e-4 of
+    the global norm; the process must end with 0."""
+    try:
+        rc = job["proc"].wait(timeout=timeout_s)
+    finally:
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+    row = dict(job["row"])
+    if rc != 0:
+        raise AssertionError(f"train float32: the CPU reference exited {rc}")
+    with open(job["path"] + ".json") as f:
+        steps = json.load(f)
+    shutil.rmtree(job["work"], ignore_errors=True)
+    row.update(by_step=steps, cpu_reference=f"the same steps on the CPU "
+               f"({TRAIN_F32_THREADS} torch threads, a process of its own)",
+               tol={"loss_rel": 1e-5, "grad_over_norm": 1e-4})
+    print(json.dumps(row), flush=True)
+    worst_loss = max(v for s in steps for v in s["loss_rel_diff"].values())
+    worst_grad = max(s["grad_max_diff_over_norm"] for s in steps)
+    if worst_loss > 1e-5 or worst_grad > 1e-4 or row[
+            "layer_norm_launches"] == 0:
+        raise AssertionError(f"train float32: card against CPU {row}")
+    return row
+
+
+def phase_amg_f32(sam):
+    """The automatic mask generator on the float32 path's SAM (float32
+    arms of K1-K3) on crowd_scene(0) at 16 points a side, the filters off
+    and no small-region cleanup: records (each mask inside its bbox), ms,
+    K1-K3's float32 launches."""
+    from crowdsam_tpu_torch.pipeline.amg_generator import (
+        SamAutomaticMaskGenerator,
+    )
+    from crowdsam_tpu_torch.utils.bench_fixture import crowd_scene
+
+    img = crowd_scene(0)[0]
+    gen = SamAutomaticMaskGenerator(
+        sam, points_per_side=16, points_per_batch=64, pred_iou_thresh=0.0,
+        stability_score_thresh=0.0, min_mask_region_area=0,
+        output_mode="coco_rle", device="cuda")
+    gen.generate(img)                                   # warm-up
+    with _counted_by_dtype_shape() as counts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        records = gen.generate(img)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    _amg_records_check(records, img.shape[:2])
+    row = {"phase": "amg float32", "frame": "crowd_scene(0)",
+           "points_per_side": 16, "records": len(records), "ms": ms,
+           **counts}
+    print(json.dumps(row), flush=True)
+    launches = counts["launches"]
+    _require_launches("amg float32", launches,
+                      ["layer_norm", "window_attention",
+                       "flash_mha_decomposed_relpos"],
+                      ["twoway_tail", "mask_head"])
+    if any(set(counts[f"{k}_by_dtype"]) != {"float32"}
+           for k in ("window_attention", "flash_mha_decomposed_relpos")) \
+            or not records:
+        raise AssertionError(f"amg float32: {row}")
+    return row
 
 
 def _template_feature(model, seed=30):
@@ -4178,7 +4849,6 @@ def phase_trainfree():
     # The same function in float32 through the plain versions of K1 and
     # K4 (TF32 is off): the reference, not the path under test.
     with patched(dinov2_mod, "flash_mha", flash_mha_plain), \
-            patched(dinov2_mod, "require_bf16_on_cuda", lambda *a: None), \
             patched(common_mod, "layer_norm", layer_norm_plain):
         sim_f32 = cosine_map(imagenet_tokens(f32_dino, sq),
                              model.ref_feature.float()).cpu()
@@ -5539,10 +6209,9 @@ def phase_train_mesh(model, weights: str, work: str):
     from crowdsam_tpu_torch.parallel.launch import run_ranks
     from crowdsam_tpu_torch.train import trainer as tr
     from crowdsam_tpu_torch.train.dataset import ArrayDataset
-    from crowdsam_tpu_torch.utils.fixtures import ten_shot_arrays
 
     card, smi = torch.cuda.get_device_name(0), _smi()
-    data = ArrayDataset(*ten_shot_arrays(0))
+    data = ArrayDataset(*_ten_shot())
     head = modify_config(copy.deepcopy(model.config),
                          ["train.steps", str(TRAIN_MESH_STEPS)])
     full = modify_config(copy.deepcopy(head), ["train.full_decoder", "True",
@@ -5752,6 +6421,9 @@ def main() -> int:
         k4_band3 = phase_dino_band(gen, TINY_K4_BANDS)
         torch.cuda.empty_cache()
         phase_f32_refused()
+        # The float32 arms of K2-K4 and K1's float32 forward.
+        k_f32 = phase_f32_arms(gen)
+        ln_f32 = phase_layernorm_f32(gen)
     ln_bwd_rows = phase_layernorm_backward(gen)
     torch.cuda.empty_cache()
 
@@ -5811,7 +6483,15 @@ def main() -> int:
     phase_loaded_reference(adapted)
     with torch.no_grad():
         phase_amg(adapted.sam)
+        # float32 on the card: the encoders, the unfused decode, the
+        # trainer and the AMG through the float32 arms of K1-K4.
+        f32_model, f32_path = phase_f32_path(adapted)
     del adapted
+    torch.cuda.empty_cache()
+    train_f32 = phase_train_f32(f32_model)
+    with torch.no_grad():
+        phase_amg_f32(f32_model.sam)
+    del f32_model
     torch.cuda.empty_cache()
     phase_cli()
     torch.cuda.empty_cache()
@@ -5825,6 +6505,7 @@ def main() -> int:
     with torch.no_grad():
         trainfree = phase_trainfree()
         phase_crop_layers()
+    finish_train_f32(train_f32)
 
     ln = next(r for r in ln_rows if r["shape"] == "5330x1024")
     src_attn = "crowdsam_tpu_torch/csrc/attention.cu"
@@ -6103,6 +6784,49 @@ def main() -> int:
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err")}
                 for p, row in k56_shards.items()}
+    # The float32 arms (`csrc/attention_f32.cu`) and K1's float32 forward:
+    # launches on the float32 path's three frames (phase `float32 path`, the
+    # counts set to 0 just before it); its model is SAM ViT-L and DINOv2,
+    # so head dim 80, the rect grids and the bands are not on it.
+    src_f32 = "crowdsam_tpu_torch/csrc/attention_f32.cu"
+    f32_note = f"float32 path, {N_IMAGES} frames"
+    f32_extra = ("device_ms", "library_device_ms", "sdpa_backend",
+                 "mean_abs_err", "plain_max_abs_err", "err_over_tol",
+                 "instantiation")
+    for name, arm, rep, cases, by in (
+            ("window_attention", "K2", "crowdsam_tpu/models/attention.py:163",
+             [(f"{g[0]}x{g[1]}", hd == 64) for g, hd in F32_K2],
+             "window_attention_by_shape"),
+            ("flash_mha_decomposed_relpos", "K3",
+             "crowdsam_tpu/models/attention.py:126",
+             [(f"{g[0]}x{g[1]}" if (lo, hi) == (0, g[0]) else
+               f"{hi - lo}x{g[1]} of {g[0]}x{g[1]}", hd == 64)
+              for g, hd, (lo, hi) in F32_K3],
+             "flash_mha_decomposed_relpos_by_shape"),
+            ("flash_mha", "K4", "crowdsam_tpu/models/attention.py:86",
+             [(f"{s_tok} tokens" if (lo, hi) == (0, s_tok) else
+               f"{hi - lo} of {s_tok} tokens", True)
+              for s_tok, (lo, hi) in F32_K4], "flash_mha_by_shape")):
+        for (key, on_path), row in zip(cases, k_f32[arm]):
+            n = f32_path[by].get(key, 0) if on_path else 0
+            table.append(dict(
+                name=name, dtype="float32", route="cuda", source=src_f32,
+                replaces=rep, launches=n,
+                launches_in=f32_note if n else
+                f"{f32_note}: not on it (ViT-L's square encode)",
+                max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+                **{k: row[k] for k in f32_extra}))
+    for row in ln_f32:
+        n = f32_path["layer_norm_by_dtype_shape"].get(
+            f"float32 {row['shape']}", 0)
+        table.append(dict(
+            name="layer_norm", dtype="float32", route="cuda",
+            source="crowdsam_tpu_torch/csrc/layernorm.cu",
+            replaces="crowdsam_tpu/ops/layernorm.py:34", launches=n,
+            launches_in=f32_note if n else f"{f32_note}: not on it (vit_h)",
+            max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
+            device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"]))
     print(json.dumps({"smoke_wall_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(
@@ -6137,4 +6861,6 @@ for _name in [n for n in list(globals()) if n.startswith("phase_")]:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == TRAIN_F32_REFERENCE:
+        sys.exit(_train_f32_reference(sys.argv[2]))
     sys.exit(main())

@@ -31,7 +31,14 @@ queries than keys: a rank of the spatial axis (`parallel/spatial.py`)
 holds a band of the queries (K3: grid rows from `row0`) and every key.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
-launches the kernel (bf16 operands, f32 softmax and accumulation) or raises.
+launches the kernel or raises: on bf16 operands the kernels above (f32
+softmax and accumulation), on float32 ones (`tpu.compute_dtype float32`)
+their float32 arms (`csrc/attention_f32.cu`: FFMA, no tensor core).  A
+float32 arm's host-side preparation (`window_f32_attention`,
+`relpos_f32_attention`, `flash_f32_attention`: the window partition, the
+rel-pos terms fh and fw by float32 batched products, the key count past
+which keys are masked) also runs on the CPU, where `f32_attention_plain`
+computes the kernel's function from it.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 
 from crowdsam_tpu_torch.kernels import _build
+from crowdsam_tpu_torch.models.common import exact_float32
 
 _GLOBAL_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -57,6 +65,12 @@ _WINDOW_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+)
+_F32_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
 _SM90_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -183,6 +197,97 @@ def flash_mha_plain(q, k, v, sm_scale: float,
 
 
 # ---------------------------------------------------------------------------
+# float32 arms: host-side preparation and the kernel's function
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class F32Attention:
+    """What one launch of a float32 arm (`csrc/attention_f32.cu`) takes:
+    q (B, H, Sq, D), k and v (B, H, S, D), views with a contiguous head
+    dim; keys at or past `valid` masked; with the rel-pos bias (K2, K3) fh
+    (B, H, Sq, gh) and fw (B, H, Sq, gw) contiguous, on the gh x gw key
+    grid `grid` (row(k) = k // gw, col(k) = k % gw), the scale applied to q
+    before the product; without it (K4) to the product."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    scale: float
+    valid: int
+    fh: Optional[torch.Tensor] = None
+    fw: Optional[torch.Tensor] = None
+    grid: Tuple[int, int] = (1, 1)
+
+
+def f32_attention_plain(a: F32Attention) -> torch.Tensor:
+    """The float32 arms' function on `a`, in a's dtype (float32, or
+    float64 for a reference): (B, H, Sq, D)."""
+    return torch.softmax(f32_attention_logits(a), dim=-1) @ a.v
+
+
+def f32_attention_logits(a: F32Attention) -> torch.Tensor:
+    """The logits of `f32_attention_plain(a)`, keys at or past `valid`
+    masked: (B, H, Sq, S)."""
+    q, k = a.q, a.k
+    if a.fh is None:
+        logits = (q @ k.transpose(-1, -2)) * a.scale
+    else:
+        gh, gw = a.grid
+        lead, sq = q.shape[:-2], q.shape[-2]
+        logits = ((q * a.scale) @ k.transpose(-1, -2)).reshape(
+            *lead, sq, gh, gw)
+        logits = (logits + a.fh.reshape(*lead, sq, gh, 1)
+                  + a.fw.reshape(*lead, sq, 1, gw)).reshape(*lead, sq,
+                                                            gh * gw)
+    if a.valid < k.shape[-2]:
+        logits[..., a.valid:] = float("-inf")
+    return logits
+
+
+def window_f32_attention(qkv, rel_h_tab, rel_w_tab, num_heads: int,
+                         scale: float, window: int) -> F32Attention:
+    """K2's float32 arm on `window_attention`'s arguments: the partitioned
+    windows' q, k, v (nW, H, window^2, D) and their fh / fw, the window's
+    keys all valid (the kernel masks the pad keys of its last tile)."""
+    b, hp, wp, c3 = qkv.shape
+    hd = c3 // 3 // num_heads
+    n = window * window
+    win = window_partition(qkv, window).reshape(-1, n, 3, num_heads, hd)
+    q, k, v = win.permute(2, 0, 3, 1, 4)
+    with exact_float32():
+        fh, fw = _rel_bias_terms(q, rel_h_tab.float(), rel_w_tab.float(),
+                                 (window, window))
+    return F32Attention(q, k, v, scale, n, fh.contiguous(), fw.contiguous(),
+                        (window, window))
+
+
+def window_f32_output(o: torch.Tensor, window: int, hp: int,
+                      wp: int) -> torch.Tensor:
+    """The (B, Hp, Wp, dim) grid of K2's float32 output o (nW, H, n, D)."""
+    nw, nh, n, hd = o.shape
+    return window_unpartition(o.transpose(1, 2).reshape(nw, n, nh * hd),
+                              window, hp, wp)
+
+
+def relpos_f32_attention(q, k, v, sm_scale: float, rel_h, rel_w, hw,
+                         row0: int = 0) -> F32Attention:
+    """K3's float32 arm on `flash_mha_decomposed_relpos`'s arguments: fh
+    and fw of the band's queries (grid rows from `row0`), every key
+    valid."""
+    with exact_float32():
+        fh, fw = _rel_bias_terms(q, rel_h.float(), rel_w.float(), hw, row0)
+    return F32Attention(q, k, v, sm_scale, hw[0] * hw[1], fh.contiguous(),
+                        fw.contiguous(), tuple(hw))
+
+
+def flash_f32_attention(q, k, v, sm_scale: float,
+                        valid_len: Optional[int] = None) -> F32Attention:
+    """K4's float32 arm on `flash_mha`'s arguments."""
+    return F32Attention(q, k, v, sm_scale,
+                        k.shape[-2] if valid_len is None else int(valid_len))
+
+
+# ---------------------------------------------------------------------------
 # CUDA launch
 # ---------------------------------------------------------------------------
 
@@ -246,16 +351,6 @@ def _layout_of(shape, stride, esz: int, rows: int) -> TmaLayout:
                      box=tuple(box), pos=pos)
 
 
-def require_bf16_on_cuda(qkv: torch.Tensor, where: str) -> None:
-    """Raise TypeError for a CUDA qkv that is not bf16: the kernels take
-    bf16 operands and nothing casts for them (a float32 config is refused
-    on CUDA up front, `config.refuse_float32_on_cuda`)."""
-    if qkv.is_cuda and qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{where}: the attention kernels take bf16 "
-                        f"operands on CUDA, got {qkv.dtype} (float32 "
-                        f"compute runs on the CPU only)")
-
-
 def _device_check(t: torch.Tensor, fn_name: str) -> bool:
     """True for CUDA (launch the kernel), False for CPU (plain version)."""
     if t.device.type == "cpu":
@@ -277,6 +372,53 @@ def _kernel_status(status: int, fn: str, maps) -> None:
     _build.check(status, fn)
 
 
+def f32_attention_launch(a: F32Attention, fn: str) -> torch.Tensor:
+    """One launch of the float32 arm on CUDA tensors: (B, H, Sq, D), a (B,
+    Sq, H, D) buffer seen as (B, H, Sq, D).  Raises on what the kernel does
+    not take (its message names the wrapper `fn`)."""
+    q, k, v = a.q, a.k, a.v
+    b, nh, sq, d = q.shape
+    s = k.shape[2]
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError(f"{fn}: {name} {t.dtype} on {t.device}: the "
+                            f"float32 arm takes float32 on {q.device}")
+        if (t.dim() != 4 or t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(st % 4 for st in t.stride()[:3])):
+            raise ValueError(f"{fn}: {name} of shape {tuple(t.shape)}, "
+                             f"strides {t.stride()}: the float32 arm reads "
+                             f"16-byte aligned rows of a contiguous head dim")
+    if (d not in RELPOS_HEAD_DIMS or k.shape != (b, nh, s, d)
+            or v.shape != k.shape or max(b, nh) > 65535
+            or not 0 < a.valid <= s):
+        raise ValueError(f"{fn}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, {a.valid} valid keys (head dims "
+                         f"{RELPOS_HEAD_DIMS}, batch and heads up to 65535)")
+    gh, gw = a.grid
+    if a.fh is not None:
+        if not (0 < max(gh, gw) <= MAX_REL and min(gh, gw) > 0
+                and gh * gw == s):
+            raise ValueError(f"{fn}: key grid {a.grid} for {s} keys (grids "
+                             f"up to {MAX_REL}x{MAX_REL})")
+        for t, name, n in ((a.fh, "fh", gh), (a.fw, "fw", gw)):
+            _build.require_operand(fn, t, name, (b, nh, sq, n), torch.float32,
+                                   q.device)
+    out = torch.empty((b, sq, nh, d), dtype=torch.float32,
+                      device=q.device).permute(0, 2, 1, 3)
+    strides = _int64_array(tuple(x for t in (q, k, v, out)
+                                 for x in t.stride()[:3]))
+    kernel = _build.function("attention_f32", "attention_f32_forward",
+                             _F32_ARGTYPES)
+    status = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if a.fh is None else a.fh.data_ptr(),
+                    None if a.fw is None else a.fw.data_ptr(),
+                    ctypes.cast(strides, ctypes.c_void_p), b, nh, sq, s,
+                    a.valid, gh, gw, d, float(a.scale),
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, fn)
+    return out
+
+
 def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
                      rel_w_tab: torch.Tensor, num_heads: int, scale: float,
                      window: int) -> torch.Tensor:
@@ -288,7 +430,8 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
     tables.  Returns (B, Hp, Wp, dim).  One launch covers every window and
     head, read in place from `qkv`; fh and fw are formed in the kernel.
     Windows of more than MAX_WINDOW^2 tokens (up to 64x64) go to K3's
-    kernel as batches of partitioned windows."""
+    kernel as batches of partitioned windows.  A float32 qkv goes to the
+    float32 arm (`window_f32_attention`: every window up to 64x64)."""
     _build.refuse_grad("window_attention", qkv, rel_h_tab, rel_w_tab)
     if not _device_check(qkv, "window_attention"):
         return window_attention_plain(qkv, rel_h_tab, rel_w_tab, num_heads,
@@ -301,9 +444,15 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
         raise ValueError(f"window_attention: unsupported shape {qkv.shape}, "
                          f"heads {num_heads}, window {window} (head dims "
                          f"{RELPOS_HEAD_DIMS}, windows up to {MAX_REL})")
+    if qkv.dtype == torch.float32:
+        o = f32_attention_launch(window_f32_attention(
+            qkv, rel_h_tab, rel_w_tab, num_heads, scale, window),
+            "window_attention")
+        _count(window_attention, hd, f"{hp}x{wp}", qkv.dtype)
+        return window_f32_output(o, window, hp, wp)
     if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"window_attention: qkv must be bfloat16, got "
-                        f"{qkv.dtype}")
+        raise TypeError(f"window_attention: qkv must be bfloat16 or "
+                        f"float32, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("window_attention: qkv must be contiguous and "
                          "16-byte aligned")
@@ -314,7 +463,7 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
         o = relpos_global_launch(q, k, v, scale, rel_h_tab, rel_w_tab,
                                  (window, window),
                                  relpos_form(window, window, n))
-        _count(window_attention, hd, f"{hp}x{wp}")
+        _count(window_attention, hd, f"{hp}x{wp}", qkv.dtype)
         return window_unpartition(o.transpose(1, 2).reshape(-1, n, dim),
                                   window, hp, wp)
     tabs = [t.to(device=qkv.device, dtype=torch.bfloat16).contiguous()
@@ -332,7 +481,7 @@ def window_attention(qkv: torch.Tensor, rel_h_tab: torch.Tensor,
                 torch.cuda.current_stream(qkv.device).cuda_stream)
     _kernel_status(status, "window_attention",
                    ("k", "v", "rel_h_tab", "rel_w_tab"))
-    _count(window_attention, hd, f"{hp}x{wp}")
+    _count(window_attention, hd, f"{hp}x{wp}", qkv.dtype)
     return out
 
 
@@ -364,18 +513,30 @@ def flash_mha_decomposed_relpos(q, k, v, sm_scale: float, rel_h, rel_w,
     in place (`tma_layout`); rel_h/rel_w: (h, h, D)/(w, w, D) gathered
     tables.  Returns (B, H, Sq, D), a (B, Sq, H, D) buffer seen as (B, H,
     Sq, D).  The kernel's form is `relpos_form`'s: the bias in registers on
-    a grid 64 wide, on the exchange of a grid 64 tall, else folded."""
+    a grid 64 wide, on the exchange of a grid 64 tall, else folded.  On
+    float32 operands the float32 arm runs (`relpos_f32_attention`: one form
+    for every grid up to 64x64 and every band)."""
     _build.refuse_grad("flash_mha_decomposed_relpos", q, k, v, rel_h, rel_w)
     if not _device_check(q, "flash_mha_decomposed_relpos"):
         return relpos_attention_plain(q, k, v, sm_scale, rel_h, rel_w, hw,
                                       row0)
+    hq = q.shape[2] // max(hw[1], 1)
+    grid = f"{hw[0]}x{hw[1]}"
+    shape = grid if hq == hw[0] else f"{hq}x{hw[1]} of {grid}"
+    if q.dtype == torch.float32:
+        if q.shape[2] != hq * hw[1] or not 0 <= row0 < row0 + hq <= hw[0]:
+            raise ValueError(f"flash_mha_decomposed_relpos: q "
+                             f"{tuple(q.shape)}, k {tuple(k.shape)}, grid "
+                             f"{hw}, query rows from {row0}")
+        out = f32_attention_launch(relpos_f32_attention(
+            q, k, v, sm_scale, rel_h, rel_w, hw, row0),
+            "flash_mha_decomposed_relpos")
+        _count(flash_mha_decomposed_relpos, q.shape[-1], shape, q.dtype)
+        return out
     form = relpos_form(hw[0], hw[1], q.shape[2], row0)
     out = relpos_global_launch(q, k, v, sm_scale, rel_h, rel_w, hw, form,
                                row0)
-    hq = q.shape[2] // hw[1]
-    grid = f"{hw[0]}x{hw[1]}"
-    _count(flash_mha_decomposed_relpos, q.shape[-1],
-           grid if hq == hw[0] else f"{hq}x{hw[1]} of {grid}")
+    _count(flash_mha_decomposed_relpos, q.shape[-1], shape, q.dtype)
     flash_mha_decomposed_relpos.launches_by_form[form] += 1
     return out
 
@@ -495,7 +656,8 @@ def flash_mha(q, k, v, sm_scale: float,
     masked.  Sq = S but for a rank of the spatial axis, which holds a band
     of the queries and every key.  Views with a contiguous head dim and
     16-byte aligned strides are read in place (`tma_layout`); the output
-    is a (B, Sq, H, D) buffer seen as (B, H, Sq, D)."""
+    is a (B, Sq, H, D) buffer seen as (B, H, Sq, D).  On float32 operands
+    the float32 arm runs (`flash_f32_attention`)."""
     _build.refuse_grad("flash_mha", q, k, v)
     if not _device_check(q, "flash_mha"):
         return flash_mha_plain(q, k, v, sm_scale, valid_len)
@@ -507,6 +669,13 @@ def flash_mha(q, k, v, sm_scale: float,
         if t.shape != (b, nh, s, d) or t.device != q.device:
             raise ValueError(f"flash_mha: {name} {tuple(t.shape)} on "
                              f"{t.device}, q {tuple(q.shape)} on {q.device}")
+    shape = f"{s} tokens" if sq == s else f"{sq} of {s} tokens"
+    if q.dtype == torch.float32:
+        out = f32_attention_launch(flash_f32_attention(q, k, v, sm_scale,
+                                                       valid_len),
+                                   "flash_mha")
+        _count_k4(shape, q.dtype)
+        return out
     layouts = (tma_layout(q, "q", TMA_Q_ROWS), tma_layout(k, "k"),
                tma_layout(v, "v"))
     vlen = s if valid_len is None else int(valid_len)
@@ -525,18 +694,27 @@ def flash_mha(q, k, v, sm_scale: float,
                 float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernel_status(status, "flash_mha", ("q", "k", "v"))
-    flash_mha.launches += 1
-    flash_mha.launches_by_shape[f"{s} tokens" if sq == s
-                                else f"{sq} of {s} tokens"] += 1
+    _count_k4(shape, q.dtype)
     return out
 
 
-def _count(wrapper, head_dim: int, grid: str) -> None:
-    """One launch of K2 or K3: its count, by head dim and by token grid
-    (K2: the padded grid of its windows)."""
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _count(wrapper, head_dim: int, grid: str, dtype: torch.dtype) -> None:
+    """One launch of K2 or K3 (either arm): its count, by head dim, by
+    token grid (K2: the padded grid of its windows) and by dtype."""
     wrapper.launches += 1
     wrapper.launches_by_head_dim[head_dim] += 1
     wrapper.launches_by_shape[grid] += 1
+    wrapper.launches_by_dtype[_dtype_name(dtype)] += 1
+
+
+def _count_k4(shape: str, dtype: torch.dtype) -> None:
+    flash_mha.launches += 1
+    flash_mha.launches_by_shape[shape] += 1
+    flash_mha.launches_by_dtype[_dtype_name(dtype)] += 1
 
 
 window_attention.launches = 0
@@ -549,5 +727,8 @@ window_attention.launches_by_head_dim = collections.Counter()
 flash_mha_decomposed_relpos.launches_by_head_dim = collections.Counter()
 # K3's launches by form (`relpos_form`), counted with `launches`.
 flash_mha_decomposed_relpos.launches_by_form = collections.Counter()
+# Every wrapper's launches by shape and by dtype ("bfloat16" for the
+# kernels above, "float32" for their float32 arms), counted with `launches`.
 for _wrapper in (window_attention, flash_mha_decomposed_relpos, flash_mha):
     _wrapper.launches_by_shape = collections.Counter()
+    _wrapper.launches_by_dtype = collections.Counter()

@@ -7,17 +7,65 @@ Linear/Conv weights themselves are stored in the compute dtype
 (`cast_compute_params`) and the layers cast their input to it, while raw
 parameters (LayerNorm affine, embeddings, tables) stay f32 and are cast at
 use, as flax does.  Tensors are NHWC / (..., C) at every public function.
+
+A layer whose weight is float32 computes in full float32 whatever the
+caller set (`exact_float32`): PyTorch leaves cuDNN's TF32 on for float32
+convolutions by default, and a caller may lower the float32 matmul
+precision.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from crowdsam_tpu_torch.ops.layernorm import layer_norm
+
+
+class exact_float32:
+    """Inside the block, float32 products on CUDA run in full float32:
+    cuDNN's TF32 off and the float32 matmul precision "highest"; the
+    caller's settings come back on exit.  With `dtype` other than float32
+    (a bf16 model) it changes nothing.  Used by the layers with float32
+    weights, the float32 arms' bias terms and the entry points of a float32
+    model (`CrowdSAM.generate`, `ShardedPipeline.generate_batch`, the
+    AMG's `generate`, the trainer's `cache_features` and
+    `loss_and_grads`, whose backward runs inside)."""
+
+    def __init__(self, dtype: Optional[torch.dtype] = torch.float32):
+        self.on = dtype == torch.float32
+        self.saved = None
+
+    def __enter__(self):
+        if self.on:
+            self.saved = (torch.backends.cudnn.allow_tf32,
+                          torch.get_float32_matmul_precision())
+            torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.on:
+            torch.backends.cudnn.allow_tf32 = self.saved[0]
+            torch.set_float32_matmul_precision(self.saved[1])
+        return False
+
+
+def float32_entry(dtype_of):
+    """Decorator of an entry point's method: the method runs inside
+    `exact_float32(dtype_of(self))`, so that a float32 model's every
+    product, backward included, is full float32 on the card."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kwargs):
+            with exact_float32(dtype_of(self)):
+                return fn(self, *args, **kwargs)
+        return run
+    return wrap
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +77,8 @@ class Linear(nn.Linear):
     """nn.Linear that casts its input to the weight dtype (flax Dense)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        with exact_float32(self.weight.dtype):
+            return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
 class Conv2d(nn.Conv2d):
@@ -46,9 +95,10 @@ class Conv2d(nn.Conv2d):
 
     def _nhwc(self, x: torch.Tensor, padding) -> torch.Tensor:
         x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
-        y = [F.conv2d(x[i:i + 1], self.weight, self.bias, self.stride,
-                      padding, self.dilation, self.groups)
-             for i in range(x.shape[0])]
+        with exact_float32(self.weight.dtype):
+            y = [F.conv2d(x[i:i + 1], self.weight, self.bias, self.stride,
+                          padding, self.dilation, self.groups)
+                 for i in range(x.shape[0])]
         y = torch.cat(y) if len(y) > 1 else y[0]
         return y.permute(0, 2, 3, 1).contiguous()
 
@@ -100,7 +150,8 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
         cout = self.out_channels
         wmat = self.weight.permute(0, 2, 3, 1).reshape(self.in_channels,
                                                        4 * cout)
-        y = x.to(wmat.dtype) @ wmat + self.bias
+        with exact_float32(wmat.dtype):
+            y = x.to(wmat.dtype) @ wmat + self.bias
         y = y.reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
         return y.reshape(b, 2 * h, 2 * w, cout)
 

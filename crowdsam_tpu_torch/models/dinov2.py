@@ -17,10 +17,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from crowdsam_tpu_torch.models.attention import (
-    flash_mha,
-    require_bf16_on_cuda,
-)
+from crowdsam_tpu_torch.models.attention import flash_mha
 from crowdsam_tpu_torch.models.common import Conv2d, LayerNorm, Linear, gelu
 from crowdsam_tpu_torch.ops.resize import resize_bicubic_torch
 
@@ -39,7 +36,6 @@ class DinoAttention(nn.Module):
         b, n, c = x.shape
         nh, hd = self.num_heads, c // self.num_heads
         qkv = self.qkv(x)
-        require_bf16_on_cuda(qkv, "DINOv2 attention")
         q = qkv[..., :c].reshape(b, n, nh, hd).transpose(1, 2)
         kv = qkv[..., c:] if band is None else band.gather(qkv[..., c:])
         nk = kv.shape[1]

@@ -31,7 +31,6 @@ import torch.nn.functional as F
 
 from crowdsam_tpu_torch.models.attention import (
     flash_mha_decomposed_relpos,
-    require_bf16_on_cuda,
     window_attention,
 )
 from crowdsam_tpu_torch.models.common import (
@@ -93,14 +92,12 @@ class Attention(nn.Module):
             hp, wp = -(-x.shape[1] // ws) * ws, -(-w // ws) * ws
             x = F.pad(x, (0, 0, 0, wp - w, 0, hp - x.shape[1]))
             qkv = self.qkv(x)
-            require_bf16_on_cuda(qkv, "SAM window attention")
             out = window_attention(
                 qkv, _rel_pos_table(self.rel_pos_h, ws),
                 _rel_pos_table(self.rel_pos_w, ws),
                 self.num_heads, self.scale, ws)[:, top:top + h, :w]
         else:
             qkv = self.qkv(x)
-            require_bf16_on_cuda(qkv, "SAM global attention")
             out = self._global(qkv, h, w, band)
         return self.proj(out)
 

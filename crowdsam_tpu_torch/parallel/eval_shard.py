@@ -37,7 +37,9 @@ no image of it skips the encode and the engine and joins the gather.
 What the JAX `ShardedPipeline` refuses or cannot run is refused here with
 the reason: crop layers, the train-free branch and the HQ decoder
 (`sam_hq`); and the spatial axis without a mesh, or wider than the
-encoder's token rows (a rank with no band).
+encoder's token rows (a rank with no band).  A float32 model on CUDA runs
+with the unfused decode; with the fused one (K5 and K6 take bf16) it is
+refused at construction, as `CrowdSAM` refuses it.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from crowdsam_tpu_torch.config import refuse_float32_on_cuda
+from crowdsam_tpu_torch.models.common import float32_entry
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.transforms import resize_image
 from crowdsam_tpu_torch.parallel.collectives import Shard
@@ -95,6 +99,9 @@ class ShardedPipeline:
         why = refusal(model, mesh, spatial_axis, prompt_axis)
         if why is not None:
             raise NotImplementedError(why)
+        refuse_float32_on_cuda(model.device, model.compute_dtype,
+                               model.engine_cfg.fused_decode,
+                               "ShardedPipeline")
         if batch < 1:
             raise ValueError(f"batch {batch} (at least 1)")
         self.model = model
@@ -119,6 +126,7 @@ class ShardedPipeline:
         self.last_engine = None
 
     @torch.no_grad()
+    @float32_entry(lambda self: self.model.compute_dtype)
     def generate_batch(self, images: List[np.ndarray],
                        noise: Optional[Sequence] = None,
                        times_out: Optional[list] = None) -> List[MaskData]:

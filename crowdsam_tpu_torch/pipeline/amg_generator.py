@@ -26,8 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from crowdsam_tpu_torch.config import refuse_float32_on_cuda, resolve_device
-from crowdsam_tpu_torch.models.common import compute_dtype
+from crowdsam_tpu_torch.models.common import compute_dtype, float32_entry
 from crowdsam_tpu_torch.models.sam import postprocess_masks
 from crowdsam_tpu_torch.ops import rle as rle_ops
 from crowdsam_tpu_torch.ops.amg import (
@@ -78,7 +77,8 @@ class SamAutomaticMaskGenerator:
     ) -> None:
         """`model`: a `Sam`; `dino_model`: an optional DINOv2, which gives
         the decoder its class head.  Runs on `device`: CUDA unless the
-        caller names another (a model in float32 runs on the CPU only)."""
+        caller names another.  A float32 model runs in full float32 (the
+        float32 arms of K1-K3 on the card; `generate` pins TF32 off)."""
         if (points_per_side is None) == (point_grids is None):
             raise ValueError("exactly one of points_per_side or point_grids "
                              "must be provided")
@@ -91,8 +91,7 @@ class SamAutomaticMaskGenerator:
                 crop_n_points_downscale_factor)
         else:
             self.point_grids = point_grids
-        refuse_float32_on_cuda(resolve_device(device), compute_dtype(model),
-                               "SamAutomaticMaskGenerator")
+        self.compute_dtype = compute_dtype(model)
         self.predictor = SamPredictor(model, dino_model, device)
         self.points_per_batch = points_per_batch
         self.pred_iou_thresh = pred_iou_thresh
@@ -107,6 +106,7 @@ class SamAutomaticMaskGenerator:
         self.output_mode = output_mode
 
     @torch.no_grad()
+    @float32_entry(lambda self: self.compute_dtype)
     def generate(self, image: np.ndarray) -> List[Dict[str, Any]]:
         """HWC uint8 image -> one record per mask."""
         mask_data = self._generate_masks(image)

@@ -25,8 +25,11 @@ runs on the DINOv2 grid (73 at img_size 1024) in place of
 `test.grid_size`.  The opt-in modes `test.mask_selection`,
 `tpu.accumulate_occupy`, `test.fuse_simmap`, `tpu.fullres_cleanup` and
 `tpu.rect_encode` are wired into the engine and the predictor as the JAX
-package wires them.  `tpu.compute_dtype float32` runs on the CPU only: on
-CUDA the constructor refuses it (`config.refuse_float32_on_cuda`).
+package wires them.  `tpu.compute_dtype float32` runs on the card through
+the float32 arms of K1-K4 with the unfused decode (`tpu.fused_decode false`,
+or `sam_hq`), in full float32 (`models/common.exact_float32`); with the
+fused decode, whose K5 and K6 take bf16, the constructor refuses it on CUDA
+(`config.refuse_float32_on_cuda`).  The CPU runs it either way.
 
 Runs on CUDA unless `device` names another device; with no device given
 and no CUDA present it raises.  Without checkpoints the weights are the JAX
@@ -56,7 +59,10 @@ from crowdsam_tpu_torch.config import (
     resolve_device,
 )
 from crowdsam_tpu_torch.models.build import sam_model_registry
-from crowdsam_tpu_torch.models.common import cast_compute_params
+from crowdsam_tpu_torch.models.common import (
+    cast_compute_params,
+    float32_entry,
+)
 from crowdsam_tpu_torch.models.dinov2 import DINO_DIMS, dino_model_registry
 from crowdsam_tpu_torch.models.mask_decoder import MaskDecoder
 from crowdsam_tpu_torch.models.mask_decoder_hq import MaskDecoderHQ
@@ -234,9 +240,14 @@ class CrowdSAM:
             raise NotImplementedError(why)
         mcfg, tcfg = config["model"], config["test"]
         tpucfg = config.get("tpu", {})
+        self.compute_dtype = dtype_from_str(tpucfg.get("compute_dtype",
+                                                       "bfloat16"))
+        # K5 and K6 run where the decode fuses: not for the HQ decoder
+        # (`engine.run_eps_engine_batch`'s `fused`).
         refuse_float32_on_cuda(
-            self.device, dtype_from_str(tpucfg.get("compute_dtype",
-                                                   "bfloat16")), "CrowdSAM")
+            self.device, self.compute_dtype,
+            bool(tpucfg.get("fused_decode", True))
+            and mcfg.get("sam_arch", "crowdsam") != "sam_hq", "CrowdSAM")
         seed = int(config["environ"].get("seed", 42))
         self.n_class = int(mcfg.get("n_class", 1))
         self.train_free = bool(mcfg.get("trainfree", False))
@@ -332,6 +343,7 @@ class CrowdSAM:
                           generator=self.generator)
 
     @torch.no_grad()
+    @float32_entry(lambda self: self.compute_dtype)
     def generate(self, image: np.ndarray,
                  noise: Optional[Sequence] = None) -> MaskData:
         """HWC uint8 image -> MaskData.  `noise`: optional per-crop

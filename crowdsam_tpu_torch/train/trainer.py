@@ -62,8 +62,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
-from crowdsam_tpu_torch.config import refuse_float32_on_cuda
-from crowdsam_tpu_torch.models.common import compute_dtype
+from crowdsam_tpu_torch.models.common import compute_dtype, float32_entry
 from crowdsam_tpu_torch.parallel.collectives import Shard
 from crowdsam_tpu_torch.parallel.mesh import axis_group
 from crowdsam_tpu_torch.parallel.spatial import Band, split_rows
@@ -238,12 +237,11 @@ class AdapterTrainer:
         self._step_module = _Step(self)
 
     # ------------------------------------------------------------- cache
+    @float32_entry(lambda self: compute_dtype(self.sam))
     def cache_features(self, dataset) -> Dict[str, Any]:
         """Encode each of the first n_shot images once; the targets of its
-        boxes (padded to a multiple of 8).  A float32 model on CUDA is
-        refused (`config.refuse_float32_on_cuda`)."""
-        refuse_float32_on_cuda(self.device, compute_dtype(self.sam),
-                               "AdapterTrainer.cache_features")
+        boxes (padded to a multiple of 8).  A float32 model encodes in full
+        float32 (on the card through the float32 arms of K1-K4)."""
         n = min(self.n_shot, len(dataset))
         items = [dataset[i] for i in range(n)]
         box_lists, hws = [], []
@@ -384,6 +382,7 @@ class AdapterTrainer:
             dict(dec.named_parameters()), self.full_decoder, _unused(dec))
         return {k: v.detach().float().clone() for k, v in adapter.items()}
 
+    @float32_entry(lambda self: compute_dtype(self.sam))
     def loss_and_grads(self, params: Dict[str, torch.Tensor], shot: int,
                        draws: Draws, mesh=None):
         """(total, loss terms, {name: f32 gradient}) of one step, the

@@ -375,17 +375,25 @@ def test_flash_mha_sm90_kernel(gen, s, short, layout):
 
 def test_kernels_refuse_what_they_do_not_take(gen):
     x = torch.randn((1, 2, 16, 32), device="cuda").bfloat16()
+    t65 = torch.zeros((65, 65, 64), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         attention.flash_mha(x, x, x, 0.125)
+    # float16 has no arm (bf16 goes to the kernels, float32 to their
+    # float32 arms); a float32 head dim outside (64, 80) is refused too.
     with pytest.raises(TypeError):
-        attention.flash_mha(*(torch.randn((1, 2, 16, 64), device="cuda"),) * 3,
-                            0.125)
+        attention.flash_mha(*(torch.randn((1, 2, 16, 64), device="cuda")
+                              .half(),) * 3, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_mha(*(x.float(),) * 3, 0.125)
+    with pytest.raises(ValueError, match="head dims"):
+        attention.flash_mha_decomposed_relpos(*(x.float(),) * 3, 0.125,
+                                              t65[:4, :4, :32],
+                                              t65[:4, :4, :32], (4, 4))
     odd = torch.randn((1, 16, 2 * 1028), device="cuda").bfloat16()
     odd = odd.as_strided((1, 2, 16, 64), (16 * 2 * 1028, 64, 2 * 1028 - 4, 1))
     with pytest.raises(ValueError, match="multiples of 16"):
         attention.flash_mha(odd, odd, odd, 0.125)
     qkv = torch.randn((1, 65, 65, 3 * 128), device="cuda").bfloat16()
-    t65 = torch.zeros((65, 65, 64), device="cuda")
     with pytest.raises(ValueError, match="windows up to"):   # 65 x 65 keys
         attention.window_attention(qkv, t65, t65, 2, 0.125, 65)
     with pytest.raises(ValueError, match="unsupported shape"):  # dim 32
@@ -718,22 +726,138 @@ def _record_masks_fit(records, hw):
             assert ys.min() >= y and ys.max() <= y + h
 
 
-def test_float32_refused_on_the_card(gen):
-    """A `tpu.compute_dtype float32` config on CUDA: `CrowdSAM` refuses it
-    at construction with the reason (the kernels take bf16 operands), and
-    a float32 qkv never reaches a kernel cast to bf16: the encoder raises
-    TypeError."""
+def _f32_case(gen, arm, shape):
+    """The float32 arm's preparation (`attention.*_f32_attention`) of one
+    case on the card: K2 (grid, heads, hd) on a padded grid of 14x14
+    windows, K3 (grid, hd, rows) over a 64-wide table pair resized to the
+    grid, K4 (s, band) at 16 heads of 64."""
+    if arm == "K2":
+        (gh, gw), heads, hd = shape
+        qkv = torch.randn((1, gh, gw, 3 * heads * hd), generator=gen,
+                          device="cuda")
+        tabs = [_rel_pos_table(0.1 * torch.randn(
+            (27, hd), generator=gen, device="cuda"), 14) for _ in range(2)]
+        return (attention.window_f32_attention(qkv, *tabs, heads,
+                                               hd ** -0.5, 14),
+                lambda: attention.window_attention(qkv, *tabs, heads,
+                                                   hd ** -0.5, 14))
+    if arm == "K3":
+        (hh, ww), hd, (lo, hi) = shape
+        qkv = torch.randn((1, hh * ww, 3, 16, hd), generator=gen,
+                          device="cuda")
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        q = q[:, :, lo * ww:hi * ww]
+        rh = _rel_pos_table(0.1 * torch.randn((127, hd), generator=gen,
+                                              device="cuda"), hh)
+        rw = _rel_pos_table(0.1 * torch.randn((127, hd), generator=gen,
+                                              device="cuda"), ww)
+        return (attention.relpos_f32_attention(q, k, v, hd ** -0.5, rh, rw,
+                                               (hh, ww), lo),
+                lambda: attention.flash_mha_decomposed_relpos(
+                    q, k, v, hd ** -0.5, rh, rw, (hh, ww), lo))
+    s, (lo, hi) = shape
+    qkv = torch.randn((1, s, 3, 16, 64), generator=gen, device="cuda")
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    q = q[:, :, lo:hi]
+    return (attention.flash_f32_attention(q, k, v, 0.125, s),
+            lambda: attention.flash_mha(q, k, v, 0.125, valid_len=s))
+
+
+def _as64(a):
+    """The same preparation with every tensor in float64."""
+    f = {k: (getattr(a, k).double() if getattr(a, k) is not None else None)
+         for k in ("q", "k", "v", "fh", "fw")}
+    return attention.F32Attention(f["q"], f["k"], f["v"], a.scale, a.valid,
+                                  f["fh"], f["fw"], a.grid)
+
+
+@pytest.mark.parametrize("arm,shape", [
+    ("K2", ((70, 70), 16, 64)), ("K2", ((70, 70), 16, 80)),
+    ("K2", ((28, 70), 16, 64)),
+    ("K3", ((64, 64), 64, (0, 64))), ("K3", ((64, 48), 64, (0, 64))),
+    ("K3", ((44, 64), 64, (0, 44))), ("K3", ((64, 64), 80, (0, 64))),
+    ("K3", ((64, 64), 64, (42, 64))),
+    ("K4", (5330, (0, 5330))), ("K4", (4096, (0, 4096))),
+    ("K4", (5330, (2628, 5330))), ("K4", (1000, (0, 1000)))],
+    ids=["K2-25x16x196x64", "K2-25x16x196x80", "K2-halo-10x16x196x64",
+         "K3-64x64", "K3-64x48", "K3-44x64", "K3-64x64-hd80",
+         "K3-band-42-64", "K4-5330", "K4-4096", "K4-band-2702-of-5330",
+         "K4-1000"])
+def test_float32_arm_against_float64(gen, arm, shape):
+    """Each float32 arm through its wrapper on float32 CUDA tensors, against
+    a float64 evaluation of the same function on the card: its max and
+    mean absolute error at most 2x the plain float32 version's (TF32 off),
+    with a floor of 1e-7 of max |out|; one launch of the arm, counted as
+    float32."""
+    a, call = _f32_case(gen, arm, shape)
+    wrapper = {"K2": attention.window_attention,
+               "K3": attention.flash_mha_decomposed_relpos,
+               "K4": attention.flash_mha}[arm]
+    before = wrapper.launches_by_dtype["float32"]
+    got = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_dtype["float32"] == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = attention.f32_attention_plain(_as64(a))
+    plain = attention.f32_attention_plain(a)
+    if arm == "K2":
+        (gh, gw), _, _ = shape
+        want, plain = (attention.window_f32_output(x, 14, gh, gw)
+                       for x in (want, plain))
+    floor = 1e-7 * float(want.abs().max())
+    for stat in (torch.amax, torch.mean):
+        err = float(stat((got.double() - want).abs()))
+        ref = float(stat((plain.double() - want).abs()))
+        assert err <= max(2 * ref, floor), (stat.__name__, err, ref)
+
+
+def test_float32_unfused_generate_on_the_card(gen):
+    """The small config in float32 with `tpu.fused_decode false` runs on
+    the card through the float32 arms of K1-K4 (K5, K6 not launched) and
+    gives the detections of the CPU's plain path: equal counts, boxes
+    within 0.5 px, scores within 1e-4."""
+    from crowdsam_tpu_torch.config import load_config, modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    cfg = modify_config(load_config(None), list(SMALL) + [
+        "tpu.compute_dtype", "float32", "tpu.fused_decode", "false"])
+    img = crowd_scene(3, 171, 256, people=(3, 6))[0]
+    noise = [np.random.default_rng(3).uniform(size=48 * 48).astype(
+        np.float32)]
+    kernels = {"window_attention": attention.window_attention,
+               "flash_mha_decomposed_relpos":
+                   attention.flash_mha_decomposed_relpos,
+               "flash_mha": attention.flash_mha}
+    before = {k: fn.launches_by_dtype["float32"] for k, fn in kernels.items()}
+    ln0 = layer_norm.launches
+    k56 = (decode_tail_kernel.twoway_tail.launches,
+           mask_head_kernel.mask_head.launches)
+    card = CrowdSAM(cfg, device="cuda").generate(img, noise=noise)
+    for k, fn in kernels.items():
+        assert fn.launches_by_dtype["float32"] > before[k], k
+    assert layer_norm.launches > ln0
+    assert (decode_tail_kernel.twoway_tail.launches,
+            mask_head_kernel.mask_head.launches) == k56
+    cpu = CrowdSAM(cfg, device="cpu").generate(img, noise=noise)
+    assert len(card["boxes"]) == len(cpu["boxes"]) > 0
+    np.testing.assert_allclose(np.asarray(card["boxes"], np.float64),
+                               np.asarray(cpu["boxes"], np.float64),
+                               atol=0.5)
+    np.testing.assert_allclose(card["scores"], cpu["scores"], atol=1e-4)
+
+
+def test_float32_fused_decode_refused_on_the_card(gen):
+    """float32 with the fused decode on CUDA: `CrowdSAM` refuses it at
+    construction, naming the float32 arms of K5/K6 as the next slice."""
     from crowdsam_tpu_torch.config import load_config, modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 
     cfg = modify_config(load_config(None), list(SMALL) + [
-        "tpu.compute_dtype", "float32"])
-    with pytest.raises(NotImplementedError, match="bf16 operands"):
+        "tpu.compute_dtype", "float32", "tpu.fused_decode", "true"])
+    with pytest.raises(NotImplementedError,
+                       match="K5 and K6 take bf16.*next slice"):
         CrowdSAM(cfg, device="cuda")
-    sam = sam_model_registry["vit_tiny"]().cuda()
-    x = torch.zeros((1, 256, 256, 3), device="cuda")
-    with pytest.raises(TypeError, match="bf16 operands"):
-        sam.image_encoder(x)
 
 
 def test_amg_on_the_small_config(gen):

@@ -105,8 +105,15 @@ the gitignored `build/kernels/`), then:
    the plain versions of K1-K4 patched in, a TF32 tripwire and the bf16
    main path's distance from it (`float32 path`); 3 float32 full-decoder
    steps against the CPU's (`train float32`); the AMG in float32 (`amg
-   float32`); float32 with the fused decode refused with its reason
-   (`f32_refused`);
+   float32`); the float32 arms of K5 and K6 (`csrc/decode_tail_f32.cu`,
+   `csrc/mask_head_f32.cu`) against float64 in the same way at the fused
+   decode's shapes (main path, small config, two images, a prompt shard,
+   T = 8; phases `K5 float32`, `K6 float32`); the float32 path with the
+   fused decode (its default) against its plain-patched run (K1-K6) and
+   against the unfused float32 run (`float32 fused path`), batched at B =
+   2 and prompt-sharded at M = 2 bit for bit against one process
+   (`float32 batched`), and SAM ViT-H in float32 on one frame against its
+   plain-patched run (`float32 vit_h`);
    the opt-in modes and the train-free branch, each with the counts set to
    0 just before and read just after: each mode alone on
    the main model, filters off, one crowd scene (`modes`: mask_selection
@@ -231,6 +238,11 @@ def _kernel_name(name: str) -> str:
     return re.sub(r"\(.*$", "", name)
 
 
+class NoDeviceRecords(AssertionError):
+    """torch.profiler kept no record of the kernels asked for in any of
+    its windows."""
+
+
 def _cuda_events(fn, iters: int, match=None, tries: int = 6):
     """The device events of `iters` calls of `fn` under torch.profiler (CUDA
     activity only, after one warm-up) whose kernel name contains `match`
@@ -248,12 +260,15 @@ def _cuda_events(fn, iters: int, match=None, tries: int = 6):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [ev for ev in prof.events() if ev.device_type.name == "CUDA"
-                  and (match is None or match in ev.name)]
+        device = [ev for ev in prof.events()
+                  if ev.device_type.name == "CUDA"]
+        events = [ev for ev in device if match is None or match in ev.name]
         if events:
             return events
-    raise AssertionError(f"no device activity {match!r} in {tries} "
-                         f"profiles")
+    raise NoDeviceRecords(
+        f"no device activity {match!r} in {tries} profiles (the last: "
+        f"{len(device)} device records, "
+        f"{sorted({_kernel_name(ev.name) for ev in device})[:6]})")
 
 
 def device_split(fn, iters: int, match=None) -> dict:
@@ -424,7 +439,8 @@ def _ptxas_report(lib: str = "attention") -> dict:
     and `window_attn_relpos<TK,HD>` from the mangled names' template
     arguments; K1's `ln_fwd_vec<T,L,VPL>`, `ln_fwd_direct<T,L,VPL>`,
     `ln_bwd_vec<T,L,VPL>`, `ln_rows<T,VPT>` and `ln_bwd_rows<T,VPT>` with
-    T bf16 or f32; the float32 arms' `attn_f32<HD,RELPOS>`."""
+    T bf16 or f32; the float32 arms' `attn_f32<HD,RELPOS>`,
+    `tok_stage<S>`, `row_phase<S>` and `mask_head_f32<EMIT_EXP>`."""
     from crowdsam_tpu_torch.kernels import _build
 
     out, name = {}, None
@@ -432,7 +448,8 @@ def _ptxas_report(lib: str = "attention") -> dict:
         m = re.search(r"Compiling entry function '_Z\w*?\d"
                       r"(flash_attn_relpos(?:_wide)?|window_attn_relpos"
                       r"|ln_fwd_vec|ln_fwd_direct|ln_bwd_vec|ln_bwd_rows"
-                      r"|ln_rows|attn_f32)"
+                      r"|ln_rows|attn_f32|tok_stage|row_phase"
+                      r"|mask_head_f32)"
                       r"I(\w+?)EEv", line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
@@ -1278,10 +1295,11 @@ TINY_K4_BANDS = _token_bands(3)[:2]
 # decode kernel phases: inputs from a model on a seeded frame
 # --------------------------------------------------------------------------
 
-def _decoder_inputs(model, img, n_prompts=32, seed=5):
+def _decoder_inputs(model, img, n_prompts=32, seed=5, n_points=1):
     """The operands of one decode batch from `model` on `img`: the per-image
-    shared tensors, the (P, 7, 256) tokens of seeded point prompts (a point
-    and its padding token) and the packed-flat DINO map."""
+    shared tensors, the (P, 6 + n_points, 256) tokens of seeded point
+    prompts (the points and a padding token) in the decoder's dtype and the
+    packed-flat DINO map."""
     from crowdsam_tpu_torch.models.fused_decode import (
         precompute_decode_shared,
     )
@@ -1297,15 +1315,16 @@ def _decoder_inputs(model, img, n_prompts=32, seed=5):
             model.predictor.get_image_embedding(), model.predictor.dense_pe)
         ih, iw = model.image.shape[:2]
         gen = torch.Generator().manual_seed(seed)
-        coords = (torch.rand((n_prompts, 1, 2), generator=gen)
+        coords = (torch.rand((n_prompts, n_points, 2), generator=gen)
                   * torch.tensor([iw, ih], dtype=torch.float32)).cuda()
-        labels = torch.ones((n_prompts, 1), dtype=torch.int64, device="cuda")
+        labels = torch.ones((n_prompts, n_points), dtype=torch.int64,
+                            device="cuda")
         sparse, _ = sam.prompt_encoder(points=(coords, labels))
         out_tokens = torch.cat([dec.iou_token.weight,
                                 dec.mask_tokens.weight], dim=0)
         tokens = torch.cat([out_tokens[None].expand(n_prompts, -1, -1),
                             sparse.to(out_tokens.dtype)], dim=1)
-        tokens = tokens.to(torch.bfloat16).contiguous()
+        tokens = tokens.to(dec.dino_proj.weight.dtype).contiguous()
         dino = model.predictor.dino_proj_256
         dino_packed = pack_spatial(dino.movedim(-1, 0)).reshape(
             dino.shape[-1], -1).T.contiguous()
@@ -1499,7 +1518,7 @@ def phase_twoway_tail_normal(model, img):
     return row
 
 
-def _images_decoder_inputs(model, frames, n_prompts=32):
+def _images_decoder_inputs(model, frames, n_prompts=32, n_points=1):
     """The operands of one lockstep decode iteration over `frames`: the
     shared tensors of their stacked embeddings (the unbatched form for one
     frame), each frame's `n_prompts` seeded point prompts' tokens, each
@@ -1511,7 +1530,8 @@ def _images_decoder_inputs(model, frames, n_prompts=32):
 
     feats, toks, dinos = [], [], []
     for i, img in enumerate(frames):
-        _, tokens, dino = _decoder_inputs(model, img, n_prompts, seed=5 + i)
+        _, tokens, dino = _decoder_inputs(model, img, n_prompts, seed=5 + i,
+                                          n_points=n_points)
         feats.append(model.predictor.get_image_embedding())
         toks.append(tokens)
         dinos.append(dino)
@@ -1525,9 +1545,10 @@ def _images_decoder_inputs(model, frames, n_prompts=32):
     return shared, torch.cat(toks), img, torch.stack(dinos)
 
 
-def _k5_bound(args, got, p, t, m):
+def _k5_bound(args, got, p, t, m, flop_rate=BF16_FLOP_PER_S):
     """K5's bound (`phase_twoway_tail`'s count) for P prompts of this
-    call's operands: every input and output once, the products' flops."""
+    call's operands: every input and output once, the products' flops at
+    `flop_rate`."""
     c, cd, h, ht = 256, 128, 8, 8 * t
     mlp = args[5]["mlp1_w"].shape[0]
     flops = p * m * 2 * c * (3 * cd + 2 * cd)
@@ -1537,7 +1558,7 @@ def _k5_bound(args, got, p, t, m):
     nbytes = sum(x.numel() * x.element_size() for x in args[:5])
     nbytes += sum(x.numel() * x.element_size() for x in args[5].values())
     nbytes += sum(x.numel() * x.element_size() for x in got)
-    return bound(nbytes, flops, BF16_FLOP_PER_S)
+    return bound(nbytes, flops, flop_rate)
 
 
 def phase_twoway_tail_images(model, frames):
@@ -4067,37 +4088,6 @@ def _sync_timed(fn, acc):
     return wrapped
 
 
-def phase_f32_refused():
-    """`tpu.compute_dtype float32` on the card where it is still refused:
-    `CrowdSAM` with the fused decode (K5 and K6 take bf16) refuses it at
-    construction, naming their float32 arms as the next slice; the AMG is
-    no longer refused (phase `amg float32` runs it)."""
-    from crowdsam_tpu_torch.config import modify_config
-    from crowdsam_tpu_torch.models.build import sam_model_registry
-    from crowdsam_tpu_torch.pipeline.amg_generator import (
-        SamAutomaticMaskGenerator,
-    )
-    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
-
-    cfg = modify_config(_small_config(), ["tpu.compute_dtype", "float32",
-                                          "tpu.fused_decode", "true"])
-    try:
-        CrowdSAM(cfg, device="cuda")
-    except NotImplementedError as e:
-        refusal = f"{type(e).__name__}: {e}"
-    else:
-        raise AssertionError("f32_refused: CrowdSAM ran float32 with the "
-                             "fused decode on CUDA")
-    sam = sam_model_registry["vit_tiny"]().cuda()      # float32 weights
-    SamAutomaticMaskGenerator(sam, device="cuda")
-    print(json.dumps({"phase": "f32_refused", "refusal": refusal,
-                      "amg_constructed": True}), flush=True)
-    if "K5 and K6" not in refusal or "next slice" not in refusal:
-        raise AssertionError(f"f32_refused: {refusal}")
-    del sam
-    torch.cuda.empty_cache()
-
-
 # --------------------------------------------------------------------------
 # float32 on the card: the float32 arms of K2-K4, K1's float32 forward, and
 # the paths that run them
@@ -4370,31 +4360,67 @@ F32_PATH = ["model.sam_adapter_checkpoint", ADAPTER,
             "tpu.compute_dtype", "float32", "tpu.fused_decode", "false"]
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
 @contextlib.contextmanager
 def _counted_by_dtype_shape():
-    """K1-K4's launches inside the block by dtype and shape: K1 through its
-    launch `ops.layernorm._forward`, K2-K4 from their wrappers' counts."""
+    """K1-K7's launches inside the block by dtype and shape: K1 through its
+    launch `ops.layernorm._forward`, K2-K4 from their wrappers' counts, K5
+    and K6 through the fused decode's calls of their wrappers, K7 through
+    the engine's."""
+    from crowdsam_tpu_torch.models import fused_decode as fd
     from crowdsam_tpu_torch.ops import layernorm as ln
+    from crowdsam_tpu_torch.pipeline import engine
 
     counters = _reset_counts()
     k1 = collections.Counter()
+    k56 = {"twoway_tail": collections.Counter(),
+           "mask_head": collections.Counter(),
+           "survivor_rle": collections.Counter()}
     real = ln._forward
 
     def counted(x, weight, bias, eps, stats):
         d = x.shape[-1]
-        k1[f"{str(x.dtype).replace('torch.', '')} {x.numel() // d}x{d}"] += 1
+        k1[f"{_dtype_name(x)} {x.numel() // d}x{d}"] += 1
         return real(x, weight, bias, eps, stats)
 
+    def k5(*a, **kw):
+        keys0, tokens = a[0], a[4]
+        images = f", {keys0.shape[0]} images" if keys0.dim() == 3 else ""
+        k56["twoway_tail"][f"{_dtype_name(keys0)} {tokens.shape[0]}x"
+                           f"{tokens.shape[1]} tokens, {keys0.shape[-2]} "
+                           f"rows{images}"] += 1
+        return real_k5(*a, **kw)
+
+    def k6(keys2, hyper_in, weights, emit_exp=False):
+        k56["mask_head"][f"{_dtype_name(keys2)} {keys2.shape[0]}x"
+                         f"{keys2.shape[1]}"
+                         + (" emit_exp" if emit_exp else "")] += 1
+        return real_k6(keys2, hyper_in, weights, emit_exp=emit_exp)
+
+    def k7(logits, *a, **kw):
+        k56["survivor_rle"][f"{_dtype_name(logits)} "
+                            f"{'x'.join(map(str, logits.shape))}"] += 1
+        return real_k7(logits, *a, **kw)
+
+    real_k5, real_k6, real_k7 = fd.twoway_tail, fd.mask_head, \
+        engine.survivor_rle
     out = {}
-    with patched(ln, "_forward", counted):
+    with patched(ln, "_forward", counted), patched(fd, "twoway_tail", k5), \
+            patched(fd, "mask_head", k6), \
+            patched(engine, "survivor_rle", k7):
         yield out
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     out["layer_norm_by_dtype_shape"] = dict(k1)
     for k in ("window_attention", "flash_mha_decomposed_relpos",
-              "flash_mha"):
+              "flash_mha", "twoway_tail", "mask_head"):
         fn = counters[k]
         out[f"{k}_by_dtype"] = dict(fn.launches_by_dtype)
-        out[f"{k}_by_shape"] = dict(fn.launches_by_shape)
+        out[f"{k}_by_shape"] = dict(k56[k] if k in k56
+                                    else fn.launches_by_shape)
+    out["survivor_rle_by_dtype_shape"] = dict(k56["survivor_rle"])
 
 
 def _f32_run(model, frames, noises):
@@ -4442,27 +4468,19 @@ def phase_f32_path(bf16_model):
     device idle share, peak memory, and K1-K4's launches by dtype and shape
     (every one float32; K5 and K6 none).
 
-    Held against the same run with the plain versions of K1-K4 patched in
-    (an explicit call; TF32 off): SAM and DINOv2 features within 1e-4
-    relative L2, equal detection counts, boxes within 0.5 px and scores
-    within 1e-4, RLE strings equal or differing only at threshold ties
-    (`_threshold_ties`, their pixels named).  TF32 tripwire: the first frame run
+    Held against the same run with the plain versions patched in
+    (`_against_plain`: K1-K4, as K5 and K6 do not run in the unfused
+    decode; TF32 off): SAM and DINOv2 features within 1e-4 relative L2,
+    equal detection counts, boxes within 0.5 px and scores within 1e-4, RLE
+    strings equal or differing only at threshold ties (`_threshold_ties`,
+    their pixels named).  TF32 tripwire: the first frame run
     again after this script sets `torch.backends.cudnn.allow_tf32 = True`
     and `torch.set_float32_matmul_precision("high")` gives features bit for
     bit those of the first run.  Last, the bf16 main path's distance from
     this run (`bf16_model`: the same config in bf16 with the fused decode):
     the features' relative L2, and detections matched at IoU 0.5 with their
-    score gaps.  Returns (the float32 model, its row)."""
+    score gaps.  Returns (the float32 model, its row, its runs)."""
     from crowdsam_tpu_torch.config import modify_config
-    from crowdsam_tpu_torch.models import common as common_mod
-    from crowdsam_tpu_torch.models import dinov2 as dinov2_mod
-    from crowdsam_tpu_torch.models import image_encoder as encoder_mod
-    from crowdsam_tpu_torch.models.attention import (
-        flash_mha_plain,
-        relpos_attention_plain,
-        window_attention_plain,
-    )
-    from crowdsam_tpu_torch.ops.layernorm import layer_norm_plain
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
     from crowdsam_tpu_torch.utils.synthetic import (
         full_width_config,
@@ -4486,22 +4504,7 @@ def phase_f32_path(bf16_model):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     encode_dev = [_encode_device_ms(model, img) for img in frames[:N_IMAGES]]
     wall, busy, top = _device_busy(model, frames[0])
-    with patched(encoder_mod, "window_attention", window_attention_plain), \
-            patched(encoder_mod, "flash_mha_decomposed_relpos",
-                    relpos_attention_plain), \
-            patched(dinov2_mod, "flash_mha", flash_mha_plain), \
-            patched(common_mod, "layer_norm", layer_norm_plain):
-        plain = _f32_run(model, frames, noises)
-    rel = {k: [_rel_l2(r[k], p[k]) for r, p in zip(runs, plain)]
-           for k in ("sam", "dino")}
-    same, ties = [], {}
-    for i, (r, p) in enumerate(zip(runs, plain)):
-        same.append(_same_detections(r["data"], p["data"], exact=False))
-        if same[-1] and len(r["data"]["boxes"]) and any(
-                x != y for x, y in zip(r["data"]["rles"], p["data"]["rles"])):
-            # Mask pixels that differ: each must be a threshold tie.
-            ties[i] = _threshold_ties(model.engine_cfg, r["data"], p["data"],
-                                      r["engine"], p["engine"])
+    vs_plain = _against_plain("float32 path", model, runs, frames, noises)
     # The tripwire: TF32 switched on by the caller, restored after.
     saved = (torch.backends.cudnn.allow_tf32,
              torch.get_float32_matmul_precision())
@@ -4542,12 +4545,7 @@ def phase_f32_path(bf16_model):
         "peak_memory_gib": peak,
         "detections_per_image": [len(r["data"]["boxes"]) for r in runs],
         **counts,
-        "vs_plain": {"sam_rel_l2": rel["sam"], "dino_rel_l2": rel["dino"],
-                     "tol": 1e-4, "same_detections": same,
-                     "rle_threshold_tie_pixels": {
-                         str(i): list(t) for i, t in ties.items()},
-                     "detections": [len(p["data"]["boxes"]) for p in plain],
-                     "plain_ms_per_image": [p["ms"] for p in plain]},
+        "vs_plain": vs_plain,
         "tf32_tripwire": {"bit_for_bit": tripwire,
                           "caller_flags_inside_and_after": list(flags_after)},
         "bf16_main_path_vs_float32": vs_bf16,
@@ -4565,16 +4563,10 @@ def phase_f32_path(bf16_model):
         "layer_norm_by_dtype_shape"].items() if not k.startswith("float32")})
     if not_f32:
         raise AssertionError(f"float32 path: launches not float32 {not_f32}")
-    if max(rel["sam"] + rel["dino"]) > 1e-4:
-        raise AssertionError(f"float32 path: features from the plain run "
-                             f"{rel}")
-    if not all(same):
-        raise AssertionError(f"float32 path: detections differ from the "
-                             f"plain run: {row['vs_plain']}")
     if not all(tripwire.values()) or flags_after != (True, "high"):
         raise AssertionError(f"float32 path: TF32 tripwire {tripwire}, "
                              f"flags {flags_after}")
-    return model, row
+    return model, row, runs
 
 
 TRAIN_F32_REFERENCE = "--train-f32-reference"
@@ -4753,6 +4745,720 @@ def phase_amg_f32(sam):
            for k in ("window_attention", "flash_mha_decomposed_relpos")) \
             or not records:
         raise AssertionError(f"amg float32: {row}")
+    return row
+
+
+# --------------------------------------------------------------------------
+# float32 with the fused decode: the float32 arms of K5 and K6
+# (`csrc/decode_tail_f32.cu`, `csrc/mask_head_f32.cu`) and the paths that
+# run them
+# --------------------------------------------------------------------------
+
+# `configs/crowdhuman.yaml` in float32 with the fused decode (its default).
+F32_FUSED = ["model.sam_adapter_checkpoint", ADAPTER,
+             "tpu.compute_dtype", "float32"]
+
+
+def _f64_held(label, outs, faults):
+    """A float32 arm's outputs (name -> (arm, plain float32, float64)) held
+    to the float64 evaluation: max and mean |err| each at most 2x the plain
+    float32 version's, with a floor of 1e-7 max |out|; every fault (label,
+    name -> tensor, the plain version with a fault of the arm's design)
+    over 8x that bound on at least one output.  Returns the figures;
+    raises past either."""
+    rows, tols = {}, {}
+    for name, (got, plain, want) in outs.items():
+        want = want.double()
+
+        def errs(x, want=want):
+            d = (x.double() - want).abs()
+            return float(d.max()), float(d.mean())
+
+        g, p = errs(got), errs(plain)
+        floor = 1e-7 * float(want.abs().max())
+        tol = (max(2 * p[0], floor), max(2 * p[1], floor))
+        tols[name] = (want, tol)
+        rows[name] = dict(max_abs_err=g[0], mean_abs_err=g[1],
+                          plain_max_abs_err=p[0], plain_mean_abs_err=p[1],
+                          out_max_abs=float(want.abs().max()),
+                          err_over_tol=max(g[0] / tol[0], g[1] / tol[1]),
+                          finite=bool(torch.isfinite(got).all()))
+
+    def over(name, x):
+        want, tol = tols[name]
+        d = (x.double() - want).abs()
+        return max(float(d.max()) / tol[0], float(d.mean()) / tol[1])
+
+    fault_rows = {lb: {n: over(n, x) for n, x in f.items()}
+                  for lb, f in faults}
+    row = dict(outputs=rows, fault_err_over_tol=fault_rows,
+               tol="max and mean |err| from float64 <= 2x the plain float32 "
+                   "version's, floor 1e-7 max|out|; faults > 8x")
+    bad = [lb for lb, r in fault_rows.items() if max(r.values()) <= 8.0]
+    failed = [n for n, r in rows.items()
+              if r["err_over_tol"] > 1.0 or not r["finite"]]
+    if failed or bad:
+        raise AssertionError(f"{label}: outputs over the bound {failed}, "
+                             f"faults within 8x {bad}: {row}")
+    return row
+
+
+def _f32_arm_report(lib: str, entry: str, n: int) -> dict:
+    """A float32 arm's kernels: dynamic shared memory and blocks an SM
+    (the source's occupancy entry, `n` ints) and ptxas's registers and
+    spilled bytes; a kernel that spills fails."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    fn = _build.function(lib, entry, (ctypes.c_void_p,))
+    out = (ctypes.c_int * n)()
+    _build.check(fn(ctypes.cast(out, ctypes.c_void_p)), entry)
+    rep = _ptxas_report(lib)
+    spilled = {k: v for k, v in rep.items()
+               if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+    if spilled or not rep:
+        raise AssertionError(f"{lib}: ptxas spilled {spilled} ({rep})")
+    return dict(occupancy=list(out), kernels=rep)
+
+
+def _f32_k5_cases(model, small):
+    """(label, model, shared, tokens, img, dino) of K5's float32 shapes:
+    the main path's 32 x 7 at 4096 rows, the small config's 32 x 7 at
+    256, 2 images x 32 prompts, a prompt shard's 16 (M = 2) and T = 8 (two
+    points and the padding token)."""
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    frame = synthetic_images(3, 1)[0]
+    sh, tok, _, dino = _images_decoder_inputs(model, [frame])
+    sm_sh, sm_tok, _, sm_dino = _images_decoder_inputs(small,
+                                                       [_small_image()])
+    im_sh, im_tok, im_img, im_dino = _images_decoder_inputs(
+        model, synthetic_images(20, 2))
+    t8_sh, t8_tok, _, t8_dino = _images_decoder_inputs(model, [frame],
+                                                       n_points=2)
+    return [("main path, 32x7, M=4096", model, sh, tok, None, dino[0]),
+            ("small, 32x7, M=256", small, sm_sh, sm_tok, None, sm_dino[0]),
+            ("image axis, 2 images x 32x7, M=4096", model, im_sh, im_tok,
+             im_img, im_dino),
+            ("prompt shard M=2, 16x7, M=4096", model, sh, tok[:16], None,
+             dino[0]),
+            ("T=8, 32x8, M=4096", model, t8_sh, t8_tok, None, t8_dino[0])]
+
+
+def _k5_f32_faults(args, img):
+    """The plain version with faults of the float32 arm's design: the last
+    row tile's partial left out of block 2's merge, kpe2 (the PE-side term
+    of block 2's k) left out, the MLPs' ReLU dropped, and prompt p's token
+    stage reading prompt p + 1's rows (block 2's MLP) or, over several
+    images, every prompt reading the next image's rows."""
+    from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
+
+    def plain(*a, params=args[5]):
+        return dtk.twoway_tail_plain(*a, params, img=img)
+
+    real_attend = dtk._t2i_attend
+    with patched(dtk, "_t2i_attend", _nth_call(
+            real_attend, 2, lambda st, q, k, v, h: real_attend(
+                st, q, k[..., :-64, :], v[..., :-64, :], h))):
+        f_tile = plain(*args[:5])
+    f_pe = plain(*args[:5], params=dict(
+        args[5], kpe2=torch.zeros_like(args[5]["kpe2"])))
+    with patched(torch, "relu", lambda x: x):
+        f_relu = plain(*args[:5])
+    real_dense = dtk._Stages.dense
+
+    def next_rows(self, x, name):
+        return real_dense(self, torch.roll(x, -1, dims=0)
+                          if name == "mlp1" else x, name)
+    with patched(dtk._Stages, "dense", next_rows):
+        f_rows = plain(*args[:5])
+    faults = [("the last row tile's partial left out of block 2's merge",
+               f_tile), ("kpe2 left out of block 2's k", f_pe),
+              ("the MLPs' ReLU dropped", f_relu),
+              ("block 2's MLP reads prompt p + 1's token rows", f_rows)]
+    if img is not None:
+        faults.append(("every prompt reads the next image's rows", plain(
+            *(x.roll(-1, 0) for x in args[:4]), args[4])))
+    return [(lb, {"keys2": f[0], "tokens": f[1]}) for lb, f in faults]
+
+
+def phase_k5_f32(model, small):
+    """K5's float32 arm (`csrc/decode_tail_f32.cu`) on the operands of the
+    float32 path's model (`model`, the shipped adapter) and of the small
+    config in float32 (`small`, random weights) at `_f32_k5_cases`'
+    shapes, against a float64 evaluation of the plain version on the card
+    and the plain float32 version (`_f64_held`, keys2 and the tokens; the
+    faults of `_k5_f32_faults`); two calls bit for bit.  Times the wrapper
+    (CUDA events), its seven launches' span (torch.profiler), the plain
+    version and the path it replaces in float32 (the unfused
+    `TwoWayTransformer.forward` of each prompt's image, TF32 off) beside
+    the bound (`_k5_bound` at 67 TFLOP/s).  Returns (the rows, each case's
+    operands and outputs for `phase_k6_f32`)."""
+    from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
+    from crowdsam_tpu_torch.models.common import exact_float32
+
+    report = _f32_arm_report("decode_tail_f32", "twoway_tail_f32_occupancy",
+                             4)
+    rows, outs = [], []
+    for label, mdl, shared, tokens, img, dino in _f32_k5_cases(model, small):
+        args = _tail_args(shared, tokens)
+        p, t, c = tokens.shape
+        m = args[0].shape[-2]
+        n0 = dtk.twoway_tail.launches_by_dtype["float32"]
+        got = dtk.twoway_tail(*args, img=img)
+        again = dtk.twoway_tail(*args, img=img)
+        torch.cuda.synchronize()
+        if dtk.twoway_tail.launches_by_dtype["float32"] != n0 + 2:
+            raise AssertionError(f"K5 float32 {label}: the arm did not "
+                                 "launch")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 float32 {label}: two calls differ")
+        # Each prompt on its own: the first image's prompts alone (or the
+        # first 8) give the same bits as in the whole call.
+        rows_i = (torch.arange(8, device="cuda") if img is None
+                  else torch.nonzero(img == 0).flatten())
+        alone = dtk.twoway_tail(*(x[0] if img is not None else x
+                                  for x in args[:4]),
+                                tokens[rows_i].contiguous(), args[5])
+        if not all(torch.equal(a, b[rows_i]) for a, b in zip(alone, got)):
+            raise AssertionError(f"K5 float32 {label}: a prompt's result "
+                                 "depends on the call's other prompts")
+        del alone
+        plain = dtk.twoway_tail_plain(*args, img=img)
+        want = dtk.twoway_tail_plain(
+            *(x.double() for x in args[:5]),
+            {k: v.double() for k, v in args[5].items()}, img=img)
+        held = _f64_held(f"K5 float32 {label}", {
+            "keys2": (got[0], plain[0], want[0]),
+            "tokens": (got[1], plain[1], want[1])},
+            _k5_f32_faults(args, img))
+        del plain, want, again
+        fn = (lambda: dtk.twoway_tail(*args, img=img))
+        keys0 = args[0] if img is None else args[0][img.long()]
+        src = keys0.expand(p, m, c)
+        pos = mdl.predictor.dense_pe.reshape(1, m, c).expand(p, m, c)
+        with exact_float32():
+            t_r = time_ms(lambda: mdl.sam.mask_decoder.transformer(
+                src, pos, tokens), 2, warmup=1)
+        b_ms, by = _k5_bound(args, got, p, t, m, F32_FLOP_PER_S)
+        # Its seven launches run one after another: each kernel's median
+        # duration, summed (`device_ms` reads right where the profiler
+        # drops some records, as it does late in this script).
+        d_k = _profiled(device_ms, fn, 10)
+        rows.append(dict(
+            shape=label, max_abs_err=max(
+                o["max_abs_err"] for o in held["outputs"].values()),
+            **held, ms=time_ms(fn, 5), device_ms=d_k,
+            plain_ms=time_ms(lambda: dtk.twoway_tail_plain(*args, img=img),
+                             2, warmup=1),
+            replaced_ms=t_r,
+            replaced="TwoWayTransformer.forward (unfused) in float32",
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            bound_share=b_ms / d_k if d_k else None, **report))
+        print(json.dumps({"phase": "K5 float32", **rows[-1]}), flush=True)
+        outs.append((label, mdl, shared, got, dino))
+        del keys0, src, pos
+    torch.cuda.empty_cache()
+    return rows, outs
+
+
+def _k6_f32_faults(keys2, hyper, weights, emit_exp, plain):
+    """The plain version with faults of the float32 arm's design: the
+    LayerNorm over all 256 channels of a row (not a group of 64), the
+    sub-pixels q1 and q2 swapped, mask k given hypernetwork vector k + 1,
+    and (with `emit_exp`) the tile max from the first warp's eight rows
+    only.  `plain`: the plain version's outputs (masks[, e, mx])."""
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+
+    def ln_all_lanes(x, w, b):
+        u = x.mean((-1, -2), keepdim=True)
+        s = (x - u).square().mean((-1, -2), keepdim=True)
+        return (x - u) * torch.rsqrt(s + mhk.LN_EPS) * w + b
+
+    def as_dict(out):
+        out = out if emit_exp else (out,)
+        return dict(zip(("masks", "e", "mx"), out))
+
+    with patched(mhk, "_group_ln", ln_all_lanes):
+        f_ln = mhk.mask_head_plain(keys2, hyper, weights, emit_exp)
+    p, k, m = keys2.shape[0], hyper.shape[1], keys2.shape[1]
+    swap = {n: x.reshape(p, k, m, 4, 4).transpose(-1, -2).reshape(
+        p, k, m, 16) for n, x in zip(("masks", "e"), plain)}
+    faults = [("the LayerNorm over 256 channels, not a group of 64",
+               as_dict(f_ln)), ("sub-pixels q1 and q2 swapped", swap),
+              ("mask k given hypernetwork vector k + 1", as_dict(
+                  mhk.mask_head_plain(keys2, hyper.roll(-1, 1), weights,
+                                      emit_exp)))]
+    if emit_exp:
+        masks = plain[0].reshape(p, k, m // 64, 64, 16)
+        mx = masks[:, :, :, :8].amax(dim=(1, 3, 4))
+        e = torch.exp(masks - mx[:, None, :, None, None]).reshape(p, k, m, 16)
+        faults.append(("the tile max from the first warp's rows only",
+                       {"e": e, "mx": mx}))
+    return faults
+
+
+def phase_k6_f32(k5_outs):
+    """K6's float32 arm (`csrc/mask_head_f32.cu`) on the keys2 and
+    hypernetwork vectors of K5's float32 cases (`phase_k5_f32`): 32 x 4096
+    with and without `emit_exp`, the small config's 32 x 256 and a prompt
+    shard's 16 x 4096; against a float64 evaluation of the plain version
+    and the plain float32 version (`_f64_held`: masks, e, mx; the faults
+    of `_k6_f32_faults`).  The small config's random decoder gives mask
+    logits of rms ~0.005: its hypernetwork vectors are scaled by 2^10, as
+    `phase_mask_head` scales the bf16 model's.  Times the wrapper, the
+    kernel alone, the plain version and the path it replaces in float32
+    (the module-level packed head and pooling, `_decode_heads` without
+    K6, TF32 off) beside the bound (67 TFLOP/s)."""
+    from crowdsam_tpu_torch.models import fused_decode as fd
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+    from crowdsam_tpu_torch.models.common import exact_float32
+
+    report = _f32_arm_report("mask_head_f32", "mask_head_f32_occupancy", 2)
+    by_label = {o[0]: o for o in k5_outs}
+    cases = [("main path, 32x4096, emit_exp", "main path, 32x7, M=4096",
+              32, True),
+             ("main path, 32x4096", "main path, 32x7, M=4096", 32, False),
+             ("small, 32x256, emit_exp", "small, 32x7, M=256", 32, True),
+             ("prompt shard M=2, 16x4096, emit_exp",
+              "main path, 32x7, M=4096", 16, True)]
+    rows = []
+    for label, k5_label, p, emit in cases:
+        _, mdl, shared, (keys2, tok), dino = by_label[k5_label]
+        dec = mdl.sam.mask_decoder
+        k = dec.num_mask_tokens
+        keys2, tok = keys2[:p].contiguous(), tok[:p].contiguous()
+        hyper = fd._hyper_in(dec, tok[:, 1:1 + k, :])
+        if mdl.config["model"].get("sam_adapter_checkpoint", "") == "":
+            hyper = hyper * 1024.0
+        hyper = hyper.contiguous()
+        weights = shared["mask_head"]
+        n0 = mhk.mask_head.launches_by_dtype["float32"]
+        got = mhk.mask_head(keys2, hyper, weights, emit_exp=emit)
+        torch.cuda.synchronize()
+        if mhk.mask_head.launches_by_dtype["float32"] != n0 + 1:
+            raise AssertionError(f"K6 float32 {label}: the arm did not "
+                                 "launch")
+        alone = mhk.mask_head(keys2[:8].contiguous(), hyper[:8].contiguous(),
+                              weights, emit_exp=emit)
+        if not all(torch.equal(a, b[:8]) for a, b in zip(
+                (alone,) if not emit else alone, (got,) if not emit
+                else got)):
+            raise AssertionError(f"K6 float32 {label}: a prompt's result "
+                                 "depends on the call's other prompts")
+        del alone
+        plain = mhk.mask_head_plain(keys2, hyper, weights, emit)
+        want = mhk.mask_head_plain(
+            keys2.double(), hyper.double(),
+            {n: v.double() for n, v in weights.items()}, emit)
+        names = ("masks", "e", "mx") if emit else ("masks",)
+        tup = (lambda x: x if emit else (x,))
+        held = _f64_held(f"K6 float32 {label}", {
+            n: (g, q, w) for n, g, q, w in zip(names, tup(got), tup(plain),
+                                               tup(want))},
+            _k6_f32_faults(keys2, hyper, weights, emit, tup(plain)))
+        del plain, want
+        fn = (lambda: mhk.mask_head(keys2, hyper, weights, emit_exp=emit))
+        no_kernel = {n: v for n, v in shared.items() if n != "mask_head"}
+        with exact_float32():
+            t_r = time_ms(lambda: fd._decode_heads(
+                dec, no_kernel, tok, keys2, dino if emit else None, True,
+                True), 2, warmup=1)
+        m, c = keys2.shape[1:]
+        c1, c2 = weights["ln_w"].shape[0], hyper.shape[-1]
+        flops = p * m * 2 * (c * 4 * c1 + 4 * c1 * 4 * c2 + 16 * c2 * k)
+        nbytes = (keys2.numel() + hyper.numel()) * 4
+        nbytes += sum(x.numel() * x.element_size() for x in weights.values())
+        nbytes += sum(x.numel() * x.element_size() for x in tup(got))
+        b_ms, by = bound(nbytes, flops, F32_FLOP_PER_S)
+        d_k = _profiled(device_ms, fn, 20)
+        rows.append(dict(
+            shape=label, max_abs_err=held["outputs"]["masks"]["max_abs_err"],
+            **held, ms=time_ms(fn, 5), device_ms=d_k,
+            plain_ms=time_ms(lambda: mhk.mask_head_plain(
+                keys2, hyper, weights, emit), 2, warmup=1),
+            replaced_ms=t_r,
+            replaced="module-level packed head" + (" + softmax pooling"
+                                                   if emit else "")
+                     + " (_decode_heads) in float32",
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            bound_share=b_ms / d_k if d_k else None, gflop=flops / 1e9,
+            **report))
+        print(json.dumps({"phase": "K6 float32", **rows[-1]}), flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The plain versions of K1-K6 in place of their wrappers inside the
+    block (an explicit call: the plain-patched run of a float32 path)."""
+    from crowdsam_tpu_torch.models import common as common_mod
+    from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
+    from crowdsam_tpu_torch.models import dinov2 as dinov2_mod
+    from crowdsam_tpu_torch.models import fused_decode as fd
+    from crowdsam_tpu_torch.models import image_encoder as encoder_mod
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+    from crowdsam_tpu_torch.models.attention import (
+        flash_mha_plain,
+        relpos_attention_plain,
+        window_attention_plain,
+    )
+    from crowdsam_tpu_torch.ops.layernorm import layer_norm_plain
+
+    with patched(encoder_mod, "window_attention", window_attention_plain), \
+            patched(encoder_mod, "flash_mha_decomposed_relpos",
+                    relpos_attention_plain), \
+            patched(dinov2_mod, "flash_mha", flash_mha_plain), \
+            patched(common_mod, "layer_norm", layer_norm_plain), \
+            patched(fd, "twoway_tail", dtk.twoway_tail_plain), \
+            patched(fd, "mask_head", mhk.mask_head_plain):
+        yield
+
+
+def _profiled(measure, *args):
+    """A torch.profiler measurement of a float32 arm, or None where the
+    profiler kept no record in any of its windows: late in this script it
+    drops records (whole windows at times), and the arm's CUDA-event time
+    (`ms`, launches queued back to back) stands beside it."""
+    try:
+        return measure(*args)
+    except NoDeviceRecords as e:
+        log(f"torch.profiler: {e}")
+        return None
+
+
+def _kernel_times(model, img, noise, launches) -> dict:
+    """One `generate` under torch.profiler (after a warm-up): each
+    kernel's median duration and records kept, for K5's float32 launches
+    (`tok_stage`, `row_phase`), K6's (`mask_head_f32`) and K1-K4's float32
+    arms; the decode's device ms of the frame from the medians and the
+    frame's launches of K5 and K6 (`launches`, each K5 call runs each of
+    its seven kernels once), which the profiler's dropped records do not
+    lower."""
+    by = {}
+    for ev in _cuda_events(lambda: model.generate(img, noise=[noise]), 1):
+        name = _kernel_name(ev.name)
+        if name.startswith(("tok_stage", "row_phase", "mask_head_f32",
+                            "attn_f32", "ln_")):
+            by.setdefault(name, []).append(ev.device_time_total / 1e3)
+    med = {k: dict(median_ms=float(np.median(v)), records=len(v))
+           for k, v in by.items()}
+    decode = {k: v["median_ms"] * launches[
+        "mask_head" if k.startswith("mask_head") else "twoway_tail"]
+        for k, v in med.items()
+        if k.startswith(("tok_stage", "row_phase", "mask_head_f32"))}
+    return dict(kernels=med, decode_by_kernel=decode,
+                decode_device_ms=sum(decode.values()))
+
+
+def _against_plain(label, model, runs, frames, noises, tol=1e-4):
+    """A float32 run (`_f32_run`) against the same run with the plain
+    versions of K1-K6 patched in: SAM and DINOv2 features within `tol`
+    relative L2, equal detections (boxes within 0.5 px, scores within
+    1e-4), RLE strings equal or differing at threshold ties (their pixels
+    named).  Returns the figures; raises past the bounds."""
+    with _plain_kernels():
+        plain = _f32_run(model, frames, noises)
+    rel = {k: [_rel_l2(r[k], p[k]) for r, p in zip(runs, plain)]
+           for k in ("sam", "dino")}
+    same, ties = [], {}
+    for i, (r, p) in enumerate(zip(runs, plain)):
+        same.append(_same_detections(r["data"], p["data"], exact=False))
+        if same[-1] and len(r["data"]["boxes"]) and any(
+                x != y for x, y in zip(r["data"]["rles"], p["data"]["rles"])):
+            ties[str(i)] = list(_threshold_ties(
+                model.engine_cfg, r["data"], p["data"], r["engine"],
+                p["engine"]))
+    out = {"sam_rel_l2": rel["sam"], "dino_rel_l2": rel["dino"], "tol": tol,
+           "same_detections": same, "rle_threshold_tie_pixels": ties,
+           "detections": [len(p["data"]["boxes"]) for p in plain],
+           "plain_ms_per_image": [p["ms"] for p in plain]}
+    if max(rel["sam"] + rel["dino"]) > tol or not all(same):
+        raise AssertionError(f"{label}: the run differs from the "
+                             f"plain-patched one: {out}")
+    return out
+
+
+def _against_unfused(model, runs, unfused, tol=2e-4):
+    """The fused float32 run against the unfused one (`phase_f32_path`'s,
+    same frames and noise): equal detection counts and categories, scores
+    within `tol` (the port's CPU bound for the fused decode against the
+    XLA path in float32), boxes within 0.5 px or, on a detection whose RLE
+    string differs, within a threshold tie's `TIE_BOX_PX` (its pixels
+    traced by `_threshold_ties`)."""
+    out = []
+    for i, (r, u) in enumerate(zip(runs, unfused)):
+        g, w = r["data"], u["data"]
+        row = dict(detections=[len(g["boxes"]), len(w["boxes"])],
+                   ms_per_image=[r["ms"], u["ms"]])
+        if len(g["boxes"]) != len(w["boxes"]) or not np.array_equal(
+                g["categories"], w["categories"]):
+            raise AssertionError(f"float32 fused path frame {i}: "
+                                 f"detections differ from the unfused "
+                                 f"run: {row}")
+        if len(g["boxes"]):
+            ds = np.abs(np.asarray(g["scores"]) - np.asarray(w["scores"]))
+            db = np.abs(np.asarray(g["boxes"]) - np.asarray(w["boxes"])
+                        ).max(axis=1)
+            tie = np.array([a != b for a, b in zip(g["rles"], w["rles"])])
+            row.update(max_score_diff=float(ds.max()),
+                       max_box_diff_px=float(db.max()),
+                       rle_differ=int(tie.sum()))
+            if tie.any():
+                row["rle_threshold_tie_pixels"] = list(_threshold_ties(
+                    model.engine_cfg, g, w, r["engine"], u["engine"]))
+            if (ds > tol).any() or (db > np.where(tie, TIE_BOX_PX,
+                                                  0.5)).any():
+                raise AssertionError(f"float32 fused path frame {i}: "
+                                     f"scores or boxes apart from the "
+                                     f"unfused run: {row}")
+        out.append(row)
+    return out
+
+
+def phase_f32_fused_path(unfused):
+    """`configs/crowdhuman.yaml` with `tpu.compute_dtype float32` and the
+    fused decode (its default) at full width and depth (SAM ViT-L, DINOv2
+    ViT-L/14, the shipped adapter) on the main path's three frames at the
+    reference thresholds: ms/image, the decode's device ms (K5 + K6 of one
+    frame), the device idle share, peak memory and K1-K7's launches by
+    dtype and shape (every K5 and K6 launch float32).  Held against the
+    same run with the plain versions of K1-K6 patched in (`_against_plain`)
+    and against `phase_f32_path`'s unfused float32 run on the same frames
+    and noise (`unfused`; `_against_unfused`).  Returns (the model, its
+    row)."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import (
+        full_width_config,
+        synthetic_images,
+    )
+
+    t = time.time()
+    with _no_default_init():
+        model = CrowdSAM(modify_config(full_width_config(), F32_FUSED),
+                         device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    frames = synthetic_images(0, N_IMAGES)
+    noises = [torch.rand(model.engine_cfg.grid_size ** 2,
+                         generator=torch.Generator().manual_seed(40 + i))
+              for i in range(len(frames))]
+    _timed_generate(model, frames[0], noises[0])        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with _counted_by_dtype_shape() as counts:
+        runs = _f32_run(model, frames, noises)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    decode = _profiled(_kernel_times, model, frames[0], noises[0], {
+        k: counts["launches"][k] / N_IMAGES
+        for k in ("twoway_tail", "mask_head")})
+    wall, busy, top = _device_busy(model, frames[0])
+    row = {
+        "phase": "float32 fused path",
+        "config": "configs/crowdhuman.yaml + tpu.compute_dtype float32 "
+                  "(fused decode), SAM ViT-L + DINOv2 ViT-L/14 + "
+                  f"{ADAPTER}, random encoders",
+        "build_s": build_s,
+        "image_hw": [list(f.shape[:2]) for f in frames],
+        "ms_per_image": [r["ms"] for r in runs],
+        "unfused_ms_per_image": [u["ms"] for u in unfused],
+        "first_frame_device": decode,
+        "device_profile": {"wall_ms": wall, "device_busy_ms": busy,
+                           "device_idle_share": 1.0 - busy / wall,
+                           "kernels_ms": top},
+        "peak_memory_gib": peak,
+        "detections_per_image": [len(r["data"]["boxes"]) for r in runs],
+        **counts,
+    }
+    print(json.dumps(row), flush=True)
+    launches = counts["launches"]
+    _require_launches("float32 fused path", launches,
+                      ["layer_norm", "window_attention",
+                       "flash_mha_decomposed_relpos", "flash_mha",
+                       "twoway_tail", "mask_head"])
+    not_f32 = {k: v for k in ("window_attention",
+                              "flash_mha_decomposed_relpos", "flash_mha",
+                              "twoway_tail", "mask_head")
+               for v in [counts[f"{k}_by_dtype"]] if set(v) != {"float32"}}
+    if not_f32:
+        raise AssertionError(f"float32 fused path: launches not float32 "
+                             f"{not_f32}")
+    row = {"phase": "float32 fused path, held",
+           "vs_plain": _against_plain("float32 fused path", model, runs,
+                                      frames, noises),
+           "vs_unfused": _against_unfused(model, runs, unfused)}
+    print(json.dumps(row), flush=True)
+    return model, dict(row, ms_per_image=[r["ms"] for r in runs], **counts)
+
+
+def _f32_items_close(label, got, want):
+    """Item by item: equal detection counts and categories, boxes within
+    0.5 px, scores within 1e-5, RLE strings equal (a float32 path batched
+    or prompt-sharded against one process).  Returns each item's largest
+    differences and whether it is bit for bit; raises past the bounds."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        row = dict(bit_for_bit=_same_detections(g, w, exact=True),
+                   detections=[len(g["boxes"]), len(w["boxes"])])
+        if len(g["boxes"]) != len(w["boxes"]) or not np.array_equal(
+                g["categories"], w["categories"]):
+            raise AssertionError(f"{label} item {i}: {row}")
+        if len(g["boxes"]):
+            row.update(
+                max_score_diff=float(np.abs(np.asarray(g["scores"])
+                                            - np.asarray(w["scores"])).max()),
+                max_box_diff_px=float(np.abs(np.asarray(g["boxes"])
+                                             - np.asarray(w["boxes"])).max()),
+                rle_equal=g["rles"] == w["rles"])
+            if (row["max_score_diff"] > 1e-5 or row["max_box_diff_px"] > 0.5
+                    or not row["rle_equal"]):
+                raise AssertionError(f"{label} item {i}: {row}")
+        out.append(row)
+    return out
+
+
+def _row_count_probe(dec) -> dict:
+    """Whether the fused decode's PyTorch products outside K5 and K6 give
+    a prompt the same bits in a call of 32 prompts (one image) as in one of
+    64 (the batched call's two images): the hypernetwork MLPs
+    (`_hyper_in`), the IoU head, the pooling from K6's exp terms
+    (`_pooled_from_exp`, one DINO map against two) and the point
+    classifier, on seeded float32 operands of the main path's shapes."""
+    from crowdsam_tpu_torch.models import fused_decode as fd
+    from crowdsam_tpu_torch.models.common import exact_float32
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((64, 5, 256), generator=g, device="cuda")
+    e = torch.rand((64, 4, 4096, 16), generator=g, device="cuda")
+    mx = torch.randn((64, 64), generator=g, device="cuda")
+    dino = torch.randn((2, 4096 * 16, 256), generator=g, device="cuda")
+    with exact_float32():
+        pooled = fd._pooled_from_exp(e, mx, dino, torch.float32)
+        return {
+            "hyper_in": bool(torch.equal(fd._hyper_in(dec, x[:32, 1:]),
+                                         fd._hyper_in(dec, x[:, 1:])[:32])),
+            "iou_prediction_head": bool(torch.equal(
+                dec.iou_prediction_head(x[:32, 0]),
+                dec.iou_prediction_head(x[:, 0])[:32])),
+            "pooled_from_exp": bool(torch.equal(fd._pooled_from_exp(
+                e[:32], mx[:32], dino[0], torch.float32), pooled[:32])),
+            "point_classifier": bool(torch.equal(
+                dec.point_classifier(pooled[:32]),
+                dec.point_classifier(pooled)[:32]))}
+
+
+def phase_f32_batched(model):
+    """The float32 fused path's model (`phase_f32_fused_path`) batched:
+    `ShardedPipeline.generate_batch` at B = 2 on the main path's first two
+    frames against `generate_many` on the same frames, the generator reset
+    to one seed before each: whether each item is bit for bit; required,
+    `_f32_items_close` (scores within 1e-5) and K5 and K6 launched in
+    float32.  The float32 arms compute each prompt on its own, so their
+    sums do not depend on B or P (`phase_k5_f32` / `phase_k6_f32` hold
+    that bit for bit); the batched encode's SAM and DINOv2 features against
+    the single ones show whether a difference comes from the encode.  The prompt-sharded engine (M
+    = 2) in float32 runs in `phase_multi_device`'s spawn of 2 ranks."""
+    from crowdsam_tpu_torch.parallel.eval_shard import ShardedPipeline
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    frames = synthetic_images(0, 2)
+    single = []
+    real_generate = model.generate
+
+    def generate(img, **kw):
+        out = real_generate(img, **kw)
+        single.append({k: getattr(model.predictor, k).float().cpu()
+                       for k in ("features", "dino_feats")})
+        return out
+
+    model.generator.manual_seed(123)
+    t = time.perf_counter()
+    with patched(model, "generate", generate):
+        want = model.generate_many(frames)
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t) * 1e3 / len(frames)
+    pipe = ShardedPipeline(model, batch=2)
+    model.generator.manual_seed(123)
+    pipe.generate_batch(frames)                          # warm-up
+    batched = []
+    real_encode = model.predictor.encode_batch
+
+    def encode_batch(*a, **kw):
+        enc = real_encode(*a, **kw)
+        batched.append({k: enc[k].float().cpu()
+                        for k in ("features", "dino_feats")})
+        return enc
+
+    model.generator.manual_seed(123)
+    counters = _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with patched(model.predictor, "encode_batch", encode_batch):
+        got = pipe.generate_batch(frames)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t) * 1e3 / len(frames)
+    row = {"phase": "float32 batched", "path": "generate_batch B=2",
+           "frames": [list(f.shape[:2]) for f in frames],
+           "items": _f32_items_close("float32 batched", got, want),
+           "encode_bit_for_bit": {k: [
+               bool(torch.equal(batched[0][k][i].reshape(s[k].shape), s[k]))
+               for i, s in enumerate(single)]
+               for k in ("features", "dino_feats")},
+           "heads_same_bits_at_32_and_64_prompts": _row_count_probe(
+               model.sam.mask_decoder),
+           "ms_per_image": batch_ms, "generate_many_ms_per_image": many_ms,
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "launches_by_dtype": {
+               k: dict(counters[k].launches_by_dtype)
+               for k in ("twoway_tail", "mask_head")}}
+    print(json.dumps(row), flush=True)
+    if any(set(v) != {"float32"} for v in row["launches_by_dtype"].values()):
+        raise AssertionError(f"float32 batched: {row}")
+    return row
+
+
+def phase_vit_h_f32(draw: HostDraw):
+    """SAM ViT-H in float32 with the fused decode (DINOv2 ViT-L/14, the
+    shipped adapter; the weights from the smoke's ViT-H draw) on the main
+    path's first frame, against its plain-patched run with the bounds of
+    `phase_f32_fused_path` (`_against_plain`): K1's float32 arm at width
+    1280 and K2/K3's at head dim 80, their launches and device ms on the
+    run."""
+    from crowdsam_tpu_torch.utils import init
+    from crowdsam_tpu_torch.utils.synthetic import synthetic_images
+
+    held = {VIT_H_KEY: draw.get()}
+    with patched(init, "sam_state_dict", _held(init.sam_state_dict, held)):
+        model, build_s = _arch_model(["model.sam_model", "vit_h",
+                                      *F32_FUSED])
+    frames = synthetic_images(0, 1)
+    noises = [torch.rand(model.engine_cfg.grid_size ** 2,
+                         generator=torch.Generator().manual_seed(40))]
+    _timed_generate(model, frames[0], noises[0])        # warm-up
+    with _counted_by_dtype_shape() as counts:
+        runs = _f32_run(model, frames, noises)
+    by_shape = _launches_by_shape()
+    device = _profiled(_kernel_times, model, frames[0], noises[0],
+                       counts["launches"])
+    row = {"phase": "float32 vit_h", "build_s": build_s,
+           "image_hw": list(frames[0].shape[:2]),
+           "ms_per_image": runs[0]["ms"],
+           "detections": len(runs[0]["data"]["boxes"]), **counts,
+           "by_head_dim": {k: by_shape[f"{k}_by_head_dim"] for k in (
+               "window_attention", "flash_mha_decomposed_relpos")},
+           "device": device,
+           "vs_plain": _against_plain("float32 vit_h", model, runs, frames,
+                                      noises)}
+    print(json.dumps(row), flush=True)
+    k1 = counts["layer_norm_by_dtype_shape"]
+    if (k1.get("float32 4096x1280", 0) == 0
+            or any(set(counts[f"{k}_by_dtype"]) != {"float32"}
+                   for k in ("window_attention",
+                             "flash_mha_decomposed_relpos", "twoway_tail",
+                             "mask_head"))
+            or any(set(v) != {80} for v in row["by_head_dim"].values())):
+        raise AssertionError(f"float32 vit_h: launches {row}")
+    del model
+    torch.cuda.empty_cache()
     return row
 
 
@@ -5364,6 +6070,10 @@ def _rank_task(rank: int, world: int, weights: str, task: dict):
                 name=name, results=results, loops=loops, rows=rows,
                 sync_checks=checked, ms_per_image=ms,
                 launches={k: fn.launches for k, fn in counters.items()},
+                launches_by_dtype={
+                    k: dict(fn.launches_by_dtype)
+                    for k, fn in counters.items()
+                    if hasattr(fn, "launches_by_dtype")},
                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
             if spatial is not None:
                 out["runs"][-1].update(
@@ -5639,6 +6349,15 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
         partial = "loaded, 7 images (partial chunk)"
         want[partial], want_rows[partial] = want["loaded"][:7], want_rows[
             "loaded"]
+        # float32 with the fused decode, prompt-sharded: the model of
+        # `F32_FUSED` on these weights, in this process and in the ranks.
+        f32_runs = [("float32, 2 frames", reference_cfg, frames[:2],
+                     noises[:2])]
+        with torch.no_grad():
+            f32_local = _rank_model(weights, F32_FUSED)
+            f32_want = _single_runs(f32_local, f32_runs)
+            del f32_local
+            torch.cuda.empty_cache()
         s_runs = [("loaded, 2 crowd scenes", loaded_cfg, scenes[:2], None)]
         s_want = ({"loaded, 2 crowd scenes": want["loaded"][:2]},
                   {"loaded, 2 crowd scenes": want_rows["loaded"]})
@@ -5648,7 +6367,9 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
                      runs=d_runs + [(partial, loaded_cfg, scenes[:7],
                                      None)]),
                 dict(kind="data_shard", mesh=(1, 2), batch=1, runs=p_runs,
-                     spatial_axis="model")],
+                     spatial_axis="model"),
+                dict(kind="prompt_shard", mesh=(1, 2), runs=f32_runs,
+                     overrides=F32_FUSED)],
             4: [dict(kind="data_shard", mesh=(2, 2), batch=4, seed=123,
                      runs=d_runs, prompt_axis="model"),
                 dict(kind="data_shard", mesh=(2, 2), batch=2, runs=s_runs,
@@ -5675,6 +6396,27 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
                       **_rank_summary("prompt_shard", one[0]["ranks"],
                                       *p_want, reference_cfg))
         print(json.dumps(prompt), flush=True)
+        prompt_f32 = dict(phase="float32 batched",
+                          path="prompt_shard M=2 (install_prompt_sharding)",
+                          config="configs/crowdhuman.yaml + tpu.compute_dtype "
+                                 "float32 (fused decode), the shipped adapter",
+                          ranks=2, mesh=[1, 2], **timing(one[3]),
+                          label=SHARING.format(n=2, card=card),
+                          **_rank_summary("prompt_shard float32",
+                                          one[3]["ranks"], *f32_want,
+                                          reference_cfg))
+        prompt_f32["launches_by_dtype_by_rank"] = [
+            {k: rk["runs"][0]["launches_by_dtype"][k]
+             for k in ("twoway_tail", "mask_head")}
+            for rk in one[3]["ranks"]]
+        prompt_f32["items"] = _f32_items_close(
+            "prompt_shard float32", one[3]["ranks"][0]["runs"][0]["results"],
+            f32_want[0]["float32, 2 frames"])
+        print(json.dumps(prompt_f32), flush=True)
+        if any(set(v) != {"float32"} for r in prompt_f32[
+                "launches_by_dtype_by_rank"] for v in r.values()):
+            raise AssertionError(f"prompt_shard float32: not the float32 "
+                                 f"arms: {prompt_f32}")
         data = dict(phase="data_shard", nvidia_smi=smi)
         for key, world, run in (
                 ("2x1 batch 4", 2, one[1]),
@@ -5698,7 +6440,7 @@ def phase_multi_device(model, reference_cfg, loaded_cfg):
         shutil.rmtree(work, ignore_errors=True)
     return dict(prompt_shard=prompt, data_shard=data, spatial_shard=spatial,
                 spatial_halo=halo, train_mesh=train_mesh,
-                weights_save_s=save_s)
+                prompt_shard_f32=prompt_f32, weights_save_s=save_s)
 
 
 def _spatial_details(label, row, model, ranks, runs, mesh, per_image):
@@ -6420,13 +7162,13 @@ def main() -> int:
         k4_band6 = phase_dino_band(gen, HALO_K4_BANDS)
         k4_band3 = phase_dino_band(gen, TINY_K4_BANDS)
         torch.cuda.empty_cache()
-        phase_f32_refused()
         # The float32 arms of K2-K4 and K1's float32 forward.
         k_f32 = phase_f32_arms(gen)
         ln_f32 = phase_layernorm_f32(gen)
     ln_bwd_rows = phase_layernorm_backward(gen)
     torch.cuda.empty_cache()
 
+    from crowdsam_tpu_torch.config import modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
     from crowdsam_tpu_torch.utils.synthetic import (
         full_width_config,
@@ -6485,18 +7227,32 @@ def main() -> int:
         phase_amg(adapted.sam)
         # float32 on the card: the encoders, the unfused decode, the
         # trainer and the AMG through the float32 arms of K1-K4.
-        f32_model, f32_path = phase_f32_path(adapted)
+        f32_model, f32_path, f32_unfused = phase_f32_path(adapted)
     del adapted
     torch.cuda.empty_cache()
     train_f32 = phase_train_f32(f32_model)
     with torch.no_grad():
         phase_amg_f32(f32_model.sam)
-    del f32_model
+        # float32 with the fused decode: the float32 arms of K5 and K6.
+        with _no_default_init():
+            small_f32 = CrowdSAM(modify_config(
+                _small_config(), ["tpu.compute_dtype", "float32"]),
+                device="cuda")
+        k5_f32, k5_f32_outs = phase_k5_f32(f32_model, small_f32)
+        k6_f32 = phase_k6_f32(k5_f32_outs)
+        del k5_f32_outs, small_f32, f32_model
+        torch.cuda.empty_cache()
+        f32_fused_model, f32_fused = phase_f32_fused_path(f32_unfused)
+        del f32_unfused
+        f32_batched = phase_f32_batched(f32_fused_model)
+        del f32_fused_model
     torch.cuda.empty_cache()
     phase_cli()
     torch.cuda.empty_cache()
     vit_h_shapes = phase_vit_h(draws["vit_h"])
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        phase_vit_h_f32(draws["vit_h"])
     phase_small_vit_h(draws["vit_h"])
     del draws
     phase_sam_hq()
@@ -6827,6 +7583,44 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], **{k: row[k] for k in keys},
             device_ms=row["device_ms"],
             library_device_ms=row["library_device_ms"]))
+    # The float32 arms of K5 and K6 (`csrc/decode_tail_f32.cu`,
+    # `csrc/mask_head_f32.cu`): launches on the float32 fused path's three
+    # frames (phase `float32 fused path`, the counts set to 0 just before
+    # it), on `generate_batch` at B = 2 (`float32 batched`) and on rank 0
+    # of the float32 prompt shard (M = 2, `multi_device`'s spawn).
+    f32_shard = multi["prompt_shard_f32"]["float32, 2 frames"]
+    for name, src, rep, rows, paths in (
+            ("twoway_tail", "crowdsam_tpu_torch/csrc/decode_tail_f32.cu",
+             "crowdsam_tpu/models/decode_tail_kernel.py:359", k5_f32,
+             {"main path": "float32 fused path, 3 frames",
+              "image axis": "float32 batched, generate_batch B=2, 2 frames",
+              "prompt shard": "float32 prompt_shard M=2, rank 0, 2 frames"}),
+            ("mask_head", "crowdsam_tpu_torch/csrc/mask_head_f32.cu",
+             "crowdsam_tpu/models/mask_head_kernel.py:165", k6_f32,
+             {"main path, 32x4096, emit_exp": "float32 fused path, 3 frames",
+              "prompt shard": "float32 prompt_shard M=2, rank 0, 2 frames"})):
+        for row in rows:
+            where = next((v for k, v in paths.items()
+                          if row["shape"].startswith(k)), None)
+            n = 0
+            if where is not None and where.startswith("float32 fused"):
+                n = f32_fused["launches"][name]
+            elif where is not None and where.startswith("float32 batched"):
+                n = f32_batched["launches"][name]
+            elif where is not None:
+                n = f32_shard["launches_by_rank"][0][name]
+            table.append(dict(
+                name=name, dtype="float32", route="cuda", source=src,
+                replaces=rep, launches=n,
+                launches_in=where or "no run of this script: the arm's "
+                                     "phase alone",
+                max_abs_err=row["max_abs_err"],
+                **{k: row.get(k) for k in keys}, device_ms=row["device_ms"],
+                replaced_ms=row["replaced_ms"], replaced=row["replaced"],
+                mean_abs_err={o: v["mean_abs_err"]
+                              for o, v in row["outputs"].items()},
+                err_over_tol=max(v["err_over_tol"]
+                                 for v in row["outputs"].values())))
     print(json.dumps({"smoke_wall_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     smi = subprocess.run(

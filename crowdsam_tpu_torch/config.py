@@ -148,25 +148,3 @@ def resolve_device(device=None, index=None) -> torch.device:
 
 def dtype_from_str(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
-def refuse_float32_on_cuda(device, dtype: torch.dtype, fused: bool,
-                           where: str) -> None:
-    """Raise NotImplementedError for float32 compute on a CUDA device where
-    the fused decode would launch K5 or K6: `fused` is `tpu.fused_decode`
-    on an arch that fuses (`fused_decode and not is_hq`, as the engine
-    decides it).
-
-    K1-K4 have float32 arms on the card (`csrc/layernorm.cu`,
-    `csrc/attention_f32.cu`), so the encoders, the trainer, the AMG and the
-    unfused decode run float32 there; K5 and K6 take bf16 operands, and no
-    path leads from a CUDA tensor to a kernel's plain version.  The CPU runs
-    float32 either way (the plain path)."""
-    if torch.device(device).type == "cuda" and dtype == torch.float32 \
-            and fused:
-        raise NotImplementedError(
-            f"{where}: tpu.compute_dtype float32 with tpu.fused_decode true "
-            "on CUDA is not supported: the fused decode's kernels K5 and K6 "
-            "take bf16 operands; their float32 arms are the next slice of "
-            "the port.  Set tpu.fused_decode false (the unfused decode runs "
-            "float32 on the card), use bfloat16, or device='cpu'.")

@@ -32,13 +32,20 @@ the token->image exponentials tile by tile (the softmax over all image rows is
 split over tiles of ROW_TILE rows and merged in f32); the token
 self-attention's stay f32.
 
+Float32 (`tpu.compute_dtype float32`): every operand and parameter float32
+goes to the float32 arm, `csrc/decode_tail_f32.cu` (seven launches of FFMA
+kernels, see the source's note): plain float32 arithmetic, with the
+rounding points above the identity.  The plain version follows its input's
+dtype: float32 arithmetic for bf16 and float32 operands, float64 for
+float64 ones (the yardstick the card holds the float32 arm to).
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel (ten launches on the caller's stream, see the source's
-note) or raises.
+launches the kernel of the operands' dtype (bf16 or float32) or raises.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Dict, Optional, Tuple
@@ -47,10 +54,10 @@ import torch
 
 from crowdsam_tpu_torch.kernels import _build
 
-# Kernel parameters in the order `csrc/decode_tail.cu` indexes them (enum
-# Param there).  `*_w` are Linear weights (out, in) in the working dtype,
-# the (M, 128) PE-side projections likewise; biases and LayerNorm
-# parameters are f32.
+# Kernel parameters in the order `csrc/decode_tail.cu` and
+# `csrc/decode_tail_f32.cu` index them (enum Param there).  `*_w` are Linear
+# weights (out, in) in the working dtype, the (M, 128) PE-side projections
+# likewise; biases and LayerNorm parameters are f32.
 PARAM_NAMES = (
     "kpe2", "qpe2i", "kpef",          # (M, 128) PE-side projections
     "wide2", "widef",                  # (384, 256) / (256, 256)
@@ -155,16 +162,18 @@ def _with_pe(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
 
 class _Stages:
     """The dense and LayerNorm stages of the plain version: f32 arithmetic
-    on values rounded to the working dtype `dt` where the kernel rounds."""
+    (f64 for a f64 working dtype) on values rounded to the working dtype
+    `dt` where the kernel rounds."""
 
     def __init__(self, params: Dict[str, torch.Tensor], dt: torch.dtype):
         self.params, self.dt = params, dt
+        self.acc = torch.float64 if dt == torch.float64 else torch.float32
 
     def rnd(self, x):
-        return x.to(self.dt).float()
+        return x.to(self.dt).to(self.acc)
 
     def par(self, name):
-        return self.params[name].float()
+        return self.params[name].to(self.acc)
 
     def dense(self, x, pfx):
         return self.rnd(self.rnd(x) @ self.par(f"{pfx}_w").T
@@ -244,8 +253,9 @@ def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
                       num_heads: int = NUM_HEADS,
                       img: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of `twoway_tail` (same contract), in f32 with the
-    kernel's rounding points; the working dtype is keys0's.  With B > 1
+    """Plain version of `twoway_tail` (same contract), in f32 (f64 for f64
+    operands) with the kernel's rounding points; the working dtype is
+    keys0's.  With B > 1
     images, one single-image computation a present image over its prompts,
     the results put back in prompt order."""
     (keys0, q1i, k1, v1), b = _image_rows(keys0, q1i, k1, v1, img)
@@ -289,8 +299,8 @@ def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
         return dense(_t2i_attend(st, q_tok, k_img, v_img, H), f"{pfx}_o")
 
     cd = q1i.shape[-1]
-    keys0f, q1f, k1f, v1f = (x.float() for x in (keys0, q1i, k1, v1))
-    pe = tokens.to(dt).float()                         # == query_pe
+    keys0f, q1f, k1f, v1f = (x.to(st.acc) for x in (keys0, q1i, k1, v1))
+    pe = tokens.to(dt).to(st.acc)                      # == query_pe
 
     # block 1, token side (no PE on the first self-attention)
     queries = ln(self_attn(pe, pe, "l0sa"), "n1l0")
@@ -328,6 +338,8 @@ def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
 
 _ARGTYPES = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 5
              + (ctypes.c_void_p,))
+_F32_ARGTYPES = ((ctypes.c_void_p,) * 16 + (ctypes.c_int,) * 5
+                 + (ctypes.c_void_p,))
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -348,16 +360,21 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     the initial queries and the query PE; params: `build_tail_params`.
     Returns (keys2 (P, M, 256), tokens (P, T, 256)) in the working dtype.
 
-    CPU: the plain version.  CUDA: the kernel (bf16, M a multiple of 64,
-    2 <= T <= 8, 8 heads, MLP width 2048; an image index outside 0..B-1
-    is clamped there, since the kernel cannot raise), or an error."""
+    CPU: the plain version.  CUDA: the kernel of the working dtype, bf16
+    (`csrc/decode_tail.cu`) or float32 (`csrc/decode_tail_f32.cu`), with
+    M a multiple of 64, 2 <= T <= 8, 8 heads, MLP width 2048 (an image
+    index outside 0..B-1 is clamped there, since the kernel cannot raise);
+    or an error."""
     _build.refuse_grad("twoway_tail", keys0, q1i, k1, v1, tokens, params)
     if keys0.device.type == "cpu":
         return twoway_tail_plain(keys0, q1i, k1, v1, tokens, params,
                                  num_heads, img)
     if keys0.device.type != "cuda":
         raise ValueError(f"twoway_tail: unsupported device {keys0.device}")
-    dev, bf = keys0.device, torch.bfloat16
+    dev, wd = keys0.device, keys0.dtype
+    if wd not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"twoway_tail: keys0 must be bfloat16 or float32, "
+                        f"got {wd}")
     if tokens.dim() != 3 or keys0.dim() not in (2, 3):
         raise ValueError("twoway_tail: keys0 (M, C) or (B, M, C) and tokens "
                          "(P, T, C)")
@@ -372,10 +389,10 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
             f"{ROW_TILE}, 2..{MAX_TOKENS} tokens, width {EMBED_DIM}, "
             f"{NUM_HEADS} heads)")
     cd = INTERNAL_DIM
-    _check(keys0, "keys0", (b, m, c), bf, dev)
+    _check(keys0, "keys0", (b, m, c), wd, dev)
     for x, name in ((q1i, "q1i"), (k1, "k1"), (v1, "v1")):
-        _check(x, name, (b, m, cd), bf, dev)
-    _check(tokens, "tokens", (p, t, c), bf, dev)
+        _check(x, name, (b, m, cd), wd, dev)
+    _check(tokens, "tokens", (p, t, c), wd, dev)
     if img is not None:
         _check(img, "img", (p,), torch.int32, dev)
     mlp = params["mlp1_w"].shape[0]
@@ -387,14 +404,27 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     for name in PARAM_NAMES:
         x = params[name]
         if name in shapes:
-            _check(x, name, shapes[name], bf, dev)
+            _check(x, name, shapes[name], wd, dev)
         elif name.endswith("_w") and x.dim() == 2:
-            _check(x, name, x.shape, bf, dev)
+            _check(x, name, x.shape, wd, dev)
         else:
             _check(x, name, x.shape, torch.float32, dev)
     ptrs = (ctypes.c_void_p * len(PARAM_NAMES))(
         *(params[n].data_ptr() for n in PARAM_NAMES))
+    if wd == torch.float32:
+        out = _launch_f32(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp)
+    else:
+        out = _launch_bf16(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp)
+    twoway_tail.launches += 1
+    twoway_tail.launches_by_dtype[str(wd).replace("torch.", "")] += 1
+    return out
 
+
+def _launch_bf16(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp):
+    """`csrc/decode_tail.cu` on checked bf16 operands."""
+    dev, bf = keys0.device, torch.bfloat16
+    p, t, c = tokens.shape
+    m, cd = keys0.shape[1], INTERNAL_DIM
     nt = m // ROW_TILE
     tp, ht = MAX_TOKENS, NUM_HEADS * MAX_TOKENS
     keys2 = torch.empty((p, m, c), dtype=bf, device=dev)
@@ -421,8 +451,42 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
                 att.data_ptr(), 0 if img is None else img.data_ptr(), p, t,
                 m, b, mlp, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "twoway_tail")
-    twoway_tail.launches += 1
+    return keys2, tok_out
+
+
+def _launch_f32(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp):
+    """`csrc/decode_tail_f32.cu` on checked float32 operands."""
+    dev, f32 = keys0.device, torch.float32
+    p, t, c = tokens.shape
+    m, cd = keys0.shape[1], INTERNAL_DIM
+    tp, ht = MAX_TOKENS, NUM_HEADS * MAX_TOKENS
+    keys2 = torch.empty((p, m, c), dtype=f32, device=dev)
+    tok_out = torch.empty((p, t, c), dtype=f32, device=dev)
+    # Scratch: keys1 and q2i (row phase 1 to row phase 2), the token state,
+    # the next row phase's query heads, token keys and folded values, and
+    # the row tiles' partial softmaxes (max, sum, 16 of P.V, 2 pad).
+    keys1 = torch.empty((p, m, c), dtype=f32, device=dev)
+    q2i = torch.empty((p, m, cd), dtype=f32, device=dev)
+    state = torch.empty((p, tp, c), dtype=f32, device=dev)
+    qh = torch.empty((p, tp, cd), dtype=f32, device=dev)
+    ktok = torch.empty((p, tp, cd), dtype=f32, device=dev)
+    ut = torch.empty((p, c, ht), dtype=f32, device=dev)
+    part = torch.empty((p, ht, m // ROW_TILE, 20), dtype=f32, device=dev)
+    fn = _build.function("decode_tail_f32", "twoway_tail_f32_forward",
+                         _F32_ARGTYPES)
+    status = fn(keys0.data_ptr(), q1i.data_ptr(), k1.data_ptr(),
+                v1.data_ptr(), tokens.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p), keys2.data_ptr(),
+                tok_out.data_ptr(), keys1.data_ptr(), q2i.data_ptr(),
+                state.data_ptr(), qh.data_ptr(), ktok.data_ptr(),
+                ut.data_ptr(), part.data_ptr(),
+                0 if img is None else img.data_ptr(), p, t, m, b, mlp,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "twoway_tail float32")
     return keys2, tok_out
 
 
 twoway_tail.launches = 0
+# Launches by working dtype ("bfloat16" for `csrc/decode_tail.cu`,
+# "float32" for its float32 arm), counted with `launches`.
+twoway_tail.launches_by_dtype = collections.Counter()

@@ -23,7 +23,9 @@ Two routes through `fused_decode`.  With `shared["tail"]` present (always on
 CUDA) the two-way transformer is kernel K5 (`decode_tail_kernel.twoway_tail`)
 and the packed mask head kernel K6 (`mask_head_kernel.mask_head`); their
 wrappers launch the kernels on CUDA tensors and compute the plain versions
-on CPU tensors.  Without it the module-level body below runs: plain tensor
+on CPU tensors.  Both kernels take the working dtype, bf16 or float32 (their
+float32 arms), so the kernel route runs `tpu.compute_dtype float32` on the
+card as well.  Without it the module-level body below runs: plain tensor
 code with every head's softmax taken on its own, the reference that the
 kernels' plain versions are held against.
 

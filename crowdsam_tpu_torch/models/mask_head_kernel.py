@@ -27,10 +27,18 @@ that two computations take on two sides of a rounding boundary, times
 hypernetwork weights of tens, moved a mask by ~0.06 and e by twice its
 bound.  The plain version's GELU uses the exact erf; the kernel's is a
 polynomial within 1.7e-7 max(|x|, 1) of it, far below the split's 2^-17.
+
+Float32 (`tpu.compute_dtype float32`): keys2, hyper_in and every weight
+float32 go to the float32 arm, `csrc/mask_head_f32.cu` (FFMA, erff GELU):
+plain float32 arithmetic, the hi/lo splits and the roundings above being
+the identity there.  The plain version follows its input's dtype: float32
+arithmetic for bf16 and float32 operands, float64 for float64 ones (the
+yardstick the card holds the float32 arm to).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Dict, Tuple, Union
 
@@ -43,6 +51,7 @@ ROW_TILE = 64           # rows per kernel tile: the `emit_exp` maxes' tile
 NUM_MASKS = 4
 LN_EPS = 1e-6
 
+# The C entry points of both arms take the same arguments.
 _ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 3
              + (ctypes.c_void_p,))
 
@@ -76,7 +85,8 @@ def build_mask_head_weights(decoder, dtype: torch.dtype
 
 def _group_ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
-    """LayerNorm over the last axis (one sub-pixel's channels), f32."""
+    """LayerNorm over the last axis (one sub-pixel's channels), in x's
+    dtype."""
     u = x.mean(-1, keepdim=True)
     s = (x - u).square().mean(-1, keepdim=True)
     return (x - u) * torch.rsqrt(s + LN_EPS) * w + b
@@ -86,27 +96,30 @@ def mask_head_plain(keys2: torch.Tensor, hyper_in: torch.Tensor,
                     weights: Dict[str, torch.Tensor], emit_exp: bool = False,
                     tile_m: int = ROW_TILE
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Plain version of `mask_head` (same contract), in f32 with the
-    kernel's rounding points; the working dtype is keys2's."""
+    """Plain version of `mask_head` (same contract), in f32 (f64 for f64
+    operands) with the kernel's rounding points; the working dtype is
+    keys2's."""
     dt = keys2.dtype
+    acc = torch.float64 if dt == torch.float64 else torch.float32
     p, m, _ = keys2.shape
     k = hyper_in.shape[1]
 
     def rnd(x):
-        return x.to(dt).float()
+        return x.to(dt).to(acc)
 
-    w0t, w2t = weights["w0t"].float(), weights["w2t"].float()
-    c1 = weights["ln_w"].shape[0]
+    w = {name: x.to(acc) for name, x in weights.items()}
+    c1 = w["ln_w"].shape[0]
+
     def split(y):                 # y as two working-dtype terms, hi + lo
         hi = rnd(y)
         return hi, rnd(y - hi)
 
-    up = keys2.float() @ w0t.T + weights["b0"]
+    up = keys2.to(acc) @ w["w0t"].T + w["b0"]
     up = up.reshape(p, m, 4, c1)                          # (P, M, q1, c1)
-    hi, lo = split(F.gelu(_group_ln(up, weights["ln_w"], weights["ln_b"])))
-    up = F.gelu(hi @ w2t.T + lo @ w2t.T + weights["b2"])  # (P, M, q1, 4 c2)
+    hi, lo = split(F.gelu(_group_ln(up, w["ln_w"], w["ln_b"])))
+    up = F.gelu(hi @ w["w2t"].T + lo @ w["w2t"].T + w["b2"])
     hi, lo = split(up.reshape(p, m, 16, -1))              # (P, M, q1 q2, c2)
-    hyper = rnd(hyper_in.float())
+    hyper = rnd(hyper_in.to(acc))
     masks32 = (torch.einsum("pkc,pmqc->pkmq", hyper, hi)
                + torch.einsum("pkc,pmqc->pkmq", hyper, lo))
     masks = masks32.to(dt)
@@ -139,14 +152,18 @@ def mask_head(keys2: torch.Tensor, hyper_in: torch.Tensor,
     max) and mx (P, M / ROW_TILE) f32, the maxes over each tile of ROW_TILE
     rows (all K masks, all 16 sub-pixels).
 
-    CPU: the plain version.  CUDA: the kernel (bf16, M a multiple of
-    ROW_TILE, K = 4, widths 256 -> 64 -> 32), or an error."""
+    CPU: the plain version.  CUDA: the kernel of the working dtype, bf16
+    (`csrc/mask_head.cu`) or float32 (`csrc/mask_head_f32.cu`), with M a
+    multiple of ROW_TILE, K = 4, widths 256 -> 64 -> 32; or an error."""
     _build.refuse_grad("mask_head", keys2, hyper_in, weights)
     if keys2.device.type == "cpu":
         return mask_head_plain(keys2, hyper_in, weights, emit_exp)
     if keys2.device.type != "cuda":
         raise ValueError(f"mask_head: unsupported device {keys2.device}")
-    dev, bf, f32 = keys2.device, torch.bfloat16, torch.float32
+    dev, wd, f32 = keys2.device, keys2.dtype, torch.float32
+    if wd not in (torch.bfloat16, f32):
+        raise TypeError(f"mask_head: keys2 must be bfloat16 or float32, got "
+                        f"{wd}")
     if keys2.dim() != 3 or hyper_in.dim() != 3:
         raise ValueError("mask_head: keys2 (P, M, C) and hyper_in (P, K, c2)")
     p, m, c = keys2.shape
@@ -158,18 +175,20 @@ def mask_head(keys2: torch.Tensor, hyper_in: torch.Tensor,
             f"mask_head: unsupported shape: keys2 {tuple(keys2.shape)}, "
             f"hyper_in {tuple(hyper_in.shape)}, c1 {c1} (rows a multiple of "
             f"{ROW_TILE}, widths 256 -> 64 -> 32, {NUM_MASKS} masks)")
-    _check(keys2, "keys2", (p, m, c), bf, dev)
-    _check(hyper_in, "hyper_in", (p, k, c2), bf, dev)
-    for name, shape, dt in (("w0t", (4 * c1, c), bf), ("b0", (4 * c1,), f32),
+    _check(keys2, "keys2", (p, m, c), wd, dev)
+    _check(hyper_in, "hyper_in", (p, k, c2), wd, dev)
+    for name, shape, dt in (("w0t", (4 * c1, c), wd), ("b0", (4 * c1,), f32),
                             ("ln_w", (c1,), f32), ("ln_b", (c1,), f32),
-                            ("w2t", (4 * c2, c1), bf), ("b2", (4 * c2,), f32)):
+                            ("w2t", (4 * c2, c1), wd), ("b2", (4 * c2,), f32)):
         _check(weights[name], name, shape, dt, dev)
-    masks = torch.empty((p, k, m, 16), dtype=bf, device=dev)
+    masks = torch.empty((p, k, m, 16), dtype=wd, device=dev)
     e = mx = None
     if emit_exp:
         e = torch.empty_like(masks)
         mx = torch.empty((p, m // ROW_TILE), dtype=f32, device=dev)
-    fn = _build.function("mask_head", "mask_head_forward", _ARGTYPES)
+    lib, entry = (("mask_head_f32", "mask_head_f32_forward") if wd == f32
+                  else ("mask_head", "mask_head_forward"))
+    fn = _build.function(lib, entry, _ARGTYPES)
     status = fn(keys2.data_ptr(), hyper_in.data_ptr(),
                 weights["w0t"].data_ptr(), weights["b0"].data_ptr(),
                 weights["ln_w"].data_ptr(), weights["ln_b"].data_ptr(),
@@ -177,9 +196,13 @@ def mask_head(keys2: torch.Tensor, hyper_in: torch.Tensor,
                 masks.data_ptr(), e.data_ptr() if emit_exp else None,
                 mx.data_ptr() if emit_exp else None, p, m, int(emit_exp),
                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "mask_head")
+    _build.check(status, lib)
     mask_head.launches += 1
+    mask_head.launches_by_dtype[str(wd).replace("torch.", "")] += 1
     return (masks, e, mx) if emit_exp else masks
 
 
 mask_head.launches = 0
+# Launches by working dtype ("bfloat16" for `csrc/mask_head.cu`, "float32"
+# for its float32 arm), counted with `launches`.
+mask_head.launches_by_dtype = collections.Counter()

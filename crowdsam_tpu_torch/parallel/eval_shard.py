@@ -37,9 +37,8 @@ no image of it skips the encode and the engine and joins the gather.
 What the JAX `ShardedPipeline` refuses or cannot run is refused here with
 the reason: crop layers, the train-free branch and the HQ decoder
 (`sam_hq`); and the spatial axis without a mesh, or wider than the
-encoder's token rows (a rank with no band).  A float32 model on CUDA runs
-with the unfused decode; with the fused one (K5 and K6 take bf16) it is
-refused at construction, as `CrowdSAM` refuses it.
+encoder's token rows (a rank with no band).  A float32 model runs on CUDA
+with either decode (the float32 arms of the kernels, K5 and K6 among them).
 """
 
 from __future__ import annotations
@@ -51,7 +50,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from crowdsam_tpu_torch.config import refuse_float32_on_cuda
 from crowdsam_tpu_torch.models.common import float32_entry
 from crowdsam_tpu_torch.ops.amg import MaskData, generate_crop_boxes
 from crowdsam_tpu_torch.ops.transforms import resize_image
@@ -99,9 +97,6 @@ class ShardedPipeline:
         why = refusal(model, mesh, spatial_axis, prompt_axis)
         if why is not None:
             raise NotImplementedError(why)
-        refuse_float32_on_cuda(model.device, model.compute_dtype,
-                               model.engine_cfg.fused_decode,
-                               "ShardedPipeline")
         if batch < 1:
             raise ValueError(f"batch {batch} (at least 1)")
         self.model = model

@@ -26,10 +26,9 @@ runs on the DINOv2 grid (73 at img_size 1024) in place of
 `tpu.accumulate_occupy`, `test.fuse_simmap`, `tpu.fullres_cleanup` and
 `tpu.rect_encode` are wired into the engine and the predictor as the JAX
 package wires them.  `tpu.compute_dtype float32` runs on the card through
-the float32 arms of K1-K4 with the unfused decode (`tpu.fused_decode false`,
-or `sam_hq`), in full float32 (`models/common.exact_float32`); with the
-fused decode, whose K5 and K6 take bf16, the constructor refuses it on CUDA
-(`config.refuse_float32_on_cuda`).  The CPU runs it either way.
+the float32 arms of the kernels (K1-K4 in the encoders, K5 and K6 in the
+fused decode), with the fused decode or without it, in full float32
+(`models/common.exact_float32`), as on the CPU.
 
 Runs on CUDA unless `device` names another device; with no device given
 and no CUDA present it raises.  Without checkpoints the weights are the JAX
@@ -53,11 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from crowdsam_tpu_torch.config import (
-    dtype_from_str,
-    refuse_float32_on_cuda,
-    resolve_device,
-)
+from crowdsam_tpu_torch.config import dtype_from_str, resolve_device
 from crowdsam_tpu_torch.models.build import sam_model_registry
 from crowdsam_tpu_torch.models.common import (
     cast_compute_params,
@@ -242,12 +237,6 @@ class CrowdSAM:
         tpucfg = config.get("tpu", {})
         self.compute_dtype = dtype_from_str(tpucfg.get("compute_dtype",
                                                        "bfloat16"))
-        # K5 and K6 run where the decode fuses: not for the HQ decoder
-        # (`engine.run_eps_engine_batch`'s `fused`).
-        refuse_float32_on_cuda(
-            self.device, self.compute_dtype,
-            bool(tpucfg.get("fused_decode", True))
-            and mcfg.get("sam_arch", "crowdsam") != "sam_hq", "CrowdSAM")
         seed = int(config["environ"].get("seed", 42))
         self.n_class = int(mcfg.get("n_class", 1))
         self.train_free = bool(mcfg.get("trainfree", False))

@@ -9,8 +9,10 @@ thresholds.  The JAX package committed such decoders under
 `adapter_weights/` (keyed by recipe, `committed_path_for`), trained on the
 encoders that `utils/init.py` draws here too, so they load as they are;
 `train_or_load_decoder` trains one on a miss and caches it under `data/`
-(machine-local).  This package has no rect encode, so the recipe key never
-carries `tpu.rect_encode`.
+(machine-local).  The rect encode (`tpu.rect_encode`) changes the features
+the decoder trains on, so a model whose predictor encodes rectangles keys
+its decoder with `tpu.rect_encode=True` appended to the recipe, as the JAX
+package keys it.
 """
 
 from __future__ import annotations
@@ -73,14 +75,20 @@ def train_or_load_decoder(model, steps: int = 800, lr: float = 2e-4,
     committed file first, then the `data/` cache, else train it on the
     10-shot set (`dataset`, default `fixtures.ten_shot_dataset()`) and
     save it to the cache.  `recipe`: comma-separated extra train overrides
-    ("train.hard_neg_frac=0.5,train.neg_hinge_weight=16"), part of the key.
+    ("train.hard_neg_frac=0.5,train.neg_hinge_weight=16"), part of the key,
+    with `tpu.rect_encode=True` appended when the model's predictor
+    encodes rectangles and the recipe does not name it.
     Returns the fixture's metadata."""
+    key = recipe
+    if getattr(model.predictor, "rect_encode", False) and \
+            "tpu.rect_encode" not in key:
+        key = (key + "," if key else "") + "tpu.rect_encode=True"
     if cache_path is None:
-        cache_path = cache_path_for(steps, lr, recipe)
+        cache_path = cache_path_for(steps, lr, key)
     meta = {"trained_steps": steps, "trained_lr": lr}
-    if recipe:
-        meta["trained_recipe"] = recipe
-    committed = committed_path_for(steps, lr, recipe)
+    if key:
+        meta["trained_recipe"] = key
+    committed = committed_path_for(steps, lr, key)
     for path, provenance in ((committed, "committed"), (cache_path, "hit")):
         if path and os.path.exists(path):
             load_decoder(model, path)

@@ -404,18 +404,20 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         layer_norm(torch.randn((5, 1536), device="cuda"), w, w, 1e-5)
 
 
-def _decoder_operands(gen, image_size, p, t, point_tokens=False):
-    """A vit_tiny SAM (the full-width decoder) at `image_size`, bf16, seeded:
-    the shared tensors of its decode, (P, T, 256) tokens and hypernetwork
-    vectors.  The tokens are normal draws, or with `point_tokens` what the
-    main path feeds K5: the output tokens and a seeded point prompt's two
-    sparse embeddings (T = 7), as `chip_smoke.py` builds them."""
+def _decoder_operands(gen, image_size, p, t, point_tokens=False,
+                      dtype=torch.bfloat16, n_img=1):
+    """A vit_tiny SAM (the full-width decoder) at `image_size` in `dtype`,
+    seeded: the shared tensors of its decode over `n_img` images, (P, T,
+    256) tokens and hypernetwork vectors.  The tokens are normal draws, or
+    with `point_tokens` what the main path feeds K5: the output tokens and
+    a seeded point prompt's two sparse embeddings (T = 7), as
+    `chip_smoke.py` builds them."""
     sam = sam_model_registry["vit_tiny"](image_size=image_size).cuda()
     init_random_(sam, torch.Generator(device="cuda").manual_seed(0))
-    cast_compute_params(sam, torch.bfloat16)
+    cast_compute_params(sam, dtype)
     g = image_size // 16
-    feats = torch.randn((1, g, g, 256), generator=gen,
-                        device="cuda").bfloat16()
+    feats = torch.randn((n_img, g, g, 256), generator=gen,
+                        device="cuda").to(dtype)
     with torch.no_grad():
         shared = precompute_decode_shared(
             sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight, feats,
@@ -431,12 +433,12 @@ def _decoder_operands(gen, image_size, p, t, point_tokens=False):
                                  dec.mask_tokens.weight], dim=0)
             tokens = torch.cat([out_tok[None].expand(p, -1, -1),
                                 sparse.to(out_tok.dtype)], dim=1)
-        tokens = tokens.bfloat16().contiguous()
+        tokens = tokens.to(dtype).contiguous()
         assert tokens.shape == (p, t, 256)
     else:
         tokens = torch.randn((p, t, 256), generator=gen,
-                             device="cuda").bfloat16()
-    hyper = torch.randn((p, 4, 32), generator=gen, device="cuda").bfloat16()
+                             device="cuda").to(dtype)
+    hyper = torch.randn((p, 4, 32), generator=gen, device="cuda").to(dtype)
     return shared, tokens, hyper
 
 
@@ -510,7 +512,7 @@ def test_decode_kernels_refuse_what_they_do_not_take(gen):
     args = _tail_args(shared, tokens)
     keys2, _ = decode_tail_kernel.twoway_tail_plain(*args)
     w = shared["mask_head"]
-    with pytest.raises(TypeError):                      # float32 input
+    with pytest.raises(TypeError):      # float32 keys, bf16 the others
         decode_tail_kernel.twoway_tail(args[0].float(), *args[1:])
     with pytest.raises(TypeError):
         mask_head_kernel.mask_head(keys2.float(), hyper, w)
@@ -847,17 +849,104 @@ def test_float32_unfused_generate_on_the_card(gen):
     np.testing.assert_allclose(card["scores"], cpu["scores"], atol=1e-4)
 
 
-def test_float32_fused_decode_refused_on_the_card(gen):
-    """float32 with the fused decode on CUDA: `CrowdSAM` refuses it at
-    construction, naming the float32 arms of K5/K6 as the next slice."""
+def test_float32_fused_generate_on_the_card(gen):
+    """The small config in float32 with the fused decode runs on the card:
+    K5 and K6 gain float32 launches (their float32 arms), and it gives the
+    detections of the CPU's plain path: equal counts, boxes within 0.5 px,
+    scores within 1e-4."""
     from crowdsam_tpu_torch.config import load_config, modify_config
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
 
     cfg = modify_config(load_config(None), list(SMALL) + [
         "tpu.compute_dtype", "float32", "tpu.fused_decode", "true"])
-    with pytest.raises(NotImplementedError,
-                       match="K5 and K6 take bf16.*next slice"):
-        CrowdSAM(cfg, device="cuda")
+    img = crowd_scene(3, 171, 256, people=(3, 6))[0]
+    noise = [np.random.default_rng(3).uniform(size=48 * 48).astype(
+        np.float32)]
+    kernels = (decode_tail_kernel.twoway_tail, mask_head_kernel.mask_head)
+    before = [fn.launches_by_dtype["float32"] for fn in kernels]
+    card = CrowdSAM(cfg, device="cuda").generate(img, noise=noise)
+    assert all(fn.launches_by_dtype["float32"] > n
+               for fn, n in zip(kernels, before))
+    cpu = CrowdSAM(cfg, device="cpu").generate(img, noise=noise)
+    assert len(card["boxes"]) == len(cpu["boxes"]) > 0
+    np.testing.assert_allclose(np.asarray(card["boxes"], np.float64),
+                               np.asarray(cpu["boxes"], np.float64),
+                               atol=0.5)
+    np.testing.assert_allclose(card["scores"], cpu["scores"], atol=1e-4)
+
+
+def _held_to_float64(got, plain, want):
+    """A float32 arm's output within 2x the plain float32 version's error
+    from float64 (max and mean), with a floor of 1e-7 of max |out|."""
+    want = want.double()
+    floor = 1e-7 * float(want.abs().max())
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    for stat in (torch.amax, torch.mean):
+        err = float(stat((got.double() - want).abs()))
+        ref = float(stat((plain.double() - want).abs()))
+        assert err <= max(2 * ref, floor), (stat.__name__, err, ref)
+
+
+def _f64(params):
+    return {k: v.double() for k, v in params.items()}
+
+
+@pytest.mark.parametrize("image_size,p,t,n_img", [
+    (1024, 32, 7, 1), (256, 32, 7, 1), (1024, 32, 7, 2), (1024, 16, 7, 1),
+    (1024, 32, 8, 1), (256, 33, 5, 1), (256, 3, 2, 2)],
+    ids=["main-path", "small", "two-images", "prompt-shard", "T8",
+         "33-prompts", "T2-two-images"])
+def test_twoway_tail_float32_arm_against_float64(gen, image_size, p, t,
+                                                 n_img):
+    """K5's float32 arm on float32 operands: one launch counted as float32,
+    keys2 and the tokens held to a float64 evaluation of the plain version
+    (`_held_to_float64`), two calls bit for bit."""
+    shared, tokens, _ = _decoder_operands(gen, image_size, p, t,
+                                          dtype=torch.float32, n_img=n_img)
+    args = _tail_args(shared, tokens)
+    img = None if n_img == 1 else (torch.arange(
+        p, device="cuda") % n_img).to(torch.int32)
+    before = decode_tail_kernel.twoway_tail.launches_by_dtype["float32"]
+    got = decode_tail_kernel.twoway_tail(*args, img=img)
+    torch.cuda.synchronize()
+    assert decode_tail_kernel.twoway_tail.launches_by_dtype["float32"] == \
+        before + 1
+    plain = decode_tail_kernel.twoway_tail_plain(*args, img=img)
+    want = decode_tail_kernel.twoway_tail_plain(
+        *(x.double() for x in args[:5]), _f64(args[5]), img=img)
+    for g, q, w in zip(got, plain, want):
+        _held_to_float64(g, q, w)
+    again = decode_tail_kernel.twoway_tail(*args, img=img)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("image_size,p,emit_exp", [
+    (1024, 32, True), (1024, 32, False), (256, 32, True), (1024, 16, True),
+    (256, 1, True)])
+def test_mask_head_float32_arm_against_float64(gen, image_size, p,
+                                               emit_exp):
+    """K6's float32 arm on float32 operands: one launch counted as float32,
+    masks (and e, mx) held to a float64 evaluation of the plain version."""
+    shared, tokens, hyper = _decoder_operands(gen, image_size, p, 7,
+                                              dtype=torch.float32)
+    keys2, _ = decode_tail_kernel.twoway_tail_plain(*_tail_args(shared,
+                                                                tokens))
+    hyper = hyper * 64.0          # mask logits of a trained decoder's spread
+    w = shared["mask_head"]
+    before = mask_head_kernel.mask_head.launches_by_dtype["float32"]
+    got = mask_head_kernel.mask_head(keys2, hyper, w, emit_exp=emit_exp)
+    torch.cuda.synchronize()
+    assert mask_head_kernel.mask_head.launches_by_dtype["float32"] == \
+        before + 1
+    plain = mask_head_kernel.mask_head_plain(keys2, hyper, w, emit_exp)
+    want = mask_head_kernel.mask_head_plain(keys2.double(), hyper.double(),
+                                            _f64(w), emit_exp)
+    if not emit_exp:
+        got, plain, want = (got,), (plain,), (want,)
+    assert got[0].shape == (p, 4, (image_size // 16) ** 2, 16)
+    for g, q, x in zip(got, plain, want):
+        _held_to_float64(g, q, x)
 
 
 def test_amg_on_the_small_config(gen):

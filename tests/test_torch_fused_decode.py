@@ -90,25 +90,41 @@ def f32_setup():
     return jsam, sam, feats, pe, sparse, dino
 
 
+_JAX_F32 = {}
+
+
+def _jax_f32_decode(f32_setup, multimask, packed):
+    """The JAX package's float32 fused decode of `f32_setup` (its XLA path:
+    its kernels are off for float32) and the port's DINO map in the same
+    layout, computed once a (multimask, packed)."""
+    key = (multimask, packed)
+    if key not in _JAX_F32:
+        jsam, _, feats, pe, sparse, dino = f32_setup
+        dec_j = jsam.params["mask_decoder"]
+        shared_j = jax_fused.precompute_decode_shared(
+            dec_j, jsam.params["prompt_encoder"]["no_mask_embed"],
+            jnp.asarray(feats), jnp.asarray(pe), num_heads=8,
+            dtype=jnp.float32)
+        dino_j = jnp.asarray(dino)
+        dino_t = torch.from_numpy(dino)
+        if packed:
+            dino_j = jax_pack_spatial(jnp.moveaxis(dino_j, -1, 0)).reshape(
+                256, -1).T
+            dino_t = pack_spatial(dino_t.movedim(-1, 0)).reshape(256, -1).T
+            np.testing.assert_array_equal(dino_t.numpy(), np.asarray(dino_j))
+        want = jax_fused.fused_decode(
+            dec_j, shared_j, jnp.asarray(sparse), multimask,
+            dino_feats_proj=dino_j, num_heads=8, dtype=jnp.float32,
+            n_class=3, packed_masks=packed)
+        _JAX_F32[key] = [np.asarray(w) for w in want], dino_t
+    return _JAX_F32[key]
+
+
 @pytest.mark.parametrize("multimask", [True, False])
 @pytest.mark.parametrize("packed", [False, True])
 def test_fused_decode_matches_jax_f32(f32_setup, multimask, packed):
-    jsam, sam, feats, pe, sparse, dino = f32_setup
-    dec_j = jsam.params["mask_decoder"]
-    shared_j = jax_fused.precompute_decode_shared(
-        dec_j, jsam.params["prompt_encoder"]["no_mask_embed"],
-        jnp.asarray(feats), jnp.asarray(pe), num_heads=8, dtype=jnp.float32)
-    dino_j = jnp.asarray(dino)
-    dino_t = torch.from_numpy(dino)
-    if packed:
-        dino_j = jax_pack_spatial(jnp.moveaxis(dino_j, -1, 0)).reshape(
-            256, -1).T
-        dino_t = pack_spatial(dino_t.movedim(-1, 0)).reshape(256, -1).T
-        np.testing.assert_array_equal(dino_t.numpy(), np.asarray(dino_j))
-    want = jax_fused.fused_decode(
-        dec_j, shared_j, jnp.asarray(sparse), multimask,
-        dino_feats_proj=dino_j, num_heads=8, dtype=jnp.float32, n_class=3,
-        packed_masks=packed)
+    _, sam, feats, pe, sparse, _ = f32_setup
+    want, dino_t = _jax_f32_decode(f32_setup, multimask, packed)
     shared = precompute_decode_shared(
         sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight,
         torch.from_numpy(feats), torch.from_numpy(pe))
@@ -122,6 +138,47 @@ def test_fused_decode_matches_jax_f32(f32_setup, multimask, packed):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
+
+
+@pytest.mark.parametrize("multimask", [True, False])
+@pytest.mark.parametrize("packed", [False, True])
+def test_kernel_route_matches_jax_and_the_body_f32(f32_setup, multimask,
+                                                   packed, monkeypatch):
+    """The kernel route in float32 (`kernel_route=True` on the CPU: K5's and
+    K6's wrappers, so the plain versions that their float32 arms compute on
+    the card) against the JAX package's float32 XLA fused decode and
+    against the module-level body; packed masks go through K6, spatial
+    ones through the module-level head."""
+    _, sam, feats, pe, sparse, _ = f32_setup
+    want, dino_t = _jax_f32_decode(f32_setup, multimask, packed)
+    calls = {"tail": 0, "head": 0}
+
+    def counted(key, fn):
+        def run(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(decode_tail_kernel, "twoway_tail_plain", counted(
+        "tail", decode_tail_kernel.twoway_tail_plain))
+    monkeypatch.setattr(mask_head_kernel, "mask_head_plain", counted(
+        "head", mask_head_kernel.mask_head_plain))
+    t = torch.from_numpy
+    dec, no_mask = sam.mask_decoder, sam.prompt_encoder.no_mask_embed.weight
+    outs = []
+    for route in (True, False):
+        shared = precompute_decode_shared(dec, no_mask, t(feats), t(pe),
+                                          kernel_route=route)
+        assert ("tail" in shared) == route
+        outs.append(fused_decode(dec, shared, t(sparse), multimask,
+                                 dino_feats_proj=dino_t, packed_masks=packed))
+    assert calls == {"tail": 1, "head": int(packed)}
+    got, body = outs
+    assert shared["keys0"].dtype == torch.float32
+    for g, w, b in zip(got, want, body):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, **F32_TOL)
+        np.testing.assert_allclose(g.numpy(), b.numpy(), **F32_TOL)
 
 
 def test_fused_decode_matches_the_module_and_packed_unpacks_f32(f32_setup):

@@ -469,6 +469,59 @@ def test_bench_fixture_matches_jax():
                   - jbf.sparse_scene(7).astype(int)).max() <= 1
 
 
+def _fixture_loads(monkeypatch, rect_encode):
+    """`train_or_load_decoder` of the port on a stand-in model whose
+    predictor encodes rectangles or squares, run from the repository root
+    with the load stubbed: the paths it loads."""
+    import types
+    from pathlib import Path
+
+    from crowdsam_tpu_torch.utils import bench_fixture as bf
+
+    monkeypatch.chdir(Path(bf.__file__).resolve().parents[2])
+    loaded = []
+    monkeypatch.setattr(bf, "load_decoder",
+                        lambda model, path: loaded.append(path))
+    model = types.SimpleNamespace(
+        predictor=types.SimpleNamespace(rect_encode=rect_encode))
+    return bf, model, loaded
+
+
+def test_bench_fixture_keys_the_rect_encode_as_jax(monkeypatch):
+    """A rect-encode predictor's decoder is keyed `tpu.rect_encode=True`, as
+    the JAX package keys it: its committed file, `..._4ebea5b4.msgpack`,
+    is the one loaded, and the metadata names the recipe."""
+    from crowdsam_tpu.utils import bench_fixture as jbf
+
+    bf, model, loaded = _fixture_loads(monkeypatch, True)
+    key = "tpu.rect_encode=True"
+    path = bf.committed_path_for(800, 2e-4, key)
+    assert path == jbf.committed_path_for(800, 2e-4, key)
+    assert path.endswith("_4ebea5b4.msgpack")
+    assert bf.cache_path_for(800, 2e-4, key) == jbf.cache_path_for(
+        800, 2e-4, key)
+    meta = bf.train_or_load_decoder(model)
+    assert loaded == [path]
+    assert meta == {"trained_steps": 800, "trained_lr": 2e-4,
+                    "trained_recipe": key, "trained_cache": "committed"}
+
+
+@pytest.mark.parametrize("rect_encode,recipe,key", [
+    (True, "tpu.rect_encode=True", "tpu.rect_encode=True"),
+    (False, "", "")], ids=["recipe-names-it", "square"])
+def test_bench_fixture_key_otherwise_unchanged(monkeypatch, rect_encode,
+                                               recipe, key):
+    """A recipe that already names the rect encode is left as it is, and a
+    square predictor keeps the unkeyed committed decoder."""
+    bf, model, loaded = _fixture_loads(monkeypatch, rect_encode)
+    meta = bf.train_or_load_decoder(model, recipe=recipe)
+    assert loaded == [bf.committed_path_for(800, 2e-4, key)]
+    assert meta.get("trained_recipe", "") == key
+    if not key:
+        assert loaded == [os.path.join(
+            "adapter_weights", "bench_trained_decoder_s800_lr0.0002.msgpack")]
+
+
 def _tiny_model(tmp_path):
     from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
 

@@ -202,7 +202,11 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores
-F32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
+# float32-accurate products on the tensor cores: three TF32 products
+# (3xTF32, each operand split into hi + lo) at 495 TFLOP/s each, the
+# least time of the float32 arms' products (K2-K6 f32).
+F32_FLOP_PER_S = 495e12 / 3
+FFMA_FLOP_PER_S = 67e12       # float32 elementwise work (CUDA cores)
 N_IMAGES = 3
 # The share of the small configuration's CPU AMG records that the card's
 # records match at box IoU >= 0.9 (bf16 kernels against float32).
@@ -692,7 +696,7 @@ def phase_layernorm(gen):
         d_l = device_ms(lambda: torch.nn.functional.layer_norm(
             x, (d,), wb, bb, eps), 50)
         b_ms, by = bound(2 * n * d * 2 + 2 * d * 4, 8.0 * n * d,
-                         F32_FLOP_PER_S)
+                         FFMA_FLOP_PER_S)
         rows.append(dict(shape=f"{n}x{d}", **cmp, ms=t_k, device_ms=d_k,
                          plain_ms=t_p, library_ms=t_l,
                          library_device_ms=d_l, bound_ms=b_ms,
@@ -2330,7 +2334,7 @@ def phase_survivor(k, seed):
             align_corners=False) > 0.0, 10)
     nbytes = k * (r * r * 3 + 8) + k * (s * s // 8 + 9 * s * 4 + 32)
     flops = sum(4.75 * h * w for h, w in h_w)
-    b_ms, by = bound(nbytes, flops, F32_FLOP_PER_S)
+    b_ms, by = bound(nbytes, flops, FFMA_FLOP_PER_S)
     row = dict(shape=f"{k}x{r}x{r} bf16 + int8 edits -> {k}x{s}x{s // 8} "
                      f"uint8 + {k}x9x{s} + {k}x8 int32",
                mismatch=mismatch, pixel_flips=flips, max_abs_err=max_err,
@@ -3262,7 +3266,7 @@ def phase_layernorm_backward(gen):
         d_l = device_ms(library, 30)
         esz = x.element_size()
         b_ms, by = bound(3 * n * d * esz + 8 * n + 3 * 4 * d, 12.0 * n * d,
-                         F32_FLOP_PER_S)
+                         FFMA_FLOP_PER_S)
         row = dict(shape=f"{n}x{d}", dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=max(o["max_abs_err"] for o in out.values()),
                    err_over_tol={k: o["err_over_tol"] for k, o in
@@ -4158,10 +4162,15 @@ def _f32_faults(a, arm):
     row (row(k) + 1) and fw one column off (col(k) + 1) for K2 and K3, and
     where the keys do not fill the last tile (K2's 196 keys, K4 at 5330 and
     1000), one of its pad keys unmasked: K and V are zero-filled there, so
-    a key of logit 0 and value 0."""
+    a key of logit 0 and value 0.  Then the 3xTF32 model
+    (`f32_attention_tf32x3_model`) with each fault of its own design: lo.hi
+    dropped, V's keys unpermuted within their 8-key groups, a tile's lo
+    part from the previous tile (a stale stage)."""
     from crowdsam_tpu_torch.models.attention import (
+        TF32X3_FAULTS,
         f32_attention_logits,
         f32_attention_plain,
+        f32_attention_tf32x3_model,
     )
 
     s = a.k.shape[-2]
@@ -4184,6 +4193,8 @@ def _f32_faults(a, arm):
                      "a pad key of the last tile")
                     + f" unmasked (key {s}: logit 0, value 0)",
                     probs @ a.v))
+    out += [(f"3xTF32: {fault}", f32_attention_tf32x3_model(a, fault))
+            for fault in TF32X3_FAULTS]
     return out
 
 
@@ -4206,10 +4217,35 @@ def _sdpa_backend(fn) -> dict:
     return dict(sdpa_backend=backend, sdpa_kernels=names)
 
 
+@functools.lru_cache(maxsize=1)
+def _attention_f32_sass() -> dict:
+    """Each `attn_f32<HD,RELPOS>` instantiation's tensor-core instructions
+    (the HGMMA opcodes, by variant) and FFMAs, from cuobjdump of the built
+    library."""
+    from crowdsam_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build._target(_build.sources()["attention_f32"])
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for body in text.split("Function : ")[1:]:
+        m = re.search(r"attn_f32ILi(\d+)ELb(\d)E", body.splitlines()[0])
+        if not m:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.x]*)", body)
+        hgmma = collections.Counter(o for o in ops if o.startswith("HGMMA"))
+        out[f"attn_f32<{m.group(1)},{m.group(2)}>"] = dict(
+            hgmma=dict(hgmma), ffma=sum(o.startswith("FFMA") for o in ops))
+    return out
+
+
 def _f32_instantiation(hd: int, relpos: bool, grid) -> dict:
     """The float32 arm's kernel at one call's shape: its dynamic shared
-    memory and blocks an SM (`attention_f32_occupancy`), and ptxas's
-    registers and spilled bytes."""
+    memory and blocks an SM (`attention_f32_occupancy`), ptxas's registers
+    and spilled bytes, and its SASS's HGMMA opcodes (each must be TF32) and
+    FFMAs."""
     from crowdsam_tpu_torch.kernels import _build
 
     fn = _build.function("attention_f32", "attention_f32_occupancy",
@@ -4224,7 +4260,12 @@ def _f32_instantiation(hd: int, relpos: bool, grid) -> dict:
     rep = _ptxas_report("attention_f32").get(name, {})
     if rep.get("spill_store_bytes") or rep.get("spill_load_bytes"):
         raise AssertionError(f"{name}: ptxas spilled {rep}")
-    return dict(kernel=name, smem_bytes=out[0], blocks_per_sm=out[1], **rep)
+    sass = _attention_f32_sass().get(name, {})
+    if not sass.get("hgmma") or not all("TF32" in op
+                                        for op in sass["hgmma"]):
+        raise AssertionError(f"{name}: no TF32 HGMMA in its SASS: {sass}")
+    return dict(kernel=name, smem_bytes=out[0], blocks_per_sm=out[1], **rep,
+                sass=sass)
 
 
 def phase_f32_arm(gen, arm, case):
@@ -4233,10 +4274,12 @@ def phase_f32_arm(gen, arm, case):
     function on the card and the plain float32 version (TF32 off): its max
     and mean absolute error from float64 each at most 2x the plain float32
     version's, with a floor of 1e-7 of max |out|; the faults of its design
-    (`_f32_faults`) must break that bound 8-fold.  Times the wrapper (CUDA
-    events), the kernel alone (torch.profiler), the plain version and SDPA
-    in float32 on the same prebuilt bias (its backend named), beside the
-    bound (4 Sq S hd FLOP a head at 67 TFLOP/s, or the bytes)."""
+    (`_f32_faults`) must break that bound 8-fold.  SDPA in float32 on the
+    same prebuilt bias (its backend named) is measured against the same
+    bound and printed (`library_err_over_tol`, not held to it).  Times the wrapper (CUDA events), the
+    kernel alone (torch.profiler), the plain version and SDPA beside the
+    bound (4 Sq S hd FLOP a head at 165 TFLOP/s, three TF32 products at
+    495, or the bytes)."""
     from crowdsam_tpu_torch.models import attention as att
 
     a, call, shape, grid = _f32_arm_inputs(gen, arm, case)
@@ -4269,25 +4312,8 @@ def phase_f32_arm(gen, arm, case):
         return max(mx / tol_max, mn / tol_mean)
 
     faults = {label: over(as_out(f)) for label, f in _f32_faults(a, arm)}
-    row = dict(shape=shape, max_abs_err=got_max, mean_abs_err=got_mean,
-               plain_max_abs_err=pl_max, plain_mean_abs_err=pl_mean,
-               out_max_abs=float(want.abs().max()),
-               tol="max and mean |err| from float64 <= 2x the plain "
-                   "float32 version's, floor 1e-7 max|out|",
-               err_over_tol=over(got), fault_err_over_tol=faults)
-    del want, plain
-    bad = [k for k, r in faults.items() if r <= 8.0]
-    if not bool(torch.isfinite(got).all()) or row["err_over_tol"] > 1.0 \
-            or bad:
-        raise AssertionError(f"{arm} float32 {shape}: {row} (faults within "
-                             f"8x the bound: {bad})")
-    del got
     b, nh, sq, hd = a.q.shape
     s = a.k.shape[2]
-    iters = 10 if arm != "K2" else 20
-    t_k = time_ms(call, iters)
-    d_k = device_ms(call, iters, "attn_f32")
-    t_p = time_ms(lambda: att.f32_attention_plain(a), 3)
     gh, gw = a.grid
     bias = None if a.fh is None else (
         a.fh.reshape(b, nh, sq, gh, 1) + a.fw.reshape(b, nh, sq, 1, gw)
@@ -4296,6 +4322,24 @@ def phase_f32_arm(gen, arm, case):
 
     def lib():
         return sdpa(a.q, a.k, a.v, attn_mask=bias, scale=a.scale)
+    row = dict(shape=shape, max_abs_err=got_max, mean_abs_err=got_mean,
+               plain_max_abs_err=pl_max, plain_mean_abs_err=pl_mean,
+               out_max_abs=float(want.abs().max()),
+               tol="max and mean |err| from float64 <= 2x the plain "
+                   "float32 version's, floor 1e-7 max|out|",
+               err_over_tol=over(got), fault_err_over_tol=faults,
+               library_err_over_tol=over(as_out(lib())))
+    del want, plain
+    bad = [k for k, r in faults.items() if r <= 8.0]
+    if not bool(torch.isfinite(got).all()) or row["err_over_tol"] > 1.0 \
+            or bad:
+        raise AssertionError(f"{arm} float32 {shape}: {row} (faults within "
+                             f"8x the bound: {bad})")
+    del got
+    iters = 10 if arm != "K2" else 20
+    t_k = time_ms(call, iters)
+    d_k = device_ms(call, iters, "attn_f32")
+    t_p = time_ms(lambda: att.f32_attention_plain(a), 3)
     t_l = time_ms(lib, iters)
     d_l = device_ms(lib, iters)
     backend = _sdpa_backend(lib)
@@ -4348,7 +4392,7 @@ def phase_layernorm_f32(gen):
         lib = (lambda: torch.nn.functional.layer_norm(x, (d,), w, b, 1e-6))
         t_l, d_l = time_ms(lib, 50), device_ms(lib, 50)
         b_ms, by = bound(2 * n * d * 4 + 2 * d * 4, 8.0 * n * d,
-                         F32_FLOP_PER_S)
+                         FFMA_FLOP_PER_S)
         rows.append(dict(shape=f"{n}x{d}", **cmp, ms=t_k, device_ms=d_k,
                          plain_ms=t_p, library_ms=t_l, library_device_ms=d_l,
                          bound_ms=b_ms, bound_by=by))
@@ -4891,8 +4935,8 @@ def phase_k5_f32(model, small):
     (CUDA events), its seven launches' span (torch.profiler), the plain
     version and the path it replaces in float32 (the unfused
     `TwoWayTransformer.forward` of each prompt's image, TF32 off) beside
-    the bound (`_k5_bound` at 67 TFLOP/s).  Returns (the rows, each case's
-    operands and outputs for `phase_k6_f32`)."""
+    the bound (`_k5_bound` at 165 TFLOP/s, `F32_FLOP_PER_S`).  Returns
+    (the rows, each case's operands and outputs for `phase_k6_f32`)."""
     from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
     from crowdsam_tpu_torch.models.common import exact_float32
 
@@ -5008,7 +5052,7 @@ def phase_k6_f32(k5_outs):
     `phase_mask_head` scales the bf16 model's.  Times the wrapper, the
     kernel alone, the plain version and the path it replaces in float32
     (the module-level packed head and pooling, `_decode_heads` without
-    K6, TF32 off) beside the bound (67 TFLOP/s)."""
+    K6, TF32 off) beside the bound (165 TFLOP/s, `F32_FLOP_PER_S`)."""
     from crowdsam_tpu_torch.models import fused_decode as fd
     from crowdsam_tpu_torch.models import mask_head_kernel as mhk
     from crowdsam_tpu_torch.models.common import exact_float32

@@ -33,12 +33,15 @@ holds a band of the queries (K3: grid rows from `row0`) and every key.
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
 launches the kernel or raises: on bf16 operands the kernels above (f32
 softmax and accumulation), on float32 ones (`tpu.compute_dtype float32`)
-their float32 arms (`csrc/attention_f32.cu`: FFMA, no tensor core).  A
-float32 arm's host-side preparation (`window_f32_attention`,
-`relpos_f32_attention`, `flash_f32_attention`: the window partition, the
-rel-pos terms fh and fw by float32 batched products, the key count past
-which keys are masked) also runs on the CPU, where `f32_attention_plain`
-computes the kernel's function from it.
+their float32 arms (`csrc/attention_f32.cu`: 3xTF32 on wgmma, each float32
+operand split into TF32 hi + lo and each product lo.hi + hi.lo + hi.hi,
+float32 softmax and accumulation).  A float32 arm's host-side preparation
+(`window_f32_attention`, `relpos_f32_attention`, `flash_f32_attention`:
+the window partition, the rel-pos terms fh and fw by float32 batched
+products, the key count past which keys are masked) also runs on the CPU,
+where `f32_attention_plain` computes the kernel's function from it;
+`f32_attention_tf32x3_model` writes out the kernel's arithmetic (for the
+tests and the smoke's faults only).
 """
 
 from __future__ import annotations
@@ -242,6 +245,88 @@ def f32_attention_logits(a: F32Attention) -> torch.Tensor:
     if a.valid < k.shape[-2]:
         logits[..., a.valid:] = float("-inf")
     return logits
+
+
+# Key order of V^T within each 8-key group in the float32 arm: position c
+# holds key 2c for c < 4 and key 2(c - 4) + 1 otherwise, the order in which
+# the P V product's A fragments take the score accumulators.
+TF32X3_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+TF32X3_FAULTS = ("lo.hi dropped", "V's keys unpermuted",
+                 "a tile's lo part from the previous tile")
+_LOG2E = 1.4426950408889634
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as `cvt.rna.tf32.f32`: on the float32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor):
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def f32_attention_tf32x3_model(a: F32Attention,
+                               fault: Optional[str] = None) -> torch.Tensor:
+    """The float32 arm's arithmetic in PyTorch, on float32 `a` (CPU or
+    CUDA): every operand split into TF32 hi + lo, each product lo.hi +
+    hi.lo + hi.hi (lo.lo dropped; products of TF32 values are exact in
+    float32), the scale on q before the product (K2/K3) or on the product
+    (K4), the bias as (s + fh) + fw, keys at or past `valid` masked, an
+    online softmax over 64-key tiles (exp(x - m) as 2^(x log2(e) - m
+    log2(e))), and each tile's P V summed apart (keys in
+    `TF32X3_KEY_ORDER` within each 8-key group of P and V^T) before it joins
+    O.  `fault`, one of `TF32X3_FAULTS`, computes it with that fault of the
+    design instead (the stale lo part: tile 1 takes tile 0's).  For the
+    tests and chip_smoke.py's faults: no path calls it."""
+    if fault is not None and fault not in TF32X3_FAULTS:
+        raise ValueError(f"fault {fault!r}: one of {TF32X3_FAULTS}")
+    q, k, v = a.q, a.k, a.v
+    s, d = k.shape[-2], k.shape[-1]
+    tiles = -(-a.valid // 64)
+    width = max(64 * tiles, -(-s // 64) * 64)
+    pad = (0, 0, 0, width - s)
+    kh, kl = _tf32_split(torch.nn.functional.pad(k, pad))
+    vh, vl = _tf32_split(torch.nn.functional.pad(v, pad))
+    qh, ql = _tf32_split(q * a.scale if a.fh is not None else q)
+    order = torch.tensor(TF32X3_KEY_ORDER, device=q.device)
+    perm = torch.arange(64, device=q.device).view(8, 8)[:, order].reshape(-1)
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"), dtype=q.dtype,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:-1] + (d,), dtype=q.dtype, device=q.device)
+    for t in range(tiles):
+        cols = slice(64 * t, 64 * t + 64)
+        prev = slice(64 * t - 64, 64 * t) if t else cols
+        stale = fault == TF32X3_FAULTS[2] and t == min(1, tiles - 1)
+        k_hi, k_lo = kh[..., cols, :], kl[..., prev if stale else cols, :]
+        v_hi, v_lo = vh[..., cols, :], vl[..., prev if stale else cols, :]
+        small = qh @ k_lo.transpose(-1, -2)
+        if fault != TF32X3_FAULTS[0]:
+            small = ql @ k_hi.transpose(-1, -2) + small
+        st = small + qh @ k_hi.transpose(-1, -2)
+        key = torch.arange(64 * t, 64 * t + 64, device=q.device)
+        if a.fh is None:
+            st = st * a.scale
+        else:
+            kk = key.clamp(max=s - 1)
+            st = st + a.fh[..., kk // a.grid[1]] + a.fw[..., kk % a.grid[1]]
+        st = st.masked_fill(key >= a.valid, float("-inf"))
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - mn) * _LOG2E)
+        p = torch.exp2(st * _LOG2E - mn * _LOG2E)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = mn
+        p_hi, p_lo = (x[..., perm] for x in _tf32_split(p))
+        if fault != TF32X3_FAULTS[1]:
+            v_hi, v_lo = v_hi[..., perm, :], v_lo[..., perm, :]
+        small = p_hi @ v_lo
+        if fault != TF32X3_FAULTS[0]:
+            small = p_lo @ v_hi + small
+        o = o * alpha + (small + p_hi @ v_hi)
+    return o / l
 
 
 def window_f32_attention(qkv, rel_h_tab, rel_w_tab, num_heads: int,

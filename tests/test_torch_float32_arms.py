@@ -136,21 +136,25 @@ def test_flash_f32_matches_jax_dense(s, valid, band):
 
 
 def test_float32_arms_source_is_ffma_without_tensor_cores_or_bf16():
-    """`csrc/attention_f32.cu` computes in float32 on the CUDA cores: no
-    tensor-core instruction (so no TF32), no bf16 type or conversion, no
-    library include; its two C entry points are there."""
+    """`csrc/attention_f32.cu` (named for the FFMA arm it was first) now
+    computes in 3xTF32 on the tensor cores: wgmma's TF32 products on
+    operands split by `cvt.rna.tf32.f32`, the softmax's exponentials by
+    ex2; no other product type (no bf16, half or mma.sync), no library
+    include beyond the shared Hopper helpers, no switch to another body;
+    its two C entry points are there."""
     from pathlib import Path
 
     text = (Path(attention.__file__).resolve().parent.parent / "csrc"
             / "attention_f32.cu").read_text()
     code = "\n".join(ln for ln in text.splitlines()
                      if not ln.lstrip().startswith("//"))
-    for banned in ("wgmma", "mma.sync", "mma.", "tf32", "bf16", "bfloat16",
-                   "half", "cublas", "cutlass", "cudnn"):
+    for banned in ("mma.sync", "bf16", "bfloat16", "half", "cublas",
+                   "cutlass", "cudnn", "getenv", "#if"):
         assert banned not in code.lower(), banned
     includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
-    assert includes == ["#include <cuda_runtime.h>", "#include <math.h>",
-                        "#include <stdint.h>"]
+    assert includes == ['#include "sm90.cuh"']
     for entry in ("attention_f32_forward", "attention_f32_occupancy"):
         assert f'extern "C" int {entry}(' in code
-    assert "fmaf(" in code and "expf(" in code and "cp.async" in code
+    for shape in ("m64n64k8", "m64n80k8"):
+        assert f"wgmma.mma_async.sync.aligned.{shape}.f32.tf32.tf32" in code
+    assert "cvt.rna.tf32.f32" in code and "ex2(" in code

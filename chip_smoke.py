@@ -106,9 +106,11 @@ the gitignored `build/kernels/`), then:
    main path's distance from it (`float32 path`); 3 float32 full-decoder
    steps against the CPU's (`train float32`); the AMG in float32 (`amg
    float32`); the float32 arms of K5 and K6 (`csrc/decode_tail_f32.cu`,
-   `csrc/mask_head_f32.cu`) against float64 in the same way at the fused
-   decode's shapes (main path, small config, two images, a prompt shard,
-   T = 8; phases `K5 float32`, `K6 float32`); the float32 path with the
+   `csrc/mask_head_f32.cu`, 3xTF32 on wgmma) against float64 in the same
+   way at the fused decode's shapes (main path, small config, two images,
+   a prompt shard, T = 8; phases `K5 float32`, `K6 float32`; the faults of
+   their 3xTF32 models too, every HGMMA of their SASS TF32, no ptxas
+   spill); the float32 path with the
    fused decode (its default) against its plain-patched run (K1-K6) and
    against the unfused float32 run (`float32 fused path`), batched at B =
    2 and prompt-sharded at M = 2 bit for bit against one process
@@ -444,7 +446,8 @@ def _ptxas_report(lib: str = "attention") -> dict:
     arguments; K1's `ln_fwd_vec<T,L,VPL>`, `ln_fwd_direct<T,L,VPL>`,
     `ln_bwd_vec<T,L,VPL>`, `ln_rows<T,VPT>` and `ln_bwd_rows<T,VPT>` with
     T bf16 or f32; the float32 arms' `attn_f32<HD,RELPOS>`,
-    `tok_stage<S>`, `row_phase<S>` and `mask_head_f32<EMIT_EXP>`."""
+    `tok_stage<S>`, `tok_qkv<L>`, `tok_mlp<L>`, `t2i_merge<S>`,
+    `row_phase<S>` and `mask_head_f32<EMIT_EXP>`."""
     from crowdsam_tpu_torch.kernels import _build
 
     out, name = {}, None
@@ -452,8 +455,8 @@ def _ptxas_report(lib: str = "attention") -> dict:
         m = re.search(r"Compiling entry function '_Z\w*?\d"
                       r"(flash_attn_relpos(?:_wide)?|window_attn_relpos"
                       r"|ln_fwd_vec|ln_fwd_direct|ln_bwd_vec|ln_bwd_rows"
-                      r"|ln_rows|attn_f32|tok_stage|row_phase"
-                      r"|mask_head_f32)"
+                      r"|ln_rows|attn_f32|tok_stage|tok_mlp|tok_qkv"
+                      r"|t2i_merge|row_phase|mask_head_f32)"
                       r"I(\w+?)EEv", line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
@@ -4217,27 +4220,32 @@ def _sdpa_backend(fn) -> dict:
     return dict(sdpa_backend=backend, sdpa_kernels=names)
 
 
-@functools.lru_cache(maxsize=1)
-def _attention_f32_sass() -> dict:
-    """Each `attn_f32<HD,RELPOS>` instantiation's tensor-core instructions
-    (the HGMMA opcodes, by variant) and FFMAs, from cuobjdump of the built
-    library."""
+@functools.lru_cache(maxsize=None)
+def _f32_sass(lib: str) -> dict:
+    """Each kernel of a float32 arm's library (`csrc/<lib>.cu`: the
+    attention arm's `attn_f32<HD,RELPOS>`, the decode arms' kernels): its
+    tensor-core instructions (the HGMMA opcodes, by variant) and FFMAs,
+    from cuobjdump of the built library; names as `_ptxas_report`'s."""
     from crowdsam_tpu_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = _build._target(_build.sources()["attention_f32"])
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    path = _build._target(_build.sources()[lib])
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     out = {}
     for body in text.split("Function : ")[1:]:
-        m = re.search(r"attn_f32ILi(\d+)ELb(\d)E", body.splitlines()[0])
+        m = re.search(r"\d(attn_f32|tok_stage|tok_mlp|tok_qkv|t2i_merge"
+                      r"|row_phase|mask_head_f32)I(\w+?)EEv",
+                      body.splitlines()[0])
         if not m:
             continue
+        args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_.x]*)", body)
-        hgmma = collections.Counter(o for o in ops if o.startswith("HGMMA"))
-        out[f"attn_f32<{m.group(1)},{m.group(2)}>"] = dict(
-            hgmma=dict(hgmma), ffma=sum(o.startswith("FFMA") for o in ops))
+        out[f"{m.group(1)}<{','.join(args)}>"] = dict(
+            hgmma=dict(collections.Counter(o for o in ops
+                                           if o.startswith("HGMMA"))),
+            ffma=sum(o.startswith("FFMA") for o in ops))
     return out
 
 
@@ -4260,7 +4268,7 @@ def _f32_instantiation(hd: int, relpos: bool, grid) -> dict:
     rep = _ptxas_report("attention_f32").get(name, {})
     if rep.get("spill_store_bytes") or rep.get("spill_load_bytes"):
         raise AssertionError(f"{name}: ptxas spilled {rep}")
-    sass = _attention_f32_sass().get(name, {})
+    sass = _f32_sass("attention_f32").get(name, {})
     if not sass.get("hgmma") or not all("TF32" in op
                                         for op in sass["hgmma"]):
         raise AssertionError(f"{name}: no TF32 HGMMA in its SASS: {sass}")
@@ -4847,10 +4855,18 @@ def _f64_held(label, outs, faults):
     return row
 
 
+# The float32 decode arms' kernels that multiply on the tensor cores (the
+# others, row phase 0 and the merges, have no product).
+DECODE_F32_PRODUCTS = ("tok_stage", "tok_qkv", "tok_mlp", "row_phase<1>",
+                       "row_phase<2>", "mask_head_f32")
+
+
 def _f32_arm_report(lib: str, entry: str, n: int) -> dict:
-    """A float32 arm's kernels: dynamic shared memory and blocks an SM
-    (the source's occupancy entry, `n` ints) and ptxas's registers and
-    spilled bytes; a kernel that spills fails."""
+    """A float32 decode arm's kernels: dynamic shared memory and blocks an
+    SM (the source's occupancy entry, `n` ints), ptxas's registers and
+    spilled bytes, and their SASS's HGMMA opcodes (`_f32_sass`); a
+    kernel that spills fails, and so does a product kernel without HGMMA
+    or any HGMMA that is not TF32."""
     from crowdsam_tpu_torch.kernels import _build
 
     fn = _build.function(lib, entry, (ctypes.c_void_p,))
@@ -4861,7 +4877,14 @@ def _f32_arm_report(lib: str, entry: str, n: int) -> dict:
                if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
     if spilled or not rep:
         raise AssertionError(f"{lib}: ptxas spilled {spilled} ({rep})")
-    return dict(occupancy=list(out), kernels=rep)
+    sass = _f32_sass(lib)
+    bad = {k: v for k, v in sass.items()
+           if not all("TF32" in op for op in v["hgmma"])
+           or (k.startswith(DECODE_F32_PRODUCTS) and not v["hgmma"])}
+    if bad or not sass:
+        raise AssertionError(f"{lib}: HGMMA missing or not TF32 in {bad} "
+                             f"({sass})")
+    return dict(occupancy=list(out), kernels=rep, sass=sass)
 
 
 def _f32_k5_cases(model, small):
@@ -4893,7 +4916,11 @@ def _k5_f32_faults(args, img):
     row tile's partial left out of block 2's merge, kpe2 (the PE-side term
     of block 2's k) left out, the MLPs' ReLU dropped, and prompt p's token
     stage reading prompt p + 1's rows (block 2's MLP) or, over several
-    images, every prompt reading the next image's rows."""
+    images, every prompt reading the next image's rows; and the faults of
+    its arithmetic on its model, `twoway_tail_tf32x3_model`
+    (`TWOWAY_FAULTS`: lo.hi dropped, a stage's lo from the next stage, A's
+    lo not split again at a k-step, a prompt's folded values from the next
+    prompt)."""
     from crowdsam_tpu_torch.models import decode_tail_kernel as dtk
 
     def plain(*a, params=args[5]):
@@ -4922,6 +4949,12 @@ def _k5_f32_faults(args, img):
     if img is not None:
         faults.append(("every prompt reads the next image's rows", plain(
             *(x.roll(-1, 0) for x in args[:4]), args[4])))
+    # The faults of the arm's arithmetic, on its model (3xTF32 in PyTorch).
+    from crowdsam_tpu_torch.models.common import exact_float32
+    with exact_float32():
+        for f in dtk.TWOWAY_FAULTS:
+            faults.append((f"model: {f}", dtk.twoway_tail_tf32x3_model(
+                *args, img=img, fault=f)))
     return [(lb, {"keys2": f[0], "tokens": f[1]}) for lb, f in faults]
 
 
@@ -4932,7 +4965,8 @@ def phase_k5_f32(model, small):
     shapes, against a float64 evaluation of the plain version on the card
     and the plain float32 version (`_f64_held`, keys2 and the tokens; the
     faults of `_k5_f32_faults`); two calls bit for bit.  Times the wrapper
-    (CUDA events), its seven launches' span (torch.profiler), the plain
+    (CUDA events), its sixteen launches' span and each launch kind's
+    duration (torch.profiler, `device_by_launch`), the plain
     version and the path it replaces in float32 (the unfused
     `TwoWayTransformer.forward` of each prompt's image, TF32 off) beside
     the bound (`_k5_bound` at 165 TFLOP/s, `F32_FLOP_PER_S`).  Returns
@@ -4984,14 +5018,19 @@ def phase_k5_f32(model, small):
             t_r = time_ms(lambda: mdl.sam.mask_decoder.transformer(
                 src, pos, tokens), 2, warmup=1)
         b_ms, by = _k5_bound(args, got, p, t, m, F32_FLOP_PER_S)
-        # Its seven launches run one after another: each kernel's median
-        # duration, summed (`device_ms` reads right where the profiler
-        # drops some records, as it does late in this script).
-        d_k = _profiled(device_ms, fn, 10)
+        # Its sixteen launches overlap (each a programmatic dependent
+        # launch that starts before the one before it ends and waits): the
+        # span of their union a call, and each launch kind's duration, its
+        # wait included (torch.profiler; None where it kept no record).
+        d_k = _profiled(device_span_ms, fn, 10)
+        split = _profiled(device_split, fn, 10)
         rows.append(dict(
             shape=label, max_abs_err=max(
                 o["max_abs_err"] for o in held["outputs"].values()),
             **held, ms=time_ms(fn, 5), device_ms=d_k,
+            device_by_launch=split,
+            device_by_launch_covers="each launch's duration, the wait for "
+                                    "the launch before it included",
             plain_ms=time_ms(lambda: dtk.twoway_tail_plain(*args, img=img),
                              2, warmup=1),
             replaced_ms=t_r,
@@ -5010,7 +5049,10 @@ def _k6_f32_faults(keys2, hyper, weights, emit_exp, plain):
     LayerNorm over all 256 channels of a row (not a group of 64), the
     sub-pixels q1 and q2 swapped, mask k given hypernetwork vector k + 1,
     and (with `emit_exp`) the tile max from the first warp's eight rows
-    only.  `plain`: the plain version's outputs (masks[, e, mx])."""
+    only; and the faults of its arithmetic on its model,
+    `mask_head_tf32x3_model` (`MASK_HEAD_FAULTS`: those of every product
+    and the second weight's inputs out of the accumulators' order).
+    `plain`: the plain version's outputs (masks[, e, mx])."""
     from crowdsam_tpu_torch.models import mask_head_kernel as mhk
 
     def ln_all_lanes(x, w, b):
@@ -5038,10 +5080,45 @@ def _k6_f32_faults(keys2, hyper, weights, emit_exp, plain):
         e = torch.exp(masks - mx[:, None, :, None, None]).reshape(p, k, m, 16)
         faults.append(("the tile max from the first warp's rows only",
                        {"e": e, "mx": mx}))
+    # The faults of the arm's arithmetic, on its model (3xTF32 in PyTorch).
+    from crowdsam_tpu_torch.models.common import exact_float32
+    with exact_float32():
+        for f in mhk.MASK_HEAD_FAULTS:
+            faults.append((f"model: {f}", as_dict(mhk.mask_head_tf32x3_model(
+                keys2, hyper, weights, emit_exp, fault=f))))
     return faults
 
 
-def phase_k6_f32(k5_outs):
+def _k6_f32_kernel_ms(keys2, hyper, weights, emit, iters=20):
+    """K6's float32 kernel alone: CUDA events over `iters` back-to-back
+    calls of its C entry point on operands, packed weights and outputs made
+    beforehand (no wrapper, no allocation between the launches)."""
+    from crowdsam_tpu_torch.kernels import _build
+    from crowdsam_tpu_torch.models import mask_head_kernel as mhk
+    from crowdsam_tpu_torch.models import tf32x3
+
+    fn = _build.function("mask_head_f32", "mask_head_f32_forward",
+                         mhk._ARGTYPES)
+    p, m, _ = keys2.shape
+    masks = torch.empty((p, hyper.shape[1], m, 16), device="cuda")
+    e = torch.empty_like(masks) if emit else None
+    mx = torch.empty((p, m // 64), device="cuda") if emit else None
+    w0 = tf32x3.packed(weights["w0t"])
+    w2 = tf32x3.packed(weights["w2t"], "key_order")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        _build.check(fn(keys2.data_ptr(), hyper.data_ptr(), w0.data_ptr(),
+                        weights["b0"].data_ptr(), weights["ln_w"].data_ptr(),
+                        weights["ln_b"].data_ptr(), w2.data_ptr(),
+                        weights["b2"].data_ptr(), masks.data_ptr(),
+                        e.data_ptr() if emit else None,
+                        mx.data_ptr() if emit else None, p, m, int(emit),
+                        stream), "mask_head_f32")
+    return time_ms(call, iters)
+
+
+def phase_k6_f32(k5_outs, erf_sass=None):
     """K6's float32 arm (`csrc/mask_head_f32.cu`) on the keys2 and
     hypernetwork vectors of K5's float32 cases (`phase_k5_f32`): 32 x 4096
     with and without `emit_exp`, the small config's 32 x 256 and a prompt
@@ -5052,7 +5129,11 @@ def phase_k6_f32(k5_outs):
     `phase_mask_head` scales the bf16 model's.  Times the wrapper, the
     kernel alone, the plain version and the path it replaces in float32
     (the module-level packed head and pooling, `_decode_heads` without
-    K6, TF32 off) beside the bound (165 TFLOP/s, `F32_FLOP_PER_S`)."""
+    K6, TF32 off) beside the bound (165 TFLOP/s, `F32_FLOP_PER_S`); the
+    kernel alone by CUDA events (`kernel_ms`, `_k6_f32_kernel_ms`), which
+    stands where torch.profiler keeps no record; with `erf_sass` (one erff
+    GELU's SASS instructions, `finish_gelu_probe`) the issue floor of its
+    GELUs alone, as `phase_mask_head` gives K6's."""
     from crowdsam_tpu_torch.models import fused_decode as fd
     from crowdsam_tpu_torch.models import mask_head_kernel as mhk
     from crowdsam_tpu_torch.models.common import exact_float32
@@ -5115,9 +5196,21 @@ def phase_k6_f32(k5_outs):
         nbytes += sum(x.numel() * x.element_size() for x in tup(got))
         b_ms, by = bound(nbytes, flops, F32_FLOP_PER_S)
         d_k = _profiled(device_ms, fn, 20)
+        floor = None
+        if erf_sass is not None:
+            # 768 erff GELUs a row at four warp instructions a clock on
+            # every SM at the card's maximum SM clock.
+            clock_hz = 1e6 * float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split()[0])
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            floor = (p * m * (4 * c1 + 16 * c2) * erf_sass / 32
+                     / (4 * sms * clock_hz) * 1e3)
         rows.append(dict(
             shape=label, max_abs_err=held["outputs"]["masks"]["max_abs_err"],
             **held, ms=time_ms(fn, 5), device_ms=d_k,
+            kernel_ms=_k6_f32_kernel_ms(keys2, hyper, weights, emit),
             plain_ms=time_ms(lambda: mhk.mask_head_plain(
                 keys2, hyper, weights, emit), 2, warmup=1),
             replaced_ms=t_r,
@@ -5126,6 +5219,7 @@ def phase_k6_f32(k5_outs):
                      + " (_decode_heads) in float32",
             library_ms=None, bound_ms=b_ms, bound_by=by,
             bound_share=b_ms / d_k if d_k else None, gflop=flops / 1e9,
+            gelu_issue_floor_ms=floor, sass_per_erf_gelu=erf_sass,
             **report))
         print(json.dumps({"phase": "K6 float32", **rows[-1]}), flush=True)
     return rows
@@ -5173,25 +5267,32 @@ def _profiled(measure, *args):
 def _kernel_times(model, img, noise, launches) -> dict:
     """One `generate` under torch.profiler (after a warm-up): each
     kernel's median duration and records kept, for K5's float32 launches
-    (`tok_stage`, `row_phase`), K6's (`mask_head_f32`) and K1-K4's float32
-    arms; the decode's device ms of the frame from the medians and the
-    frame's launches of K5 and K6 (`launches`, each K5 call runs each of
-    its seven kernels once), which the profiler's dropped records do not
-    lower."""
-    by = {}
+    (`tok_stage`, `tok_qkv`, `tok_mlp`, `t2i_merge`, `row_phase`), K6's
+    (`mask_head_f32`) and K1-K4's float32 arms; the decode's device ms of
+    the frame from the medians and the frame's launches of K5 and K6
+    (`launches`, each K5 call runs each of its sixteen kernels once),
+    which the profiler's dropped records do not lower but which counts the
+    time a K5 kernel waits for the one before it (they overlap); and
+    `decode_span_ms`, the union of the decode kernels' records, which
+    counts no wait twice but reads low where records were dropped."""
+    decode_kinds = ("tok_stage", "tok_qkv", "tok_mlp", "t2i_merge",
+                    "row_phase", "mask_head_f32")
+    by, spans = {}, []
     for ev in _cuda_events(lambda: model.generate(img, noise=[noise]), 1):
         name = _kernel_name(ev.name)
-        if name.startswith(("tok_stage", "row_phase", "mask_head_f32",
-                            "attn_f32", "ln_")):
+        if name.startswith(decode_kinds + ("attn_f32", "ln_")):
             by.setdefault(name, []).append(ev.device_time_total / 1e3)
+        if name.startswith(decode_kinds):
+            spans.append((ev.time_range.start,
+                          ev.time_range.start + ev.device_time_total))
     med = {k: dict(median_ms=float(np.median(v)), records=len(v))
            for k, v in by.items()}
     decode = {k: v["median_ms"] * launches[
         "mask_head" if k.startswith("mask_head") else "twoway_tail"]
-        for k, v in med.items()
-        if k.startswith(("tok_stage", "row_phase", "mask_head_f32"))}
+        for k, v in med.items() if k.startswith(decode_kinds)}
     return dict(kernels=med, decode_by_kernel=decode,
-                decode_device_ms=sum(decode.values()))
+                decode_device_ms=sum(decode.values()),
+                decode_span_ms=_union_us(spans) / 1e3)
 
 
 def _against_plain(label, model, runs, frames, noises, tol=1e-4):
@@ -7283,7 +7384,8 @@ def main() -> int:
                 _small_config(), ["tpu.compute_dtype", "float32"]),
                 device="cuda")
         k5_f32, k5_f32_outs = phase_k5_f32(f32_model, small_f32)
-        k6_f32 = phase_k6_f32(k5_f32_outs)
+        k6_f32 = phase_k6_f32(k5_f32_outs,
+                              k6_probe["sass_per_gelu"]["erf"])
         del k5_f32_outs, small_f32, f32_model
         torch.cuda.empty_cache()
         f32_fused_model, f32_fused = phase_f32_fused_path(f32_unfused)

@@ -9,77 +9,118 @@
 // of P prompts, block 1's token self-attention, token->image attention,
 // ReLU MLP and image->token update + LayerNorm, block 2 likewise, and the
 // final token->image attention + LayerNorm; each head's softmax on its own,
-// LayerNorm eps 1e-5, everything float32.  In: keys0 (B, M, 256), block 1's
-// image-side projections q1i/k1/v1 (B, M, 128) of B images; img (P,) int32
-// each prompt's image (null: B = 1; an index outside 0..B-1 is clamped);
-// tokens (P, T, 256); the parameters of `PARAM_NAMES`, all float32.  Out:
-// keys2 (P, M, 256) and the final tokens (P, T, 256).
+// LayerNorm eps 1e-5.  In: keys0 (B, M, 256), block 1's image-side
+// projections q1i/k1/v1 (B, M, 128) of B images; img (P,) int32 each
+// prompt's image (null: B = 1; an index outside 0..B-1 is clamped); tokens
+// (P, T, 256); the parameters of `PARAM_NAMES` and the packed weights of
+// `PACKED`, all float32.  Out: keys2 (P, M, 256) and the final tokens
+// (P, T, 256).
 //
-// Bound: operations.  At 32 prompts x 4096 rows about 54 GFLOP, two thirds
-// of it keys1 @ wide2 (0.81 GFLOP a prompt) and keys2 @ widef (0.54); the
-// two rank-64 image updates 0.13 each: 0.81 ms at the card's 67 TFLOP/s
-// float32 peak.  It moves ~0.4 GB (keys1 out and back, keys2 out).
+// Arithmetic: every product on the tensor cores in 3xTF32 (`tf32x3.cuh`:
+// each float32 operand split into TF32 hi + lo, lo.hi + hi.lo + hi.hi),
+// the softmaxes, LayerNorms and token->image partials in float32 on the
+// CUDA cores.  `decode_tail_kernel.twoway_tail_tf32x3_model` is it in
+// PyTorch.
 //
-// Design (simple first; making it fast is later work).  Seven launches on
-// the caller's stream, each a function of what the ones before it wrote:
+// Bound: operations.  At 32 prompts x 7 tokens x 4096 rows about 54 GFLOP,
+// two thirds of it keys1 @ wide2 (0.81 GFLOP a prompt) and keys2 @ widef
+// (0.54): 0.325 ms at 165 TFLOP/s (three TF32 products at 495).  It moves
+// ~0.4 GB (keys1 out and back, keys2 out).
 //
-//   tok 0   block 1 self-attention, LN, token->image q
-//   row 0   per (64-row tile, prompt): partial softmax over k1/v1
-//   tok 1   merge, out-projection, LN, MLP, LN; update 1's token keys and
-//           folded values; block 2 self-attention, LN, token->image q
-//   row 1   keys1 = LN(keys0 + update 1), written; k2/v2/q2i = keys1 @
-//           wide2 (q2i written); partial softmax of block 2
-//   tok 2   merge, out-projection, LN, MLP, LN; update 2's token keys and
-//           folded values; the final q
-//   row 2   keys2 = LN(keys1 + update 2), written; kf/vf = keys2 @ widef;
-//           partial softmax of the final attention
-//   tok 3   merge, out-projection, final LN: the tokens
+// Design.  Sixteen launches on the caller's stream, each a programmatic
+// dependent launch of the one before (it waits, griddepcontrol.wait, before
+// it reads anything):
 //
-// Token stages: one block of 256 threads a prompt, its T <= 8 tokens as 8
-// rows in shared memory (rows past T zero).  A dense layer gives a thread
-// one output column at a time for all 8 rows, reading the weight's row
-// along k as float4 (each thread its own row: L1 keeps the lines) against
-// the rows broadcast from shared memory; k is summed in chunks of 32 whose
-// FMA chains join the total, as a split float32 product sums a deep k (the
-// MLP's second product is 2048 deep).  LayerNorm: a warp a row, two passes
-// (mean, then the centred squares).
+//   qkv 0    block 1's self-attention q, k, v: a block each a tile
+//   tok 0    block 1: self-attention, out-projection, LN; the token->image
+//            q of the next row phase
+//   row 0    per (64-row tile, prompt): partial softmax over k1/v1
+//   merge 0  the tiles' partials, in tile order
+//   tok 1    out-projection, residual, LN
+//   mlp 0    the MLP, K-split: block j the hidden columns 256 j.. and their
+//            partial of the second product
+//   qkv 1    the partials summed in order, residual, LN; block 2's
+//            self-attention q, k, v
+//   tok 2    the same sum and LN; then (block y = 0) update 1's token keys,
+//            values and the values folded through the out-projection, or
+//            (y = 1) block 2's self-attention, LN and the next query
+//   row 1    keys1 = LN(keys0 + update 1), written; k2/v2/q2i = keys1 @
+//            wide2 (q2i written); partial softmax of block 2
+//   merge 1, tok 3, mlp 1
+//   tok 4    as tok 2 with update 2's weights; (y = 1) the final query
+//   row 2    keys2 = LN(keys1 + update 2), written; kf/vf = keys2 @ widef;
+//            partial softmax of the final attention
+//   merge 2
+//   tok 5    out-projection, residual, final LN: the tokens
 //
-// Row phases: one block of 256 threads a (64-row tile, prompt), one block
-// an SM (188 KB of shared memory).  The image update of all heads: the
-// per-head softmax over the tokens gives P (64 rows x 64 (head, token));
-// delta = P U, U the token values folded through the out-projection (256 x
-// 64, from the token stage), by `tile_product`; x = (prev + delta) + b, the
-// row LayerNorm in place (four threads a row), the tile written out.  Then
-// the wide product by `tile_product`, 128 output columns at a time, each
-// chunk's epilogue adding its PE-side term or bias: q2i to device memory, k
-// and v into shared memory.  The token->image partial softmax of the tile:
-// four threads a (head, token), 16 rows each, the tile's max, sum and 16
-// values of P V reduced over the four; written as (max, sum, P V) per
-// (prompt, head, token, tile).  A token stage merges a (head, token)'s tiles
-// in tile order (no atomics: a run repeats bit for bit) in float32, as the
-// plain version merges them.
+// Every product kernel is a block of two consumer warpgroups and a
+// producer warp (`tf32x3::THREADS`), one block an SM, a 64-row tile of A
+// in shared memory in float32 (rows of 260 floats) and the weight streamed
+// by the producer in stages of 128 output rows x 32 inputs, hi then lo,
+// that the host split and laid out once (`tf32x3.pack`); each warpgroup
+// takes 64 of a stage's 128 output rows (m64n64k8), the two issuing in
+// turns.  The producer runs the same program as the consumers with every
+// step but the weight stream left out (`Ctx`), so the stream's order is
+// the products' order by construction.  Loads from device memory outside
+// the products go by cp.async or several at once (no branch between
+// them): a loop that waits for each load in turn cost tens of
+// microseconds a block.
+//
+// Token side (199,712 B of shared memory, two ring slots): the P prompts'
+// T <= 8 tokens are rows p * 8 + t of one batch of P8 = 8 ceil(P / 8) rows,
+// cut into tiles of 64 rows (8 prompts): every weight is read once a tile,
+// not once a prompt.  Rows of padding tokens
+// (t >= T) and prompts (p >= P) are zero and never reach an output.  The
+// token state lives in device memory between the stages (one buffer a
+// stage).  The MLP's 2048-deep second product is split over 8 blocks of 256
+// inputs; tok 2 / tok 4 sum the partials in block order (no atomics).  The
+// fold: U[c][h 8 + t] = sum_d v[t][16 h + d] Wo[c][16 h + d], per head a
+// product of 16 inputs (the head's columns of Wo, packed as one stage whose
+// inputs past 16 are zero, two k-steps), written split and packed as the
+// row phases' B operand: per prompt 4 stages (256 outputs x 64 (head,
+// token) inputs).
+//
+// Row phases: a persistent grid of min(tiles x prompts, SMs) blocks
+// (226,352 B of shared memory, three ring slots), block b taking the
+// (tile, prompt) items b, b + grid, ...  The image update of all heads:
+// the per-head softmax over the tokens gives P (64 rows x 64 (head,
+// token)); delta = P U^T (2 stages a chunk of 128 columns); x = (prev +
+// delta) + b, the row LayerNorm in place (four threads a row), the tile
+// written out.  Then the wide product, 8 stages a chunk of 128 columns,
+// each chunk's epilogue adding its PE-side term or bias: (row 1) q2i to
+// device memory, k into shared memory, and v last, into the tile's place
+// (three slots fit only so).  The
+// token->image partial softmax of the tile: four threads a (head, token),
+// the tile's max, sum and 16 values of P V, written as (max, sum, P V) per
+// (prompt, head, token, tile); a merge thread a (prompt, head, token, dim)
+// combines a (head, token)'s tiles in tile order, as the plain version
+// merges them.
 //
 // Where this design can go wrong, and what guards it:
 //   1. A tile's partial left out of a merge: the merge walks every tile
-//      0..NT-1 of its (prompt, head, token).
+//      0..NT-1 of its (prompt, head, token) (chip_smoke.py's fault: the
+//      last tile left out).
 //   2. A prompt reading another image's rows: every image-side load (keys0,
 //      q1i, k1, v1) is offset by `image_row` of the prompt.
 //   3. The PE-side terms: kpe2 / qpe2i / kpef are indexed by the tile's own
-//      rows, bv2 / bvf by the column; chip_smoke.py leaves kpe2 out as a
-//      fault.
-//   4. Padded tokens (t >= T): zero rows in the token stages, probability 0
-//      in the image update (their folded values are zero too), no partial.
-//   5. Stage reuse in `tile_product`: see f32_tile.cuh.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "f32_tile.cuh"
+//      rows, bv2 / bvf by the column (fault: kpe2 left out).
+//   4. Token rows: a tile's row r is prompt 8 tile + r / 8, token r % 8;
+//      rows past T or P are zero (faults: a prompt's MLP reading the next
+//      prompt's rows; the model's: a prompt's folded values from the next
+//      prompt's).
+//   5. The stages and their swizzle: `tf32x3.cuh`; the model's faults of
+//      every product (lo.hi dropped, a stage's lo from the next stage, A's
+//      lo not split again at a k-step).
+#include "tf32x3.cuh"
 
 namespace {
 
-using f32tile::THREADS;
-using f32tile::TR;
+using tf32x3::CONSUMERS;
+using tf32x3::PART_BYTES;
+using tf32x3::Ring;
+using tf32x3::STAGE_BYTES;
+using tf32x3::THREADS;
+using tf32x3::TR;
 
 constexpr int C = 256;        // embedding width
 constexpr int CD = 128;       // cross-attention width
@@ -89,10 +130,14 @@ constexpr int HD2 = 32;       // self-attention head dim
 constexpr int TP = 8;         // tokens, padded
 constexpr int HT = H * TP;    // the (head, token) axis
 constexpr int MLP = 2048;     // the MLP's hidden width
+constexpr int KSPLIT = MLP / C;   // blocks of the MLP's K-split
 constexpr int PW = 20;        // floats a partial: max, sum, P V, 2 pad
 constexpr float EPS = 1e-5f;
 constexpr float SCALE = 0.25f;                  // 1 / sqrt(HD)
 constexpr float SCALE2 = 0.17677669529663687f;  // 1 / sqrt(HD2)
+constexpr int U_STAGES = 4;   // a prompt's folded values: 2 chunks x 2
+constexpr int TOK_RING = 2;   // stage slots of a token kernel
+constexpr int ROW_RING = 3;   // and of a row phase
 
 // Order of `PARAM_NAMES` in models/decode_tail_kernel.py.
 enum Param {
@@ -113,6 +158,18 @@ enum Param {
   N_PARAMS
 };
 
+// Order of `PACKED` in models/decode_tail_kernel.py: the weights of the
+// products, packed.  The MLPs' second weights are packed as 8 blocks of 256
+// inputs, the image updates' out-projections as 8 heads of 16 inputs.
+enum Packed {
+  pk_wide2, pk_widef,
+  pk_l0sa_q, pk_l0sa_k, pk_l0sa_v, pk_l0sa_o, pk_t2i1_q, pk_t2i1_o,
+  pk_mlp1l0, pk_mlp2l0, pk_i2t1_k, pk_i2t1_v, pk_i2t1_o,
+  pk_l1sa_q, pk_l1sa_k, pk_l1sa_v, pk_l1sa_o, pk_t2i_q, pk_t2i_o,
+  pk_mlp1, pk_mlp2, pk_i2t_k, pk_i2t_v, pk_i2t_o, pk_fin_q, pk_fin_o,
+  N_PACKED
+};
+
 struct Args {
   const float* keys0;   // (B, M, C)
   const float* q1i;     // (B, M, CD), and k1, v1
@@ -124,13 +181,17 @@ struct Args {
   float* tok_out;       // (P, T, C)
   float* keys1;         // (P, M, C) scratch: row 1 to row 2
   float* q2i;           // (P, M, CD) scratch: row 1 to row 2
-  float* state;         // (P, TP, C) the token state between token stages
-  float* qh;            // (P, TP, CD) the token->image query of the next row
-  float* ktok;          // (P, TP, CD) the next update's token keys
-  float* ut;            // (P, C, HT) its folded token values, transposed
+  float* state;         // (5, P8 TP, C) the token state after tok 0..4
+  float* qkv;           // (P8 TP, 3 C) a self-attention's q, k, v
+  float* mlp;           // (KSPLIT, P8 TP, C) the MLP's partials
+  float* att;           // (P8 TP, CD) the merged token->image attention
+  float* qh;            // (P8 TP, CD) the next row phase's query heads
+  float* ktok;          // (P8 TP, CD) the next update's token keys
+  unsigned char* ut;    // (P8, U_STAGES stages) its folded values, packed
   float* part;          // (P, HT, NT, PW) the row tiles' partial softmaxes
-  int P, T, M, NT, B;
+  int P, T, M, NT, B, P8;
   const float* w[N_PARAMS];
+  const unsigned char* pk[N_PACKED];
 };
 
 // The first row of prompt q's image in the image-side operands (an index
@@ -141,315 +202,624 @@ __device__ __forceinline__ size_t image_row(const Args& a, int q) {
   return (size_t)i * a.M;
 }
 
+__device__ __forceinline__ float* state(const Args& a, int i) {
+  return a.state + (size_t)i * a.P8 * TP * C;
+}
+
+// A thread's part in a product kernel: the producer (warp 8, lane 0) or a
+// consumer (threads 0..255, warpgroup wg).
+struct Ctx {
+  Ring ring;
+  bool prod;
+  int wg;
+};
+
+// A dense product of `nch` chunks of 128 outputs, `nst` stages each, of the
+// packed weight at `src` (chunk-major) with A at `x` (64 rows, row stride
+// ldx): the producer streams the stages; each consumer gives every element
+// of its chunks to epi(row, output, value).
+template <int KS, class Epi>
+__device__ __forceinline__ void dense(Ctx& c, const unsigned char* src,
+                                      int nch, int nst, const float* x,
+                                      int ldx, Epi epi) {
+  if (c.prod) {
+    for (int i = 0; i < nch * nst; ++i)
+      tf32x3::put(c.ring, src + (size_t)i * STAGE_BYTES);
+    return;
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    float acc[32];
+    tf32x3::product<KS>(c.ring, acc, x, ldx, nst, true, c.wg);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      epi(tf32x3::acc_row(i), 128 * ch + 64 * c.wg + tf32x3::acc_col(i),
+          acc[i]);
+  }
+}
+
 // --------------------------------------------------------------------------
 // token stages
 // --------------------------------------------------------------------------
 
-// Shared memory of a token stage (floats): the query PE, the state, three
-// (TP, C) buffers, the MLP's hidden rows (also the self-attention's
-// q/k/v/o), the merged attention, the self-attention's scores.
-constexpr int TOK_PE = 0;
-constexpr int TOK_X = TOK_PE + TP * C;
-constexpr int TOK_Y1 = TOK_X + TP * C;
-constexpr int TOK_Y2 = TOK_Y1 + TP * C;
-constexpr int TOK_Y3 = TOK_Y2 + TP * C;
-constexpr int TOK_HID = TOK_Y3 + TP * C;
-constexpr int TOK_ATT = TOK_HID + TP * MLP;
-constexpr int TOK_SC = TOK_ATT + TP * CD;
-constexpr int TOK_FLOATS = TOK_SC + H * TP * TP;
+constexpr int LDA = C + 4;    // a tile's rows (floats)
+// Shared memory of a token kernel, bytes from the 1024-aligned base: the
+// ring, A and Y (64 x LDA floats each), the ring's barriers.  A third slot
+// would not fit beside A and Y.
+constexpr int TOK_A = TOK_RING * STAGE_BYTES;
+constexpr int TOK_Y = TOK_A + TR * LDA * 4;
+constexpr int TOK_BAR = TOK_Y + TR * LDA * 4;
+constexpr int TOK_SMEM = TOK_BAR + 16 * TOK_RING + 1024;
 
-// Y[t][n] = b[n] + sum_k X[t][k] W[n][k] (optionally ReLU) for the TP rows,
-// rows t >= T set to 0; X (TP, K) row stride ldx in shared memory, W (N, K)
-// in device memory, K a multiple of 32.
-__device__ void tok_dense(const float* x, int ldx, int k, const float* w,
-                          const float* b, int n_out, float* y, int ldy,
-                          int t_cnt, bool relu) {
-  for (int n = threadIdx.x; n < n_out; n += THREADS) {
-    const float* wr = w + (size_t)n * k;
-    float tot[TP];
-#pragma unroll
-    for (int t = 0; t < TP; ++t) tot[t] = 0.f;
-    for (int k0 = 0; k0 < k; k0 += 32) {
-      float part[TP];
-#pragma unroll
-      for (int t = 0; t < TP; ++t) part[t] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 32; kk += 4) {
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + k0 + kk));
-#pragma unroll
-        for (int t = 0; t < TP; ++t) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(x + t * ldx + k0 + kk);
-          part[t] = fmaf(xv.x, wv.x, part[t]);
-          part[t] = fmaf(xv.y, wv.y, part[t]);
-          part[t] = fmaf(xv.z, wv.z, part[t]);
-          part[t] = fmaf(xv.w, wv.w, part[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < TP; ++t) tot[t] += part[t];
-    }
-    const float bn = b[n];
-#pragma unroll
-    for (int t = 0; t < TP; ++t) {
-      float v = tot[t] + bn;
-      if (relu) v = fmaxf(v, 0.f);
-      y[t * ldy + n] = t < t_cnt ? v : 0.f;
-    }
-  }
-  __syncthreads();
+// Row r of the tile from token row t0 holds a token (t < T of a prompt
+// p < P).
+__device__ __forceinline__ bool valid(const Args& a, int t0, int r) {
+  return ((t0 + r) >> 3) < a.P && (r & 7) < a.T;
 }
 
-// Y = LayerNorm(X) over C for rows t < T (a warp a row), rows past T zero.
-// Y may be X.
-__device__ void tok_ln(const float* x, float* y, const float* g,
-                       const float* b, int t_cnt) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = warp;   // 8 warps, TP rows
-  float v[C / 32];
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) v[i] = x[t * C + lane + 32 * i];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) s += v[i];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float u = s / C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) {
-    const float d = v[i] - u;
-    q = fmaf(d, d, q);
+// dst[r][c] = src[t0 + r][c] for the tile's valid rows, 0 elsewhere (src
+// row stride ld, ncols a multiple of 4), by cp.async: every load of a
+// thread in flight at once (a loop of dependent global loads waits for
+// each, ~0.5 us apiece).  The caller waits (cp_async_wait_all) and syncs.
+__device__ void rows_in(const Args& a, int t0, float* dst, const float* src,
+                        int ld, int ncols) {
+  const int per = ncols / 4;
+  for (int i = tf32x3::tid(); i < TR * per; i += CONSUMERS) {
+    const int r = i / per, c = 4 * (i - r * per);
+    const bool keep = valid(a, t0, r);
+    tf32x3::cp_async16_or_zero(dst + r * LDA + c,
+                               src + (size_t)(keep ? t0 + r : 0) * ld + c,
+                               keep);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-  const float r = 1.f / sqrtf(q / C + EPS);
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) {
-    const int c = lane + 32 * i;
-    y[t * C + c] = t < t_cnt ? (v[i] - u) * r * g[c] + b[c] : 0.f;
-  }
-  __syncthreads();
 }
 
-// Y = A + B elementwise over the TP x C rows (Y may be A or B).
-__device__ void tok_add(const float* a, const float* b, float* y) {
-  for (int i = threadIdx.x; i < TP * C; i += THREADS) y[i] = a[i] + b[i];
-  __syncthreads();
+// dst[r][c] = the query PE (the tokens) of the tile's valid rows, 0
+// elsewhere, by cp.async; the caller waits and syncs.
+__device__ void pe_in(const Args& a, int t0, float* dst) {
+  for (int i = tf32x3::tid(); i < TR * C / 4; i += CONSUMERS) {
+    const int r = i / (C / 4), c = 4 * (i % (C / 4)), row = t0 + r;
+    const bool keep = valid(a, t0, r);
+    tf32x3::cp_async16_or_zero(
+        dst + r * LDA + c,
+        a.tokens + (keep ? ((size_t)(row >> 3) * a.T + (row & 7)) * C : 0) + c,
+        keep);
+  }
 }
 
-// out = out_proj(attention(q = Xqk Wq, k = Xqk Wk, v = Xv Wv)), 8 heads of
-// 32, each head's softmax over the T tokens on its own; `pfx` the index of
-// the q weight (q, k, v, o weights and biases follow it in `Param` order).
-__device__ void tok_self_attn(const Args& a, float* sm, const float* xqk,
-                              const float* xv, int pfx, float* out) {
-  float* q = sm + TOK_HID;
-  float* k = q + TP * C;
-  float* v = k + TP * C;
-  float* o = v + TP * C;
-  float* sc = sm + TOK_SC;
-  const int t_cnt = a.T;
-  tok_dense(xqk, C, C, a.w[pfx], a.w[pfx + 1], C, q, C, t_cnt, false);
-  tok_dense(xqk, C, C, a.w[pfx + 2], a.w[pfx + 3], C, k, C, t_cnt, false);
-  tok_dense(xv, C, C, a.w[pfx + 4], a.w[pfx + 5], C, v, C, t_cnt, false);
-  for (int e = threadIdx.x; e < H * TP * TP; e += THREADS) {
-    const int h = e / (TP * TP), i = (e / TP) % TP, j = e % TP;
-    float s = 0.f;
+// dst = y + the query PE (0 in rows that hold no token), 64 x C: the PE by
+// cp.async, then the sum in shared memory.
+__device__ void with_pe(const Args& a, int t0, float* dst, const float* y) {
+  pe_in(a, t0, dst);
+  tf32x3::cp_async_wait_all();
+  tf32x3::consumers_sync();
+  for (int i = tf32x3::tid(); i < TR * C / 4; i += CONSUMERS) {
+    const int r = i / (C / 4), c = 4 * (i % (C / 4));
+    float4 v = *reinterpret_cast<const float4*>(y + r * LDA + c);
+    const float4 e = *reinterpret_cast<const float4*>(dst + r * LDA + c);
+    v.x += e.x;
+    v.y += e.y;
+    v.z += e.z;
+    v.w += e.w;
+    *reinterpret_cast<float4*>(dst + r * LDA + c) = v;
+  }
+}
+
+// The 64 rows of y (row stride LDA) to dst (row stride C).
+__device__ void rows_out(float* dst, const float* y) {
+  for (int i = tf32x3::tid(); i < TR * C / 4; i += CONSUMERS) {
+    const int r = i / (C / 4), c = 4 * (i % (C / 4));
+    *reinterpret_cast<float4*>(dst + (size_t)r * C + c) =
+        *reinterpret_cast<const float4*>(y + r * LDA + c);
+  }
+}
+
+// LayerNorm over C of the 64 rows of x in place, four threads a row
+// (thread q of a row the float4 columns 4 q + 16 i); rows that hold no
+// token set to 0.  The sums in four lanes of 16 terms each, joined in a
+// tree (as PyTorch's reductions, which the plain version takes: one chain
+// of 64 terms a thread gave the tokens twice the plain version's largest
+// error).
+__device__ __forceinline__ float tree4(const float4& s) {
+  return (s.x + s.y) + (s.z + s.w);
+}
+
+__device__ void ln_rows(float* x, const float* g, const float* b,
+                        bool keep) {
+  const int r = tf32x3::tid() >> 2, q = tf32x3::tid() & 3;
+  float4* xr = reinterpret_cast<float4*>(x + r * LDA) + q;
+  float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int i = 0; i < C / 16; ++i) {
+    const float4 v = xr[4 * i];
+    s4.x += v.x;
+    s4.y += v.y;
+    s4.z += v.z;
+    s4.w += v.w;
+  }
+  float s = tree4(s4);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  const float mean = s / C;
+  float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int i = 0; i < C / 16; ++i) {
+    const float4 v = xr[4 * i];
+    d4.x = fmaf(v.x - mean, v.x - mean, d4.x);
+    d4.y = fmaf(v.y - mean, v.y - mean, d4.y);
+    d4.z = fmaf(v.z - mean, v.z - mean, d4.z);
+    d4.w = fmaf(v.w - mean, v.w - mean, d4.w);
+  }
+  float v2 = tree4(d4);
+  v2 += __shfl_xor_sync(0xffffffffu, v2, 1);
+  v2 += __shfl_xor_sync(0xffffffffu, v2, 2);
+  const float rs = 1.f / sqrtf(v2 / C + EPS);
+  const float4* g4 = reinterpret_cast<const float4*>(g) + q;
+  const float4* b4 = reinterpret_cast<const float4*>(b) + q;
+#pragma unroll 4
+  for (int i = 0; i < C / 16; ++i) {
+    const float4 v = xr[4 * i], gg = __ldg(g4 + 4 * i), bb = __ldg(b4 + 4 * i);
+    xr[4 * i] = keep ? make_float4((v.x - mean) * rs * gg.x + bb.x,
+                                   (v.y - mean) * rs * gg.y + bb.y,
+                                   (v.z - mean) * rs * gg.z + bb.z,
+                                   (v.w - mean) * rs * gg.w + bb.w)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ void ln_tokens(const Args& a, int t0, float* y, int nw) {
+  ln_rows(y, a.w[nw], a.w[nw + 1], valid(a, t0, tf32x3::tid() >> 2));
+}
+
+// o (the tile's 64 rows, columns h 32..) = each head's self-attention of
+// the tile's prompts from q, k, v in a.qkv: softmax over the T tokens of
+// q . k / sqrt(32), times v; rows that hold no token 0.
+__device__ void attn_core(const Args& a, int t0, float* o) {
+  for (int e = tf32x3::tid(); e < TR * H; e += CONSUMERS) {
+    const int pl = e >> 6, h = (e >> 3) & 7, i = e & 7;
+    float* out = o + (8 * pl + i) * LDA + h * HD2;
+    if (!valid(a, t0, 8 * pl + i)) {
 #pragma unroll
-    for (int d = 0; d < HD2; ++d)
-      s = fmaf(q[i * C + h * HD2 + d], k[j * C + h * HD2 + d], s);
-    sc[e] = s * SCALE2;
-  }
-  __syncthreads();
-  if (threadIdx.x < H * TP) {    // (head, query) rows: softmax over j < T
-    float* row = sc + threadIdx.x * TP;
-    float mx = -INFINITY;
-    for (int j = 0; j < t_cnt; ++j) mx = fmaxf(mx, row[j]);
-    float sum = 0.f;
-    for (int j = 0; j < t_cnt; ++j) {
-      row[j] = expf(row[j] - mx);
-      sum += row[j];
-    }
-    for (int j = 0; j < TP; ++j) row[j] = j < t_cnt ? row[j] / sum : 0.f;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < TP * C; e += THREADS) {
-    const int i = e / C, c = e % C, h = c / HD2;
-    float s = 0.f;
-    for (int j = 0; j < t_cnt; ++j)
-      s = fmaf(sc[(h * TP + i) * TP + j], v[j * C + c], s);
-    o[e] = i < t_cnt ? s : 0.f;
-  }
-  __syncthreads();
-  tok_dense(o, C, C, a.w[pfx + 6], a.w[pfx + 7], C, out, C, t_cnt, false);
-}
-
-// The merged token->image attention (TP, CD) of prompt p from the row
-// tiles' partials: each (head, token)'s tiles in order, rescaled to their
-// largest max.
-__device__ void tok_merge(const Args& a, int p, float* att) {
-  for (int e = threadIdx.x; e < TP * CD; e += THREADS) {
-    const int t = e / CD, hd = e % CD, h = hd / HD, d = hd % HD;
-    if (t >= a.T) {
-      att[e] = 0.f;
+      for (int d = 0; d < HD2; d += 4)
+        *reinterpret_cast<float4*>(out + d) = make_float4(0.f, 0.f, 0.f, 0.f);
       continue;
     }
-    const float* pp = a.part + (size_t)(p * HT + h * TP + t) * a.NT * PW;
+    // Every load unconditional (rows of padding tokens hold zeros, and
+    // their probabilities are set to 0), so that none waits for another;
+    // two key or value rows' loads in flight at a time (all eight at once
+    // took more registers than the block has).
+    const float* base = a.qkv + (size_t)(t0 + 8 * pl) * 3 * C + h * HD2;
+    float4 q[HD2 / 4];
+#pragma unroll
+    for (int d = 0; d < HD2 / 4; ++d)
+      q[d] = *reinterpret_cast<const float4*>(base + i * 3 * C + 4 * d);
+    float s[TP];
+#pragma unroll 2
+    for (int j = 0; j < TP; ++j) {
+      float4 k[HD2 / 4];
+#pragma unroll
+      for (int d = 0; d < HD2 / 4; ++d)
+        k[d] = *reinterpret_cast<const float4*>(base + j * 3 * C + C + 4 * d);
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD2 / 4; ++d) {
+        acc = fmaf(q[d].x, k[d].x, acc);
+        acc = fmaf(q[d].y, k[d].y, acc);
+        acc = fmaf(q[d].z, k[d].z, acc);
+        acc = fmaf(q[d].w, k[d].w, acc);
+      }
+      s[j] = acc * SCALE2;
+    }
     float mx = -INFINITY;
-    for (int i = 0; i < a.NT; ++i) mx = fmaxf(mx, pp[i * PW]);
-    float num = 0.f, den = 0.f;
-    for (int i = 0; i < a.NT; ++i) {
-      const float wgt = expf(pp[i * PW] - mx);
-      num = fmaf(wgt, pp[i * PW + 2 + d], num);
-      den = fmaf(wgt, pp[i * PW + 1], den);
-    }
-    att[e] = num / den;
-  }
-  __syncthreads();
-}
-
-// The token side of an image->token update from the token state x: its
-// token keys (x + pe) Wk + bk and values v = x Wv + bv, the values folded
-// through the out-projection per head, U[c][h TP + t] = sum_d v[t][h HD +
-// d] Wo[c][h HD + d] (zero for t >= T); keys and U written for the row
-// phase (a thread a (c, h): eight contiguous values of U).
-__device__ void tok_update(const Args& a, float* sm, int p, int kw, int vw,
-                           int ow) {
-  float* y2 = sm + TOK_Y2;
-  float* y3 = sm + TOK_Y3;
-  tok_add(sm + TOK_X, sm + TOK_PE, y2);
-  tok_dense(y2, C, C, a.w[kw], a.w[kw + 1], CD, y3, CD, a.T, false);
-  for (int i = threadIdx.x; i < TP * CD; i += THREADS)
-    a.ktok[(size_t)p * TP * CD + i] = y3[i];
-  __syncthreads();
-  tok_dense(sm + TOK_X, C, C, a.w[vw], a.w[vw + 1], CD, y3, CD, a.T, false);
-  const float* wo = a.w[ow];
-  float* ut = a.ut + (size_t)p * C * HT;
-  for (int e = threadIdx.x; e < C * H; e += THREADS) {
-    const int c = e / H, h = e % H;
-    float wr[HD];
 #pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      const float4 v =
-          __ldg(reinterpret_cast<const float4*>(wo + (size_t)c * CD + h * HD + d));
-      wr[d] = v.x;
-      wr[d + 1] = v.y;
-      wr[d + 2] = v.z;
-      wr[d + 3] = v.w;
+    for (int j = 0; j < TP; ++j)
+      if (j < a.T) mx = fmaxf(mx, s[j]);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < TP; ++j) {
+      s[j] = j < a.T ? expf(s[j] - mx) : 0.f;
+      sum += s[j];
     }
 #pragma unroll
-    for (int t = 0; t < TP; ++t) {
-      float s = 0.f;
+    for (int j = 0; j < TP; ++j) s[j] = s[j] / sum;
+    float4 o4[HD2 / 4];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) s = fmaf(y3[t * CD + h * HD + d], wr[d], s);
-      ut[c * HT + h * TP + t] = t < a.T ? s : 0.f;
+    for (int d = 0; d < HD2 / 4; ++d) o4[d] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+    for (int j = 0; j < TP; ++j) {
+      float4 v[HD2 / 4];
+#pragma unroll
+      for (int d = 0; d < HD2 / 4; ++d)
+        v[d] = *reinterpret_cast<const float4*>(base + j * 3 * C + 2 * C +
+                                                4 * d);
+#pragma unroll
+      for (int d = 0; d < HD2 / 4; ++d) {
+        o4[d].x = fmaf(s[j], v[d].x, o4[d].x);
+        o4[d].y = fmaf(s[j], v[d].y, o4[d].y);
+        o4[d].z = fmaf(s[j], v[d].z, o4[d].z);
+        o4[d].w = fmaf(s[j], v[d].w, o4[d].w);
+      }
     }
+#pragma unroll
+    for (int d = 0; d < HD2 / 4; ++d)
+      *reinterpret_cast<float4*>(out + 4 * d) = o4[d];
   }
-  __syncthreads();
 }
 
-// y3 = (x + pe) Wq + bq, written as the next row phase's query heads.
-__device__ void tok_query(const Args& a, float* sm, int p, int qw) {
-  float* y2 = sm + TOK_Y2;
-  float* y3 = sm + TOK_Y3;
-  tok_add(sm + TOK_X, sm + TOK_PE, y2);
-  tok_dense(y2, C, C, a.w[qw], a.w[qw + 1], CD, y3, CD, a.T, false);
-  for (int i = threadIdx.x; i < TP * CD; i += THREADS)
-    a.qh[(size_t)p * TP * CD + i] = y3[i];
-  __syncthreads();
+// A self-attention projection of A into a.qkv's columns `off`...
+__device__ __forceinline__ void qkv_dense(Ctx& c, const Args& a, int t0,
+                                          int pk, int bias, const float* x,
+                                          int off) {
+  const float* b = a.w[bias];
+  dense<4>(c, a.pk[pk], 2, 8, x, LDA, [&](int r, int n, float v) {
+    a.qkv[(size_t)(t0 + r) * 3 * C + off + n] =
+        valid(a, t0, r) ? v + b[n] : 0.f;
+  });
 }
 
-// x = LN(x + out_proj(merged attention)), then x = LN(x + MLP(x)); the
-// arguments index the weights (each bias follows its weight).
-__device__ void tok_attn_mlp(const Args& a, float* sm, int p, int ow, int nw,
-                             int m1, int m2, int n3) {
-  float* x = sm + TOK_X;
-  float* y1 = sm + TOK_Y1;
-  float* att = sm + TOK_ATT;
-  float* hid = sm + TOK_HID;
-  tok_merge(a, p, att);
-  tok_dense(att, CD, CD, a.w[ow], a.w[ow + 1], C, y1, C, a.T, false);
-  tok_add(x, y1, x);
-  tok_ln(x, x, a.w[nw], a.w[nw + 1], a.T);
-  tok_dense(x, C, C, a.w[m1], a.w[m1 + 1], MLP, hid, MLP, a.T, true);
-  tok_dense(hid, MLP, MLP, a.w[m2], a.w[m2 + 1], C, y1, C, a.T, false);
-  tok_add(x, y1, x);
-  tok_ln(x, x, a.w[n3], a.w[n3 + 1], a.T);
+// Y = res + (x W^T + b) (res null: no residual; res may be Y itself) over
+// C outputs, K = 32 nst inputs.
+__device__ __forceinline__ void out_dense(Ctx& c, const Args& a, int t0,
+                                          int pk, int bias, const float* x,
+                                          int nst, float* y, const float* res,
+                                          int ldr) {
+  const float* b = a.w[bias];
+  if (res == nullptr)
+    dense<4>(c, a.pk[pk], 2, nst, x, LDA, [&](int r, int n, float v) {
+      y[r * LDA + n] = valid(a, t0, r) ? v + b[n] : 0.f;
+    });
+  else
+    dense<4>(c, a.pk[pk], 2, nst, x, LDA, [&](int r, int n, float v) {
+      y[r * LDA + n] = valid(a, t0, r) ? res[r * ldr + n] + (v + b[n]) : 0.f;
+    });
 }
 
-template <int STAGE>
-__global__ void __launch_bounds__(THREADS, 1) tok_stage(Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const int p = blockIdx.x;
-  float* pe = sm + TOK_PE;
-  float* x = sm + TOK_X;
-  float* y1 = sm + TOK_Y1;
-  float* state = a.state + (size_t)p * TP * C;
-  for (int i = threadIdx.x; i < TOK_FLOATS; i += THREADS) sm[i] = 0.f;
-  __syncthreads();
-  for (int i = threadIdx.x; i < a.T * C; i += THREADS) {
-    pe[i] = a.tokens[(size_t)p * a.T * C + i];
-    if (STAGE > 0) x[i] = state[i];
+// dst (P8 TP, CD) rows of the tile = x W^T + b over CD outputs.
+__device__ __forceinline__ void head_dense(Ctx& c, const Args& a, int t0,
+                                           int pk, int bias, const float* x,
+                                           float* dst) {
+  const float* b = a.w[bias];
+  dense<4>(c, a.pk[pk], 1, 8, x, LDA, [&](int r, int n, float v) {
+    dst[(size_t)(t0 + r) * CD + n] = valid(a, t0, r) ? v + b[n] : 0.f;
+  });
+}
+
+// The token side of an image->token update from the state in Y: token keys
+// (Y + pe) Wk + bk, values Y Wv + bv (into A), and the values folded
+// through the out-projection, U[c][h TP + t], a product per head, written
+// packed for the row phase (`ut`, prompt p's U_STAGES stages).
+__device__ void tok_update(Ctx& c, const Args& a, int t0, float* A, float* Y,
+                           int pk_k, int bk, int pk_v, int bv, int pk_o) {
+  if (!c.prod) {
+    with_pe(a, t0, A, Y);
+    tf32x3::consumers_sync();
   }
-  __syncthreads();
-  if (STAGE == 0) {
-    // block 1: self-attention of the tokens (no PE added, no residual)
-    tok_self_attn(a, sm, pe, pe, l0sa_q_w, y1);
-    tok_ln(y1, x, a.w[n1l0_w], a.w[n1l0_b], a.T);
-    tok_query(a, sm, p, t2i1_q_w);
-  } else if (STAGE == 1) {
-    tok_attn_mlp(a, sm, p, t2i1_o_w, n2l0_w, mlp1l0_w, mlp2l0_w, n3l0_w);
-    tok_update(a, sm, p, i2t1_k_w, i2t1_v_w, i2t1_o_w);
-    // block 2: self-attention with the PE on q and k, residual, LN
-    float* y2 = sm + TOK_Y2;
-    tok_add(x, pe, y2);
-    tok_self_attn(a, sm, y2, x, l1sa_q_w, y1);
-    tok_add(x, y1, x);
-    tok_ln(x, x, a.w[n1l1_w], a.w[n1l1_b], a.T);
-    tok_query(a, sm, p, t2i_q_w);
-  } else if (STAGE == 2) {
-    tok_attn_mlp(a, sm, p, t2i_o_w, n2_w, mlp1_w, mlp2_w, n3_w);
-    tok_update(a, sm, p, i2t_k_w, i2t_v_w, i2t_o_w);
-    tok_query(a, sm, p, fin_q_w);
+  head_dense(c, a, t0, pk_k, bk, A, a.ktok);
+  if (!c.prod) tf32x3::consumers_sync();   // A free again
+  const float* b = a.w[bv];
+  dense<4>(c, a.pk[pk_v], 1, 8, Y, LDA, [&](int r, int n, float v) {
+    A[r * LDA + n] = valid(a, t0, r) ? v + b[n] : 0.f;
+  });
+  if (!c.prod) tf32x3::consumers_sync();
+  for (int h = 0; h < H; ++h)
+    dense<2>(c, a.pk[pk_o] + (size_t)2 * h * STAGE_BYTES, 2, 1,
+             A + HD * h, LDA, [&](int r, int n, float v) {
+      const int row = t0 + r, k = h * TP + (r & 7), rr = n & 127;
+      const uint32_t off = rr * 128 + ((((k & 31) >> 2) ^ (rr & 7)) << 4) +
+                           (k & 3) * 4;
+      unsigned char* st =
+          a.ut + ((size_t)(row >> 3) * U_STAGES + (n >> 7) * 2 + (k >> 5)) *
+                     STAGE_BYTES;
+      uint32_t hi, lo;
+      tf32x3::split(valid(a, t0, r) ? v : 0.f, hi, lo);
+      *reinterpret_cast<uint32_t*>(st + off) = hi;
+      *reinterpret_cast<uint32_t*>(st + PART_BYTES + off) = lo;
+    });
+}
+
+// Y = LN(state + ((the MLP's partials summed in block order) + b2)); four
+// columns a thread at a time, two such groups' loads in flight.
+__device__ void mlp_sum_ln(const Args& a, int t0, float* Y, const float* st,
+                           int b2, int nw) {
+  const float* b = a.w[b2];
+  const size_t plane = (size_t)a.P8 * TP * C;
+#pragma unroll 2
+  for (int i = tf32x3::tid(); i < TR * C / 4; i += CONSUMERS) {
+    const int r = i / (C / 4), n = 4 * (i % (C / 4));
+    const size_t at = (size_t)(t0 + r) * C + n;
+    float4 p[KSPLIT];
+#pragma unroll
+    for (int j = 0; j < KSPLIT; ++j)
+      p[j] = *reinterpret_cast<const float4*>(a.mlp + j * plane + at);
+    const float4 x = *reinterpret_cast<const float4*>(st + at);
+    const float4 bb = *reinterpret_cast<const float4*>(b + n);
+    float4 s = p[0];
+#pragma unroll
+    for (int j = 1; j < KSPLIT; ++j) {
+      s.x += p[j].x;
+      s.y += p[j].y;
+      s.z += p[j].z;
+      s.w += p[j].w;
+    }
+    const bool keep = valid(a, t0, r);
+    *reinterpret_cast<float4*>(Y + r * LDA + n) =
+        keep ? make_float4(x.x + (s.x + bb.x), x.y + (s.y + bb.y),
+                           x.z + (s.z + bb.z), x.w + (s.w + bb.w))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  tf32x3::consumers_sync();
+  ln_tokens(a, t0, Y, nw);
+  tf32x3::consumers_sync();
+}
+
+// A token stage on the tile of token rows t0.. (block y of tok 2 / tok 4).
+template <int S>
+__device__ void tok_program(Ctx& c, const Args& a, int t0, int y, float* A,
+                            float* Y) {
+  const bool cons = !c.prod;
+  if (S == 0) {
+    // block 1: self-attention of the tokens (no PE added, no residual),
+    // q, k and v from `tok_qkv<0>`
+    if (cons) {
+      attn_core(a, t0, A);
+      tf32x3::consumers_sync();
+    }
+    out_dense(c, a, t0, pk_l0sa_o, l0sa_o_b, A, 8, Y, nullptr, 0);
+    if (cons) {
+      tf32x3::consumers_sync();
+      ln_tokens(a, t0, Y, n1l0_w);
+      tf32x3::consumers_sync();
+      rows_out(state(a, 0) + (size_t)t0 * C, Y);
+      with_pe(a, t0, A, Y);
+      tf32x3::consumers_sync();
+    }
+    head_dense(c, a, t0, pk_t2i1_q, t2i1_q_b, A, a.qh);
+  } else if (S == 1 || S == 3 || S == 5) {
+    // the token->image attention's out-projection, residual, LayerNorm
+    const int prev = S == 1 ? 0 : S == 3 ? 2 : 4;
+    const float* st = state(a, prev) + (size_t)t0 * C;
+    if (cons) {
+      rows_in(a, t0, A, a.att, CD, CD);
+      tf32x3::cp_async_wait_all();
+      tf32x3::consumers_sync();
+    }
+    out_dense(c, a, t0, S == 1 ? pk_t2i1_o : S == 3 ? pk_t2i_o : pk_fin_o,
+              S == 1 ? t2i1_o_b : S == 3 ? t2i_o_b : fin_o_b, A, 4, Y, st,
+              C);
+    if (cons) {
+      tf32x3::consumers_sync();
+      ln_tokens(a, t0, Y, S == 1 ? n2l0_w : S == 3 ? n2_w : nf_w);
+      tf32x3::consumers_sync();
+      if (S < 5) {
+        rows_out(state(a, S) + (size_t)t0 * C, Y);
+      } else {
+        for (int i = tf32x3::tid(); i < TR * C; i += CONSUMERS) {
+          const int r = i / C, n = i % C, row = t0 + r;
+          if (valid(a, t0, r))
+            a.tok_out[((size_t)(row >> 3) * a.T + (row & 7)) * C + n] =
+                Y[r * LDA + n];
+        }
+      }
+    }
   } else {
-    float* att = sm + TOK_ATT;
-    tok_merge(a, p, att);
-    tok_dense(att, CD, CD, a.w[fin_o_w], a.w[fin_o_b], C, y1, C, a.T, false);
-    tok_add(x, y1, x);
-    tok_ln(x, x, a.w[nf_w], a.w[nf_b], a.T);
-    for (int i = threadIdx.x; i < a.T * C; i += THREADS)
-      a.tok_out[(size_t)p * a.T * C + i] = x[i];
+    // S == 2 / 4: the MLP's partials summed, LayerNorm; then the update's
+    // token side (y = 0) or block 2's self-attention and the next query /
+    // the final query (y = 1)
+    const bool l0 = S == 2;
+    if (cons)
+      mlp_sum_ln(a, t0, Y, state(a, S - 1) + 0, l0 ? mlp2l0_b : mlp2_b,
+                 l0 ? n3l0_w : n3_w);
+    if (y == 0) {
+      if (l0)
+        tok_update(c, a, t0, A, Y, pk_i2t1_k, i2t1_k_b, pk_i2t1_v, i2t1_v_b,
+                   pk_i2t1_o);
+      else
+        tok_update(c, a, t0, A, Y, pk_i2t_k, i2t_k_b, pk_i2t_v, i2t_v_b,
+                   pk_i2t_o);
+      return;
+    }
+    if (l0) {
+      // block 2's self-attention, q, k and v from `tok_qkv<1>`
+      if (cons) {
+        attn_core(a, t0, A);
+        tf32x3::consumers_sync();
+      }
+      out_dense(c, a, t0, pk_l1sa_o, l1sa_o_b, A, 8, Y, Y, LDA);
+      if (cons) {
+        tf32x3::consumers_sync();
+        ln_tokens(a, t0, Y, n1l1_w);
+        tf32x3::consumers_sync();
+      }
+    }
+    if (cons) {
+      rows_out(state(a, S) + (size_t)t0 * C, Y);
+      with_pe(a, t0, A, Y);
+      tf32x3::consumers_sync();
+    }
+    head_dense(c, a, t0, l0 ? pk_t2i_q : pk_fin_q, l0 ? t2i_q_b : fin_q_b, A,
+               a.qh);
+  }
+}
+
+// Shared setup of a product kernel: the ring of `slots` at the aligned
+// base, its barriers initialised, the wait for the kernel before; returns
+// the base.
+__device__ __forceinline__ unsigned char* product_block(unsigned char* raw,
+                                                        int bar_off,
+                                                        int slots, Ctx& c) {
+  const uint32_t r = tf32x3::smem_u32(raw);
+  const uint32_t base = (r + 1023u) & ~1023u;
+  c.ring = Ring{base, base + bar_off, base + bar_off + 8 * slots, 0,
+                (uint32_t)slots};
+  c.prod = threadIdx.x == CONSUMERS;
+  c.wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    tf32x3::ring_init(c.ring);
+    tf32x3::mbar_init_fence();
+  }
+  __syncthreads();
+  tf32x3::grid_wait();
+  tf32x3::grid_launch_next();
+  return raw + (base - r);
+}
+
+template <int S>
+__global__ void __launch_bounds__(THREADS, 1) tok_stage(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Ctx c;
+  unsigned char* sm = product_block(smem_raw, TOK_BAR, TOK_RING, c);
+  if (threadIdx.x >= CONSUMERS && !c.prod) return;
+  tok_program<S>(c, a, blockIdx.x * TR, blockIdx.y,
+                 reinterpret_cast<float*>(sm + TOK_A),
+                 reinterpret_cast<float*>(sm + TOK_Y));
+}
+
+// A self-attention's q, k and v, a block each (blockIdx.y), into a.qkv:
+// block 1's of the PE (L = 0); block 2's (L = 1) of x + PE (q, k) and x
+// (v), x = LN(state + MLP) as tok 2 forms it.  Three blocks a tile, so
+// that the three products do not wait for each other.
+template <int L>
+__global__ void __launch_bounds__(THREADS, 1) tok_qkv(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Ctx c;
+  unsigned char* sm = product_block(smem_raw, TOK_BAR, TOK_RING, c);
+  if (threadIdx.x >= CONSUMERS && !c.prod) return;
+  float* A = reinterpret_cast<float*>(sm + TOK_A);
+  float* Y = reinterpret_cast<float*>(sm + TOK_Y);
+  const int t0 = blockIdx.x * TR, y = blockIdx.y;
+  if (!c.prod) {
+    if (L == 0) {
+      pe_in(a, t0, A);
+      tf32x3::cp_async_wait_all();
+    } else {
+      mlp_sum_ln(a, t0, Y, state(a, 1), mlp2l0_b, n3l0_w);
+      if (y < 2) with_pe(a, t0, A, Y);
+    }
+    tf32x3::consumers_sync();
+  }
+  const int pq = L == 0 ? pk_l0sa_q : pk_l1sa_q;
+  const int bq = L == 0 ? l0sa_q_b : l1sa_q_b;
+  // q, k, v weights and biases follow each other in both enums
+  qkv_dense(c, a, t0, pq + y, bq + 2 * y, L == 1 && y == 2 ? Y : A, C * y);
+}
+
+// The MLP of block L + 1, K-split: block (tile, j) computes the hidden
+// columns 256 j.. of its tile, relu(x W1^T + b1), then their partial of
+// the second product (no bias).
+template <int L>
+__global__ void __launch_bounds__(THREADS, 1) tok_mlp(Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Ctx c;
+  unsigned char* sm = product_block(smem_raw, TOK_BAR, TOK_RING, c);
+  if (threadIdx.x >= CONSUMERS && !c.prod) return;
+  float* A = reinterpret_cast<float*>(sm + TOK_A);
+  float* Y = reinterpret_cast<float*>(sm + TOK_Y);
+  const int t0 = blockIdx.x * TR, j = blockIdx.y;
+  if (!c.prod) {
+    rows_in(a, t0, A, state(a, L == 0 ? 1 : 3), C, C);
+    tf32x3::cp_async_wait_all();
+    tf32x3::consumers_sync();
+  }
+  const float* b1 = a.w[L == 0 ? mlp1l0_b : mlp1_b] + C * j;
+  dense<4>(c, a.pk[L == 0 ? pk_mlp1l0 : pk_mlp1] + (size_t)16 * j * STAGE_BYTES,
+           2, 8, A, LDA, [&](int r, int n, float v) {
+    Y[r * LDA + n] = valid(a, t0, r) ? fmaxf(v + b1[n], 0.f) : 0.f;
+  });
+  if (!c.prod) tf32x3::consumers_sync();
+  float* out = a.mlp + (size_t)j * a.P8 * TP * C + (size_t)t0 * C;
+  dense<4>(c, a.pk[L == 0 ? pk_mlp2l0 : pk_mlp2] + (size_t)16 * j * STAGE_BYTES,
+           2, 8, Y, LDA, [&](int r, int n, float v) {
+    out[(size_t)r * C + n] = v;
+  });
+}
+
+// The merged token->image attention: a thread a (prompt, head, token,
+// dim), the (head, token)'s tiles in order, rescaled to their largest max.
+template <int S>
+__global__ void __launch_bounds__(256) t2i_merge(Args a) {
+  tf32x3::grid_wait();
+  tf32x3::grid_launch_next();
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= a.P * HT * HD) return;
+  const int d = e % HD, t = (e / HD) % TP, h = (e / (HD * TP)) % H;
+  const int p = e / (HD * HT);
+  float* out = a.att + ((size_t)p * TP + t) * CD + h * HD + d;
+  if (t >= a.T) {
+    *out = 0.f;
     return;
   }
-  for (int i = threadIdx.x; i < TP * C; i += THREADS) state[i] = x[i];
+  const float* pp = a.part + (size_t)(p * HT + h * TP + t) * a.NT * PW;
+  // The tiles' loads in batches of 16 (each thread's loads are
+  // independent), the sums in tile order.
+  float mx = -INFINITY;
+  for (int i0 = 0; i0 < a.NT; i0 += 16) {
+    float m[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      m[j] = i0 + j < a.NT ? pp[(i0 + j) * PW] : -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, m[j]);
+  }
+  float num = 0.f, den = 0.f;
+  for (int i0 = 0; i0 < a.NT; i0 += 16) {
+    float m[16], l[16], v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const bool in = i0 + j < a.NT;
+      const float* q = pp + (in ? i0 + j : 0) * PW;
+      m[j] = in ? q[0] : -INFINITY;
+      l[j] = q[1];
+      v[j] = q[2 + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float wgt = expf(m[j] - mx);
+      num = fmaf(wgt, v[j], num);
+      den = fmaf(wgt, l[j], den);
+    }
+  }
+  *out = num / den;
 }
 
 // --------------------------------------------------------------------------
 // row phases
 // --------------------------------------------------------------------------
 
-constexpr int LDA = C + 4;    // the tile's rows (floats)
 constexpr int LDQ = CD + 4;   // q / k / v rows
 constexpr int LDP = HT + 4;   // P rows
-constexpr int ROW_A = 0;                              // [TR][LDA]
-constexpr int ROW_B = ROW_A + TR * LDA;               // 2 weight stages
-constexpr int ROW_Q = ROW_B + 2 * f32tile::STAGE_FLOATS; // [TR][LDQ]: q, then k
-constexpr int ROW_V = ROW_Q + TR * LDQ;               // [TR][LDQ]
-constexpr int ROW_P = ROW_V + TR * LDQ;               // [TR][LDP]
-constexpr int ROW_KT = ROW_P + TR * LDP;              // [TP][CD] token keys
-constexpr int ROW_FLOATS = ROW_KT + TP * CD;
+constexpr int KT_HEAD = HD + 4;        // a head of the staged token keys
+constexpr int KT_ROW = H * KT_HEAD;    // a token of them
+// Shared memory of a row phase, bytes from the 1024-aligned base: the
+// ring, the tile X (v takes its place once the wide product's last chunk
+// has read it: [TR][LDQ]), q then k, P, the token keys.
+constexpr int ROW_X = ROW_RING * STAGE_BYTES;          // [TR][LDA]
+constexpr int ROW_Q = ROW_X + TR * LDA * 4;            // [TR][LDQ]: q, then k
+constexpr int ROW_P = ROW_Q + TR * LDQ * 4;            // [TR][LDP]
+constexpr int ROW_KT = ROW_P + TR * LDP * 4;           // [TP][KT_ROW] token keys
+constexpr int ROW_QH = ROW_KT + TP * KT_ROW * 4;       // [TP][CD] query heads
+constexpr int ROW_BAR = ROW_QH + TP * CD * 4;
+constexpr int ROW_SMEM = ROW_BAR + 16 * ROW_RING + 1024;
+
+// `rows` rows of `width` floats from src (row stride ld) into dst (row
+// stride ldd) by cp.async; the caller waits.
+__device__ void load_rows(float* dst, int ldd, const float* src, size_t ld,
+                          int rows, int width) {
+  const int per = width / 4;
+  for (int i = tf32x3::tid(); i < rows * per; i += CONSUMERS) {
+    const int r = i / per, q = i - r * per;
+    tf32x3::cp_async16(dst + r * ldd + 4 * q, src + r * ld + 4 * q);
+  }
+}
 
 // The tile's partial token->image softmax: four threads a (head, token),
-// rows sub + 4 i; (max, sum, P V) of the 64 rows written to `part`.
+// rows sub + 4 i; (max, sum, P V) of the 64 rows written to `part`.  qs:
+// the prompt's query heads (TP x CD), staged in shared memory.
 __device__ void row_partial(const Args& a, int p, int tile, const float* ks,
-                            const float* vs) {
-  const int pair = threadIdx.x >> 2, sub = threadIdx.x & 3;
+                            const float* vs, const float* qs) {
+  const int pair = tf32x3::tid() >> 2, sub = tf32x3::tid() & 3;
   const int h = pair / TP, t = pair % TP;
   if (t >= a.T) return;        // the group's four lanes leave together
-  const unsigned lane = threadIdx.x & 31;
+  const unsigned lane = tf32x3::tid() & 31;
   const unsigned group = 0xfu << (lane & ~3u);
-  const float* qr = a.qh + ((size_t)p * TP + t) * CD + h * HD;
+  const float* qr = qs + t * CD + h * HD;
   float q[HD];
 #pragma unroll
   for (int d = 0; d < HD; d += 4) {
@@ -459,29 +829,45 @@ __device__ void row_partial(const Args& a, int p, int tile, const float* ks,
     q[d + 2] = v.z;
     q[d + 3] = v.w;
   }
-  float s[TR / 4];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < TR / 4; ++i) {
-    const float* kr = ks + (sub + 4 * i) * LDQ + h * HD;
+  // The max over the thread's 16 rows, then each row's score again (the
+  // same operations, so the same value) for its exponential: no array of
+  // scores is held.
+  auto score = [&](int i) {
+    const float4* kr =
+        reinterpret_cast<const float4*>(ks + (sub + 4 * i) * LDQ + h * HD);
     float acc = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc = fmaf(q[d], kr[d], acc);
-    s[i] = acc * SCALE;
-    mx = fmaxf(mx, s[i]);
-  }
+    for (int d = 0; d < HD / 4; ++d) {
+      const float4 k = kr[d];
+      acc = fmaf(q[4 * d], k.x, acc);
+      acc = fmaf(q[4 * d + 1], k.y, acc);
+      acc = fmaf(q[4 * d + 2], k.z, acc);
+      acc = fmaf(q[4 * d + 3], k.w, acc);
+    }
+    return acc * SCALE;
+  };
+  float mx = -INFINITY;
+#pragma unroll 4
+  for (int i = 0; i < TR / 4; ++i) mx = fmaxf(mx, score(i));
   mx = fmaxf(mx, __shfl_xor_sync(group, mx, 1));
   mx = fmaxf(mx, __shfl_xor_sync(group, mx, 2));
   float l = 0.f, pv[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) pv[d] = 0.f;
-#pragma unroll
+#pragma unroll 4
   for (int i = 0; i < TR / 4; ++i) {
-    const float e = expf(s[i] - mx);
+    const float e = expf(score(i) - mx);
     l += e;
-    const float* vr = vs + (sub + 4 * i) * LDQ + h * HD;
+    const float4* vr =
+        reinterpret_cast<const float4*>(vs + (sub + 4 * i) * LDQ + h * HD);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) pv[d] = fmaf(e, vr[d], pv[d]);
+    for (int d = 0; d < HD / 4; ++d) {
+      const float4 v = vr[d];
+      pv[4 * d] = fmaf(e, v.x, pv[4 * d]);
+      pv[4 * d + 1] = fmaf(e, v.y, pv[4 * d + 1]);
+      pv[4 * d + 2] = fmaf(e, v.z, pv[4 * d + 2]);
+      pv[4 * d + 3] = fmaf(e, v.w, pv[4 * d + 3]);
+    }
   }
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
@@ -498,200 +884,290 @@ __device__ void row_partial(const Args& a, int p, int tile, const float* ks,
   }
 }
 
-// The image update of the tile in `as` (prev, 64 x C), in place: per row
-// and head the softmax over the tokens of q . ktok / 4, P (64 x HT) times
-// U (the prompt's folded values, C x HT), x = (prev + delta) + bo, then the
-// row LayerNorm (g, b); the result written to `out` (the tile's rows).
-__device__ void row_update(const Args& a, float* sm, int p, const float* qs,
-                           int ow, int nw, float* out) {
-  float* as = sm + ROW_A;
-  float* ps = sm + ROW_P;
-  const float* kt = sm + ROW_KT;
-  {
-    const int r = threadIdx.x >> 2;
-    for (int hh = 0; hh < 2; ++hh) {
-      const int h = (threadIdx.x & 3) * 2 + hh;
-      const float* qr = qs + r * LDQ + h * HD;
-      float s[TP];
-      float mx = -INFINITY;
+// The image update's probabilities: per row and head the softmax over the
+// tokens of q . ktok / 4 (a thread a row and heads h, h + 4), into ps.  The
+// token keys are staged a head to 20 floats (`KT_HEAD`), so that the four
+// heads a quarter-warp reads fall on distinct banks.
+__device__ void row_scores(const Args& a, const float* qs, const float* kt,
+                           float* ps) {
+  const int r = tf32x3::tid() >> 2;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int h = (tf32x3::tid() & 3) + 4 * hh;
+    float4 q[HD / 4];
 #pragma unroll
-      for (int t = 0; t < TP; ++t) {
-        float acc = 0.f;
+    for (int d = 0; d < HD / 4; ++d)
+      q[d] = *reinterpret_cast<const float4*>(qs + r * LDQ + h * HD + 4 * d);
+    float s[TP];
+    float mx = -INFINITY;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(qr[d], kt[t * CD + h * HD + d], acc);
-        s[t] = acc * SCALE;
-        if (t < a.T) mx = fmaxf(mx, s[t]);
+    for (int t = 0; t < TP; ++t) {
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD / 4; ++d) {
+        const float4 k = *reinterpret_cast<const float4*>(
+            kt + t * KT_ROW + h * KT_HEAD + 4 * d);
+        acc = fmaf(q[d].x, k.x, acc);
+        acc = fmaf(q[d].y, k.y, acc);
+        acc = fmaf(q[d].z, k.z, acc);
+        acc = fmaf(q[d].w, k.w, acc);
       }
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < TP; ++t) {
-        s[t] = t < a.T ? expf(s[t] - mx) : 0.f;
-        sum += s[t];
-      }
-#pragma unroll
-      for (int t = 0; t < TP; ++t) ps[r * LDP + h * TP + t] = s[t] / sum;
+      s[t] = acc * SCALE;
+      if (t < a.T) mx = fmaxf(mx, s[t]);
     }
-  }
-  // delta = P U^T chunk by chunk; x = (prev + delta) + bo in place.
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* u = a.ut + (size_t)p * C * HT;
-  const float* bo = a.w[ow + 1];
-  for (int n0 = 0; n0 < C; n0 += f32tile::TN) {
-    float acc[4][8];
-    f32tile::zero(acc);
-    f32tile::tile_product(acc, ps, LDP, u, HT, n0, HT, sm + ROW_B);
+    float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int t = 0; t < TP; ++t) {
+      s[t] = t < a.T ? expf(s[t] - mx) : 0.f;
+      sum += s[t];
+    }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = 4 * ty + i, c = n0 + tx + 16 * j;
-        as[r * LDA + c] = (as[r * LDA + c] + acc[i][j]) + bo[c];
-      }
+    for (int t = 0; t < TP; ++t) ps[r * LDP + h * TP + t] = s[t] / sum;
   }
-  __syncthreads();
-  // Row LayerNorm: four threads a row, columns q + 4 i.
-  {
-    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
-    const unsigned lane = threadIdx.x & 31;
-    const unsigned group = 0xfu << (lane & ~3u);
-    float* xr = as + r * LDA;
-    float s = 0.f;
-    for (int i = 0; i < C / 4; ++i) s += xr[q + 4 * i];
-    s += __shfl_xor_sync(group, s, 1);
-    s += __shfl_xor_sync(group, s, 2);
-    const float mean = s / C;
-    float v = 0.f;
-    for (int i = 0; i < C / 4; ++i) {
-      const float d = xr[q + 4 * i] - mean;
-      v = fmaf(d, d, v);
-    }
-    v += __shfl_xor_sync(group, v, 1);
-    v += __shfl_xor_sync(group, v, 2);
-    const float rs = 1.f / sqrtf(v / C + EPS);
-    const float* g = a.w[nw];
-    const float* b = a.w[nw + 1];
-    for (int i = 0; i < C / 4; ++i) {
-      const int c = q + 4 * i;
-      xr[c] = (xr[c] - mean) * rs * g[c] + b[c];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TR * C / 4; i += THREADS) {
-    const int r = i / (C / 4), c = 4 * (i % (C / 4));
-    *reinterpret_cast<float4*>(out + (size_t)r * C + c) =
-        *reinterpret_cast<const float4*>(as + r * LDA + c);
-  }
+}
+
+// The part of the wide weight (0 k, 1 v, 2 q: its chunks) that row phase
+// PHASE's ch-th product takes: row 1 q, k, v; row 2 k, v.  v comes last, so
+// that it can take the tile's place.
+__host__ __device__ constexpr int wide_chunk(int phase, int ch) {
+  return phase == 1 ? (ch + 2) % 3 : ch;
 }
 
 template <int PHASE>
 __global__ void __launch_bounds__(THREADS, 1) row_phase(Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const int tile = blockIdx.x, p = blockIdx.y;
-  const size_t m0 = (size_t)tile * TR;
-  float* as = sm + ROW_A;
-  float* qk = sm + ROW_Q;
-  float* vs = sm + ROW_V;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  if (PHASE == 0) {
-    const size_t ir = image_row(a, p) + m0;
-    f32tile::load_rows(qk, LDQ, a.k1 + ir * CD, CD, TR, CD);
-    f32tile::load_rows(vs, LDQ, a.v1 + ir * CD, CD, TR, CD);
-    f32tile::cp_commit();
-    f32tile::cp_wait<0>();
-    __syncthreads();
-    row_partial(a, p, tile, qk, vs);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Ctx c;
+  unsigned char* sm = product_block(smem_raw, ROW_BAR, ROW_RING, c);
+  const int items = a.NT * a.P;
+  const int nwide = PHASE == 1 ? 3 : 2;   // chunks of the wide product
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: a prompt's folded values, then the wide weight ----
+    if (c.prod && PHASE > 0) {
+      const unsigned char* wide = a.pk[PHASE == 1 ? pk_wide2 : pk_widef];
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const unsigned char* u =
+            a.ut + (size_t)(it / a.NT) * U_STAGES * STAGE_BYTES;
+        for (int s = 0; s < U_STAGES; ++s)
+          tf32x3::put(c.ring, u + (size_t)s * STAGE_BYTES);
+        // the chunks in the consumers' order: (row 1) q, then k, then v
+        for (int ch = 0; ch < nwide; ++ch)
+          for (int s = 0; s < 8; ++s)
+            tf32x3::put(c.ring, wide + (size_t)(8 * wide_chunk(PHASE, ch) + s) *
+                                           STAGE_BYTES);
+      }
+    }
     return;
   }
-  // prev (keys0 of the prompt's image, or keys1), the image-side q (q1i or
-  // q2i) and the update's token keys.
-  const size_t pr = (size_t)p * a.M + m0;
-  if (PHASE == 1) {
-    const size_t ir = image_row(a, p) + m0;
-    f32tile::load_rows(as, LDA, a.keys0 + ir * C, C, TR, C);
-    f32tile::load_rows(qk, LDQ, a.q1i + ir * CD, CD, TR, CD);
-  } else {
-    f32tile::load_rows(as, LDA, a.keys1 + pr * C, C, TR, C);
-    f32tile::load_rows(qk, LDQ, a.q2i + pr * CD, CD, TR, CD);
-  }
-  f32tile::load_rows(sm + ROW_KT, CD, a.ktok + (size_t)p * TP * CD, CD, TP, CD);
-  f32tile::cp_commit();
-  f32tile::cp_wait<0>();
-  __syncthreads();
-  if (PHASE == 1)
-    row_update(a, sm, p, qk, i2t1_o_w, n4l0_w, a.keys1 + pr * C);
-  else
-    row_update(a, sm, p, qk, i2t_o_w, n4_w, a.keys2 + pr * C);
-  // The wide product of the updated tile, a chunk of 128 columns at a time:
-  // row 1 q2i (to device memory), then k, v; row 2 k, v.
-  const float* wide = a.w[PHASE == 1 ? wide2 : widef];
-  const float* kpe = a.w[PHASE == 1 ? kpe2 : kpef];
-  const float* bv = a.w[PHASE == 1 ? bv2 : bvf];
-  const int first = PHASE == 1 ? -1 : 0;
-  for (int chunk = first; chunk < 2; ++chunk) {
-    const int n0 = (chunk < 0 ? 2 : chunk) * f32tile::TN;
-    float acc[4][8];
-    f32tile::zero(acc);
-    f32tile::tile_product(acc, as, LDA, wide, C, n0, C, sm + ROW_B);
+  float* xs = reinterpret_cast<float*>(sm + ROW_X);
+  float* qk = reinterpret_cast<float*>(sm + ROW_Q);
+  float* vs = xs;
+  float* ps = reinterpret_cast<float*>(sm + ROW_P);
+  float* kt = reinterpret_cast<float*>(sm + ROW_KT);
+  float* qt = reinterpret_cast<float*>(sm + ROW_QH);
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int tile = it % a.NT, p = it / a.NT;
+    const size_t m0 = (size_t)tile * TR;
+    tf32x3::consumers_sync();   // the last item's reads of the buffers
+    if (PHASE == 0) {
+      const size_t ir = image_row(a, p) + m0;
+      load_rows(qk, LDQ, a.k1 + ir * CD, CD, TR, CD);
+      load_rows(vs, LDQ, a.v1 + ir * CD, CD, TR, CD);
+      load_rows(qt, CD, a.qh + (size_t)p * TP * CD, CD, TP, CD);
+      tf32x3::cp_async_wait_all();
+      tf32x3::consumers_sync();
+      row_partial(a, p, tile, qk, vs, qt);
+      continue;
+    }
+    // prev (keys0 of the prompt's image, or keys1), the image-side q (q1i
+    // or q2i) and the update's token keys.
+    const size_t pr = (size_t)p * a.M + m0;
+    if (PHASE == 1) {
+      const size_t ir = image_row(a, p) + m0;
+      load_rows(xs, LDA, a.keys0 + ir * C, C, TR, C);
+      load_rows(qk, LDQ, a.q1i + ir * CD, CD, TR, CD);
+    } else {
+      load_rows(xs, LDA, a.keys1 + pr * C, C, TR, C);
+      load_rows(qk, LDQ, a.q2i + pr * CD, CD, TR, CD);
+    }
+    for (int i = tf32x3::tid(); i < TP * CD / 4; i += CONSUMERS) {
+      const int t = i / (CD / 4), c = 4 * (i % (CD / 4));
+      tf32x3::cp_async16(kt + t * KT_ROW + (c / HD) * KT_HEAD + c % HD,
+                         a.ktok + ((size_t)p * TP + t) * CD + c);
+    }
+    load_rows(qt, CD, a.qh + (size_t)p * TP * CD, CD, TP, CD);
+    tf32x3::cp_async_wait_all();
+    tf32x3::consumers_sync();
+    row_scores(a, qk, kt, ps);
+    tf32x3::consumers_sync();
+    // x = (prev + P U^T) + bo, in place.
+    const float* bo = a.w[PHASE == 1 ? i2t1_o_b : i2t_o_b];
+#pragma unroll 1
+    for (int ch = 0; ch < 2; ++ch) {
+      float acc[32];
+      tf32x3::product<4>(c.ring, acc, ps, LDP, 2, true, c.wg);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = 4 * ty + i, c = tx + 16 * j;
-        const size_t row = m0 + r;
-        if (chunk < 0)
-          a.q2i[(pr + r) * CD + c] = acc[i][j] + a.w[qpe2i][row * CD + c];
-        else if (chunk == 0)
-          qk[r * LDQ + c] = acc[i][j] + kpe[row * CD + c];
-        else
-          vs[r * LDQ + c] = acc[i][j] + bv[c];
+      for (int i = 0; i < 32; ++i) {
+        const int r = tf32x3::acc_row(i);
+        const int n = 128 * ch + 64 * c.wg + tf32x3::acc_col(i);
+        xs[r * LDA + n] = (xs[r * LDA + n] + acc[i]) + bo[n];
       }
+    }
+    tf32x3::consumers_sync();
+    ln_rows(xs, a.w[PHASE == 1 ? n4l0_w : n4_w],
+            a.w[PHASE == 1 ? n4l0_b : n4_b], true);
+    tf32x3::consumers_sync();
+    rows_out((PHASE == 1 ? a.keys1 : a.keys2) + pr * C, xs);
+    // The wide product, chunk by chunk: (row 1) q2i to device memory, k
+    // into qk, then v into the tile's place once both warpgroups have read
+    // the tile for it.
+    const float* kpe = a.w[PHASE == 1 ? kpe2 : kpef];
+    const float* bv = a.w[PHASE == 1 ? bv2 : bvf];
+#pragma unroll 1
+    for (int ch = 0; ch < nwide; ++ch) {
+      const int part = wide_chunk(PHASE, ch);   // 0 k, 1 v, 2 q
+      float acc[32];
+      tf32x3::product<4>(c.ring, acc, xs, LDA, 8, true, c.wg);
+      // One loop a part, so that no branch stands between the loads.
+      const int n0 = 64 * c.wg;
+      if (part == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = tf32x3::acc_row(i), n = n0 + tf32x3::acc_col(i);
+          qk[r * LDQ + n] = acc[i] + kpe[(m0 + r) * CD + n];
+        }
+      } else if (part == 1) {
+        tf32x3::consumers_sync();   // both warpgroups done with the tile
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = tf32x3::acc_row(i), n = n0 + tf32x3::acc_col(i);
+          vs[r * LDQ + n] = acc[i] + bv[n];
+        }
+      } else {
+        const float* qpe = a.w[qpe2i] + m0 * CD;
+        float* q2 = a.q2i + pr * CD;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = tf32x3::acc_row(i), n = n0 + tf32x3::acc_col(i);
+          q2[r * CD + n] = acc[i] + qpe[r * CD + n];
+        }
+      }
+    }
+    tf32x3::consumers_sync();
+    row_partial(a, p, tile, qk, vs, qt);
   }
-  __syncthreads();
-  row_partial(a, p, tile, qk, vs);
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int floats) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              floats * (int)sizeof(float));
+// --------------------------------------------------------------------------
+// host side
+// --------------------------------------------------------------------------
+
+// Byte offsets of the scratch buffers in one allocation (1024-aligned).
+struct Layout {
+  size_t keys1, q2i, state, qkv, mlp, att, qh, ktok, ut, part, total;
+};
+
+Layout layout(int P, int M) {
+  const size_t p8 = (size_t)(P + 7) / 8 * 8, rows = p8 * TP;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    const size_t off = at;
+    at += (bytes + 1023) / 1024 * 1024;
+    return off;
+  };
+  Layout l;
+  l.keys1 = take((size_t)P * M * C * 4);
+  l.q2i = take((size_t)P * M * CD * 4);
+  l.state = take(5 * rows * C * 4);
+  l.qkv = take(rows * 3 * C * 4);
+  l.mlp = take(KSPLIT * rows * C * 4);
+  l.att = take(rows * CD * 4);
+  l.qh = take(rows * CD * 4);
+  l.ktok = take(rows * CD * 4);
+  l.ut = take(p8 * U_STAGES * STAGE_BYTES);
+  l.part = take((size_t)P * HT * (M / TR) * PW * 4);
+  l.total = at;
+  return l;
+}
+
+// Launch `k` on `st`; with `follows`, as a programmatic dependent of the
+// kernel before it on the stream.
+cudaError_t launch(void (*k)(Args), dim3 grid, int threads, int smem,
+                   cudaStream_t st, bool follows, const Args& a) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = follows ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, k, a);
 }
 
 cudaError_t configure() {
   static const cudaError_t status = [] {
-    cudaError_t e = cudaSuccess;
-    const cudaError_t all[] = {
-        set_smem(tok_stage<0>, TOK_FLOATS), set_smem(tok_stage<1>, TOK_FLOATS),
-        set_smem(tok_stage<2>, TOK_FLOATS), set_smem(tok_stage<3>, TOK_FLOATS),
-        set_smem(row_phase<0>, ROW_FLOATS), set_smem(row_phase<1>, ROW_FLOATS),
-        set_smem(row_phase<2>, ROW_FLOATS)};
-    for (cudaError_t x : all)
-      if (x != cudaSuccess) e = x;
-    return e;
+    void (*tok[])(Args) = {tok_stage<0>, tok_stage<1>, tok_stage<2>,
+                           tok_stage<3>, tok_stage<4>, tok_stage<5>,
+                           tok_mlp<0>,   tok_mlp<1>,   tok_qkv<0>,
+                           tok_qkv<1>};
+    for (auto k : tok) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, TOK_SMEM);
+      if (e != cudaSuccess) return e;
+    }
+    void (*rows[])(Args) = {row_phase<0>, row_phase<1>, row_phase<2>};
+    for (auto k : rows) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, ROW_SMEM);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
   }();
   return status;
 }
 
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 132;
+    return v;
+  }();
+  return n;
+}
+
 }  // namespace
 
+// Bytes of the scratch allocation that `twoway_tail_f32_forward` takes for
+// P prompts and M rows.
+extern "C" long long twoway_tail_f32_scratch_bytes(int P, int M) {
+  if (P <= 0 || M <= 0) return 0;
+  return (long long)layout(P, M).total;
+}
+
 // keys0 (B, M, 256), q1i/k1/v1 (B, M, 128), tokens (P, T, 256), the
-// N_PARAMS parameters (`params`, device pointers in `PARAM_NAMES` order),
-// all float32 and contiguous; img (P,) int32 or null.  Outputs keys2 (P, M,
-// 256), tok_out (P, T, 256); scratch keys1 (P, M, 256), q2i (P, M, 128),
-// state (P, 8, 256), qh and ktok (P, 8, 128), ut (P, 256, 64), part (P, 64,
-// M / 64, 20).  Returns a cudaError_t: cudaErrorInvalidValue for arguments
-// the kernels do not take.
+// N_PARAMS parameters (`params`, device pointers in `PARAM_NAMES` order)
+// and the N_PACKED packed weights (`packed`, in `PACKED` order), all
+// float32 and contiguous; img (P,) int32 or null; scratch of
+// `twoway_tail_f32_scratch_bytes(P, M)` bytes.  Outputs keys2 (P, M, 256),
+// tok_out (P, T, 256).  Returns a cudaError_t: cudaErrorInvalidValue for
+// arguments the kernels do not take.
 extern "C" int twoway_tail_f32_forward(
     const float* keys0, const float* q1i, const float* k1, const float* v1,
-    const float* tokens, const void* const* params, float* keys2,
-    float* tok_out, float* keys1, float* q2i, float* state, float* qh,
-    float* ktok, float* ut, float* part, const int* img, int P, int T, int M,
-    int B, int mlp, void* stream) {
+    const float* tokens, const void* const* params,
+    const void* const* packed, float* keys2, float* tok_out, void* scratch,
+    const int* img, int P, int T, int M, int B, int mlp, void* stream) {
   if (P <= 0 || P > 65535 || T < 2 || T > TP || M <= 0 || M % TR || B < 1 ||
-      mlp != MLP || (img == nullptr && B != 1))
+      mlp != MLP || (img == nullptr && B != 1) ||
+      (long long)P * (M / TR) > (1 << 30))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = configure();
   if (e != cudaSuccess) return (int)e;
+  const Layout l = layout(P, M);
+  unsigned char* s = static_cast<unsigned char*>(scratch);
   Args a;
   a.keys0 = keys0;
   a.q1i = q1i;
@@ -701,42 +1177,69 @@ extern "C" int twoway_tail_f32_forward(
   a.tokens = tokens;
   a.keys2 = keys2;
   a.tok_out = tok_out;
-  a.keys1 = keys1;
-  a.q2i = q2i;
-  a.state = state;
-  a.qh = qh;
-  a.ktok = ktok;
-  a.ut = ut;
-  a.part = part;
+  a.keys1 = reinterpret_cast<float*>(s + l.keys1);
+  a.q2i = reinterpret_cast<float*>(s + l.q2i);
+  a.state = reinterpret_cast<float*>(s + l.state);
+  a.qkv = reinterpret_cast<float*>(s + l.qkv);
+  a.mlp = reinterpret_cast<float*>(s + l.mlp);
+  a.att = reinterpret_cast<float*>(s + l.att);
+  a.qh = reinterpret_cast<float*>(s + l.qh);
+  a.ktok = reinterpret_cast<float*>(s + l.ktok);
+  a.ut = s + l.ut;
+  a.part = reinterpret_cast<float*>(s + l.part);
   a.P = P;
   a.T = T;
   a.M = M;
   a.NT = M / TR;
   a.B = B;
+  a.P8 = (P + 7) / 8 * 8;
   for (int i = 0; i < N_PARAMS; ++i)
     a.w[i] = static_cast<const float*>(params[i]);
+  for (int i = 0; i < N_PACKED; ++i)
+    a.pk[i] = static_cast<const unsigned char*>(packed[i]);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const size_t tok_smem = TOK_FLOATS * sizeof(float);
-  const size_t row_smem = ROW_FLOATS * sizeof(float);
-  const dim3 rows(a.NT, P);
-  tok_stage<0><<<P, THREADS, tok_smem, cs>>>(a);
-  row_phase<0><<<rows, THREADS, row_smem, cs>>>(a);
-  tok_stage<1><<<P, THREADS, tok_smem, cs>>>(a);
-  row_phase<1><<<rows, THREADS, row_smem, cs>>>(a);
-  tok_stage<2><<<P, THREADS, tok_smem, cs>>>(a);
-  row_phase<2><<<rows, THREADS, row_smem, cs>>>(a);
-  tok_stage<3><<<P, THREADS, tok_smem, cs>>>(a);
+  const int tiles = a.P8 / 8, items = a.NT * P;
+  const dim3 rows(items < sm_count() ? items : sm_count());
+  const dim3 merge((P * HT * HD + 255) / 256);
+  struct Step {
+    void (*k)(Args);
+    dim3 grid;
+    int threads, smem;
+  };
+  const Step steps[] = {
+      {tok_qkv<0>, dim3(tiles, 3), THREADS, TOK_SMEM},
+      {tok_stage<0>, dim3(tiles), THREADS, TOK_SMEM},
+      {row_phase<0>, rows, THREADS, ROW_SMEM},
+      {t2i_merge<0>, merge, 256, 0},
+      {tok_stage<1>, dim3(tiles), THREADS, TOK_SMEM},
+      {tok_mlp<0>, dim3(tiles, KSPLIT), THREADS, TOK_SMEM},
+      {tok_qkv<1>, dim3(tiles, 3), THREADS, TOK_SMEM},
+      {tok_stage<2>, dim3(tiles, 2), THREADS, TOK_SMEM},
+      {row_phase<1>, rows, THREADS, ROW_SMEM},
+      {t2i_merge<1>, merge, 256, 0},
+      {tok_stage<3>, dim3(tiles), THREADS, TOK_SMEM},
+      {tok_mlp<1>, dim3(tiles, KSPLIT), THREADS, TOK_SMEM},
+      {tok_stage<4>, dim3(tiles, 2), THREADS, TOK_SMEM},
+      {row_phase<2>, rows, THREADS, ROW_SMEM},
+      {t2i_merge<2>, merge, 256, 0},
+      {tok_stage<5>, dim3(tiles), THREADS, TOK_SMEM}};
+  bool follows = false;
+  for (const Step& st : steps) {
+    e = launch(st.k, st.grid, st.threads, st.smem, cs, follows, a);
+    if (e != cudaSuccess) return (int)e;
+    follows = true;
+  }
   return (int)cudaGetLastError();
 }
 
-// out[0] a token stage's dynamic shared memory, out[1] a row phase's,
+// out[0] a token kernel's dynamic shared memory, out[1] a row phase's,
 // out[2] / out[3] their blocks an SM.
 extern "C" int twoway_tail_f32_occupancy(int* out) {
   cudaError_t e = configure();
   if (e != cudaSuccess) return (int)e;
-  out[0] = TOK_FLOATS * (int)sizeof(float);
-  out[1] = ROW_FLOATS * (int)sizeof(float);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], tok_stage<1>,
+  out[0] = TOK_SMEM;
+  out[1] = ROW_SMEM;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], tok_stage<2>,
                                                     THREADS, out[0]);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(

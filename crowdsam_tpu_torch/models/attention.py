@@ -56,6 +56,8 @@ import torch
 
 from crowdsam_tpu_torch.kernels import _build
 from crowdsam_tpu_torch.models.common import exact_float32
+from crowdsam_tpu_torch.models.tf32x3 import KEY_ORDER, tf32_round
+from crowdsam_tpu_torch.models.tf32x3 import split as _tf32_split
 
 _GLOBAL_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -250,22 +252,10 @@ def f32_attention_logits(a: F32Attention) -> torch.Tensor:
 # Key order of V^T within each 8-key group in the float32 arm: position c
 # holds key 2c for c < 4 and key 2(c - 4) + 1 otherwise, the order in which
 # the P V product's A fragments take the score accumulators.
-TF32X3_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+TF32X3_KEY_ORDER = KEY_ORDER
 TF32X3_FAULTS = ("lo.hi dropped", "V's keys unpermuted",
                  "a tile's lo part from the previous tile")
 _LOG2E = 1.4426950408889634
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 `x` rounded to TF32 (10 stored mantissa bits), to nearest
-    with ties away from zero, as `cvt.rna.tf32.f32`: on the float32 bits."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_split(x: torch.Tensor):
-    hi = tf32_round(x)
-    return hi, tf32_round(x - hi)
 
 
 def f32_attention_tf32x3_model(a: F32Attention,

@@ -33,11 +33,14 @@ split over tiles of ROW_TILE rows and merged in f32); the token
 self-attention's stay f32.
 
 Float32 (`tpu.compute_dtype float32`): every operand and parameter float32
-goes to the float32 arm, `csrc/decode_tail_f32.cu` (seven launches of FFMA
-kernels, see the source's note): plain float32 arithmetic, with the
-rounding points above the identity.  The plain version follows its input's
-dtype: float32 arithmetic for bf16 and float32 operands, float64 for
-float64 ones (the yardstick the card holds the float32 arm to).
+goes to the float32 arm, `csrc/decode_tail_f32.cu` (sixteen launches, see
+the source's note): float32 arithmetic with every product in 3xTF32 on the
+tensor cores, the rounding points above the identity; its weights are
+split and packed once (`PACKED`, `tf32x3.packed`), and
+`twoway_tail_tf32x3_model` writes its arithmetic out in PyTorch.  The plain
+version follows its input's dtype: float32 arithmetic for bf16 and float32
+operands, float64 for float64 ones (the yardstick the card holds the
+float32 arm to).
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel of the operands' dtype (bf16 or float32) or raises.
@@ -53,6 +56,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from crowdsam_tpu_torch.kernels import _build
+from crowdsam_tpu_torch.models import tf32x3
 
 # Kernel parameters in the order `csrc/decode_tail.cu` and
 # `csrc/decode_tail_f32.cu` index them (enum Param there).  `*_w` are Linear
@@ -78,6 +82,26 @@ PARAM_NAMES = (
     # block 2: token self-attention
     "l1sa_q_w", "l1sa_q_b", "l1sa_k_w", "l1sa_k_b",
     "l1sa_v_w", "l1sa_v_b", "l1sa_o_w", "l1sa_o_b", "n1l1_w", "n1l1_b",
+)
+
+# The float32 arm's packed weights (`tf32x3.packed`: split into TF32 hi +
+# lo once and laid out as the kernel's stages), in the order of `enum
+# Packed` in `csrc/decode_tail_f32.cu`: (parameter, packing).  The MLPs'
+# second weights are packed as 8 blocks of 256 inputs (the kernel's
+# K-split), the image updates' out-projections as 8 heads of 16 inputs
+# (the fold, a product per head).
+PACKED = (
+    ("wide2", "plain"), ("widef", "plain"),
+    ("l0sa_q_w", "plain"), ("l0sa_k_w", "plain"), ("l0sa_v_w", "plain"),
+    ("l0sa_o_w", "plain"), ("t2i1_q_w", "plain"), ("t2i1_o_w", "plain"),
+    ("mlp1l0_w", "plain"), ("mlp2l0_w", "columns:256"),
+    ("i2t1_k_w", "plain"), ("i2t1_v_w", "plain"),
+    ("i2t1_o_w", "columns:16"),
+    ("l1sa_q_w", "plain"), ("l1sa_k_w", "plain"), ("l1sa_v_w", "plain"),
+    ("l1sa_o_w", "plain"), ("t2i_q_w", "plain"), ("t2i_o_w", "plain"),
+    ("mlp1_w", "plain"), ("mlp2_w", "columns:256"),
+    ("i2t_k_w", "plain"), ("i2t_v_w", "plain"), ("i2t_o_w", "columns:16"),
+    ("fin_q_w", "plain"), ("fin_o_w", "plain"),
 )
 
 EMBED_DIM = 256         # C
@@ -175,8 +199,23 @@ class _Stages:
     def par(self, name):
         return self.params[name].to(self.acc)
 
+    def mm(self, x, w, name):
+        """x @ w^T: every product of the kernel's tensor cores (a dense
+        layer's weight `name`, "wide2", "widef")."""
+        return x @ w.T
+
+    def fold(self, v_tok, w_o):
+        """The out-projection folded onto the token values, (P, H, T, d) x
+        (C, H, d) -> (P, H, T, C)."""
+        return torch.einsum("phtd,chd->phtc", v_tok, w_o)
+
+    def expand(self, p, u):
+        """The rank-(H T) image update, (P, H, M, T) x (P, H, T, C) ->
+        (P, M, C)."""
+        return torch.einsum("phmt,phtc->pmc", p, u)
+
     def dense(self, x, pfx):
-        return self.rnd(self.rnd(x) @ self.par(f"{pfx}_w").T
+        return self.rnd(self.mm(self.rnd(x), self.par(f"{pfx}_w"), pfx)
                         + self.par(f"{pfx}_b"))
 
     def ln32(self, x, pfx):
@@ -224,9 +263,8 @@ def _image_update(st: _Stages, prev, q_img, tok, pe, pfx: str, npfx: str,
     qi = _heads(q_img, num_heads)                   # (H, M, d) or (P, H, M, d)
     p = st.rnd(torch.softmax((qi @ k_tok.transpose(-1, -2)) * scale, dim=-1))
     w_o = st.par(f"{pfx}_o_w")                      # (C, H*d)
-    u = st.rnd(torch.einsum("phtd,chd->phtc", v_tok,
-                            w_o.reshape(w_o.shape[0], num_heads, -1)))
-    delta = torch.einsum("phmt,phtc->pmc", p, u)
+    u = st.rnd(st.fold(v_tok, w_o.reshape(w_o.shape[0], num_heads, -1)))
+    delta = st.expand(p, u)
     # The LayerNorm's input sum stays f32 (the kernel forms it twice).
     return st.rnd(st.ln32(prev + st.rnd(delta) + st.par(f"{pfx}_o_b"),
                           npfx))
@@ -258,10 +296,17 @@ def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
     keys0's.  With B > 1
     images, one single-image computation a present image over its prompts,
     the results put back in prompt order."""
+    return _tail_images(keys0, q1i, k1, v1, tokens, params, num_heads, img,
+                        _Stages)
+
+
+def _tail_images(keys0, q1i, k1, v1, tokens, params, num_heads, img, stages):
+    """`twoway_tail_plain` with its products made by `stages(params,
+    dtype)` (`_Stages`; the float32 arm's model passes its own)."""
     (keys0, q1i, k1, v1), b = _image_rows(keys0, q1i, k1, v1, img)
     if b == 1:
         return _tail_one(keys0[0], q1i[0], k1[0], v1[0], tokens, params,
-                         num_heads)
+                         num_heads, stages)
     img = img.to(device=tokens.device, dtype=torch.int64)
     if bool(((img < 0) | (img >= b)).any()):
         raise ValueError(f"twoway_tail: image index outside 0..{b - 1}")
@@ -273,18 +318,18 @@ def twoway_tail_plain(keys0: torch.Tensor, q1i: torch.Tensor,
         if rows.numel():
             keys2[rows], tok[rows] = _tail_one(
                 keys0[i], q1i[i], k1[i], v1[i], tokens[rows], params,
-                num_heads)
+                num_heads, stages)
     return keys2, tok
 
 
 def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
               v1: torch.Tensor, tokens: torch.Tensor,
-              params: Dict[str, torch.Tensor], num_heads: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              params: Dict[str, torch.Tensor], num_heads: int,
+              stages=_Stages) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version on one image's operands (M, .)."""
     dt = keys0.dtype
     H = num_heads
-    st = _Stages(params, dt)
+    st = stages(params, dt)
     rnd, par, dense, ln = st.rnd, st.par, st.dense, st.ln32
 
     def self_attn(x_qk, x_v, pfx):
@@ -313,7 +358,7 @@ def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
 
     # block 2
     queries = ln(qb1 + self_attn(_with_pe(qb1, pe), qb1, "l1sa"), "n1l1")
-    kvq = keys1 @ par("wide2").T                       # (P, M, 3*cd)
+    kvq = st.mm(keys1, par("wide2"), "wide2")          # (P, M, 3*cd)
     k2 = rnd(kvq[..., :cd] + par("kpe2"))
     v2 = rnd(kvq[..., cd:2 * cd] + par("bv2"))
     q2i = rnd(kvq[..., 2 * cd:] + par("qpe2i"))
@@ -324,7 +369,7 @@ def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     keys2 = _image_update(st, keys1, q2i, queries, pe, "i2t", "n4", H)
 
     # final token -> image attention
-    kvf = keys2 @ par("widef").T
+    kvf = st.mm(keys2, par("widef"), "widef")
     kf = rnd(kvf[..., :cd] + par("kpef"))
     vf = rnd(kvf[..., cd:] + par("bvf"))
     qh = dense(_with_pe(queries, pe), "fin_q")
@@ -333,12 +378,86 @@ def _tail_one(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the float32 arm's arithmetic
+# ---------------------------------------------------------------------------
+
+# The faults of the float32 arm's design that its model computes: those of
+# every product, and a prompt's image update taking the next prompt's
+# folded values (the packed values the token stage writes a prompt).
+TWOWAY_FAULTS = tf32x3.PRODUCT_FAULTS + (
+    "a prompt's folded values from the next prompt",)
+
+
+class _TF32x3Stages(_Stages):
+    """The float32 arm's products (`csrc/decode_tail_f32.cu`) in 3xTF32
+    (`tf32x3.mm`, 32 inputs a stage): the dense layers and the wide
+    products; the MLP's 2048-deep second product as 8 partials of 256
+    inputs summed in order (the kernel's K-split); the fold per head (16
+    inputs); the image update over the (head, token) axis with 8 tokens a
+    head, the padding tokens zero, as the kernel lays out the folded
+    values.  `fault`: one of `TWOWAY_FAULTS` or None."""
+
+    fault: Optional[str] = None
+
+    def _product_fault(self):
+        return self.fault if self.fault in tf32x3.PRODUCT_FAULTS else None
+
+    def mm(self, x, w, name):
+        f = self._product_fault()
+        if not name.startswith("mlp2"):
+            return tf32x3.mm(x, w, f)
+        out = None
+        for j in range(0, w.shape[1], EMBED_DIM):
+            part = tf32x3.mm(x[..., j:j + EMBED_DIM], w[:, j:j + EMBED_DIM],
+                             f)
+            out = part if out is None else out + part
+        return out
+
+    def fold(self, v_tok, w_o):
+        f = self._product_fault()
+        return torch.stack([tf32x3.mm(v_tok[:, h], w_o[:, h], f)
+                            for h in range(v_tok.shape[1])], dim=1)
+
+    def expand(self, p, u):
+        n, h, m, t = p.shape
+        pad = MAX_TOKENS - t
+        a = torch.nn.functional.pad(p, (0, pad)).permute(0, 2, 1, 3)
+        w = torch.nn.functional.pad(u, (0, 0, 0, pad)).permute(0, 3, 1, 2)
+        w = w.reshape(n, w.shape[1], h * MAX_TOKENS)
+        if self.fault == TWOWAY_FAULTS[-1]:
+            w = w.roll(-1, 0)
+        return tf32x3.mm(a.reshape(n, m, h * MAX_TOKENS), w,
+                         self._product_fault())
+
+
+def twoway_tail_tf32x3_model(keys0: torch.Tensor, q1i: torch.Tensor,
+                             k1: torch.Tensor, v1: torch.Tensor,
+                             tokens: torch.Tensor,
+                             params: Dict[str, torch.Tensor],
+                             img: Optional[torch.Tensor] = None,
+                             fault: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 arm's arithmetic in PyTorch on float32 operands (CPU or
+    CUDA): `twoway_tail_plain` with its products in 3xTF32
+    (`_TF32x3Stages`); the softmaxes, LayerNorms and the token->image
+    partials as the plain version computes them (the kernel's CUDA cores).
+    `fault`, one of `TWOWAY_FAULTS`, computes it with that fault of the
+    design.  For the tests and chip_smoke.py's faults: no path calls it."""
+    tf32x3.check_fault(fault, TWOWAY_FAULTS)
+    if keys0.dtype != torch.float32:
+        raise TypeError("twoway_tail_tf32x3_model: float32 operands")
+    stages = type("_Model", (_TF32x3Stages,), {"fault": fault})
+    return _tail_images(keys0, q1i, k1, v1, tokens, params, NUM_HEADS, img,
+                        stages)
+
+
+# ---------------------------------------------------------------------------
 # CUDA launch
 # ---------------------------------------------------------------------------
 
 _ARGTYPES = ((ctypes.c_void_p,) * 18 + (ctypes.c_int,) * 5
              + (ctypes.c_void_p,))
-_F32_ARGTYPES = ((ctypes.c_void_p,) * 16 + (ctypes.c_int,) * 5
+_F32_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 5
                  + (ctypes.c_void_p,))
 
 
@@ -412,7 +531,8 @@ def twoway_tail(keys0: torch.Tensor, q1i: torch.Tensor, k1: torch.Tensor,
     ptrs = (ctypes.c_void_p * len(PARAM_NAMES))(
         *(params[n].data_ptr() for n in PARAM_NAMES))
     if wd == torch.float32:
-        out = _launch_f32(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp)
+        out = _launch_f32(keys0, q1i, k1, v1, tokens, params, ptrs, img, b,
+                          mlp)
     else:
         out = _launch_bf16(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp)
     twoway_tail.launches += 1
@@ -454,32 +574,30 @@ def _launch_bf16(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp):
     return keys2, tok_out
 
 
-def _launch_f32(keys0, q1i, k1, v1, tokens, ptrs, img, b, mlp):
-    """`csrc/decode_tail_f32.cu` on checked float32 operands."""
+def _launch_f32(keys0, q1i, k1, v1, tokens, params, ptrs, img, b, mlp):
+    """`csrc/decode_tail_f32.cu` on checked float32 operands, with the
+    packed weights of `PACKED` and one scratch allocation (keys1 and q2i
+    from row phase 1 to row phase 2, the token state, query heads, token
+    keys, folded values, the MLP's partials and the row tiles' partial
+    softmaxes: the source's `layout`)."""
     dev, f32 = keys0.device, torch.float32
     p, t, c = tokens.shape
-    m, cd = keys0.shape[1], INTERNAL_DIM
-    tp, ht = MAX_TOKENS, NUM_HEADS * MAX_TOKENS
+    m = keys0.shape[1]
     keys2 = torch.empty((p, m, c), dtype=f32, device=dev)
     tok_out = torch.empty((p, t, c), dtype=f32, device=dev)
-    # Scratch: keys1 and q2i (row phase 1 to row phase 2), the token state,
-    # the next row phase's query heads, token keys and folded values, and
-    # the row tiles' partial softmaxes (max, sum, 16 of P.V, 2 pad).
-    keys1 = torch.empty((p, m, c), dtype=f32, device=dev)
-    q2i = torch.empty((p, m, cd), dtype=f32, device=dev)
-    state = torch.empty((p, tp, c), dtype=f32, device=dev)
-    qh = torch.empty((p, tp, cd), dtype=f32, device=dev)
-    ktok = torch.empty((p, tp, cd), dtype=f32, device=dev)
-    ut = torch.empty((p, c, ht), dtype=f32, device=dev)
-    part = torch.empty((p, ht, m // ROW_TILE, 20), dtype=f32, device=dev)
+    packed = [tf32x3.packed(params[n], kind) for n, kind in PACKED]
+    pk = (ctypes.c_void_p * len(packed))(*(x.data_ptr() for x in packed))
+    size = _build.function("decode_tail_f32", "twoway_tail_f32_scratch_bytes",
+                           (ctypes.c_int, ctypes.c_int),
+                           restype=ctypes.c_longlong)(p, m)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
     fn = _build.function("decode_tail_f32", "twoway_tail_f32_forward",
                          _F32_ARGTYPES)
     status = fn(keys0.data_ptr(), q1i.data_ptr(), k1.data_ptr(),
                 v1.data_ptr(), tokens.data_ptr(),
-                ctypes.cast(ptrs, ctypes.c_void_p), keys2.data_ptr(),
-                tok_out.data_ptr(), keys1.data_ptr(), q2i.data_ptr(),
-                state.data_ptr(), qh.data_ptr(), ktok.data_ptr(),
-                ut.data_ptr(), part.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p),
+                ctypes.cast(pk, ctypes.c_void_p), keys2.data_ptr(),
+                tok_out.data_ptr(), scratch.data_ptr(),
                 0 if img is None else img.data_ptr(), p, t, m, b, mlp,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "twoway_tail float32")

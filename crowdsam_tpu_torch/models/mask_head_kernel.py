@@ -29,9 +29,11 @@ bound.  The plain version's GELU uses the exact erf; the kernel's is a
 polynomial within 1.7e-7 max(|x|, 1) of it, far below the split's 2^-17.
 
 Float32 (`tpu.compute_dtype float32`): keys2, hyper_in and every weight
-float32 go to the float32 arm, `csrc/mask_head_f32.cu` (FFMA, erff GELU):
-plain float32 arithmetic, the hi/lo splits and the roundings above being
-the identity there.  The plain version follows its input's dtype: float32
+float32 go to the float32 arm, `csrc/mask_head_f32.cu` (both products in
+3xTF32 on the tensor cores, erff GELU): float32 arithmetic, the hi/lo
+splits and the roundings above being the identity there; its two weights
+are split and packed once (`tf32x3.packed`), and `mask_head_tf32x3_model`
+writes its arithmetic out in PyTorch.  The plain version follows its input's dtype: float32
 arithmetic for bf16 and float32 operands, float64 for float64 ones (the
 yardstick the card holds the float32 arm to).
 """
@@ -40,12 +42,13 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from crowdsam_tpu_torch.kernels import _build
+from crowdsam_tpu_torch.models import tf32x3
 
 ROW_TILE = 64           # rows per kernel tile: the `emit_exp` maxes' tile
 NUM_MASKS = 4
@@ -99,6 +102,46 @@ def mask_head_plain(keys2: torch.Tensor, hyper_in: torch.Tensor,
     """Plain version of `mask_head` (same contract), in f32 (f64 for f64
     operands) with the kernel's rounding points; the working dtype is
     keys2's."""
+    return _mask_head(keys2, hyper_in, weights, emit_exp, tile_m,
+                      lambda x, w: x @ w.T, lambda x, w: x @ w.T)
+
+
+# The faults of the float32 arm's design that its model computes: those of
+# every product, and the second product's inputs left in their order while
+# its weight's are in `tf32x3.KEY_ORDER` (the A fragments that the first
+# product's accumulators give).
+MASK_HEAD_FAULTS = tf32x3.PRODUCT_FAULTS + (
+    "the second weight's inputs not in the accumulators' order",)
+
+
+def mask_head_tf32x3_model(keys2: torch.Tensor, hyper_in: torch.Tensor,
+                           weights: Dict[str, torch.Tensor],
+                           emit_exp: bool = False,
+                           fault: Optional[str] = None
+                           ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The float32 arm's arithmetic (`csrc/mask_head_f32.cu`) in PyTorch on
+    float32 operands (CPU or CUDA): `mask_head_plain` with its two products
+    in 3xTF32 (`tf32x3.mm`, 32 inputs a stage); the LayerNorm, the GELUs
+    and the hypernetwork dots as the plain version computes them (the
+    kernel's CUDA cores).  `fault`, one of `MASK_HEAD_FAULTS`, computes it
+    with that fault of the design.  For the tests and chip_smoke.py's
+    faults: no path calls it."""
+    tf32x3.check_fault(fault, MASK_HEAD_FAULTS)
+    if keys2.dtype != torch.float32:
+        raise TypeError("mask_head_tf32x3_model: float32 operands")
+    f = fault if fault in tf32x3.PRODUCT_FAULTS else None
+
+    def second(x, w):
+        if fault == MASK_HEAD_FAULTS[-1]:
+            w = w[:, tf32x3.key_permutation(w.shape[1], w.device)]
+        return tf32x3.mm(x, w, f)
+    return _mask_head(keys2, hyper_in, weights, emit_exp, ROW_TILE,
+                      lambda x, w: tf32x3.mm(x, w, f), second)
+
+
+def _mask_head(keys2, hyper_in, weights, emit_exp, tile_m, mm0, mm2):
+    """The mask head with its products x @ w^T made by `mm0` (the first)
+    and `mm2` (the second)."""
     dt = keys2.dtype
     acc = torch.float64 if dt == torch.float64 else torch.float32
     p, m, _ = keys2.shape
@@ -114,10 +157,10 @@ def mask_head_plain(keys2: torch.Tensor, hyper_in: torch.Tensor,
         hi = rnd(y)
         return hi, rnd(y - hi)
 
-    up = keys2.to(acc) @ w["w0t"].T + w["b0"]
+    up = mm0(keys2.to(acc), w["w0t"]) + w["b0"]
     up = up.reshape(p, m, 4, c1)                          # (P, M, q1, c1)
     hi, lo = split(F.gelu(_group_ln(up, w["ln_w"], w["ln_b"])))
-    up = F.gelu(hi @ w["w2t"].T + lo @ w["w2t"].T + w["b2"])
+    up = F.gelu(mm2(hi, w["w2t"]) + mm2(lo, w["w2t"]) + w["b2"])
     hi, lo = split(up.reshape(p, m, 16, -1))              # (P, M, q1 q2, c2)
     hyper = rnd(hyper_in.to(acc))
     masks32 = (torch.einsum("pkc,pmqc->pkmq", hyper, hi)
@@ -186,13 +229,19 @@ def mask_head(keys2: torch.Tensor, hyper_in: torch.Tensor,
     if emit_exp:
         e = torch.empty_like(masks)
         mx = torch.empty((p, m // ROW_TILE), dtype=f32, device=dev)
-    lib, entry = (("mask_head_f32", "mask_head_f32_forward") if wd == f32
-                  else ("mask_head", "mask_head_forward"))
+    w0, w2 = weights["w0t"], weights["w2t"]
+    if wd == f32:
+        # The float32 arm takes its weights split and packed (the second
+        # with its inputs in the accumulators' order, `tf32x3.KEY_ORDER`).
+        lib, entry = "mask_head_f32", "mask_head_f32_forward"
+        w0, w2 = tf32x3.packed(w0), tf32x3.packed(w2, "key_order")
+    else:
+        lib, entry = "mask_head", "mask_head_forward"
     fn = _build.function(lib, entry, _ARGTYPES)
-    status = fn(keys2.data_ptr(), hyper_in.data_ptr(),
-                weights["w0t"].data_ptr(), weights["b0"].data_ptr(),
-                weights["ln_w"].data_ptr(), weights["ln_b"].data_ptr(),
-                weights["w2t"].data_ptr(), weights["b2"].data_ptr(),
+    status = fn(keys2.data_ptr(), hyper_in.data_ptr(), w0.data_ptr(),
+                weights["b0"].data_ptr(), weights["ln_w"].data_ptr(),
+                weights["ln_b"].data_ptr(), w2.data_ptr(),
+                weights["b2"].data_ptr(),
                 masks.data_ptr(), e.data_ptr() if emit_exp else None,
                 mx.data_ptr() if emit_exp else None, p, m, int(emit_exp),
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -1,6 +1,6 @@
 """Import boundary of the PyTorch port: `crowdsam_tpu_torch`,
-`chip_smoke.py`, `chip_ab_relpos.py`, `chip_ab_layernorm.py` and
-`chip_ab_attention_f32.py` import neither JAX, flax, msgpack nor the JAX
+`chip_smoke.py`, `chip_ab_relpos.py`, `chip_ab_layernorm.py`,
+`chip_ab_attention_f32.py` and `chip_ab_decode_f32.py` import neither JAX, flax, msgpack nor the JAX
 package (flax msgpack checkpoints go through the port's own reader), and
 the entry points refuse to fall back to the CPU silently."""
 
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "crowdsam_tpu")
 def _port_files():
     return sorted((ROOT / "crowdsam_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "chip_ab_relpos.py",
-        ROOT / "chip_ab_layernorm.py", ROOT / "chip_ab_attention_f32.py"]
+        ROOT / "chip_ab_layernorm.py", ROOT / "chip_ab_attention_f32.py",
+        ROOT / "chip_ab_decode_f32.py"]
 
 
 def _imported_roots(path: Path):

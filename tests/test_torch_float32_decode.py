@@ -15,12 +15,14 @@ the plain versions that the float32 arms (`csrc/decode_tail_f32.cu`,
   against the JAX package's float32 `generate` on the same noise: boxes
   within 0.5 px, scores within 1e-4, as `tests/test_torch_pipeline.py`
   holds the fused decode.
-- The two arms' sources: FFMA in float32, no tensor core, no bf16, no
-  library include.
+- The two arms' sources: their products in 3xTF32 on wgmma (TF32
+  products, operands split by `cvt.rna.tf32.f32`), no bf16, no library
+  include.
 """
 
 import functools
 import hashlib
+import re
 from pathlib import Path
 
 import numpy as np
@@ -228,28 +230,33 @@ def test_generate_batch_on_the_kernel_route_matches_jax_f32(pair,
 
 @pytest.mark.parametrize("source,entries", [
     ("decode_tail_f32.cu", ("twoway_tail_f32_forward",
-                            "twoway_tail_f32_occupancy")),
+                            "twoway_tail_f32_occupancy",
+                            "twoway_tail_f32_scratch_bytes")),
     ("mask_head_f32.cu", ("mask_head_f32_forward",
                           "mask_head_f32_occupancy"))])
-def test_float32_decode_arms_source_is_ffma_without_tensor_cores_or_bf16(
+def test_float32_decode_arms_source_is_3xtf32_on_wgmma_without_bf16(
         source, entries):
-    """The float32 arms of K5 and K6 and their shared header compute in
-    float32 on the CUDA cores: no tensor-core instruction (so no TF32), no
-    bf16 or half type or conversion, no library include; their C entry
-    points are there."""
+    """The float32 arms of K5 and K6 and their shared header compute their
+    products in 3xTF32 on the tensor cores: TF32 wgmma with the operands
+    split by `cvt.rna.tf32.f32`, no FFMA tile product left; no bf16 or half
+    type or conversion, no library include; their C entry points are
+    there."""
     text = (CSRC / source).read_text()
-    header = (CSRC / "f32_tile.cuh").read_text()
+    header = (CSRC / "tf32x3.cuh").read_text()
     code = "\n".join(ln for ln in (text + "\n" + header).splitlines()
                      if not ln.lstrip().startswith("//"))
-    for banned in ("wgmma", "mma.sync", "mma.", "tf32", "bf16", "bfloat16",
-                   "half", "__nv_", "cublas", "cutlass", "cudnn", "cute"):
+    for banned in ("bf16", "bfloat16", "half", "__nv_", "mma.sync",
+                   "cublas", "cutlass", "cudnn", "cute", "tile_product"):
         assert banned not in code.lower(), banned
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in code
+    assert "cvt.rna.tf32.f32" in code
+    assert "product<" in text
     includes = [ln for ln in (text + "\n" + header).splitlines()
                 if ln.startswith("#include")]
-    assert sorted(set(includes)) == ['#include "f32_tile.cuh"',
+    assert sorted(set(includes)) == ['#include "tf32x3.cuh"',
                                      "#include <cuda_runtime.h>",
                                      "#include <math.h>",
                                      "#include <stdint.h>"]
     for entry in entries:
-        assert f'extern "C" int {entry}(' in code
-    assert "fmaf(" in code and "expf(" in code and "cp.async" in code
+        assert re.search(rf'extern "C" (int|long long) {entry}\(', code), entry
+    assert not (CSRC / "f32_tile.cuh").exists()

@@ -3581,6 +3581,203 @@ def phase_loaded_reference(model):
     return row
 
 
+@contextlib.contextmanager
+def _plain_calls():
+    """A count of the calls of the plain versions of K2-K4 inside the block
+    (on the card a wrapper launches its kernel or raises: none may run).
+    K1's op takes its plain version only by the CPU dispatch key."""
+    from crowdsam_tpu_torch.models import attention
+
+    calls = collections.Counter()
+    with contextlib.ExitStack() as stack:
+        for name in ("window_attention_plain", "relpos_attention_plain",
+                     "flash_mha_plain"):
+            module, real = attention, getattr(attention, name)
+
+            def spy(*a, _real=real, _name=name, **kw):
+                calls[_name] += 1
+                return _real(*a, **kw)
+
+            stack.enter_context(patched(module, name, spy))
+        yield calls
+
+
+def _probe_box_gap(got, want, by_score):
+    """The largest box gap (px) of two probe or engine results with the
+    same count, paired by falling score (`by_score`) or in output order;
+    None where the counts differ."""
+    if len(got["boxes"]) != len(want["boxes"]):
+        return None
+    gi = np.argsort(-np.asarray(got["scores"]), kind="stable") \
+        if by_score else slice(None)
+    wi = np.argsort(-np.asarray(want["scores"]), kind="stable") \
+        if by_score else slice(None)
+    return float(np.abs(np.asarray(got["boxes"], np.float64)[gi]
+                        - np.asarray(want["boxes"], np.float64)[wi]
+                        ).max(initial=0.0))
+
+
+def phase_deviation_probe():
+    """The deviation probe (`utils/deviation_probe.py`) through its driver
+    (`tools/probe_deviations.py`) at full width: `configs/crowdhuman.yaml`
+    in bf16 with random encoders and the committed trained decoder of the
+    driver's recipe (`build_model`), on crowd_scene(0) (683x1024) with a
+    fixed noise vector.
+
+    The engine runs unfused and fused; `run_probe` runs every variant and
+    scores them by cross-AP on this one scene.  Parity mode (all documented
+    deviations in effect) against the unfused engine, which decodes the
+    same batches with the same decoder: equal consumed and detection
+    counts, boxes within 1 px and scores within 1e-3, paired by falling
+    score, with the probe's re-NMS visiting the survivors in the engine's
+    order (`renms_order="score"`).  In its own order (the JAX probe's:
+    detection order, where the JAX engine too takes falling score) it may
+    keep the other one of two overlapping cleaned masks; that run's gap is
+    printed.  The CPU tests find the JAX pair equal on the tiny model,
+    which drops no mask in the re-NMS.  The parity run, with the counts set to 0
+    just before it, must launch K1-K4 and call no plain version of K2-K4,
+    and
+    launch neither K5, K6 nor K7 (the probe decodes unfused and keeps
+    boxes).  Then the small configuration (`SMALL_OVERRIDES`, bf16 kernels
+    on the card) in parity and exact_all against the same probe in float32
+    on the CPU, same weights and noise: the same detection count and boxes
+    within 4 px in output order, as `_compare_small` requires."""
+    from crowdsam_tpu_torch.config import modify_config
+    from crowdsam_tpu_torch.pipeline.crowdsam import CrowdSAM
+    from crowdsam_tpu_torch.tools.probe_deviations import (
+        VARIANTS,
+        build_model,
+        run_probe,
+    )
+    from crowdsam_tpu_torch.utils.deviation_probe import DeviationProbe
+    from crowdsam_tpu_torch.utils.synthetic import crowd_scene
+
+    t0 = time.perf_counter()
+    with _no_default_init():
+        model, meta = build_model("cuda")
+    build_s = time.perf_counter() - t0
+    scene = crowd_scene(0)[0]
+    noise = torch.rand(model.engine_cfg.grid_size ** 2,
+                       generator=torch.Generator().manual_seed(24)).numpy()
+    engine = {}
+    for name, fused in (("unfused", False), ("fused", True)):
+        model.engine_cfg = dataclasses.replace(model.engine_cfg,
+                                               fused_decode=fused)
+        data, ms = _timed_generate(model, scene, noise)
+        engine[name] = dict(data=data, ms=ms,
+                            consumed=int(model.last_engine["num_consumed"]))
+
+    probe = DeviationProbe(model)
+    probe.generate(scene, noise)                        # warm-up
+    counters = _reset_counts()
+    with _plain_calls() as plain:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        parity = probe.generate(scene, noise)
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+    _require_launches("deviation probe parity", launches,
+                      ("layer_norm", "window_attention",
+                       "flash_mha_decomposed_relpos", "flash_mha"),
+                      ("twoway_tail", "mask_head", "survivor_rle"))
+    if sum(plain.values()):
+        raise AssertionError(f"deviation probe: plain versions ran on the "
+                             f"card: {dict(plain)}")
+    boxes = np.asarray(parity["boxes"])
+    if not (len(boxes) and np.isfinite(boxes).all() and (boxes >= 0).all()
+            and (boxes[:, [0, 2]] <= scene.shape[1]).all()
+            and (boxes[:, [1, 3]] <= scene.shape[0]).all()):
+        raise AssertionError(f"deviation probe: parity boxes {boxes}")
+
+    # Parity mode against the unfused engine: in the probe's own re-NMS
+    # order (the JAX probe's, detection order) for the record, and in the
+    # engine's (falling score), which must agree.
+    unfused = engine["unfused"]
+    by_score = probe.generate(scene, noise, renms_order="score")
+    vs_engine = {}
+    for name, got in (("renms_by_score", by_score),
+                      ("renms_by_detection", parity)):
+        box_gap = _probe_box_gap(got, unfused["data"], by_score=True)
+        vs_engine[name] = {
+            "consumed": [got["num_consumed"], unfused["consumed"]],
+            "detections": [len(got["boxes"]), len(unfused["data"]["boxes"])],
+            "n_dropped_renms": got["n_dropped_renms"],
+            "box_max_abs_diff_px": box_gap,
+            "score_max_abs_diff": None if box_gap is None else float(np.abs(
+                np.sort(np.asarray(got["scores"])) - np.sort(np.asarray(
+                    unfused["data"]["scores"]))).max(initial=0.0))}
+    vs_engine.update(box_tol_px=1.0, score_tol=1e-3)
+
+    # Every variant through the driver (its engine is the default, fused).
+    seconds = {}
+    model.engine_cfg = dataclasses.replace(model.engine_cfg,
+                                           fused_decode=True)
+    report = run_probe(model, [scene], [noise], fixture=meta,
+                       seconds=seconds, log=log)
+    variants = {name: {
+        "detections": report["detections"][name][0],
+        "consumed": report["consumed"][name][0],
+        "n_changed": report["diag"][name]["n_changed"][0],
+        "n_dropped_renms": report["diag"][name]["n_dropped_renms"][0],
+        "seconds": seconds[name]} for name in VARIANTS}
+    del model, probe
+    torch.cuda.empty_cache()
+
+    # The small configuration: the card against the CPU in float32.
+    with _no_default_init():
+        gpu = CrowdSAM(_small_config(), device="cuda")
+        cpu = CrowdSAM(modify_config(_small_config(),
+                                     ["tpu.compute_dtype", "float32"]),
+                       device="cpu")
+    cpu.sam.load_state_dict({k: v.float().cpu() for k, v in
+                             gpu.sam.state_dict().items()})
+    cpu.dino.load_state_dict({k: v.float().cpu() for k, v in
+                              gpu.dino.state_dict().items()})
+    img = _small_image()
+    small_noise = torch.rand(
+        gpu.engine_cfg.grid_size ** 2,
+        generator=torch.Generator().manual_seed(25)).numpy()
+    small = {}
+    for name in ("parity", "exact_all"):
+        got = DeviationProbe(gpu).generate(img, small_noise, VARIANTS[name])
+        want = DeviationProbe(cpu).generate(img, small_noise, VARIANTS[name])
+        small[name] = {"gpu_detections": len(got["boxes"]),
+                       "cpu_detections": len(want["boxes"]),
+                       "box_max_abs_diff_px": _probe_box_gap(
+                           got, want, by_score=False),
+                       "box_tol_px": 4.0}
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    row = {"phase": "deviation probe", "fixture": meta,
+           "model_build_s": build_s, "scene": "crowd_scene(0)",
+           "image_hw": list(scene.shape[:2]),
+           "engine": {k: {"detections": len(v["data"]["boxes"]),
+                          "consumed": v["consumed"], "ms": v["ms"]}
+                      for k, v in engine.items()},
+           "parity_vs_unfused_engine": vs_engine, "parity_s": parity_s,
+           "parity_launches": launches, "plain_calls": dict(plain),
+           "variants": variants, "engine_s": seconds["engine"],
+           "cross_ap": report["cross_ap"],
+           "small_gpu_vs_cpu_f32": small}
+    print(json.dumps(row), flush=True)
+    held = vs_engine["renms_by_score"]
+    ok = (held["consumed"][0] == held["consumed"][1]
+          and held["box_max_abs_diff_px"] is not None
+          and held["box_max_abs_diff_px"] <= 1.0
+          and held["score_max_abs_diff"] <= 1e-3)
+    if not ok:
+        raise AssertionError(f"deviation probe: parity mode against the "
+                             f"unfused engine: {vs_engine}")
+    for name, r in small.items():
+        if r["gpu_detections"] == 0 or r["box_max_abs_diff_px"] is None \
+                or r["box_max_abs_diff_px"] > 4.0:
+            raise AssertionError(f"deviation probe, small {name}: the card "
+                                 f"far from the CPU: {r}")
+    return row
+
+
 def _amg_records_check(records, hw):
     """Every record's mask has the image's size, its `area` pixels, and
     lies inside its xywh `bbox`."""
@@ -7395,6 +7592,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli()
     torch.cuda.empty_cache()
+    probe = phase_deviation_probe()
+    torch.cuda.empty_cache()
     vit_h_shapes = phase_vit_h(draws["vit_h"])
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -7600,6 +7799,9 @@ def main() -> int:
         if r.get("launches_in") in (None, "end_to_end_loaded"):
             r["launches_generate_batch_loaded_b8"] = batch["loaded"][8][
                 "launches"][r["name"]]
+            # The deviation probe's parity run on crowd_scene(0).
+            r["launches_deviation_probe_parity"] = probe["parity_launches"][
+                r["name"]]
             r["launches_multi_device_loaded_rank0"] = {
                 path: row["loaded"]["launches_by_rank"][0][r["name"]]
                 for path, row in multi_paths.items()}

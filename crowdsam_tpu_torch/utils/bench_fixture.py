@@ -70,14 +70,16 @@ def load_decoder(model, path: str) -> None:
 
 def train_or_load_decoder(model, steps: int = 800, lr: float = 2e-4,
                           cache_path: str = None, logger=None,
-                          recipe: str = "", dataset=None) -> dict:
+                          recipe: str = "", dataset=None,
+                          train: bool = True) -> dict:
     """Install into `model` (a CrowdSAM) the full decoder of a recipe: the
     committed file first, then the `data/` cache, else train it on the
     10-shot set (`dataset`, default `fixtures.ten_shot_dataset()`) and
     save it to the cache.  `recipe`: comma-separated extra train overrides
     ("train.hard_neg_frac=0.5,train.neg_hinge_weight=16"), part of the key,
     with `tpu.rect_encode=True` appended when the model's predictor
-    encodes rectangles and the recipe does not name it.
+    encodes rectangles and the recipe does not name it.  `train` false:
+    raise where there is neither file, in place of training.
     Returns the fixture's metadata."""
     key = recipe
     if getattr(model.predictor, "rect_encode", False) and \
@@ -94,6 +96,10 @@ def train_or_load_decoder(model, steps: int = 800, lr: float = 2e-4,
             load_decoder(model, path)
             meta["trained_cache"] = provenance
             return meta
+    if not train:
+        raise RuntimeError(
+            f"no committed or cached trained decoder ({committed}, "
+            f"{cache_path}), and training is refused")
 
     from crowdsam_tpu_torch.train.trainer import AdapterTrainer
     from crowdsam_tpu_torch.utils.fixtures import ten_shot_dataset

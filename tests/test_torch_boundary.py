@@ -420,6 +420,30 @@ def test_user_facing_surface_leaves_jax_out_of_sys_modules():
                    timeout=120)
 
 
+def test_port_files_include_the_deviation_probe(monkeypatch):
+    """The deviation probe and its driver are the port's own modules
+    (covered by `test_no_jax_imports`); importing them leaves JAX out of
+    `sys.modules`, and the driver's entry point needs CUDA unless asked
+    for another device."""
+    probe = ("crowdsam_tpu_torch/utils/deviation_probe.py",
+             "crowdsam_tpu_torch/tools/probe_deviations.py")
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert set(probe) <= names
+    mods = ", ".join(p[:-3].replace("/", ".") for p in probe)
+    code = (f"import sys, {mods}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+    from crowdsam_tpu_torch.tools import probe_deviations
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe_deviations.main(["1"])
+
+
 def test_layernorm_source_holds_its_backward_without_library_calls():
     """K1's backward is in its source (the vector and scalar arms, and the
     last block's sum of the partials that replaced a second launch), calls
